@@ -7,23 +7,41 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 
 1. the card: name and power limit from nvidia-smi, torch and CUDA versions;
    TF32 off for matmuls and cuDNN;
-2. build: every CUDA kernel of the serving path, one nvcc per source, all
-   started together, into build/kernels/;
-3. each kernel against its plain PyTorch version on the card, at the
-   flagship serving shape (E=40 experts, T=60, B=256 rows, H=128) in bf16
-   and f32, forward and reverse, and at a ragged shape (E=3, T=7, B=37),
-   with the JAX package's kernel tolerances (f32 1e-5, bf16 2e-2);
-4. times at the flagship serving shape: the kernel, its plain version, the
-   least time the card could take (bound), and cuDNN's GRU as a yardstick
-   (torch.nn.GRU with W_ih = identity on the projections, one call per
-   expert: E launches plus an identity GEMM; the port never calls it);
-5. the main path at full width: a seeded flagship checkpoint (F=512, E=40,
-   H=128, bidirectional, bf16) written with the port's writer, then
-   `python -m deeprest_tpu_torch predict` on a day of minutes (1,440 x 512)
-   held against the host-loop reference over the plain recurrence on the
-   card, then predict_series_many on 16 what-if series (384 windows); the
-   kernel launch counts are set to 0 before and read after this phase;
-6. one JSON line of per-kernel numbers, then the device line last.
+2. build: both CUDA sources (gru_fwd.cu with the inference and training
+   forwards K1 and K2, gru_bwd.cu with the backward K3), one nvcc per
+   source, all started together, into build/kernels/;
+3. each kernel against its plain PyTorch version on the card, with the JAX
+   package's kernel tolerances (forward: f32 1e-5, bf16 2e-2; gradients
+   relative to each tensor's largest magnitude: f32 2e-4, bf16 2e-2): K1 at
+   the flagship serving shape (E=40 experts, T=60, B=256 rows, H=128); K2,
+   K3 (gate stash on and off) and the autograd Function (against torch
+   autograd through the plain recurrence) at the flagship training shape
+   (B=32); all at a ragged shape (E=3, T=7, B=37) too, in bf16 and f32,
+   forward and reverse;
+4. times: K1 at the serving shape, K2 and K3 at the training shape, each
+   beside its plain version, the least time the card could take (bound),
+   and cuDNN's GRU as a yardstick (torch.nn.GRU with W_ih = identity on the
+   projections, one module per expert: forward for K1 and K2, autograd
+   backward for K3; the port never calls it);
+5. the serving main path at full width: a seeded flagship checkpoint
+   (F=512, E=40, H=128, bidirectional, bf16) written with the port's
+   writer, then `python -m deeprest_tpu_torch predict` on a day of minutes
+   (1,440 x 512) held against the host-loop reference over the plain
+   recurrence on the card, then predict_series_many on 16 what-if series
+   (384 windows);
+6. the training main path at full width: a seeded three-day corpus
+   (4,320 x 512 Poisson call-path counts, 40 resource series) written with
+   the port's FeaturizedData, `python -m deeprest_tpu_torch train` for 2
+   epochs at B=32, T=60, bf16 (finite, falling losses; K2 and K3 launched
+   twice per step), the trained checkpoint served by one `predict` call,
+   5 steps on the kernels against 5 steps through the plain recurrence
+   from the same params (dropout 0), and a torch.profiler breakdown of
+   train steps;
+7. one JSON line of per-kernel numbers, then the device line last.
+
+The kernel launch counts are set to 0 just before each main path (5 and
+6) and read just after it; launches made to check or time a kernel do not
+count.
 
 It exits nonzero, printing no result, without CUDA or without the package
 beside it.
@@ -44,9 +62,13 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
-FLAGSHIP = dict(E=40, T=60, B=256, H=128)
+GRAD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # of each tensor's max |value|
+FLAGSHIP = dict(E=40, T=60, B=256, H=128)        # serving: 4 pages of 64
+TRAIN = dict(E=40, T=60, B=32, H=128)            # training: bench.py:37
 RAGGED = dict(E=3, T=7, B=37, H=128)
 F, W, DAY = 512, 60, 1440
+CORPUS_MINUTES = 3 * DAY
+RESOURCES = ("cpu", "memory", "wiops", "wthroughput", "usage")
 
 
 def fail(msg: str) -> None:
@@ -104,10 +126,92 @@ def compare(got, want, dtype_name: str) -> tuple[float, float, bool]:
     return float(diff.max()), float(diff.max() / ref.max().clamp_min(1e-30)), ok
 
 
-def phase_kernel_checks(cuda_gru) -> float:
+def compare_scaled(got, want, dtype_name: str) -> tuple[float, float, bool]:
+    """Max |diff| against GRAD_TOL times the reference's max |value|."""
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max().clamp_min(1e-30))
+    return diff, diff / scale, diff <= GRAD_TOL[dtype_name] * scale
+
+
+def report_check(kernel: str, label: str, shape: dict, name: str,
+                 what: str, result, tol) -> float:
+    mx, rel, ok = result
+    print(f"check {kernel} {label} {shape} {name} {what}: max_abs_err={mx:.3e} "
+          f"max_err/max|ref|={rel:.3e} tol={tol} {'ok' if ok else 'FAILED'}",
+          flush=True)
+    if not ok:
+        fail(f"{kernel} disagrees with its plain version at {label} {name} "
+             f"{what}")
+    return mx
+
+
+def check_train_kernels(cuda_gru, label: str, shape: dict, dtype) -> dict:
+    """K2, K3 (stash on and off) and the autograd Function against their
+    plain versions at one shape and dtype, both directions; returns the
+    worst max_abs_err per kernel."""
+    import torch
+
+    name = str(dtype).removeprefix("torch.")
+    worst = {"gru_fwd_train": 0.0, "gru_bwd": 0.0}
+    args = recurrence_inputs(shape, dtype, seed=SEED + 1)
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    dout = torch.randn((shape["E"], shape["T"], shape["B"], shape["H"]),
+                       generator=gen, device="cuda")
+    for reverse in (False, True):
+        got = cuda_gru.gru_fwd_train_cuda(*args, reverse=reverse)
+        torch.cuda.synchronize()
+        want = cuda_gru.gru_fwd_train_reference(*args, reverse=reverse)
+        for out_name, g, w_ in zip(("h_all", "h_prev", "gates"), got, want):
+            worst["gru_fwd_train"] = max(worst["gru_fwd_train"], report_check(
+                "gru_fwd_train", label, shape, name,
+                f"reverse={reverse} {out_name}", compare(g, w_, name),
+                TOL[name]))
+        proj, w_hh, b_hh, _ = args
+        _, h_prev, gates = want
+        for stash in (True, False):
+            g_in = gates if stash else None
+            got = cuda_gru.gru_bwd_cuda(proj, h_prev, g_in, w_hh, b_hh,
+                                        dout.to(dtype), reverse=reverse)
+            torch.cuda.synchronize()
+            want_b = cuda_gru.gru_bwd_reference(proj, h_prev, g_in, w_hh,
+                                                b_hh, dout.to(dtype),
+                                                reverse=reverse)
+            for out_name, g, w_ in zip(("dproj", "dW_hh", "db_hh", "dh0"),
+                                       got, want_b):
+                worst["gru_bwd"] = max(worst["gru_bwd"], report_check(
+                    "gru_bwd", label, shape, name,
+                    f"reverse={reverse} stash={stash} {out_name}",
+                    compare_scaled(g, w_, name), GRAD_TOL[name]))
+
+        def grads(fn):
+            leaves = [x.clone().requires_grad_(True) for x in args]
+            out = fn(*leaves, reverse)
+            (out.float() * dout).sum().backward()
+            return [out.detach()] + [x.grad for x in leaves]
+
+        got = grads(cuda_gru.gru_recurrence)
+        torch.cuda.synchronize()
+        want = grads(cuda_gru.gru_recurrence_reference)
+        for out_name, g, w_ in zip(("h_all", "dproj", "dW_hh", "db_hh", "dh0"),
+                                   got, want):
+            report_check("autograd Function", label, shape, name,
+                         f"reverse={reverse} {out_name}",
+                         compare_scaled(g, w_, name), GRAD_TOL[name])
+    return worst
+
+
+def phase_kernel_checks(cuda_gru) -> dict:
+    """Every kernel against its plain version; returns the worst bf16
+    max_abs_err at the flagship shapes per kernel."""
     import torch
 
     worst_bf16 = 0.0
+    worst_train = {}
+    for label, shape in (("flagship training", TRAIN), ("ragged", RAGGED)):
+        for dtype in (torch.bfloat16, torch.float32):
+            worst = check_train_kernels(cuda_gru, label, shape, dtype)
+            if dtype == torch.bfloat16 and shape is TRAIN:
+                worst_train = worst
     for label, shape in (("flagship", FLAGSHIP), ("ragged", RAGGED)):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).removeprefix("torch.")
@@ -127,57 +231,99 @@ def phase_kernel_checks(cuda_gru) -> float:
                 if name == "bfloat16" and label == "flagship":
                     worst_bf16 = max(worst_bf16, mx)
             del args
-    return worst_bf16
+    return {"gru_fwd": worst_bf16, **worst_train}
 
 
-def cudnn_gru_ms(proj, w_hh, b_hh, h0):
-    """cuDNN's GRU over the same recurrence: W_ih = identity, b_ih = 0,
-    one nn.GRU call per expert.  Returns (ms, the stacked outputs) or
-    (None, reason) when cuDNN does not take the dtype."""
+def cudnn_grus(w_hh, b_hh, dtype):
+    """One torch.nn.GRU per expert computing the same recurrence on the
+    projections: W_ih = identity, b_ih = 0."""
     import torch
 
-    e, t, b, g3 = proj.shape
-    h = g3 // 3
+    e, h, g3 = w_hh.shape
     grus = []
     with torch.no_grad():
         for i in range(e):
-            m = torch.nn.GRU(g3, h).to("cuda", proj.dtype)
+            m = torch.nn.GRU(g3, h).to("cuda", dtype)
             m.weight_ih_l0.copy_(torch.eye(g3))
             m.bias_ih_l0.zero_()
             m.weight_hh_l0.copy_(w_hh[i].t())
             m.bias_hh_l0.copy_(b_hh[i])
             m.flatten_parameters()
             grus.append(m)
+    return grus
 
+
+def cudnn_gru_ms(proj, w_hh, b_hh, h0, backward: bool = False):
+    """cuDNN's GRU over the same recurrence, one nn.GRU call per expert.
+    Forward: inference form without autograd; with ``backward``, the time
+    of the autograd backward of the training forward (dproj and the weight
+    gradients).  Returns (ms, the stacked forward outputs) or (None,
+    reason) when cuDNN does not take the dtype."""
+    import torch
+
+    e = proj.shape[0]
+    grus = cudnn_grus(w_hh, b_hh, proj.dtype)
+    h0c = h0.to(proj.dtype)
+    if not backward:
         def run():
-            return [grus[i](proj[i], h0[i][None].to(proj.dtype))[0]
-                    for i in range(e)]
-        try:
-            outs = run()
-        except RuntimeError as exc:
-            return None, f"cuDNN GRU refused {proj.dtype}: {exc}"
-        ms = time_ms(run, iters=5)
-    return ms, torch.stack(outs)
+            return [grus[i](proj[i], h0c[i][None])[0] for i in range(e)]
+        with torch.no_grad():
+            try:
+                outs = run()
+            except RuntimeError as exc:
+                return None, f"cuDNN GRU refused {proj.dtype}: {exc}"
+            return time_ms(run, iters=5), torch.stack(outs)
+    x = proj.detach().requires_grad_(True)
+    try:
+        outs = [grus[i](x[i], h0c[i][None])[0] for i in range(e)]
+    except RuntimeError as exc:
+        return None, f"cuDNN GRU refused {proj.dtype}: {exc}"
+    cot = [torch.ones_like(o) for o in outs]
+    ms = time_ms(lambda: torch.autograd.backward(outs, cot, retain_graph=True),
+                 iters=5)
+    return ms, torch.stack([o.detach() for o in outs])
+
+
+def bound(io_bytes: int, flops: int, dtype_name: str) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of the dtype, whichever is larger."""
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_times(kernel, library, dtype_name, shape, kernel_fn, plain_fn,
+                 io_bytes, flops, library_ms, iters=20) -> dict:
+    import torch
+
+    kernel_ms = time_ms(kernel_fn, iters=iters)
+    plain_ms = time_ms(plain_fn, iters=3, warmup=1)
+    bound_ms, bound_by = bound(io_bytes, flops, dtype_name)
+    print(f"times {kernel} {dtype_name} {shape}: kernel_ms={kernel_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+          f"bytes {io_bytes}, flops {flops}) library_ms={library_ms} "
+          f"({library})", flush=True)
+    torch.cuda.empty_cache()
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": io_bytes, "flops": flops,
+            "library_ms": library_ms}
 
 
 def phase_times(cuda_gru) -> dict:
+    """{kernel: {dtype name: times}} for K1 at the serving shape and K2, K3
+    at the training shape."""
     import torch
 
-    results = {}
+    results = {"gru_fwd": {}, "gru_fwd_train": {}, "gru_bwd": {}}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
         args = recurrence_inputs(FLAGSHIP, dtype)
         proj, w_hh, b_hh, h0 = args
-        kernel_ms = time_ms(lambda: cuda_gru.gru_fwd_cuda(*args), iters=20)
-        plain_ms = time_ms(
-            lambda: cuda_gru.gru_recurrence_reference(*args), iters=3, warmup=1)
         e, t, b, h = (FLAGSHIP[k] for k in ("E", "T", "B", "H"))
-        esz = proj.element_size()
-        nbytes = (proj.numel() * esz + w_hh.numel() * esz + b_hh.numel() * 4
-                  + h0.numel() * 4 + e * t * b * h * esz)
-        flops = 2 * e * t * b * h * 3 * h
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[name] * 1e3
         lib_ms, lib_out = cudnn_gru_ms(*args)
         if lib_ms is None:
             print(f"library {name}: {lib_out}", flush=True)
@@ -187,18 +333,36 @@ def phase_times(cuda_gru) -> dict:
                   f"kernel to max |diff| "
                   f"{float((lib_out.float() - kern.float()).abs().max()):.3e}",
                   flush=True)
-        results[name] = {
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "library_ms": lib_ms}
-        print(f"times gru_fwd {name} E={e} T={t} B={b} H={h}: "
-              f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={max(t_bytes, t_ops):.4f} "
-              f"(bytes {nbytes} -> {t_bytes:.4f} ms, flops {flops} -> "
-              f"{t_ops:.4f} ms) library_ms={lib_ms} (cuDNN GRU: {e} launches "
-              f"plus an identity input GEMM)", flush=True)
-        del args, proj, w_hh, b_hh, h0
+        results["gru_fwd"][name] = kernel_times(
+            "gru_fwd", "cuDNN GRU forward x40", name, FLAGSHIP,
+            lambda: cuda_gru.gru_fwd_cuda(*args),
+            lambda: cuda_gru.gru_recurrence_reference(*args),
+            nbytes(*args) + e * t * b * h * proj.element_size(),
+            2 * e * t * b * h * 3 * h, lib_ms)
+        del args, proj, w_hh, b_hh, h0, lib_out
+
+        args = recurrence_inputs(TRAIN, dtype)
+        proj, w_hh, b_hh, h0 = args
+        e, t, b, h = (TRAIN[k] for k in ("E", "T", "B", "H"))
+        h_all, h_prev, gates = cuda_gru.gru_fwd_train_cuda(*args)
+        dout = torch.ones_like(h_all)
+        flops = 2 * e * t * b * h * 3 * h
+        lib_ms, _ = cudnn_gru_ms(*args)
+        results["gru_fwd_train"][name] = kernel_times(
+            "gru_fwd_train", "cuDNN GRU forward x40", name, TRAIN,
+            lambda: cuda_gru.gru_fwd_train_cuda(*args),
+            lambda: cuda_gru.gru_fwd_train_reference(*args),
+            nbytes(*args, h_all, h_prev, gates), flops, lib_ms)
+        lib_ms, _ = cudnn_gru_ms(*args, backward=True)
+        bwd_in = (proj, h_prev, gates, w_hh, b_hh, dout)
+        dproj, dw, db, dh0 = cuda_gru.gru_bwd_cuda(*bwd_in)
+        results["gru_bwd"][name] = kernel_times(
+            "gru_bwd", "cuDNN GRU autograd backward x40", name, TRAIN,
+            lambda: cuda_gru.gru_bwd_cuda(*bwd_in),
+            lambda: cuda_gru.gru_bwd_reference(*bwd_in),
+            nbytes(*bwd_in, dproj, dw, db, dh0), 2 * flops, lib_ms)
+        del args, proj, w_hh, b_hh, h0, h_all, h_prev, gates, dout, bwd_in
+        del dproj, dw, db, dh0
         torch.cuda.empty_cache()
     return results
 
@@ -240,6 +404,20 @@ def flagship_checkpoint(workdir: str):
     return ckpt, traffic, delta
 
 
+def device_rows(prof) -> list:
+    """(device µs, count, name) of each kernel and copy the profiler saw,
+    largest first.  Device-side events only: CPU ops also carry the device
+    time of the kernels they launched, and a GPU range of a user annotation
+    (such as the optimizer's step) spans kernels counted on their own."""
+    import torch
+
+    rows = [(ev.self_device_time_total, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+    return sorted((r for r in rows if r[0] > 0), reverse=True)
+
+
 def profile_what_if(pred, series) -> None:
     """Where the what-if call's time goes: device time by kernel name and
     the device's busy share of the call's wall time, from torch.profiler
@@ -253,12 +431,7 @@ def profile_what_if(pred, series) -> None:
         pred.predict_series_many(series)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): CPU ops also carry the
-    # device time of the kernels they launched
-    rows = [(ev.self_device_time_total, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     if not rows:
         print("profile what-if: the profiler saw no device time "
@@ -287,7 +460,8 @@ def phase_main_path(cuda_gru) -> dict:
         np.savez(feats, traffic=traffic)
         out_path = os.path.join(wd, "preds.npz")
 
-        cuda_gru.GRU_FWD.launches = 0
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
         t0 = time.perf_counter()
         env = dict(os.environ, PYTHONPATH=REPO)
         proc = subprocess.run(
@@ -327,6 +501,13 @@ def phase_main_path(cuda_gru) -> dict:
               f"in-process {cuda_gru.GRU_FWD.launches})", flush=True)
         if launches == 0:
             fail("the main path never launched gru_fwd")
+        train_forms = (cuda_gru.GRU_FWD_TRAIN.launches
+                       + cuda_gru.GRU_BWD.launches
+                       + report["kernel_launches"]["gru_fwd_train"]
+                       + report["kernel_launches"]["gru_bwd"])
+        if train_forms:
+            fail(f"serving launched {train_forms} training kernels; it "
+                 "must run the inference form only")
 
         with np.load(out_path) as z:
             got = np.asarray(z["predictions"])
@@ -367,6 +548,187 @@ def phase_main_path(cuda_gru) -> dict:
             "checks": checks}
 
 
+def train_step_flops(batch, window, features, experts, hidden, quantiles=3,
+                     directions=2) -> float:
+    """Analytic FLOPs per training step, as bench.py counts them: the
+    input projections, the recurrence and the heads (2*M*N*K each),
+    forward plus backward ~ 3x forward."""
+    proj = 2 * batch * window * experts * features * 3 * hidden
+    recur = 2 * batch * window * experts * hidden * 3 * hidden
+    heads = 2 * batch * window * experts * (2 * directions * hidden) * quantiles
+    return 3 * (directions * (proj + recur) + heads)
+
+
+def flagship_corpus(path: str, minutes: int = CORPUS_MINUTES,
+                    features: int = F, experts: int = TRAIN["E"]) -> str:
+    """A seeded corpus of ``minutes`` x ``features`` Poisson call-path
+    counts and ``experts`` resource series comp{c}_{cpu,memory,wiops,
+    wthroughput,usage}: each a seeded linear map of the traffic plus noise;
+    the usage series accumulate theirs (a disk-usage level, trained as
+    per-bucket increments).  Written with the port's FeaturizedData;
+    returns the file's path."""
+    import numpy as np
+
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+
+    rng = np.random.default_rng(SEED)
+    traffic = rng.poisson(rng.uniform(0.5, 20.0, features),
+                          (minutes, features)).astype(np.float32)
+    resources = {}
+    for i in range(experts):
+        res = RESOURCES[i % len(RESOURCES)]
+        w = rng.uniform(0.0, 1.0, features) * (rng.random(features) < 0.2)
+        level = traffic @ w
+        level = level + rng.normal(0.0, 0.05 * level.std(), minutes)
+        if res == "usage":
+            level = np.cumsum(np.abs(level)) / minutes
+        resources[f"comp{i // len(RESOURCES)}_{res}"] = level.astype(
+            np.float32)
+    space = {"config": {"capacity": 0, "round_to": 128,
+                        "hash_features": False, "hash_seed": 0x5EED},
+             "vocabulary": [[f"svc{j % 16}", f"/op{j}"]
+                            for j in range(features)],
+             "frozen_capacity": features}
+    return FeaturizedData(traffic=traffic, resources=resources,
+                          invocations={}, space_dict=space).save(path)
+
+
+def run_cli(args: list, timeout: int) -> dict:
+    """One port CLI call in its own process; returns its last-line JSON."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-m", "deeprest_tpu_torch", *args],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"CLI {args[0]} exited {proc.returncode}:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def profile_train_steps(trainer, state, staged, batches) -> None:
+    """Where a train step's time goes: device time by kernel and the
+    device's busy share of the steps' wall time, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for sel, weight in batches:
+            trainer.train_step(state, staged, sel, weight)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    if not rows:
+        print("profile train: the profiler saw no device time (device "
+              "breakdown not measured)", flush=True)
+        return
+    busy_us = sum(r[0] for r in rows)
+    print(f"profile train: {len(batches)} steps, wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f} % of wall)", flush=True)
+    for dev_us, count, key in rows[:12]:
+        print(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+
+
+def phase_training(cuda_gru) -> dict:
+    import numpy as np
+
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.train.data import prepare_dataset
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    e, b, h = TRAIN["E"], TRAIN["B"], TRAIN["H"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=os.path.join(REPO, "build")) as wd:
+        feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+        ckpt = os.path.join(wd, "ckpt")
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        report = run_cli(["train", "--features", feats, "--epochs", "2",
+                          "--batch-size", str(b), "--window", str(W),
+                          "--compute-dtype", "bfloat16", "--ckpt-dir", ckpt,
+                          "--no-baselines"], timeout=900)
+        train_s = time.perf_counter() - t0
+        served = run_cli(["predict", "--ckpt-dir", ckpt, "--features", feats,
+                          "--out", os.path.join(wd, "preds")], timeout=600)
+        launches = dict(report["kernel_launches"])
+        launches["gru_fwd"] += served["kernel_launches"]["gru_fwd"]
+        steps = int(report["steps"])
+        flops = train_step_flops(b, W, F, e, h)
+        share = report["steps_per_sec"] * flops / PEAK_FLOPS["bfloat16"]
+        print(f"main train CLI: {CORPUS_MINUTES}x{F} corpus, 2 epochs, "
+              f"{steps} steps in {train_s:.2f} s of wall time (process "
+              f"start, load, 2 evaluations and the checkpoint included); "
+              f"steady state {report['steps_per_sec']:.3f} steps/s = "
+              f"{100 * share:.4f} % of 989 TFLOP/s at {flops / 1e12:.4f} "
+              f"TFLOP per step; epoch losses {report['epoch_losses']}; "
+              f"test losses {report['test_losses']}; device "
+              f"{report['device']}; launches {launches}", flush=True)
+        losses = np.asarray(report["step_losses"], np.float64)
+        if not np.isfinite(losses).all():
+            fail("train CLI gave non-finite step losses")
+        if not report["epoch_losses"][1] < report["epoch_losses"][0]:
+            fail(f"epoch losses did not fall: {report['epoch_losses']}")
+        for name in ("gru_fwd_train", "gru_bwd"):
+            if launches[name] != 2 * steps:
+                fail(f"{name} launched {launches[name]} times in {steps} "
+                     f"train steps; want 2 x steps (two directions)")
+        if launches["gru_fwd"] == 0:
+            fail("evaluation and serving never launched gru_fwd")
+        mae = [v for m in report["report"].values()
+               for s in m.values() for v in s.values()]
+        if not np.isfinite(mae).all():
+            fail("the MAE report has non-finite values")
+        with np.load(served["out"]) as z:
+            preds = np.asarray(z["predictions"])
+        if preds.shape != (CORPUS_MINUTES, e, 3) or not np.isfinite(
+                preds).all():
+            fail(f"predictions of the trained checkpoint have shape "
+                 f"{preds.shape} or non-finite values; want finite "
+                 f"[{CORPUS_MINUTES}, {e}, 3]")
+        print(f"main predict CLI on the trained checkpoint: {preds.shape}, "
+              f"finite", flush=True)
+
+        # 5 steps on the kernels against 5 through the plain recurrence
+        cfg = Config(model=ModelConfig(hidden_size=h, dropout_rate=0.0,
+                                       compute_dtype="bfloat16"),
+                     train=TrainConfig(batch_size=b, window_size=W))
+        bundle = prepare_dataset(FeaturizedData.load(feats), cfg.train)
+        trainer = Trainer(cfg, F, bundle.metric_names, device="cuda")
+        params = init_params(trainer.model_config, SEED)
+        batches = list(trainer._batches(bundle.num_train_windows,
+                                        np.random.default_rng(SEED)))
+        runs = {}
+        for label, recurrence in (("kernels", None),
+                                  ("plain", cuda_gru.gru_recurrence_reference)):
+            run = Trainer(cfg, F, bundle.metric_names, device="cuda",
+                          recurrence=recurrence)
+            state = run.init_state(params)
+            staged = run.stage_dataset(bundle)
+            runs[label] = [float(run.train_step(state, staged, sel, wt))
+                           for sel, wt in batches[:5]]
+        rel = max(abs(a - p) / abs(p) for a, p in zip(runs["kernels"],
+                                                      runs["plain"]))
+        print(f"check train 5 steps, kernels vs plain recurrence on the card "
+              f"(dropout 0): {runs['kernels']} vs {runs['plain']}, max "
+              f"relative difference {rel:.3e} (tol 2e-2)", flush=True)
+        if rel > 2e-2:
+            fail("training on the kernels disagrees with training through "
+                 "the plain recurrence")
+
+        state = trainer.init_state(params)
+        staged = trainer.stage_dataset(bundle)
+        for sel, wt in batches[:3]:
+            trainer.train_step(state, staged, sel, wt)      # warm
+        profile_train_steps(trainer, state, staged, batches[3:8])
+    return {"launches": launches, "steps": steps,
+            "steps_per_sec": report["steps_per_sec"], "peak_share": share,
+            "epoch_losses": report["epoch_losses"], "parity_rel": rel}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -389,29 +751,38 @@ def main() -> int:
 
     from deeprest_tpu_torch.ops import build, cuda_gru
 
-    kernels = [cuda_gru.GRU_FWD]
-    build_s = build.build_all(kernels)
-    print(f"build: {len(kernels)} kernel(s) in {build_s:.2f} s", flush=True)
-    for k in kernels:
-        for line in k.build_log.splitlines():
+    build_s = build.build_all(cuda_gru.SOURCES)
+    print(f"build: {len(cuda_gru.SOURCES)} sources in {build_s:.2f} s",
+          flush=True)
+    for src in cuda_gru.SOURCES:
+        for line in src.build_log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  {k.name}: {line.strip()}", flush=True)
+                print(f"  {src.name}: {line.strip()}", flush=True)
 
     max_abs_err = phase_kernel_checks(cuda_gru)
     times = phase_times(cuda_gru)
-    main_path = phase_main_path(cuda_gru)
+    serving = phase_main_path(cuda_gru)
+    training = phase_training(cuda_gru)
 
-    bf16 = times["bfloat16"]
-    line = {"kernels": [{
-        "name": "gru_fwd", "route": "cuda",
-        "source": "deeprest_tpu_torch/csrc/gru_fwd.cu",
-        "replaces": "deeprest_tpu/ops/pallas_gru.py:156",
-        "launches": main_path["launches"], "max_abs_err": max_abs_err,
-        "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
-        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-        "library_ms": bf16["library_ms"]}]}
-    print(f"f32 gru_fwd at the flagship shape: {json.dumps(times['float32'])}",
-          flush=True)
+    launches = dict(training["launches"])
+    launches["gru_fwd"] += serving["launches"]
+    sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
+               "gru_fwd_train": ("gru_fwd.cu",
+                                 "deeprest_tpu/ops/pallas_gru.py:164"),
+               "gru_bwd": ("gru_bwd.cu", "deeprest_tpu/ops/pallas_gru.py:298")}
+    line = {"kernels": []}
+    for name, (src, replaces) in sources.items():
+        bf16 = times[name]["bfloat16"]
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"deeprest_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": max_abs_err[name],
+            "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
+            "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+            "library_ms": bf16["library_ms"]})
+        print(f"f32 {name}: {json.dumps(times[name]['float32'])}", flush=True)
+    print(f"main-path launches: serving gru_fwd {serving['launches']}; "
+          f"training {training['launches']}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
-"""Command-line entry point of the port (``deeprest_tpu/cli.py``, ``predict``):
+"""Command-line entry point of the port (``deeprest_tpu/cli.py``, ``train``
+and ``predict``):
 
+    python -m deeprest_tpu_torch train --features=input.npz --ckpt-dir=ckpt --no-baselines
     python -m deeprest_tpu_torch predict --ckpt-dir=ckpt --features=input.npz --out=preds.npz
 
-Runs on CUDA unless ``--device cpu`` asks for the CPU.
+Runs on CUDA unless ``--device cpu`` asks for the CPU.  Each prints one JSON
+object as its last line of standard output.
 """
 
 from __future__ import annotations
@@ -56,9 +59,62 @@ def _serving_traffic(args, pred) -> np.ndarray:
     return traffic
 
 
-def cmd_predict(args) -> int:
-    from deeprest_tpu_torch.ops.cuda_gru import GRU_FWD
+def _kernel_launches() -> dict[str, int]:
+    from deeprest_tpu_torch.ops.cuda_gru import KERNELS
 
+    return {k.name: k.launches for k in KERNELS}
+
+
+def cmd_train(args) -> int:
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.train.data import prepare_dataset
+    from deeprest_tpu_torch.train.metrics import format_report
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    if not args.no_baselines:
+        sys.exit("error: the baselines (the ResourceAware MLP and the "
+                 "ComponentAware scaler of models/baselines.py) are not "
+                 "ported yet; pass --no-baselines")
+    data = FeaturizedData.load(_ensure_npz(args.features))
+    cfg = Config(
+        model=ModelConfig(hidden_size=args.hidden_size,
+                          dropout_rate=args.dropout,
+                          compute_dtype=args.compute_dtype),
+        train=TrainConfig(num_epochs=args.epochs, batch_size=args.batch_size,
+                          window_size=args.window, learning_rate=args.lr,
+                          train_split=args.split, seed=args.seed,
+                          eval_stride=args.window,
+                          checkpoint_dir=args.ckpt_dir or ""),
+    )
+    bundle = prepare_dataset(data, cfg.train)
+    trainer = Trainer(cfg, bundle.feature_dim, bundle.metric_names,
+                      device=args.device)
+    step_losses = []
+
+    def on_epoch(result, state):
+        step_losses.append(trainer.last_epoch_losses.tolist())
+        print(f"epoch {result.epoch}: train {result.train_loss:.4f} "
+              f"test {result.test_loss:.4f}", flush=True)
+
+    _, history = trainer.fit(bundle, on_epoch=on_epoch)
+    print(format_report(history[-1].report))
+    print(f"steady-state throughput: "
+          f"{trainer.throughput.steps_per_sec:.2f} steps/s")
+    print(json.dumps({
+        "epoch_losses": [h.train_loss for h in history],
+        "test_losses": [h.test_loss for h in history],
+        "step_losses": step_losses,
+        "steps": trainer.global_step,
+        "steps_per_sec": trainer.throughput.steps_per_sec,
+        "report": history[-1].report,
+        "ckpt_dir": args.ckpt_dir,
+        "device": str(trainer.device),
+        "kernel_launches": _kernel_launches()}))
+    return 0
+
+
+def cmd_predict(args) -> int:
     if args.raw is not None:
         sys.exit("error: --raw needs the featurizer, which the PyTorch port "
                  "does not have yet; featurize with `python -m deeprest_tpu "
@@ -74,13 +130,34 @@ def cmd_predict(args) -> int:
     print(json.dumps({"out": out_path, "steps": int(out.shape[0]),
                       "metrics": pred.metric_names,
                       "device": str(pred.device),
-                      "kernel_launches": {"gru_fwd": GRU_FWD.launches}}))
+                      "kernel_launches": _kernel_launches()}))
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="deeprest_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("train", help="train + eval on a featurized corpus")
+    p.add_argument("--features", required=True,
+                   help="featurized .npz (from `deeprest_tpu featurize`)")
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--window", type=int, default=60)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--split", type=float, default=0.40)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--hidden-size", type=int, default=128)
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; pass cpu to run the "
+                        "plain PyTorch path on the CPU)")
+    p.add_argument("--no-baselines", action="store_true",
+                   help="train without the baseline comparison (required: "
+                        "the baselines are not ported yet)")
+    p.set_defaults(fn=cmd_train)
     p = sub.add_parser("predict", help="checkpoint + traffic → utilization")
     p.add_argument("--features", default=None,
                    help="featurized .npz (from `deeprest_tpu featurize`)")

@@ -1,7 +1,10 @@
-// GRU forward recurrence over pre-projected inputs, inference form.
+// GRU forward recurrence over pre-projected inputs, inference and training
+// forms.
 //
-// Replaces deeprest_tpu/ops/pallas_gru.py::_fwd_kernel (launched by
-// _fwd_call with emit_prev=False).  Per expert e and batch row b:
+// Replaces deeprest_tpu/ops/pallas_gru.py::_fwd_kernel: gru_fwd is the
+// inference form (_fwd_call with emit_prev=False), gru_fwd_train the
+// training form (emit_prev=True with STASH_GATES, launched by _vjp_fwd).
+// Per expert e and batch row b:
 //
 //   g   = h . W_hh[e] + b_hh[e]                      (gate order r, z, n)
 //   r   = sigmoid(x_r + g_r),  z = sigmoid(x_z + g_z)
@@ -17,6 +20,12 @@
 //   b_hh  [E, 3H]        float
 //   h0    [E, B, H]      float
 //   out   [E, T, B, H]   io type
+// and, in the training form only, two more streamed outputs per step:
+//   h_prev [E, T, B, H]  io type: the carry before step t in scan order (under
+//                        `reverse` that is the state after step t+1)
+//   gates  [E, T, B, 3H] io type: the pre-activation hidden gates
+//                        h . W_hh + b_hh, which the backward (gru_bwd.cu)
+//                        reads instead of recomputing its dot
 // The carry and all gate math are float.  For bf16 the dot consumes h rounded
 // to bf16 and W_hh in bf16; their products are exact in float and accumulate
 // in float (the TPU kernel's bf16 dot with preferred_element_type=f32).  For
@@ -41,7 +50,12 @@
 //         = 629 MB  -> 0.19 ms at 3.35 TB/s
 //   FLOPs = 2*40*60*256*128*384 = 60.4 GFLOP -> 0.061 ms at 989 TFLOP/s
 // so device memory bounds it, and the 60-step dependent chain sets its
-// latency.  This first version does the dot with plain float FMA from shared
+// latency.  The training form at the flagship training shape (B=32) moves
+// proj 59 MB + h_all 20 + h_prev 20 + gates 59 + W_hh 4 = 161 MB
+// (0.048 ms) for 7.5 GFLOP (0.008 ms): bytes again, though at B=32 the
+// 16-row tiles give only 2 x 40 = 80 CTAs for 132 SMs.  The extra streams
+// are plain stores from values the inference form already holds in
+// registers.  This first version does the dot with plain float FMA from shared
 // memory (~2x60 GFLOP of FMA work against 67 TFLOP/s), so it runs well above
 // that bound; tensor-core dots (mma/wgmma) and TMA streaming of proj are the
 // way down to it.
@@ -82,11 +96,12 @@ size_t smem_bytes(int H, int bf16) {
   return weight_bytes(H, bf16) + 2 * (size_t)kRowTile * H * sizeof(float);
 }
 
-template <typename T>
+template <typename T, bool kEmitPrev>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
                const float* __restrict__ b_hh, const float* __restrict__ h0,
-               T* __restrict__ out, int n_t, int n_b, int H, int reverse) {
+               T* __restrict__ out, T* __restrict__ h_prev,
+               T* __restrict__ gates, int n_t, int n_b, int H, int reverse) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G3 = 3 * H;
   T* w_s = reinterpret_cast<T*>(smem);
@@ -170,9 +185,18 @@ gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
     T* o_t = out + ((size_t)e * n_t + t) * n_b * H;
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
-      const float r = sigmoid_f32(x_r[j] + (a_r[j] + b_r));
-      const float z = sigmoid_f32(x_z[j] + (a_z[j] + b_z));
-      const float n = tanhf(x_n[j] + r * (a_n[j] + b_n));
+      const float g_r = a_r[j] + b_r, g_z = a_z[j] + b_z, g_n = a_n[j] + b_n;
+      if (kEmitPrev && valid[j]) {
+        const size_t row = ((size_t)e * n_t + t) * n_b + row0 + j;
+        h_prev[row * H + k] = from_f32<T>(h[j]);
+        T* g_row = gates + row * 3 * H;
+        g_row[k] = from_f32<T>(g_r);
+        g_row[H + k] = from_f32<T>(g_z);
+        g_row[2 * H + k] = from_f32<T>(g_n);
+      }
+      const float r = sigmoid_f32(x_r[j] + g_r);
+      const float z = sigmoid_f32(x_z[j] + g_z);
+      const float n = tanhf(x_n[j] + r * g_n);
       h[j] = (1.0f - z) * n + z * h[j];
       if (valid[j]) o_t[(size_t)(row0 + j) * H + k] = from_f32<T>(h[j]);
       h_nxt[j * H + k] = dot_operand<T>(h[j]);
@@ -181,20 +205,22 @@ gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
   }
 }
 
-template <typename T>
+template <typename T, bool kEmitPrev>
 int launch(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
-           void* out, int E, int n_t, int n_b, int H, int reverse,
-           cudaStream_t stream) {
+           void* out, void* h_prev, void* gates, int E, int n_t, int n_b,
+           int H, int reverse, cudaStream_t stream) {
   const size_t smem = smem_bytes(H, sizeof(T) == 2);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gru_fwd_kernel<T, kEmitPrev>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_b + kRowTile - 1) / kRowTile, E);
   const dim3 block(kRowGroups * H);
-  gru_fwd_kernel<T><<<grid, block, smem, stream>>>(
+  gru_fwd_kernel<T, kEmitPrev><<<grid, block, smem, stream>>>(
       static_cast<const T*>(proj), static_cast<const T*>(w_hh),
       static_cast<const float*>(b_hh), static_cast<const float*>(h0),
-      static_cast<T*>(out), n_t, n_b, H, reverse);
+      static_cast<T*>(out), static_cast<T*>(h_prev), static_cast<T*>(gates),
+      n_t, n_b, H, reverse);
   return (int)cudaGetLastError();
 }
 
@@ -210,14 +236,29 @@ int gru_fwd_max_threads(void) { return kMaxThreads; }
 
 int gru_fwd_row_groups(void) { return kRowGroups; }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Inference form.  Launch on `stream`; returns cudaGetLastError() (0 on
+// success).
 int gru_fwd(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
             void* out, int E, int n_t, int n_b, int H, int bf16, int reverse,
             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, reverse, st);
-  return launch<float>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, reverse, st);
+    return launch<__nv_bfloat16, false>(proj, w_hh, b_hh, h0, out, nullptr,
+                                        nullptr, E, n_t, n_b, H, reverse, st);
+  return launch<float, false>(proj, w_hh, b_hh, h0, out, nullptr, nullptr, E,
+                              n_t, n_b, H, reverse, st);
+}
+
+// Training form: also writes h_prev and the hidden gates.
+int gru_fwd_train(const void* proj, const void* w_hh, const void* b_hh,
+                  const void* h0, void* out, void* h_prev, void* gates, int E,
+                  int n_t, int n_b, int H, int bf16, int reverse, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, true>(proj, w_hh, b_hh, h0, out, h_prev, gates,
+                                       E, n_t, n_b, H, reverse, st);
+  return launch<float, true>(proj, w_hh, b_hh, h0, out, h_prev, gates, E, n_t,
+                             n_b, H, reverse, st);
 }
 
 }  // extern "C"

@@ -18,9 +18,15 @@ output)``.  As in the JAX package:
   two halves, so ``[E, B, T, 2D]`` is never built; it accumulates in f32
   and adds ``head_b`` to the f32 sum.
 
-The port serves only, and serving is deterministic, so dropout is the
-identity here.  Input ``[B, T, F]`` (or ``[G, B, T, F]``, groups folded
-into the rows) → output ``[B, T, E, Q]`` (``[G, B, T, E, Q]``) in f32.
+Dropout (``deterministic=False``, training only) drops the recurrence
+output in the compute dtype before mixing, where the flax module applies
+it: each value is kept with probability ``1 - dropout_rate`` and scaled by
+its inverse.  Its mask comes from an explicit ``torch.Generator`` (the
+trainer seeds one per step, the counterpart of ``fold_in(rng, step)``), so
+its bits are not JAX's.  Serving is deterministic.  The parameters are
+registered without gradients; the trainer turns them on.  Input ``[B, T,
+F]`` (or ``[G, B, T, F]``, groups folded into the rows) → output ``[B, T,
+E, Q]`` (``[G, B, T, E, Q]``) in f32.
 """
 
 from __future__ import annotations
@@ -62,6 +68,21 @@ def fold_feature_mask(params: Mapping[str, torch.Tensor]
         if name in out:
             out[name] = mask[:, :, None] * out[name]
     return out
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """``flax.linen.Dropout`` with ``deterministic=False``: keep each value
+    with probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, in
+    x's dtype; the mask is drawn from ``generator``."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -114,7 +135,7 @@ class QuantileGRU(nn.Module):
     def load_params(self, params: Mapping[str, torch.Tensor | np.ndarray]
                     ) -> "QuantileGRU":
         """Copy a full params dict (JAX names and shapes) into the module,
-        keeping each leaf's dtype."""
+        keeping each leaf's dtype and each parameter's ``requires_grad``."""
         expected = param_shapes(self.config)
         missing = set(expected) - set(params)
         extra = set(params) - set(expected)
@@ -129,7 +150,8 @@ class QuantileGRU(nn.Module):
                                  f"needs {shape}")
             old = getattr(self, name)
             setattr(self, name, nn.Parameter(
-                value.detach().to(old.device).clone(), requires_grad=False))
+                value.detach().to(old.device).clone(),
+                requires_grad=old.requires_grad))
         return self
 
     def params(self) -> dict[str, torch.Tensor]:
@@ -140,9 +162,14 @@ class QuantileGRU(nn.Module):
         diffs = [abs(q - 0.5) for q in self.config.quantiles]
         return diffs.index(min(diffs))
 
-    def forward(self, x: torch.Tensor, *, mask_folded: bool = False,
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None,
+                mask_folded: bool = False,
                 recurrence: Recurrence | None = None) -> torch.Tensor:
         cfg = self.config
+        if not deterministic and cfg.dropout_rate > 0.0 and generator is None:
+            raise ValueError("dropout (deterministic=False) needs an explicit "
+                             "torch.Generator on the input's device")
         e, f = cfg.num_metrics, cfg.feature_dim
         if x.shape[-1] != f:
             raise ValueError(f"input feature dim {x.shape[-1]} != "
@@ -174,6 +201,8 @@ class QuantileGRU(nn.Module):
             else:
                 out = gru(fwd, out, recurrence=recurrence)
         rnn_out = out                                                   # [E,B,T,D]
+        if not deterministic:
+            rnn_out = dropout(rnn_out, cfg.dropout_rate, generator)
 
         if e > 1:
             own = rnn_out.float()

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: the GRU recurrence and its CUDA kernel."""
+"""Tensor ops of the port: the GRU recurrence with its CUDA kernels, and
+the pinball loss."""

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` at first use, load them with
 ``ctypes``.
 
-Each source under ``deeprest_tpu_torch/csrc/`` becomes its own shared
-library with a plain C interface, compiled for Hopper (``sm_90a``) into
+Each source under ``deeprest_tpu_torch/csrc/`` (a :class:`CudaSource`)
+becomes its own shared library with a plain C interface, compiled for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout.  The file name carries a
 digest of the source and the flags, so an edited source never loads a
 stale library, and a library another process already built is reused.
@@ -46,20 +46,18 @@ def nvcc_path() -> str:
     return found
 
 
-class CudaKernel:
-    """One CUDA source, its shared library, and its launch count.
+class CudaSource:
+    """One CUDA source and its shared library.
 
     ``signatures`` maps each exported C function to ``(restype,
     argtypes)``; they are declared on load so ``ctypes`` never truncates a
-    pointer to a 32-bit int.  ``launches`` is incremented by the wrapper
-    that launches the kernel, once per launch and nowhere else.
+    pointer to a 32-bit int.
     """
 
     def __init__(self, source: str, signatures: dict):
         self.source = os.path.join(CSRC_DIR, source)
         self.name = os.path.splitext(source)[0]
         self.signatures = dict(signatures)
-        self.launches = 0
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -109,13 +107,27 @@ class CudaKernel:
             return self._lib
 
 
-def build_all(kernels) -> float:
-    """Build every kernel in parallel (one ``nvcc`` per source, all started
+class CudaKernel:
+    """One exported launch entry point of a :class:`CudaSource`, with its
+    launch count.  ``launches`` is incremented by the wrapper that launches
+    the kernel, once per call of the entry point and nowhere else."""
+
+    def __init__(self, source: CudaSource, name: str):
+        self.source = source
+        self.name = name
+        self.launches = 0
+
+    def library(self) -> ctypes.CDLL:
+        return self.source.library()
+
+
+def build_all(sources) -> float:
+    """Build every source in parallel (one ``nvcc`` per source, all started
     together), load them, and return the wall seconds it took."""
     t0 = time.perf_counter()
-    started = [(k, k.start_build()) for k in kernels]
-    for k, s in started:
-        k.finish_build(s)
-    for k in kernels:
-        k.library()
+    started = [(src, src.start_build()) for src in sources]
+    for src, st in started:
+        src.finish_build(st)
+    for src in sources:
+        src.library()
     return time.perf_counter() - t0

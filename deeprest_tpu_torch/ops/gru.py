@@ -2,11 +2,15 @@
 
 All experts run together with the expert axis ``E`` leading every weight.
 The input projection ``x @ W_ih + b_ih`` has no sequential dependency, so
-it is one large matmul over all time steps before the recurrence; only the
-hidden-to-hidden product stays inside the time loop, which
+it is one large matmul over all time steps before the recurrence (left to
+torch, as the JAX package leaves it to XLA, so its backward is torch's
+too); only the hidden-to-hidden product stays inside the time loop, which
 :func:`~deeprest_tpu_torch.ops.cuda_gru.gru_recurrence` runs: the CUDA
-kernel for a CUDA tensor, the plain version for a CPU tensor.  The
-``rnn_backend`` a config names plays no part.
+kernels for a CUDA tensor, the plain versions for a CPU tensor.  Both
+functions are differentiable: with autograd recording, the recurrence goes
+through the training forward and the backward kernel; without it, through
+the inference forward alone.  The ``rnn_backend`` a config names plays no
+part.
 
 Dtype contract (``_kernel_io_dtype`` / ``_dot_dtype_for`` /
 ``_out_dtype_for`` of the JAX package): a bf16 projection stays bf16 and

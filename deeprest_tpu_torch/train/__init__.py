@@ -1,1 +1,2 @@
-"""Training-side helpers of the port (checkpoint format)."""
+"""Training side of the port: dataset preparation, the per-step trainer,
+metrics, and the checkpoint format."""

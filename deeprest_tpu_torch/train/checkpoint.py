@@ -9,10 +9,12 @@ config).  Dtypes that ``.npy`` cannot hold, such as bfloat16, are stored as
 a same-width unsigned integer view with the real dtype named in the
 manifest; the reader turns them back into torch tensors without ml_dtypes.
 
-The port serves params only: :func:`load_params` returns the ``params/*``
-leaves of a checkpoint the JAX trainer wrote (optimizer state, step and rng
-are skipped), and :func:`save_checkpoint` writes params plus the sidecar in
-the same layout, one shard per leaf.
+:func:`load_params` returns the ``params/*`` leaves of a checkpoint
+(optimizer state, step and rng are skipped), and :func:`save_checkpoint`
+writes params plus the sidecar in the same layout, one shard per leaf,
+with any other leaves a caller names beside them (the trainer writes the
+step, the optimizer state and rng under the JAX ``TrainState`` names, so
+the JAX package's restore finds every leaf it expects).
 """
 
 from __future__ import annotations
@@ -174,21 +176,24 @@ def _write_json(path: str, obj: Any, **kwargs) -> None:
 
 
 def save_checkpoint(directory: str, params: Mapping[str, Any], step: int,
-                    extra: dict | None = None) -> str:
-    """Write ``directory/step_NNNNNNNN/`` with ``params/<name>`` leaves and
-    the sidecar ``extra``.  Staged under ``.tmp`` and renamed, with every
-    file fsynced first, so a crash leaves no step or a whole one."""
+                    extra: dict | None = None,
+                    other_leaves: Mapping[str, Any] | None = None) -> str:
+    """Write ``directory/step_NNNNNNNN/`` with ``params/<name>`` leaves,
+    ``other_leaves`` under their own "/"-joined names, and the sidecar
+    ``extra``.  Staged under ``.tmp`` and renamed, with every file fsynced
+    first, so a crash leaves no step or a whole one."""
     path = _step_dir(directory, step)
     tmp = path + ".tmp"
     arrays_dir = os.path.join(tmp, "arrays")
     if os.path.isdir(tmp):
         shutil.rmtree(tmp)
     os.makedirs(arrays_dir)
+    named = {_PARAMS + name: value for name, value in params.items()}
+    named.update(other_leaves or {})
     leaves = []
-    for ord_, (name, value) in enumerate(sorted(params.items())):
+    for ord_, (leaf, value) in enumerate(sorted(named.items())):
         arr, dtype_name = _storage(value)
         arr = np.ascontiguousarray(arr) if arr.ndim else arr
-        leaf = _PARAMS + name
         safe = re.sub(r"[^A-Za-z0-9_.-]+", "-", leaf).strip("-") or "leaf"
         start = "_".join("0" for _ in arr.shape) if arr.ndim else "scalar"
         fname = f"{ord_:03d}.{safe}.{start}.npy"
