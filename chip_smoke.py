@@ -7,9 +7,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 
 1. the card: name and power limit from nvidia-smi, torch and CUDA versions;
    TF32 off for matmuls and cuDNN;
-2. build: both CUDA sources (gru_fwd.cu with the inference and training
-   forwards K1 and K2, gru_bwd.cu with the backward K3), one nvcc per
-   source, all started together, into build/kernels/;
+2. build: the three CUDA sources (gru_fwd.cu with the inference and
+   training forwards K1 and K2, gru_bwd.cu with the backward K3,
+   gru_fwd_blocked.cu with the blocked forward K4 of the tuning sweep),
+   one nvcc per source, all started together, into build/kernels/;
 3. each kernel against its plain PyTorch version on the card, with the JAX
    package's kernel tolerances (forward: f32 1e-5, bf16 2e-2; gradients
    relative to each tensor's largest magnitude: f32 2e-4, bf16 2e-2): K1 at
@@ -37,11 +38,23 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    5 steps on the kernels against 5 steps through the plain recurrence
    from the same params (dropout 0), and a torch.profiler breakdown of
    train steps;
-7. one JSON line of per-kernel numbers, then the device line last.
+7. the kernel-tuning path: K4 (gru_fwd_blocked.cu) at every blocking of
+   the sweep's --quick menu against its plain version, at the fused
+   flagship stacking (E=80, T=60, B=32, H=128) and a ragged shape (E=4,
+   T=12, B=37), f32 and bf16 inputs, the bf16 dot off and on (tolerance
+   1e-5 with the f32 dot, 2e-2 with the bf16 dot), and timed beside its
+   plain version, its bound and cuDNN's GRU x80; bidirectional_gru fused
+   (BIDIR_FUSED) against unfused on the card at the flagship training
+   shape, forward (1 K1 launch against 2) and gradients (1 K2 and 1 K3
+   against 2 each); 5 train steps with STASH_GATES off against 5 with it
+   on from the same params (dropout 0); then `python -m
+   deeprest_tpu_torch.benchmarks.kernel_tuning --quick`, its JSON printed
+   on one line;
+8. one JSON line of per-kernel numbers, then the device line last.
 
-The kernel launch counts are set to 0 just before each main path (5 and
-6) and read just after it; launches made to check or time a kernel do not
-count.
+The kernel launch counts are set to 0 just before each main path (5, 6
+and the sweep of 7) and read just after it; launches made to check or
+time a kernel do not count.
 
 It exits nonzero, printing no result, without CUDA or without the package
 beside it.
@@ -66,6 +79,8 @@ GRAD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # of each tensor's max |value|
 FLAGSHIP = dict(E=40, T=60, B=256, H=128)        # serving: 4 pages of 64
 TRAIN = dict(E=40, T=60, B=32, H=128)            # training: bench.py:37
 RAGGED = dict(E=3, T=7, B=37, H=128)
+FUSED = dict(E=80, T=60, B=32, H=128)            # both directions stacked
+TUNE_RAGGED = dict(E=4, T=12, B=37, H=128)
 F, W, DAY = 512, 60, 1440
 CORPUS_MINUTES = 3 * DAY
 RESOURCES = ("cpu", "memory", "wiops", "wthroughput", "usage")
@@ -729,6 +744,234 @@ def phase_training(cuda_gru) -> dict:
             "epoch_losses": report["epoch_losses"], "parity_rel": rel}
 
 
+def phase_blocked(cuda_gru, kernel_tuning) -> dict:
+    """K4 at every blocking of the sweep's --quick menu against its plain
+    version, then its times at the fused flagship stacking in bf16; returns
+    the kernels-line numbers."""
+    import torch
+
+    worst = 0.0
+    checked = refused = 0
+    for label, shape in (("fused flagship", FUSED), ("ragged", TUNE_RAGGED)):
+        e, t, b, h = (shape[k] for k in ("E", "T", "B", "H"))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = recurrence_inputs(shape, dtype, seed=SEED + 3)
+            for bf16_dot in (False, True):
+                name = "bfloat16" if bf16_dot else "float32"
+                want = cuda_gru.gru_fwd_blocked_reference(*args,
+                                                          bf16_dot=bf16_dot)
+                for rows, e_blk, t_blk in kernel_tuning.blocking_menu(
+                        e, t, b, h, quick=True):
+                    what = (f"E{e} rows{rows} e_blk{e_blk} t_blk{t_blk} "
+                            f"{str(dtype).removeprefix('torch.')} "
+                            f"{'bf16' if bf16_dot else 'f32'} dot")
+                    plan = cuda_gru.block_plan(
+                        e, t, b, h, dtype, training=False, rows=rows,
+                        e_blk=e_blk, t_blk=t_blk, blocked=True,
+                        bf16_dot=bf16_dot)
+                    if not plan["fits"]:
+                        refused += 1
+                        print(f"check gru_fwd_blocked {label} {what}: refused "
+                              f"by the plan ({plan['refusal']})", flush=True)
+                        continue
+                    got = cuda_gru.gru_fwd_blocked_cuda(
+                        *args, e_blk=e_blk, t_blk=t_blk, bf16_dot=bf16_dot,
+                        rows=rows)
+                    torch.cuda.synchronize()
+                    mx = report_check("gru_fwd_blocked", label, shape, name,
+                                      what, compare(got, want, name),
+                                      TOL[name])
+                    checked += 1
+                    if label == "fused flagship" and dtype == torch.bfloat16 \
+                            and bf16_dot:
+                        worst = max(worst, mx)
+            del args, want
+    if not checked:
+        fail("the plan admitted no blocking of the --quick menu")
+    print(f"check gru_fwd_blocked: {checked} blockings held against the plain "
+          f"version, {refused} refused by the plan", flush=True)
+
+    # times at the fused stacking, bf16 inputs and the bf16 dot
+    args = recurrence_inputs(FUSED, torch.bfloat16)
+    proj, w_hh, b_hh, h0 = args
+    e, t, b, h = (FUSED[k] for k in ("E", "T", "B", "H"))
+    times = {}
+    for rows, e_blk, t_blk in kernel_tuning.blocking_menu(e, t, b, h,
+                                                          quick=True):
+        if cuda_gru.block_plan(e, t, b, h, torch.bfloat16, training=False,
+                               rows=rows, e_blk=e_blk, t_blk=t_blk,
+                               blocked=True, bf16_dot=True)["fits"]:
+            times[(rows, e_blk, t_blk)] = time_ms(
+                lambda r=rows, eb=e_blk, tb=t_blk:
+                cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=eb, t_blk=tb,
+                                              bf16_dot=True, rows=r),
+                iters=20)
+    for (rows, e_blk, t_blk), ms in times.items():
+        print(f"times gru_fwd_blocked {FUSED} bf16 rows{rows} e_blk{e_blk} "
+              f"t_blk{t_blk}: {ms:.4f} ms", flush=True)
+    k1_blocking = (cuda_gru.ROW_TILE, 1, 1)
+    if k1_blocking not in times:
+        fail("K1's blocking (16 rows, 1 expert, 1 step) was not timed")
+    fastest = min(times, key=times.get)
+    lib_ms, lib_out = cudnn_gru_ms(*args)
+    if lib_ms is None:
+        print(f"library bfloat16 x{e}: {lib_out}", flush=True)
+    out_bytes = e * t * b * h * 4                  # the f32 output
+    entry = kernel_times(
+        "gru_fwd_blocked", f"cuDNN GRU forward x{e}", "bfloat16", FUSED,
+        lambda: cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=1, t_blk=1,
+                                              bf16_dot=True,
+                                              rows=cuda_gru.ROW_TILE),
+        lambda: cuda_gru.gru_fwd_blocked_reference(*args, bf16_dot=True),
+        nbytes(*args) + out_bytes, 2 * e * t * b * h * 3 * h, lib_ms)
+    entry.update(max_abs_err=worst, fastest_ms=times[fastest],
+                 fastest_blocking="rows{}_e_blk{}_t_blk{}".format(*fastest))
+    del args, proj, w_hh, b_hh, h0, lib_out
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_bidir(cuda_gru, kernel_tuning) -> None:
+    """bidirectional_gru with BIDIR_FUSED against without, on the kernels at
+    the flagship training shape in bf16: the forward (K1 launches 1 against
+    2) and the gradients through K2 and K3 (1 launch each against 2)."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.ops.gru import GRUParams
+
+    gru_mod = kernel_tuning.gru_mod
+    e, t, b, h = (TRAIN[k] for k in ("E", "T", "B", "H"))
+    rng = np.random.default_rng(SEED + 4)
+    fwd, bwd = (GRUParams(*[w.to(torch.bfloat16) for w in
+                            kernel_tuning.gru_params(e, F, h, "cuda", seed)])
+                for seed in (SEED + 5, SEED + 6))
+    x = torch.from_numpy(rng.standard_normal((b, t, F), np.float32)).to(
+        "cuda", torch.bfloat16)
+    cot = torch.from_numpy(rng.standard_normal((e, b, t, 2 * h),
+                                               np.float32)).cuda()
+    results = {}
+    default = gru_mod.BIDIR_FUSED
+    try:
+        for fused in (False, True):
+            gru_mod.BIDIR_FUSED = fused
+            counts = [kk.launches for kk in cuda_gru.MODEL_KERNELS]
+            with torch.no_grad():
+                out = gru_mod.bidirectional_gru(fwd, bwd, x)
+            torch.cuda.synchronize()
+            n_fwd = cuda_gru.GRU_FWD.launches - counts[0]
+            leaves = [GRUParams(*[w.clone().requires_grad_(True) for w in p])
+                      for p in (fwd, bwd)]
+            xg = x.clone().requires_grad_(True)
+            counts = [kk.launches for kk in cuda_gru.MODEL_KERNELS]
+            y = gru_mod.bidirectional_gru(*leaves, xg)
+            (y.float() * cot).sum().backward()
+            torch.cuda.synchronize()
+            n_train = [kk.launches - c for kk, c in
+                       zip(cuda_gru.MODEL_KERNELS[1:], counts[1:])]
+            want = (1, [1, 1]) if fused else (2, [2, 2])
+            print(f"check bidirectional fused={fused}: gru_fwd launches "
+                  f"{n_fwd} per forward, gru_fwd_train/gru_bwd launches "
+                  f"{n_train} per fwd+bwd (want {want[0]} and {want[1]})",
+                  flush=True)
+            if (n_fwd, n_train) != want:
+                fail(f"bidirectional_gru fused={fused} made {n_fwd} K1 and "
+                     f"{n_train} K2/K3 launches; want {want}")
+            grads = [w.grad for p in leaves for w in p] + [xg.grad]
+            results[fused] = [out, y.detach()] + grads
+    finally:
+        gru_mod.BIDIR_FUSED = default
+    names = ["forward", "fwd+bwd output"] + [
+        f"d{d}_{w}" for d in ("fwd", "bwd")
+        for w in ("w_ih", "w_hh", "b_ih", "b_hh")] + ["dx"]
+    for name, got, want in zip(names, results[True], results[False]):
+        check = (compare(got, want, "bfloat16") if name == "forward"
+                 else compare_scaled(got, want, "bfloat16"))
+        report_check("bidirectional fused vs unfused", "flagship training",
+                     TRAIN, "bfloat16", name, check, TOL["bfloat16"])
+
+
+def phase_stash_steps(cuda_gru) -> None:
+    """5 train steps with STASH_GATES off (K2 writes no gates, K3
+    recomputes them) against 5 with it on, from the same params, dropout 0,
+    at the flagship width."""
+    import numpy as np
+
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.train.data import prepare_dataset
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    b, h = TRAIN["B"], TRAIN["H"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stash_",
+                                     dir=os.path.join(REPO, "build")) as wd:
+        feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+        cfg = Config(model=ModelConfig(hidden_size=h, dropout_rate=0.0,
+                                       compute_dtype="bfloat16"),
+                     train=TrainConfig(batch_size=b, window_size=W))
+        bundle = prepare_dataset(FeaturizedData.load(feats), cfg.train)
+        trainer = Trainer(cfg, F, bundle.metric_names, device="cuda")
+        params = init_params(trainer.model_config, SEED)
+        batches = list(trainer._batches(bundle.num_train_windows,
+                                        np.random.default_rng(SEED)))[:5]
+        runs = {}
+        default = cuda_gru.STASH_GATES
+        try:
+            for stash in (True, False):
+                cuda_gru.STASH_GATES = stash
+                state = trainer.init_state(params)
+                staged = trainer.stage_dataset(bundle)
+                runs[stash] = [float(trainer.train_step(state, staged, sel,
+                                                        wt))
+                               for sel, wt in batches]
+        finally:
+            cuda_gru.STASH_GATES = default
+    rel = max(abs(a - p) / abs(p) for a, p in zip(runs[False], runs[True]))
+    print(f"check train 5 steps, STASH_GATES off vs on (dropout 0): "
+          f"{runs[False]} vs {runs[True]}, max relative difference "
+          f"{rel:.3e} (tol 2e-2)", flush=True)
+    if not np.isfinite(runs[False]).all() or rel > 2e-2:
+        fail("training with the gate stash off disagrees with training "
+             "with it on")
+
+
+def phase_tuning_sweep(cuda_gru) -> dict:
+    """The tuning path's entry point, `python -m
+    deeprest_tpu_torch.benchmarks.kernel_tuning --quick`, in its own
+    process with the launch counts at 0; returns its JSON."""
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tuning_",
+                                     dir=os.path.join(REPO, "build")) as wd:
+        out = os.path.join(wd, "kernel_tuning.json")
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        proc = subprocess.run(
+            [sys.executable, "-m", "deeprest_tpu_torch.benchmarks."
+             "kernel_tuning", "--quick", "--out", out], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=600)
+        sweep_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"kernel_tuning --quick exited {proc.returncode}:\n"
+                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        with open(out, encoding="utf-8") as fh:
+            sweep = json.load(fh)
+    print(f"tuning sweep JSON: {json.dumps(sweep)}", flush=True)
+    launches = sweep["kernel_launches"]
+    print(f"main tuning sweep (--quick): {sweep_s:.2f} s of wall time "
+          f"(process start and the library load included); launches "
+          f"{launches}; bidirectional decision {sweep['bidir_decision']}",
+          flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the tuning sweep never launched {name}")
+    for key, value in sweep.items():
+        if isinstance(value, float) and not value > 0:
+            fail(f"tuning sweep time {key} = {value} is not positive")
+    return sweep
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -749,6 +992,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from deeprest_tpu_torch.benchmarks import kernel_tuning
     from deeprest_tpu_torch.ops import build, cuda_gru
 
     build_s = build.build_all(cuda_gru.SOURCES)
@@ -763,6 +1007,10 @@ def main() -> int:
     times = phase_times(cuda_gru)
     serving = phase_main_path(cuda_gru)
     training = phase_training(cuda_gru)
+    blocked = phase_blocked(cuda_gru, kernel_tuning)
+    phase_bidir(cuda_gru, kernel_tuning)
+    phase_stash_steps(cuda_gru)
+    sweep = phase_tuning_sweep(cuda_gru)
 
     launches = dict(training["launches"])
     launches["gru_fwd"] += serving["launches"]
@@ -781,8 +1029,17 @@ def main() -> int:
             "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
             "library_ms": bf16["library_ms"]})
         print(f"f32 {name}: {json.dumps(times[name]['float32'])}", flush=True)
+    line["kernels"].append({
+        "name": "gru_fwd_blocked", "route": "cuda",
+        "source": "deeprest_tpu_torch/csrc/gru_fwd_blocked.cu",
+        "replaces": "benchmarks/kernel_tuning.py:134",
+        "launches": sweep["kernel_launches"]["gru_fwd_blocked"],
+        **{k: blocked[k] for k in (
+            "max_abs_err", "ms", "fastest_ms", "fastest_blocking",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
-          f"training {training['launches']}", flush=True)
+          f"training {training['launches']}; tuning sweep "
+          f"{sweep['kernel_launches']}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

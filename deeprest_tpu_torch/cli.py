@@ -60,9 +60,9 @@ def _serving_traffic(args, pred) -> np.ndarray:
 
 
 def _kernel_launches() -> dict[str, int]:
-    from deeprest_tpu_torch.ops.cuda_gru import KERNELS
+    from deeprest_tpu_torch.ops.cuda_gru import MODEL_KERNELS
 
-    return {k.name: k.launches for k in KERNELS}
+    return {k.name: k.launches for k in MODEL_KERNELS}
 
 
 def cmd_train(args) -> int:

@@ -25,7 +25,8 @@
 //                        `reverse` that is the state after step t+1)
 //   gates  [E, T, B, 3H] io type: the pre-activation hidden gates
 //                        h . W_hh + b_hh, which the backward (gru_bwd.cu)
-//                        reads instead of recomputing its dot
+//                        reads instead of recomputing its dot; a null
+//                        pointer (the stash off) skips these stores
 // The carry and all gate math are float.  For bf16 the dot consumes h rounded
 // to bf16 and W_hh in bf16; their products are exact in float and accumulate
 // in float (the TPU kernel's bf16 dot with preferred_element_type=f32).  For
@@ -189,10 +190,12 @@ gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
       if (kEmitPrev && valid[j]) {
         const size_t row = ((size_t)e * n_t + t) * n_b + row0 + j;
         h_prev[row * H + k] = from_f32<T>(h[j]);
-        T* g_row = gates + row * 3 * H;
-        g_row[k] = from_f32<T>(g_r);
-        g_row[H + k] = from_f32<T>(g_z);
-        g_row[2 * H + k] = from_f32<T>(g_n);
+        if (gates != nullptr) {          // the gate stash (STASH_GATES)
+          T* g_row = gates + row * 3 * H;
+          g_row[k] = from_f32<T>(g_r);
+          g_row[H + k] = from_f32<T>(g_z);
+          g_row[2 * H + k] = from_f32<T>(g_n);
+        }
       }
       const float r = sigmoid_f32(x_r[j] + g_r);
       const float z = sigmoid_f32(x_z[j] + g_z);
@@ -249,7 +252,8 @@ int gru_fwd(const void* proj, const void* w_hh, const void* b_hh, const void* h0
                               n_t, n_b, H, reverse, st);
 }
 
-// Training form: also writes h_prev and the hidden gates.
+// Training form: also writes h_prev and, unless `gates` is null, the hidden
+// gates.
 int gru_fwd_train(const void* proj, const void* w_hh, const void* b_hh,
                   const void* h0, void* out, void* h_prev, void* gates, int E,
                   int n_t, int n_b, int H, int bf16, int reverse, void* stream) {

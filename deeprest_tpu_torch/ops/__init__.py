@@ -1,2 +1,22 @@
 """Tensor ops of the port: the GRU recurrence with its CUDA kernels, and
 the pinball loss."""
+
+from deeprest_tpu_torch.ops.gru import (
+    GroupSpec,
+    GRUParams,
+    bidirectional_gru,
+    bidirectional_gru_coalesced,
+    gru,
+    gru_coalesced,
+)
+from deeprest_tpu_torch.ops.quantile import pinball_loss
+
+__all__ = [
+    "GroupSpec",
+    "GRUParams",
+    "gru",
+    "gru_coalesced",
+    "bidirectional_gru",
+    "bidirectional_gru_coalesced",
+    "pinball_loss",
+]

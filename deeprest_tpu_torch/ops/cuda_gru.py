@@ -1,18 +1,44 @@
-"""The GRU recurrence: hand-written CUDA kernels, their plain versions, and
-the autograd Function that joins the training forward to the backward.
+"""The GRU recurrence: hand-written CUDA kernels, their plain versions, the
+Hopper block plan, and the autograd Function that joins the training
+forward to the backward.
 
 Counterpart of ``deeprest_tpu/ops/pallas_gru.py``:
 
 - K1, the inference forward (``_fwd_call`` with ``emit_prev=False``):
   :func:`gru_fwd_cuda`, kernel ``csrc/gru_fwd.cu`` entry ``gru_fwd``;
-- K2, the training forward (``emit_prev=True`` with the gate stash):
-  :func:`gru_fwd_train_cuda`, the same source's ``gru_fwd_train`` entry,
-  which also streams out ``h_prev`` and the hidden gates;
+- K2, the training forward (``emit_prev=True``): :func:`gru_fwd_train_cuda`,
+  the same source's ``gru_fwd_train`` entry, which also streams out
+  ``h_prev`` and, with :data:`STASH_GATES`, the hidden gates;
 - K3, the backward (``_bwd_call``): :func:`gru_bwd_cuda`, kernel
-  ``csrc/gru_bwd.cu`` (the reverse-time recurrence plus the dW/db product);
-- the custom VJP ``gru_recurrence`` → :class:`GRURecurrence`.
+  ``csrc/gru_bwd.cu`` (the reverse-time recurrence plus the dW/db product),
+  which recomputes the hidden gates when the forward stashed none;
+- K4, the blocked forward of the tuning sweep
+  (``benchmarks/kernel_tuning.py::make_fwd_call``):
+  :func:`gru_fwd_blocked_cuda`, kernel ``csrc/gru_fwd_blocked.cu``, with a
+  caller-chosen blocking (rows per CTA, experts per CTA, time steps of
+  proj staged per load) and an f32 output;
+- the custom VJP ``gru_recurrence`` → :class:`GRURecurrence`;
+- ``_choose_blocks`` / ``block_plan`` → :func:`block_plan`, the Hopper
+  plan: per kernel the rows, threads and shared-memory bytes of one CTA,
+  the CTA count, how many CTAs one SM holds and the waves over the H100's
+  132 SMs.  It needs no GPU and no built library (its byte formulas mirror
+  the sources' ``*_smem_bytes`` entries), and every wrapper refuses through
+  it before launching.
 
-Each source note gives the kernel's design and its bound.
+Knobs of the JAX package and their counterparts:
+
+- ``STASH_GATES`` → :data:`STASH_GATES`, read from
+  ``DEEPREST_GRU_STASH_GATES`` (default on) at every training forward.
+- ``LOOP_ORDER`` (expert-inner against time-inner scheduling inside one
+  grid program) has no counterpart: each CTA of K1-K3 runs one expert, so
+  there is no order of experts within a CTA to choose.  K4's ``e_blk``
+  axis is the only place a CTA steps several experts, time outer and
+  expert inner as the TPU kernel did.
+- ``E_BLK`` / ``T_BLK`` / the VMEM budget are TPU tiling and have no
+  counterpart in K1-K3 (one expert and 16 rows per CTA, the whole time loop
+  inside); K4 takes its blocking as arguments.
+
+Dispatch and plain versions:
 
 - :func:`gru_recurrence` dispatches on what the call needs and where the
   tensors lie.  With autograd recording and an input that requires grad it
@@ -20,17 +46,22 @@ Each source note gives the kernel's design and its bound.
   K1, which pays for none of K2's extra streams.  The CPU runs the plain
   versions, anything else the kernels, which launch or raise.  There is no
   fallback from a kernel to a plain version.
-- :func:`gru_recurrence_reference`, :func:`gru_fwd_train_reference` and
-  :func:`gru_bwd_reference` are the plain PyTorch versions with the
-  kernels' dtype contracts; the CPU tests use them and ``chip_smoke.py``
-  holds the kernels against them on the card.
-- ``GRU_FWD.launches``, ``GRU_FWD_TRAIN.launches`` and
-  ``GRU_BWD.launches`` count kernel launches, one per wrapper call.
+- :func:`gru_recurrence_reference`, :func:`gru_fwd_train_reference`,
+  :func:`gru_bwd_reference` and :func:`gru_fwd_blocked_reference` are the
+  plain PyTorch versions with the kernels' dtype contracts; the CPU tests
+  use them and ``chip_smoke.py`` holds the kernels against them on the
+  card.
+- ``GRU_FWD.launches``, ``GRU_FWD_TRAIN.launches``, ``GRU_BWD.launches``
+  and ``GRU_FWD_BLOCKED.launches`` count kernel launches, one per wrapper
+  call (``KERNELS``; ``MODEL_KERNELS`` are the three a model call can
+  launch, which the CLI reports).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+import os
 
 import torch
 
@@ -38,6 +69,12 @@ from deeprest_tpu_torch.ops.build import CudaKernel, CudaSource
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+
+# Stash the pre-activation hidden gates (h·W_hh + b_hh) in the training
+# forward so the backward skips its recompute product, for one more
+# [E, T, B, 3H] stream each way (pallas_gru.py's STASH_GATES).  Read at
+# every call, so a sweep may set the module global.
+STASH_GATES = os.environ.get("DEEPREST_GRU_STASH_GATES", "1") != "0"
 
 GRU_FWD_SOURCE = CudaSource("gru_fwd.cu", signatures={
     "gru_fwd": (_INT, [_PTR, _PTR, _PTR, _PTR, _PTR,
@@ -55,12 +92,19 @@ GRU_BWD_SOURCE = CudaSource("gru_bwd.cu", signatures={
     "gru_bwd_row_groups": (_INT, []),
     "gru_bwd_row_tile": (_INT, []),
 })
-SOURCES = (GRU_FWD_SOURCE, GRU_BWD_SOURCE)
+GRU_FWD_BLOCKED_SOURCE = CudaSource("gru_fwd_blocked.cu", signatures={
+    "gru_fwd_blocked": (_INT, [_PTR] * 5 + [_INT] * 9 + [_PTR]),
+    "gru_fwd_blocked_smem_bytes": (ctypes.c_size_t, [_INT] * 6),
+    "gru_fwd_blocked_max_threads": (_INT, []),
+})
+SOURCES = (GRU_FWD_SOURCE, GRU_BWD_SOURCE, GRU_FWD_BLOCKED_SOURCE)
 
 GRU_FWD = CudaKernel(GRU_FWD_SOURCE, "gru_fwd")
 GRU_FWD_TRAIN = CudaKernel(GRU_FWD_SOURCE, "gru_fwd_train")
 GRU_BWD = CudaKernel(GRU_BWD_SOURCE, "gru_bwd")
-KERNELS = (GRU_FWD, GRU_FWD_TRAIN, GRU_BWD)
+GRU_FWD_BLOCKED = CudaKernel(GRU_FWD_BLOCKED_SOURCE, "gru_fwd_blocked")
+MODEL_KERNELS = (GRU_FWD, GRU_FWD_TRAIN, GRU_BWD)   # what a model call runs
+KERNELS = MODEL_KERNELS + (GRU_FWD_BLOCKED,)
 
 
 def kernel_io_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -70,26 +114,218 @@ def kernel_io_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
+# the Hopper block plan
+# ---------------------------------------------------------------------------
+
+# The card (NVIDIA H100 SXM, compute capability 9.0).
+H100_SMS = 132
+SMEM_OPTIN_BYTES = 232_448      # one CTA, after the opt-in attribute
+SMEM_PER_SM_BYTES = 233_472     # what the CTAs resident on one SM share
+SMEM_RESERVED_PER_CTA = 1_024   # the runtime's own share of each CTA
+THREADS_PER_SM = 2_048
+CTAS_PER_SM = 32
+REGISTERS_PER_SM = 65_536
+# Every kernel is compiled with __launch_bounds__(512), which caps a thread
+# at 128 registers; ptxas gives all of them 120-128 on sm_90a.
+REGISTERS_PER_THREAD = 128
+# Mirrors of the sources' constants: csrc/gru_fwd.cu and csrc/gru_bwd.cu
+# give each thread one hidden unit of 8 rows and each CTA 2 such row
+# groups (16 rows); csrc/gru_fwd_blocked.cu takes rows / 8 row groups.
+ROWS_PER_THREAD = 8
+ROW_GROUPS = 2
+ROW_TILE = ROW_GROUPS * ROWS_PER_THREAD
+MAX_THREADS = 512
+BLOCKED_E_BLKS = (1, 2, 4)      # the e_blk instantiations of K4
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def fwd_smem_bytes(h: int, bf16: bool) -> int:
+    """``gru_fwd_smem_bytes`` (K1 and K2): W_hh in the io dtype, padded to
+    16 bytes, and the double-buffered f32 carry tile of 16 rows."""
+    return _round16(h * 3 * h * (2 if bf16 else 4)) + 2 * ROW_TILE * h * 4
+
+
+def bwd_smem_bytes(h: int, bf16: bool, stash: bool) -> int:
+    """``gru_bwd_smem_bytes`` (K3's recurrence kernel): W_hh with each row
+    padded by 16 bytes, the f32 dgates tile and, without the stash, the f32
+    h_prev tile."""
+    elt = 2 if bf16 else 4
+    return (h * (3 * h * elt + 16) + ROW_TILE * 3 * h * 4
+            + (0 if stash else ROW_TILE * h * 4))
+
+
+def fwd_blocked_smem_bytes(h: int, rows: int, e_blk: int, t_blk: int,
+                           io_bf16: bool, w_bf16: bool) -> int:
+    """``gru_fwd_blocked_smem_bytes`` (K4): per expert of the block, W_hh
+    (bf16 when the inputs are bf16 or the dot is), the double-buffered f32
+    carry of ``rows`` rows, and ``t_blk`` steps of proj for those rows in
+    the io dtype."""
+    w = _round16(h * 3 * h * (2 if w_bf16 else 4))
+    return e_blk * (w + 2 * rows * h * 4
+                    + t_blk * rows * 3 * h * (2 if io_bf16 else 4))
+
+
+def default_blocked_rows(b: int, h: int) -> int:
+    """K4's default batch tile: all B rows (rounded up to a row group),
+    capped at :data:`MAX_THREADS` threads of one hidden unit each."""
+    cap = max(ROWS_PER_THREAD, ROWS_PER_THREAD * (MAX_THREADS // max(h, 1)))
+    return min(-(-b // ROWS_PER_THREAD) * ROWS_PER_THREAD, cap)
+
+
+def _check_blocking(e: int, t: int, e_blk: int, t_blk: int) -> None:
+    """K4's contract: ``e_blk`` divides E (the JAX sweep takes the whole E
+    otherwise, which no SM holds) and ``t_blk`` divides T (the JAX kernel
+    asserts it)."""
+    if e_blk < 1 or e % e_blk:
+        raise ValueError(f"e_blk={e_blk} must divide E={e}")
+    if t_blk < 1 or t % t_blk:
+        raise ValueError(f"T % t_blk must be 0; got T={t}, t_blk={t_blk}")
+
+
+def _plan_entry(rows: int, threads: int, smem: int, ctas: int,
+                refusal: str | None) -> dict:
+    if refusal is None and smem > SMEM_OPTIN_BYTES:
+        refusal = (f"needs {smem} bytes of shared memory per CTA, above the "
+                   f"{SMEM_OPTIN_BYTES} one CTA may opt into")
+    resident = 0
+    if refusal is None:
+        resident = min(SMEM_PER_SM_BYTES // (smem + SMEM_RESERVED_PER_CTA),
+                       THREADS_PER_SM // threads,
+                       REGISTERS_PER_SM // (threads * REGISTERS_PER_THREAD),
+                       CTAS_PER_SM)
+    return {"rows_per_cta": rows, "threads_per_cta": threads,
+            "smem_bytes": smem, "ctas": ctas, "ctas_per_sm": resident,
+            "waves": math.ceil(ctas / (resident * H100_SMS)) if resident
+            else None, "smem_limit": SMEM_OPTIN_BYTES,
+            "fits": refusal is None, "refusal": refusal}
+
+
+def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
+               training: bool = True, rows: int | None = None,
+               e_blk: int = 1, t_blk: int = 1, *, blocked: bool = False,
+               bf16_dot: bool | None = None,
+               stash: bool | None = None) -> dict:
+    """The Hopper block plan of one recurrence call at ``proj [E, T, B,
+    3H]`` in ``dtype`` (the kernel io dtype, bf16 or f32).
+
+    The kernels the call launches: ``fwd`` (K1) for inference,
+    ``fwd_train`` (K2) plus ``bwd`` (K3's recurrence kernel; its dW
+    product uses 17 KiB of static shared memory and never binds) for
+    training, or with ``blocked`` K4 alone (``fwd_blocked``, inference
+    only) at the blocking ``rows`` (default :func:`default_blocked_rows`),
+    ``e_blk``, ``t_blk`` and ``bf16_dot`` (default: the io dtype's).  K1-K3
+    have a fixed blocking of 16 rows and one expert per CTA; ``stash``
+    (default :data:`STASH_GATES`) sizes K3.
+
+    Returns ``{"kernels": {name: entry}, "binding": name, **entry of the
+    binding kernel}``: the first kernel that does not fit, else the one
+    with the most shared memory per CTA.  Each entry holds
+    ``rows_per_cta``, ``threads_per_cta``, ``smem_bytes``, ``ctas``,
+    ``ctas_per_sm`` (the least of what shared memory, threads and
+    :data:`REGISTERS_PER_THREAD` registers a thread allow), ``waves`` over
+    :data:`H100_SMS` (each CTA counted as one slot's worth of work),
+    ``smem_limit``, ``fits``
+    and ``refusal`` (None, or why the kernel would not launch).  Unlike
+    the TPU's VMEM plan, a CTA's bytes do not grow with the row count:
+    coalescing G windows only multiplies the CTAs.  Raises ValueError on
+    a blocking K4's contract forbids (see :func:`_check_blocking`).
+    """
+    io_bf16 = dtype == torch.bfloat16
+    g3 = 3 * h
+    kernels = {}
+    if blocked:
+        if training:
+            raise ValueError("K4 is an inference forward; plan it with "
+                             "training=False")
+        _check_blocking(e, t, e_blk, t_blk)
+        dot16 = io_bf16 if bf16_dot is None else bool(bf16_dot)
+        rows = default_blocked_rows(b, h) if rows is None else rows
+        threads = (rows // ROWS_PER_THREAD) * h
+        refusal = None
+        if e_blk not in BLOCKED_E_BLKS:
+            refusal = f"K4 is built for e_blk in {BLOCKED_E_BLKS}, not {e_blk}"
+        elif rows < ROWS_PER_THREAD or rows % ROWS_PER_THREAD:
+            refusal = f"rows must be a positive multiple of 8, got {rows}"
+        elif h % 4 or threads > MAX_THREADS:
+            refusal = (f"takes hidden sizes H % 4 == 0 with rows/8*H <= "
+                       f"{MAX_THREADS} threads; got H={h}, rows={rows}")
+        smem = fwd_blocked_smem_bytes(h, rows, e_blk, t_blk, io_bf16,
+                                      io_bf16 or dot16)
+        kernels["fwd_blocked"] = _plan_entry(
+            rows, threads, smem, -(-b // max(rows, 1)) * (e // e_blk),
+            refusal)
+    else:
+        if rows is not None or e_blk != 1 or t_blk != 1:
+            raise ValueError("K1-K3 run 16 rows and one expert per CTA over "
+                             "the whole time loop; rows, e_blk and t_blk "
+                             "plan K4 (blocked=True)")
+        threads = ROW_GROUPS * h
+        ctas = -(-b // ROW_TILE) * e
+        refusal = None
+        if h % 4 or threads > MAX_THREADS:
+            refusal = (f"takes hidden sizes H % 4 == 0 with {ROW_GROUPS}*H "
+                       f"<= {MAX_THREADS} threads; got H={h}")
+        kernels["fwd_train" if training else "fwd"] = _plan_entry(
+            ROW_TILE, threads, fwd_smem_bytes(h, io_bf16), ctas, refusal)
+        if training:
+            stash = STASH_GATES if stash is None else bool(stash)
+            refusal = None
+            if h % 8 or threads > MAX_THREADS:
+                refusal = (f"takes hidden sizes H % 8 == 0 with "
+                           f"{ROW_GROUPS}*H <= {MAX_THREADS} threads; got "
+                           f"H={h}")
+            kernels["bwd"] = _plan_entry(
+                ROW_TILE, threads, bwd_smem_bytes(h, io_bf16, stash), ctas,
+                refusal)
+    refused = [k for k, v in kernels.items() if not v["fits"]]
+    binding = refused[0] if refused else max(
+        kernels, key=lambda k: kernels[k]["smem_bytes"])
+    plan = {"kernels": kernels, "binding": binding, **kernels[binding]}
+    plan["io_dtype"] = "bfloat16" if io_bf16 else "float32"
+    plan["shape"] = {"E": e, "T": t, "B": b, "H": h, "G3": g3}
+    return plan
+
+
+def _refuse(name: str, entry: dict, proj: torch.Tensor) -> None:
+    if not entry["fits"]:
+        raise ValueError(f"{name}: {entry['refusal']}; proj shape "
+                         f"{tuple(proj.shape)} {proj.dtype}")
+
+
+# ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
 
-def _forward_loop(proj, w_hh, b_hh, h0, reverse, emit_prev):
+def _forward_loop(proj, w_hh, b_hh, h0, reverse, emit_prev, stash=True,
+                  bf16_dot=None, out_dtype=None):
+    """The forward recurrence step by step.  The dot reads h and W_hh
+    rounded to bf16 when ``bf16_dot`` (default: proj is bf16), their exact
+    products summed in f32; h is stored in ``out_dtype`` (default proj's),
+    ``h_prev`` and ``gates`` in proj's dtype."""
     e, t, b, g3 = proj.shape
     h = g3 // 3
-    bf16 = proj.dtype == torch.bfloat16
-    w = w_hh.to(proj.dtype).float()
+    bf16 = proj.dtype == torch.bfloat16 if bf16_dot is None else bf16_dot
+    w = w_hh.float()
+    if bf16:
+        w = w.to(torch.bfloat16).float()
     bias = b_hh.float()[:, None, :]
     carry = h0.float()
-    out = torch.empty((e, t, b, h), dtype=proj.dtype, device=proj.device)
-    h_prev = torch.empty_like(out) if emit_prev else None
-    gates = torch.empty_like(proj) if emit_prev else None
+    out = torch.empty((e, t, b, h), dtype=out_dtype or proj.dtype,
+                      device=proj.device)
+    h_prev = torch.empty((e, t, b, h), dtype=proj.dtype,
+                         device=proj.device) if emit_prev else None
+    gates = torch.empty_like(proj) if emit_prev and stash else None
     for s in range(t):
         tt = t - 1 - s if reverse else s
         h_dot = carry.to(torch.bfloat16).float() if bf16 else carry
         g = torch.bmm(h_dot, w) + bias
         if emit_prev:
             h_prev[:, tt] = carry.to(proj.dtype)
+        if gates is not None:
             gates[:, tt] = g.to(proj.dtype)
         g_r, g_z, g_n = g.split(h, dim=-1)
         x_r, x_z, x_n = proj[:, tt].float().split(h, dim=-1)
@@ -97,7 +333,7 @@ def _forward_loop(proj, w_hh, b_hh, h0, reverse, emit_prev):
         z = torch.sigmoid(x_z + g_z)
         n = torch.tanh(x_n + r * g_n)
         carry = (1.0 - z) * n + z * carry
-        out[:, tt] = carry.to(proj.dtype)
+        out[:, tt] = carry.to(out.dtype)
     return out, h_prev, gates
 
 
@@ -120,10 +356,12 @@ def gru_fwd_train_reference(proj: torch.Tensor, w_hh: torch.Tensor,
                             b_hh: torch.Tensor, h0: torch.Tensor,
                             reverse: bool = False):
     """K2's plain version: :func:`gru_recurrence_reference` plus, per step,
-    the carry before the step (``h_prev [E, T, B, H]``) and the
-    pre-activation hidden gates ``h·W_hh + b_hh`` (``gates [E, T, B,
-    3H]``), both in proj's dtype.  Returns ``(h_all, h_prev, gates)``."""
-    return _forward_loop(proj, w_hh, b_hh, h0, reverse, emit_prev=True)
+    the carry before the step (``h_prev [E, T, B, H]``) and, with
+    :data:`STASH_GATES`, the pre-activation hidden gates ``h·W_hh + b_hh``
+    (``gates [E, T, B, 3H]``), both in proj's dtype.  Returns ``(h_all,
+    h_prev, gates)``, gates None without the stash."""
+    return _forward_loop(proj, w_hh, b_hh, h0, reverse, emit_prev=True,
+                         stash=STASH_GATES)
 
 
 def gru_bwd_reference(proj: torch.Tensor, h_prev: torch.Tensor,
@@ -177,6 +415,25 @@ def gru_bwd_reference(proj: torch.Tensor, h_prev: torch.Tensor,
     return dproj, dw, db, dh
 
 
+def gru_fwd_blocked_reference(proj: torch.Tensor, w_hh: torch.Tensor,
+                              b_hh: torch.Tensor, h0: torch.Tensor,
+                              e_blk: int = 1, t_blk: int = 1,
+                              bf16_dot: bool = False) -> torch.Tensor:
+    """K4's plain version: ``make_fwd_call(e_blk, t_blk, bf16_dot)``.
+
+    K1's forward recurrence (no ``reverse``) with an f32 output whatever
+    proj's dtype; the dot reads h and W_hh rounded to bf16 iff
+    ``bf16_dot`` (so bf16 inputs without it run an f32 dot of bf16
+    weights), b_hh and the carry in f32.  The blocking does not change the
+    arithmetic; it is checked as K4 checks it (ValueError unless ``e_blk``
+    divides E and ``t_blk`` divides T).
+    """
+    e, t, _, _ = _dims(proj)
+    _check_blocking(e, t, e_blk, t_blk)
+    return _forward_loop(proj, w_hh, b_hh, h0, False, emit_prev=False,
+                         bf16_dot=bool(bf16_dot), out_dtype=torch.float32)[0]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -217,30 +474,12 @@ def _check(name: str, proj: torch.Tensor, expect: dict) -> None:
                              f"strides {tensor.stride()}")
 
 
-def _check_smem(name: str, smem: int, proj: torch.Tensor, what: str) -> None:
-    limit = torch.cuda.get_device_properties(
-        proj.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"{name}: {what} needs {smem} bytes of shared memory per CTA, "
-            f"above the device's {limit}; proj shape {tuple(proj.shape)}")
-
-
-def _check_fwd(name, proj, w_hh, b_hh, h0) -> None:
-    e, _, b, h = _dims(proj)
+def _check_fwd(name, proj, w_hh, b_hh, h0) -> tuple[int, int, int, int]:
+    e, t, b, h = _dims(proj)
     _check(name, proj, {"w_hh": (w_hh, (e, h, 3 * h), proj.dtype),
                         "b_hh": (b_hh, (e, 3 * h), torch.float32),
                         "h0": (h0, (e, b, h), torch.float32)})
-    lib = GRU_FWD_SOURCE.library()
-    threads = lib.gru_fwd_row_groups() * h
-    if h % 4 or threads > lib.gru_fwd_max_threads():
-        raise ValueError(
-            f"{name} takes hidden sizes H % 4 == 0 with "
-            f"{lib.gru_fwd_row_groups()}*H <= {lib.gru_fwd_max_threads()} "
-            f"threads; got H={h}")
-    smem = lib.gru_fwd_smem_bytes(h, int(proj.dtype == torch.bfloat16))
-    _check_smem(name, smem, proj,
-                f"W_hh [{h}, {3 * h}] {proj.dtype} plus the carry tile")
+    return e, t, b, h
 
 
 def _launch(kernel: CudaKernel, fn: str, proj: torch.Tensor, *args) -> None:
@@ -265,15 +504,17 @@ def gru_fwd_cuda(proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     Same contract as :func:`gru_recurrence_reference`, with the dtypes
     already resolved by the caller: ``w_hh`` in proj's dtype, ``b_hh`` and
     ``h0`` in f32, all contiguous on one CUDA device.  Raises on anything
-    the kernel does not take, including a hidden size whose ``W_hh`` and
-    carry tile do not fit in one CTA's shared memory.
+    the kernel does not take, including what :func:`block_plan` refuses (a
+    hidden size whose ``W_hh`` and carry tile do not fit in one CTA's
+    shared memory).
     """
-    _check_fwd("gru_fwd_cuda", proj, w_hh, b_hh, h0)
-    e, t, b, g3 = proj.shape
-    out = torch.empty((e, t, b, g3 // 3), dtype=proj.dtype,
-                      device=proj.device)
+    e, t, b, h = _check_fwd("gru_fwd_cuda", proj, w_hh, b_hh, h0)
+    _refuse("gru_fwd_cuda", block_plan(e, t, b, h, proj.dtype,
+                                       training=False)["kernels"]["fwd"],
+            proj)
+    out = torch.empty((e, t, b, h), dtype=proj.dtype, device=proj.device)
     _launch(GRU_FWD, "gru_fwd", proj, proj.data_ptr(), w_hh.data_ptr(),
-            b_hh.data_ptr(), h0.data_ptr(), out.data_ptr(), e, t, b, g3 // 3,
+            b_hh.data_ptr(), h0.data_ptr(), out.data_ptr(), e, t, b, h,
             int(proj.dtype == torch.bfloat16), int(bool(reverse)))
     return out
 
@@ -283,17 +524,19 @@ def gru_fwd_train_cuda(proj: torch.Tensor, w_hh: torch.Tensor,
                        reverse: bool = False):
     """K2: launch ``csrc/gru_fwd.cu`` (entry ``gru_fwd_train``).  Contract
     of :func:`gru_fwd_train_reference` with the inputs of
-    :func:`gru_fwd_cuda`; returns ``(h_all, h_prev, gates)``."""
-    _check_fwd("gru_fwd_train_cuda", proj, w_hh, b_hh, h0)
-    e, t, b, g3 = proj.shape
-    out = torch.empty((e, t, b, g3 // 3), dtype=proj.dtype,
-                      device=proj.device)
+    :func:`gru_fwd_cuda`; returns ``(h_all, h_prev, gates)``.  Without
+    :data:`STASH_GATES` the kernel gets a null gates pointer, writes no
+    gates, and gates is None."""
+    e, t, b, h = _check_fwd("gru_fwd_train_cuda", proj, w_hh, b_hh, h0)
+    _refuse("gru_fwd_train_cuda", block_plan(
+        e, t, b, h, proj.dtype, training=True)["kernels"]["fwd_train"], proj)
+    out = torch.empty((e, t, b, h), dtype=proj.dtype, device=proj.device)
     h_prev = torch.empty_like(out)
-    gates = torch.empty_like(proj)
+    gates = torch.empty_like(proj) if STASH_GATES else None
     _launch(GRU_FWD_TRAIN, "gru_fwd_train", proj, proj.data_ptr(),
             w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), out.data_ptr(),
-            h_prev.data_ptr(), gates.data_ptr(), e, t, b, g3 // 3,
-            int(proj.dtype == torch.bfloat16), int(bool(reverse)))
+            h_prev.data_ptr(), None if gates is None else gates.data_ptr(),
+            e, t, b, h, int(proj.dtype == torch.bfloat16), int(bool(reverse)))
     return out, h_prev, gates
 
 
@@ -304,11 +547,12 @@ def gru_bwd_cuda(proj: torch.Tensor, h_prev: torch.Tensor,
     """K3: launch ``csrc/gru_bwd.cu`` (the backward recurrence, then the
     dW/db product) on the current stream of proj's device.
 
-    Contract of :func:`gru_bwd_reference`: ``h_prev``, ``gates`` (or None),
-    ``w_hh`` and ``dout`` in proj's dtype, ``b_hh`` in f32, all contiguous
-    on one CUDA device.  Allocates the dgates and db-partial workspaces.
-    Raises on anything the kernels do not take, including ``W_hh`` plus the
-    tiles above one CTA's shared memory.
+    Contract of :func:`gru_bwd_reference`: ``h_prev``, ``gates`` (or None,
+    and then the kernel recomputes them), ``w_hh`` and ``dout`` in proj's
+    dtype, ``b_hh`` in f32, all contiguous on one CUDA device.  Allocates
+    the dgates and db-partial workspaces.  Raises on anything the kernels
+    do not take, including what :func:`block_plan` refuses (``W_hh`` plus
+    the tiles above one CTA's shared memory).
     """
     e, t, b, h = _dims(proj)
     g3, io = 3 * h, proj.dtype
@@ -319,19 +563,11 @@ def gru_bwd_cuda(proj: torch.Tensor, h_prev: torch.Tensor,
     if gates is not None:
         expect["gates"] = (gates, (e, t, b, g3), io)
     _check("gru_bwd_cuda", proj, expect)
-    lib = GRU_BWD_SOURCE.library()
-    if h % 8 or lib.gru_bwd_row_groups() * h > lib.gru_bwd_max_threads():
-        raise ValueError(
-            f"gru_bwd_cuda takes hidden sizes H % 8 == 0 with "
-            f"{lib.gru_bwd_row_groups()}*H <= {lib.gru_bwd_max_threads()} "
-            f"threads; got H={h}")
-    bf16 = int(io == torch.bfloat16)
-    stash = int(gates is not None)
-    _check_smem("gru_bwd_cuda", lib.gru_bwd_smem_bytes(h, bf16, stash), proj,
-                f"W_hh [{h}, {g3}] {io} plus the dgates"
-                + ("" if stash else " and h_prev") + " tiles")
+    _refuse("gru_bwd_cuda", block_plan(
+        e, t, b, h, io, training=True, stash=gates is not None)["kernels"][
+            "bwd"], proj)
     dev = proj.device
-    n_tiles = -(-b // lib.gru_bwd_row_tile())
+    n_tiles = -(-b // ROW_TILE)
     dproj = torch.empty_like(proj)
     dw = torch.empty((e, h, g3), dtype=torch.float32, device=dev)
     db = torch.empty((e, g3), dtype=torch.float32, device=dev)
@@ -342,9 +578,38 @@ def gru_bwd_cuda(proj: torch.Tensor, h_prev: torch.Tensor,
             gates.data_ptr() if gates is not None else None,
             w_hh.data_ptr(), b_hh.data_ptr(), dout.data_ptr(),
             dproj.data_ptr(), dw.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-            dgates.data_ptr(), db_part.data_ptr(), e, t, b, h, bf16,
-            int(bool(reverse)))
+            dgates.data_ptr(), db_part.data_ptr(), e, t, b, h,
+            int(io == torch.bfloat16), int(bool(reverse)))
     return dproj, dw, db, dh0
+
+
+def gru_fwd_blocked_cuda(proj: torch.Tensor, w_hh: torch.Tensor,
+                         b_hh: torch.Tensor, h0: torch.Tensor,
+                         e_blk: int = 1, t_blk: int = 1,
+                         bf16_dot: bool = False,
+                         rows: int | None = None) -> torch.Tensor:
+    """K4: launch ``csrc/gru_fwd_blocked.cu`` on the current stream of
+    proj's device, at the blocking ``rows`` (batch rows per CTA, default
+    :func:`default_blocked_rows`), ``e_blk`` (experts per CTA, stepped
+    time outer and expert inner) and ``t_blk`` (steps of proj staged in
+    shared memory per load).
+
+    Contract of :func:`gru_fwd_blocked_reference` with the inputs of
+    :func:`gru_fwd_cuda`; returns ``h_all [E, T, B, H]`` in f32.  Raises
+    ValueError on a blocking K4's contract forbids and on what
+    :func:`block_plan` refuses, before any launch.
+    """
+    e, t, b, h = _check_fwd("gru_fwd_blocked_cuda", proj, w_hh, b_hh, h0)
+    entry = block_plan(e, t, b, h, proj.dtype, training=False, rows=rows,
+                       e_blk=e_blk, t_blk=t_blk, blocked=True,
+                       bf16_dot=bf16_dot)["kernels"]["fwd_blocked"]
+    _refuse("gru_fwd_blocked_cuda", entry, proj)
+    out = torch.empty((e, t, b, h), dtype=torch.float32, device=proj.device)
+    _launch(GRU_FWD_BLOCKED, "gru_fwd_blocked", proj, proj.data_ptr(),
+            w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), out.data_ptr(),
+            e, t, b, h, entry["rows_per_cta"], e_blk, t_blk,
+            int(proj.dtype == torch.bfloat16), int(bool(bf16_dot)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -356,10 +621,11 @@ class GRURecurrence(torch.autograd.Function):
     """``pallas_gru.py::gru_recurrence`` as an autograd Function.
 
     Forward runs K2 (its plain version for a CPU tensor) and saves the JAX
-    residual set ``(proj, w_hh, b_hh, h0, h_prev, gates)``; ``h_all`` is
-    not a residual.  Backward casts ``dout`` to proj's dtype, runs K3 (or
-    its plain version) with the stashed gates, and returns each gradient in
-    its input's dtype, as ``_vjp_bwd`` does.
+    residual set ``(proj, w_hh, b_hh, h0, h_prev, gates)``, gates None
+    without :data:`STASH_GATES`; ``h_all`` is not a residual.  Backward
+    casts ``dout`` to proj's dtype, runs K3 (or its plain version) with
+    the stashed gates or their recompute, and returns each gradient in its
+    input's dtype, as ``_vjp_bwd`` does.
     """
 
     @staticmethod

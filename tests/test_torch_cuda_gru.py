@@ -142,7 +142,7 @@ def test_function_grads_match_autograd_through_plain(cuda, shape, reverse,
     counts = [k.launches for k in cuda_gru.KERNELS]
     out, got = grads(cuda_gru.gru_recurrence)
     assert [k.launches for k in cuda_gru.KERNELS] == [
-        counts[0], counts[1] + 1, counts[2] + 1]
+        counts[0], counts[1] + 1, counts[2] + 1, counts[3]]
     ref_out, want = grads(cuda_gru.gru_recurrence_reference)
     torch.testing.assert_close(out.float(), ref_out.float(), **TOL[dtype])
     for name, g, w in zip(("dproj", "dW_hh", "db_hh", "dh0"), got, want):
@@ -179,4 +179,158 @@ def test_dispatch_launches_kernel_on_cuda(cuda):
         w = args[1].clone().requires_grad_(True)
         cuda_gru.gru_recurrence(args[0], w, *args[2:])
     assert [k.launches for k in cuda_gru.KERNELS] == [
-        before[0] + 2, before[1], before[2]]
+        before[0] + 2, before[1], before[2], before[3]]
+
+
+# ---------------------------------------------------------------------------
+# K4, the block plan, the gate stash and the fused bidirectional launch
+# ---------------------------------------------------------------------------
+
+# the fused flagship stacking (both directions, E=80) and a ragged shape
+BLOCKED_SHAPES = [(80, 60, 32, 128), (4, 12, 37, 128)]
+BLOCKED_MENU = [(rows, e_blk, t_blk) for rows in (None, 32, 16, 8)
+                for e_blk in (1, 2, 4) for t_blk in (1, 2, 6, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_dot", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BLOCKED_SHAPES)
+def test_blocked_matches_plain_at_every_admitted_blocking(cuda, shape, dtype,
+                                                          bf16_dot):
+    e, t, b, h = shape
+    args = _inputs(*shape, dtype, cuda, seed=6)
+    want = cuda_gru.gru_fwd_blocked_reference(*args, bf16_dot=bf16_dot)
+    assert want.dtype == torch.float32
+    tol = TOL[torch.bfloat16 if bf16_dot else torch.float32]
+    admitted = 0
+    for rows, e_blk, t_blk in BLOCKED_MENU:
+        if e % e_blk or t % t_blk:
+            continue
+        plan = cuda_gru.block_plan(e, t, b, h, dtype, training=False,
+                                   rows=rows, e_blk=e_blk, t_blk=t_blk,
+                                   blocked=True, bf16_dot=bf16_dot)
+        if not plan["fits"]:
+            continue
+        admitted += 1
+        before = cuda_gru.GRU_FWD_BLOCKED.launches
+        got = cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=e_blk, t_blk=t_blk,
+                                            bf16_dot=bf16_dot, rows=rows)
+        torch.cuda.synchronize()
+        assert cuda_gru.GRU_FWD_BLOCKED.launches == before + 1
+        torch.testing.assert_close(
+            got, want, **tol,
+            msg=lambda m, k=(rows, e_blk, t_blk): f"blocking {k}: {m}")
+    assert admitted > 0
+
+
+@pytest.mark.cuda
+def test_plan_bytes_equal_the_sources(cuda):
+    fwd = cuda_gru.GRU_FWD_SOURCE.library()
+    bwd = cuda_gru.GRU_BWD_SOURCE.library()
+    blk = cuda_gru.GRU_FWD_BLOCKED_SOURCE.library()
+    assert fwd.gru_fwd_row_groups() == cuda_gru.ROW_GROUPS
+    assert bwd.gru_bwd_row_tile() == cuda_gru.ROW_TILE
+    assert fwd.gru_fwd_max_threads() == bwd.gru_bwd_max_threads() \
+        == blk.gru_fwd_blocked_max_threads() == cuda_gru.MAX_THREADS
+    for h in (12, 64, 128, 256):
+        for bf16 in (0, 1):
+            assert fwd.gru_fwd_smem_bytes(h, bf16) == \
+                cuda_gru.fwd_smem_bytes(h, bool(bf16))
+            for stash in (0, 1):
+                assert bwd.gru_bwd_smem_bytes(h, bf16, stash) == \
+                    cuda_gru.bwd_smem_bytes(h, bool(bf16), bool(stash))
+            for rows, e_blk, t_blk in BLOCKED_MENU:
+                rows = rows or 32
+                for w_bf16 in (bf16, 1):
+                    assert blk.gru_fwd_blocked_smem_bytes(
+                        h, rows, e_blk, t_blk, bf16, w_bf16) == \
+                        cuda_gru.fwd_blocked_smem_bytes(
+                            h, rows, e_blk, t_blk, bool(bf16), bool(w_bf16))
+
+
+@pytest.mark.cuda
+def test_every_wrapper_refuses_what_the_plan_refuses_without_launching(cuda):
+    before = [k.launches for k in cuda_gru.KERNELS]
+    # H=256 f32: W_hh alone is 768 KiB
+    proj, w_hh, b_hh, h0 = _inputs(2, 6, 8, 256, torch.float32, cuda)
+    h_prev = torch.zeros((2, 6, 8, 256), device=cuda)
+    for call in (lambda: cuda_gru.gru_fwd_cuda(proj, w_hh, b_hh, h0),
+                 lambda: cuda_gru.gru_fwd_train_cuda(proj, w_hh, b_hh, h0),
+                 lambda: cuda_gru.gru_bwd_cuda(proj, h_prev, None, w_hh,
+                                               b_hh, h_prev),
+                 lambda: cuda_gru.gru_fwd_blocked_cuda(proj, w_hh, b_hh, h0,
+                                                       rows=8)):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            call()
+    # e_blk=2 f32 at H=128: two 192 KiB W_hh tiles
+    args = _inputs(2, 6, 8, 128, torch.float32, cuda)
+    assert not cuda_gru.block_plan(2, 6, 8, 128, torch.float32,
+                                   training=False, rows=8, e_blk=2,
+                                   blocked=True)["fits"]
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=2, rows=8)
+    with pytest.raises(ValueError, match="rows must be"):
+        cuda_gru.gru_fwd_blocked_cuda(*args, rows=12)
+    with pytest.raises(ValueError, match="T % t_blk"):
+        cuda_gru.gru_fwd_blocked_cuda(*args, t_blk=4)
+    with pytest.raises(ValueError, match="must divide E"):
+        cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=4)
+    assert [k.launches for k in cuda_gru.KERNELS] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stash_off_writes_no_gates_and_backward_recomputes(cuda, dtype,
+                                                          monkeypatch):
+    proj, w_hh, b_hh, h0 = _inputs(40, 60, 32, 128, dtype, cuda, seed=7)
+    h_all, h_prev, gates = cuda_gru.gru_fwd_train_cuda(proj, w_hh, b_hh, h0)
+    assert gates is not None
+    monkeypatch.setattr(cuda_gru, "STASH_GATES", False)
+    h_off, prev_off, gates_off = cuda_gru.gru_fwd_train_cuda(proj, w_hh,
+                                                             b_hh, h0)
+    assert gates_off is None
+    assert torch.equal(h_all, h_off) and torch.equal(h_prev, prev_off)
+    dout = torch.randn(h_all.shape, generator=torch.Generator(
+        cuda).manual_seed(8), device=cuda).to(dtype)
+    on = cuda_gru.gru_bwd_cuda(proj, h_prev, gates, w_hh, b_hh, dout)
+    off = cuda_gru.gru_bwd_cuda(proj, h_prev, None, w_hh, b_hh, dout)
+    for name, g, w in zip(("dproj", "dW_hh", "db_hh", "dh0"), off, on):
+        _close_to_scale(g, w, GRAD_TOL[dtype], name)
+    # the Function saves no gates and its backward takes the recompute
+    leaves = [x.clone().requires_grad_(True) for x in (proj, w_hh, b_hh, h0)]
+    out = cuda_gru.gru_recurrence(*leaves)
+    assert out.grad_fn.saved_tensors[-1] is None
+    (out.float() * dout.float()).sum().backward()
+    for name, leaf, w in zip(("dproj", "dW_hh", "db_hh", "dh0"), leaves, on):
+        _close_to_scale(leaf.grad, w, GRAD_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+def test_fused_bidirectional_forward_makes_one_launch(cuda, monkeypatch):
+    import importlib
+
+    from deeprest_tpu_torch.ops.gru import GRUParams
+
+    gru_mod = importlib.import_module("deeprest_tpu_torch.ops.gru")
+    rng = np.random.default_rng(9)
+    k = 1.0 / np.sqrt(128)
+
+    def params():
+        return GRUParams(*[
+            torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32)).to(
+                cuda, torch.bfloat16)
+            for s in ((40, 64, 384), (40, 128, 384), (40, 384), (40, 384))])
+
+    fwd, bwd = params(), params()
+    x = torch.from_numpy(rng.standard_normal((32, 60, 64), np.float32)).to(
+        cuda, torch.bfloat16)
+    outs = {}
+    for fused, launches in ((False, 2), (True, 1)):
+        monkeypatch.setattr(gru_mod, "BIDIR_FUSED", fused)
+        before = cuda_gru.GRU_FWD.launches
+        with torch.no_grad():
+            outs[fused] = gru_mod.bidirectional_gru(fwd, bwd, x)
+        assert cuda_gru.GRU_FWD.launches == before + launches
+    torch.testing.assert_close(outs[True].float(), outs[False].float(),
+                               **TOL[torch.bfloat16])

@@ -181,7 +181,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 24 else 0)\n")
+        "sys.exit(1 if bad or len(names) < 26 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
