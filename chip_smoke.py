@@ -8,17 +8,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 1. the card: name and power limit from nvidia-smi, torch and CUDA versions;
    TF32 off for matmuls and cuDNN;
 2. build: the three CUDA sources (gru_fwd.cu with the inference and
-   training forwards K1 and K2, gru_bwd.cu with the backward K3,
-   gru_fwd_blocked.cu with the blocked forward K4 of the tuning sweep),
-   one nvcc per source, all started together, into build/kernels/;
+   training forwards K1 and K2, gru_bwd.cu with the backward K3, both
+   including the tensor-core header gru_mma.cuh, gru_fwd_blocked.cu with
+   the blocked forward K4 of the tuning sweep), one nvcc per source, all
+   started together, into build/kernels/; ptxas's registers and spills of
+   every kernel; the block plan's shared-memory mirrors held against the
+   sources' *_smem_bytes;
 3. each kernel against its plain PyTorch version on the card, with the JAX
    package's kernel tolerances (forward: f32 1e-5, bf16 2e-2; gradients
    relative to each tensor's largest magnitude: f32 2e-4, bf16 2e-2): K1 at
    the flagship serving shape (E=40 experts, T=60, B=256 rows, H=128); K2,
    K3 (gate stash on and off) and the autograd Function (against torch
    autograd through the plain recurrence) at the flagship training shape
-   (B=32); all at a ragged shape (E=3, T=7, B=37) too, in bf16 and f32,
-   forward and reverse;
+   (B=32); all at ragged shapes (E=3, T=7, B=37 at H=128 and H=96;
+   E=2, T=5, B=21 at H=64: bf16 runs H/16 warps on the tensor cores) too,
+   in bf16 and f32, forward and reverse;
 4. times: K1 at the serving shape, K2 and K3 at the training shape, each
    beside its plain version, the least time the card could take (bound),
    and cuDNN's GRU as a yardstick (torch.nn.GRU with W_ih = identity on the
@@ -79,6 +83,10 @@ GRAD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # of each tensor's max |value|
 FLAGSHIP = dict(E=40, T=60, B=256, H=128)        # serving: 4 pages of 64
 TRAIN = dict(E=40, T=60, B=32, H=128)            # training: bench.py:37
 RAGGED = dict(E=3, T=7, B=37, H=128)
+RAGGED_96 = dict(E=3, T=7, B=37, H=96)           # 6 warps in bf16
+RAGGED_64 = dict(E=2, T=5, B=21, H=64)           # 4 warps in bf16
+CHECK_SHAPES = (("ragged", RAGGED), ("ragged H=96", RAGGED_96),
+                ("ragged H=64", RAGGED_64))
 FUSED = dict(E=80, T=60, B=32, H=128)            # both directions stacked
 TUNE_RAGGED = dict(E=4, T=12, B=37, H=128)
 F, W, DAY = 512, 60, 1440
@@ -222,12 +230,12 @@ def phase_kernel_checks(cuda_gru) -> dict:
 
     worst_bf16 = 0.0
     worst_train = {}
-    for label, shape in (("flagship training", TRAIN), ("ragged", RAGGED)):
+    for label, shape in (("flagship training", TRAIN),) + CHECK_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             worst = check_train_kernels(cuda_gru, label, shape, dtype)
             if dtype == torch.bfloat16 and shape is TRAIN:
                 worst_train = worst
-    for label, shape in (("flagship", FLAGSHIP), ("ragged", RAGGED)):
+    for label, shape in (("flagship", FLAGSHIP),) + CHECK_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).removeprefix("torch.")
             args = recurrence_inputs(shape, dtype)
@@ -380,6 +388,68 @@ def phase_times(cuda_gru) -> dict:
         del dproj, dw, db, dh0
         torch.cuda.empty_cache()
     return results
+
+
+# Per kernel of the kernels line: its design in bf16 (the dtype of the main
+# path) and the substrings that pick that instantiation's ptxas report out
+# of its source's build log (K3: the recurrence with the stash, as trained,
+# and its dW kernel).
+DESIGNS = {
+    "gru_fwd": ("mma.sync", ("gru_fwd_mma_kernelILb0E",), None),
+    "gru_fwd_train": ("mma.sync", ("gru_fwd_mma_kernelILb1E",), None),
+    "gru_bwd": ("mma.sync", ("gru_bwd_mma_kernelILb1E",),
+                ("gru_bwd_dw_mma_kernel",)),
+    "gru_fwd_blocked": ("fma", ("gru_fwd_blocked_kernelI13__nv_bfloat16S",
+                                "Li1E"), None),
+}
+
+
+def phase_build(build, cuda_gru) -> dict:
+    """Build every source; print ptxas's registers and spills per kernel;
+    hold the plan's shared-memory mirrors against the built entries.
+    Returns {kernel name: {"registers", "spill_bytes"[, "registers_dw",
+    "spill_bytes_dw"]}} of each kernel's bf16 instantiation."""
+    import torch
+
+    build_s = build.build_all(cuda_gru.SOURCES)
+    print(f"build: {len(cuda_gru.SOURCES)} sources in {build_s:.2f} s",
+          flush=True)
+    usage = {}
+    for src in cuda_gru.SOURCES:
+        for fn, use in build.ptxas_usage(src.build_log).items():
+            usage[fn] = use
+            print(f"  ptxas {src.name}: {fn}: {use['registers']} registers, "
+                  f"{use['spill_bytes']} bytes spilled", flush=True)
+
+    def find(needles):
+        hits = [u for fn, u in usage.items() if all(n in fn for n in needles)]
+        return hits[0] if hits else {"registers": None, "spill_bytes": None}
+
+    regs = {}
+    for name, (_, needles, dw_needles) in DESIGNS.items():
+        regs[name] = dict(find(needles))
+        if dw_needles:
+            dw = find(dw_needles)
+            regs[name].update(registers_dw=dw["registers"],
+                              spill_bytes_dw=dw["spill_bytes"])
+    fwd = cuda_gru.GRU_FWD_SOURCE.library()
+    bwd = cuda_gru.GRU_BWD_SOURCE.library()
+    for h in (64, 96, 128):
+        for bf16 in (0, 1):
+            pairs = [(fwd.gru_fwd_smem_bytes(h, bf16),
+                      cuda_gru.fwd_smem_bytes(h, bool(bf16)))]
+            pairs += [(bwd.gru_bwd_smem_bytes(h, bf16, stash),
+                       cuda_gru.bwd_smem_bytes(h, bool(bf16), bool(stash)))
+                      for stash in (0, 1)]
+            if any(c != py for c, py in pairs):
+                fail(f"block_plan's shared-memory mirrors {pairs} disagree "
+                     f"with the sources at H={h} bf16={bf16}")
+    plan = cuda_gru.block_plan(TRAIN["E"], TRAIN["T"], TRAIN["B"], TRAIN["H"],
+                               torch.bfloat16, training=True, stash=True)
+    print(f"plan: the mirrors equal the sources; flagship bf16 training: "
+          f"{ {k: (v['smem_bytes'], v['ctas_per_sm'], v['waves']) for k, v in plan['kernels'].items()} } "
+          f"(bytes, CTAs per SM, waves)", flush=True)
+    return regs
 
 
 def flagship_checkpoint(workdir: str):
@@ -995,14 +1065,7 @@ def main() -> int:
     from deeprest_tpu_torch.benchmarks import kernel_tuning
     from deeprest_tpu_torch.ops import build, cuda_gru
 
-    build_s = build.build_all(cuda_gru.SOURCES)
-    print(f"build: {len(cuda_gru.SOURCES)} sources in {build_s:.2f} s",
-          flush=True)
-    for src in cuda_gru.SOURCES:
-        for line in src.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src.name}: {line.strip()}", flush=True)
-
+    regs = phase_build(build, cuda_gru)
     max_abs_err = phase_kernel_checks(cuda_gru)
     times = phase_times(cuda_gru)
     serving = phase_main_path(cuda_gru)
@@ -1027,7 +1090,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_abs_err[name],
             "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
             "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-            "library_ms": bf16["library_ms"]})
+            "library_ms": bf16["library_ms"], "design": DESIGNS[name][0],
+            **regs[name]})
         print(f"f32 {name}: {json.dumps(times[name]['float32'])}", flush=True)
     line["kernels"].append({
         "name": "gru_fwd_blocked", "route": "cuda",
@@ -1036,7 +1100,8 @@ def main() -> int:
         "launches": sweep["kernel_launches"]["gru_fwd_blocked"],
         **{k: blocked[k] for k in (
             "max_abs_err", "ms", "fastest_ms", "fastest_blocking",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "design": DESIGNS["gru_fwd_blocked"][0], **regs["gru_fwd_blocked"]})
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
           f"training {training['launches']}; tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)

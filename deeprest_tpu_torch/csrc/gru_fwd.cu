@@ -29,21 +29,37 @@
 //                        pointer (the stash off) skips these stores
 // The carry and all gate math are float.  For bf16 the dot consumes h rounded
 // to bf16 and W_hh in bf16; their products are exact in float and accumulate
-// in float (the TPU kernel's bf16 dot with preferred_element_type=f32).  For
-// float the dot is full-precision float FMA (no TF32).
+// in float (the TPU kernel's bf16 dot with preferred_element_type=f32), here
+// on the tensor cores.  For float the dot is full-precision float FMA (no
+// TF32: a TF32 product would break the 1e-5 float tolerance).
 //
-// Design.  One CTA per (row tile of ROW_TILE batch rows, expert); the time
-// loop runs inside the CTA and replaces the TPU's sequential grid axis, so no
-// time, expert or batch padding exists: ragged rows are masked here.  W_hh[e]
-// is staged into dynamic shared memory once per CTA (H=128: 96 KiB bf16,
-// 192 KiB float) and read from there at every step.  Thread (k, rg) owns
-// hidden unit k of ROWS_PER_THREAD rows of row group rg: it computes the
-// three gate columns k, H+k, 2H+k of its rows, so the gate math needs no
-// second pass, and it keeps its rows' exact float carry in registers.  The
-// value the next step's dot reads goes to a double-buffered shared [2][ROW_TILE][H]
-// float array; one __syncthreads per step separates the writes of step s from
-// the reads of step s+1.  `reverse` walks t from T-1 down to 0 and writes h_t
-// at its own t, which equals flip -> run -> flip without the two copies.
+// Both forms: one CTA per (row tile of 16 batch rows, expert), 2H threads;
+// the time loop runs inside the CTA and replaces the TPU's sequential grid
+// axis, so no time, expert or batch padding exists: ragged rows are masked
+// here.  W_hh[e] is staged into dynamic shared memory once per CTA and read
+// from there at every step; one __syncthreads per step separates the writes
+// of step s's dot operand (a double-buffered shared tile) from the reads of
+// step s+1.  `reverse` walks t from T-1 down to 0 and writes h_t at its own
+// t, which equals flip -> run -> flip without the two copies.
+//
+// bf16 (gru_fwd_mma_kernel): tensor cores.  Warp w owns hidden units
+// [16w, 16w+16).  Per step it computes the six n8 tiles of h . W_hh that are
+// columns 16w..16w+15 of the r, z and n blocks with mma.sync m16n8k16 (H/16
+// k-steps), so each lane holds the r, z and n pre-activations of the same 8
+// (row, unit) elements (gru_mma.cuh: rows g and g+8, units 16w+c, +1, +8,
+// +9): the gate math needs no exchange and the f32 carry stays in registers
+// in that layout.  A = the bf16 h tile [2][16][H+8] through ldmatrix; B =
+// W_hh [H][3H] as it lies (K x N, N contiguous) through ldmatrix.trans, its
+// shared rows padded by 16 bytes so the 8 rows of one ldmatrix matrix fall
+// on distinct banks.  Rows >= B enter A as zeros and are never stored.  The
+// proj loads of step s+1 are issued at the start of step s, so their
+// latency hides behind a whole step.  At H=128: 100,352 + 8,704 = 109,056
+// bytes, two CTAs an SM.
+//
+// float (gru_fwd_kernel<float>): plain FMA.  Thread (k, rg) owns hidden unit
+// k of 8 rows of row group rg (two row groups): it computes the three gate
+// columns k, H+k, 2H+k of its rows from W_hh in shared memory (192 KiB at
+// H=128) and a double-buffered shared [2][16][H] float carry tile.
 //
 // Bound at the flagship serving shape, per launch (one direction,
 // E=40, T=60, B=256, H=128, bf16):
@@ -55,48 +71,43 @@
 // proj 59 MB + h_all 20 + h_prev 20 + gates 59 + W_hh 4 = 161 MB
 // (0.048 ms) for 7.5 GFLOP (0.008 ms): bytes again, though at B=32 the
 // 16-row tiles give only 2 x 40 = 80 CTAs for 132 SMs.  The extra streams
-// are plain stores from values the inference form already holds in
-// registers.  This first version does the dot with plain float FMA from shared
-// memory (~2x60 GFLOP of FMA work against 67 TFLOP/s), so it runs well above
-// that bound; tensor-core dots (mma/wgmma) and TMA streaming of proj are the
-// way down to it.
+// are stores from values the inference form already holds in registers.
+// The float form's dot runs on FMA (~2x60 GFLOP at 67 TFLOP/s) far above
+// its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "gru_mma.cuh"
 
 namespace {
+
+using namespace gru_mma;
+using bf16 = __nv_bfloat16;
 
 constexpr int kRowGroups = 2;
 constexpr int kRowsPerThread = 8;
 constexpr int kRowTile = kRowGroups * kRowsPerThread;
 constexpr int kMaxThreads = 512;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The value the recurrent dot consumes: bf16 models round h to bf16 first.
-template <typename T> __device__ __forceinline__ float dot_operand(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
-
 __host__ __device__ __forceinline__ size_t weight_bytes(int H, int bf16) {
   size_t bytes = (size_t)H * 3 * H * (bf16 ? 2 : 4);
   return (bytes + 15) & ~(size_t)15;
 }
 
+// Elements of one padded shared row: W_hh rows (3H) and h tile rows (H)
+// of the bf16 form carry 8 more (16 bytes) against ldmatrix bank conflicts.
+__host__ __device__ __forceinline__ int padded(int n) { return n + 8; }
+
 size_t smem_bytes(int H, int bf16) {
+  if (bf16)   // W_hh [H][3H+8] and the h tile [2][16][H+8], bf16
+    return ((size_t)H * padded(3 * H) + 2 * (size_t)kRowTile * padded(H)) * 2;
   return weight_bytes(H, bf16) + 2 * (size_t)kRowTile * H * sizeof(float);
 }
 
+// The float form (instantiated for T = float only).
 template <typename T, bool kEmitPrev>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
@@ -208,18 +219,180 @@ gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
   }
 }
 
+// The bf16 form: tensor-core products (see the design note at the top).
+template <bool kEmitPrev>
+__global__ void __launch_bounds__(kMaxThreads)
+gru_fwd_mma_kernel(const bf16* __restrict__ proj, const bf16* __restrict__ w_hh,
+                   const float* __restrict__ b_hh, const float* __restrict__ h0,
+                   bf16* __restrict__ out, bf16* __restrict__ h_prev,
+                   bf16* __restrict__ gates, int n_t, int n_b, int H, int reverse) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G3 = 3 * H;
+  const int w_ld = padded(G3), h_ld = padded(H);
+  bf16* w_s = reinterpret_cast<bf16*>(smem);
+  bf16* h_s = w_s + (size_t)H * w_ld;            // [2][kRowTile][h_ld]
+
+  const int e = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = frag_row(lane);
+  const int row0 = blockIdx.x * kRowTile;
+
+  // W_hh[e] into padded rows, 16 bytes at a time.
+  const bf16* w_e = w_hh + (size_t)e * H * G3;
+  const int vec_per_row = G3 / 8;
+  for (int i = threadIdx.x; i < H * vec_per_row; i += blockDim.x) {
+    const int r = i / vec_per_row, c = (i - r * vec_per_row) * 8;
+    *reinterpret_cast<uint4*>(w_s + (size_t)r * w_ld + c) =
+        *reinterpret_cast<const uint4*>(w_e + (size_t)r * G3 + c);
+  }
+
+  // This lane's elements: rows g + 8 rr, units u[hf] and u[hf] + 1.
+  int u[2];
+  u[0] = 16 * warp + frag_col(lane);
+  u[1] = u[0] + 8;
+  int row[2];
+  bool valid[2];
+  float h[2][2][2];                              // [rr][hf][unit pair]
+  float bias[3][2][2];                           // [gate][hf][unit pair]
+  const float* b_e = b_hh + (size_t)e * G3;
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      bias[gate][hf][0] = b_e[gate * H + u[hf]];
+      bias[gate][hf][1] = b_e[gate * H + u[hf] + 1];
+    }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    row[rr] = row0 + g + 8 * rr;
+    valid[rr] = row[rr] < n_b;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (valid[rr])
+        v = *reinterpret_cast<const float2*>(h0 + ((size_t)e * n_b + row[rr]) * H + u[hf]);
+      h[rr][hf][0] = v.x;
+      h[rr][hf][1] = v.y;
+      store_pair(h_s + (g + 8 * rr) * h_ld + u[hf], pack_bf16x2(v.x, v.y));
+    }
+  }
+  __syncthreads();
+
+  // A step's projections of this lane's elements: [gate][rr][hf] bf16 pairs.
+  // They do not depend on the carry, so each step's are loaded one step
+  // ahead and their latency hides behind the step before.
+  auto load_x = [&](int s, uint32_t (&x)[3][2][2]) {
+    const int t = reverse ? n_t - 1 - s : s;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const bf16* p = proj + (((size_t)e * n_t + t) * n_b + row[rr]) * G3;
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          x[gate][rr][hf] = valid[rr] ? load_pair(p + gate * H + u[hf]) : 0u;
+    }
+  };
+  uint32_t x_next[3][2][2];
+  load_x(0, x_next);
+
+  for (int s = 0; s < n_t; ++s) {
+    const int t = reverse ? n_t - 1 - s : s;
+    const bf16* h_cur = h_s + (s & 1) * kRowTile * h_ld;
+    bf16* h_nxt = h_s + ((s + 1) & 1) * kRowTile * h_ld;
+    const size_t step_row = ((size_t)e * n_t + t) * n_b;
+
+    uint32_t x[3][2][2];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) x[gate][rr][hf] = x_next[gate][rr][hf];
+    if (s + 1 < n_t) load_x(s + 1, x_next);
+
+    // acc[gate][hf] = columns gate*H + 16 warp + 8 hf .. +7 of h . W_hh
+    float acc[3][2][4];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[gate][hf][i] = 0.0f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < H; k0 += 16) {
+      uint32_t a[4];
+      load_a(a, h_cur + k0, h_ld, lane);
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        uint32_t b[4];
+        load_b_trans(b, w_s + (size_t)k0 * w_ld + gate * H + 16 * warp, w_ld, lane);
+        mma_bf16(acc[gate][0], a, b[0], b[1]);
+        mma_bf16(acc[gate][1], a, b[2], b[3]);
+      }
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const size_t orow = (step_row + row[rr]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float gv[3][2];
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            gv[gate][c] = acc[gate][hf][2 * rr + c] + bias[gate][hf][c];
+        if (kEmitPrev && valid[rr]) {
+          store_pair(h_prev + orow * H + u[hf], pack_bf16x2(h[rr][hf][0], h[rr][hf][1]));
+          if (gates != nullptr) {        // the gate stash (STASH_GATES)
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate)
+              store_pair(gates + orow * G3 + gate * H + u[hf],
+                         pack_bf16x2(gv[gate][0], gv[gate][1]));
+          }
+        }
+        const float2 xr = unpack_bf16x2(x[0][rr][hf]);
+        const float2 xz = unpack_bf16x2(x[1][rr][hf]);
+        const float2 xn = unpack_bf16x2(x[2][rr][hf]);
+        const float xrv[2] = {xr.x, xr.y}, xzv[2] = {xz.x, xz.y}, xnv[2] = {xn.x, xn.y};
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float r = sigmoid_f32(xrv[c] + gv[0][c]);
+          const float z = sigmoid_f32(xzv[c] + gv[1][c]);
+          const float n = tanhf(xnv[c] + r * gv[2][c]);
+          h[rr][hf][c] = (1.0f - z) * n + z * h[rr][hf][c];
+        }
+        const uint32_t hv = pack_bf16x2(h[rr][hf][0], h[rr][hf][1]);
+        if (valid[rr]) store_pair(out + orow * H + u[hf], hv);
+        store_pair(h_nxt + (g + 8 * rr) * h_ld + u[hf], valid[rr] ? hv : 0u);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The kernel of each form: bf16 takes the tensor cores, float the FMA loop.
+template <typename T, bool kEmitPrev>
+constexpr auto fwd_kernel() {
+  if constexpr (sizeof(T) == 2)
+    return gru_fwd_mma_kernel<kEmitPrev>;
+  else
+    return gru_fwd_kernel<T, kEmitPrev>;
+}
+
 template <typename T, bool kEmitPrev>
 int launch(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
            void* out, void* h_prev, void* gates, int E, int n_t, int n_b,
            int H, int reverse, cudaStream_t stream) {
   const size_t smem = smem_bytes(H, sizeof(T) == 2);
+  const auto kernel = fwd_kernel<T, kEmitPrev>();
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<T, kEmitPrev>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_b + kRowTile - 1) / kRowTile, E);
-  const dim3 block(kRowGroups * H);
-  gru_fwd_kernel<T, kEmitPrev><<<grid, block, smem, stream>>>(
+  const dim3 block(kRowGroups * H);            // = H / 16 warps in bf16
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(proj), static_cast<const T*>(w_hh),
       static_cast<const float*>(b_hh), static_cast<const float*>(h0),
       static_cast<T*>(out), static_cast<T*>(h_prev), static_cast<T*>(gates),

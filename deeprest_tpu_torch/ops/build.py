@@ -4,8 +4,9 @@
 Each source under ``deeprest_tpu_torch/csrc/`` (a :class:`CudaSource`)
 becomes its own shared library with a plain C interface, compiled for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout.  The file name carries a
-digest of the source and the flags, so an edited source never loads a
-stale library, and a library another process already built is reused.
+digest of the source, the headers it includes and the flags, so an edited
+source or header never loads a stale library, and a library another
+process already built is reused.
 Nothing is built when a module is imported: the CPU tests import every
 module on a machine without ``nvcc``.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,11 +53,14 @@ class CudaSource:
 
     ``signatures`` maps each exported C function to ``(restype,
     argtypes)``; they are declared on load so ``ctypes`` never truncates a
-    pointer to a 32-bit int.
+    pointer to a 32-bit int.  ``headers`` names the files of ``csrc_dir``
+    the source includes; their bytes enter the library's digest.
     """
 
-    def __init__(self, source: str, signatures: dict):
-        self.source = os.path.join(CSRC_DIR, source)
+    def __init__(self, source: str, signatures: dict, headers=(),
+                 csrc_dir: str = CSRC_DIR):
+        self.source = os.path.join(csrc_dir, source)
+        self.headers = tuple(os.path.join(csrc_dir, h) for h in headers)
         self.name = os.path.splitext(source)[0]
         self.signatures = dict(signatures)
         self.build_log = ""
@@ -63,8 +68,10 @@ class CudaSource:
         self._lock = threading.Lock()
 
     def library_path(self) -> str:
-        with open(self.source, "rb") as fh:
-            digest = hashlib.sha1(fh.read())
+        digest = hashlib.sha1()
+        for path in (self.source, *self.headers):
+            with open(path, "rb") as fh:
+                digest.update(fh.read())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR,
                             f"lib{self.name}-{digest.hexdigest()[:12]}.so")
@@ -119,6 +126,31 @@ class CudaKernel:
 
     def library(self) -> ctypes.CDLL:
         return self.source.library()
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{mangled kernel name: {"registers": n, "spill_bytes": m}}`` from
+    the ``-Xptxas -v`` lines of a build log (``spill_bytes`` counts spill
+    stores and loads)."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+        if found:
+            name = found.group(1)
+            usage.setdefault(name, {"registers": None, "spill_bytes": 0})
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            usage[name]["spill_bytes"] = int(spill.group(1)) + int(
+                spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            usage[name]["registers"] = int(regs.group(1))
+    return usage
 
 
 def build_all(sources) -> float:

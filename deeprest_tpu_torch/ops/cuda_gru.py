@@ -5,13 +5,20 @@ forward to the backward.
 Counterpart of ``deeprest_tpu/ops/pallas_gru.py``:
 
 - K1, the inference forward (``_fwd_call`` with ``emit_prev=False``):
-  :func:`gru_fwd_cuda`, kernel ``csrc/gru_fwd.cu`` entry ``gru_fwd``;
+  :func:`gru_fwd_cuda`, kernel ``csrc/gru_fwd.cu`` entry ``gru_fwd``
+  (bf16: ``gru_fwd_mma_kernel``, its product on the tensor cores with
+  ``mma.sync`` m16n8k16 from ``ldmatrix`` fragments; f32: plain float FMA,
+  since an f32 ``mma`` would be TF32 and break the 1e-5 tolerance);
 - K2, the training forward (``emit_prev=True``): :func:`gru_fwd_train_cuda`,
   the same source's ``gru_fwd_train`` entry, which also streams out
   ``h_prev`` and, with :data:`STASH_GATES`, the hidden gates;
 - K3, the backward (``_bwd_call``): :func:`gru_bwd_cuda`, kernel
   ``csrc/gru_bwd.cu`` (the reverse-time recurrence plus the dW/db product),
-  which recomputes the hidden gates when the forward stashed none;
+  which recomputes the hidden gates when the forward stashed none; bf16
+  runs both products on the tensor cores, f32 on FMA, as K1 and K2 do;
+- ``csrc/gru_mma.cuh``, the device header both sources include (the
+  ``ldmatrix`` / ``mma.sync`` / ``cp.async`` helpers and the gate
+  nonlinearities); its bytes enter both libraries' digests;
 - K4, the blocked forward of the tuning sweep
   (``benchmarks/kernel_tuning.py::make_fwd_call``):
   :func:`gru_fwd_blocked_cuda`, kernel ``csrc/gru_fwd_blocked.cu``, with a
@@ -76,7 +83,8 @@ _INT = ctypes.c_int
 # every call, so a sweep may set the module global.
 STASH_GATES = os.environ.get("DEEPREST_GRU_STASH_GATES", "1") != "0"
 
-GRU_FWD_SOURCE = CudaSource("gru_fwd.cu", signatures={
+MMA_HEADERS = ("gru_mma.cuh",)
+GRU_FWD_SOURCE = CudaSource("gru_fwd.cu", headers=MMA_HEADERS, signatures={
     "gru_fwd": (_INT, [_PTR, _PTR, _PTR, _PTR, _PTR,
                        _INT, _INT, _INT, _INT, _INT, _INT, _PTR]),
     "gru_fwd_train": (_INT, [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
@@ -85,7 +93,7 @@ GRU_FWD_SOURCE = CudaSource("gru_fwd.cu", signatures={
     "gru_fwd_max_threads": (_INT, []),
     "gru_fwd_row_groups": (_INT, []),
 })
-GRU_BWD_SOURCE = CudaSource("gru_bwd.cu", signatures={
+GRU_BWD_SOURCE = CudaSource("gru_bwd.cu", headers=MMA_HEADERS, signatures={
     "gru_bwd": (_INT, [_PTR] * 12 + [_INT] * 6 + [_PTR]),
     "gru_bwd_smem_bytes": (ctypes.c_size_t, [_INT, _INT, _INT]),
     "gru_bwd_max_threads": (_INT, []),
@@ -126,15 +134,17 @@ THREADS_PER_SM = 2_048
 CTAS_PER_SM = 32
 REGISTERS_PER_SM = 65_536
 # Every kernel is compiled with __launch_bounds__(512), which caps a thread
-# at 128 registers; ptxas gives all of them 120-128 on sm_90a.
+# at 128 registers; the plan counts that cap.
 REGISTERS_PER_THREAD = 128
 # Mirrors of the sources' constants: csrc/gru_fwd.cu and csrc/gru_bwd.cu
-# give each thread one hidden unit of 8 rows and each CTA 2 such row
-# groups (16 rows); csrc/gru_fwd_blocked.cu takes rows / 8 row groups.
+# run 16 rows per CTA on 2H threads (f32: each thread one hidden unit of 8
+# rows, 2 such row groups; bf16: H/16 warps of 16 hidden units each);
+# csrc/gru_fwd_blocked.cu takes rows / 8 row groups.
 ROWS_PER_THREAD = 8
 ROW_GROUPS = 2
 ROW_TILE = ROW_GROUPS * ROWS_PER_THREAD
 MAX_THREADS = 512
+MMA_UNITS = 16   # hidden units per warp (and the k16 step) of the bf16 kernels
 BLOCKED_E_BLKS = (1, 2, 4)      # the e_blk instantiations of K4
 
 
@@ -143,17 +153,24 @@ def _round16(n: int) -> int:
 
 
 def fwd_smem_bytes(h: int, bf16: bool) -> int:
-    """``gru_fwd_smem_bytes`` (K1 and K2): W_hh in the io dtype, padded to
-    16 bytes, and the double-buffered f32 carry tile of 16 rows."""
-    return _round16(h * 3 * h * (2 if bf16 else 4)) + 2 * ROW_TILE * h * 4
+    """``gru_fwd_smem_bytes`` (K1 and K2).  bf16: W_hh and the
+    double-buffered bf16 h tile of 16 rows, every row padded by 16 bytes
+    against ldmatrix bank conflicts.  f32: W_hh padded to 16 bytes and the
+    double-buffered f32 carry tile."""
+    if bf16:
+        return (h * (3 * h + 8) + 2 * ROW_TILE * (h + 8)) * 2
+    return _round16(h * 3 * h * 4) + 2 * ROW_TILE * h * 4
 
 
 def bwd_smem_bytes(h: int, bf16: bool, stash: bool) -> int:
     """``gru_bwd_smem_bytes`` (K3's recurrence kernel): W_hh with each row
-    padded by 16 bytes, the f32 dgates tile and, without the stash, the f32
-    h_prev tile."""
-    elt = 2 if bf16 else 4
-    return (h * (3 * h * elt + 16) + ROW_TILE * 3 * h * 4
+    padded by 16 bytes and the dgates tile of 16 rows.  bf16: the tile is
+    bf16 with the same padded rows, and the stash-off recompute reads its
+    h_prev fragments from global memory (no tile).  f32: an f32 dgates
+    tile and, without the stash, an f32 h_prev tile."""
+    if bf16:
+        return (h + ROW_TILE) * (3 * h * 2 + 16)
+    return (h * (3 * h * 4 + 16) + ROW_TILE * 3 * h * 4
             + (0 if stash else ROW_TILE * h * 4))
 
 
@@ -213,12 +230,15 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
 
     The kernels the call launches: ``fwd`` (K1) for inference,
     ``fwd_train`` (K2) plus ``bwd`` (K3's recurrence kernel; its dW
-    product uses 17 KiB of static shared memory and never binds) for
-    training, or with ``blocked`` K4 alone (``fwd_blocked``, inference
-    only) at the blocking ``rows`` (default :func:`default_blocked_rows`),
+    product uses 17 KiB (f32) or 18 KiB (bf16, two cp.async stages) of
+    static shared memory and never binds) for training, or with
+    ``blocked`` K4 alone (``fwd_blocked``, inference only) at the
+    blocking ``rows`` (default :func:`default_blocked_rows`),
     ``e_blk``, ``t_blk`` and ``bf16_dot`` (default: the io dtype's).  K1-K3
     have a fixed blocking of 16 rows and one expert per CTA; ``stash``
-    (default :data:`STASH_GATES`) sizes K3.
+    (default :data:`STASH_GATES`) sizes K3 in f32.  In bf16 K1-K3 run on
+    the tensor cores in warps of 16 hidden units and refuse ``H % 16``;
+    there is no FMA fallback for a bf16 shape.
 
     Returns ``{"kernels": {name: entry}, "binding": name, **entry of the
     binding kernel}``: the first kernel that does not fit, else the one
@@ -264,16 +284,21 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
                              "plan K4 (blocked=True)")
         threads = ROW_GROUPS * h
         ctas = -(-b // ROW_TILE) * e
-        refusal = None
-        if h % 4 or threads > MAX_THREADS:
+        mma_refusal = None
+        if io_bf16 and h % MMA_UNITS:
+            mma_refusal = (f"the bf16 tensor-core kernels take hidden sizes "
+                           f"H % {MMA_UNITS} == 0 (one warp per {MMA_UNITS} "
+                           f"units, m16n8k16 tiles); got H={h}")
+        refusal = mma_refusal
+        if refusal is None and (h % 4 or threads > MAX_THREADS):
             refusal = (f"takes hidden sizes H % 4 == 0 with {ROW_GROUPS}*H "
                        f"<= {MAX_THREADS} threads; got H={h}")
         kernels["fwd_train" if training else "fwd"] = _plan_entry(
             ROW_TILE, threads, fwd_smem_bytes(h, io_bf16), ctas, refusal)
         if training:
             stash = STASH_GATES if stash is None else bool(stash)
-            refusal = None
-            if h % 8 or threads > MAX_THREADS:
+            refusal = mma_refusal
+            if refusal is None and (h % 8 or threads > MAX_THREADS):
                 refusal = (f"takes hidden sizes H % 8 == 0 with "
                            f"{ROW_GROUPS}*H <= {MAX_THREADS} threads; got "
                            f"H={h}")

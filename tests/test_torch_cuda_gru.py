@@ -22,8 +22,11 @@ from deeprest_tpu_torch.ops import cuda_gru
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-# flagship training (E=40, T=60, B=32, H=128) and a ragged shape
-TRAIN_SHAPES = [(40, 60, 32, 128), (3, 7, 37, 128)]
+# flagship training (E=40, T=60, B=32, H=128), a ragged shape, and ragged
+# shapes at H=96 (6 warps) and H=64 (4 warps) for the bf16 tensor-core
+# kernels' warp-per-16-units layout
+NEW_H_SHAPES = [(3, 7, 37, 96), (2, 5, 21, 64)]
+TRAIN_SHAPES = [(40, 60, 32, 128), (3, 7, 37, 128)] + NEW_H_SHAPES
 
 
 @pytest.fixture
@@ -59,7 +62,7 @@ def _close_to_scale(got, want, tol, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape", [(3, 7, 37, 128), (40, 60, 256, 128),
-                                   (2, 1, 1, 64)])
+                                   (2, 1, 1, 64)] + NEW_H_SHAPES)
 def test_kernel_matches_plain(cuda, shape, reverse, dtype):
     args = _inputs(*shape, dtype, cuda)
     before = cuda_gru.GRU_FWD.launches
@@ -117,10 +120,11 @@ def test_backward_is_deterministic(cuda):
     proj, w_hh, b_hh, h0 = _inputs(40, 60, 32, 128, torch.bfloat16, cuda)
     _, h_prev, gates = cuda_gru.gru_fwd_train_cuda(proj, w_hh, b_hh, h0)
     dout = torch.ones_like(h_prev)
-    first = cuda_gru.gru_bwd_cuda(proj, h_prev, gates, w_hh, b_hh, dout)
-    again = cuda_gru.gru_bwd_cuda(proj, h_prev, gates, w_hh, b_hh, dout)
-    for a, b in zip(first, again):
-        assert torch.equal(a, b)
+    for stash in (gates, None):     # the bf16 tensor-core K3, both forms
+        first = cuda_gru.gru_bwd_cuda(proj, h_prev, stash, w_hh, b_hh, dout)
+        again = cuda_gru.gru_bwd_cuda(proj, h_prev, stash, w_hh, b_hh, dout)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -168,6 +172,17 @@ def test_kernel_refuses_what_does_not_fit(cuda):
     h_prev = torch.zeros((1, 2, 4, 12), device=cuda)
     with pytest.raises(ValueError, match="H % 8"):
         cuda_gru.gru_bwd_cuda(odd[0], h_prev, None, odd[1], odd[2], h_prev)
+    # bf16 runs only on the tensor cores: H=72 is refused, never run on FMA
+    before = [k.launches for k in cuda_gru.KERNELS]
+    proj, w_hh, b_hh, h0 = _inputs(1, 2, 4, 72, torch.bfloat16, cuda)
+    h_prev = torch.zeros((1, 2, 4, 72), device=cuda, dtype=torch.bfloat16)
+    for call in (lambda: cuda_gru.gru_fwd_cuda(proj, w_hh, b_hh, h0),
+                 lambda: cuda_gru.gru_fwd_train_cuda(proj, w_hh, b_hh, h0),
+                 lambda: cuda_gru.gru_bwd_cuda(proj, h_prev, None, w_hh,
+                                               b_hh, h_prev)):
+        with pytest.raises(ValueError, match="H % 16"):
+            call()
+    assert [k.launches for k in cuda_gru.KERNELS] == before
 
 
 @pytest.mark.cuda
@@ -233,7 +248,7 @@ def test_plan_bytes_equal_the_sources(cuda):
     assert bwd.gru_bwd_row_tile() == cuda_gru.ROW_TILE
     assert fwd.gru_fwd_max_threads() == bwd.gru_bwd_max_threads() \
         == blk.gru_fwd_blocked_max_threads() == cuda_gru.MAX_THREADS
-    for h in (12, 64, 128, 256):
+    for h in (12, 64, 72, 96, 128, 256):
         for bf16 in (0, 1):
             assert fwd.gru_fwd_smem_bytes(h, bf16) == \
                 cuda_gru.fwd_smem_bytes(h, bool(bf16))

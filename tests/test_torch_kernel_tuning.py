@@ -130,14 +130,87 @@ def test_block_plan_flagship_at_coalesced_rows(g, dtype, training):
         assert entry["waves"] == -(-entry["ctas"] // (
             entry["ctas_per_sm"] * cuda_gru.H100_SMS))
     fwd = plan["kernels"]["fwd_train" if training else "fwd"]
-    assert fwd["smem_bytes"] == (98_304 if bf16 else 196_608) + 16_384
+    # bf16: W_hh [128][392] and the h tile [2][16][136], bf16; f32: W_hh and
+    # the double-buffered f32 carry tile
+    assert fwd["smem_bytes"] == ((128 * 392 + 2 * 16 * 136) * 2 if bf16
+                                 else 196_608 + 16_384)
     assert fwd["ctas_per_sm"] == (2 if bf16 else 1)
     if training:
-        assert plan["smem_bytes"] == 128 * (384 * (2 if bf16 else 4) + 16) \
-            + 16 * 384 * 4
+        # bf16: W_hh and the dgates tile [16][392], bf16; f32: padded W_hh
+        # and the f32 dgates tile
+        assert plan["smem_bytes"] == ((128 + 16) * 392 * 2 if bf16 else
+                                      128 * (384 * 4 + 16) + 16 * 384 * 4)
         off = cuda_gru.block_plan(40, 60, 32 * g, 128, dtype, stash=False)
-        assert off["smem_bytes"] == plan["smem_bytes"] + 16 * 128 * 4
+        # the bf16 recompute reads h_prev from global memory, f32 stages it
+        assert off["smem_bytes"] == plan["smem_bytes"] + (
+            0 if bf16 else 16 * 128 * 4)
         assert off["fits"]
+
+
+@pytest.mark.parametrize("stash", [True, False])
+def test_block_plan_bf16_training_fits_two_ctas_per_sm(stash):
+    """At the flagship the bf16 K2 and K3 CTAs (109,056 and 112,896 bytes)
+    both fit twice in an SM's 233,472 bytes, with the stash on or off."""
+    plan = cuda_gru.block_plan(40, 60, 32, 128, torch.bfloat16,
+                               training=True, stash=stash)
+    fwd, bwd = plan["kernels"]["fwd_train"], plan["kernels"]["bwd"]
+    assert (fwd["smem_bytes"], bwd["smem_bytes"]) == (109_056, 112_896)
+    assert fwd["ctas_per_sm"] == bwd["ctas_per_sm"] == 2
+    assert 2 * (bwd["smem_bytes"] + cuda_gru.SMEM_RESERVED_PER_CTA) \
+        <= cuda_gru.SMEM_PER_SM_BYTES
+    assert plan["binding"] == "bwd" and plan["waves"] == 1
+
+
+@pytest.mark.parametrize("e,g,waves", [
+    (40, 1, 1), (40, 2, 1), (40, 4, 2), (40, 8, 3),     # coalesced G
+    (80, 1, 1), (80, 2, 2), (80, 4, 3), (80, 8, 5)])    # fused, coalesced
+def test_block_plan_bf16_training_waves(e, g, waves):
+    """2 x G x E CTAs at two CTAs an SM over 132 SMs."""
+    plan = cuda_gru.block_plan(e, 60, 32 * g, 128, torch.bfloat16,
+                               training=True, stash=True)
+    for entry in plan["kernels"].values():
+        assert entry["ctas"] == 2 * g * e
+        assert entry["ctas_per_sm"] == 2 and entry["waves"] == waves
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_block_plan_f32_entries_keep_the_fma_bytes(training):
+    """The f32 kernels keep their FMA design and its bytes: one CTA an SM,
+    so the fused E=80 training call takes twice the waves of E=40."""
+    for e, waves in ((40, 1), (80, 2)):
+        plan = cuda_gru.block_plan(e, 60, 32, 128, torch.float32,
+                                   training=training, stash=True)
+        fwd = plan["kernels"]["fwd_train" if training else "fwd"]
+        assert fwd["smem_bytes"] == 212_992
+        assert (fwd["ctas_per_sm"], fwd["waves"]) == (1, waves)
+        if training:
+            assert plan["kernels"]["bwd"]["smem_bytes"] == 223_232
+            assert cuda_gru.block_plan(
+                e, 60, 32, 128, torch.float32, stash=False)[
+                    "smem_bytes"] == 231_424
+    assert cuda_gru.fwd_smem_bytes(72, False) == 72 * 216 * 4 + 2 * 16 * 72 * 4
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_block_plan_bf16_refuses_h_not_a_multiple_of_16(training):
+    """bf16 K1-K3 run one warp per 16 hidden units: H=72 is refused with a
+    reason that names 16 (never sent to an FMA kernel), while f32 H=72 and
+    the bf16 K4 at H=72 still fit."""
+    plan = cuda_gru.block_plan(2, 4, 8, 72, torch.bfloat16,
+                               training=training)
+    assert not plan["fits"]
+    for entry in plan["kernels"].values():
+        assert not entry["fits"]
+        assert "H % 16" in entry["refusal"] and "H=72" in entry["refusal"]
+        assert entry["ctas_per_sm"] == 0 and entry["waves"] is None
+    assert cuda_gru.block_plan(2, 4, 8, 72, torch.float32,
+                               training=training)["fits"]
+    for h in (64, 96):
+        assert cuda_gru.block_plan(2, 4, 8, h, torch.bfloat16,
+                                   training=training)["fits"]
+    if not training:
+        assert cuda_gru.block_plan(2, 4, 8, 72, torch.bfloat16,
+                                   training=False, blocked=True)["fits"]
 
 
 def test_block_plan_refusals():
@@ -192,9 +265,12 @@ def test_block_plan_blocked_defaults_and_waves():
     # a bf16 dot keeps W_hh in bf16 in shared memory, f32 inputs or not
     assert cuda_gru.fwd_blocked_smem_bytes(128, 8, 1, 1, False, True) \
         == 98_304 + 2 * 8 * 128 * 4 + 8 * 384 * 4
-    # the plan's shared memory mirrors the K1 formula at K1's blocking
+    # at K1's blocking K4 is the FMA layout (unpadded W_hh, an f32 carry
+    # tile) plus proj; f32 K1 has that layout, bf16 K1 padded bf16 tiles
     assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 1, True, True) \
-        == cuda_gru.fwd_smem_bytes(128, True) + 16 * 384 * 2
+        == 98_304 + 2 * 16 * 128 * 4 + 16 * 384 * 2
+    assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 1, False, False) \
+        == cuda_gru.fwd_smem_bytes(128, False) + 16 * 384 * 4
 
 
 def test_blocking_menu_keeps_the_contract():
