@@ -8,12 +8,13 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 1. the card: name and power limit from nvidia-smi, torch and CUDA versions;
    TF32 off for matmuls and cuDNN;
 2. build: the three CUDA sources (gru_fwd.cu with the inference and
-   training forwards K1 and K2, gru_bwd.cu with the backward K3, both
-   including the tensor-core header gru_mma.cuh, gru_fwd_blocked.cu with
-   the blocked forward K4 of the tuning sweep), one nvcc per source, all
-   started together, into build/kernels/; ptxas's registers and spills of
-   every kernel; the block plan's shared-memory mirrors held against the
-   sources' *_smem_bytes;
+   training forwards K1 and K2, gru_bwd.cu with the backward K3,
+   gru_fwd_blocked.cu with the blocked forward K4 of the tuning sweep, all
+   three including the tensor-core header gru_mma.cuh), one nvcc per
+   source, all started together, into build/kernels/; ptxas's registers
+   and spills of every kernel and instantiation; the block plan's
+   shared-memory mirrors held against the sources' *_smem_bytes (K4 at
+   every --quick blocking, both io dtypes, both dots);
 3. each kernel against its plain PyTorch version on the card, with the JAX
    package's kernel tolerances (forward: f32 1e-5, bf16 2e-2; gradients
    relative to each tensor's largest magnitude: f32 2e-4, bf16 2e-2): K1 at
@@ -43,11 +44,14 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    from the same params (dropout 0), and a torch.profiler breakdown of
    train steps;
 7. the kernel-tuning path: K4 (gru_fwd_blocked.cu) at every blocking of
-   the sweep's --quick menu against its plain version, at the fused
-   flagship stacking (E=80, T=60, B=32, H=128) and a ragged shape (E=4,
-   T=12, B=37), f32 and bf16 inputs, the bf16 dot off and on (tolerance
-   1e-5 with the f32 dot, 2e-2 with the bf16 dot), and timed beside its
-   plain version, its bound and cuDNN's GRU x80; bidirectional_gru fused
+   the sweep's --quick menu that the plan admits against its plain
+   version, at the fused flagship stacking (E=80, T=60, B=32, H=128) and
+   a ragged shape (E=4, T=12, B=37), f32 and bf16 inputs, the bf16 dot
+   (tensor cores) off and on (tolerance 1e-5 with the f32 dot, 2e-2 with
+   the bf16 dot); every admitted bf16 blocking timed, K1's blocking (16
+   rows, one expert, two CTAs an SM) and at least one two-expert blocking
+   required, beside its plain version, its bound and cuDNN's GRU x80;
+   bidirectional_gru fused
    (BIDIR_FUSED) against unfused on the card at the flagship training
    shape, forward (1 K1 launch against 2) and gradients (1 K2 and 1 K3
    against 2 each); 5 train steps with STASH_GATES off against 5 with it
@@ -399,12 +403,13 @@ DESIGNS = {
     "gru_fwd_train": ("mma.sync", ("gru_fwd_mma_kernelILb1E",), None),
     "gru_bwd": ("mma.sync", ("gru_bwd_mma_kernelILb1E",),
                 ("gru_bwd_dw_mma_kernel",)),
-    "gru_fwd_blocked": ("fma", ("gru_fwd_blocked_kernelI13__nv_bfloat16S",
-                                "Li1E"), None),
+    "gru_fwd_blocked": ("mma.sync",
+                        ("gru_fwd_blocked_mma_kernelI13__nv_bfloat16Li1ELi1E",),
+                        None),
 }
 
 
-def phase_build(build, cuda_gru) -> dict:
+def phase_build(build, cuda_gru, kernel_tuning) -> dict:
     """Build every source; print ptxas's registers and spills per kernel;
     hold the plan's shared-memory mirrors against the built entries.
     Returns {kernel name: {"registers", "spill_bytes"[, "registers_dw",
@@ -434,6 +439,7 @@ def phase_build(build, cuda_gru) -> dict:
                               spill_bytes_dw=dw["spill_bytes"])
     fwd = cuda_gru.GRU_FWD_SOURCE.library()
     bwd = cuda_gru.GRU_BWD_SOURCE.library()
+    blk = cuda_gru.GRU_FWD_BLOCKED_SOURCE.library()
     for h in (64, 96, 128):
         for bf16 in (0, 1):
             pairs = [(fwd.gru_fwd_smem_bytes(h, bf16),
@@ -441,6 +447,13 @@ def phase_build(build, cuda_gru) -> dict:
             pairs += [(bwd.gru_bwd_smem_bytes(h, bf16, stash),
                        cuda_gru.bwd_smem_bytes(h, bool(bf16), bool(stash)))
                       for stash in (0, 1)]
+            pairs += [(blk.gru_fwd_blocked_smem_bytes(h, rows, e_blk, t_blk,
+                                                      bf16, dot),
+                       cuda_gru.fwd_blocked_smem_bytes(
+                           h, rows, e_blk, t_blk, bool(bf16), bool(dot)))
+                      for rows, e_blk, t_blk in kernel_tuning.blocking_menu(
+                          FUSED["E"], FUSED["T"], FUSED["B"], h, quick=True)
+                      for dot in (0, 1)]
             if any(c != py for c, py in pairs):
                 fail(f"block_plan's shared-memory mirrors {pairs} disagree "
                      f"with the sources at H={h} bf16={bf16}")
@@ -865,23 +878,34 @@ def phase_blocked(cuda_gru, kernel_tuning) -> dict:
     args = recurrence_inputs(FUSED, torch.bfloat16)
     proj, w_hh, b_hh, h0 = args
     e, t, b, h = (FUSED[k] for k in ("E", "T", "B", "H"))
-    times = {}
+    times, plans = {}, {}
     for rows, e_blk, t_blk in kernel_tuning.blocking_menu(e, t, b, h,
                                                           quick=True):
-        if cuda_gru.block_plan(e, t, b, h, torch.bfloat16, training=False,
-                               rows=rows, e_blk=e_blk, t_blk=t_blk,
-                               blocked=True, bf16_dot=True)["fits"]:
+        plan = cuda_gru.block_plan(e, t, b, h, torch.bfloat16, training=False,
+                                   rows=rows, e_blk=e_blk, t_blk=t_blk,
+                                   blocked=True, bf16_dot=True)
+        if plan["fits"]:
+            plans[(rows, e_blk, t_blk)] = plan
             times[(rows, e_blk, t_blk)] = time_ms(
                 lambda r=rows, eb=e_blk, tb=t_blk:
                 cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=eb, t_blk=tb,
                                               bf16_dot=True, rows=r),
                 iters=20)
-    for (rows, e_blk, t_blk), ms in times.items():
-        print(f"times gru_fwd_blocked {FUSED} bf16 rows{rows} e_blk{e_blk} "
-              f"t_blk{t_blk}: {ms:.4f} ms", flush=True)
+    for key, ms in times.items():
+        plan = plans[key]
+        print(f"times gru_fwd_blocked {FUSED} bf16 rows{key[0]} "
+              f"e_blk{key[1]} t_blk{key[2]}: {ms:.4f} ms ({plan['ctas']} "
+              f"CTAs, {plan['ctas_per_sm']} per SM, {plan['waves']} waves, "
+              f"{plan['smem_bytes']} bytes)", flush=True)
     k1_blocking = (cuda_gru.ROW_TILE, 1, 1)
     if k1_blocking not in times:
         fail("K1's blocking (16 rows, 1 expert, 1 step) was not timed")
+    if (plans[k1_blocking]["ctas_per_sm"], plans[k1_blocking]["waves"]) \
+            != (2, 1):
+        fail(f"K1's blocking is not planned at two CTAs an SM in one wave: "
+             f"{plans[k1_blocking]}")
+    if not any(e_blk == 2 for _, e_blk, _ in times):
+        fail("no two-expert blocking (e_blk=2) was admitted and timed")
     fastest = min(times, key=times.get)
     lib_ms, lib_out = cudnn_gru_ms(*args)
     if lib_ms is None:
@@ -895,8 +919,27 @@ def phase_blocked(cuda_gru, kernel_tuning) -> dict:
         lambda: cuda_gru.gru_fwd_blocked_reference(*args, bf16_dot=True),
         nbytes(*args) + out_bytes, 2 * e * t * b * h * 3 * h, lib_ms)
     entry.update(max_abs_err=worst, fastest_ms=times[fastest],
-                 fastest_blocking="rows{}_e_blk{}_t_blk{}".format(*fastest))
+                 fastest_blocking="rows{}_e_blk{}_t_blk{}".format(*fastest),
+                 blocking_ms={"rows{}_e_blk{}_t_blk{}".format(*k): ms
+                              for k, ms in times.items()})
     del args, proj, w_hh, b_hh, h0, lib_out
+
+    # the f32 dot (FMA) on f32 inputs, at the first blocking the plan admits
+    args = recurrence_inputs(FUSED, torch.float32)
+    rows, e_blk, t_blk = next(
+        k for k in kernel_tuning.blocking_menu(e, t, b, h, quick=True)
+        if cuda_gru.block_plan(e, t, b, h, torch.float32, training=False,
+                               rows=k[0], e_blk=k[1], t_blk=k[2],
+                               blocked=True, bf16_dot=False)["fits"])
+    lib_ms, _ = cudnn_gru_ms(*args)
+    entry["float32"] = kernel_times(
+        "gru_fwd_blocked", f"cuDNN GRU forward x{e}", "float32", FUSED,
+        lambda: cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=e_blk, t_blk=t_blk,
+                                              rows=rows),
+        lambda: cuda_gru.gru_fwd_blocked_reference(*args),
+        nbytes(*args) + out_bytes, 2 * e * t * b * h * 3 * h, lib_ms)
+    entry["float32"]["blocking"] = f"rows{rows}_e_blk{e_blk}_t_blk{t_blk}"
+    del args
     torch.cuda.empty_cache()
     return entry
 
@@ -1065,7 +1108,7 @@ def main() -> int:
     from deeprest_tpu_torch.benchmarks import kernel_tuning
     from deeprest_tpu_torch.ops import build, cuda_gru
 
-    regs = phase_build(build, cuda_gru)
+    regs = phase_build(build, cuda_gru, kernel_tuning)
     max_abs_err = phase_kernel_checks(cuda_gru)
     times = phase_times(cuda_gru)
     serving = phase_main_path(cuda_gru)
@@ -1100,8 +1143,11 @@ def main() -> int:
         "launches": sweep["kernel_launches"]["gru_fwd_blocked"],
         **{k: blocked[k] for k in (
             "max_abs_err", "ms", "fastest_ms", "fastest_blocking",
+            "blocking_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "design": DESIGNS["gru_fwd_blocked"][0], **regs["gru_fwd_blocked"]})
+    print(f"f32 gru_fwd_blocked: {json.dumps(blocked['float32'])}",
+          flush=True)
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
           f"training {training['launches']}; tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)

@@ -15,10 +15,10 @@ rows, H=128), with CUDA events after ``torch.cuda.synchronize()``:
   readback of a gradient element;
 - ``STASH_GATES`` on and off, fwd+bwd in bf16 at E80;
 - K4 (``gru_fwd_blocked_cuda``) over a menu of blockings (rows per CTA,
-  experts per CTA, steps of proj staged) at E80, f32 inputs with the f32
-  dot and bf16 inputs with the bf16 dot: ``ms`` and ``max_err`` against
-  the production f32 output, as the JAX sweep records them, each blocking
-  also held against K4's plain version;
+  experts per CTA, steps of proj in shared memory) at E80, f32 inputs
+  with the f32 dot and bf16 inputs with the bf16 dot (tensor cores):
+  ``ms`` and ``max_err`` against the production f32 output, as the JAX
+  sweep records them, each blocking also held against K4's plain version;
 - fused against unfused bidirectional (``BIDIR_FUSED``) forward, against
   the plain path;
 - the Hopper block plan at G in {1, 2, 4, 8} coalesced window batches;
@@ -66,7 +66,8 @@ B, T, F, E, H = 32, 60, 512, 40, 128
 E2 = 2 * E                      # fused bidirectional stacking
 COALESCE_GS = (1, 2, 4, 8)      # window-coalescing factors (G·B rows)
 # K4 blockings: rows per CTA (None: all B rows, capped at 512 threads),
-# experts per CTA, steps of proj staged per load
+# experts per CTA, steps of proj held in shared memory (with the bf16 dot,
+# 1 loads them into registers)
 MENU_ROWS = (None, 16, 8)
 MENU_E_BLKS = (1, 2)
 MENU_T_BLKS = (1, 2, 6, 10, 12)

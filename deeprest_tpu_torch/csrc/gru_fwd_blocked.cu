@@ -17,90 +17,394 @@
 //   out   [E, T, B, H]   float, whatever the io type (as the TPU kernel)
 // The carry, b_hh and the gate math are float.  With bf16_dot the dot reads
 // h and W_hh rounded to bf16, their exact products summed in float; without
-// it the dot is float FMA (bf16 inputs then give bf16-exact weights and an
+// it the dot is float (bf16 inputs then give bf16-exact weights and an
 // unrounded h).  There is no reverse form: the sweep runs forward only.
 //
 // Blocking, the TPU block's axes mapped onto a CTA:
 //   e_blk  experts per CTA (1, 2 or 4), stepped time outer and expert inner
 //          as the TPU kernel's loop does, so each step gives the SM e_blk
-//          independent dependency chains.  Each expert's W_hh lives in
-//          dynamic shared memory (H = 128: 96 KiB in bf16, 192 KiB in
-//          float), which bounds e_blk; e_blk must divide E.
-//   t_blk  steps of proj for the CTA's rows staged in shared memory per load
-//          (synchronous, coalesced copies); t_blk must divide T.
+//          independent dependency chains; each expert's W_hh lives in
+//          dynamic shared memory, which bounds e_blk; e_blk must divide E.
+//   t_blk  steps of proj per CTA held in shared memory; t_blk must divide T.
 //   rows   the batch tile, a Hopper axis the TPU block did not have (there a
-//          block held every row): rows / 8 row groups of H threads, each
-//          thread one hidden unit of 8 rows, its rows' exact float carry in
-//          registers, at most 512 threads.  Ragged rows are masked.
-// Shared memory per CTA, per expert of the block: W_hh (bf16 when the inputs
-// or the dot are bf16), a double-buffered [2][rows][H] float array of the
-// values the next dot reads (one __syncthreads per step), and the staged
-// [t_blk][rows][3H] proj tile.  The wrapper's plan (ops/cuda_gru.py
-// block_plan) refuses a blocking above the opt-in limit before launching.
+//          block held every row).  Ragged rows are masked.
+//
+// The bf16 dot (gru_fwd_blocked_mma_kernel, f32 or bf16 io): tensor cores,
+// the fragment code of gru_fwd.cu's gru_fwd_mma_kernel (gru_mma.cuh).  Warp
+// w of the H/16 warps owns hidden units [16w, 16w+16) of r, z and n; per
+// step and expert it runs mma.sync m16n8k16 over H/16 k-steps with A = the
+// bf16 h tile [2][rows][H+8] through ldmatrix and B = W_hh [H][3H+8] (rows
+// padded by 16 bytes against ldmatrix bank conflicts) through ldmatrix.trans,
+// so a lane holds the r, z and n pre-activations of the same 8 (row, unit)
+// elements and its float carry stays in registers in that layout.  rows is
+// 16 or 32: one or two m16 tiles, run as independent chains that share
+// each W_hh fragment; each expert of the block adds its own chains within
+// the step.  8 rows are refused by the plan rather than run as a half-empty
+// tile (and never sent to the FMA loop).  Ragged rows enter A as zeros and
+// are never stored.  f32 io converts W_hh to bf16 while staging it.
+//   Proj: at t_blk = 1 each lane loads its own proj elements from device
+// memory into registers one step ahead (right after its expert's gate math
+// of the step before), as gru_fwd_mma_kernel does: a 12 KiB shared slot
+// would cost the (16 rows, 1 expert) blocking its second CTA per SM.  At
+// t_blk > 1 the CTA's proj rows go through a ring of t_blk one-step slots
+// with cp.async: the prologue issues steps 0..t_blk-1, and step s refills
+// the slot of step s-1 with step s-1+t_blk right after the barrier that
+// ends every read of it, so each copy has t_blk-1 steps of compute to land
+// and each step waits only on its own slot.  The ring is single-buffered on
+// purpose: a double buffer of two t_blk-step blocks would need twice the
+// bytes and halve the t_blk that fits beside W_hh (9 steps at H=128 and
+// 16 rows, against 4), for no more overlap than the ring already gives.
+// Ring rows are padded by 16 bytes, as the other tiles.
+//   Shared memory per expert: W_hh 2H(3H+8), the h tile 4 rows (H+8), and at
+// t_blk > 1 the ring t_blk rows (3H io + 16) bytes.  At H=128, 16 rows and
+// one expert: 100,352 + 8,704 = 109,056 bytes, as K1, two CTAs an SM.
+//
+// The float dot (gru_fwd_blocked_kernel, f32 or bf16 io): plain FMA, since
+// an f32 mma is TF32 and breaks the 1e-5 tolerance.  rows / 8 row groups of
+// H threads, each thread one hidden unit of 8 rows, its rows' float carry in
+// registers, at most 512 threads; per expert W_hh in the io type, a
+// double-buffered [2][rows][H] float carry tile (one __syncthreads per
+// step), and [t_blk][rows][3H] proj staged by synchronous coalesced copies.
+//
+// The wrapper's plan (ops/cuda_gru.py block_plan) refuses a blocking above
+// the opt-in limit, or one no instantiation takes, before launching.
 //
 // Bound at the sweep's shape (E=80, T=60, B=32, H=128), bf16 inputs:
 //   bytes = proj 118.0 MB + out (float) 78.6 MB + W_hh 7.9 MB + h0, b_hh
 //           1.4 MB = 205.9 MB  -> 0.061 ms at 3.35 TB/s
 //   FLOPs = 2*80*60*32*128*384 = 15.1 GFLOP -> 0.015 ms at 989 TFLOP/s
 // so bytes bound it; with float inputs (331.7 MB, 0.099 ms) the 15.1 GFLOP
-// against 67 TFLOP/s of float (0.225 ms) do.  This first version does the dot
-// with plain float FMA from shared memory, as gru_fwd.cu does, and stages
-// synchronously; tensor-core products and asynchronous copies (cp.async,
-// TMA) are the way down to the bound.
+// against 67 TFLOP/s of float (0.225 ms) do.  At B=32 the 60 dependent steps
+// set the latency: the design keeps each step to its mma chains, one
+// barrier and proj loads issued ahead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "gru_mma.cuh"
 
 namespace {
 
+using namespace gru_mma;
+using bf16 = __nv_bfloat16;
+
 constexpr int kRowsPerThread = 8;
 constexpr int kMaxThreads = 512;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The value the dot reads: rounded to bf16 iff the dot is bf16.
-__device__ __forceinline__ float dot_operand(float v, int bf16_dot) {
-  return bf16_dot ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
+constexpr int kMmaRows = 16;          // rows of one m16 tile
+constexpr int kMmaMaxThreads = 256;   // H/16 warps: H <= 128
 
 __host__ __device__ __forceinline__ size_t round16(size_t n) {
   return (n + 15) & ~(size_t)15;
 }
 
-__host__ __device__ __forceinline__ size_t weight_bytes(int H, int w_bf16) {
-  return round16((size_t)H * 3 * H * (w_bf16 ? 2 : 4));
+// Elements of one padded bf16 row (W_hh, the h tile): 16 bytes more.
+__host__ __device__ __forceinline__ int padded(int n) { return n + 8; }
+
+// Shared bytes of one expert of the tensor-core form.
+__host__ __device__ __forceinline__ size_t mma_expert_bytes(int H, int rows, int t_blk,
+                                                            int io_bytes) {
+  size_t bytes = ((size_t)H * padded(3 * H) + 2 * (size_t)rows * padded(H)) * 2;
+  if (t_blk > 1) bytes += (size_t)t_blk * rows * ((size_t)3 * H * io_bytes + 16);
+  return bytes;
 }
 
-size_t smem_bytes(int H, int rows, int e_blk, int t_blk, int io_bf16, int w_bf16) {
-  return (size_t)e_blk * (weight_bytes(H, w_bf16)
+size_t smem_bytes(int H, int rows, int e_blk, int t_blk, int io_bf16, int bf16_dot) {
+  const int io_bytes = io_bf16 ? 2 : 4;
+  if (bf16_dot) return (size_t)e_blk * mma_expert_bytes(H, rows, t_blk, io_bytes);
+  return (size_t)e_blk * (round16((size_t)H * 3 * H * io_bytes)
                           + 2 * (size_t)rows * H * sizeof(float)
-                          + (size_t)t_blk * rows * 3 * H * (io_bf16 ? 2 : 4));
+                          + (size_t)t_blk * rows * 3 * H * io_bytes);
 }
 
-// TIO: proj and W_hh in device memory; TW: W_hh in shared memory.
-template <typename TIO, typename TW, int kEBlk>
+// ---------------------------------------------------------------------------
+// the bf16 dot: tensor cores
+// ---------------------------------------------------------------------------
+
+// Two neighbouring io elements of proj held in registers as loaded (bf16:
+// one 32-bit pair), so a load issued ahead is not waited on until used.
+template <typename T> struct Raw2;
+template <> struct Raw2<bf16> {
+  uint32_t v;
+  __device__ __forceinline__ void load(const bf16* p) { v = load_pair(p); }
+  __device__ __forceinline__ void zero() { v = 0u; }
+  __device__ __forceinline__ float2 get() const { return unpack_bf16x2(v); }
+};
+template <> struct Raw2<float> {
+  float2 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = *reinterpret_cast<const float2*>(p);
+  }
+  __device__ __forceinline__ void zero() { v = make_float2(0.0f, 0.0f); }
+  __device__ __forceinline__ float2 get() const { return v; }
+};
+
+// 8 io elements at src (16- or 32-byte aligned) as 8 bf16 at dst.
+__device__ __forceinline__ void stage8(bf16* dst, const bf16* src) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+__device__ __forceinline__ void stage8(bf16* dst, const float* src) {
+  const float4 lo = *reinterpret_cast<const float4*>(src);
+  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                 pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+}
+
+// Wait until at most n committed cp.async groups are in flight; above 3 it
+// waits for more than it must, which is safe.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else if (n == 2)
+    cp_async_wait<2>();
+  else
+    cp_async_wait<3>();
+}
+
+// One chain (expert, m tile) at a time needs few registers; the single-chain
+// form is held to 128 a thread so two 256-thread CTAs share an SM.
+template <typename TIO, int kEBlk, int kMTiles>
+__global__ void __launch_bounds__(kMmaMaxThreads, kEBlk * kMTiles == 1 ? 2 : 1)
+gru_fwd_blocked_mma_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_hh,
+                           const float* __restrict__ b_hh, const float* __restrict__ h0,
+                           float* __restrict__ out, int n_t, int n_b, int H, int t_blk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kRows = kMTiles * kMmaRows;
+  const int G3 = 3 * H;
+  const int w_ld = padded(G3), h_ld = padded(H);
+  const int x_ld = G3 + 16 / (int)sizeof(TIO);
+  const bool staged = t_blk > 1;
+  const size_t expert_bytes = mma_expert_bytes(H, kRows, t_blk, sizeof(TIO));
+  // expert i: W_hh [H][w_ld], h tile [2][kRows][h_ld] (bf16), ring
+  // [t_blk][kRows][x_ld] (io type)
+  auto w_s = [&](int i) { return reinterpret_cast<bf16*>(smem + i * expert_bytes); };
+  auto h_s = [&](int i) { return w_s(i) + (size_t)H * w_ld; };
+  auto x_s = [&](int i) { return reinterpret_cast<TIO*>(h_s(i) + 2 * kRows * h_ld); };
+
+  const int e0 = blockIdx.y * kEBlk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = frag_row(lane);
+  const int tile0 = blockIdx.x * kRows;
+
+#pragma unroll
+  for (int i = 0; i < kEBlk; ++i) {
+    const TIO* w_e = w_hh + (size_t)(e0 + i) * H * G3;
+    bf16* w_d = w_s(i);
+    const int vec_per_row = G3 / 8;
+    for (int idx = threadIdx.x; idx < H * vec_per_row; idx += blockDim.x) {
+      const int r = idx / vec_per_row, c = (idx - r * vec_per_row) * 8;
+      stage8(w_d + (size_t)r * w_ld + c, w_e + (size_t)r * G3 + c);
+    }
+  }
+
+  // This lane's elements: rows g + 8 rr of each m tile, units u[hf], +1.
+  int u[2];
+  u[0] = 16 * warp + frag_col(lane);
+  u[1] = u[0] + 8;
+  int row[kMTiles][2];
+  bool valid[kMTiles][2];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      row[mt][rr] = tile0 + kMmaRows * mt + g + 8 * rr;
+      valid[mt][rr] = row[mt][rr] < n_b;
+    }
+
+  float bias[kEBlk][3][2][2];                    // [i][gate][hf][unit pair]
+  float h[kEBlk][kMTiles][2][2][2];              // [i][mt][rr][hf][unit pair]
+#pragma unroll
+  for (int i = 0; i < kEBlk; ++i) {
+    const float* b_e = b_hh + (size_t)(e0 + i) * G3;
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        bias[i][gate][hf][0] = b_e[gate * H + u[hf]];
+        bias[i][gate][hf][1] = b_e[gate * H + u[hf] + 1];
+      }
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float2 v = make_float2(0.0f, 0.0f);
+          if (valid[mt][rr])
+            v = *reinterpret_cast<const float2*>(
+                h0 + ((size_t)(e0 + i) * n_b + row[mt][rr]) * H + u[hf]);
+          h[i][mt][rr][hf][0] = v.x;
+          h[i][mt][rr][hf][1] = v.y;
+          store_pair(h_s(i) + (kMmaRows * mt + g + 8 * rr) * h_ld + u[hf],
+                     pack_bf16x2(v.x, v.y));
+        }
+  }
+
+  // t_blk > 1: step s's proj rows of every expert into ring slot s % t_blk,
+  // 16 bytes a copy, zeros for ragged rows; one commit group per call.
+  auto issue = [&](int s) {
+    const int slot = s % t_blk;
+    const int vec_per_row = G3 * (int)sizeof(TIO) / 16;
+    const int per_vec = 16 / (int)sizeof(TIO);
+#pragma unroll
+    for (int i = 0; i < kEBlk; ++i) {
+      const TIO* src = proj + (((size_t)(e0 + i) * n_t + s) * n_b + tile0) * G3;
+      TIO* dst = x_s(i) + (size_t)slot * kRows * x_ld;
+      for (int idx = threadIdx.x; idx < kRows * vec_per_row; idx += blockDim.x) {
+        const int r = idx / vec_per_row, c = (idx - r * vec_per_row) * per_vec;
+        const bool full = tile0 + r < n_b;
+        cp_async16(dst + (size_t)r * x_ld + c, full ? src + (size_t)r * G3 + c : proj,
+                   full);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // t_blk = 1: expert i's proj elements of step s into registers.
+  Raw2<TIO> x[kEBlk][kMTiles][3][2][2];          // [i][mt][gate][rr][hf]
+  auto load_x = [&](int i, int s) {
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const TIO* p = proj + (((size_t)(e0 + i) * n_t + s) * n_b + row[mt][rr]) * G3;
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            if (valid[mt][rr])
+              x[i][mt][gate][rr][hf].load(p + gate * H + u[hf]);
+            else
+              x[i][mt][gate][rr][hf].zero();
+          }
+      }
+  };
+
+  if (staged) {
+    for (int s = 0; s < t_blk; ++s) issue(s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kEBlk; ++i) load_x(i, 0);
+  }
+
+  for (int s = 0; s < n_t; ++s) {
+    // Groups committed so far carry steps 0 .. s+t_blk-2 in order, so step
+    // s's own copies have landed once at most t_blk-2 remain in flight.
+    if (staged) cp_async_wait_upto(t_blk - 2);
+    // Every h tile of step s and every copy of slot s are visible, and every
+    // read of step s-1 (its h tile, its ring slot) is done.
+    __syncthreads();
+    if (staged && s >= 1) {
+      if (s - 1 + t_blk < n_t)
+        issue(s - 1 + t_blk);
+      else
+        cp_async_commit();                       // keep one group a step
+    }
+    const int cur = s & 1;
+#pragma unroll
+    for (int i = 0; i < kEBlk; ++i) {            // time outer, experts inner
+      const bf16* w_i = w_s(i);
+      const bf16* h_cur = h_s(i) + cur * kRows * h_ld;
+      bf16* h_nxt = h_s(i) + (cur ^ 1) * kRows * h_ld;
+
+      // acc[mt][gate][hf] = columns gate*H + 16 warp + 8 hf .. +7 of h . W_hh
+      float acc[kMTiles][3][2][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[mt][gate][hf][c] = 0.0f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < H; k0 += 16) {
+        uint32_t a[kMTiles][4];
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt)
+          load_a(a[mt], h_cur + kMmaRows * mt * h_ld + k0, h_ld, lane);
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          uint32_t b[4];
+          load_b_trans(b, w_i + (size_t)k0 * w_ld + gate * H + 16 * warp, w_ld, lane);
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+            mma_bf16(acc[mt][gate][0], a[mt], b[0], b[1]);
+            mma_bf16(acc[mt][gate][1], a[mt], b[2], b[3]);
+          }
+        }
+      }
+
+      const TIO* xs = x_s(i) + (size_t)(s % t_blk) * kRows * x_ld;
+      float* o_t = out + ((size_t)(e0 + i) * n_t + s) * n_b * H;
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int local = kMmaRows * mt + g + 8 * rr;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float2 xv[3];
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate) {
+              if (staged) {
+                Raw2<TIO> r2;
+                r2.load(xs + (size_t)local * x_ld + gate * H + u[hf]);
+                xv[gate] = r2.get();
+              } else {
+                xv[gate] = x[i][mt][gate][rr][hf].get();
+              }
+            }
+            const float xr[2] = {xv[0].x, xv[0].y}, xz[2] = {xv[1].x, xv[1].y};
+            const float xn[2] = {xv[2].x, xv[2].y};
+            float hv[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float g_r = acc[mt][0][hf][2 * rr + c] + bias[i][0][hf][c];
+              const float g_z = acc[mt][1][hf][2 * rr + c] + bias[i][1][hf][c];
+              const float g_n = acc[mt][2][hf][2 * rr + c] + bias[i][2][hf][c];
+              const float r = sigmoid_f32(xr[c] + g_r);
+              const float z = sigmoid_f32(xz[c] + g_z);
+              const float n = tanhf(xn[c] + r * g_n);
+              hv[c] = (1.0f - z) * n + z * h[i][mt][rr][hf][c];
+              h[i][mt][rr][hf][c] = hv[c];
+            }
+            if (valid[mt][rr])
+              *reinterpret_cast<float2*>(o_t + (size_t)row[mt][rr] * H + u[hf]) =
+                  make_float2(hv[0], hv[1]);
+            store_pair(h_nxt + local * h_ld + u[hf],
+                       valid[mt][rr] ? pack_bf16x2(hv[0], hv[1]) : 0u);
+          }
+        }
+      // this expert's next proj, in flight across the barrier and the next
+      // step's products
+      if (!staged && s + 1 < n_t) load_x(i, s + 1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the float dot: FMA
+// ---------------------------------------------------------------------------
+
+// T: proj and W_hh, in device and in shared memory.
+template <typename T, int kEBlk>
 __global__ void __launch_bounds__(kMaxThreads)
-gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_hh,
+gru_fwd_blocked_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
                        const float* __restrict__ b_hh, const float* __restrict__ h0,
                        float* __restrict__ out, int n_t, int n_b, int H, int rows,
-                       int t_blk, int bf16_dot) {
+                       int t_blk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G3 = 3 * H;
-  const size_t w_bytes = weight_bytes(H, sizeof(TW) == 2);
+  const size_t w_bytes = round16((size_t)H * G3 * sizeof(T));
   // [kEBlk] W_hh, then [kEBlk][2][rows][H] float, then [kEBlk][t_blk][rows][3H]
   float* h_s = reinterpret_cast<float*>(smem + kEBlk * w_bytes);
-  TIO* p_s = reinterpret_cast<TIO*>(smem + kEBlk * w_bytes
-                                    + (size_t)kEBlk * 2 * rows * H * sizeof(float));
+  T* p_s = reinterpret_cast<T*>(smem + kEBlk * w_bytes
+                                + (size_t)kEBlk * 2 * rows * H * sizeof(float));
 
   const int e0 = blockIdx.y * kEBlk;
   const int k = threadIdx.x % H;
@@ -112,10 +416,9 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
 
 #pragma unroll
   for (int i = 0; i < kEBlk; ++i) {
-    const TIO* w_e = w_hh + (size_t)(e0 + i) * H * G3;
-    TW* w_d = reinterpret_cast<TW*>(smem + i * w_bytes);
-    for (int idx = threadIdx.x; idx < H * G3; idx += blockDim.x)
-      w_d[idx] = from_f32<TW>(to_f32(w_e[idx]));
+    const T* w_e = w_hh + (size_t)(e0 + i) * H * G3;
+    T* w_d = reinterpret_cast<T*>(smem + i * w_bytes);
+    for (int idx = threadIdx.x; idx < H * G3; idx += blockDim.x) w_d[idx] = w_e[idx];
   }
 
   bool valid[kRowsPerThread];
@@ -134,7 +437,7 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       h[i][j] = valid[j] ? h0[((size_t)(e0 + i) * n_b + row0 + j) * H + k] : 0.0f;
-      h_i[(local0 + j) * H + k] = dot_operand(h[i][j], bf16_dot);
+      h_i[(local0 + j) * H + k] = h[i][j];
     }
   }
 
@@ -144,8 +447,8 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
     __syncthreads();
     for (int i = 0; i < kEBlk; ++i) {
       for (int tt = 0; tt < t_blk; ++tt) {
-        const TIO* src = proj + (((size_t)(e0 + i) * n_t + t0 + tt) * n_b + tile0) * G3;
-        TIO* dst = p_s + ((size_t)i * t_blk + tt) * stage;
+        const T* src = proj + (((size_t)(e0 + i) * n_t + t0 + tt) * n_b + tile0) * G3;
+        T* dst = p_s + ((size_t)i * t_blk + tt) * stage;
         for (int idx = threadIdx.x; idx < tile_rows * G3; idx += blockDim.x)
           dst[idx] = src[idx];
       }
@@ -157,7 +460,7 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
       const int s = t0 + tt;
 #pragma unroll
       for (int i = 0; i < kEBlk; ++i) {       // time outer, experts inner
-        const TW* w_i = reinterpret_cast<const TW*>(smem + i * w_bytes);
+        const T* w_i = reinterpret_cast<const T*>(smem + i * w_bytes);
         const float* h_cur = h_s + ((size_t)i * 2 + (s & 1)) * rows * H + local0 * H;
         float* h_nxt = h_s + ((size_t)i * 2 + ((s + 1) & 1)) * rows * H + local0 * H;
 
@@ -170,7 +473,7 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
           float w_r[4], w_z[4], w_n[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const TW* w_row = w_i + (size_t)(c + u) * G3;
+            const T* w_row = w_i + (size_t)(c + u) * G3;
             w_r[u] = to_f32(w_row[k]);
             w_z[u] = to_f32(w_row[H + k]);
             w_n[u] = to_f32(w_row[2 * H + k]);
@@ -193,13 +496,13 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
           }
         }
 
-        const TIO* x_s = p_s + ((size_t)i * t_blk + tt) * stage + (size_t)local0 * G3;
+        const T* x_s = p_s + ((size_t)i * t_blk + tt) * stage + (size_t)local0 * G3;
         float* o_t = out + ((size_t)(e0 + i) * n_t + s) * n_b * H;
 #pragma unroll
         for (int j = 0; j < kRowsPerThread; ++j) {
           float x_r = 0.0f, x_z = 0.0f, x_n = 0.0f;
           if (valid[j]) {
-            const TIO* x = x_s + (size_t)j * G3;
+            const T* x = x_s + (size_t)j * G3;
             x_r = to_f32(x[k]);
             x_z = to_f32(x[H + k]);
             x_n = to_f32(x[2 * H + k]);
@@ -211,7 +514,7 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
           const float n = tanhf(x_n + r * g_n);
           h[i][j] = (1.0f - z) * n + z * h[i][j];
           if (valid[j]) o_t[(size_t)(row0 + j) * H + k] = h[i][j];
-          h_nxt[j * H + k] = dot_operand(h[i][j], bf16_dot);
+          h_nxt[j * H + k] = h[i][j];
         }
       }
       // (C) step s's carry values are written before step s + 1 reads them
@@ -220,39 +523,94 @@ gru_fwd_blocked_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_h
   }
 }
 
-template <typename TIO, typename TW, int kEBlk>
-int launch(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
-           void* out, int E, int n_t, int n_b, int H, int rows, int t_blk,
-           int bf16_dot, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, rows, kEBlk, t_blk, sizeof(TIO) == 2,
-                                 sizeof(TW) == 2);
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename TIO, int kEBlk, int kMTiles>
+int launch_mma(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
+               void* out, int E, int n_t, int n_b, int H, int t_blk,
+               cudaStream_t stream) {
+  constexpr int kRows = kMTiles * kMmaRows;
+  const size_t smem = smem_bytes(H, kRows, kEBlk, t_blk, sizeof(TIO) == 2, 1);
+  const auto kernel = gru_fwd_blocked_mma_kernel<TIO, kEBlk, kMTiles>;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_blocked_kernel<TIO, TW, kEBlk>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_b + rows - 1) / rows, E / kEBlk);
-  const dim3 block((rows / kRowsPerThread) * H);
-  gru_fwd_blocked_kernel<TIO, TW, kEBlk><<<grid, block, smem, stream>>>(
+  const dim3 grid((n_b + kRows - 1) / kRows, E / kEBlk);
+  const dim3 block((H / 16) * 32);
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const TIO*>(proj), static_cast<const TIO*>(w_hh),
       static_cast<const float*>(b_hh), static_cast<const float*>(h0),
-      static_cast<float*>(out), n_t, n_b, H, rows, t_blk, bf16_dot);
+      static_cast<float*>(out), n_t, n_b, H, t_blk);
   return (int)cudaGetLastError();
 }
 
-template <typename TIO, typename TW>
-int launch_e(int e_blk, const void* proj, const void* w_hh, const void* b_hh,
-             const void* h0, void* out, int E, int n_t, int n_b, int H, int rows,
-             int t_blk, int bf16_dot, cudaStream_t stream) {
+template <typename TIO, int kEBlk>
+int launch_mma_rows(int rows, const void* proj, const void* w_hh, const void* b_hh,
+                    const void* h0, void* out, int E, int n_t, int n_b, int H,
+                    int t_blk, cudaStream_t stream) {
+  switch (rows) {
+    case kMmaRows:
+      return launch_mma<TIO, kEBlk, 1>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H,
+                                       t_blk, stream);
+    case 2 * kMmaRows:
+      return launch_mma<TIO, kEBlk, 2>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H,
+                                       t_blk, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int kEBlk>
+int launch_fma(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
+               void* out, int E, int n_t, int n_b, int H, int rows, int t_blk,
+               cudaStream_t stream) {
+  const size_t smem = smem_bytes(H, rows, kEBlk, t_blk, sizeof(T) == 2, 0);
+  const auto kernel = gru_fwd_blocked_kernel<T, kEBlk>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_b + rows - 1) / rows, E / kEBlk);
+  const dim3 block((rows / kRowsPerThread) * H);
+  kernel<<<grid, block, smem, stream>>>(
+      static_cast<const T*>(proj), static_cast<const T*>(w_hh),
+      static_cast<const float*>(b_hh), static_cast<const float*>(h0),
+      static_cast<float*>(out), n_t, n_b, H, rows, t_blk);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation of one io type: the bf16 dot on the tensor cores, the
+// float dot on FMA.
+template <typename TIO>
+int launch_io(int e_blk, int bf16_dot, const void* proj, const void* w_hh,
+              const void* b_hh, const void* h0, void* out, int E, int n_t, int n_b,
+              int H, int rows, int t_blk, cudaStream_t stream) {
+  if (bf16_dot) {
+    switch (e_blk) {
+      case 1:
+        return launch_mma_rows<TIO, 1>(rows, proj, w_hh, b_hh, h0, out, E, n_t, n_b,
+                                       H, t_blk, stream);
+      case 2:
+        return launch_mma_rows<TIO, 2>(rows, proj, w_hh, b_hh, h0, out, E, n_t, n_b,
+                                       H, t_blk, stream);
+      case 4:
+        return launch_mma_rows<TIO, 4>(rows, proj, w_hh, b_hh, h0, out, E, n_t, n_b,
+                                       H, t_blk, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (e_blk) {
     case 1:
-      return launch<TIO, TW, 1>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
-                                t_blk, bf16_dot, stream);
+      return launch_fma<TIO, 1>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
+                                t_blk, stream);
     case 2:
-      return launch<TIO, TW, 2>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
-                                t_blk, bf16_dot, stream);
+      return launch_fma<TIO, 2>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
+                                t_blk, stream);
     case 4:
-      return launch<TIO, TW, 4>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
-                                t_blk, bf16_dot, stream);
+      return launch_fma<TIO, 4>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
+                                t_blk, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -265,28 +623,28 @@ extern "C" {
 // Dynamic shared memory one CTA needs (the wrapper's plan refuses a blocking
 // above the opt-in limit before launching).
 size_t gru_fwd_blocked_smem_bytes(int H, int rows, int e_blk, int t_blk,
-                                  int io_bf16, int w_bf16) {
-  return smem_bytes(H, rows, e_blk, t_blk, io_bf16, w_bf16);
+                                  int io_bf16, int bf16_dot) {
+  return smem_bytes(H, rows, e_blk, t_blk, io_bf16, bf16_dot);
 }
 
 int gru_fwd_blocked_max_threads(void) { return kMaxThreads; }
 
+int gru_fwd_blocked_mma_max_threads(void) { return kMmaMaxThreads; }
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  The caller
-// has checked e_blk | E, t_blk | T, rows % 8 == 0 and (rows / 8) * H <= 512.
+// has checked e_blk | E and t_blk | T, and: with bf16_dot, H % 16 == 0,
+// H <= 128 and rows in {16, 32}; without it, rows % 8 == 0 and
+// (rows / 8) * H <= 512.
 int gru_fwd_blocked(const void* proj, const void* w_hh, const void* b_hh,
                     const void* h0, void* out, int E, int n_t, int n_b, int H,
                     int rows, int e_blk, int t_blk, int bf16, int bf16_dot,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)   // bf16 weights stay bf16 in shared memory, dot or not
-    return launch_e<__nv_bfloat16, __nv_bfloat16>(e_blk, proj, w_hh, b_hh, h0,
-                                                  out, E, n_t, n_b, H, rows,
-                                                  t_blk, bf16_dot, st);
-  if (bf16_dot)
-    return launch_e<float, __nv_bfloat16>(e_blk, proj, w_hh, b_hh, h0, out, E,
-                                          n_t, n_b, H, rows, t_blk, bf16_dot, st);
-  return launch_e<float, float>(e_blk, proj, w_hh, b_hh, h0, out, E, n_t, n_b,
-                                H, rows, t_blk, bf16_dot, st);
+  if (bf16)
+    return launch_io<__nv_bfloat16>(e_blk, bf16_dot, proj, w_hh, b_hh, h0, out, E,
+                                    n_t, n_b, H, rows, t_blk, st);
+  return launch_io<float>(e_blk, bf16_dot, proj, w_hh, b_hh, h0, out, E, n_t, n_b, H,
+                          rows, t_blk, st);
 }
 
 }  // extern "C"

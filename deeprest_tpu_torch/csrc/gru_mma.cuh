@@ -1,4 +1,5 @@
-// Device helpers shared by the GRU recurrence kernels (gru_fwd.cu, gru_bwd.cu):
+// Device helpers shared by the GRU recurrence kernels (gru_fwd.cu, gru_bwd.cu,
+// gru_fwd_blocked.cu):
 // the float/bf16 conversions, the gate nonlinearities, and the Hopper
 // tensor-core pieces of their bf16 forms.
 //

@@ -16,14 +16,17 @@ Counterpart of ``deeprest_tpu/ops/pallas_gru.py``:
   ``csrc/gru_bwd.cu`` (the reverse-time recurrence plus the dW/db product),
   which recomputes the hidden gates when the forward stashed none; bf16
   runs both products on the tensor cores, f32 on FMA, as K1 and K2 do;
-- ``csrc/gru_mma.cuh``, the device header both sources include (the
+- ``csrc/gru_mma.cuh``, the device header every source includes (the
   ``ldmatrix`` / ``mma.sync`` / ``cp.async`` helpers and the gate
-  nonlinearities); its bytes enter both libraries' digests;
+  nonlinearities); its bytes enter every library's digest;
 - K4, the blocked forward of the tuning sweep
   (``benchmarks/kernel_tuning.py::make_fwd_call``):
   :func:`gru_fwd_blocked_cuda`, kernel ``csrc/gru_fwd_blocked.cu``, with a
   caller-chosen blocking (rows per CTA, experts per CTA, time steps of
-  proj staged per load) and an f32 output;
+  proj held in shared memory) and an f32 output; with the bf16 dot
+  (``gru_fwd_blocked_mma_kernel``) on the tensor cores like K1, proj
+  through registers (``t_blk = 1``) or a ``cp.async`` ring, with the f32
+  dot on FMA;
 - the custom VJP ``gru_recurrence`` → :class:`GRURecurrence`;
 - ``_choose_blocks`` / ``block_plan`` → :func:`block_plan`, the Hopper
   plan: per kernel the rows, threads and shared-memory bytes of one CTA,
@@ -100,11 +103,13 @@ GRU_BWD_SOURCE = CudaSource("gru_bwd.cu", headers=MMA_HEADERS, signatures={
     "gru_bwd_row_groups": (_INT, []),
     "gru_bwd_row_tile": (_INT, []),
 })
-GRU_FWD_BLOCKED_SOURCE = CudaSource("gru_fwd_blocked.cu", signatures={
-    "gru_fwd_blocked": (_INT, [_PTR] * 5 + [_INT] * 9 + [_PTR]),
-    "gru_fwd_blocked_smem_bytes": (ctypes.c_size_t, [_INT] * 6),
-    "gru_fwd_blocked_max_threads": (_INT, []),
-})
+GRU_FWD_BLOCKED_SOURCE = CudaSource(
+    "gru_fwd_blocked.cu", headers=MMA_HEADERS, signatures={
+        "gru_fwd_blocked": (_INT, [_PTR] * 5 + [_INT] * 9 + [_PTR]),
+        "gru_fwd_blocked_smem_bytes": (ctypes.c_size_t, [_INT] * 6),
+        "gru_fwd_blocked_max_threads": (_INT, []),
+        "gru_fwd_blocked_mma_max_threads": (_INT, []),
+    })
 SOURCES = (GRU_FWD_SOURCE, GRU_BWD_SOURCE, GRU_FWD_BLOCKED_SOURCE)
 
 GRU_FWD = CudaKernel(GRU_FWD_SOURCE, "gru_fwd")
@@ -134,18 +139,25 @@ THREADS_PER_SM = 2_048
 CTAS_PER_SM = 32
 REGISTERS_PER_SM = 65_536
 # Every kernel is compiled with __launch_bounds__(512), which caps a thread
-# at 128 registers; the plan counts that cap.
+# at 128 registers; the plan counts that cap.  K4's tensor-core form is
+# bounded to 256 threads: its single-chain instantiation (16 rows, one
+# expert) at two CTAs an SM, so 128 registers, the others at one, so up to
+# 255.
 REGISTERS_PER_THREAD = 128
+REGISTERS_PER_THREAD_MAX = 255
 # Mirrors of the sources' constants: csrc/gru_fwd.cu and csrc/gru_bwd.cu
 # run 16 rows per CTA on 2H threads (f32: each thread one hidden unit of 8
 # rows, 2 such row groups; bf16: H/16 warps of 16 hidden units each);
-# csrc/gru_fwd_blocked.cu takes rows / 8 row groups.
+# csrc/gru_fwd_blocked.cu takes rows / 8 row groups with the f32 dot, and
+# one or two m16 tiles of rows on H/16 warps with the bf16 dot.
 ROWS_PER_THREAD = 8
 ROW_GROUPS = 2
 ROW_TILE = ROW_GROUPS * ROWS_PER_THREAD
 MAX_THREADS = 512
 MMA_UNITS = 16   # hidden units per warp (and the k16 step) of the bf16 kernels
 BLOCKED_E_BLKS = (1, 2, 4)      # the e_blk instantiations of K4
+BLOCKED_MMA_ROWS = (16, 32)     # K4's bf16-dot batch tiles: 1 or 2 m16 tiles
+BLOCKED_MMA_MAX_THREADS = 256   # K4's bf16-dot CTA: H/16 warps, so H <= 128
 
 
 def _round16(n: int) -> int:
@@ -175,19 +187,28 @@ def bwd_smem_bytes(h: int, bf16: bool, stash: bool) -> int:
 
 
 def fwd_blocked_smem_bytes(h: int, rows: int, e_blk: int, t_blk: int,
-                           io_bf16: bool, w_bf16: bool) -> int:
-    """``gru_fwd_blocked_smem_bytes`` (K4): per expert of the block, W_hh
-    (bf16 when the inputs are bf16 or the dot is), the double-buffered f32
-    carry of ``rows`` rows, and ``t_blk`` steps of proj for those rows in
-    the io dtype."""
-    w = _round16(h * 3 * h * (2 if w_bf16 else 4))
-    return e_blk * (w + 2 * rows * h * 4
-                    + t_blk * rows * 3 * h * (2 if io_bf16 else 4))
+                           io_bf16: bool, bf16_dot: bool) -> int:
+    """``gru_fwd_blocked_smem_bytes`` (K4), per expert of the block.  bf16
+    dot (tensor cores): W_hh in bf16 and the double-buffered bf16 h tile of
+    ``rows`` rows, every row padded by 16 bytes, and for ``t_blk > 1`` a
+    ring of ``t_blk`` steps of proj rows in the io dtype, padded likewise
+    (at ``t_blk = 1`` proj goes to registers).  f32 dot (FMA): W_hh in the
+    io dtype, the double-buffered f32 carry tile, and ``t_blk`` steps of
+    proj."""
+    io = 2 if io_bf16 else 4
+    if bf16_dot:
+        ring = t_blk * rows * (3 * h * io + 16) if t_blk > 1 else 0
+        return e_blk * ((h * (3 * h + 8) + 2 * rows * (h + 8)) * 2 + ring)
+    return e_blk * (_round16(h * 3 * h * io) + 2 * rows * h * 4
+                    + t_blk * rows * 3 * h * io)
 
 
-def default_blocked_rows(b: int, h: int) -> int:
-    """K4's default batch tile: all B rows (rounded up to a row group),
-    capped at :data:`MAX_THREADS` threads of one hidden unit each."""
+def default_blocked_rows(b: int, h: int, bf16_dot: bool = False) -> int:
+    """K4's default batch tile: all B rows, rounded up to a row group and
+    capped at :data:`MAX_THREADS` threads of one hidden unit each (f32
+    dot), or rounded up to m16 tiles and capped at two (bf16 dot)."""
+    if bf16_dot:
+        return min(-(-b // MMA_UNITS) * MMA_UNITS, BLOCKED_MMA_ROWS[-1])
     cap = max(ROWS_PER_THREAD, ROWS_PER_THREAD * (MAX_THREADS // max(h, 1)))
     return min(-(-b // ROWS_PER_THREAD) * ROWS_PER_THREAD, cap)
 
@@ -202,8 +223,37 @@ def _check_blocking(e: int, t: int, e_blk: int, t_blk: int) -> None:
         raise ValueError(f"T % t_blk must be 0; got T={t}, t_blk={t_blk}")
 
 
+def _blocked_refusal(h: int, rows: int, e_blk: int, threads: int,
+                     bf16_dot: bool) -> str | None:
+    """Why no K4 instantiation takes this blocking (None if one does),
+    before its shared memory is counted."""
+    if e_blk not in BLOCKED_E_BLKS:
+        return f"K4 is built for e_blk in {BLOCKED_E_BLKS}, not {e_blk}"
+    if bf16_dot:
+        if h % MMA_UNITS:
+            return (f"the bf16-dot tensor-core form takes hidden sizes "
+                    f"H % {MMA_UNITS} == 0 (one warp per {MMA_UNITS} units, "
+                    f"m16n8k16 tiles); got H={h}")
+        if threads > BLOCKED_MMA_MAX_THREADS:
+            return (f"the bf16-dot tensor-core form runs H/16 warps in at "
+                    f"most {BLOCKED_MMA_MAX_THREADS} threads (H <= 128); got "
+                    f"H={h}")
+        if rows not in BLOCKED_MMA_ROWS:
+            return (f"the bf16-dot tensor-core form takes rows in "
+                    f"{BLOCKED_MMA_ROWS} (one or two m16 tiles), got "
+                    f"rows={rows}")
+        return None
+    if rows < ROWS_PER_THREAD or rows % ROWS_PER_THREAD:
+        return f"rows must be a positive multiple of 8, got {rows}"
+    if h % 4 or threads > MAX_THREADS:
+        return (f"takes hidden sizes H % 4 == 0 with rows/8*H <= "
+                f"{MAX_THREADS} threads; got H={h}, rows={rows}")
+    return None
+
+
 def _plan_entry(rows: int, threads: int, smem: int, ctas: int,
-                refusal: str | None) -> dict:
+                refusal: str | None,
+                registers: int = REGISTERS_PER_THREAD) -> dict:
     if refusal is None and smem > SMEM_OPTIN_BYTES:
         refusal = (f"needs {smem} bytes of shared memory per CTA, above the "
                    f"{SMEM_OPTIN_BYTES} one CTA may opt into")
@@ -211,7 +261,7 @@ def _plan_entry(rows: int, threads: int, smem: int, ctas: int,
     if refusal is None:
         resident = min(SMEM_PER_SM_BYTES // (smem + SMEM_RESERVED_PER_CTA),
                        THREADS_PER_SM // threads,
-                       REGISTERS_PER_SM // (threads * REGISTERS_PER_THREAD),
+                       REGISTERS_PER_SM // (threads * registers),
                        CTAS_PER_SM)
     return {"rows_per_cta": rows, "threads_per_cta": threads,
             "smem_bytes": smem, "ctas": ctas, "ctas_per_sm": resident,
@@ -234,7 +284,10 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
     static shared memory and never binds) for training, or with
     ``blocked`` K4 alone (``fwd_blocked``, inference only) at the
     blocking ``rows`` (default :func:`default_blocked_rows`),
-    ``e_blk``, ``t_blk`` and ``bf16_dot`` (default: the io dtype's).  K1-K3
+    ``e_blk``, ``t_blk`` and ``bf16_dot`` (default: the io dtype's); K4's
+    bf16 dot runs on the tensor cores and takes H % 16, H <= 128 and
+    16 or 32 rows (8 rows are refused, not run half empty), its f32 dot
+    on FMA.  K1-K3
     have a fixed blocking of 16 rows and one expert per CTA; ``stash``
     (default :data:`STASH_GATES`) sizes K3 in f32.  In bf16 K1-K3 run on
     the tensor cores in warps of 16 hidden units and refuse ``H % 16``;
@@ -262,21 +315,19 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
                              "training=False")
         _check_blocking(e, t, e_blk, t_blk)
         dot16 = io_bf16 if bf16_dot is None else bool(bf16_dot)
-        rows = default_blocked_rows(b, h) if rows is None else rows
-        threads = (rows // ROWS_PER_THREAD) * h
-        refusal = None
-        if e_blk not in BLOCKED_E_BLKS:
-            refusal = f"K4 is built for e_blk in {BLOCKED_E_BLKS}, not {e_blk}"
-        elif rows < ROWS_PER_THREAD or rows % ROWS_PER_THREAD:
-            refusal = f"rows must be a positive multiple of 8, got {rows}"
-        elif h % 4 or threads > MAX_THREADS:
-            refusal = (f"takes hidden sizes H % 4 == 0 with rows/8*H <= "
-                       f"{MAX_THREADS} threads; got H={h}, rows={rows}")
-        smem = fwd_blocked_smem_bytes(h, rows, e_blk, t_blk, io_bf16,
-                                      io_bf16 or dot16)
+        rows = default_blocked_rows(b, h, dot16) if rows is None else rows
+        if dot16:       # the tensor-core form: H/16 warps, m16 row tiles
+            threads = (h // MMA_UNITS) * 32
+            registers = (REGISTERS_PER_THREAD
+                         if (rows, e_blk) == (MMA_UNITS, 1)
+                         else REGISTERS_PER_THREAD_MAX)
+        else:           # the FMA form: rows/8 row groups of H threads
+            threads = (rows // ROWS_PER_THREAD) * h
+            registers = REGISTERS_PER_THREAD
+        smem = fwd_blocked_smem_bytes(h, rows, e_blk, t_blk, io_bf16, dot16)
         kernels["fwd_blocked"] = _plan_entry(
             rows, threads, smem, -(-b // max(rows, 1)) * (e // e_blk),
-            refusal)
+            _blocked_refusal(h, rows, e_blk, threads, dot16), registers)
     else:
         if rows is not None or e_blk != 1 or t_blk != 1:
             raise ValueError("K1-K3 run 16 rows and one expert per CTA over "
@@ -616,8 +667,9 @@ def gru_fwd_blocked_cuda(proj: torch.Tensor, w_hh: torch.Tensor,
     """K4: launch ``csrc/gru_fwd_blocked.cu`` on the current stream of
     proj's device, at the blocking ``rows`` (batch rows per CTA, default
     :func:`default_blocked_rows`), ``e_blk`` (experts per CTA, stepped
-    time outer and expert inner) and ``t_blk`` (steps of proj staged in
-    shared memory per load).
+    time outer and expert inner) and ``t_blk`` (steps of proj held in
+    shared memory; 1 loads them into registers).  The bf16 dot launches
+    the tensor-core form, the f32 dot the FMA form.
 
     Contract of :func:`gru_fwd_blocked_reference` with the inputs of
     :func:`gru_fwd_cuda`; returns ``h_all [E, T, B, H]`` in f32.  Raises

@@ -201,8 +201,11 @@ def test_dispatch_launches_kernel_on_cuda(cuda):
 # K4, the block plan, the gate stash and the fused bidirectional launch
 # ---------------------------------------------------------------------------
 
-# the fused flagship stacking (both directions, E=80) and a ragged shape
-BLOCKED_SHAPES = [(80, 60, 32, 128), (4, 12, 37, 128)]
+# the fused flagship stacking (both directions, E=80), a ragged shape, and
+# ragged shapes at H=96 (6 warps) and H=64 (4 warps) for the bf16-dot
+# tensor-core form, whose last m16 tile then holds masked rows
+BLOCKED_SHAPES = [(80, 60, 32, 128), (4, 12, 37, 128), (4, 12, 37, 96),
+                  (2, 6, 21, 64)]
 BLOCKED_MENU = [(rows, e_blk, t_blk) for rows in (None, 32, 16, 8)
                 for e_blk in (1, 2, 4) for t_blk in (1, 2, 6, 12)]
 
@@ -240,6 +243,25 @@ def test_blocked_matches_plain_at_every_admitted_blocking(cuda, shape, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_bf16_dot_is_deterministic(cuda, dtype):
+    """Two launches of the tensor-core K4 give the same bits, one and two
+    experts a CTA, registers and the cp.async ring (t_blk 6)."""
+    args = _inputs(80, 60, 32, 128, dtype, cuda, seed=10)
+    for rows, e_blk, t_blk in ((16, 1, 1), (16, 2, 1), (32, 1, 1),
+                               (16, 1, 6)):
+        if not cuda_gru.block_plan(80, 60, 32, 128, dtype, training=False,
+                                   rows=rows, e_blk=e_blk, t_blk=t_blk,
+                                   blocked=True, bf16_dot=True)["fits"]:
+            continue
+        first = cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=e_blk, t_blk=t_blk,
+                                              bf16_dot=True, rows=rows)
+        again = cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=e_blk, t_blk=t_blk,
+                                              bf16_dot=True, rows=rows)
+        assert torch.equal(first, again), (rows, e_blk, t_blk)
+
+
+@pytest.mark.cuda
 def test_plan_bytes_equal_the_sources(cuda):
     fwd = cuda_gru.GRU_FWD_SOURCE.library()
     bwd = cuda_gru.GRU_BWD_SOURCE.library()
@@ -248,6 +270,8 @@ def test_plan_bytes_equal_the_sources(cuda):
     assert bwd.gru_bwd_row_tile() == cuda_gru.ROW_TILE
     assert fwd.gru_fwd_max_threads() == bwd.gru_bwd_max_threads() \
         == blk.gru_fwd_blocked_max_threads() == cuda_gru.MAX_THREADS
+    assert blk.gru_fwd_blocked_mma_max_threads() == \
+        cuda_gru.BLOCKED_MMA_MAX_THREADS
     for h in (12, 64, 72, 96, 128, 256):
         for bf16 in (0, 1):
             assert fwd.gru_fwd_smem_bytes(h, bf16) == \
@@ -257,11 +281,11 @@ def test_plan_bytes_equal_the_sources(cuda):
                     cuda_gru.bwd_smem_bytes(h, bool(bf16), bool(stash))
             for rows, e_blk, t_blk in BLOCKED_MENU:
                 rows = rows or 32
-                for w_bf16 in (bf16, 1):
+                for dot in (0, 1):
                     assert blk.gru_fwd_blocked_smem_bytes(
-                        h, rows, e_blk, t_blk, bf16, w_bf16) == \
+                        h, rows, e_blk, t_blk, bf16, dot) == \
                         cuda_gru.fwd_blocked_smem_bytes(
-                            h, rows, e_blk, t_blk, bool(bf16), bool(w_bf16))
+                            h, rows, e_blk, t_blk, bool(bf16), bool(dot))
 
 
 @pytest.mark.cuda
@@ -291,6 +315,15 @@ def test_every_wrapper_refuses_what_the_plan_refuses_without_launching(cuda):
         cuda_gru.gru_fwd_blocked_cuda(*args, t_blk=4)
     with pytest.raises(ValueError, match="must divide E"):
         cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=4)
+    # the bf16 dot runs only on the tensor cores: whole m16 tiles of rows,
+    # H % 16, and two 32-row experts do not fit
+    with pytest.raises(ValueError, match=r"rows in \(16, 32\)"):
+        cuda_gru.gru_fwd_blocked_cuda(*args, rows=8, bf16_dot=True)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        cuda_gru.gru_fwd_blocked_cuda(*args, rows=32, e_blk=2, bf16_dot=True)
+    odd = _inputs(2, 6, 8, 72, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="H % 16"):
+        cuda_gru.gru_fwd_blocked_cuda(*odd, bf16_dot=True)
     assert [k.launches for k in cuda_gru.KERNELS] == before
 
 

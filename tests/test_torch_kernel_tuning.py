@@ -195,7 +195,8 @@ def test_block_plan_f32_entries_keep_the_fma_bytes(training):
 def test_block_plan_bf16_refuses_h_not_a_multiple_of_16(training):
     """bf16 K1-K3 run one warp per 16 hidden units: H=72 is refused with a
     reason that names 16 (never sent to an FMA kernel), while f32 H=72 and
-    the bf16 K4 at H=72 still fit."""
+    the bf16 K4 at H=72 with the f32 dot (its FMA form) still fit; K4's
+    bf16 dot runs on the tensor cores and refuses H=72 too."""
     plan = cuda_gru.block_plan(2, 4, 8, 72, torch.bfloat16,
                                training=training)
     assert not plan["fits"]
@@ -210,7 +211,11 @@ def test_block_plan_bf16_refuses_h_not_a_multiple_of_16(training):
                                    training=training)["fits"]
     if not training:
         assert cuda_gru.block_plan(2, 4, 8, 72, torch.bfloat16,
-                                   training=False, blocked=True)["fits"]
+                                   training=False, blocked=True,
+                                   bf16_dot=False)["fits"]
+        k4 = cuda_gru.block_plan(2, 4, 8, 72, torch.bfloat16,
+                                 training=False, blocked=True)
+        assert not k4["fits"] and "H % 16" in k4["refusal"]
 
 
 def test_block_plan_refusals():
@@ -225,10 +230,14 @@ def test_block_plan_refusals():
                                training=False, rows=8, e_blk=2,
                                blocked=True)
     assert not plan["fits"] and "bytes of shared memory" in plan["refusal"]
-    # the same blocking fits in bf16, W_hh 96 KiB each
+    # the same blocking fits in bf16 on FMA (the f32 dot), W_hh 96 KiB each;
+    # the bf16 dot takes whole m16 tiles, so 8 rows are refused
     assert cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
                                training=False, rows=8, e_blk=2,
-                               blocked=True)["fits"]
+                               blocked=True, bf16_dot=False)["fits"]
+    assert "rows in (16, 32)" in cuda_gru.block_plan(
+        80, 60, 32, 128, torch.bfloat16, training=False, rows=8, e_blk=2,
+        blocked=True)["refusal"]
     # threads, rows, hidden sizes
     assert "H % 8" in cuda_gru.block_plan(2, 4, 4, 12, torch.float32,
                                           training=True)["refusal"]
@@ -237,6 +246,9 @@ def test_block_plan_refusals():
         blocked=True)["refusal"]
     assert "threads" in cuda_gru.block_plan(
         2, 4, 64, 128, torch.bfloat16, training=False, rows=64,
+        blocked=True, bf16_dot=False)["refusal"]
+    assert "threads (H <= 128)" in cuda_gru.block_plan(
+        2, 4, 16, 144, torch.bfloat16, training=False, rows=16,
         blocked=True)["refusal"]
     with pytest.raises(ValueError, match="blocked=True"):
         cuda_gru.block_plan(40, 60, 32, 128, rows=16)
@@ -245,32 +257,138 @@ def test_block_plan_refusals():
 
 
 def test_block_plan_blocked_defaults_and_waves():
-    # all 32 rows (512 threads) by default; 8 rows give 320 CTAs at E80
+    # all 32 rows by default: two m16 tiles on H/16 = 8 warps with the
+    # bf16 dot; 8 rows on FMA (the f32 dot) give 320 CTAs at E80
     plan = cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
                                training=False, blocked=True)
     assert plan["binding"] == "fwd_blocked"
-    assert (plan["rows_per_cta"], plan["threads_per_cta"]) == (32, 512)
+    assert (plan["rows_per_cta"], plan["threads_per_cta"]) == (32, 256)
     assert plan["ctas"] == 80
     eight = cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
-                                training=False, rows=8, blocked=True)
+                                training=False, rows=8, blocked=True,
+                                bf16_dot=False)
     assert eight["ctas"] == 320 and eight["ctas_per_sm"] == 2
     assert eight["waves"] == 2
     assert cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
                                training=False, rows=16,
                                blocked=True)["ctas"] == 160
-    # the ragged batch rounds up to whole row groups, under the cap
+    # the ragged batch rounds up to whole row groups, under the cap (f32
+    # dot), or to whole m16 tiles, at most two (bf16 dot)
     assert cuda_gru.default_blocked_rows(37, 128) == 32
     assert cuda_gru.default_blocked_rows(20, 128) == 24
     assert cuda_gru.default_blocked_rows(37, 64) == 40
-    # a bf16 dot keeps W_hh in bf16 in shared memory, f32 inputs or not
-    assert cuda_gru.fwd_blocked_smem_bytes(128, 8, 1, 1, False, True) \
-        == 98_304 + 2 * 8 * 128 * 4 + 8 * 384 * 4
-    # at K1's blocking K4 is the FMA layout (unpadded W_hh, an f32 carry
-    # tile) plus proj; f32 K1 has that layout, bf16 K1 padded bf16 tiles
+    assert cuda_gru.default_blocked_rows(20, 128, bf16_dot=True) == 32
+    assert cuda_gru.default_blocked_rows(9, 64, bf16_dot=True) == 16
+    assert cuda_gru.default_blocked_rows(37, 64, bf16_dot=True) == 32
+    # the bf16 dot keeps W_hh and the h tile in bf16 with 16-byte row pads,
+    # f32 inputs or not; at t_blk = 1 proj goes to registers, so at K1's
+    # blocking K4 needs K1's bytes
+    assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 1, False, True) \
+        == 128 * 392 * 2 + 2 * 16 * 136 * 2 == 109_056
     assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 1, True, True) \
-        == 98_304 + 2 * 16 * 128 * 4 + 16 * 384 * 2
+        == cuda_gru.fwd_smem_bytes(128, True)
+    # t_blk > 1: a ring of t_blk proj steps, rows padded by 16 bytes
+    assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 6, True, True) \
+        == 109_056 + 6 * 16 * (384 * 2 + 16)
+    assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 2, False, True) \
+        == 109_056 + 2 * 16 * (384 * 4 + 16)
+    # the f32 dot keeps the FMA layout (unpadded W_hh in the io dtype, an
+    # f32 carry tile, t_blk steps of proj); f32 K1 has that layout
     assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 1, False, False) \
         == cuda_gru.fwd_smem_bytes(128, False) + 16 * 384 * 4
+    assert cuda_gru.fwd_blocked_smem_bytes(128, 8, 1, 1, True, False) \
+        == 98_304 + 2 * 8 * 128 * 4 + 8 * 384 * 2
+
+
+@pytest.mark.parametrize("rows,e_blk,smem,ctas,per_sm,waves", [
+    (16, 1, 109_056, 160, 2, 1),     # K1's blocking: one wave
+    (16, 2, 218_112, 80, 1, 1),      # two experts a CTA
+    (32, 1, 117_760, 80, 1, 1)])     # two m16 tiles a CTA
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_plan_blocked_bf16_dot_fits_hopper(dtype, rows, e_blk, smem,
+                                                 ctas, per_sm, waves):
+    """At E80, B32, H128 the tensor-core K4 (bf16 W_hh and h tile, proj in
+    registers at t_blk = 1) needs the same bytes for f32 and bf16 inputs:
+    K1's blocking keeps its second CTA per SM."""
+    plan = cuda_gru.block_plan(80, 60, 32, 128, dtype, training=False,
+                               rows=rows, e_blk=e_blk, blocked=True,
+                               bf16_dot=True)
+    assert plan["fits"] and plan["refusal"] is None
+    assert plan["threads_per_cta"] == 256
+    assert (plan["smem_bytes"], plan["ctas"], plan["ctas_per_sm"],
+            plan["waves"]) == (smem, ctas, per_sm, waves)
+
+
+@pytest.mark.parametrize("h", [72, 24, 136])
+def test_block_plan_blocked_bf16_dot_refuses_h(h):
+    """One warp per 16 hidden units, at most 8 warps: H % 16 and H > 128
+    are refused with the bf16 dot, whatever the io dtype, before any
+    launch; the FMA form (f32 dot) takes them (at H=136 in bf16 only: the
+    f32 W_hh alone is 221,952 bytes)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = cuda_gru.block_plan(2, 4, 16, h, dtype, training=False,
+                                   rows=16, blocked=True, bf16_dot=True)
+        assert not plan["fits"] and plan["ctas_per_sm"] == 0
+        assert ("H % 16" if h % 16 else "H <= 128") in plan["refusal"]
+        assert f"H={h}" in plan["refusal"]
+        assert cuda_gru.block_plan(2, 4, 16, h, dtype, training=False,
+                                   rows=8, blocked=True,
+                                   bf16_dot=False)["fits"] == (
+            dtype == torch.bfloat16 or h < 128)
+
+
+@pytest.mark.parametrize("rows,e_blk,t_blk", [
+    (8, 1, 1), (8, 2, 1), (16, 1, 2), (32, 1, 1), (8, 4, 3), (16, 1, 6)])
+@pytest.mark.parametrize("io_bf16", [False, True])
+@pytest.mark.parametrize("h", [64, 96, 128])
+def test_block_plan_blocked_f32_dot_keeps_fma_bytes(h, io_bf16, rows, e_blk,
+                                                    t_blk):
+    """The f32-dot forms keep the FMA layout and its bytes: per expert
+    W_hh in the io dtype padded to 16 bytes, the double-buffered f32 carry
+    tile, and t_blk steps of proj."""
+    io = 2 if io_bf16 else 4
+    want = e_blk * (-(-h * 3 * h * io // 16) * 16 + 2 * rows * h * 4
+                    + t_blk * rows * 3 * h * io)
+    assert cuda_gru.fwd_blocked_smem_bytes(h, rows, e_blk, t_blk, io_bf16,
+                                           False) == want
+    plan = cuda_gru.block_plan(4 * e_blk, 6 * t_blk, 37, h,
+                               torch.bfloat16 if io_bf16 else torch.float32,
+                               training=False, rows=rows, e_blk=e_blk,
+                               t_blk=t_blk, blocked=True, bf16_dot=False)
+    assert plan["smem_bytes"] == want
+    assert plan["threads_per_cta"] == rows // 8 * h
+
+
+QUICK_BF16_DOT_ADMITTED = {(32, 1, 1), (16, 1, 1), (16, 1, 6), (16, 2, 1)}
+QUICK_F32_IO_BF16_DOT_ADMITTED = {(32, 1, 1), (16, 1, 1), (16, 2, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quick_menu_bf16_dot_admissions(dtype):
+    """Which blockings of the sweep's --quick menu at E80, B32, H128 the
+    plan admits with the bf16 dot, and why it refuses the rest: 8 rows
+    are not a whole m16 tile; the others need more than one CTA's shared
+    memory (two experts of 32 rows, or a proj ring beside them)."""
+    menu = kernel_tuning.blocking_menu(80, 60, 32, 128, quick=True)
+    want = (QUICK_BF16_DOT_ADMITTED if dtype == torch.bfloat16
+            else QUICK_F32_IO_BF16_DOT_ADMITTED)
+    admitted = set()
+    for rows, e_blk, t_blk in menu:
+        plan = cuda_gru.block_plan(80, 60, 32, 128, dtype, training=False,
+                                   rows=rows, e_blk=e_blk, t_blk=t_blk,
+                                   blocked=True, bf16_dot=True)
+        if plan["fits"]:
+            admitted.add((rows, e_blk, t_blk))
+        elif rows == 8:
+            assert "rows in (16, 32)" in plan["refusal"]
+        else:
+            assert "bytes of shared memory" in plan["refusal"]
+            assert plan["smem_bytes"] > cuda_gru.SMEM_OPTIN_BYTES
+    assert admitted == want
+    assert any(e_blk == 2 for _, e_blk, _ in admitted)
+    k1 = cuda_gru.block_plan(80, 60, 32, 128, dtype, training=False,
+                             rows=16, blocked=True, bf16_dot=True)
+    assert (k1["ctas_per_sm"], k1["waves"]) == (2, 1)
 
 
 def test_blocking_menu_keeps_the_contract():
