@@ -43,7 +43,22 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    5 steps on the kernels against 5 steps through the plain recurrence
    from the same params (dropout 0), and a torch.profiler breakdown of
    train steps;
-7. the kernel-tuning path: K4 (gru_fwd_blocked.cu) at every blocking of
+7. raw telemetry to what-if answers and anomaly verdicts, through the
+   port's CLI alone, at the width of the reference's own deployment (the
+   social network: F=128 from 60 call paths, E=88, H=128, bf16):
+   `simulate` 720 minutes of the normal scenario (seed 0), `featurize`,
+   `train` 2 epochs at B=32, T=60 with both baselines (K2 and K3 launched
+   twice per step, the report's resrc and comp columns); `whatif` of the
+   sample's mean mix over a day of minutes swept at 0.5, 1, 2 and 4 (the
+   synthesizer fit on the first 120 minutes), held against the same sweep
+   through the plain recurrence on the card, and estimate_many over 16
+   one-day programs timed, host synthesis and device apart; `anomaly` on
+   240 minutes of the crypto scenario with a cryptojacking burner on
+   compose-post-service over minutes 100-160, held against the plain
+   path (flagged set, first_flag_index, scores); `predict --raw` on the
+   training corpus equal to `predict --features`; the phase's seconds per
+   CLI and its launches per kernel;
+8. the kernel-tuning path: K4 (gru_fwd_blocked.cu) at every blocking of
    the sweep's --quick menu that the plan admits against its plain
    version, at the fused flagship stacking (E=80, T=60, B=32, H=128) and
    a ragged shape (E=4, T=12, B=37), f32 and bf16 inputs, the bf16 dot
@@ -58,10 +73,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    on from the same params (dropout 0); then `python -m
    deeprest_tpu_torch.benchmarks.kernel_tuning --quick`, its JSON printed
    on one line;
-8. one JSON line of per-kernel numbers, then the device line last.
+9. one JSON line of per-kernel numbers, then the device line last.
 
-The kernel launch counts are set to 0 just before each main path (5, 6
-and the sweep of 7) and read just after it; launches made to check or
+The kernel launch counts are set to 0 just before each main path (5, 6, 7
+and the sweep of 8) and read just after it; launches made to check or
 time a kernel do not count.
 
 It exits nonzero, printing no result, without CUDA or without the package
@@ -96,6 +111,11 @@ TUNE_RAGGED = dict(E=4, T=12, B=37, H=128)
 F, W, DAY = 512, 60, 1440
 CORPUS_MINUTES = 3 * DAY
 RESOURCES = ("cpu", "memory", "wiops", "wthroughput", "usage")
+RAW_BUCKETS = 720                   # simulated social-network minutes
+RAW_ANOMALY_BUCKETS = 240
+ANOMALY_WINDOW = (100, 160)
+SYNTH_BUCKETS = 120                 # the what-if synthesizer's sample
+SWEEP = (0.5, 1.0, 2.0, 4.0)
 
 
 def fail(msg: str) -> None:
@@ -667,7 +687,7 @@ def flagship_corpus(path: str, minutes: int = CORPUS_MINUTES,
     returns the file's path."""
     import numpy as np
 
-    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.data.featurize import CallPathSpace, FeaturizedData
 
     rng = np.random.default_rng(SEED)
     traffic = rng.poisson(rng.uniform(0.5, 20.0, features),
@@ -688,18 +708,25 @@ def flagship_corpus(path: str, minutes: int = CORPUS_MINUTES,
                             for j in range(features)],
              "frozen_capacity": features}
     return FeaturizedData(traffic=traffic, resources=resources,
-                          invocations={}, space_dict=space).save(path)
+                          invocations={},
+                          space=CallPathSpace.from_dict(space)).save(path)
 
 
-def run_cli(args: list, timeout: int) -> dict:
-    """One port CLI call in its own process; returns its last-line JSON."""
+def run_cli_lines(args: list, timeout: int) -> list[str]:
+    """One port CLI call in its own process; returns its stdout lines."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-m", "deeprest_tpu_torch", *args],
+    proc = subprocess.run([sys.executable, "-m", "deeprest_tpu_torch",
+                           *map(str, args)],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=timeout)
     if proc.returncode != 0:
         fail(f"CLI {args[0]} exited {proc.returncode}:\n{proc.stderr}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    return proc.stdout.strip().splitlines()
+
+
+def run_cli(args: list, timeout: int) -> dict:
+    """One port CLI call in its own process; returns its last-line JSON."""
+    return json.loads(run_cli_lines(args, timeout)[-1])
 
 
 def profile_train_steps(trainer, state, staged, batches) -> None:
@@ -825,6 +852,271 @@ def phase_training(cuda_gru) -> dict:
     return {"launches": launches, "steps": steps,
             "steps_per_sec": report["steps_per_sec"], "peak_share": share,
             "epoch_losses": report["epoch_losses"], "parity_rel": rel}
+
+
+def rounded(seconds: dict) -> dict:
+    return {k: round(v, 3) for k, v in seconds.items()}
+
+
+def sweep_error(got: list, want: list, y_range) -> float:
+    """Worst |kernel peak - plain peak| of a what-if sweep, each metric's
+    error over its scale: the largest |plain peak| of that metric in the
+    sweep, floored at its train-split range."""
+    worst = 0.0
+    for e, metric in enumerate(want[0]["peaks"]):
+        plain = [r["peaks"][metric][q] for r in want for q in r["peaks"][metric]]
+        kern = [r["peaks"][metric][q] for r in got for q in r["peaks"][metric]]
+        scale = max(max(abs(v) for v in plain), float(y_range[e]), 1e-12)
+        worst = max(worst, max(abs(a - b) for a, b in zip(kern, plain))
+                    / scale)
+    return worst
+
+
+def phase_raw_to_answers(cuda_gru) -> dict:
+    """Raw telemetry in, what-if answers and anomaly verdicts out, through
+    the port's CLI: simulate the social network (the reference's own
+    deployment), featurize it (F=128 from 60 call paths, E=88), train at
+    H=128 with both baselines, then whatif, anomaly and predict --raw from
+    the checkpoint, each held against the plain path on the card."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.data.featurize import featurize_buckets
+    from deeprest_tpu_torch.data.schema import (
+        load_raw_data, save_raw_data_jsonl,
+    )
+    from deeprest_tpu_torch.data.synthesize import TraceSynthesizer
+    from deeprest_tpu_torch.serve.anomaly import AnomalyDetector
+    from deeprest_tpu_torch.serve.fused import plan_windows
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.serve.whatif import WhatIfEstimator
+    from deeprest_tpu_torch.workload import SCENARIOS, Anomaly
+    from deeprest_tpu_torch.workload.simulator import simulate_corpus
+
+    names = [k.name for k in cuda_gru.MODEL_KERNELS]
+    launches = dict.fromkeys(names, 0)
+
+    def count(report):
+        for k in names:
+            launches[k] += int(report["kernel_launches"][k])
+
+    secs = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_",
+                                     dir=os.path.join(REPO, "build")) as wd:
+        raw = os.path.join(wd, "raw.jsonl")
+        feats = os.path.join(wd, "input.npz")
+        ckpt = os.path.join(wd, "ckpt")
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+
+        t0 = time.perf_counter()
+        run_cli(["simulate", "--scenario", "normal", "--seed", SEED,
+                 "--ticks", RAW_BUCKETS, "--out", raw], timeout=600)
+        secs["simulate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fz = run_cli(["featurize", "--raw", raw, "--out", feats], timeout=600)
+        secs["featurize"] = time.perf_counter() - t0
+        sizes = (fz["capacity"], fz["observed_paths"], len(fz["metrics"]))
+        print(f"main raw simulate + featurize: {fz['buckets']} buckets of the "
+              f"social network (normal, seed {SEED}) -> F={sizes[0]} from "
+              f"{sizes[1]} observed call paths, E={sizes[2]} metrics; "
+              f"simulate {secs['simulate']:.2f} s, featurize "
+              f"{secs['featurize']:.2f} s (CLI wall, process start "
+              f"included)", flush=True)
+        if sizes != (128, 60, 88):
+            fail(f"featurize gave (F, paths, E) = {sizes}; want (128, 60, 88)")
+
+        t0 = time.perf_counter()
+        tr = run_cli(["train", "--features", feats, "--compute-dtype",
+                      "bfloat16", "--epochs", 2, "--batch-size", TRAIN["B"],
+                      "--window", W, "--hidden-size", TRAIN["H"],
+                      "--ckpt-dir", ckpt], timeout=900)
+        secs["train"] = time.perf_counter() - t0
+        count(tr)
+        steps = int(tr["steps"])
+        if not np.isfinite(np.asarray(tr["step_losses"], np.float64)).all():
+            fail("train CLI (baselines on) gave non-finite step losses")
+        for name in ("gru_fwd_train", "gru_bwd"):
+            if tr["kernel_launches"][name] != 2 * steps:
+                fail(f"{name} launched {tr['kernel_launches'][name]} times "
+                     f"in {steps} train steps; want 2 x steps")
+        methods = {m for v in tr["report"].values() for m in v}
+        if methods != {"deepr", "resrc", "comp"}:
+            fail(f"train report has methods {sorted(methods)}; want deepr, "
+                 "resrc and comp")
+        medians = {m: float(np.mean([v[m]["median"]
+                                     for v in tr["report"].values()]))
+                   for m in sorted(methods)}
+        if not all(np.isfinite(list(medians.values()))):
+            fail("the train report's MAE is not finite")
+        print(f"main raw train CLI (baselines on): {steps} steps, epoch "
+              f"losses {tr['epoch_losses']}, launches {tr['kernel_launches']}"
+              f", mean median MAE per method {medians}; "
+              f"{secs['train']:.2f} s (stages {rounded(tr['seconds'])})",
+              flush=True)
+
+        # what-if: the CLI on the kernels against the same sweep through
+        # the plain recurrence in-process; the synthesizer is fit on the
+        # corpus's first SYNTH_BUCKETS minutes (every endpoint's trace
+        # shapes, at a sixth of the load cost)
+        sample = os.path.join(wd, "sample.jsonl")
+        with open(raw, encoding="utf-8") as src, \
+                open(sample, "w", encoding="utf-8") as dst:
+            for _, line in zip(range(SYNTH_BUCKETS), src):
+                dst.write(line)
+        t0 = time.perf_counter()
+        buckets = load_raw_data(sample)
+        t_load = time.perf_counter() - t0
+        plain = Predictor.from_checkpoint(
+            ckpt, device="cuda",
+            recurrence=cuda_gru.gru_recurrence_reference)
+        t0 = time.perf_counter()
+        synth = TraceSynthesizer(plain.space()).fit(buckets)
+        t_fit = time.perf_counter() - t0
+        if len(synth.endpoints) != 7:
+            fail(f"the synthesizer found endpoints {synth.endpoints}")
+        # the sample's mean calls per minute of each endpoint
+        calls = Counter(t.label for b in buckets for t in b.traces)
+        mix = {ep: int(round(calls[ep] / len(buckets)))
+               for ep in synth.endpoints}
+        del buckets
+        t0 = time.perf_counter()
+        wi = run_cli(["whatif", "--ckpt-dir", ckpt, "--raw", sample, "--mix",
+                      json.dumps(mix), "--ticks", DAY, "--sweep",
+                      ",".join(str(f) for f in SWEEP)], timeout=900)
+        secs["whatif"] = time.perf_counter() - t0
+        count(wi)
+        if wi["kernel_launches"]["gru_fwd"] == 0:
+            fail("the whatif CLI never launched gru_fwd")
+        want = WhatIfEstimator(plain, synth).sweep([mix] * DAY, list(SWEEP),
+                                                   seed=0)
+        y_range = np.asarray(plain.y_stats.range, np.float32).reshape(-1)
+        sweep_rel = sweep_error(wi["sweep"], want, y_range)
+        peak = {r["factor"]: r["peaks"]["compose-post-service_cpu"]["q50"]
+                for r in wi["sweep"]}
+        print(f"main raw whatif CLI: mix {mix} x {DAY} ticks, sweep "
+              f"{list(SWEEP)}; {secs['whatif']:.2f} s (load and fit of the "
+              f"synthesizer on {SYNTH_BUCKETS} buckets included: in-process "
+              f"load {t_load:.2f} s, fit {t_fit:.2f} s); gru_fwd launches "
+              f"{wi['kernel_launches']['gru_fwd']}; stages "
+              f"{rounded(wi['seconds'])}; compose-post-service_cpu "
+              f"q50 peak per factor {peak}", flush=True)
+        print(f"check main raw whatif sweep vs the plain recurrence on the "
+              f"card: max_err/scale={sweep_rel:.3e} (tol "
+              f"{TOL['bfloat16'][0]})", flush=True)
+        if sweep_rel > TOL["bfloat16"][0]:
+            fail("the whatif sweep disagrees with the plain path")
+
+        # estimate_many over 16 one-day programs on the kernels
+        pred = Predictor.from_checkpoint(ckpt, device="cuda")
+        est = WhatIfEstimator(pred, synth)
+        programs = [[{ep: int(round(n * s)) for ep, n in mix.items()}] * DAY
+                    for s in np.linspace(0.5, 2.0, 16)]
+        est.estimate_many_raw(programs[:1], cache=False)        # warm
+        k1_before = cuda_gru.GRU_FWD.launches
+        t0 = time.perf_counter()
+        est.estimate_many_raw(programs, cache=False)
+        torch.cuda.synchronize()
+        t_many = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        series = [synth.synthesize_series(p, seed=i)
+                  for i, p in enumerate(programs)]
+        t_synth = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred.predict_series_many(series)
+        torch.cuda.synchronize()
+        t_pred = time.perf_counter() - t0
+        n_windows = len(plan_windows([DAY] * len(programs), W))
+        print(f"main raw estimate_many: 16 one-day programs, {n_windows} "
+              f"windows in {t_many:.4f} s = {n_windows / t_many:.1f} "
+              f"windows/s end to end; host synthesis {t_synth:.4f} s, "
+              f"predict_series_many {t_pred:.4f} s = "
+              f"{n_windows / t_pred:.1f} windows/s; gru_fwd launches "
+              f"{cuda_gru.GRU_FWD.launches - k1_before} (in-process)",
+              flush=True)
+        profile_what_if(pred, series)
+        del series
+
+        # anomaly: a cryptojacking burner on compose-post-service
+        t0 = time.perf_counter()
+        crypto = simulate_corpus(
+            SCENARIOS["crypto"](SEED), RAW_ANOMALY_BUCKETS,
+            anomalies=[Anomaly("cryptojacking", "compose-post-service",
+                               *ANOMALY_WINDOW)])
+        crypto_path = os.path.join(wd, "crypto.jsonl")
+        save_raw_data_jsonl(crypto, crypto_path)
+        t_sim_crypto = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines = run_cli_lines(["anomaly", "--ckpt-dir", ckpt, "--raw",
+                               crypto_path], timeout=600)
+        secs["anomaly"] = time.perf_counter() - t0
+        detail, verdict = json.loads(lines[-2]), json.loads(lines[-1])
+        count(detail)
+        if detail["kernel_launches"]["gru_fwd"] == 0:
+            fail("the anomaly CLI never launched gru_fwd")
+        data = featurize_buckets(crypto, space=plain.space())
+        if data.metric_names != plain.metric_names:
+            fail("the crypto corpus's metrics differ from the checkpoint's")
+        want_reports = AnomalyDetector(plain).check(data.traffic,
+                                                    data.targets())
+        flagged = sorted(r.metric for r in want_reports if r.flagged)
+        firsts = [r.first_flag_index for r in want_reports]
+        score_err = max(abs(r["score"] - w.score) / max(abs(w.score), 1.0)
+                        for r, w in zip(detail["reports"], want_reports))
+        cpu = next(r for r in detail["reports"]
+                   if r["metric"] == "compose-post-service_cpu")
+        print(f"main raw anomaly CLI: {RAW_ANOMALY_BUCKETS} crypto buckets, "
+              f"cryptojacking on compose-post-service over buckets "
+              f"{ANOMALY_WINDOW[0]}-{ANOMALY_WINDOW[1]}; {secs['anomaly']:.2f}"
+              f" s (simulated in-process in {t_sim_crypto:.2f} s); "
+              f"{len(verdict['flagged'])} of {len(detail['reports'])} metrics "
+              f"flagged; compose-post-service_cpu flagged={cpu['flagged']} "
+              f"first_flag_index={cpu['first_flag_index']} score="
+              f"{cpu['score']:.4f}; gru_fwd launches "
+              f"{detail['kernel_launches']['gru_fwd']}; stages "
+              f"{rounded(detail['seconds'])}", flush=True)
+        print(f"check main raw anomaly vs the plain recurrence on the card: "
+              f"flagged sets equal {sorted(verdict['flagged']) == flagged}, "
+              f"first_flag_index equal "
+              f"{[r['first_flag_index'] for r in detail['reports']] == firsts}"
+              f", max score error {score_err:.3e} (tol "
+              f"{TOL['bfloat16'][0]} of max(|score|, 1))", flush=True)
+        if sorted(verdict["flagged"]) != flagged:
+            fail(f"anomaly flagged {sorted(verdict['flagged'])}; the plain "
+                 f"path flags {flagged}")
+        if [r["first_flag_index"] for r in detail["reports"]] != firsts:
+            fail("anomaly first_flag_index differs from the plain path's")
+        if score_err > TOL["bfloat16"][0]:
+            fail("anomaly scores disagree with the plain path")
+
+        # predict --raw on the training corpus == predict --features
+        t0 = time.perf_counter()
+        by_raw = run_cli(["predict", "--ckpt-dir", ckpt, "--raw", raw,
+                          "--out", os.path.join(wd, "by_raw")], timeout=600)
+        secs["predict --raw"] = time.perf_counter() - t0
+        by_feats = run_cli(["predict", "--ckpt-dir", ckpt, "--features",
+                            feats, "--out", os.path.join(wd, "by_feats")],
+                           timeout=600)
+        count(by_raw)
+        count(by_feats)
+        with np.load(by_raw["out"]) as a, np.load(by_feats["out"]) as b:
+            same = np.array_equal(a["predictions"], b["predictions"])
+            shape = a["predictions"].shape
+        print(f"check main raw predict --raw vs --features: {shape}, "
+              f"bit-identical {same}; predict --raw {secs['predict --raw']:.2f}"
+              f" s (stages {rounded(by_raw['seconds'])})", flush=True)
+        if not same or shape != (RAW_BUCKETS, 88, 3):
+            fail("predict --raw differs from predict --features")
+    total = time.perf_counter() - t_phase
+    print(f"main raw phase: {total:.1f} s of wall time; CLI seconds "
+          f"{rounded(secs)}; launches of this "
+          f"path {launches}", flush=True)
+    return {"launches": launches, "seconds": secs, "total_s": total,
+            "windows_per_s": n_windows / t_many, "sweep_rel": sweep_rel,
+            "score_err": score_err}
 
 
 def phase_blocked(cuda_gru, kernel_tuning) -> dict:
@@ -1113,6 +1405,7 @@ def main() -> int:
     times = phase_times(cuda_gru)
     serving = phase_main_path(cuda_gru)
     training = phase_training(cuda_gru)
+    raw = phase_raw_to_answers(cuda_gru)
     blocked = phase_blocked(cuda_gru, kernel_tuning)
     phase_bidir(cuda_gru, kernel_tuning)
     phase_stash_steps(cuda_gru)
@@ -1120,6 +1413,8 @@ def main() -> int:
 
     launches = dict(training["launches"])
     launches["gru_fwd"] += serving["launches"]
+    for name, count in raw["launches"].items():
+        launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
                                  "deeprest_tpu/ops/pallas_gru.py:164"),
@@ -1149,8 +1444,9 @@ def main() -> int:
     print(f"f32 gru_fwd_blocked: {json.dumps(blocked['float32'])}",
           flush=True)
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
-          f"training {training['launches']}; tuning sweep "
-          f"{sweep['kernel_launches']}", flush=True)
+          f"training {training['launches']}; raw telemetry to answers "
+          f"{raw['launches']}; tuning sweep {sweep['kernel_launches']}",
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,21 @@
-"""Command-line entry point of the port (``deeprest_tpu/cli.py``, ``train``
-and ``predict``):
+"""Command-line drivers of the port (``deeprest_tpu/cli.py``: the simulate,
+featurize, ingest, train, synthesize, whatif, predict and anomaly
+subcommands, with the JAX package's flags and last JSON lines):
 
-    python -m deeprest_tpu_torch train --features=input.npz --ckpt-dir=ckpt --no-baselines
-    python -m deeprest_tpu_torch predict --ckpt-dir=ckpt --features=input.npz --out=preds.npz
+    python -m deeprest_tpu_torch simulate   --scenario=normal --ticks=480 --out=raw.jsonl
+    python -m deeprest_tpu_torch featurize  --raw=raw.jsonl --out=input.npz
+    python -m deeprest_tpu_torch train      --features=input.npz --ckpt-dir=ckpt
+    python -m deeprest_tpu_torch whatif     --ckpt-dir=ckpt --raw=raw.jsonl --mix='{"nginx-thrift_/wrk2-api/post/compose": 40}' --sweep=0.5,1,2
+    python -m deeprest_tpu_torch predict    --ckpt-dir=ckpt --raw=raw.jsonl --out=preds.npz
+    python -m deeprest_tpu_torch anomaly    --ckpt-dir=ckpt --raw=raw.jsonl
 
-Runs on CUDA unless ``--device cpu`` asks for the CPU.  Each prints one JSON
-object as its last line of standard output.
+``simulate``, ``featurize``, ``ingest`` and ``synthesize`` are host-only
+and touch no device.  ``train``, ``predict``, ``whatif`` and ``anomaly``
+run on CUDA unless ``--device cpu`` asks for the CPU; their JSON lines add
+the device, the kernel launches the call made and the seconds of its
+stages (``seconds``: loading and featurizing the input, the model work).
+Mesh, quantized serving, supersteps, the sparse feed, snapshots and
+profiling are not ported, and the port's CLI does not offer them.
 """
 
 from __future__ import annotations
@@ -13,50 +23,81 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
+
+
+# -- shared loaders ---------------------------------------------------------
+
+
+def _load_buckets(path: str):
+    from deeprest_tpu_torch.data.schema import iter_raw_data_jsonl, load_raw_data
+
+    if path.endswith((".jsonl", ".jsl")):
+        return list(iter_raw_data_jsonl(path))
+    return load_raw_data(path)
+
+
+def _load_features(args):
+    from deeprest_tpu_torch.config import FeaturizeConfig
+    from deeprest_tpu_torch.data.featurize import (
+        FeaturizedData, featurize_buckets,
+    )
+
+    if getattr(args, "features", None):
+        return FeaturizedData.load(_ensure_npz(args.features))
+    cfg = FeaturizeConfig(
+        capacity=args.capacity, round_to=args.round_to,
+        hash_features=args.hash_features,
+    )
+    return featurize_buckets(_load_buckets(args.raw), cfg,
+                             workers=getattr(args, "workers", 1))
+
+
+def _add_input_args(p: argparse.ArgumentParser, features_ok: bool = True):
+    if features_ok:
+        p.add_argument("--features", default=None,
+                       help="featurized .npz (from the featurize subcommand)")
+    p.add_argument("--raw", default=None,
+                   help="raw corpus: reference pickle or JSONL stream")
+    p.add_argument("--capacity", type=int, default=0,
+                   help="feature capacity (0 = size to observed, rounded)")
+    p.add_argument("--round-to", type=int, default=128)
+    p.add_argument("--hash-features", action="store_true",
+                   help="stable hash-bucketing instead of a grown vocabulary")
+
+
+def _require_input(args, features_ok: bool = True):
+    if getattr(args, "features", None) is None and args.raw is None:
+        sys.exit("error: provide --raw" + (" or --features" if features_ok else ""))
+
+
+def _add_device_arg(p: argparse.ArgumentParser):
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; pass cpu to run the "
+                        "plain PyTorch path on the CPU)")
+
+
+def _add_fused_infer_args(p: argparse.ArgumentParser):
+    p.add_argument("--no-fused-infer", action="store_true",
+                   help="serve through the host-loop reference path instead "
+                        "of the fused one-call-per-page device pipeline")
+    p.add_argument("--infer-page-windows", type=int, default=None,
+                   metavar="N",
+                   help="fused-inference page size in windows (default: the "
+                        "ladder's top rung on CUDA, the smallest rung >= 8 "
+                        "on the CPU)")
+    p.add_argument("--infer-coalesce-pages", type=int, default=None,
+                   metavar="G",
+                   help="fold up to G consecutive pages into one model call "
+                        "(default: 4 on CUDA, 1 on the CPU)")
+    _add_device_arg(p)
 
 
 def _ensure_npz(path: str) -> str:
     """np.savez appends '.npz' when missing — report the real filename."""
     return path if path.endswith(".npz") else path + ".npz"
-
-
-def _predictor(args):
-    from deeprest_tpu_torch.config import InferConfig
-    from deeprest_tpu_torch.serve.predictor import Predictor
-
-    try:
-        infer = InferConfig(fused=not args.no_fused_infer,
-                            page_windows=args.infer_page_windows,
-                            coalesce_pages=args.infer_coalesce_pages)
-    except ValueError as exc:
-        sys.exit(f"error: {exc}")
-    return Predictor.from_checkpoint(
-        args.ckpt_dir, fused=infer.fused, page_windows=infer.page_windows,
-        coalesce_pages=infer.coalesce_pages, device=args.device)
-
-
-def _serving_traffic(args, pred) -> np.ndarray:
-    """Traffic features column-exact with the checkpoint: a features file
-    embeds the vocabulary it was extracted with, which must equal the
-    checkpoint's (equal width alone would let a permuted vocabulary
-    through)."""
-    with np.load(_ensure_npz(args.features)) as z:
-        traffic = np.asarray(z["traffic"])
-        space_json = (bytes(z["space_json"]).decode()
-                      if "space_json" in z else None)
-    if space_json is not None and pred.space_dict is not None:
-        embedded = json.loads(space_json)
-        if embedded["vocabulary"] != pred.space_dict["vocabulary"]:
-            sys.exit("error: the features file was extracted with a "
-                     "different call-path vocabulary than the checkpoint "
-                     "was trained on; re-featurize the raw corpus with the "
-                     "checkpoint's space")
-    if traffic.ndim != 2 or traffic.shape[1] != pred.feature_dim:
-        sys.exit(f"error: traffic shape {traffic.shape} does not match the "
-                 f"model's feature dim {pred.feature_dim}")
-    return traffic
 
 
 def _kernel_launches() -> dict[str, int]:
@@ -65,18 +106,223 @@ def _kernel_launches() -> dict[str, int]:
     return {k.name: k.launches for k in MODEL_KERNELS}
 
 
+# -- host-only subcommands --------------------------------------------------
+
+
+def cmd_simulate(args) -> int:
+    from deeprest_tpu_torch.data.schema import (
+        save_raw_data_jsonl, save_raw_data_pickle,
+    )
+    from deeprest_tpu_torch.workload.scenarios import SCENARIOS
+    from deeprest_tpu_torch.workload.simulator import (
+        build_shifted_app, build_synthetic_app, simulate_corpus,
+        simulate_drift_corpus_iter, write_corpus_jsonl,
+    )
+
+    scenario = SCENARIOS[args.scenario](args.seed)
+    if args.shift_at:
+        # mid-corpus topology change (services added/removed)
+        if args.app != "synthetic":
+            sys.exit("error: --shift-at needs --app synthetic (the "
+                     "social topology is fixed)")
+        after_n = (args.services_after if args.services_after is not None
+                   else args.services + max(args.services // 2, 1))
+        before, after, endpoints = build_shifted_app(
+            scenario, args.services, after_n, args.endpoints, args.seed)
+        it = simulate_drift_corpus_iter(scenario, args.ticks,
+                                        args.shift_at, before, after,
+                                        endpoints)
+        if args.out.endswith((".jsonl", ".jsl")):
+            n = 0
+
+            def counted():
+                nonlocal n
+                for b in it:
+                    n += 1
+                    yield b
+
+            save_raw_data_jsonl(counted(), args.out)
+        else:
+            buckets = list(it)
+            save_raw_data_pickle(buckets, args.out)
+            n = len(buckets)
+        print(json.dumps({"scenario": args.scenario, "buckets": n,
+                          "app": args.app, "shift_at": args.shift_at,
+                          "services": [args.services, after_n],
+                          "out": args.out}))
+        return 0
+    app = endpoints = None
+    if args.app == "synthetic":
+        app, endpoints = build_synthetic_app(scenario, args.services,
+                                             args.endpoints, args.seed)
+    if args.out.endswith((".jsonl", ".jsl")):
+        # streaming write: long corpora never accumulate in memory
+        stats = write_corpus_jsonl(scenario, args.ticks, args.out,
+                                   app=app, endpoints=endpoints)
+        n = stats["buckets"]
+    else:
+        buckets = simulate_corpus(scenario, args.ticks, app=app,
+                                  endpoints=endpoints)
+        save_raw_data_pickle(buckets, args.out)
+        n = len(buckets)
+    print(json.dumps({"scenario": args.scenario, "buckets": n,
+                      "app": args.app, "out": args.out}))
+    return 0
+
+
+def cmd_featurize(args) -> int:
+    _require_input(args, features_ok=False)
+    data = _load_features(args)
+    written = data.save(args.out)
+    print(json.dumps({
+        "out": written,
+        "buckets": int(data.traffic.shape[0]),
+        "capacity": int(data.traffic.shape[1]),
+        "observed_paths": data.space.num_observed,
+        "metrics": data.metric_names,
+    }))
+    return 0
+
+
+def _parse_metric_map(specs, metric_rule_cls):
+    """``PROM_METRIC:RESOURCE[:MODE]`` specs → {metric: MetricRule}.
+
+    None → None (use the cadvisor-style defaults).  An explicitly-empty
+    list is honored (traces only, suppress all metrics) rather than
+    silently falling back to the default.  Raises ValueError on bad
+    entries — a typo'd mode must not silently average a cumulative
+    counter into monotonically exploding values.
+    """
+    if specs is None:
+        return None
+    resource_map = {}
+    for spec in specs:
+        parts = spec.split(":")
+        if len(parts) not in (2, 3) or not all(parts):
+            raise ValueError(f"bad --metric-map entry {spec!r} "
+                             "(want prom_metric:resource[:gauge|counter])")
+        mode = parts[2] if len(parts) == 3 else "gauge"
+        if mode not in ("gauge", "counter"):
+            raise ValueError(f"bad --metric-map mode {mode!r} in {spec!r} "
+                             "(must be 'gauge' or 'counter')")
+        resource_map[parts[0]] = metric_rule_cls(parts[1], mode)
+    return resource_map
+
+
+def cmd_ingest(args) -> int:
+    """Jaeger/OTLP trace dumps + Prometheus range dumps (files, or live
+    endpoints over a time range) → raw JSONL."""
+    from deeprest_tpu_torch.data.ingest import (
+        MetricRule, ingest_files, ingest_live,
+    )
+    from deeprest_tpu_torch.data.schema import save_raw_data_jsonl
+
+    try:
+        resource_map = _parse_metric_map(args.metric_map, MetricRule)
+    except ValueError as exc:
+        print(exc)
+        return 2
+    live = bool(args.jaeger_url or args.prom_url)
+    if live and (args.traces or args.prom):
+        print("ingest: --traces/--prom dumps and --jaeger-url/--prom-url "
+              "are mutually exclusive sources")
+        return 2
+    if not live and not args.traces:
+        print("ingest: need either --traces dump files or a live "
+              "--jaeger-url/--prom-url")
+        return 2
+    if live:
+        import time as _time
+
+        end_s = args.end if args.end is not None else _time.time()
+        start_s = (args.start if args.start is not None
+                   else end_s - args.last_seconds)
+        if start_s >= end_s:
+            print(f"ingest: empty time range [{start_s}, {end_s})")
+            return 2
+        buckets = ingest_live(
+            args.jaeger_url, args.prom_url, start_s, end_s,
+            args.bucket_seconds, step_s=args.step_seconds,
+            resource_map=resource_map,
+            services=args.jaeger_services or None)
+    else:
+        buckets = ingest_files(args.traces, args.prom or [],
+                               args.bucket_seconds,
+                               resource_map=resource_map)
+    if not buckets:
+        print("ingest: no buckets produced (empty dumps or disjoint ranges)")
+        return 1
+    save_raw_data_jsonl(buckets, args.out)
+    keys = sorted({(m.component, m.resource) for m in buckets[0].metrics})
+    print(json.dumps({
+        "out": args.out,
+        "buckets": len(buckets),
+        "traces": sum(len(b.traces) for b in buckets),
+        "metric_keys": len(keys),
+        "components": sorted({c for c, _ in keys}),
+    }))
+    return 0
+
+
+def _checkpoint_space(ckpt_dir: str):
+    """The CallPathSpace of a checkpoint's sidecar, read without restoring
+    the model (no device); None when the checkpoint has none."""
+    from deeprest_tpu_torch.data.featurize import CallPathSpace
+    from deeprest_tpu_torch.train.checkpoint import load_sidecar
+
+    space = load_sidecar(ckpt_dir).get("space")
+    return None if space is None else CallPathSpace.from_dict(space)
+
+
+def cmd_synthesize(args) -> int:
+    from deeprest_tpu_torch.config import FeaturizeConfig
+    from deeprest_tpu_torch.data.featurize import CallPathSpace
+    from deeprest_tpu_torch.data.synthesize import TraceSynthesizer
+
+    _require_input(args, features_ok=False)
+    buckets = _load_buckets(args.raw)
+    if args.ckpt_dir:
+        # Use the checkpoint's training-time space so the synthesized
+        # columns are exact for that model by construction.
+        space = _checkpoint_space(args.ckpt_dir)
+        if space is None:
+            sys.exit("error: checkpoint has no feature space")
+    else:
+        space = CallPathSpace(config=FeaturizeConfig(
+            capacity=args.capacity, round_to=args.round_to,
+            hash_features=args.hash_features))
+    synth = TraceSynthesizer(space).fit(buckets)
+    mix = json.loads(args.mix)
+    series = synth.synthesize_series([mix] * args.ticks, seed=args.seed)
+    out = _ensure_npz(args.out)
+    # Embed the space so `predict --features` can verify column identity
+    # against the serving checkpoint (same contract as FeaturizedData.save);
+    # a bare traffic array would silently bypass that guard.
+    np.savez_compressed(
+        out, traffic=series.astype(np.float32),
+        space_json=np.frombuffer(
+            json.dumps(space.to_dict()).encode(), dtype=np.uint8),
+    )
+    print(json.dumps({"out": out, "ticks": args.ticks,
+                      "endpoints": synth.endpoints,
+                      "capacity": int(space.capacity)}))
+    return 0
+
+
+# -- device subcommands -----------------------------------------------------
+
+
 def cmd_train(args) -> int:
     from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
-    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.models.baselines import baseline_predictions
     from deeprest_tpu_torch.train.data import prepare_dataset
     from deeprest_tpu_torch.train.metrics import format_report
     from deeprest_tpu_torch.train.trainer import Trainer
 
-    if not args.no_baselines:
-        sys.exit("error: the baselines (the ResourceAware MLP and the "
-                 "ComponentAware scaler of models/baselines.py) are not "
-                 "ported yet; pass --no-baselines")
-    data = FeaturizedData.load(_ensure_npz(args.features))
+    _require_input(args)
+    t0 = time.perf_counter()
+    data = _load_features(args)
+    seconds = {"load": time.perf_counter() - t0}
     cfg = Config(
         model=ModelConfig(hidden_size=args.hidden_size,
                           dropout_rate=args.dropout,
@@ -90,6 +336,11 @@ def cmd_train(args) -> int:
     bundle = prepare_dataset(data, cfg.train)
     trainer = Trainer(cfg, bundle.feature_dim, bundle.metric_names,
                       device=args.device)
+    baselines = None
+    if not args.no_baselines:
+        t0 = time.perf_counter()
+        baselines = baseline_predictions(data, bundle, device=trainer.device)
+        seconds["baselines"] = time.perf_counter() - t0
     step_losses = []
 
     def on_epoch(result, state):
@@ -97,7 +348,10 @@ def cmd_train(args) -> int:
         print(f"epoch {result.epoch}: train {result.train_loss:.4f} "
               f"test {result.test_loss:.4f}", flush=True)
 
-    _, history = trainer.fit(bundle, on_epoch=on_epoch)
+    t0 = time.perf_counter()
+    _, history = trainer.fit(bundle, baseline_preds=baselines,
+                             on_epoch=on_epoch)
+    seconds["fit"] = time.perf_counter() - t0
     print(format_report(history[-1].report))
     print(f"steady-state throughput: "
           f"{trainer.throughput.steps_per_sec:.2f} steps/s")
@@ -110,36 +364,282 @@ def cmd_train(args) -> int:
         "report": history[-1].report,
         "ckpt_dir": args.ckpt_dir,
         "device": str(trainer.device),
-        "kernel_launches": _kernel_launches()}))
+        "kernel_launches": _kernel_launches(),
+        "seconds": seconds}))
     return 0
 
 
+def _predictor(args):
+    from deeprest_tpu_torch.config import InferConfig
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    try:
+        infer = InferConfig(fused=not args.no_fused_infer,
+                            page_windows=args.infer_page_windows,
+                            coalesce_pages=args.infer_coalesce_pages)
+    except ValueError as exc:
+        sys.exit(f"error: {exc}")
+    # model architecture comes from the checkpoint sidecar
+    return Predictor.from_checkpoint(
+        args.ckpt_dir, fused=infer.fused, page_windows=infer.page_windows,
+        coalesce_pages=infer.coalesce_pages, device=args.device)
+
+
+def _serving_traffic(args, pred) -> np.ndarray:
+    """Traffic features for serving, column-exact with the checkpoint.
+
+    ``--features`` artifacts embed the space they were extracted with,
+    which must equal the checkpoint's (matching width alone would let a
+    permuted vocabulary through); ``--raw`` corpora are featurized against
+    the *checkpoint's* space (the training vocabulary) directly.
+    """
+    if args.features and not args.raw:
+        with np.load(_ensure_npz(args.features)) as z:
+            traffic = np.asarray(z["traffic"])
+            space_json = (bytes(z["space_json"]).decode()
+                          if "space_json" in z else None)
+        if space_json is not None and pred.space_dict is not None:
+            embedded = json.loads(space_json)
+            if embedded["vocabulary"] != pred.space_dict["vocabulary"]:
+                sys.exit("error: the features file was extracted with a "
+                         "different call-path vocabulary than the checkpoint "
+                         "was trained on; re-featurize the raw corpus with "
+                         "--raw (uses the checkpoint's space)")
+    else:
+        space = pred.space()
+        if space is None:
+            sys.exit("error: checkpoint has no feature space; featurize the "
+                     "raw corpus with the training-time space and pass "
+                     "--features instead of --raw")
+        from deeprest_tpu_torch.data.featurize import featurize_buckets
+
+        traffic = featurize_buckets(_load_buckets(args.raw),
+                                    space=space).traffic
+    if traffic.ndim != 2 or traffic.shape[1] != pred.feature_dim:
+        sys.exit(f"error: feature dim {traffic.shape[1:]} != model "
+                 f"{pred.feature_dim}")
+    return traffic
+
+
 def cmd_predict(args) -> int:
-    if args.raw is not None:
-        sys.exit("error: --raw needs the featurizer, which the PyTorch port "
-                 "does not have yet; featurize with `python -m deeprest_tpu "
-                 "featurize` and pass --features")
-    if args.features is None:
-        sys.exit("error: provide --features")
+    _require_input(args)
     pred = _predictor(args)
+    t0 = time.perf_counter()
     traffic = _serving_traffic(args, pred)
+    seconds = {"traffic": time.perf_counter() - t0}
     out_path = _ensure_npz(args.out)
+    t0 = time.perf_counter()
     out = pred.predict_series(traffic)                           # [T, E, Q]
+    seconds["predict"] = time.perf_counter() - t0
     np.savez_compressed(out_path, predictions=out,
                         metric_names=np.array(pred.metric_names))
     print(json.dumps({"out": out_path, "steps": int(out.shape[0]),
                       "metrics": pred.metric_names,
                       "device": str(pred.device),
-                      "kernel_launches": _kernel_launches()}))
+                      "kernel_launches": _kernel_launches(),
+                      "seconds": seconds}))
     return 0
 
 
+def cmd_whatif(args) -> int:
+    """What-if capacity estimation from the command line: a hypothetical
+    traffic mix (optionally swept over a scale grid) → per-metric peak
+    utilization, batched through the fused multi-scenario prediction
+    pipeline (serve/whatif.py estimate_many / sweep)."""
+    from deeprest_tpu_torch.data.synthesize import TraceSynthesizer
+    from deeprest_tpu_torch.serve.whatif import WhatIfEstimator
+
+    pred = _predictor(args)
+    space = pred.space()
+    if space is None:
+        sys.exit("error: checkpoint has no feature space; cannot fit the "
+                 "what-if synthesizer from --raw")
+    t0 = time.perf_counter()
+    buckets = _load_buckets(args.raw)
+    seconds = {"load": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    synth = TraceSynthesizer(space).fit(buckets)
+    seconds["fit"] = time.perf_counter() - t0
+    del buckets
+    est = WhatIfEstimator(pred, synth)
+    try:
+        mix = {str(k): int(v) for k, v in json.loads(args.mix).items()}
+    except (ValueError, AttributeError) as exc:
+        sys.exit(f"error: --mix is not a JSON endpoint→count object: {exc}")
+    unknown = sorted(set(mix) - set(est.endpoints))
+    if unknown:
+        sys.exit(f"error: unknown API endpoints {unknown} "
+                 f"(known: {est.endpoints})")
+    program = [mix] * args.ticks
+    t0 = time.perf_counter()
+    if args.sweep:
+        try:
+            factors = [float(f) for f in args.sweep.split(",")]
+        except ValueError:
+            sys.exit(f"error: --sweep {args.sweep!r} is not a "
+                     "comma-separated list of scale factors")
+        records = est.sweep(program, factors, seed=args.seed)
+        result = {"ticks": args.ticks, "mix": mix, "sweep": records}
+    else:
+        bands = est.estimate(program, seed=args.seed)
+        dm = pred.delta_mask
+        peaks = {
+            metric: {q: (max(float(np.max(s) - s[0]), 0.0)
+                         if dm is not None and dm[e]
+                         else float(np.max(s)))
+                     for q, s in bands[metric].items()}
+            for e, metric in enumerate(pred.metric_names)
+        }
+        result = {"ticks": args.ticks, "mix": mix, "peaks": peaks}
+    seconds["estimate"] = time.perf_counter() - t0
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(result, f, indent=2, sort_keys=True)
+        result["out"] = args.out
+    result.update(device=str(pred.device), kernel_launches=_kernel_launches(),
+                  seconds=seconds)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_anomaly(args) -> int:
+    """Observed utilization against the traffic-justified band.  One line
+    per metric report, then a JSON line with the device, the kernel
+    launches and every report's score and first flag, then the JAX
+    package's last line, ``{"flagged": [...]}``."""
+    from deeprest_tpu_torch.serve.anomaly import AnomalyDetector
+
+    _require_input(args)
+    pred = _predictor(args)
+    t0 = time.perf_counter()
+    if args.features and not args.raw:
+        from deeprest_tpu_torch.data.featurize import FeaturizedData
+
+        data = FeaturizedData.load(_ensure_npz(args.features))
+        # Same vocabulary-identity guard as `predict --features`: equal
+        # width with a permuted vocabulary would silently produce bogus
+        # anomaly reports.
+        if (pred.space_dict is not None
+                and data.space.to_dict()["vocabulary"]
+                != pred.space_dict["vocabulary"]):
+            sys.exit("error: the features file was extracted with a "
+                     "different call-path vocabulary than the checkpoint "
+                     "was trained on; re-featurize the raw corpus with "
+                     "--raw (uses the checkpoint's space)")
+    else:
+        # featurize against the checkpoint's space for column exactness
+        space = pred.space()
+        if space is None:
+            sys.exit("error: checkpoint has no feature space; pass --features")
+        from deeprest_tpu_torch.data.featurize import featurize_buckets
+
+        data = featurize_buckets(_load_buckets(args.raw), space=space)
+    if list(data.metric_names) != list(pred.metric_names):
+        sys.exit("error: corpus metrics do not match the checkpoint's")
+    if data.traffic.shape[1] != pred.feature_dim:
+        sys.exit(f"error: feature dim {data.traffic.shape[1]} != model "
+                 f"{pred.feature_dim}")
+    seconds = {"traffic": time.perf_counter() - t0}
+    detector = AnomalyDetector(pred, tolerance=args.tolerance,
+                               min_run=args.min_run)
+    t0 = time.perf_counter()
+    reports = detector.check(data.traffic, data.targets())
+    seconds["check"] = time.perf_counter() - t0
+    for r in reports:
+        print(r)
+    flagged = [r.metric for r in reports if r.flagged]
+    print(json.dumps({
+        "device": str(pred.device), "kernel_launches": _kernel_launches(),
+        "seconds": seconds,
+        "reports": [{"metric": r.metric, "score": r.score,
+                     "flagged": r.flagged,
+                     "first_flag_index": r.first_flag_index}
+                    for r in reports]}))
+    print(json.dumps({"flagged": flagged}))
+    return 1 if flagged and args.fail_on_anomaly else 0
+
+
+# -- parser -----------------------------------------------------------------
+
+
 def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="deeprest_tpu_torch")
+    ap = argparse.ArgumentParser(
+        prog="deeprest_tpu_torch",
+        description="API-aware resource estimation, PyTorch/CUDA port")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("train", help="train + eval on a featurized corpus")
-    p.add_argument("--features", required=True,
-                   help="featurized .npz (from `deeprest_tpu featurize`)")
+
+    p = sub.add_parser("simulate", help="generate a raw corpus (no cluster)")
+    from deeprest_tpu_torch.workload.scenarios import SCENARIOS
+
+    p.add_argument("--scenario", choices=sorted(SCENARIOS), default="normal")
+    p.add_argument("--ticks", type=int, default=480)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default="raw_data.jsonl")
+    p.add_argument("--app", choices=("social", "synthetic"), default="social",
+                   help="topology: the 12-service social network or a seeded "
+                        "synthetic service DAG (TrainTicket scale)")
+    p.add_argument("--services", type=int, default=40,
+                   help="synthetic app: number of services")
+    p.add_argument("--endpoints", type=int, default=12,
+                   help="synthetic app: number of API endpoints")
+    p.add_argument("--shift-at", type=int, default=0,
+                   help="mid-corpus topology change: buckets at/after "
+                        "this index generate from a re-drawn synthetic "
+                        "topology with --services-after services (0 = no "
+                        "shift)")
+    p.add_argument("--services-after", type=int, default=None,
+                   help="post-shift service count (default: --services "
+                        "+ 50%%)")
+    p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("featurize", help="raw corpus → model-ready features")
+    _add_input_args(p, features_ok=False)
+    p.add_argument("--workers", type=int, default=1,
+                   help="shard trace walking across a forked process pool "
+                        "(0 = one per CPU, 1 = serial); bit-identical "
+                        "output in both featurization modes")
+    p.add_argument("--out", default="input.npz")
+    p.set_defaults(fn=cmd_featurize)
+
+    p = sub.add_parser(
+        "ingest",
+        help="Jaeger/OTLP + Prometheus (dumps or live endpoints) → raw "
+             "corpus JSONL")
+    p.add_argument("--traces", nargs="*", default=[],
+                   help="Jaeger query-API or OTLP/JSON trace dump files")
+    p.add_argument("--prom", nargs="*", default=[],
+                   help="Prometheus query_range JSON dump files")
+    p.add_argument("--jaeger-url", default=None,
+                   help="live Jaeger query API base URL (e.g. "
+                        "http://jaeger-query:16686)")
+    p.add_argument("--prom-url", default=None,
+                   help="live Prometheus base URL (e.g. "
+                        "http://prometheus:9090)")
+    p.add_argument("--start", type=float, default=None,
+                   help="live pull range start (epoch seconds; default "
+                        "end - --last-seconds)")
+    p.add_argument("--end", type=float, default=None,
+                   help="live pull range end (epoch seconds; default now)")
+    p.add_argument("--last-seconds", type=float, default=3600.0,
+                   help="live pull lookback when --start is omitted")
+    p.add_argument("--step-seconds", type=float, default=None,
+                   help="Prometheus query_range step (default: the bucket "
+                        "width — scrape interval = bucket contract)")
+    p.add_argument("--jaeger-services", nargs="*", default=None,
+                   help="restrict the live Jaeger pull to these services "
+                        "(default: discover via /api/services)")
+    p.add_argument("--bucket-seconds", type=float, default=5.0,
+                   help="discretization window (= the cluster's scrape "
+                        "interval; the reference scrapes at 5s)")
+    p.add_argument("--metric-map", nargs="*", default=None,
+                   metavar="PROM_METRIC:RESOURCE[:MODE]",
+                   help="override the cadvisor-style default metric map "
+                        "(mode: gauge|counter)")
+    p.add_argument("--out", default="raw_data.jsonl")
+    p.set_defaults(fn=cmd_ingest)
+
+    p = sub.add_parser("train", help="train + eval vs both baselines")
+    _add_input_args(p)
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--window", type=int, default=60)
@@ -151,36 +651,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--ckpt-dir", default=None)
-    p.add_argument("--device", default=None,
-                   help="torch device (default cuda; pass cpu to run the "
-                        "plain PyTorch path on the CPU)")
     p.add_argument("--no-baselines", action="store_true",
-                   help="train without the baseline comparison (required: "
-                        "the baselines are not ported yet)")
+                   help="skip the ResourceAware and ComponentAware "
+                        "baselines (the resrc and comp columns of the report)")
+    _add_device_arg(p)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("synthesize", help="what-if traffic feature synthesis")
+    _add_input_args(p, features_ok=False)
+    p.add_argument("--mix", required=True,
+                   help='JSON {endpoint: count} per time step')
+    p.add_argument("--ticks", type=int, default=60)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="use this checkpoint's feature space (column-exact "
+                        "for that model)")
+    p.add_argument("--out", default="synthetic.npz")
+    p.set_defaults(fn=cmd_synthesize)
+
+    p = sub.add_parser("whatif",
+                       help="hypothetical traffic mix → per-metric peak "
+                            "utilization; --sweep runs a batched capacity-"
+                            "sweep grid through the fused pipeline")
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--raw", required=True,
+                   help="raw corpus to fit the what-if trace synthesizer")
+    p.add_argument("--mix", required=True,
+                   help='JSON {endpoint: count} per time step')
+    p.add_argument("--ticks", type=int, default=60)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sweep", default=None, metavar="F1,F2,...",
+                   help="scale the mix by each factor and estimate ALL "
+                        "scenarios in one batched prediction train "
+                        "(e.g. 0.5,1,2,4)")
+    p.add_argument("--out", default=None,
+                   help="also write the full result JSON here")
+    _add_fused_infer_args(p)
+    p.set_defaults(fn=cmd_whatif)
+
     p = sub.add_parser("predict", help="checkpoint + traffic → utilization")
-    p.add_argument("--features", default=None,
-                   help="featurized .npz (from `deeprest_tpu featurize`)")
-    p.add_argument("--raw", default=None,
-                   help="raw corpus (not supported by the port yet)")
+    _add_input_args(p)
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--out", default="predictions.npz")
-    p.add_argument("--no-fused-infer", action="store_true",
-                   help="serve through the host-loop reference path instead "
-                        "of the fused one-call-per-page device pipeline")
-    p.add_argument("--infer-page-windows", type=int, default=None,
-                   metavar="N",
-                   help="fused-inference page size in windows (default: the "
-                        "ladder's top rung on CUDA, the smallest rung >= 8 "
-                        "on the CPU)")
-    p.add_argument("--infer-coalesce-pages", type=int, default=None,
-                   metavar="G",
-                   help="fold up to G consecutive pages into one model call "
-                        "(default: 4 on CUDA, 1 on the CPU)")
-    p.add_argument("--device", default=None,
-                   help="torch device (default cuda; pass cpu to run the "
-                        "plain PyTorch path on the CPU)")
+    _add_fused_infer_args(p)
     p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("anomaly", help="traffic-justified utilization check")
+    _add_input_args(p)
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--tolerance", type=float, default=0.10)
+    p.add_argument("--min-run", type=int, default=5)
+    p.add_argument("--fail-on-anomaly", action="store_true")
+    _add_fused_infer_args(p)
+    p.set_defaults(fn=cmd_anomaly)
     return ap
 
 

@@ -127,6 +127,31 @@ class InferConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FeaturizeConfig:
+    """Call-path feature-space construction (a field-for-field copy, so the
+    ``config`` dict of a serialized ``CallPathSpace`` constructs it).
+
+    The raw feature space is unbounded (one dimension per observed
+    root-to-node call path; reference: resource-estimation/featurize.py:11-24).
+    The model wants a static width, so the vector is materialized at a fixed
+    ``capacity``; ``hash_features=True`` switches from a growable dictionary
+    to stable hash-bucketing, so streaming corpora never change the width.
+    """
+
+    capacity: int = 0             # 0 = size to the observed space, rounded up
+    round_to: int = 128           # pad capacity to a multiple
+    hash_features: bool = False
+    hash_seed: int = 0x5EED
+
+    def __post_init__(self):
+        if self.hash_features and self.capacity <= 0:
+            raise ValueError(
+                "hash_features=True requires an explicit capacity > 0 "
+                "(there is no observed vocabulary to size the space from)"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

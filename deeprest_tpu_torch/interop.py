@@ -35,6 +35,22 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def baseline_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The ResourceAware MLP's JAX params (``{"w1": [W, H], "b1": [H], "w2":
+    [H, W], "b2": [W]}``, numpy arrays) → float32 CPU tensors under the same
+    names, for ``ResourceAwareBaseline(...).fit_and_estimate(y,
+    init_params=...)``."""
+    from deeprest_tpu_torch.models.baselines import MLP_LEAVES
+
+    missing = sorted(set(MLP_LEAVES) - set(tree))
+    extra = sorted(set(tree) - set(MLP_LEAVES))
+    if missing or extra:
+        raise KeyError(f"baseline params want leaves {list(MLP_LEAVES)}; "
+                       f"missing {missing}, unexpected {extra}")
+    flat = params_from_jax({k: tree[k] for k in MLP_LEAVES})
+    return {k: v.float() for k, v in flat.items()}
+
+
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The port's parameter dict → a flat dict of numpy arrays (bf16 leaves
     widen to float32, which numpy can hold exactly)."""

@@ -17,6 +17,7 @@ from deeprest_tpu_torch.config import ModelConfig
 from deeprest_tpu_torch.data.windows import MinMaxStats
 from deeprest_tpu_torch.device import resolve_device
 from deeprest_tpu_torch.models.qrnn import QuantileGRU
+from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.serve.batcher import BatchedBackendMixin
 from deeprest_tpu_torch.serve.fused import FusedInferenceMixin
 
@@ -77,7 +78,12 @@ def rolled_prediction_reference(
 
 class Predictor(BatchedBackendMixin, FusedInferenceMixin):
     """Quantile predictions for traffic feature series, on ``device``
-    (None means ``"cuda"``, which raises without a GPU)."""
+    (None means ``"cuda"``, which raises without a GPU).
+
+    ``recurrence`` replaces the device dispatch of the GRU recurrence, as
+    the Trainer's does (pass ``ops.cuda_gru.gru_recurrence_reference`` to
+    serve through the plain version on a CUDA device).
+    """
 
     def __init__(self, params, model_config: ModelConfig,
                  x_stats: MinMaxStats, y_stats: MinMaxStats,
@@ -88,8 +94,10 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
                  fused: bool = True,
                  page_windows: int | None = None,
                  coalesce_pages: int | None = None,
-                 device=None):
+                 device=None,
+                 recurrence: Recurrence | None = None):
         self.device = resolve_device(device)
+        self.recurrence = recurrence
         self.model = QuantileGRU(model_config, device=self.device)
         self.model.load_params(params)
         self.x_stats = x_stats
@@ -109,7 +117,7 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self.model(x)
+            return self.model(x, recurrence=self.recurrence)
 
     def _apply_numpy(self, x: np.ndarray) -> torch.Tensor:
         return self._apply(torch.from_numpy(x).to(self.device))
@@ -129,13 +137,24 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
     def median_index(self) -> int:
         return self.model.median_index()
 
+    def space(self):
+        """The training corpus's CallPathSpace (column-exact featurization
+        for raw serve-time traces); None for checkpoints without one."""
+        if self.space_dict is None:
+            return None
+        from deeprest_tpu_torch.data.featurize import CallPathSpace
+
+        return CallPathSpace.from_dict(self.space_dict)
+
     @classmethod
     def from_checkpoint(cls, directory: str, step: int | None = None,
                         ladder: tuple[int, ...] | None = None,
                         fused: bool = True,
                         page_windows: int | None = None,
                         coalesce_pages: int | None = None,
-                        device=None) -> "Predictor":
+                        device=None,
+                        recurrence: Recurrence | None = None
+                        ) -> "Predictor":
         """Restore params and host state from a ``deeprest-sharded-v1``
         checkpoint; the architecture comes from the sidecar's
         ``model_config`` with ``feature_dim`` and ``num_metrics`` taken from
@@ -168,4 +187,5 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
             space_dict=extra.get("space"),
             delta_mask=extra.get("delta_mask"),
             ladder=ladder, fused=fused, page_windows=page_windows,
-            coalesce_pages=coalesce_pages, device=device)
+            coalesce_pages=coalesce_pages, device=device,
+            recurrence=recurrence)

@@ -149,7 +149,32 @@ def test_cli_predict_matches_jax_cli(ckpt, tmp_path, capsys):
         _close(b["predictions"], a["predictions"])
 
 
-def test_cli_refuses_another_vocabulary_and_raw(ckpt, tmp_path):
+def _ckpt_with_space(ckpt, directory, space):
+    """A copy of ``ckpt`` whose sidecar carries ``space``."""
+    import shutil
+
+    shutil.copytree(ckpt, directory)
+    (sidecar,) = [os.path.join(root, "host_state.json")
+                  for root, _, files in os.walk(directory)
+                  if "host_state.json" in files]
+    with open(sidecar, encoding="utf-8") as fh:
+        extra = json.load(fh)
+    extra["space"] = space
+    with open(sidecar, "w", encoding="utf-8") as fh:
+        json.dump(extra, fh)
+    return str(directory)
+
+
+def test_cli_refuses_another_vocabulary_and_raw(ckpt, tmp_path, capsys):
+    """``--features`` from another vocabulary is refused; ``--raw`` is
+    featurized against the checkpoint's space (and predicts what the same
+    traffic through ``--features`` predicts), and refused with the JAX
+    package's message when the checkpoint has no space."""
+    from deeprest_tpu_torch.data.featurize import CallPathSpace
+    from deeprest_tpu_torch.data.schema import (
+        Bucket, Span, save_raw_data_jsonl,
+    )
+
     port_cli = importlib.import_module("deeprest_tpu_torch.cli")
     feats = str(tmp_path / "other.npz")
     np.savez(feats, traffic=np.zeros((W, F), np.float32),
@@ -158,8 +183,35 @@ def test_cli_refuses_another_vocabulary_and_raw(ckpt, tmp_path):
     with pytest.raises(SystemExit, match="vocabulary"):
         port_cli.main(["predict", "--ckpt-dir", ckpt, "--features", feats,
                        "--device", "cpu"])
-    with pytest.raises(SystemExit, match="featurizer"):
-        port_cli.main(["predict", "--ckpt-dir", ckpt, "--raw", "x.jsonl",
+
+    space = CallPathSpace()
+    space.index = {(f"gw_/op{i}",): i for i in range(F)}
+    space.frozen_capacity = F
+    with_space = _ckpt_with_space(ckpt, tmp_path / "spaced", space.to_dict())
+    rng = np.random.default_rng(5)
+    counts = rng.integers(0, 4, (3 * W + 2, F))
+    buckets = [Bucket(traces=[Span("gw", f"/op{i}") for i in range(F)
+                              for _ in range(n[i])] + [Span("gw", "/new")])
+               for n in counts]
+    raw = str(tmp_path / "raw.jsonl")
+    save_raw_data_jsonl(buckets, raw)
+    np.savez(feats, traffic=counts.astype(np.float32),
+             space_json=np.frombuffer(json.dumps(space.to_dict()).encode(),
+                                      dtype=np.uint8))
+    for source, path in (("--raw", raw), ("--features", feats)):
+        assert port_cli.main(["predict", "--ckpt-dir", with_space, source,
+                              path, "--out", str(tmp_path / source[2:]),
+                              "--device", "cpu"]) == 0
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]
+                          )["steps"] == len(counts)
+    with np.load(tmp_path / "raw.npz") as a, \
+            np.load(tmp_path / "features.npz") as b:
+        np.testing.assert_array_equal(a["predictions"], b["predictions"])
+
+    no_space = _ckpt_with_space(ckpt, tmp_path / "bare", None)
+    with pytest.raises(SystemExit, match="checkpoint has no feature space; "
+                                         "featurize the raw corpus"):
+        port_cli.main(["predict", "--ckpt-dir", no_space, "--raw", raw,
                        "--device", "cpu"])
 
 
@@ -181,7 +233,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 26 else 0)\n")
+        "sys.exit(1 if bad or len(names) < 38 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

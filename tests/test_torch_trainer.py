@@ -38,7 +38,7 @@ from deeprest_tpu.serve.predictor import Predictor as JaxPredictor
 from deeprest_tpu.train.data import prepare_dataset as jax_prepare_dataset
 from deeprest_tpu.train.trainer import Trainer as JaxTrainer
 from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
-from deeprest_tpu_torch.data.featurize import FeaturizedData
+from deeprest_tpu_torch.data.featurize import CallPathSpace, FeaturizedData
 from deeprest_tpu_torch.interop import params_from_jax
 from deeprest_tpu_torch.models.qrnn import QuantileGRU, dropout
 from deeprest_tpu_torch.ops.quantile import pinball_loss
@@ -73,7 +73,7 @@ def corpus():
                               invocations=data.invocations, space=data.space)
     port = FeaturizedData(traffic=data.traffic, resources=resources,
                           invocations=data.invocations,
-                          space_dict=data.space.to_dict())
+                          space=CallPathSpace.from_dict(data.space.to_dict()))
     return jdata, port
 
 
@@ -277,10 +277,10 @@ def test_train_cli_runs_end_to_end_on_cpu(corpus, tmp_path, capsys):
             "16", "--window", "12", "--hidden-size", "8",
             "--compute-dtype", "bfloat16", "--ckpt-dir", ckpt,
             "--device", "cpu"]
-    with pytest.raises(SystemExit, match="baselines"):
-        cli.main(args)
     assert cli.main(args + ["--no-baselines"]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {m for methods in report["report"].values() for m in methods} \
+        == {"deepr"}
     steps_per_epoch = -(-int((160 - 12) * 0.4) // 16)
     assert report["steps"] == 2 * steps_per_epoch
     assert [len(s) for s in report["step_losses"]] == [steps_per_epoch] * 2
@@ -297,6 +297,13 @@ def test_train_cli_runs_end_to_end_on_cpu(corpus, tmp_path, capsys):
     with np.load(tmp_path / "preds.npz") as z:
         preds = z["predictions"]
     assert preds.shape == (160, 3, 3) and np.isfinite(preds).all()
+    # with the baselines (the default), the report gains their columns
+    assert cli.main(args[:-4] + ["--ckpt-dir", str(tmp_path / "ckpt2"),
+                                 "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for methods in report["report"].values():
+        assert set(methods) == {"deepr", "resrc", "comp"}
+    assert np.isfinite(_report_values(report["report"])).all()
 
 
 def test_unported_train_features_raise_and_device_defaults_to_cuda(
