@@ -38,11 +38,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 6. the training main path at full width: a seeded three-day corpus
    (4,320 x 512 Poisson call-path counts, 40 resource series) written with
    the port's FeaturizedData, `python -m deeprest_tpu_torch train` for 2
-   epochs at B=32, T=60, bf16 (finite, falling losses; K2 and K3 launched
-   twice per step), the trained checkpoint served by one `predict` call,
-   5 steps on the kernels against 5 steps through the plain recurrence
-   from the same params (dropout 0), and a torch.profiler breakdown of
-   train steps;
+   epochs at B=32, T=60, bf16 with the default supersteps ("auto": one
+   captured CUDA graph per update, replayed; finite, falling losses; K2
+   and K3 launched twice per step, replays counted; at least one capture,
+   one eager update before each and every other update a replay), the
+   trained checkpoint served by one `predict` call, 5 steps on the kernels
+   against 5 steps through the plain recurrence from the same params
+   (dropout 0), a torch.profiler breakdown of 5 eager steps; then 20
+   captured steps (S=10) against 20 eager ones from the same params
+   (dropout 0 and 0.5: per-step losses equal, params within 1e-6
+   relative), a profile of one captured superstep (10 replays), G=4
+   "exact" against "loop" (bit for bit, dropout 0.5) and "flat" against
+   "loop" (2e-2 of scale, dropout 0), K2+K3 per microbatch at G·B = 128
+   rows against 32, a run killed at step 27 (S=3, snapshots every 10,
+   dropout 0.5) and resumed against the uninterrupted run (1e-6
+   relative), and steady-state steps/s eager and captured in turns;
 7. raw telemetry to what-if answers and anomaly verdicts, through the
    port's CLI alone, at the width of the reference's own deployment (the
    social network: F=128 from 60 call paths, E=88, H=128, bf16):
@@ -77,7 +87,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 
 The kernel launch counts are set to 0 just before each main path (5, 6, 7
 and the sweep of 8) and read just after it; launches made to check or
-time a kernel do not count.
+time a kernel do not count.  A wrapper counts its launch on the host when
+it is called, so a CUDA graph records the launches it holds at capture and
+adds them once per replay (deeprest_tpu_torch/train/graphs.py).
 
 It exits nonzero, printing no result, without CUDA or without the package
 beside it.
@@ -729,30 +741,272 @@ def run_cli(args: list, timeout: int) -> dict:
     return json.loads(run_cli_lines(args, timeout)[-1])
 
 
-def profile_train_steps(trainer, state, staged, batches) -> None:
-    """Where a train step's time goes: device time by kernel and the
-    device's busy share of the steps' wall time, from torch.profiler."""
+def profile_train_steps(label: str, run, steps: int) -> float | None:
+    """Where ``steps`` train steps' time goes (``run()`` takes them): device
+    time by kernel and the device's busy share of their wall time, from
+    torch.profiler.  Returns the busy share in percent, None when the
+    profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for sel, weight in batches:
-            trainer.train_step(state, staged, sel, weight)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     if not rows:
-        print("profile train: the profiler saw no device time (device "
+        print(f"profile {label}: the profiler saw no device time (device "
               "breakdown not measured)", flush=True)
-        return
+        return None
     busy_us = sum(r[0] for r in rows)
-    print(f"profile train: {len(batches)} steps, wall {wall_us / 1e3:.3f} ms, "
-          f"device busy {busy_us / 1e3:.3f} ms "
-          f"({100 * busy_us / wall_us:.1f} % of wall)", flush=True)
+    share = 100 * busy_us / wall_us
+    print(f"profile {label}: {steps} steps, wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms ({share:.1f} % of wall)",
+          flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return share
+
+
+def flagship_trainer(data, dropout: float = 0.0, split: float = 0.40,
+                     **train):
+    """A flagship Trainer on the card (B=32, T=60, H=128, bf16) and the
+    bundle of ``data`` at train split ``split``."""
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.train.data import prepare_dataset
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(model=ModelConfig(hidden_size=TRAIN["H"],
+                                   dropout_rate=dropout,
+                                   compute_dtype="bfloat16"),
+                 train=TrainConfig(batch_size=TRAIN["B"], window_size=W,
+                                   train_split=split, **train))
+    bundle = prepare_dataset(data, cfg.train)
+    return Trainer(cfg, F, bundle.metric_names, device="cuda"), bundle
+
+
+def train_epochs(trainer, bundle, params, epochs: int = 1):
+    """``epochs`` epochs of ``trainer.train_epoch`` from ``params`` (no
+    evaluation); returns (state, per-step losses)."""
+    import numpy as np
+
+    state = trainer.init_state(params)
+    staged = trainer.stage_dataset(bundle)
+    rng = np.random.default_rng(SEED)
+    losses = []
+    for _ in range(epochs):
+        state, _ = trainer.train_epoch(state, bundle, rng, staged)
+        losses.append(trainer.last_epoch_losses)
+    return state, np.concatenate(losses)
+
+
+def params_rel_diff(a, b) -> tuple[float, float, bool]:
+    """Worst max |a - b| / max |b| over the leaves of two states, the worst
+    max |a - b|, and whether every leaf is bit-identical."""
+    import torch
+
+    rel = absd = 0.0
+    same = True
+    for name, want in b.params.items():
+        got = a.params[name].detach()
+        want = want.detach()
+        d = float((got - want).abs().max())
+        absd = max(absd, d)
+        rel = max(rel, d / max(float(want.abs().max()), 1e-30))
+        same = same and torch.equal(got, want)
+    return rel, absd, same
+
+
+# 20 steps of B=32 in an epoch: int((4,320 - 60) x 0.1503) = 640 windows
+SPLIT_20_STEPS = 0.1503
+
+
+def phase_supersteps(cuda_gru, feats: str, workdir: str) -> dict:
+    """The trainer's supersteps on the card at the flagship width: captured
+    against eager updates, the accumulation modes at G=4, a kill and resume,
+    a profile of one captured superstep, and steady-state steps/s eager
+    and captured."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.models.qrnn import init_params
+
+    data = FeaturizedData.load(feats)
+    out = {}
+
+    # 20 captured steps (S=10) against 20 eager (S=1), dropout 0 and 0.5
+    for dropout in (0.0, 0.5):
+        runs = {}
+        for label, s in (("eager", 1), ("captured", 10)):
+            trainer, bundle = flagship_trainer(
+                data, dropout, SPLIT_20_STEPS, steps_per_superstep=s)
+            params = init_params(trainer.model_config, SEED)
+            for k in cuda_gru.KERNELS:
+                k.launches = 0
+            state, losses = train_epochs(trainer, bundle, params)
+            runs[label] = (trainer, state, losses,
+                           {k.name: k.launches for k in cuda_gru.KERNELS})
+        (tr_c, st_c, l_c, n_c), (_, st_e, l_e, n_e) = (runs["captured"],
+                                                       runs["eager"])
+        rel, absd, same = params_rel_diff(st_c, st_e)
+        print(f"check captured (S=10) vs eager (S=1) 20 steps, dropout "
+              f"{dropout}: losses equal {np.array_equal(l_c, l_e)} "
+              f"(first {l_c[:3].tolist()} vs {l_e[:3].tolist()}); params max "
+              f"relative difference {rel:.3e} (max abs {absd:.3e}, tol 1e-6), "
+              f"bit-identical {same}; captured trainer: captures "
+              f"{tr_c.captures}, replays {tr_c.replays}, dispatches "
+              f"{tr_c.dispatches}; launches captured {n_c}, eager {n_e}",
+              flush=True)
+        if len(l_c) != 20 or not np.array_equal(l_c, l_e):
+            fail(f"captured steps disagree with eager steps (dropout "
+                 f"{dropout}): per-step losses differ")
+        if rel > 1e-6:
+            fail(f"captured params differ from eager by {rel:.3e} relative "
+                 f"after 20 steps (dropout {dropout})")
+        if (tr_c.captures, tr_c.replays, tr_c.dispatches) != (1, 19, 20):
+            fail("the captured run did not take 1 capture, 19 replays and "
+                 "20 dispatches")
+        for name in ("gru_fwd_train", "gru_bwd"):
+            if n_c[name] != 40 or n_e[name] != 40:
+                fail(f"{name} counted {n_c[name]} (captured) and "
+                     f"{n_e[name]} (eager) launches over 20 steps; want 40")
+        out[f"captured_bit_identical_dropout_{dropout}"] = same
+        if dropout == 0.0:
+            # one captured superstep, profiled: 10 replays after the epoch
+            plan = tr_c._epoch_plan(bundle.num_train_windows,
+                                    np.random.default_rng(SEED), 10)
+            tr_c._stage_plan(st_c, st_c.plan.staged, plan[0], plan[1], 0)
+
+            def superstep():
+                for _ in range(10):
+                    tr_c._run_update(st_c, True)
+                    st_c.step += 1
+
+            out["busy_captured_pct"] = profile_train_steps(
+                "train captured superstep (S=10)", superstep, 10)
+        del runs, tr_c, st_c, st_e
+        torch.cuda.empty_cache()
+
+    # G=4: "exact" against "loop" with dropout 0.5 (bit for bit), "flat"
+    # against "loop" with dropout 0 (bf16 tolerance)
+    states = {}
+    for label, mode, dropout in (("loop 0.5", "loop", 0.5),
+                                 ("exact 0.5", "exact", 0.5),
+                                 ("loop 0", "loop", 0.0),
+                                 ("flat 0", "flat", 0.0)):
+        trainer, bundle = flagship_trainer(
+            data, dropout, SPLIT_20_STEPS, grad_accum_windows=4,
+            grad_accum_mode=mode)
+        params = init_params(trainer.model_config, SEED)
+        state, losses = train_epochs(trainer, bundle, params)
+        states[label] = (state, losses)
+        print(f"G=4 {label}: {len(losses)} microbatches in "
+              f"{trainer.dispatches} updates (captures {trainer.captures}), "
+              f"losses {losses[:4].tolist()}", flush=True)
+    rel, absd, same = params_rel_diff(states["exact 0.5"][0],
+                                      states["loop 0.5"][0])
+    equal = np.array_equal(states["exact 0.5"][1], states["loop 0.5"][1])
+    print(f"check G=4 exact vs loop (dropout 0.5): losses equal {equal}, "
+          f"params bit-identical {same} (max abs {absd:.3e})", flush=True)
+    if not (equal and same):
+        fail("G=4 'exact' is not bit-identical to 'loop'")
+    worst = 0.0
+    for name, want in states["loop 0"][0].params.items():
+        got = states["flat 0"][0].params[name].detach()
+        worst = max(worst, float((got - want.detach()).abs().max())
+                    / max(float(want.detach().abs().max()), 1e-30))
+    print(f"check G=4 flat vs loop (dropout 0): params max difference "
+          f"{worst:.3e} of scale (tol 2e-2)", flush=True)
+    if worst > 2e-2:
+        fail("G=4 'flat' disagrees with 'loop'")
+    out["flat_vs_loop"] = worst
+    del states
+    torch.cuda.empty_cache()
+
+    # K2 + K3 per microbatch: G·B = 128 rows a launch against 32
+    per = {}
+    for g in (1, 4):
+        shape = dict(TRAIN, B=TRAIN["B"] * g)
+        args = recurrence_inputs(shape, torch.bfloat16)
+        h_all, h_prev, gates = cuda_gru.gru_fwd_train_cuda(*args)
+        dout = torch.ones_like(h_all)
+        bwd_in = (args[0], h_prev, gates, args[1], args[2], dout)
+        fwd_ms = time_ms(lambda: cuda_gru.gru_fwd_train_cuda(*args), 20)
+        bwd_ms = time_ms(lambda: cuda_gru.gru_bwd_cuda(*bwd_in), 20)
+        per[g] = (fwd_ms / g, bwd_ms / g)
+        del args, h_all, h_prev, gates, dout, bwd_in
+    gain = (sum(per[1]) / sum(per[4]))
+    print(f"times K2+K3 per microbatch bf16: B=32 K2 {per[1][0]:.4f} + K3 "
+          f"{per[1][1]:.4f} ms; G=4 flat (B=128) K2 {per[4][0]:.4f} + K3 "
+          f"{per[4][1]:.4f} ms per microbatch: {gain:.2f}x (PR 5 sweep: "
+          f"1.59x at G=4)", flush=True)
+    out["flat_g4_gain"] = gain
+
+    # kill at step 27 and resume, flagship width, dropout 0.5
+    ckpt_a = os.path.join(workdir, "snap_a")
+    ckpt_b = os.path.join(workdir, "snap_b")
+
+    class Preempted(BaseException):
+        pass
+
+    def kill_at_27(step):
+        if step >= 27:
+            raise Preempted
+
+    finals = {}
+    for label, ckpt in (("uninterrupted", ckpt_a), ("killed", ckpt_b)):
+        trainer, bundle = flagship_trainer(
+            data, 0.5, steps_per_superstep=3, snapshot_every_steps=10,
+            checkpoint_dir=ckpt)
+        params = init_params(trainer.model_config, SEED)
+        try:
+            finals[label] = trainer.fit(
+                bundle, state=trainer.init_state(params), num_epochs=1,
+                on_step=None if label == "uninterrupted" else kill_at_27)
+        except Preempted:
+            print(f"killed at step {trainer.global_step}", flush=True)
+    trainer, bundle = flagship_trainer(
+        data, 0.5, steps_per_superstep=3, snapshot_every_steps=10,
+        checkpoint_dir=ckpt_b)
+    finals["resumed"] = trainer.resume_training(bundle, num_epochs=1)
+    rel, absd, same = params_rel_diff(finals["resumed"][0],
+                                      finals["uninterrupted"][0])
+    print(f"check kill at 27 and resume (S=3, snapshots every 10, dropout "
+          f"0.5): resumed from step {trainer.resumed_from_step}, "
+          f"{finals['resumed'][0].step} steps; params max relative "
+          f"difference {rel:.3e}, max abs {absd:.3e} (tol 1e-6), "
+          f"bit-identical {same}; test loss "
+          f"{finals['resumed'][1][-1].test_loss} vs "
+          f"{finals['uninterrupted'][1][-1].test_loss}", flush=True)
+    if "killed" in finals or trainer.resumed_from_step != 24:
+        fail("the kill at step 27 did not land, or the resume did not start "
+             "from the snapshot at step 24")
+    if rel > 1e-6 or finals["resumed"][0].step != finals["uninterrupted"][
+            0].step:
+        fail("the resumed run does not end at the uninterrupted run's params")
+    out["resume_rel"] = rel
+    del finals, trainer
+    torch.cuda.empty_cache()
+
+    # steady-state steps/s, eager and captured, in turns
+    rates = {"eager": [], "captured": []}
+    for label in ("eager", "captured", "captured", "eager"):
+        trainer, bundle = flagship_trainer(
+            data, 0.5, steps_per_superstep=1 if label == "eager" else "auto")
+        params = init_params(trainer.model_config, SEED)
+        train_epochs(trainer, bundle, params, epochs=2)
+        rates[label].append(trainer.throughput.steps_per_sec)
+        del trainer
+        torch.cuda.empty_cache()
+    print(f"steady-state steps/s (2 epochs of {bundle.num_train_windows} "
+          f"windows, first update excluded), in turns: eager "
+          f"{rates['eager']}, captured (S=auto) {rates['captured']}",
+          flush=True)
+    out["steps_per_sec"] = rates
+    return out
 
 
 def phase_training(cuda_gru) -> dict:
@@ -800,9 +1054,20 @@ def phase_training(cuda_gru) -> dict:
         for name in ("gru_fwd_train", "gru_bwd"):
             if launches[name] != 2 * steps:
                 fail(f"{name} launched {launches[name]} times in {steps} "
-                     f"train steps; want 2 x steps (two directions)")
+                     f"train steps; want 2 x steps (two directions), graph "
+                     f"replays counted")
         if launches["gru_fwd"] == 0:
             fail("evaluation and serving never launched gru_fwd")
+        eager = report["dispatches"] - report["replays"]
+        print(f"main train CLI supersteps: S={report['steps_per_superstep']}"
+              f", G={report['grad_accum_windows']}; {report['dispatches']} "
+              f"dispatches = {report['replays']} graph replays + {eager} "
+              f"eager updates; {report['captures']} captures", flush=True)
+        if report["captures"] < 1 or report["dispatches"] != steps \
+                or eager != report["captures"]:
+            fail("the default train run did not go through a captured graph "
+                 "(want captures >= 1, one eager update before each capture "
+                 "and every other update a replay)")
         mae = [v for m in report["report"].values()
                for s in m.values() for v in s.values()]
         if not np.isfinite(mae).all():
@@ -848,10 +1113,18 @@ def phase_training(cuda_gru) -> dict:
         staged = trainer.stage_dataset(bundle)
         for sel, wt in batches[:3]:
             trainer.train_step(state, staged, sel, wt)      # warm
-        profile_train_steps(trainer, state, staged, batches[3:8])
+
+        def eager_steps():
+            for sel, wt in batches[3:8]:
+                trainer.train_step(state, staged, sel, wt)
+
+        busy_eager = profile_train_steps("train eager", eager_steps, 5)
+        del trainer, state, staged
+        supersteps = phase_supersteps(cuda_gru, feats, wd)
     return {"launches": launches, "steps": steps,
             "steps_per_sec": report["steps_per_sec"], "peak_share": share,
-            "epoch_losses": report["epoch_losses"], "parity_rel": rel}
+            "epoch_losses": report["epoch_losses"], "parity_rel": rel,
+            "busy_eager_pct": busy_eager, **supersteps}
 
 
 def rounded(seconds: dict) -> dict:

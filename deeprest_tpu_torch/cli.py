@@ -14,8 +14,13 @@ and touch no device.  ``train``, ``predict``, ``whatif`` and ``anomaly``
 run on CUDA unless ``--device cpu`` asks for the CPU; their JSON lines add
 the device, the kernel launches the call made and the seconds of its
 stages (``seconds``: loading and featurizing the input, the model work).
-Mesh, quantized serving, supersteps, the sparse feed, snapshots and
-profiling are not ported, and the port's CLI does not offer them.
+``train`` takes the JAX CLI's ``--steps-per-superstep`` (default "auto":
+captured CUDA graphs on a GPU), ``--grad-accum-windows``,
+``--grad-accum-mode``, ``--snapshot-every-steps`` and ``--snapshot-keep``;
+with snapshots on, running the same command again after a kill resumes
+from the newest cursor snapshot.  Mesh, elastic remeshing, quantized
+serving, the sparse feed and profiling are not ported, and the port's CLI
+does not offer them.
 """
 
 from __future__ import annotations
@@ -93,6 +98,20 @@ def _add_fused_infer_args(p: argparse.ArgumentParser):
                    help="fold up to G consecutive pages into one model call "
                         "(default: 4 on CUDA, 1 on the CPU)")
     _add_device_arg(p)
+
+
+def _superstep_arg(v: str):
+    """``--steps-per-superstep`` parser: int >= 1, 'auto', or 'epoch'."""
+    if v in ("auto", "epoch"):
+        return v
+    try:
+        n = int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"{v!r} is not an int, 'auto', or 'epoch'")
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"{v} must be >= 1")
+    return n
 
 
 def _ensure_npz(path: str) -> str:
@@ -331,7 +350,12 @@ def cmd_train(args) -> int:
                           window_size=args.window, learning_rate=args.lr,
                           train_split=args.split, seed=args.seed,
                           eval_stride=args.window,
-                          checkpoint_dir=args.ckpt_dir or ""),
+                          checkpoint_dir=args.ckpt_dir or "",
+                          steps_per_superstep=args.steps_per_superstep,
+                          grad_accum_windows=args.grad_accum_windows,
+                          grad_accum_mode=args.grad_accum_mode,
+                          snapshot_every_steps=args.snapshot_every_steps,
+                          snapshot_keep=args.snapshot_keep),
     )
     bundle = prepare_dataset(data, cfg.train)
     trainer = Trainer(cfg, bundle.feature_dim, bundle.metric_names,
@@ -348,11 +372,29 @@ def cmd_train(args) -> int:
         print(f"epoch {result.epoch}: train {result.train_loss:.4f} "
               f"test {result.test_loss:.4f}", flush=True)
 
+    # Preemption-safe restarts: with --snapshot-every-steps and a cursor
+    # snapshot on disk, running the same command again resumes the killed
+    # run instead of starting over.
+    resume = False
+    if args.snapshot_every_steps and args.ckpt_dir:
+        from deeprest_tpu_torch.train.checkpoint import latest_cursor_step
+
+        resume = latest_cursor_step(args.ckpt_dir) is not None
+        if resume:
+            print(f"resuming preempted run from {args.ckpt_dir} "
+                  "(newest cursor snapshot)", flush=True)
     t0 = time.perf_counter()
-    _, history = trainer.fit(bundle, baseline_preds=baselines,
-                             on_epoch=on_epoch)
+    if resume:
+        _, history = trainer.resume_training(bundle, baseline_preds=baselines,
+                                             on_epoch=on_epoch)
+    else:
+        _, history = trainer.fit(bundle, baseline_preds=baselines,
+                                 on_epoch=on_epoch)
     seconds["fit"] = time.perf_counter() - t0
-    print(format_report(history[-1].report))
+    if history:
+        print(format_report(history[-1].report))
+    else:
+        print("resume point is already past the final epoch; nothing to do")
     print(f"steady-state throughput: "
           f"{trainer.throughput.steps_per_sec:.2f} steps/s")
     print(json.dumps({
@@ -361,10 +403,16 @@ def cmd_train(args) -> int:
         "step_losses": step_losses,
         "steps": trainer.global_step,
         "steps_per_sec": trainer.throughput.steps_per_sec,
-        "report": history[-1].report,
+        "report": history[-1].report if history else None,
         "ckpt_dir": args.ckpt_dir,
         "device": str(trainer.device),
         "kernel_launches": _kernel_launches(),
+        "dispatches": trainer.dispatches,
+        "replays": trainer.replays,
+        "captures": trainer.captures,
+        "resumed_from_step": trainer.resumed_from_step,
+        "grad_accum_windows": cfg.train.grad_accum_windows,
+        "steps_per_superstep": trainer.superstep_len,
         "seconds": seconds}))
     return 0
 
@@ -650,6 +698,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--steps-per-superstep", type=_superstep_arg,
+                   default="auto", metavar="N|auto|epoch",
+                   help="train steps per superstep; on a GPU a superstep "
+                        "of N > 1 replays one captured CUDA graph per "
+                        "optimizer update (1 = the eager per-step loop; "
+                        "'epoch' = the whole epoch; 'auto' sizes it from "
+                        "the logging cadence)")
+    p.add_argument("--grad-accum-windows", type=int, default=1, metavar="G",
+                   help="window-coalesced gradient accumulation: one "
+                        "optimizer update per G consecutive microbatches "
+                        "on summed grads (1 = per-step updates, default)")
+    p.add_argument("--grad-accum-mode", default="exact",
+                   choices=("exact", "flat", "loop"),
+                   help="how the G microbatches run: 'exact' (default) is "
+                        "bit-identical to the 'loop' reference of G "
+                        "accumulating passes; 'flat' runs them as G*batch "
+                        "rows through each recurrence launch (weight-grad "
+                        "sums re-associate)")
+    p.add_argument("--snapshot-every-steps", type=int, default=0,
+                   metavar="N",
+                   help="preemption-safe training: atomically checkpoint "
+                        "the full state plus the epoch-plan cursor (epoch, "
+                        "step offset, shuffle-rng state) into --ckpt-dir "
+                        "every N real steps; running the same command again "
+                        "after a kill resumes the run, as the uninterrupted "
+                        "run would have gone on (0 = off)")
+    p.add_argument("--snapshot-keep", type=int, default=3, metavar="K",
+                   help="newest cursor snapshots kept (pruned only after a "
+                        "durable newer save; checkpoints without a cursor "
+                        "are never touched; 0 = keep everything)")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--no-baselines", action="store_true",
                    help="skip the ResourceAware and ComponentAware "

@@ -5,9 +5,9 @@ port reads.
 checkpoint sidecar carries constructs it as it is.  ``rnn_backend`` is
 carried for that reason only: the port picks the recurrence from the
 tensors' device (ops/gru.py), never from this field.  ``TrainConfig`` copies
-the training fields the port's per-step trainer reads, with the JAX
-package's defaults, plus the fields of features it does not have yet, which
-raise on any value but the one the port implements.
+the training fields the port's trainer reads, with the JAX package's
+defaults and validation messages, plus the fields of features it does not
+have yet, which raise on any value but the one the port implements.
 """
 
 from __future__ import annotations
@@ -49,14 +49,29 @@ the model learns its change and evaluation integrates it back."""
 class TrainConfig:
     """Training-loop knobs (defaults as the JAX package's).
 
-    The last four fields name features of the JAX trainer that the port
-    does not have yet: the host-streamed feed (``device_data="off"``), fused
-    supersteps, window-coalesced gradient accumulation and the sparse feed,
-    and elastic remeshing.  The port always stages the normalized base
-    series on its device and runs one optimizer step per dispatch, so
-    ``device_data`` takes "auto" or "always" (both stage),
-    ``steps_per_superstep`` only 1 (the JAX default "auto" would fuse
-    steps), and the others only their defaults; anything else raises.
+    ``steps_per_superstep``: train steps per superstep, an int >= 1,
+    ``"epoch"`` (the whole epoch) or ``"auto"`` (min(epoch length,
+    ``log_every_steps`` or 32), capped so a plan chunk stays under ~1 MiB).
+    On a CUDA device a superstep of S > 1 replays one captured CUDA graph
+    per optimizer update; 1 is the eager per-step loop.
+    ``grad_accum_windows`` (G) folds G consecutive plan steps
+    (microbatches) into one optimizer update with summed grads, the step
+    counter still counting microbatches; ``grad_accum_mode`` says how:
+    ``"loop"`` (G forward/backward passes accumulating grads, the
+    reference), ``"exact"`` (the mask fold computed once, each
+    microbatch's cotangent pushed through it in microbatch order:
+    bit-identical to "loop") or ``"flat"`` (the G batches as one ``[G·B]``
+    row batch through the model's group axis; weight-grad sums
+    re-associate).  ``snapshot_every_steps`` writes a cursor snapshot (the
+    full state plus the epoch-plan cursor) at the first superstep boundary
+    at or past every N real steps, 0 = off; ``snapshot_keep`` keeps the
+    newest K cursor snapshots, 0 = all.
+
+    Features of the JAX trainer the port does not have yet: the
+    host-streamed feed (``device_data="off"``), the sparse feed and elastic
+    remeshing.  The port always stages the normalized base series on its
+    device, so ``device_data`` takes "auto" or "always" (both stage), and
+    ``sparse_feed`` and ``elastic`` only False; anything else raises.
     """
 
     num_epochs: int = 50
@@ -74,26 +89,45 @@ class TrainConfig:
     # resources trained as per-bucket increments (train/data.py)
     delta_resources: tuple[str, ...] = LEVEL_RESOURCES
     device_data: str = "auto"
-    steps_per_superstep: int | str = 1
+    steps_per_superstep: int | str = "auto"
     grad_accum_windows: int = 1
+    grad_accum_mode: str = "exact"
+    snapshot_every_steps: int = 0
+    snapshot_keep: int = 3
     sparse_feed: bool = False
     elastic: bool = False
 
     def __post_init__(self):
+        v = self.steps_per_superstep
+        ok = v in ("auto", "epoch") or (
+            isinstance(v, int) and not isinstance(v, bool) and v >= 1)
+        if not ok:
+            raise ValueError(
+                f"TrainConfig.steps_per_superstep={v!r}: must be 'auto', "
+                f"'epoch', or an int >= 1")
+        g = self.grad_accum_windows
+        if not isinstance(g, int) or isinstance(g, bool) or g < 1:
+            raise ValueError(
+                f"TrainConfig.grad_accum_windows={g!r}: must be an int >= 1")
+        if self.grad_accum_mode not in ("exact", "flat", "loop"):
+            raise ValueError(
+                f"TrainConfig.grad_accum_mode={self.grad_accum_mode!r}: "
+                f"must be 'exact', 'flat', or 'loop'")
+        s = self.snapshot_every_steps
+        if not isinstance(s, int) or isinstance(s, bool) or s < 0:
+            raise ValueError(
+                f"TrainConfig.snapshot_every_steps={s!r}: must be an "
+                f"int >= 0 (0 = snapshots off)")
+        k = self.snapshot_keep
+        if not isinstance(k, int) or isinstance(k, bool) or k < 0:
+            raise ValueError(
+                f"TrainConfig.snapshot_keep={k!r}: must be an int >= 0 "
+                "(0 = unlimited retention)")
         unported = []
         if self.device_data not in ("auto", "always"):
             unported.append(f"device_data={self.device_data!r} (the port "
                             "always stages the base series: 'auto' or "
                             "'always')")
-        if self.steps_per_superstep != 1 \
-                or isinstance(self.steps_per_superstep, bool):
-            unported.append(f"steps_per_superstep="
-                            f"{self.steps_per_superstep!r} (supersteps are "
-                            "not ported: 1)")
-        if self.grad_accum_windows != 1 \
-                or isinstance(self.grad_accum_windows, bool):
-            unported.append(f"grad_accum_windows={self.grad_accum_windows!r}"
-                            " (gradient accumulation is not ported: 1)")
         if self.sparse_feed:
             unported.append("sparse_feed=True (the sparse feed is not "
                             "ported)")

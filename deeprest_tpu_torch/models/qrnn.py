@@ -21,12 +21,17 @@ output)``.  As in the JAX package:
 Dropout (``deterministic=False``, training only) drops the recurrence
 output in the compute dtype before mixing, where the flax module applies
 it: each value is kept with probability ``1 - dropout_rate`` and scaled by
-its inverse.  Its mask comes from an explicit ``torch.Generator`` (the
-trainer seeds one per step, the counterpart of ``fold_in(rng, step)``), so
-its bits are not JAX's.  Serving is deterministic.  The parameters are
-registered without gradients; the trainer turns them on.  Input ``[B, T,
-F]`` (or ``[G, B, T, F]``, groups folded into the rows) → output ``[B, T,
-E, Q]`` (``[G, B, T, E, Q]``) in f32.
+its inverse.  Its mask comes from an explicit ``torch.Generator``, so its
+bits are not JAX's.  The trainer makes the stream a pure function of
+``(seed, step, microbatch)``, the counterpart of ``fold_in(rng, step)``: on
+the CPU one generator seeded per microbatch, on a GPU one Philox generator
+per run whose offset it sets from the step, which a CUDA graph that
+registers the generator replays as an eager step draws.  Serving is
+deterministic.  The parameters are registered without gradients; the
+trainer turns them on.  ``forward(params=...)`` runs the module on another
+params dict of the same names (the exact-mode accumulation passes the
+mask-folded one).  Input ``[B, T, F]`` (or ``[G, B, T, F]``, groups folded
+into the rows) → output ``[B, T, E, Q]`` (``[G, B, T, E, Q]``) in f32.
 """
 
 from __future__ import annotations
@@ -165,7 +170,9 @@ class QuantileGRU(nn.Module):
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None,
                 mask_folded: bool = False,
-                recurrence: Recurrence | None = None) -> torch.Tensor:
+                recurrence: Recurrence | None = None,
+                params: Mapping[str, torch.Tensor] | None = None
+                ) -> torch.Tensor:
         cfg = self.config
         if not deterministic and cfg.dropout_rate > 0.0 and generator is None:
             raise ValueError("dropout (deterministic=False) needs an explicit "
@@ -180,7 +187,7 @@ class QuantileGRU(nn.Module):
             group_shape = tuple(x.shape[:2])
             x = x.reshape(group_shape[0] * group_shape[1], *x.shape[2:])
 
-        p = self.params()
+        p = self.params() if params is None else params
         mask = None if mask_folded else feature_mask(p)                # [E, F]
 
         def direction(name: str, layer: int) -> GRUParams:

@@ -12,13 +12,15 @@ import torch
 
 
 def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
-                 quantiles: Sequence[float],
+                 quantiles: Sequence[float] | torch.Tensor,
                  sample_weight: torch.Tensor | None = None,
                  allow_empty: bool = False) -> torch.Tensor:
     """Mean pinball loss.
 
     ``preds [B, T, E, Q]``, ``targets [B, T, E]``, ``quantiles`` the Q
-    levels in prediction order; ``sample_weight [B]`` makes the batch mean
+    levels in prediction order (a tensor on preds' device keeps the call
+    free of host-to-device copies, as a CUDA-graph capture needs);
+    ``sample_weight [B]`` makes the batch mean
     a weighted mean (zero-weight rows pad a ragged batch to its static
     size).  ``allow_empty`` floors the weighted mean's denominator at 1, so
     an all-zero-weight batch gives loss 0 and exactly-zero gradients
@@ -27,7 +29,9 @@ def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
     ``mean_E(mean_{B,T}(sum_Q max((q-1)·err, q·err)))``, ``err = target -
     pred``.
     """
-    q = torch.as_tensor(quantiles, dtype=preds.dtype, device=preds.device)
+    q = (quantiles.to(preds.dtype) if isinstance(quantiles, torch.Tensor)
+         else torch.as_tensor(quantiles, dtype=preds.dtype,
+                              device=preds.device))
     err = targets[..., None] - preds                        # [B, T, E, Q]
     per_q = torch.maximum((q - 1.0) * err, q * err)
     per_sample = per_q.sum(dim=-1)                          # [B, T, E]

@@ -9,12 +9,18 @@ config).  Dtypes that ``.npy`` cannot hold, such as bfloat16, are stored as
 a same-width unsigned integer view with the real dtype named in the
 manifest; the reader turns them back into torch tensors without ml_dtypes.
 
-:func:`load_params` returns the ``params/*`` leaves of a checkpoint
-(optimizer state, step and rng are skipped), and :func:`save_checkpoint`
-writes params plus the sidecar in the same layout, one shard per leaf,
-with any other leaves a caller names beside them (the trainer writes the
-step, the optimizer state and rng under the JAX ``TrainState`` names, so
-the JAX package's restore finds every leaf it expects).
+:func:`load_params` returns the ``params/*`` leaves of a checkpoint and
+:func:`load_leaves` any leaves by name prefix (the trainer's resume reads
+``step`` and the optimizer state ``opt_state/0/{mu,nu}/*``,
+``opt_state/0/count``, from a checkpoint either package wrote).
+:func:`save_checkpoint` writes params plus the sidecar in the same layout,
+one shard per leaf, with any other leaves a caller names beside them (the
+trainer writes the step, the optimizer state and rng under the JAX
+``TrainState`` names, so the JAX package's restore finds every leaf it
+expects).  :func:`latest_cursor_step` finds the newest snapshot whose
+sidecar carries a full ``train_cursor`` (epoch, steps done in it, the
+numpy ``PCG64`` state of the shuffle at the epoch's start, global step);
+:func:`prune_cursor_snapshots` keeps the newest K of them.
 """
 
 from __future__ import annotations
@@ -120,11 +126,12 @@ def _assemble(arrays_dir: str, entry: dict) -> torch.Tensor:
     return _to_torch(out, entry["dtype"])
 
 
-def load_params(directory: str, step: int | None = None
-                ) -> dict[str, torch.Tensor]:
-    """The ``params/*`` leaves of one checkpoint step, by leaf name
-    (``mask_w1``, ``gru_fwd_w_ih``, ...), as CPU tensors in their stored
-    dtypes."""
+def load_leaves(directory: str, step: int | None = None,
+                prefix: str = "") -> dict[str, torch.Tensor]:
+    """Every leaf of one checkpoint step whose "/"-joined name starts with
+    ``prefix``, by its name with the prefix cut, as CPU tensors in their
+    stored dtypes.  A shard that is missing, torn or short raises
+    ValueError naming its leaf."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -136,11 +143,75 @@ def load_params(directory: str, step: int | None = None
         raise ValueError(f"unknown checkpoint format "
                          f"{manifest.get('format')!r} at {path}")
     arrays_dir = os.path.join(path, "arrays")
-    params = {e["name"][len(_PARAMS):]: _assemble(arrays_dir, e)
-              for e in manifest["leaves"] if e["name"].startswith(_PARAMS)}
+    return {e["name"][len(prefix):]: _assemble(arrays_dir, e)
+            for e in manifest["leaves"] if e["name"].startswith(prefix)}
+
+
+def load_params(directory: str, step: int | None = None
+                ) -> dict[str, torch.Tensor]:
+    """The ``params/*`` leaves of one checkpoint step, by leaf name
+    (``mask_w1``, ``gru_fwd_w_ih``, ...), as CPU tensors in their stored
+    dtypes."""
+    params = load_leaves(directory, step, _PARAMS)
     if not params:
-        raise ValueError(f"checkpoint at {path} holds no params/* leaves")
+        raise ValueError(f"checkpoint under {directory!r} holds no params/* "
+                         "leaves")
     return params
+
+
+def _has_full_cursor(extra: dict | None) -> bool:
+    """Does this sidecar carry a full epoch-plan cursor (a resume anchor)?
+    A light cursor (epoch None) and plain epoch-cadence checkpoints (no
+    cursor) do not."""
+    if extra is None:
+        return False
+    cur = extra.get("train_cursor")
+    return (isinstance(cur, dict) and cur.get("epoch") is not None
+            and cur.get("rng_state") is not None)
+
+
+def latest_cursor_step(directory: str) -> int | None:
+    """Newest checkpoint step whose sidecar carries a full ``train_cursor``
+    (the trainer's snapshots), the anchor ``Trainer.resume_training``
+    restarts from; steps without one are skipped."""
+    for step in reversed(list_steps(directory)):
+        if _has_full_cursor(load_sidecar(directory, step, missing_ok=True)):
+            return step
+    return None
+
+
+def prune_cursor_snapshots(directory: str, keep: int) -> list[int]:
+    """Delete all but the newest ``keep`` cursor snapshots; returns the
+    pruned steps.  Checkpoints without a cursor are never touched.  The
+    trainer calls it after a durable newer save, so the restore target is
+    always among the kept; the parent directory is fsynced after the
+    removals."""
+    if keep < 1:
+        raise ValueError(f"prune_cursor_snapshots(keep={keep}): must be "
+                         ">= 1 (the newest snapshot is the restore "
+                         "target and must survive)")
+    cursor_steps = [
+        step for step in list_steps(directory)
+        if _has_full_cursor(load_sidecar(directory, step, missing_ok=True))]
+    pruned = []
+    for step in cursor_steps[:-keep]:
+        shutil.rmtree(_step_dir(directory, step), ignore_errors=True)
+        pruned.append(step)
+    if pruned:
+        _fsync(os.path.abspath(directory))
+    return pruned
+
+
+def prune_checkpoints(directory: str, keep: int) -> list[int]:
+    """Delete all but the newest ``keep`` checkpoint steps; returns the
+    pruned steps."""
+    if keep < 1:
+        raise ValueError(f"keep={keep} must be >= 1")
+    pruned = []
+    for step in list_steps(directory)[:-keep]:
+        shutil.rmtree(_step_dir(directory, step), ignore_errors=True)
+        pruned.append(step)
+    return pruned
 
 
 def _storage(tensor) -> tuple[np.ndarray, str]:

@@ -1,27 +1,56 @@
-"""The training and evaluation loop (``deeprest_tpu/train/trainer.py``, the
-per-step loop).
+"""The training and evaluation loop (``deeprest_tpu/train/trainer.py``).
 
-One optimizer step per dispatch, as the JAX trainer's per-step path: the
-normalized base series are staged on the device once (``stage_dataset``),
-each step gathers its ``[B, W]`` windows by start index, runs the model
-with seeded dropout, the pinball loss with zero-weight padding of the
-ragged last batch, the backward (the recurrence's backward is the CUDA
-kernel ``csrc/gru_bwd.cu`` on a GPU) and Adam with optax's defaults.  The
-state is updated in place, where the JAX step donates and returns it.
-Per-step losses stay on the device and are read back once per epoch, or
-at a ``log_every_steps`` boundary.
+The normalized base series are staged on the device once
+(``stage_dataset``).  Each epoch draws its shuffled batch plan, the JAX
+trainer's ``[C, S, B]`` superstep chunks with the trailing chunk padded by
+zero-weight steps, and stages it on the device once (``graphs.EpochPlan``).
+An optimizer update gathers its windows by start index, runs the model with
+seeded dropout, the pinball loss with zero-weight padding of the ragged last
+batch, the backward (the recurrence's backward is the CUDA kernel
+``csrc/gru_bwd.cu`` on a GPU) and Adam with optax's defaults, updating the
+state in place where the JAX step donates and returns it.
+
+Supersteps (``steps_per_superstep``): on a CUDA device with S > 1 the run's
+first update runs eagerly and is then captured as a CUDA graph
+(``graphs.capture_update``), which every later update replays: no host work
+per step but the replay and a host-side dropout offset.  The host knows
+each chunk's real step count, so it replays only real updates where JAX
+scans the padded chunk and skips the padding with ``lax.cond``.  S = 1 and
+the CPU run the same update code eagerly.  Losses stay on the device and
+are read back once per epoch, or per superstep when it passes a
+``log_every_steps`` boundary.
+
+Gradient accumulation (``grad_accum_windows`` G, ``grad_accum_mode``):
+one update consumes G microbatches, "loop" accumulating G backward passes,
+"exact" folding the feature mask once and pushing each microbatch's
+cotangent through the fold in microbatch order (bit-identical to "loop"),
+"flat" running the G batches as ``[G·B]`` rows through the model's group
+axis.  A partly padded group keeps its zero-weight microbatches, whose
+``pinball_loss(allow_empty=True)`` gradients are exactly zero.  The step
+counter counts real microbatches, Adam's count updates.
+
+Dropout is a pure function of ``(seed, step, microbatch)``: on the CPU a
+generator seeded per microbatch, on a GPU one Philox generator per trainer
+whose offset is set from the step before each update, eager or replayed.
+
+Snapshots and resume (``snapshot_every_steps``): at the first superstep
+boundary at or past the cadence (never at an epoch's last step) and at
+every epoch's end, the full state and the epoch-plan cursor go to disk;
+``resume_training`` restores params, Adam's moments and count, the step
+and the cursor (from a checkpoint either package wrote), replays the plan
+from the cursor and continues as the uninterrupted run would.
 
 Evaluation keeps the reference's semantics: every ``eval_stride``-th test
 window, capped at ``eval_max_cycles``, median-quantile predictions floored
 at 1e-6 before de-normalization, delta columns integrated back to levels,
 absolute errors pooled into the MAE report.
 
-Not ported yet: supersteps, CUDA-graph capture, gradient accumulation,
-snapshots and resume, elastic remeshing, the mesh.
+Not ported yet: elastic remeshing, the mesh.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Mapping
 
@@ -30,21 +59,36 @@ import torch
 
 from deeprest_tpu_torch.config import Config
 from deeprest_tpu_torch.device import resolve_device
-from deeprest_tpu_torch.models.qrnn import QuantileGRU, init_params
+from deeprest_tpu_torch.models.qrnn import (
+    MASK_PARAM_NAMES, MASKED_PARAM_NAMES, QuantileGRU, fold_feature_mask,
+    init_params,
+)
+from deeprest_tpu_torch.ops.cuda_gru import KERNELS
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.ops.quantile import pinball_loss
 from deeprest_tpu_torch.train.data import DatasetBundle, eval_window_indices
+from deeprest_tpu_torch.train.graphs import (
+    CapturedUpdate, EpochPlan, capture_update,
+)
 from deeprest_tpu_torch.train.metrics import Throughput, mae_report
+
+# Philox offsets between the dropout streams of two consecutive steps: far
+# above what one update draws (a multiple of 4, as the CUDA generator needs).
+DROPOUT_OFFSET_STRIDE = 1 << 20
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters), the Adam optimizer over them, and the
-    count of optimizer steps taken."""
+    """The model (its parameters), the Adam optimizer over them, the count
+    of real train steps (microbatches) taken, and the superstep machinery
+    bound to this state's tensors: the staged epoch plan and the captured
+    update that reads it."""
 
     step: int
     model: QuantileGRU
     optimizer: torch.optim.Adam
+    plan: EpochPlan | None = None
+    graph: CapturedUpdate | None = None
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -61,8 +105,9 @@ class EpochResult:
 
 def dropout_generator(device: torch.device, seed: int,
                       step: int) -> torch.Generator:
-    """The dropout stream of one train step, seeded from ``(seed, step)``:
-    the counterpart of the JAX trainer's ``fold_in(rng, step)``."""
+    """The CPU dropout stream of one train step (microbatch), seeded from
+    ``(seed, step)``: the counterpart of the JAX trainer's ``fold_in(rng,
+    step)``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
     return gen
@@ -74,6 +119,9 @@ class Trainer:
     ``recurrence`` replaces the device dispatch of the GRU recurrence (pass
     ``ops.cuda_gru.gru_recurrence_reference`` to train through the plain
     version on a CUDA device, differentiated by torch autograd).
+
+    Counters: ``dispatches`` (optimizer updates run: graph replays plus
+    eager updates), ``captures`` (CUDA graphs captured) and ``replays``.
     """
 
     def __init__(self, config: Config, feature_dim: int,
@@ -87,10 +135,31 @@ class Trainer:
         self.device = resolve_device(device)
         self.recurrence = recurrence
         self.throughput = Throughput(device=self.device)
-        self._warmed = False       # first-ever step (kernel build) excluded
+        self._warmed = False       # first update (kernel build, capture) excluded
         self._global_step = 0
         # per-step losses of the most recent train_epoch (np [K])
         self._last_epoch_losses: np.ndarray | None = None
+        self._quantiles = torch.tensor(self.model_config.quantiles,
+                                       dtype=torch.float32, device=self.device)
+        self._window_offsets = torch.arange(config.train.window_size,
+                                            device=self.device)
+        self._generator = None
+        if self.device.type == "cuda":
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(config.train.seed)
+        self.dispatches = 0
+        self.captures = 0
+        self.replays = 0
+        self.superstep_len: int | None = None     # S of the latest epoch
+        self.resumed_from_step: int | None = None
+        # the epoch-plan cursor of preemption-safe snapshots
+        self._snapshot_dir: str | None = None
+        self._snapshot_every = 0
+        self._steps_since_snapshot = 0
+        self._cursor_epoch: int | None = None
+        self._cursor_rng_state: dict | None = None
+        self._epoch_steps_done = 0
+        self._epoch_num_steps = 0
 
     @property
     def global_step(self) -> int:
@@ -106,7 +175,9 @@ class Trainer:
         """A fresh state from ``params`` (a dict of arrays with the JAX
         names and shapes, e.g. a JAX-initialized tree through
         ``interop.params_from_jax``) or, without it, from
-        ``models.qrnn.init_params(seed)``.  Adam with optax's defaults."""
+        ``models.qrnn.init_params(seed)``.  Adam with optax's defaults,
+        ``capturable`` on a CUDA device, so eager and captured updates run
+        the same optimizer arithmetic."""
         if params is None:
             seed = self.config.train.seed if seed is None else seed
             params = init_params(self.model_config, seed)
@@ -115,8 +186,42 @@ class Trainer:
         model.requires_grad_(True)
         opt = torch.optim.Adam(model.parameters(),
                                lr=self.config.train.learning_rate,
-                               betas=(0.9, 0.999), eps=1e-8)
+                               betas=(0.9, 0.999), eps=1e-8,
+                               capturable=self.device.type == "cuda")
         return TrainState(step=0, model=model, optimizer=opt)
+
+    def restore_state(self, directory: str, step: int | None = None
+                      ) -> tuple[TrainState, dict | None]:
+        """The full train state of a checkpoint either package wrote:
+        params, ``step``, Adam's moments (``opt_state/0/{mu,nu}/*``) and
+        count (``opt_state/0/count``), and the sidecar."""
+        from deeprest_tpu_torch.train.checkpoint import (
+            latest_step, load_leaves, load_sidecar,
+        )
+
+        if step is None:
+            step = latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {directory!r}")
+        leaves = load_leaves(directory, step)
+        params = {k[len("params/"):]: v for k, v in leaves.items()
+                  if k.startswith("params/")}
+        state = self.init_state(params)
+        count = int(leaves["opt_state/0/count"])
+        if count:
+            capturable = self.device.type == "cuda"
+            for name, p in state.model.named_parameters():
+                state.optimizer.state[p] = {
+                    "step": torch.tensor(
+                        float(count), dtype=torch.float32,
+                        device=p.device if capturable else "cpu"),
+                    "exp_avg": leaves[f"opt_state/0/mu/{name}"].to(
+                        p.device, p.dtype).clone(),
+                    "exp_avg_sq": leaves[f"opt_state/0/nu/{name}"].to(
+                        p.device, p.dtype).clone(),
+                }
+        state.step = int(leaves["step"])
+        return state, load_sidecar(directory, step, missing_ok=True)
 
     # ------------------------------------------------------------------
 
@@ -136,6 +241,49 @@ class Trainer:
                 sel = np.concatenate([sel, np.resize(order, bs - len(sel))])
             yield sel, weight
 
+    # Per-chunk plan byte cap for steps_per_superstep="auto", as the JAX
+    # trainer's (8 bytes a window of a step: int32 start + f32 weight).
+    _PLAN_CHUNK_MAX_BYTES = 1 << 20
+
+    def _superstep_len(self, num_steps: int) -> int:
+        """``steps_per_superstep`` resolved to S for an epoch of
+        ``num_steps``: "epoch" is the whole epoch, "auto" min(epoch,
+        ``log_every_steps`` or 32), ints clamp to the epoch; all under the
+        plan-chunk byte cap, then rounded up to a multiple of G."""
+        v = self.config.train.steps_per_superstep
+        if v == "epoch":
+            s = num_steps
+        elif v == "auto":
+            log_every = self.config.train.log_every_steps
+            s = min(num_steps, log_every if log_every else 32)
+        else:
+            s = min(int(v), num_steps)
+        cap = max(1, self._PLAN_CHUNK_MAX_BYTES
+                  // (8 * self.config.train.batch_size))
+        s = max(1, min(s, cap))
+        g = self.config.train.grad_accum_windows
+        if g > 1:
+            s = -(-s // g) * g
+        return s
+
+    def _epoch_plan(self, n: int, rng: np.random.Generator,
+                    s: int) -> tuple[np.ndarray, np.ndarray, int]:
+        """The epoch's shuffled batch plan in superstep chunks: ``(starts
+        [C, S, B] int32, weights [C, S, B] float32, num_steps)``, the
+        trailing chunk padded with zero-weight steps (starts 0).  Consumes
+        one ``rng.permutation``, as the per-step loop does."""
+        bs = self.config.train.batch_size
+        batches = list(self._batches(n, rng))
+        num_steps = len(batches)
+        n_chunks = -(-num_steps // s)
+        starts = np.zeros((n_chunks * s, bs), np.int32)
+        weights = np.zeros((n_chunks * s, bs), np.float32)
+        for i, (sel, w) in enumerate(batches):
+            starts[i] = sel
+            weights[i] = w
+        return (starts.reshape(n_chunks, s, bs),
+                weights.reshape(n_chunks, s, bs), num_steps)
+
     def stage_dataset(self, bundle: DatasetBundle):
         """The normalized base series on the device: ``(x_base [T, F]`` in
         the compute dtype, ``y_base [T, E]`` f32).  Train window i starts at
@@ -148,68 +296,303 @@ class Trainer:
         y = torch.from_numpy(np.ascontiguousarray(bundle.y_base))
         return (x.to(self.device, dtype), y.to(self.device, torch.float32))
 
-    def _windows(self, staged, starts: np.ndarray):
-        """Gather ``[n, W, F]`` inputs and ``[n, W, E]`` targets of the
-        windows starting at ``starts`` from the staged base series."""
+    def _gather(self, staged, starts: torch.Tensor):
+        """``[n, W, F]`` inputs and ``[n, W, E]`` targets of the windows
+        starting at ``starts`` (a device tensor) in the staged series."""
         x_base, y_base = staged
-        w = self.config.train.window_size
-        idx = (torch.from_numpy(np.asarray(starts, np.int64)).to(self.device)
-               [:, None] + torch.arange(w, device=self.device)[None, :])
+        idx = starts[:, None] + self._window_offsets[None, :]
         return x_base[idx], y_base[idx]
+
+    def _windows(self, staged, starts: np.ndarray):
+        return self._gather(staged, torch.from_numpy(
+            np.asarray(starts, np.int64)).to(self.device))
+
+    def _dropout(self, step: int, g: int) -> torch.Generator:
+        """The dropout stream of microbatch ``g`` of the update at
+        ``step``: a fresh CPU generator, or the trainer's GPU generator
+        (its offset set from the step by :meth:`_set_dropout_offset`, the
+        microbatches drawing from it in order)."""
+        if self._generator is None:
+            return dropout_generator(self.device, self.config.train.seed,
+                                     step + g)
+        return self._generator
+
+    def _set_dropout_offset(self, step: int) -> None:
+        if self._generator is not None:
+            self._generator.set_offset(step * DROPOUT_OFFSET_STRIDE)
+
+    def _update(self, state: TrainState, staged, starts: torch.Tensor,
+                weights: torch.Tensor, step: int) -> torch.Tensor:
+        """One optimizer update from the ``[G, B]`` microbatches ``starts``
+        / ``weights`` (device tensors); returns their ``[G]`` f32 losses.
+        Runs eagerly or under capture: no host sync, no host-to-device
+        copy.  ``step`` seeds the CPU dropout streams only."""
+        g, b = starts.shape
+        mode = self.config.train.grad_accum_mode if g > 1 else "loop"
+        model, quantiles = state.model, self._quantiles
+        state.optimizer.zero_grad(set_to_none=True)
+        if mode == "flat":
+            xb, yb = self._gather(staged, starts.reshape(-1))
+            preds = model(xb.reshape(g, b, *xb.shape[1:]),
+                          deterministic=False, generator=self._dropout(step, 0),
+                          recurrence=self.recurrence)
+            yb = yb.reshape(g, b, *yb.shape[1:])
+            losses = torch.stack([
+                pinball_loss(preds[i], yb[i], quantiles,
+                             sample_weight=weights[i], allow_empty=True)
+                for i in range(g)])
+            losses.sum().backward()
+        elif mode == "exact":
+            losses = self._exact_grads(state, staged, starts, weights, step)
+        else:
+            losses = []
+            for i in range(g):
+                xb, yb = self._gather(staged, starts[i])
+                preds = model(xb, deterministic=False,
+                              generator=self._dropout(step, i),
+                              recurrence=self.recurrence)
+                loss = pinball_loss(preds, yb, quantiles,
+                                    sample_weight=weights[i],
+                                    allow_empty=g > 1)
+                loss.backward()
+                losses.append(loss.detach())
+            losses = torch.stack(losses)
+        state.optimizer.step()
+        return losses.detach().float()
+
+    def _exact_grads(self, state: TrainState, staged, starts, weights,
+                     step: int) -> torch.Tensor:
+        """"exact" accumulation: the feature mask folds into the layer-0
+        input weights once; each microbatch runs forward/backward against
+        the folded params, its cotangent of the folded weights goes back
+        through the fold on its own, and the grads sum in microbatch order
+        (the JAX trainer's ``_accum_grads_exact``).  Sets ``.grad``;
+        returns the ``[G]`` losses."""
+        params = state.model.params()
+        folded = fold_feature_mask(params)
+        # what the model reads under mask_folded: all but the mask's params
+        names = [n for n in folded if n not in MASK_PARAM_NAMES]
+        masked = [n for n in MASKED_PARAM_NAMES if n in folded]
+        fold_params = list(MASK_PARAM_NAMES) + masked
+        total: dict[str, torch.Tensor] = {}
+        losses = []
+        g = starts.shape[0]
+        for i in range(g):
+            xb, yb = self._gather(staged, starts[i])
+            preds = state.model(xb, deterministic=False,
+                                generator=self._dropout(step, i),
+                                mask_folded=True, params=folded,
+                                recurrence=self.recurrence)
+            loss = pinball_loss(preds, yb, self._quantiles,
+                                sample_weight=weights[i], allow_empty=True)
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, [folded[n] for n in names])))
+            through = torch.autograd.grad(
+                [folded[n] for n in masked], [params[n] for n in fold_params],
+                grad_outputs=[grads[n] for n in masked],
+                retain_graph=i < g - 1)
+            grads.update(zip(fold_params, through))
+            for name in params:
+                total[name] = (grads[name] if name not in total
+                               else total[name] + grads[name])
+            losses.append(loss.detach())
+        for name, p in params.items():
+            p.grad = total[name]
+        return torch.stack(losses)
 
     def train_step(self, state: TrainState, staged, starts: np.ndarray,
                    weights: np.ndarray) -> torch.Tensor:
-        """One optimizer step on the windows starting at ``starts`` with
-        sample weights ``weights``; returns the loss as a device scalar."""
-        xb, yb = self._windows(staged, starts)
-        wb = torch.from_numpy(np.asarray(weights, np.float32)).to(self.device)
-        gen = dropout_generator(self.device, self.config.train.seed,
-                                state.step)
-        preds = state.model(xb, deterministic=False, generator=gen,
-                            recurrence=self.recurrence)
-        loss = pinball_loss(preds, yb, self.model_config.quantiles,
-                            sample_weight=wb)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        """One eager optimizer step on the windows starting at ``starts``
+        with sample weights ``weights``; returns the loss as a device
+        scalar."""
+        st = torch.from_numpy(np.asarray(starts, np.int64)).to(self.device)
+        wt = torch.from_numpy(np.asarray(weights, np.float32)).to(self.device)
+        self._set_dropout_offset(state.step)
+        loss = self._update(state, staged, st[None], wt[None], state.step)[0]
         state.step += 1
-        return loss.detach()
+        self.dispatches += 1
+        return loss
+
+    def _stage_plan(self, state: TrainState, staged, starts: np.ndarray,
+                    weights: np.ndarray, first_update: int) -> EpochPlan:
+        """The epoch plan into ``state``'s static buffers, bound to the
+        staged series it gathers from.  A captured update reads both at
+        fixed addresses, so new buffers (a plan of another shape) or other
+        staged tensors drop it, and the next update captures anew; the plan
+        holds the staged tensors alive as long as a graph may read them."""
+        g = self.config.train.grad_accum_windows
+        shape = (starts.size // (g * starts.shape[-1]), g, starts.shape[-1])
+        if state.plan is None or state.plan.shape != shape:
+            state.plan = EpochPlan(*shape, device=self.device)
+            state.graph = None
+        if state.plan.staged is None or any(
+                a is not b for a, b in zip(state.plan.staged, staged)):
+            state.plan.staged = staged
+            state.graph = None
+        state.plan.stage(starts.reshape(-1, starts.shape[-1]),
+                         weights.reshape(-1, weights.shape[-1]),
+                         first_update)
+        return state.plan
+
+    def _run_update(self, state: TrainState, captured: bool) -> None:
+        """The update at the plan's cursor: a replay of ``state``'s graph
+        when ``captured`` and one exists, else eagerly; with ``captured``
+        the eager update runs on a side stream and is then captured."""
+        step = state.step
+        self._set_dropout_offset(step)
+
+        def body():
+            starts, weights = state.plan.take()
+            state.plan.put(self._update(state, state.plan.staged, starts,
+                                        weights, step))
+
+        self.dispatches += 1
+        if captured and state.graph is not None:
+            state.graph.replay()
+            self.replays += 1
+            return
+        if not captured:
+            body()
+            return
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        state.graph = capture_update(body, self.device, KERNELS,
+                                     [self._generator])
+        self.captures += 1
 
     def train_epoch(self, state: TrainState, bundle: DatasetBundle,
                     epoch_rng: np.random.Generator,
-                    staged=None) -> tuple[TrainState, float]:
-        """One epoch; returns the state and the mean of its per-step
-        losses (read back once, here)."""
+                    staged=None, skip_steps: int = 0,
+                    on_step=None) -> tuple[TrainState, float]:
+        """One epoch; returns the state and the mean of its per-step losses
+        (read back once, here).
+
+        ``skip_steps`` (resume) passes over the first real steps of the
+        epoch's plan without running them (the plan is drawn as the
+        uninterrupted epoch drew it); it must land on a superstep boundary.
+        ``on_step(global_step)`` fires at every superstep boundary (every
+        step at S = 1).  The throughput window leaves out the trainer's
+        first update, which builds the kernels and captures the graph."""
+        cfg = self.config.train
         if staged is None:
             staged = self.stage_dataset(bundle)
-        log_every = self.config.train.log_every_steps
-        losses = []
-        steps = 0
+        num_steps = -(-bundle.num_train_windows // cfg.batch_size)
+        s = self._superstep_len(num_steps)
+        g = cfg.grad_accum_windows
+        starts, weights, num_steps = self._epoch_plan(
+            bundle.num_train_windows, epoch_rng, s)
+        self.superstep_len = s
+        self._epoch_num_steps = num_steps
+        self._epoch_steps_done = skip_steps
+        if skip_steps >= num_steps:
+            raise ValueError(
+                f"skip_steps={skip_steps} >= epoch length {num_steps}: a "
+                "finished epoch resumes at the NEXT epoch's cursor")
+        if skip_steps % s:
+            raise ValueError(
+                f"resume cursor steps_done={skip_steps} is not a "
+                f"superstep boundary (S={s}): snapshots only fire at "
+                "chunk boundaries — the sidecar is inconsistent with "
+                "this config's steps_per_superstep/grad_accum_windows")
+        plan = self._stage_plan(state, staged, starts, weights,
+                                skip_steps // g)
+        captured = self.device.type == "cuda" and s > 1
+        log_every = cfg.log_every_steps
         measuring = self._warmed
         if measuring:
             self.throughput.start()
-        for sel, weight in self._batches(bundle.num_train_windows, epoch_rng):
-            loss = self.train_step(state, staged, sel, weight)
-            losses.append(loss)
-            self._global_step += 1
-            if not self._warmed:
-                # the first step builds the kernels and initializes the
-                # libraries; keep it out of the steady-state window
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self._warmed = True
-                self.throughput.start()
-                measuring = True
-            else:
-                steps += 1
-            if log_every and self._global_step % log_every == 0:
-                # graftlint: disable=JX003 -- designed sink: one scalar readback per log_every steps, the logging contract
-                print(f"step {self._global_step}: loss {float(loss):.6f}")
+        steps = 0
+        for c in range(skip_steps // s, starts.shape[0]):
+            real = min(s, num_steps - c * s)
+            for lo in range(c * s, c * s + real, g):
+                self._run_update(state, captured)
+                n_real = min(g, num_steps - lo)
+                state.step += n_real
+                if not self._warmed:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    self._warmed = True
+                    self.throughput.start()
+                    measuring = True
+                else:
+                    steps += n_real
+            prev = self._global_step
+            self._global_step += real
+            if log_every and prev // log_every != self._global_step // log_every:
+                # graftlint: disable=JX003 -- designed sink: one readback per superstep, only when a log boundary passed
+                vals = plan.microbatch_losses(c * s, c * s + real)
+                for gs in range(prev + 1, self._global_step + 1):
+                    if gs % log_every == 0:
+                        print(f"step {gs}: loss {vals[gs - prev - 1]:.6f}")
+            self._note_steps(state, bundle, real, on_step)
         if measuring:
             self.throughput.stop(steps)
-        epoch_losses = torch.stack(losses).float().cpu().numpy()
+        epoch_losses = plan.microbatch_losses(skip_steps, num_steps)
         self._last_epoch_losses = epoch_losses
         return state, float(np.mean(epoch_losses, dtype=np.float64))
+
+    # -- preemption-safe snapshots -----------------------------------------
+
+    def enable_snapshots(self, directory: str, every_steps: int) -> None:
+        """Cursor snapshots every ``every_steps`` real steps (at the first
+        superstep boundary at or past the cadence): the full state and the
+        epoch-plan cursor (epoch, steps done in it, the shuffle rng's state
+        at the epoch's start, global step), written atomically."""
+        if every_steps < 1:
+            raise ValueError(
+                f"enable_snapshots(every_steps={every_steps}): must be "
+                ">= 1 (leave snapshots unconfigured to disable)")
+        self._snapshot_dir = directory
+        self._snapshot_every = int(every_steps)
+        self._steps_since_snapshot = 0
+
+    def _begin_epoch_cursor(self, epoch: int,
+                            data_rng: np.random.Generator) -> None:
+        """Pin the cursor of one epoch: its index and the rng state before
+        the epoch plan draws its permutation."""
+        self._cursor_epoch = epoch
+        self._cursor_rng_state = copy.deepcopy(data_rng.bit_generator.state)
+        self._epoch_steps_done = 0
+
+    def _note_steps(self, state: TrainState, bundle: DatasetBundle,
+                    n: int, on_step=None) -> None:
+        """Advance the cursor by ``n`` real steps; snapshot when the
+        cadence is due, never at the epoch's last step (the epoch-end
+        snapshot covers it)."""
+        self._epoch_steps_done += n
+        if self._snapshot_every:
+            self._steps_since_snapshot += n
+            if (self._steps_since_snapshot >= self._snapshot_every
+                    and self._epoch_steps_done < self._epoch_num_steps):
+                self.snapshot(state, bundle)
+        if on_step is not None:
+            on_step(self._global_step)
+
+    def snapshot(self, state: TrainState, bundle: DatasetBundle) -> str:
+        """One atomic cursor snapshot, then retention of the newest
+        ``snapshot_keep`` (see :meth:`enable_snapshots`)."""
+        if self._snapshot_dir is None:
+            raise RuntimeError("snapshots not enabled (enable_snapshots)")
+        extra = {"train_cursor": {
+            "epoch": self._cursor_epoch,
+            "steps_done": int(self._epoch_steps_done),
+            "rng_state": self._cursor_rng_state,
+            "global_step": int(self._global_step),
+        }}
+        self._steps_since_snapshot = 0
+        path = self.save(self._snapshot_dir, state, bundle,
+                         extra_host_state=extra)
+        keep = self.config.train.snapshot_keep
+        if keep:
+            from deeprest_tpu_torch.train.checkpoint import (
+                prune_cursor_snapshots,
+            )
+
+            prune_cursor_snapshots(self._snapshot_dir, keep)
+        return path
 
     # ------------------------------------------------------------------
 
@@ -235,7 +618,7 @@ class Trainer:
                 sel = idx[lo:lo + cfg.eval_batch_size]
                 xb, yb = self._windows(staged, bundle.split + sel)
                 p = state.model(xb, recurrence=self.recurrence)
-                loss = pinball_loss(p, yb, self.model_config.quantiles)
+                loss = pinball_loss(p, yb, self._quantiles)
                 preds_chunks.append(p.float().cpu().numpy())
                 loss_terms.append(loss.float() * len(sel))
         preds = np.concatenate(preds_chunks, axis=0)
@@ -266,22 +649,79 @@ class Trainer:
     def fit(self, bundle: DatasetBundle, state: TrainState | None = None,
             baseline_preds: Mapping[str, np.ndarray] | None = None,
             on_epoch: Callable[[EpochResult, TrainState], None] | None = None,
-            num_epochs: int | None = None
+            num_epochs: int | None = None, on_step=None
             ) -> tuple[TrainState, list[EpochResult]]:
         """Train ``num_epochs`` (default ``config.train.num_epochs``)
-        epochs, evaluating after each and saving into
+        epochs, evaluating after each.  Saves into
         ``config.train.checkpoint_dir`` every ``checkpoint_every_epochs``
-        epochs and after the last."""
-        cfg = self.config.train
+        epochs and after the last, or, with ``snapshot_every_steps``, writes
+        cursor snapshots there at the cadence and at every epoch's end."""
         if state is None:
             state = self.init_state()
+        data_rng = np.random.default_rng(self.config.train.seed)
+        return self._run_epochs(bundle, state, data_rng, 0, 0,
+                                baseline_preds, on_epoch, num_epochs, on_step)
+
+    def resume_training(self, bundle: DatasetBundle,
+                        directory: str | None = None,
+                        baseline_preds: Mapping[str, np.ndarray] | None = None,
+                        on_epoch: Callable[[EpochResult, TrainState], None]
+                        | None = None,
+                        num_epochs: int | None = None, on_step=None
+                        ) -> tuple[TrainState, list[EpochResult]]:
+        """Restart a preempted :meth:`fit` from the newest cursor snapshot
+        under ``directory`` (default the snapshot or checkpoint directory)
+        and run to completion: params, Adam's moments and count, the step
+        and the shuffle rng come back, the interrupted epoch's plan is
+        drawn again and its first ``steps_done`` steps are passed over, so
+        every later step sees the batches, dropout streams and step counts
+        of the uninterrupted run."""
+        from deeprest_tpu_torch.train.checkpoint import latest_cursor_step
+
+        cfg = self.config.train
+        directory = directory or self._snapshot_dir or cfg.checkpoint_dir
+        if not directory:
+            raise ValueError("resume_training needs a snapshot directory "
+                             "(TrainConfig.checkpoint_dir or the "
+                             "directory argument)")
+        step = latest_cursor_step(directory)
+        if step is None:
+            raise FileNotFoundError(
+                f"no cursor-bearing snapshot under {directory!r} — "
+                "nothing to resume (run fit with "
+                "TrainConfig.snapshot_every_steps > 0 first)")
+        state, extra = self.restore_state(directory, step)
+        cursor = extra["train_cursor"]
+        self._global_step = int(cursor["global_step"])
+        self.resumed_from_step = step
         data_rng = np.random.default_rng(cfg.seed)
-        total = num_epochs if num_epochs is not None else cfg.num_epochs
-        staged = self.stage_dataset(bundle)
+        data_rng.bit_generator.state = cursor["rng_state"]
+        return self._run_epochs(bundle, state, data_rng,
+                                int(cursor["epoch"]),
+                                int(cursor["steps_done"]), baseline_preds,
+                                on_epoch, num_epochs, on_step)
+
+    def _run_epochs(self, bundle: DatasetBundle, state: TrainState,
+                    data_rng: np.random.Generator, start_epoch: int,
+                    skip_steps: int,
+                    baseline_preds: Mapping[str, np.ndarray] | None,
+                    on_epoch: Callable[[EpochResult, TrainState], None] | None,
+                    num_epochs: int | None, on_step=None
+                    ) -> tuple[TrainState, list[EpochResult]]:
+        cfg = self.config.train
+        if cfg.snapshot_every_steps and cfg.checkpoint_dir \
+                and self._snapshot_dir is None:
+            self.enable_snapshots(cfg.checkpoint_dir,
+                                  cfg.snapshot_every_steps)
         history: list[EpochResult] = []
-        for epoch in range(total):
-            state, train_loss = self.train_epoch(state, bundle, data_rng,
-                                                 staged=staged)
+        total = num_epochs if num_epochs is not None else cfg.num_epochs
+        staged = self.stage_dataset(bundle) if total > start_epoch else None
+        for epoch in range(start_epoch, total):
+            self._begin_epoch_cursor(epoch, data_rng)
+            state, train_loss = self.train_epoch(
+                state, bundle, data_rng, staged=staged,
+                skip_steps=(skip_steps if epoch == start_epoch else 0),
+                on_step=on_step)
             test_loss, report = self.evaluate(state, bundle, baseline_preds,
                                               staged=staged)
             result = EpochResult(epoch=epoch, train_loss=train_loss,
@@ -289,9 +729,15 @@ class Trainer:
             history.append(result)
             if on_epoch is not None:
                 on_epoch(result, state)
-            if cfg.checkpoint_dir and (
-                    (epoch + 1) % cfg.checkpoint_every_epochs == 0
-                    or epoch + 1 == total):
+            # The cursor of the next epoch at step 0; the epoch-end
+            # snapshot carries it and replaces the plain cadence save.
+            self._begin_epoch_cursor(epoch + 1, data_rng)
+            cadence_due = cfg.checkpoint_dir and (
+                (epoch + 1) % cfg.checkpoint_every_epochs == 0
+                or epoch + 1 == total)
+            if self._snapshot_dir is not None:
+                self.snapshot(state, bundle)
+            elif cadence_due:
                 self.save(cfg.checkpoint_dir, state, bundle)
         return state, history
 
@@ -300,12 +746,12 @@ class Trainer:
         """Checkpoint the state plus the host-side stats needed to serve.
 
         The leaves carry the JAX ``TrainState`` names, so the JAX
-        package's ``Predictor.from_checkpoint`` restores the checkpoint as
-        well as the port's: ``params/*``, ``step``, Adam's moments and
-        count in optax's layout (``opt_state/0/{mu,nu}/*``,
-        ``opt_state/0/count``), and ``rng``, which holds the port's train
-        seed (the port's dropout stream is not JAX's).  The port does not
-        read the optimizer state back yet (resume is not ported).
+        package's ``Predictor.from_checkpoint`` and
+        ``Trainer.resume_training`` restore the checkpoint as well as the
+        port's: ``params/*``, ``step``, Adam's moments and count in optax's
+        layout (``opt_state/0/{mu,nu}/*``, ``opt_state/0/count``), and
+        ``rng``, which holds the port's train seed (the port's dropout
+        stream is not JAX's).
         """
         from deeprest_tpu_torch.train.checkpoint import save_checkpoint
 
@@ -344,3 +790,17 @@ class Trainer:
         leaves["opt_state/0/count"] = np.asarray(count, np.int32)
         return save_checkpoint(directory, state.params, state.step, extra,
                                other_leaves=leaves)
+
+    # ------------------------------------------------------------------
+
+    def predict(self, state: TrainState, x: np.ndarray,
+                batch_size: int = 64) -> np.ndarray:
+        """Normalized quantile predictions ``[N, W, E, Q]`` for windows x."""
+        outs = []
+        with torch.no_grad():
+            for lo in range(0, len(x), batch_size):
+                xb = torch.from_numpy(np.ascontiguousarray(
+                    x[lo:lo + batch_size], np.float32)).to(self.device)
+                outs.append(state.model(xb, recurrence=self.recurrence)
+                            .float().cpu().numpy())
+        return np.concatenate(outs, axis=0)

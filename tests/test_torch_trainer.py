@@ -308,12 +308,33 @@ def test_train_cli_runs_end_to_end_on_cpu(corpus, tmp_path, capsys):
 
 def test_unported_train_features_raise_and_device_defaults_to_cuda(
         monkeypatch):
-    for kw in (dict(device_data="off"), dict(steps_per_superstep="auto"),
-               dict(grad_accum_windows=2), dict(sparse_feed=True),
+    for kw in (dict(device_data="off"), dict(sparse_feed=True),
                dict(elastic=True)):
         with pytest.raises(ValueError, match="does not implement"):
             TrainConfig(**kw)
     TrainConfig(device_data="always")
+    # supersteps and accumulation are ported; the JAX defaults hold
+    assert TrainConfig().steps_per_superstep == "auto"
+    assert TrainConfig(grad_accum_windows=2).grad_accum_mode == "exact"
+    for name in ("steps_per_superstep", "grad_accum_windows",
+                 "grad_accum_mode", "snapshot_every_steps", "snapshot_keep"):
+        assert getattr(TrainConfig(), name) == getattr(JaxTrainConfig(), name)
+    for kw, msg in ((dict(steps_per_superstep=0), "steps_per_superstep=0: "
+                     "must be 'auto', 'epoch', or an int >= 1"),
+                    (dict(steps_per_superstep=True), "steps_per_superstep"),
+                    (dict(grad_accum_windows=0), "grad_accum_windows=0: "
+                     "must be an int >= 1"),
+                    (dict(grad_accum_mode="x"), "grad_accum_mode='x': must "
+                     "be 'exact', 'flat', or 'loop'"),
+                    (dict(snapshot_every_steps=-1), "snapshot_every_steps"),
+                    (dict(snapshot_keep=-1), "snapshot_keep=-1: must be an "
+                     "int >= 0")):
+        with pytest.raises(ValueError) as port_err:
+            TrainConfig(**kw)
+        with pytest.raises(ValueError) as jax_err:
+            JaxTrainConfig(**kw)
+        assert msg in str(port_err.value)
+        assert str(port_err.value) == str(jax_err.value)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(Config(), 4, ["a_cpu"])
