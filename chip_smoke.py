@@ -68,7 +68,28 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    path (flagged set, first_flag_index, scores); `predict --raw` on the
    training corpus equal to `predict --features`; the phase's seconds per
    CLI and its launches per kernel;
-8. the kernel-tuning path: K4 (gru_fwd_blocked.cu) at every blocking of
+8. the serving plane: `python -m deeprest_tpu_torch serve` in its own
+   process on phase 5's flagship checkpoint, with the MicroBatcher and
+   with --no-batcher: every rung's CUDA graph captured before it listens
+   (4 ladder rungs, 7 fused rungs x 2 programs) and none after the load,
+   `/v1/predict` on the day held against phase 5's host loop over the
+   plain recurrence (2e-2 of scale), and a closed loop of
+   60/60/60/77/90/117-minute requests at concurrency 1 and 16
+   (requests/s, p50/p99, coalesced_batches), its sampled answers held
+   against the single-client answer to the same body (bit for bit with
+   --no-batcher, 2e-2 of scale with the batcher); in-process, captured against
+   eager engines bit for bit over 9 pages of 64 windows (with and
+   without the delta carry), the K1 launch ledger (2 a page), windows/s
+   of predict_series_many in turns and the device busy share; then
+   `serve --raw --surface` on phase 7's checkpoint, its /v1/whatif,
+   /v1/whatif/surface and /v1/anomaly held against an in-process
+   PredictionService over phase 7's plain predictor (peaks and the
+   surface within 2e-2 of scale, flagged sets equal), and the whole
+   /v1/whatif series read at f32 too: f32 kernels within 2e-4 of scale of
+   the f32 plain path, and the bf16 kernels no more than twice as far
+   from the f32 answer as the bf16 plain path; K1's launches read from
+   each server's /healthz;
+9. the kernel-tuning path: K4 (gru_fwd_blocked.cu) at every blocking of
    the sweep's --quick menu that the plan admits against its plain
    version, at the fused flagship stacking (E=80, T=60, B=32, H=128) and
    a ragged shape (E=4, T=12, B=37), f32 and bf16 inputs, the bf16 dot
@@ -83,13 +104,15 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    on from the same params (dropout 0); then `python -m
    deeprest_tpu_torch.benchmarks.kernel_tuning --quick`, its JSON printed
    on one line;
-9. one JSON line of per-kernel numbers, then the device line last.
+10. the seconds of each phase, one JSON line of per-kernel numbers, then
+    the device line last.
 
-The kernel launch counts are set to 0 just before each main path (5, 6, 7
-and the sweep of 8) and read just after it; launches made to check or
+The kernel launch counts are set to 0 just before each main path (5, 6,
+7, 8 and the sweep of 9; a server process starts at 0) and read just
+after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
-adds them once per replay (deeprest_tpu_torch/train/graphs.py).
+adds them once per replay (deeprest_tpu_torch/graphs.py).
 
 It exits nonzero, printing no result, without CUDA or without the package
 beside it.
@@ -128,6 +151,11 @@ RAW_ANOMALY_BUCKETS = 240
 ANOMALY_WINDOW = (100, 160)
 SYNTH_BUCKETS = 120                 # the what-if synthesizer's sample
 SWEEP = (0.5, 1.0, 2.0, 4.0)
+# serving plane: /v1/predict request lengths in minutes (the JAX serve
+# bench's 24-47 minutes at W=24, scaled to W=60), concurrencies, seconds
+PLANE_REQUEST_MINUTES = (60, 60, 60, 77, 90, 117)
+PLANE_CONCURRENCY = (1, 16)
+PLANE_LOAD_S = 3.0
 
 
 def fail(msg: str) -> None:
@@ -548,10 +576,11 @@ def device_rows(prof) -> list:
     return sorted((r for r in rows if r[0] > 0), reverse=True)
 
 
-def profile_what_if(pred, series) -> None:
+def profile_what_if(pred, series):
     """Where the what-if call's time goes: device time by kernel name and
     the device's busy share of the call's wall time, from torch.profiler
-    over one more predict_series_many call."""
+    over one more predict_series_many call; returns (wall ms, busy ms), or
+    None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -566,15 +595,16 @@ def profile_what_if(pred, series) -> None:
     if not rows:
         print("profile what-if: the profiler saw no device time "
               "(device breakdown not measured)", flush=True)
-        return
+        return None
     print(f"profile what-if: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} % of wall)",
           flush=True)
     for dev_us, count, key in rows[:8]:
         print(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return wall_us / 1e3, busy_us / 1e3
 
 
-def phase_main_path(cuda_gru) -> dict:
+def phase_main_path(cuda_gru, wd: str) -> dict:
     import numpy as np
     import torch
 
@@ -583,99 +613,99 @@ def phase_main_path(cuda_gru) -> dict:
         Predictor, rolled_prediction_reference,
     )
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
-                                     dir=os.path.join(REPO, "build")) as wd:
-        ckpt, traffic, delta = flagship_checkpoint(wd)
-        feats = os.path.join(wd, "input.npz")
-        np.savez(feats, traffic=traffic)
-        out_path = os.path.join(wd, "preds.npz")
+    ckpt, traffic, delta = flagship_checkpoint(wd)
+    feats = os.path.join(wd, "input.npz")
+    np.savez(feats, traffic=traffic)
+    out_path = os.path.join(wd, "preds.npz")
 
-        for k in cuda_gru.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        env = dict(os.environ, PYTHONPATH=REPO)
-        proc = subprocess.run(
-            [sys.executable, "-m", "deeprest_tpu_torch", "predict",
-             "--ckpt-dir", ckpt, "--features", feats, "--out", out_path],
-            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f"predict CLI exited {proc.returncode}:\n{proc.stderr}")
-        report = json.loads(proc.stdout.strip().splitlines()[-1])
-        cli_launches = int(report["kernel_launches"]["gru_fwd"])
-        print(f"main predict CLI: {DAY}x{F} traffic in {cli_s:.2f} s "
-              f"(process start, load, build check, predict), device "
-              f"{report['device']}, gru_fwd launches {cli_launches}",
-              flush=True)
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeprest_tpu_torch", "predict",
+         "--ckpt-dir", ckpt, "--features", feats, "--out", out_path],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"predict CLI exited {proc.returncode}:\n{proc.stderr}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    cli_launches = int(report["kernel_launches"]["gru_fwd"])
+    print(f"main predict CLI: {DAY}x{F} traffic in {cli_s:.2f} s "
+          f"(process start, load, build check, predict), device "
+          f"{report['device']}, gru_fwd launches {cli_launches}",
+          flush=True)
 
-        pred = Predictor.from_checkpoint(ckpt, device="cuda")
-        t0 = time.perf_counter()
-        pred.predict_series(traffic)                     # warm: cuBLAS init
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        scales = np.linspace(0.5, 2.0, 16).astype(np.float32)
-        scales[0] = 1.0
-        series = [traffic * s for s in scales]
-        t0 = time.perf_counter()
-        many = pred.predict_series_many(series)
-        torch.cuda.synchronize()
-        many_s = time.perf_counter() - t0
-        n_windows = len(plan_windows([len(s) for s in series], W))
-        print(f"main predict_series_many: 16 series, {n_windows} windows in "
-              f"{many_s:.4f} s = {n_windows / many_s:.1f} windows/s "
-              f"(warm-up call {warm_s:.3f} s); fused stats "
-              f"{pred.fused.stats()}", flush=True)
-        profile_what_if(pred, series)
-        launches = cli_launches + cuda_gru.GRU_FWD.launches
-        print(f"main gru_fwd launches: {launches} (CLI {cli_launches}, "
-              f"in-process {cuda_gru.GRU_FWD.launches})", flush=True)
-        if launches == 0:
-            fail("the main path never launched gru_fwd")
-        train_forms = (cuda_gru.GRU_FWD_TRAIN.launches
-                       + cuda_gru.GRU_BWD.launches
-                       + report["kernel_launches"]["gru_fwd_train"]
-                       + report["kernel_launches"]["gru_bwd"])
-        if train_forms:
-            fail(f"serving launched {train_forms} training kernels; it "
-                 "must run the inference form only")
+    pred = Predictor.from_checkpoint(ckpt, device="cuda")
+    t0 = time.perf_counter()
+    pred.warm()                          # captures every rung's CUDA graph
+    pred.predict_series(traffic)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    scales = np.linspace(0.5, 2.0, 16).astype(np.float32)
+    scales[0] = 1.0
+    series = [traffic * s for s in scales]
+    t0 = time.perf_counter()
+    many = pred.predict_series_many(series)
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    n_windows = len(plan_windows([len(s) for s in series], W))
+    print(f"main predict_series_many: 16 series, {n_windows} windows in "
+          f"{many_s:.4f} s = {n_windows / many_s:.1f} windows/s "
+          f"(warm-up and captures {warm_s:.3f} s); fused stats "
+          f"{pred.fused.stats()}", flush=True)
+    profile_what_if(pred, series)
+    launches = cli_launches + cuda_gru.GRU_FWD.launches
+    print(f"main gru_fwd launches: {launches} (CLI {cli_launches}, "
+          f"in-process {cuda_gru.GRU_FWD.launches})", flush=True)
+    if launches == 0:
+        fail("the main path never launched gru_fwd")
+    train_forms = (cuda_gru.GRU_FWD_TRAIN.launches
+                   + cuda_gru.GRU_BWD.launches
+                   + report["kernel_launches"]["gru_fwd_train"]
+                   + report["kernel_launches"]["gru_bwd"])
+    if train_forms:
+        fail(f"serving launched {train_forms} training kernels; it "
+             "must run the inference form only")
 
-        with np.load(out_path) as z:
-            got = np.asarray(z["predictions"])
-        e = FLAGSHIP["E"]
-        if got.shape != (DAY, e, 3) or not np.isfinite(got).all():
-            fail(f"CLI predictions have shape {got.shape} or non-finite "
-                 "values; want finite [1440, 40, 3]")
-        model = pred.model
+    with np.load(out_path) as z:
+        got = np.asarray(z["predictions"])
+    e = FLAGSHIP["E"]
+    if got.shape != (DAY, e, 3) or not np.isfinite(got).all():
+        fail(f"CLI predictions have shape {got.shape} or non-finite "
+             "values; want finite [1440, 40, 3]")
+    model = pred.model
 
-        def plain_apply(x):
-            with torch.inference_mode():
-                return model(torch.from_numpy(x).cuda(),
-                             recurrence=cuda_gru.gru_recurrence_reference
-                             ).cpu().numpy()
+    def plain_apply(x):
+        with torch.inference_mode():
+            return model(torch.from_numpy(x).cuda(),
+                         recurrence=cuda_gru.gru_recurrence_reference
+                         ).cpu().numpy()
 
-        ref = rolled_prediction_reference(
-            plain_apply, pred.x_stats, pred.y_stats, W, traffic,
-            delta_mask=delta, median_index=pred.median_index())
-        checks = {}
-        for label, a in (("cli", got), ("many[0]", many[0])):
-            for cols, name in ((~delta, "non-delta"), (delta, "delta")):
-                diff = np.abs(a[:, cols] - ref[:, cols])
-                scale = np.abs(ref[:, cols]).max()
-                rel = float(diff.max() / scale)
-                checks[f"{label} {name}"] = rel
-                print(f"check main {label} {name} columns vs host loop over "
-                      f"the plain recurrence: max_abs_err={diff.max():.4e} "
-                      f"max_err/max|ref|={rel:.3e} (tol {TOL['bfloat16'][0]})",
-                      flush=True)
-                if rel > TOL["bfloat16"][0]:
-                    fail(f"main path {label} {name} columns disagree with "
-                         "the reference")
-        for s in many:
-            if s.shape != (DAY, e, 3) or not np.isfinite(s).all():
-                fail("predict_series_many gave a wrong shape or non-finite "
-                     "values")
+    ref = rolled_prediction_reference(
+        plain_apply, pred.x_stats, pred.y_stats, W, traffic,
+        delta_mask=delta, median_index=pred.median_index())
+    checks = {}
+    for label, a in (("cli", got), ("many[0]", many[0])):
+        for cols, name in ((~delta, "non-delta"), (delta, "delta")):
+            diff = np.abs(a[:, cols] - ref[:, cols])
+            scale = np.abs(ref[:, cols]).max()
+            rel = float(diff.max() / scale)
+            checks[f"{label} {name}"] = rel
+            print(f"check main {label} {name} columns vs host loop over "
+                  f"the plain recurrence: max_abs_err={diff.max():.4e} "
+                  f"max_err/max|ref|={rel:.3e} (tol {TOL['bfloat16'][0]})",
+                  flush=True)
+            if rel > TOL["bfloat16"][0]:
+                fail(f"main path {label} {name} columns disagree with "
+                     "the reference")
+    for s in many:
+        if s.shape != (DAY, e, 3) or not np.isfinite(s).all():
+            fail("predict_series_many gave a wrong shape or non-finite "
+                 "values")
     return {"launches": launches, "windows_per_s": n_windows / many_s,
-            "checks": checks}
+            "checks": checks, "ckpt": ckpt, "traffic": traffic,
+            "delta": delta, "ref": ref}
 
 
 def train_step_flops(batch, window, features, experts, hidden, quantiles=3,
@@ -1145,7 +1175,7 @@ def sweep_error(got: list, want: list, y_range) -> float:
     return worst
 
 
-def phase_raw_to_answers(cuda_gru) -> dict:
+def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
     """Raw telemetry in, what-if answers and anomaly verdicts out, through
     the port's CLI: simulate the social network (the reference's own
     deployment), featurize it (F=128 from 60 call paths, E=88), train at
@@ -1177,219 +1207,761 @@ def phase_raw_to_answers(cuda_gru) -> dict:
 
     secs = {}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_raw_",
-                                     dir=os.path.join(REPO, "build")) as wd:
-        raw = os.path.join(wd, "raw.jsonl")
-        feats = os.path.join(wd, "input.npz")
-        ckpt = os.path.join(wd, "ckpt")
-        for k in cuda_gru.KERNELS:
-            k.launches = 0
+    wd = os.path.join(workdir, "raw")
+    os.makedirs(wd)
+    raw = os.path.join(wd, "raw.jsonl")
+    feats = os.path.join(wd, "input.npz")
+    ckpt = os.path.join(wd, "ckpt")
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
 
-        t0 = time.perf_counter()
-        run_cli(["simulate", "--scenario", "normal", "--seed", SEED,
-                 "--ticks", RAW_BUCKETS, "--out", raw], timeout=600)
-        secs["simulate"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        fz = run_cli(["featurize", "--raw", raw, "--out", feats], timeout=600)
-        secs["featurize"] = time.perf_counter() - t0
-        sizes = (fz["capacity"], fz["observed_paths"], len(fz["metrics"]))
-        print(f"main raw simulate + featurize: {fz['buckets']} buckets of the "
-              f"social network (normal, seed {SEED}) -> F={sizes[0]} from "
-              f"{sizes[1]} observed call paths, E={sizes[2]} metrics; "
-              f"simulate {secs['simulate']:.2f} s, featurize "
-              f"{secs['featurize']:.2f} s (CLI wall, process start "
-              f"included)", flush=True)
-        if sizes != (128, 60, 88):
-            fail(f"featurize gave (F, paths, E) = {sizes}; want (128, 60, 88)")
+    t0 = time.perf_counter()
+    run_cli(["simulate", "--scenario", "normal", "--seed", SEED,
+             "--ticks", RAW_BUCKETS, "--out", raw], timeout=600)
+    secs["simulate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fz = run_cli(["featurize", "--raw", raw, "--out", feats], timeout=600)
+    secs["featurize"] = time.perf_counter() - t0
+    sizes = (fz["capacity"], fz["observed_paths"], len(fz["metrics"]))
+    print(f"main raw simulate + featurize: {fz['buckets']} buckets of the "
+          f"social network (normal, seed {SEED}) -> F={sizes[0]} from "
+          f"{sizes[1]} observed call paths, E={sizes[2]} metrics; "
+          f"simulate {secs['simulate']:.2f} s, featurize "
+          f"{secs['featurize']:.2f} s (CLI wall, process start "
+          f"included)", flush=True)
+    if sizes != (128, 60, 88):
+        fail(f"featurize gave (F, paths, E) = {sizes}; want (128, 60, 88)")
 
-        t0 = time.perf_counter()
-        tr = run_cli(["train", "--features", feats, "--compute-dtype",
-                      "bfloat16", "--epochs", 2, "--batch-size", TRAIN["B"],
-                      "--window", W, "--hidden-size", TRAIN["H"],
-                      "--ckpt-dir", ckpt], timeout=900)
-        secs["train"] = time.perf_counter() - t0
-        count(tr)
-        steps = int(tr["steps"])
-        if not np.isfinite(np.asarray(tr["step_losses"], np.float64)).all():
-            fail("train CLI (baselines on) gave non-finite step losses")
-        for name in ("gru_fwd_train", "gru_bwd"):
-            if tr["kernel_launches"][name] != 2 * steps:
-                fail(f"{name} launched {tr['kernel_launches'][name]} times "
-                     f"in {steps} train steps; want 2 x steps")
-        methods = {m for v in tr["report"].values() for m in v}
-        if methods != {"deepr", "resrc", "comp"}:
-            fail(f"train report has methods {sorted(methods)}; want deepr, "
-                 "resrc and comp")
-        medians = {m: float(np.mean([v[m]["median"]
-                                     for v in tr["report"].values()]))
-                   for m in sorted(methods)}
-        if not all(np.isfinite(list(medians.values()))):
-            fail("the train report's MAE is not finite")
-        print(f"main raw train CLI (baselines on): {steps} steps, epoch "
-              f"losses {tr['epoch_losses']}, launches {tr['kernel_launches']}"
-              f", mean median MAE per method {medians}; "
-              f"{secs['train']:.2f} s (stages {rounded(tr['seconds'])})",
-              flush=True)
+    t0 = time.perf_counter()
+    tr = run_cli(["train", "--features", feats, "--compute-dtype",
+                  "bfloat16", "--epochs", 2, "--batch-size", TRAIN["B"],
+                  "--window", W, "--hidden-size", TRAIN["H"],
+                  "--ckpt-dir", ckpt], timeout=900)
+    secs["train"] = time.perf_counter() - t0
+    count(tr)
+    steps = int(tr["steps"])
+    if not np.isfinite(np.asarray(tr["step_losses"], np.float64)).all():
+        fail("train CLI (baselines on) gave non-finite step losses")
+    for name in ("gru_fwd_train", "gru_bwd"):
+        if tr["kernel_launches"][name] != 2 * steps:
+            fail(f"{name} launched {tr['kernel_launches'][name]} times "
+                 f"in {steps} train steps; want 2 x steps")
+    methods = {m for v in tr["report"].values() for m in v}
+    if methods != {"deepr", "resrc", "comp"}:
+        fail(f"train report has methods {sorted(methods)}; want deepr, "
+             "resrc and comp")
+    medians = {m: float(np.mean([v[m]["median"]
+                                 for v in tr["report"].values()]))
+               for m in sorted(methods)}
+    if not all(np.isfinite(list(medians.values()))):
+        fail("the train report's MAE is not finite")
+    print(f"main raw train CLI (baselines on): {steps} steps, epoch "
+          f"losses {tr['epoch_losses']}, launches {tr['kernel_launches']}"
+          f", mean median MAE per method {medians}; "
+          f"{secs['train']:.2f} s (stages {rounded(tr['seconds'])})",
+          flush=True)
 
-        # what-if: the CLI on the kernels against the same sweep through
-        # the plain recurrence in-process; the synthesizer is fit on the
-        # corpus's first SYNTH_BUCKETS minutes (every endpoint's trace
-        # shapes, at a sixth of the load cost)
-        sample = os.path.join(wd, "sample.jsonl")
-        with open(raw, encoding="utf-8") as src, \
-                open(sample, "w", encoding="utf-8") as dst:
-            for _, line in zip(range(SYNTH_BUCKETS), src):
-                dst.write(line)
-        t0 = time.perf_counter()
-        buckets = load_raw_data(sample)
-        t_load = time.perf_counter() - t0
-        plain = Predictor.from_checkpoint(
-            ckpt, device="cuda",
-            recurrence=cuda_gru.gru_recurrence_reference)
-        t0 = time.perf_counter()
-        synth = TraceSynthesizer(plain.space()).fit(buckets)
-        t_fit = time.perf_counter() - t0
-        if len(synth.endpoints) != 7:
-            fail(f"the synthesizer found endpoints {synth.endpoints}")
-        # the sample's mean calls per minute of each endpoint
-        calls = Counter(t.label for b in buckets for t in b.traces)
-        mix = {ep: int(round(calls[ep] / len(buckets)))
-               for ep in synth.endpoints}
-        del buckets
-        t0 = time.perf_counter()
-        wi = run_cli(["whatif", "--ckpt-dir", ckpt, "--raw", sample, "--mix",
-                      json.dumps(mix), "--ticks", DAY, "--sweep",
-                      ",".join(str(f) for f in SWEEP)], timeout=900)
-        secs["whatif"] = time.perf_counter() - t0
-        count(wi)
-        if wi["kernel_launches"]["gru_fwd"] == 0:
-            fail("the whatif CLI never launched gru_fwd")
-        want = WhatIfEstimator(plain, synth).sweep([mix] * DAY, list(SWEEP),
-                                                   seed=0)
-        y_range = np.asarray(plain.y_stats.range, np.float32).reshape(-1)
-        sweep_rel = sweep_error(wi["sweep"], want, y_range)
-        peak = {r["factor"]: r["peaks"]["compose-post-service_cpu"]["q50"]
-                for r in wi["sweep"]}
-        print(f"main raw whatif CLI: mix {mix} x {DAY} ticks, sweep "
-              f"{list(SWEEP)}; {secs['whatif']:.2f} s (load and fit of the "
-              f"synthesizer on {SYNTH_BUCKETS} buckets included: in-process "
-              f"load {t_load:.2f} s, fit {t_fit:.2f} s); gru_fwd launches "
-              f"{wi['kernel_launches']['gru_fwd']}; stages "
-              f"{rounded(wi['seconds'])}; compose-post-service_cpu "
-              f"q50 peak per factor {peak}", flush=True)
-        print(f"check main raw whatif sweep vs the plain recurrence on the "
-              f"card: max_err/scale={sweep_rel:.3e} (tol "
-              f"{TOL['bfloat16'][0]})", flush=True)
-        if sweep_rel > TOL["bfloat16"][0]:
-            fail("the whatif sweep disagrees with the plain path")
+    # what-if: the CLI on the kernels against the same sweep through
+    # the plain recurrence in-process; the synthesizer is fit on the
+    # corpus's first SYNTH_BUCKETS minutes (every endpoint's trace
+    # shapes, at a sixth of the load cost)
+    sample = os.path.join(wd, "sample.jsonl")
+    with open(raw, encoding="utf-8") as src, \
+            open(sample, "w", encoding="utf-8") as dst:
+        for _, line in zip(range(SYNTH_BUCKETS), src):
+            dst.write(line)
+    t0 = time.perf_counter()
+    buckets = load_raw_data(sample)
+    t_load = time.perf_counter() - t0
+    plain = Predictor.from_checkpoint(
+        ckpt, device="cuda",
+        recurrence=cuda_gru.gru_recurrence_reference, cuda_graphs=False)
+    t0 = time.perf_counter()
+    synth = TraceSynthesizer(plain.space()).fit(buckets)
+    t_fit = time.perf_counter() - t0
+    if len(synth.endpoints) != 7:
+        fail(f"the synthesizer found endpoints {synth.endpoints}")
+    # the sample's mean calls per minute of each endpoint
+    calls = Counter(t.label for b in buckets for t in b.traces)
+    mix = {ep: int(round(calls[ep] / len(buckets)))
+           for ep in synth.endpoints}
+    del buckets
+    t0 = time.perf_counter()
+    wi = run_cli(["whatif", "--ckpt-dir", ckpt, "--raw", sample, "--mix",
+                  json.dumps(mix), "--ticks", DAY, "--sweep",
+                  ",".join(str(f) for f in SWEEP)], timeout=900)
+    secs["whatif"] = time.perf_counter() - t0
+    count(wi)
+    if wi["kernel_launches"]["gru_fwd"] == 0:
+        fail("the whatif CLI never launched gru_fwd")
+    want = WhatIfEstimator(plain, synth).sweep([mix] * DAY, list(SWEEP),
+                                               seed=0)
+    y_range = np.asarray(plain.y_stats.range, np.float32).reshape(-1)
+    sweep_rel = sweep_error(wi["sweep"], want, y_range)
+    peak = {r["factor"]: r["peaks"]["compose-post-service_cpu"]["q50"]
+            for r in wi["sweep"]}
+    print(f"main raw whatif CLI: mix {mix} x {DAY} ticks, sweep "
+          f"{list(SWEEP)}; {secs['whatif']:.2f} s (load and fit of the "
+          f"synthesizer on {SYNTH_BUCKETS} buckets included: in-process "
+          f"load {t_load:.2f} s, fit {t_fit:.2f} s); gru_fwd launches "
+          f"{wi['kernel_launches']['gru_fwd']}; stages "
+          f"{rounded(wi['seconds'])}; compose-post-service_cpu "
+          f"q50 peak per factor {peak}", flush=True)
+    print(f"check main raw whatif sweep vs the plain recurrence on the "
+          f"card: max_err/scale={sweep_rel:.3e} (tol "
+          f"{TOL['bfloat16'][0]})", flush=True)
+    if sweep_rel > TOL["bfloat16"][0]:
+        fail("the whatif sweep disagrees with the plain path")
 
-        # estimate_many over 16 one-day programs on the kernels
-        pred = Predictor.from_checkpoint(ckpt, device="cuda")
-        est = WhatIfEstimator(pred, synth)
-        programs = [[{ep: int(round(n * s)) for ep, n in mix.items()}] * DAY
-                    for s in np.linspace(0.5, 2.0, 16)]
-        est.estimate_many_raw(programs[:1], cache=False)        # warm
-        k1_before = cuda_gru.GRU_FWD.launches
-        t0 = time.perf_counter()
-        est.estimate_many_raw(programs, cache=False)
-        torch.cuda.synchronize()
-        t_many = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        series = [synth.synthesize_series(p, seed=i)
-                  for i, p in enumerate(programs)]
-        t_synth = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pred.predict_series_many(series)
-        torch.cuda.synchronize()
-        t_pred = time.perf_counter() - t0
-        n_windows = len(plan_windows([DAY] * len(programs), W))
-        print(f"main raw estimate_many: 16 one-day programs, {n_windows} "
-              f"windows in {t_many:.4f} s = {n_windows / t_many:.1f} "
-              f"windows/s end to end; host synthesis {t_synth:.4f} s, "
-              f"predict_series_many {t_pred:.4f} s = "
-              f"{n_windows / t_pred:.1f} windows/s; gru_fwd launches "
-              f"{cuda_gru.GRU_FWD.launches - k1_before} (in-process)",
-              flush=True)
-        profile_what_if(pred, series)
-        del series
+    # estimate_many over 16 one-day programs on the kernels
+    pred = Predictor.from_checkpoint(ckpt, device="cuda")
+    est = WhatIfEstimator(pred, synth)
+    programs = [[{ep: int(round(n * s)) for ep, n in mix.items()}] * DAY
+                for s in np.linspace(0.5, 2.0, 16)]
+    est.estimate_many_raw(programs[:1], cache=False)        # warm
+    k1_before = cuda_gru.GRU_FWD.launches
+    t0 = time.perf_counter()
+    est.estimate_many_raw(programs, cache=False)
+    torch.cuda.synchronize()
+    t_many = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    series = [synth.synthesize_series(p, seed=i)
+              for i, p in enumerate(programs)]
+    t_synth = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred.predict_series_many(series)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    n_windows = len(plan_windows([DAY] * len(programs), W))
+    print(f"main raw estimate_many: 16 one-day programs, {n_windows} "
+          f"windows in {t_many:.4f} s = {n_windows / t_many:.1f} "
+          f"windows/s end to end; host synthesis {t_synth:.4f} s, "
+          f"predict_series_many {t_pred:.4f} s = "
+          f"{n_windows / t_pred:.1f} windows/s; gru_fwd launches "
+          f"{cuda_gru.GRU_FWD.launches - k1_before} (in-process)",
+          flush=True)
+    profile_what_if(pred, series)
+    del series
 
-        # anomaly: a cryptojacking burner on compose-post-service
-        t0 = time.perf_counter()
-        crypto = simulate_corpus(
-            SCENARIOS["crypto"](SEED), RAW_ANOMALY_BUCKETS,
-            anomalies=[Anomaly("cryptojacking", "compose-post-service",
-                               *ANOMALY_WINDOW)])
-        crypto_path = os.path.join(wd, "crypto.jsonl")
-        save_raw_data_jsonl(crypto, crypto_path)
-        t_sim_crypto = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        lines = run_cli_lines(["anomaly", "--ckpt-dir", ckpt, "--raw",
-                               crypto_path], timeout=600)
-        secs["anomaly"] = time.perf_counter() - t0
-        detail, verdict = json.loads(lines[-2]), json.loads(lines[-1])
-        count(detail)
-        if detail["kernel_launches"]["gru_fwd"] == 0:
-            fail("the anomaly CLI never launched gru_fwd")
-        data = featurize_buckets(crypto, space=plain.space())
-        if data.metric_names != plain.metric_names:
-            fail("the crypto corpus's metrics differ from the checkpoint's")
-        want_reports = AnomalyDetector(plain).check(data.traffic,
-                                                    data.targets())
-        flagged = sorted(r.metric for r in want_reports if r.flagged)
-        firsts = [r.first_flag_index for r in want_reports]
-        score_err = max(abs(r["score"] - w.score) / max(abs(w.score), 1.0)
-                        for r, w in zip(detail["reports"], want_reports))
-        cpu = next(r for r in detail["reports"]
-                   if r["metric"] == "compose-post-service_cpu")
-        print(f"main raw anomaly CLI: {RAW_ANOMALY_BUCKETS} crypto buckets, "
-              f"cryptojacking on compose-post-service over buckets "
-              f"{ANOMALY_WINDOW[0]}-{ANOMALY_WINDOW[1]}; {secs['anomaly']:.2f}"
-              f" s (simulated in-process in {t_sim_crypto:.2f} s); "
-              f"{len(verdict['flagged'])} of {len(detail['reports'])} metrics "
-              f"flagged; compose-post-service_cpu flagged={cpu['flagged']} "
-              f"first_flag_index={cpu['first_flag_index']} score="
-              f"{cpu['score']:.4f}; gru_fwd launches "
-              f"{detail['kernel_launches']['gru_fwd']}; stages "
-              f"{rounded(detail['seconds'])}", flush=True)
-        print(f"check main raw anomaly vs the plain recurrence on the card: "
-              f"flagged sets equal {sorted(verdict['flagged']) == flagged}, "
-              f"first_flag_index equal "
-              f"{[r['first_flag_index'] for r in detail['reports']] == firsts}"
-              f", max score error {score_err:.3e} (tol "
-              f"{TOL['bfloat16'][0]} of max(|score|, 1))", flush=True)
-        if sorted(verdict["flagged"]) != flagged:
-            fail(f"anomaly flagged {sorted(verdict['flagged'])}; the plain "
-                 f"path flags {flagged}")
-        if [r["first_flag_index"] for r in detail["reports"]] != firsts:
-            fail("anomaly first_flag_index differs from the plain path's")
-        if score_err > TOL["bfloat16"][0]:
-            fail("anomaly scores disagree with the plain path")
+    # anomaly: a cryptojacking burner on compose-post-service
+    t0 = time.perf_counter()
+    crypto = simulate_corpus(
+        SCENARIOS["crypto"](SEED), RAW_ANOMALY_BUCKETS,
+        anomalies=[Anomaly("cryptojacking", "compose-post-service",
+                           *ANOMALY_WINDOW)])
+    crypto_path = os.path.join(wd, "crypto.jsonl")
+    save_raw_data_jsonl(crypto, crypto_path)
+    t_sim_crypto = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines = run_cli_lines(["anomaly", "--ckpt-dir", ckpt, "--raw",
+                           crypto_path], timeout=600)
+    secs["anomaly"] = time.perf_counter() - t0
+    detail, verdict = json.loads(lines[-2]), json.loads(lines[-1])
+    count(detail)
+    if detail["kernel_launches"]["gru_fwd"] == 0:
+        fail("the anomaly CLI never launched gru_fwd")
+    data = featurize_buckets(crypto, space=plain.space())
+    if data.metric_names != plain.metric_names:
+        fail("the crypto corpus's metrics differ from the checkpoint's")
+    want_reports = AnomalyDetector(plain).check(data.traffic,
+                                                data.targets())
+    flagged = sorted(r.metric for r in want_reports if r.flagged)
+    firsts = [r.first_flag_index for r in want_reports]
+    score_err = max(abs(r["score"] - w.score) / max(abs(w.score), 1.0)
+                    for r, w in zip(detail["reports"], want_reports))
+    cpu = next(r for r in detail["reports"]
+               if r["metric"] == "compose-post-service_cpu")
+    print(f"main raw anomaly CLI: {RAW_ANOMALY_BUCKETS} crypto buckets, "
+          f"cryptojacking on compose-post-service over buckets "
+          f"{ANOMALY_WINDOW[0]}-{ANOMALY_WINDOW[1]}; {secs['anomaly']:.2f}"
+          f" s (simulated in-process in {t_sim_crypto:.2f} s); "
+          f"{len(verdict['flagged'])} of {len(detail['reports'])} metrics "
+          f"flagged; compose-post-service_cpu flagged={cpu['flagged']} "
+          f"first_flag_index={cpu['first_flag_index']} score="
+          f"{cpu['score']:.4f}; gru_fwd launches "
+          f"{detail['kernel_launches']['gru_fwd']}; stages "
+          f"{rounded(detail['seconds'])}", flush=True)
+    print(f"check main raw anomaly vs the plain recurrence on the card: "
+          f"flagged sets equal {sorted(verdict['flagged']) == flagged}, "
+          f"first_flag_index equal "
+          f"{[r['first_flag_index'] for r in detail['reports']] == firsts}"
+          f", max score error {score_err:.3e} (tol "
+          f"{TOL['bfloat16'][0]} of max(|score|, 1))", flush=True)
+    if sorted(verdict["flagged"]) != flagged:
+        fail(f"anomaly flagged {sorted(verdict['flagged'])}; the plain "
+             f"path flags {flagged}")
+    if [r["first_flag_index"] for r in detail["reports"]] != firsts:
+        fail("anomaly first_flag_index differs from the plain path's")
+    if score_err > TOL["bfloat16"][0]:
+        fail("anomaly scores disagree with the plain path")
 
-        # predict --raw on the training corpus == predict --features
-        t0 = time.perf_counter()
-        by_raw = run_cli(["predict", "--ckpt-dir", ckpt, "--raw", raw,
-                          "--out", os.path.join(wd, "by_raw")], timeout=600)
-        secs["predict --raw"] = time.perf_counter() - t0
-        by_feats = run_cli(["predict", "--ckpt-dir", ckpt, "--features",
-                            feats, "--out", os.path.join(wd, "by_feats")],
-                           timeout=600)
-        count(by_raw)
-        count(by_feats)
-        with np.load(by_raw["out"]) as a, np.load(by_feats["out"]) as b:
-            same = np.array_equal(a["predictions"], b["predictions"])
-            shape = a["predictions"].shape
-        print(f"check main raw predict --raw vs --features: {shape}, "
-              f"bit-identical {same}; predict --raw {secs['predict --raw']:.2f}"
-              f" s (stages {rounded(by_raw['seconds'])})", flush=True)
-        if not same or shape != (RAW_BUCKETS, 88, 3):
-            fail("predict --raw differs from predict --features")
+    # predict --raw on the training corpus == predict --features
+    t0 = time.perf_counter()
+    by_raw = run_cli(["predict", "--ckpt-dir", ckpt, "--raw", raw,
+                      "--out", os.path.join(wd, "by_raw")], timeout=600)
+    secs["predict --raw"] = time.perf_counter() - t0
+    by_feats = run_cli(["predict", "--ckpt-dir", ckpt, "--features",
+                        feats, "--out", os.path.join(wd, "by_feats")],
+                       timeout=600)
+    count(by_raw)
+    count(by_feats)
+    with np.load(by_raw["out"]) as a, np.load(by_feats["out"]) as b:
+        same = np.array_equal(a["predictions"], b["predictions"])
+        shape = a["predictions"].shape
+    print(f"check main raw predict --raw vs --features: {shape}, "
+          f"bit-identical {same}; predict --raw {secs['predict --raw']:.2f}"
+          f" s (stages {rounded(by_raw['seconds'])})", flush=True)
+    if not same or shape != (RAW_BUCKETS, 88, 3):
+        fail("predict --raw differs from predict --features")
     total = time.perf_counter() - t_phase
     print(f"main raw phase: {total:.1f} s of wall time; CLI seconds "
           f"{rounded(secs)}; launches of this "
           f"path {launches}", flush=True)
     return {"launches": launches, "seconds": secs, "total_s": total,
             "windows_per_s": n_windows / t_many, "sweep_rel": sweep_rel,
-            "score_err": score_err}
+            "score_err": score_err, "ckpt": ckpt, "sample": sample,
+            "mix": mix, "plain": plain, "synth": synth,
+            "crypto": (data.traffic, data.targets())}
+
+
+def host_profile(pred, series) -> None:
+    """Where the host's share of one predict_series_many call goes:
+    cProfile's functions by their own time (C calls such as numpy's
+    count in the Python function that made them)."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    pred.predict_series_many(series)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    total = sum(v[2] for v in stats.stats.values())
+    print(f"host profile what-if: wall {wall * 1e3:.3f} ms under cProfile, "
+          f"own time of all functions {total * 1e3:.3f} ms; by function:",
+          flush=True)
+    for (path, line, name), (_, calls, own, _, _) in rows[:10]:
+        print(f"  {own * 1e3:9.3f} ms  x{calls:<5d} "
+              f"{os.path.basename(path)}:{line}({name})", flush=True)
+
+
+def request_breakdown(pred, bodies: list) -> dict:
+    """The host work of one /v1/predict request, in-process and without a
+    socket, on the warmed captured predictor: median ms of the JSON
+    parse, the service's predict (array checks, predict_series,
+    ``tolist``) and the JSON encode, over every request length."""
+    import numpy as np
+
+    from deeprest_tpu_torch.serve.server import PredictionService
+
+    service = PredictionService(pred)
+    parts = {"json.loads": [], "predict": [], "json.dumps": []}
+    try:
+        for _ in range(5):
+            for body in bodies:
+                t0 = time.perf_counter()
+                payload = json.loads(body)
+                t1 = time.perf_counter()
+                out = service.predict(payload)
+                t2 = time.perf_counter()
+                json.dumps(out)
+                t3 = time.perf_counter()
+                for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                    parts[key].append(dt * 1e3)
+    finally:
+        service.close()
+    ms = {k: float(np.median(v)) for k, v in parts.items()}
+    print(f"main plane request host work (in-process, no socket, the "
+          f"closed loop's request mix): median ms {ms}", flush=True)
+    return ms
+
+
+def start_server(args: list, log_path: str, timeout: float = 300.0):
+    """``python -m deeprest_tpu_torch serve ARGS --port 0`` in its own
+    process, output to ``log_path``; returns (process, startup JSON) once
+    it listens."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with open(log_path, "w", encoding="utf-8") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deeprest_tpu_torch", "serve",
+             *map(str, args), "--port", "0"], cwd=REPO, env=env,
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with open(log_path, encoding="utf-8") as log:
+            for line in log:
+                if line.startswith('{"listening"'):
+                    return proc, json.loads(line)
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    stop_server(proc)
+    with open(log_path, encoding="utf-8") as log:
+        fail(f"serve {args} did not listen:\n{log.read()[-6000:]}")
+
+
+def stop_server(proc) -> None:
+    proc.kill()
+    proc.wait(timeout=60)
+
+
+def http_json(url: str, payload=None, timeout: float = 300.0):
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def closed_loop(url: str, bodies: list, concurrency: int,
+                seconds: float, keep: int = 4) -> dict:
+    """``concurrency`` client threads each post ``bodies`` in turn to
+    ``url``/v1/predict, back to back, for ``seconds``; requests/s over the
+    window and p50/p99 latency in ms, and under ``samples`` the first
+    ``keep`` answers to each body (its index -> raw answers)."""
+    import http.client
+    import threading
+    import urllib.parse
+
+    import numpy as np
+
+    where = urllib.parse.urlsplit(url)
+    lat, errors, lock = [], [], threading.Lock()
+    samples = {i: [] for i in range(len(bodies))}
+    stop = time.monotonic() + seconds
+
+    def client(i):
+        conn = http.client.HTTPConnection(where.hostname, where.port,
+                                          timeout=120)
+        k = i
+        while time.monotonic() < stop:
+            t0 = time.perf_counter()
+            conn.request("POST", "/v1/predict", bodies[k % len(bodies)],
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            answer = resp.read()
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt)
+                if resp.status != 200:
+                    errors.append(resp.status)
+                elif len(samples[k % len(bodies)]) < keep:
+                    samples[k % len(bodies)].append(answer)
+            k += 1
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(concurrency)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(seconds + 300)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"closed loop at concurrency {concurrency}: statuses {errors[:5]}")
+    ms = np.sort(np.asarray(lat)) * 1e3
+    return {"requests": len(lat), "rps": len(lat) / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "samples": samples}
+
+
+def concurrent_answers(label: str, loads: dict, single: list,
+                       exact: bool) -> dict:
+    """The closed loops' sampled answers against the single-client answer
+    to the same body: bit for bit when ``exact`` (no batcher: every
+    request runs alone through its fused rung), else within the bf16
+    tolerance of scale (coalesced batches change the rung, hence the
+    GEMM's shape); fails the script on a disagreement."""
+    import numpy as np
+
+    worst, n = {}, 0
+    for conc, load in loads.items():
+        err = 0.0
+        for i, answers in load.pop("samples").items():
+            want = np.asarray(single[i], np.float32)
+            for raw in answers:
+                got = np.asarray(json.loads(raw)["predictions"], np.float32)
+                if got.shape != want.shape:
+                    fail(f"plane {label} concurrency {conc}: answer shape "
+                         f"{got.shape}, single-client {want.shape}")
+                err = max(err, float(np.abs(got - want).max())
+                          / max(float(np.abs(want).max()), 1e-12))
+                n += 1
+        worst[conc] = err
+    limit = 0.0 if exact else TOL["bfloat16"][0]
+    print(f"check plane {label}: {n} sampled closed-loop answers vs the "
+          f"single-client answer to the same body, max_err/max|ref| per "
+          f"concurrency {worst} (tol {limit}"
+          f"{', bit for bit' if exact else ''})", flush=True)
+    if max(worst.values()) > limit:
+        fail(f"plane {label}: concurrent answers differ from the "
+             "single-client ones")
+    return worst
+
+
+def rel_err(got, want, cols) -> float:
+    """Max |got - want| over ``cols`` over the largest |want| there."""
+    import numpy as np
+
+    got, want = np.asarray(got)[:, cols], np.asarray(want)[:, cols]
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def band_peaks(estimates: dict, delta) -> dict:
+    """What-if bands → the sweep's peaks (serve/whatif.py): the largest
+    value, or for a delta metric (a relative level) the largest growth
+    over its start."""
+    import numpy as np
+
+    out = {}
+    for e, (metric, bands) in enumerate(estimates.items()):
+        rel = delta is not None and bool(delta[e])
+        out[metric] = {q: (max(float(np.max(v) - v[0]), 0.0) if rel
+                           else float(np.max(v)))
+                       for q, v in ((q, np.asarray(v)) for q, v in
+                                    bands.items())}
+    return out
+
+
+def series_errors(got: dict, want: dict, y_range) -> dict:
+    """What-if band errors over the whole series, ``(metric, quantile)`` ->
+    max |got - want| over the metric's scale (its largest |plain value|,
+    floored at its train-split range)."""
+    import numpy as np
+
+    out = {}
+    for e, metric in enumerate(want):
+        for q, w in want[metric].items():
+            w = np.asarray(w, np.float64)
+            g = np.asarray(got[metric][q], np.float64)
+            scale = max(float(np.abs(w).max()), float(y_range[e]), 1e-12)
+            out[(metric, q)] = float(np.abs(g - w).max()) / scale
+    return out
+
+
+def check_graphs(label: str, health: dict, warmed: int) -> dict:
+    """The server's graph ledger after its load: every capture happened at
+    warm-up, one per (program, rung) key warmed."""
+    cache = health["jit_cache"]
+    rungs = health["fused_infer"]["graphs"]["rungs"]
+    ladder = (health["batcher"] or health)["shape_ladder"]
+    print(f"check plane {label} graphs: {cache['captures']} captured at "
+          f"warm-up for {warmed} (program, rung) keys {rungs}; "
+          f"{cache['captures_after_warmup']} after warm-up; "
+          f"{cache['replays']} replays; ladder rungs dispatched by requests "
+          f"{ladder['compiled_rungs']}, fused rungs "
+          f"{health['fused_infer']['dispatched_rungs']}", flush=True)
+    if cache["captures"] != warmed or len(rungs) != warmed:
+        fail(f"{label}: {cache['captures']} graphs captured for {warmed} "
+             "warmed keys")
+    if cache["captures_after_warmup"]:
+        fail(f"{label}: {cache['captures_after_warmup']} captures after "
+             "warm-up")
+    return cache
+
+
+def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
+                        wd: str) -> dict:
+    """The serve CLI on the card: the flagship checkpoint behind HTTP with
+    the MicroBatcher and without it (captures, answers, closed-loop load,
+    its sampled answers against single-client ones), captured against
+    eager engines in-process (bit for bit, the launch ledger, windows/s
+    in turns, the busy share), and the social network with --raw
+    --surface held against phase 7's plain path, its what-if series also
+    read at f32."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.config import SurfaceConfig
+    from deeprest_tpu_torch.serve.fused import plan_windows
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.serve.server import PredictionService
+    from deeprest_tpu_torch.serve.whatif import WhatIfEstimator
+    from deeprest_tpu_torch.train.checkpoint import load_params
+
+    traffic, delta, ref = (flagship["traffic"], flagship["delta"],
+                           flagship["ref"])
+    e = FLAGSHIP["E"]
+    launches = 0
+    result = {"http": {}}
+    # the JAX serve bench's mix (1-2 windows at W=24), scaled to W=60
+    rng = np.random.default_rng(SEED)
+    bodies = []
+    for minutes in PLANE_REQUEST_MINUTES:
+        lo = int(rng.integers(0, DAY - minutes))
+        bodies.append(json.dumps(
+            {"traffic": traffic[lo:lo + minutes].tolist()}).encode())
+    for label, extra in (("batcher", []), ("no-batcher", ["--no-batcher"])):
+        t_server = time.perf_counter()
+        proc, start = start_server(["--ckpt-dir", flagship["ckpt"], *extra],
+                                   os.path.join(wd, f"serve_{label}.log"))
+        try:
+            url = start["listening"]
+            warmed = start["graphs"]["captures"]
+            print(f"main plane {label}: listening after load "
+                  f"{start['seconds']['load']:.2f} s, warm-up (captures) "
+                  f"{start['seconds']['warm']:.2f} s, {warmed} graphs",
+                  flush=True)
+            t0 = time.perf_counter()
+            status, body = http_json(url + "/v1/predict",
+                                     {"traffic": traffic.tolist()})
+            day_s = time.perf_counter() - t0
+            if status != 200:
+                fail(f"plane {label} /v1/predict answered {status}: {body}")
+            got = np.asarray(body["predictions"], np.float32)
+            if got.shape != (DAY, e, 3) or not np.isfinite(got).all():
+                fail(f"plane {label} predictions have shape {got.shape}")
+            errs = {name: rel_err(got, ref, cols)
+                    for cols, name in ((~delta, "non-delta"),
+                                       (delta, "delta"))}
+            print(f"check plane {label} /v1/predict {DAY}x{F} ({day_s:.2f} s "
+                  f"with JSON) vs host loop over the plain recurrence: "
+                  f"max_err/max|ref| {errs} (tol {TOL['bfloat16'][0]})",
+                  flush=True)
+            if max(errs.values()) > TOL["bfloat16"][0]:
+                fail(f"plane {label} /v1/predict disagrees with the plain "
+                     "path")
+            single = []                  # warms the client path too
+            for body_ in bodies:
+                status, answer = http_json(url + "/v1/predict",
+                                           json.loads(body_))
+                if status != 200:
+                    fail(f"plane {label} /v1/predict answered {status}")
+                single.append(answer["predictions"])
+            loads = {}
+            for conc in PLANE_CONCURRENCY:
+                loads[conc] = closed_loop(url, bodies, conc, PLANE_LOAD_S)
+            concurrent_answers(label, loads, single,
+                               exact=label == "no-batcher")
+            status, health = http_json(url + "/healthz")
+            check_graphs(label, health, warmed)
+            coalesced = (health["batcher"]["coalesced_batches"]
+                         if health.get("batcher") else None)
+            k1 = health["kernel_launches"]["gru_fwd"]
+            for conc, load in loads.items():
+                print(f"main plane {label} closed loop, concurrency {conc}: "
+                      f"{load['requests']} requests in {PLANE_LOAD_S} s = "
+                      f"{load['rps']:.1f} requests/s, p50 "
+                      f"{load['p50_ms']:.2f} ms, p99 {load['p99_ms']:.2f} ms",
+                      flush=True)
+            print(f"main plane {label}: coalesced_batches {coalesced}, "
+                  f"gru_fwd launches {k1} (graph replays counted)",
+                  flush=True)
+            if k1 == 0:
+                fail(f"plane {label} never launched gru_fwd")
+            launches += k1
+            result["http"][label] = {"loads": loads,
+                                     "coalesced_batches": coalesced,
+                                     "predict_err": errs}
+        finally:
+            stop_server(proc)
+        print(f"main plane {label}: {time.perf_counter() - t_server:.1f} s "
+              "with the server's start", flush=True)
+
+    # captured against eager, in-process
+    t_inproc = time.perf_counter()
+    captured = Predictor.from_checkpoint(flagship["ckpt"], device="cuda")
+    eager = Predictor.from_checkpoint(flagship["ckpt"], device="cuda",
+                                      cuda_graphs=False)
+    captured.warm()
+    scales = np.linspace(0.5, 2.0, 16).astype(np.float32)
+    scales[0] = 1.0
+    series = [traffic * s for s in scales]
+    n_windows = len(plan_windows([DAY] * len(series), W))
+    for pred in (eager, captured):
+        pred.predict_series_many(series)                 # warm
+    k1_before = cuda_gru.GRU_FWD.launches
+    pages_before = captured.fused.stats()["pages"]
+    captured.predict_series_many(series)
+    pages = captured.fused.stats()["pages"] - pages_before
+    k1 = cuda_gru.GRU_FWD.launches - k1_before
+    print(f"check plane K1 ledger: {k1} gru_fwd launches for {pages} "
+          f"captured pages (2 a page, bidirectional)", flush=True)
+    if k1 != 2 * pages:
+        fail(f"the launch ledger counted {k1} K1 launches for {pages} pages")
+    rates = {"eager": [], "captured": []}
+    for label in ("eager", "captured", "captured", "eager"):
+        pred = captured if label == "captured" else eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_series_many(series)
+        torch.cuda.synchronize()
+        rates[label].append(n_windows / (time.perf_counter() - t0))
+    print(f"main plane predict_series_many: 16 one-day series, {n_windows} "
+          f"windows; windows/s in turns eager {rates['eager'][0]:.1f}, "
+          f"captured {rates['captured'][0]:.1f}, captured "
+          f"{rates['captured'][1]:.1f}, eager {rates['eager'][1]:.1f}",
+          flush=True)
+    busy = profile_what_if(captured, series)
+    host_profile(captured, series)
+    result["request_ms"] = request_breakdown(captured, bodies)
+    # bit for bit over >= 8 pages: one page of 64 a call
+    params = load_params(flagship["ckpt"])
+    paged = {}
+    for graphs in (True, False):
+        with_delta = Predictor.from_checkpoint(
+            flagship["ckpt"], device="cuda", coalesce_pages=1,
+            cuda_graphs=graphs)
+        no_delta = Predictor(
+            params, with_delta.model_config, with_delta.x_stats,
+            with_delta.y_stats, with_delta.metric_names, W,
+            coalesce_pages=1, device="cuda", cuda_graphs=graphs)
+        paged[graphs] = (with_delta, no_delta)
+    many = [traffic * s for s in np.linspace(0.5, 2.0, 24)]
+    n_pages = -(-len(plan_windows([DAY] * len(many), W)) // 64)
+    same = {}
+    for i, name in enumerate(("delta carry", "no delta")):
+        for integrate in (True, False):
+            got = paged[True][i].predict_series_many(many, integrate)
+            want = paged[False][i].predict_series_many(many, integrate)
+            same[f"{name}, integrate={integrate}"] = all(
+                np.array_equal(a, b) for a, b in zip(got, want))
+    del paged, many
+    print(f"check plane captured vs eager engine, {n_pages} pages of 64 "
+          f"windows: bit-identical {same}", flush=True)
+    if not all(same.values()) or n_pages < 8:
+        fail("captured engine outputs differ from the eager engine's")
+    result.update(rates=rates, busy=busy, bit_identical=same,
+                  windows=n_windows)
+    print(f"main plane in-process: {time.perf_counter() - t_inproc:.1f} s",
+          flush=True)
+
+    # the social network with --raw --surface: its answers against phase
+    # 7's plain path in-process, and the /v1/whatif series read at f32
+    # too (the kernels against the plain recurrence, and the plain path's
+    # own bf16 rounding), so a gap shows whether it is bf16 precision
+    t_social = time.perf_counter()
+    proc, start = start_server(
+        ["--ckpt-dir", raw["ckpt"], "--raw", raw["sample"], "--surface"],
+        os.path.join(wd, "serve_social.log"))
+    try:
+        url = start["listening"]
+        program = [raw["mix"]] * DAY
+        payloads = {
+            "/v1/whatif": {"expected_traffic": program},
+            "/v1/whatif/surface": {"base_traffic": program[:2 * W],
+                                   "factor": 2, "wait": True},
+            "/v1/anomaly": {"traffic": raw["crypto"][0].tolist(),
+                            "observed": raw["crypto"][1].tolist()}}
+        answers = {}
+        for route, payload in payloads.items():
+            t0 = time.perf_counter()
+            status, body = http_json(url + route, payload)
+            if status != 200:
+                fail(f"plane social {route} answered {status}: {body}")
+            answers[route] = (body, time.perf_counter() - t0)
+        status, health = http_json(url + "/healthz")
+        check_graphs("social", health, start["graphs"]["captures"])
+        k1 = health["kernel_launches"]["gru_fwd"]
+        launches += k1
+    finally:
+        stop_server(proc)
+    plain, synth = raw["plain"], raw["synth"]
+    service = PredictionService(plain, synth)
+    surfaces = PredictionService(
+        plain, synth, surface=SurfaceConfig(enabled=True, warm_async=False))
+    try:
+        want = {"/v1/whatif": service.whatif_estimate(payloads["/v1/whatif"]),
+                "/v1/anomaly": service.anomaly(payloads["/v1/anomaly"]),
+                "/v1/whatif/surface": surfaces.whatif_surface(
+                    payloads["/v1/whatif/surface"])}
+    finally:
+        service.close()
+        surfaces.close()
+    f32 = {label: WhatIfEstimator(at_dtype(plain, "float32", **kw),
+                                  synth).estimate(program, seed=0)
+           for label, kw in (
+               ("kernels", {}),
+               ("plain", {"recurrence": cuda_gru.gru_recurrence_reference,
+                          "cuda_graphs": False}))}
+    y_range = np.asarray(plain.y_stats.range, np.float32).reshape(-1)
+    whatif = answers["/v1/whatif"][0]["estimates"]
+    plain_whatif = want["/v1/whatif"]["estimates"]
+    err_peaks = sweep_error([{"peaks": band_peaks(whatif, plain.delta_mask)}],
+                            [{"peaks": band_peaks(plain_whatif,
+                                                  plain.delta_mask)}],
+                            y_range)
+    readings = {
+        "bf16 kernels (HTTP) vs bf16 plain": series_errors(
+            whatif, plain_whatif, y_range),
+        "f32 kernels vs f32 plain": series_errors(
+            f32["kernels"], f32["plain"], y_range),
+        "bf16 plain vs f32 plain": series_errors(
+            plain_whatif, f32["plain"], y_range),
+        "bf16 kernels (HTTP) vs f32 plain": series_errors(
+            whatif, f32["plain"], y_range)}
+    worst = max(readings["bf16 kernels (HTTP) vs bf16 plain"].items(),
+                key=lambda kv: kv[1])[0]
+    surf = answers["/v1/whatif/surface"][0]
+    err_surface = sweep_error([surf], [want["/v1/whatif/surface"]], y_range)
+    got_an = answers["/v1/anomaly"][0]
+    flags_equal = (sorted(got_an["flagged"])
+                   == sorted(want["/v1/anomaly"]["flagged"]))
+    print(f"check plane social (F=128, E=88) vs phase 7's plain path "
+          f"in-process: /v1/whatif peaks max_err/scale {err_peaks:.3e}, "
+          f"/v1/whatif/surface (hit {surf['surface'].get('hit')}, parity "
+          f"{surf['surface'].get('parity')}) {err_surface:.3e} (tol "
+          f"{TOL['bfloat16'][0]}); /v1/anomaly flagged "
+          f"{len(got_an['flagged'])} of {len(got_an['reports'])}, sets "
+          f"equal {flags_equal}; seconds "
+          f"{ {k: round(v[1], 3) for k, v in answers.items()} }; gru_fwd "
+          f"launches {k1}", flush=True)
+    print("check plane social /v1/whatif series, the whole day tick by "
+          "tick, max_err/scale (at the worst HTTP-vs-plain band, "
+          f"{worst[0]} {worst[1]}): " + "; ".join(
+              f"{name} {max(errs.values()):.3e} ({errs[worst]:.3e})"
+              for name, errs in readings.items()), flush=True)
+    if max(err_peaks, err_surface) > TOL["bfloat16"][0] or not flags_equal:
+        fail("the social-network plane disagrees with the plain path")
+    # the series gate: at f32 the kernels compute the plain function
+    # (GRAD_TOL, the repo's f32 tolerance for long sums); in bf16 they lose
+    # no more to rounding than the plain path does, both read against f32
+    # (the checkpoint's bf16 rounding of a near-constant increment adds up
+    # over the day, so two bf16 paths may part by more than 2e-2)
+    series = {k: max(v.values()) for k, v in readings.items()}
+    f32_gap = series["f32 kernels vs f32 plain"]
+    bf16_loss = (series["bf16 kernels (HTTP) vs f32 plain"]
+                 / max(series["bf16 plain vs f32 plain"], 1e-12))
+    print(f"check plane social /v1/whatif series gates: f32 kernels vs f32 "
+          f"plain {f32_gap:.3e} (tol {GRAD_TOL['float32']}); bf16 kernels' "
+          f"error from f32 over the bf16 plain path's {bf16_loss:.3f} "
+          f"(tol 2)", flush=True)
+    if f32_gap > GRAD_TOL["float32"] or bf16_loss > 2.0:
+        fail("the social-network /v1/whatif series disagrees with the plain "
+             "path")
+    print(f"main plane social: {time.perf_counter() - t_social:.1f} s",
+          flush=True)
+    result.update(launches=launches, err_peaks=err_peaks,
+                  err_surface=err_surface, series=series)
+    return result
+
+
+def at_dtype(pred, dtype: str, **kwargs):
+    """``pred``'s params and host state served at compute dtype
+    ``dtype`` on the card."""
+    import dataclasses
+
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    return Predictor(
+        pred.model.params(),
+        dataclasses.replace(pred.model_config, compute_dtype=dtype),
+        pred.x_stats, pred.y_stats, pred.metric_names, pred.window_size,
+        space_dict=pred.space_dict, delta_mask=pred.delta_mask,
+        device="cuda", **kwargs)
 
 
 def phase_blocked(cuda_gru, kernel_tuning) -> dict:
@@ -1673,20 +2245,36 @@ def main() -> int:
     from deeprest_tpu_torch.benchmarks import kernel_tuning
     from deeprest_tpu_torch.ops import build, cuda_gru
 
-    regs = phase_build(build, cuda_gru, kernel_tuning)
-    max_abs_err = phase_kernel_checks(cuda_gru)
-    times = phase_times(cuda_gru)
-    serving = phase_main_path(cuda_gru)
-    training = phase_training(cuda_gru)
-    raw = phase_raw_to_answers(cuda_gru)
-    blocked = phase_blocked(cuda_gru, kernel_tuning)
-    phase_bidir(cuda_gru, kernel_tuning)
-    phase_stash_steps(cuda_gru)
-    sweep = phase_tuning_sweep(cuda_gru)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    regs = timed("build", phase_build, build, cuda_gru, kernel_tuning)
+    max_abs_err = timed("kernel checks", phase_kernel_checks, cuda_gru)
+    times = timed("kernel times", phase_times, cuda_gru)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                     dir=os.path.join(REPO, "build")) as wd:
+        serving = timed("main path", phase_main_path, cuda_gru, wd)
+        training = timed("training", phase_training, cuda_gru)
+        raw = timed("raw to answers", phase_raw_to_answers, cuda_gru, wd)
+        raw_launches = raw["launches"]
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+        plane = timed("serving plane", phase_serving_plane, cuda_gru,
+                      serving, raw, wd)
+        del raw
+    blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
+    timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
+    timed("stash steps", phase_stash_steps, cuda_gru)
+    sweep = timed("tuning sweep", phase_tuning_sweep, cuda_gru)
 
     launches = dict(training["launches"])
-    launches["gru_fwd"] += serving["launches"]
-    for name, count in raw["launches"].items():
+    launches["gru_fwd"] += serving["launches"] + plane["launches"]
+    for name, count in raw_launches.items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -1718,8 +2306,10 @@ def main() -> int:
           flush=True)
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
           f"training {training['launches']}; raw telemetry to answers "
-          f"{raw['launches']}; tuning sweep {sweep['kernel_launches']}",
+          f"{raw_launches}; serving plane gru_fwd {plane['launches']} "
+          f"(the servers' ledgers); tuning sweep {sweep['kernel_launches']}",
           flush=True)
+    print(f"seconds per phase {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

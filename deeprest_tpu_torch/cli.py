@@ -1,5 +1,5 @@
 """Command-line drivers of the port (``deeprest_tpu/cli.py``: the simulate,
-featurize, ingest, train, synthesize, whatif, predict and anomaly
+featurize, ingest, train, synthesize, whatif, predict, anomaly and serve
 subcommands, with the JAX package's flags and last JSON lines):
 
     python -m deeprest_tpu_torch simulate   --scenario=normal --ticks=480 --out=raw.jsonl
@@ -8,19 +8,24 @@ subcommands, with the JAX package's flags and last JSON lines):
     python -m deeprest_tpu_torch whatif     --ckpt-dir=ckpt --raw=raw.jsonl --mix='{"nginx-thrift_/wrk2-api/post/compose": 40}' --sweep=0.5,1,2
     python -m deeprest_tpu_torch predict    --ckpt-dir=ckpt --raw=raw.jsonl --out=preds.npz
     python -m deeprest_tpu_torch anomaly    --ckpt-dir=ckpt --raw=raw.jsonl
+    python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --raw=raw.jsonl --surface --port=2021
 
 ``simulate``, ``featurize``, ``ingest`` and ``synthesize`` are host-only
-and touch no device.  ``train``, ``predict``, ``whatif`` and ``anomaly``
-run on CUDA unless ``--device cpu`` asks for the CPU; their JSON lines add
-the device, the kernel launches the call made and the seconds of its
-stages (``seconds``: loading and featurizing the input, the model work).
+and touch no device.  ``train``, ``predict``, ``whatif``, ``anomaly`` and
+``serve`` run on CUDA unless ``--device cpu`` asks for the CPU; their JSON
+lines add the device, the kernel launches the call made and the seconds
+of its stages (``seconds``: loading and featurizing the input, the model
+work).
 ``train`` takes the JAX CLI's ``--steps-per-superstep`` (default "auto":
 captured CUDA graphs on a GPU), ``--grad-accum-windows``,
 ``--grad-accum-mode``, ``--snapshot-every-steps`` and ``--snapshot-keep``;
 with snapshots on, running the same command again after a kill resumes
-from the newest cursor snapshot.  Mesh, elastic remeshing, quantized
-serving, the sparse feed and profiling are not ported, and the port's CLI
-does not offer them.
+from the newest cursor snapshot.  ``serve`` takes the JAX CLI's
+single-engine flags (batcher, ladder, fused inference, obs, capacity
+surfaces, ``--watch``); it captures every rung's CUDA graph before it
+listens.  Mesh, elastic remeshing, quantized serving and exported
+artifacts, the sparse feed, the verdict surface, replicas and fleets, and
+profiling are not ported, and the port's CLI does not offer them.
 """
 
 from __future__ import annotations
@@ -607,6 +612,149 @@ def cmd_anomaly(args) -> int:
     return 1 if flagged and args.fail_on_anomaly else 0
 
 
+def cmd_serve(args) -> int:
+    """Serve predict / what-if / anomaly over HTTP from a checkpoint
+    (serve/server.py), with cross-request micro-batching on by default
+    (serve/batcher.py; disable with --no-batcher).  Every rung graph is
+    captured before the socket listens; with --watch a newer checkpoint
+    step is loaded and warmed in the background, then swapped in."""
+    from deeprest_tpu_torch import obs
+    from deeprest_tpu_torch.serve.batcher import BatcherConfig
+    from deeprest_tpu_torch.serve.server import (
+        CheckpointReloader, PredictionServer, PredictionService,
+    )
+
+    if not args.ckpt_dir:
+        sys.exit("error: provide --ckpt-dir (exported artifacts are not "
+                 "ported yet)")
+    try:
+        ladder = tuple(int(r) for r in args.batch_ladder.split(","))
+    except ValueError:
+        sys.exit(f"error: --batch-ladder {args.batch_ladder!r} is not a "
+                 "comma-separated list of window counts")
+    if not ladder or min(ladder) < 1:
+        sys.exit(f"error: --batch-ladder {args.batch_ladder!r}: rungs must "
+                 "be >= 1")
+    if args.batch_coalesce_groups < 1:
+        sys.exit(f"error: --batch-coalesce-groups "
+                 f"{args.batch_coalesce_groups} must be >= 1")
+    batching = None
+    if not args.no_batcher:
+        top = max(ladder) * args.batch_coalesce_groups
+        if args.batch_max_windows > top:
+            sys.exit(f"error: --batch-max-windows {args.batch_max_windows} "
+                     f"exceeds the top (coalesced) ladder rung {top}")
+        batching = BatcherConfig(max_batch=args.batch_max_windows,
+                                 max_linger_s=args.batch_linger_ms / 1e3)
+    if args.watch < 0:
+        sys.exit(f"error: --watch {args.watch} must be >= 0")
+    if args.obs_span_capacity < 1:
+        sys.exit(f"error: --obs-span-capacity {args.obs_span_capacity} "
+                 "must be >= 1")
+    obs.configure(enabled=not args.no_obs,
+                  span_capacity=args.obs_span_capacity)
+    from deeprest_tpu_torch.config import InferConfig
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    try:
+        infer = InferConfig(fused=not args.no_fused_infer,
+                            page_windows=args.infer_page_windows,
+                            coalesce_pages=args.infer_coalesce_pages)
+    except ValueError as exc:
+        sys.exit(f"error: {exc}")
+    knobs = dict(ladder=ladder, fused=infer.fused,
+                 page_windows=infer.page_windows,
+                 coalesce_pages=infer.coalesce_pages,
+                 coalesce_groups=args.batch_coalesce_groups,
+                 device=args.device)
+    reloader = None
+    if args.watch:
+        # Built BEFORE the initial load: a checkpoint the live trainer
+        # writes while we load would otherwise be recorded as already
+        # served and never reloaded.
+        reloader = CheckpointReloader(args.ckpt_dir, min_interval_s=args.watch,
+                                      **knobs)
+    seconds = {}
+    t0 = time.perf_counter()
+    pred = Predictor.from_checkpoint(args.ckpt_dir, **knobs)
+    seconds["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphs = pred.warm()
+    seconds["warm"] = time.perf_counter() - t0
+    backend = f"checkpoint:{args.ckpt_dir}"
+    if reloader is not None:
+        backend += " (watching)"
+
+    synthesizer = None
+    if args.raw:
+        from deeprest_tpu_torch.data.synthesize import TraceSynthesizer
+
+        space = pred.space()
+        if space is None:
+            sys.exit("error: model has no feature space; cannot fit the "
+                     "what-if synthesizer from --raw")
+        t0 = time.perf_counter()
+        synthesizer = TraceSynthesizer(space).fit(_load_buckets(args.raw))
+        seconds["fit"] = time.perf_counter() - t0
+
+    surface_cfg = None
+    if args.surface:
+        from deeprest_tpu_torch.config import SurfaceConfig
+
+        if synthesizer is None:
+            sys.exit("error: --surface needs --raw (capacity surfaces are "
+                     "built through the what-if synthesizer)")
+        try:
+            surface_cfg = SurfaceConfig(
+                enabled=True,
+                grid=tuple(float(x)
+                           for x in args.surface_grid.split(",") if x),
+                max_axes=args.surface_max_axes,
+                jitter=args.surface_jitter,
+                max_surfaces=args.surface_max_surfaces,
+                max_bytes=int(args.surface_max_bytes_mb * 1024 * 1024),
+                warm_async=not args.surface_sync)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
+
+    service = PredictionService(pred, synthesizer, backend=backend,
+                                reloader=reloader, batching=batching,
+                                surface=surface_cfg)
+    server = PredictionServer(service, host=args.host, port=args.port)
+    host, port = server.address
+    print(json.dumps({"listening": f"http://{host}:{port}",
+                      "backend": backend,
+                      "whatif": synthesizer is not None,
+                      "surface": ({"grid": list(surface_cfg.grid),
+                                   "max_axes": surface_cfg.max_axes,
+                                   "jitter": surface_cfg.jitter,
+                                   "max_surfaces": surface_cfg.max_surfaces,
+                                   "max_bytes": surface_cfg.max_bytes}
+                                  if surface_cfg is not None else None),
+                      "replicas": 1, "fleet": None, "autoscale": False,
+                      "verdict": None,
+                      "obs": {"spans": not args.no_obs,
+                              "span_capacity": args.obs_span_capacity,
+                              "metrics": "/metrics"},
+                      "batching": (None if args.no_batcher else {
+                          "max_batch": args.batch_max_windows,
+                          "max_linger_ms": args.batch_linger_ms,
+                          "ladder": list(ladder),
+                      }),
+                      "device": str(pred.device), "graphs": graphs,
+                      "seconds": seconds}), flush=True)
+    if args.deadline:
+        server.start()
+        time.sleep(args.deadline)
+        server.stop()
+    else:
+        try:
+            server.serve_forever()
+        finally:
+            server.stop()
+    return 0
+
+
 # -- parser -----------------------------------------------------------------
 
 
@@ -782,6 +930,82 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fail-on-anomaly", action="store_true")
     _add_fused_infer_args(p)
     p.set_defaults(fn=cmd_anomaly)
+
+    p = sub.add_parser("serve",
+                       help="HTTP prediction service: predict / what-if / "
+                            "anomaly")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="serve the in-process predictor from this checkpoint")
+    p.add_argument("--watch", type=float, default=0, metavar="SECONDS",
+                   help="hot-reload newer checkpoints, polling at most every "
+                        "SECONDS (0 = off); a new step is loaded and its "
+                        "graphs captured before it is swapped in")
+    p.add_argument("--raw", default=None,
+                   help="raw corpus to fit the what-if trace synthesizer")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=2021)
+    p.add_argument("--deadline", type=float, default=0,
+                   help="stop after this many seconds (0 = run forever)")
+    p.add_argument("--no-batcher", action="store_true",
+                   help="disable cross-request micro-batching (each request "
+                        "dispatches its own device batches; the shape "
+                        "ladder still bounds the rung graphs)")
+    p.add_argument("--batch-max-windows", type=int, default=64,
+                   help="flush a coalesced batch at this many windows "
+                        "(should equal the top ladder rung)")
+    p.add_argument("--batch-linger-ms", type=float, default=2.0,
+                   help="max time the first request in a batch waits for "
+                        "co-arrivals before flushing")
+    p.add_argument("--batch-ladder", default="8,16,32,64",
+                   help="comma-separated window-count rungs every device "
+                        "batch is padded up to (one captured CUDA graph "
+                        "per rung)")
+    p.add_argument("--batch-coalesce-groups", type=int, default=1,
+                   metavar="G",
+                   help="extend the ladder with top-rung*{2..G} "
+                        "super-rungs so a deep cross-request backlog "
+                        "dispatches one batch of top*G windows instead "
+                        "of G sequential top-rung dispatches; raise "
+                        "--batch-max-windows to match")
+    p.add_argument("--no-obs", action="store_true",
+                   help="disable span recording; /metrics and its counters "
+                        "stay live, only the trace ring is gated")
+    p.add_argument("--obs-span-capacity", type=int, default=4096,
+                   metavar="N",
+                   help="bound on retained spans (newest win; GET "
+                        "/v1/spans exports them as Jaeger JSON)")
+    p.add_argument("--surface", action="store_true",
+                   help="arm the capacity-surface plane (serve/surface.py; "
+                        "needs --raw): in-space /v1/whatif reads answer by "
+                        "multilinear interpolation over precomputed "
+                        "surfaces, POST /v1/whatif/surface serves sweep-"
+                        "style peak queries, and every reload invalidates "
+                        "the cache eagerly")
+    p.add_argument("--surface-grid", default="0.5,1,2,4", metavar="S,S,...",
+                   help="per-axis scale ladder a surface sweeps around its "
+                        "base traffic program")
+    p.add_argument("--surface-max-axes", type=int, default=3, metavar="K",
+                   help="max independent per-endpoint scale axes (more "
+                        "active endpoints collapse to one shared axis; "
+                        "vertex count is len(grid)**K)")
+    p.add_argument("--surface-jitter", type=int, default=8, metavar="N",
+                   help="Monte-Carlo probe mixes per build, held out of the "
+                        "grid; they measure the surface-vs-direct parity "
+                        "envelope reported on /healthz")
+    p.add_argument("--surface-max-surfaces", type=int, default=8,
+                   metavar="N",
+                   help="LRU bound on resident surfaces")
+    p.add_argument("--surface-max-bytes-mb", type=float, default=64.0,
+                   metavar="MB",
+                   help="host-byte budget across resident surfaces "
+                        "(oversized mix spaces refuse to build and answer "
+                        "from the frontier instead)")
+    p.add_argument("--surface-sync", action="store_true",
+                   help="build cache-miss surfaces inline instead of on a "
+                        "background warm thread (first query pays the "
+                        "build)")
+    _add_fused_infer_args(p)
+    p.set_defaults(fn=cmd_serve)
     return ap
 
 

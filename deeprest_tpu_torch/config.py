@@ -1,13 +1,14 @@
 """Typed configuration: the fields of ``deeprest_tpu/config.py`` that the
 port reads.
 
-``ModelConfig`` is a field-for-field copy, so the ``model_config`` dict a
-checkpoint sidecar carries constructs it as it is.  ``rnn_backend`` is
-carried for that reason only: the port picks the recurrence from the
-tensors' device (ops/gru.py), never from this field.  ``TrainConfig`` copies
-the training fields the port's trainer reads, with the JAX package's
-defaults and validation messages, plus the fields of features it does not
-have yet, which raise on any value but the one the port implements.
+``ModelConfig`` and ``SurfaceConfig`` are field-for-field copies (the
+``model_config`` dict a checkpoint sidecar carries constructs the first as
+it is).  ``rnn_backend`` is carried for that reason only: the port picks
+the recurrence from the tensors' device (ops/gru.py), never from this
+field.  ``TrainConfig`` copies the training fields the port's trainer
+reads, with the JAX package's defaults and validation messages, plus the
+fields of features it does not have yet, which raise on any value but the
+one the port implements.
 """
 
 from __future__ import annotations
@@ -158,6 +159,47 @@ class InferConfig:
             raise ValueError(
                 f"InferConfig.coalesce_pages={self.coalesce_pages}: must "
                 "be >= 1 (or None for the device default)")
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfaceConfig:
+    """Capacity-surface plane (serve/surface.py): precomputed what-if
+    surfaces answering ``/v1/whatif`` and ``/v1/whatif/surface`` by
+    multilinear interpolation, invalidated on every backend reload.
+
+    ``grid`` is the per-axis scale ladder a surface sweeps around its
+    base program; ``max_axes`` caps the grid dimensionality (more active
+    endpoints than this collapse to one shared scale axis — vertex count
+    is ``len(grid) ** axes``); ``jitter`` is the Monte-Carlo probe count
+    behind the measured parity envelope.  ``max_surfaces``/``max_bytes``
+    bound the host-resident LRU; ``warm_async`` builds cache-miss
+    surfaces on a background thread (the miss answers from the frontier
+    meanwhile) instead of inline.
+    """
+
+    enabled: bool = False
+    grid: tuple[float, ...] = (0.5, 1.0, 2.0, 4.0)
+    max_axes: int = 3
+    jitter: int = 8
+    max_surfaces: int = 8
+    max_bytes: int = 64 * 1024 * 1024
+    warm_async: bool = True
+
+    def __post_init__(self):
+        for name in ("max_axes", "max_surfaces", "max_bytes"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(
+                    f"SurfaceConfig.{name}={v!r}: must be an int >= 1")
+        if not isinstance(self.jitter, int) or isinstance(self.jitter, bool) \
+                or self.jitter < 0:
+            raise ValueError(
+                f"SurfaceConfig.jitter={self.jitter!r}: must be an int >= 0")
+        grid = tuple(float(g) for g in self.grid)
+        if len(grid) < 2 or list(grid) != sorted(set(grid)) or grid[0] <= 0:
+            raise ValueError(
+                f"SurfaceConfig.grid={self.grid!r}: must be >= 2 strictly-"
+                "increasing positive scales")
 
 
 @dataclasses.dataclass(frozen=True)

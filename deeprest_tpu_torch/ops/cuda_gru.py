@@ -64,14 +64,22 @@ Dispatch and plain versions:
 - ``GRU_FWD.launches``, ``GRU_FWD_TRAIN.launches``, ``GRU_BWD.launches``
   and ``GRU_FWD_BLOCKED.launches`` count kernel launches, one per wrapper
   call (``KERNELS``; ``MODEL_KERNELS`` are the three a model call can
-  launch, which the CLI reports).
+  launch, which the CLI reports).  A call on a stream that is capturing a
+  CUDA graph inside :func:`held_launches` launches nothing: it is held in
+  that capture's tally, and the graph's ledger adds it per replay
+  (``train/graphs.py``, ``serve/graphs.py``).  The tally is keyed by the
+  stream, not the thread, since autograd runs a captured backward on its
+  own thread but on the forward's stream.  Counts move under
+  ``LAUNCH_LOCK``, since serving threads replay graphs concurrently.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
+import threading
 
 import torch
 
@@ -118,6 +126,24 @@ GRU_BWD = CudaKernel(GRU_BWD_SOURCE, "gru_bwd")
 GRU_FWD_BLOCKED = CudaKernel(GRU_FWD_BLOCKED_SOURCE, "gru_fwd_blocked")
 MODEL_KERNELS = (GRU_FWD, GRU_FWD_TRAIN, GRU_BWD)   # what a model call runs
 KERNELS = MODEL_KERNELS + (GRU_FWD_BLOCKED,)
+
+LAUNCH_LOCK = threading.Lock()
+_HELD: dict[int, dict] = {}      # capturing stream handle -> its tally
+
+
+@contextlib.contextmanager
+def held_launches(stream: torch.cuda.Stream):
+    """Tally, instead of counting, the launches recorded on ``stream``
+    while it captures a CUDA graph; yields ``{kernel: n}``.  Launches on
+    other streams, and replays, go on counting."""
+    tally: dict = {}
+    with LAUNCH_LOCK:
+        _HELD[stream.cuda_stream] = tally
+    try:
+        yield tally
+    finally:
+        with LAUNCH_LOCK:
+            _HELD.pop(stream.cuda_stream, None)
 
 
 def kernel_io_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -565,7 +591,12 @@ def _launch(kernel: CudaKernel, fn: str, proj: torch.Tensor, *args) -> None:
     with torch.cuda.device(proj.device):
         stream = torch.cuda.current_stream(proj.device).cuda_stream
         err = getattr(lib, fn)(*args, stream)
-        kernel.launches += 1
+        with LAUNCH_LOCK:
+            held = _HELD.get(stream)
+            if held is not None:
+                held[kernel] = held.get(kernel, 0) + 1
+            else:
+                kernel.launches += 1
     if err != 0:
         raise RuntimeError(
             f"{fn} launch failed with CUDA error {err} at proj shape "

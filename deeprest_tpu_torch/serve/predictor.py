@@ -3,12 +3,16 @@
 
 Everything a consumer needs — params, model config, normalization
 statistics, metric names — is restored from one checkpoint directory, so
-serving cannot drift from training state.
+serving cannot drift from training state.  On CUDA both serving programs,
+the shape ladder's model apply and the fused engine's page program, run
+as captured CUDA graphs, one per rung (serve/graphs.py); :meth:`warm`
+captures them all up front.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from deeprest_tpu_torch.models.qrnn import QuantileGRU
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.serve.batcher import BatchedBackendMixin
 from deeprest_tpu_torch.serve.fused import FusedInferenceMixin
+from deeprest_tpu_torch.serve.graphs import PinnedStaging, RungGraphs
 
 
 def rolled_prediction_reference(
@@ -82,7 +87,10 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
 
     ``recurrence`` replaces the device dispatch of the GRU recurrence, as
     the Trainer's does (pass ``ops.cuda_gru.gru_recurrence_reference`` to
-    serve through the plain version on a CUDA device).
+    serve through the plain version on a CUDA device).  ``cuda_graphs``
+    False runs both serving programs eagerly on CUDA, the engine the
+    captured graphs are held against.  ``coalesce_groups`` adds the
+    ladder's super-rungs (serve/batcher.py).
     """
 
     def __init__(self, params, model_config: ModelConfig,
@@ -94,12 +102,16 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
                  fused: bool = True,
                  page_windows: int | None = None,
                  coalesce_pages: int | None = None,
+                 coalesce_groups: int = 1,
                  device=None,
-                 recurrence: Recurrence | None = None):
+                 recurrence: Recurrence | None = None,
+                 cuda_graphs: bool = True):
         self.device = resolve_device(device)
         self.recurrence = recurrence
         self.model = QuantileGRU(model_config, device=self.device)
         self.model.load_params(params)
+        self._params_digest: str | None = None
+        self.graphs = RungGraphs(self.device, enabled=cuda_graphs)
         self.x_stats = x_stats
         self.y_stats = y_stats
         self.metric_names = list(metric_names)
@@ -110,7 +122,11 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
         # [E] bool: metrics predicted as per-bucket increments
         self.delta_mask = (np.asarray(delta_mask, bool)
                            if delta_mask is not None else None)
-        self._init_batching(self._apply_numpy, ladder=ladder)
+        self._init_batching(self._apply_numpy, ladder=ladder,
+                            coalesce_groups=coalesce_groups)
+        self._apply_staging = PinnedStaging(self.device, {"x": (
+            (self.ladder.max_rung, self.window_size, self.feature_dim),
+            torch.float32)})
         self._init_fused(self._apply, enabled=fused,
                          page_windows=page_windows,
                          coalesce_pages=coalesce_pages)
@@ -120,7 +136,72 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
             return self.model(x, recurrence=self.recurrence)
 
     def _apply_numpy(self, x: np.ndarray) -> torch.Tensor:
-        return self._apply(torch.from_numpy(x).to(self.device))
+        """One ladder rung, ``[r, W, F]`` normalized windows, through the
+        rung's program: staged in a pinned slot, returned as the caller's
+        own device tensor (a clone of the graph's static output on
+        CUDA)."""
+        r = len(x)
+        with self.graphs.lock, torch.inference_mode():
+            slot = self._apply_staging.take()
+            slot["x"][:r].numpy()[...] = x
+            (y,) = self.graphs.run(("apply", r), self._apply,
+                                   (slot["x"][:r],), staged=slot)
+            return y.clone() if self.graphs.captured else y
+
+    def warm(self) -> dict:
+        """Run every rung of both serving programs once (each ladder rung's
+        apply; each fused rung per ``integrate`` program in use): on CUDA
+        every graph is captured here, and a capture after this counts in
+        ``captures_after_warmup``.  Returns the graphs' stats."""
+        w, f = self.window_size, self.feature_dim
+        for rung in self.ladder.ladder:
+            self._apply_numpy(np.zeros((rung, w, f), np.float32))
+        if self._fused is not None:
+            self._fused.warm(f)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.graphs.mark_warm()
+        return self.graphs.stats()
+
+    def params_digest(self) -> str:
+        """Stable fingerprint of the served params — the ``params_hash``
+        half of the capacity-surface cache key (serve/surface.py): sha1
+        over the stored leaves in the JAX package's flatten order (sorted
+        names) and stored dtypes, so it equals the JAX ``Predictor``'s on
+        the same checkpoint.  Computed once per predictor (one readback of
+        every leaf) and cached."""
+        if self._params_digest is None:
+            h = hashlib.sha1()
+            params = self.model.params()
+            for name in sorted(params):
+                raw = params[name].detach().reshape(-1).view(torch.uint8)
+                h.update(raw.cpu().numpy().tobytes())
+            self._params_digest = h.hexdigest()[:16]
+        return self._params_digest
+
+    def jit_cache_size(self) -> int | None:
+        """Captured CUDA graphs across both serving programs (the ladder's
+        apply and the fused pipeline): the port's count behind the JAX
+        name, the compiled-executable count of its jit caches.  On the CPU,
+        where nothing is captured, the (program, rung) keys dispatched."""
+        return self.graphs.size()
+
+    def jit_cache_stats(self) -> dict:
+        """Per-program graph counts (keys dispatched on the CPU), the rung
+        sets bounding them, and the capture ledger."""
+        g = self.graphs.stats()
+        return {
+            "apply": self.graphs.size("apply"),
+            "apply_sparse": None,
+            "fused": (self.graphs.size("fused")
+                      if self._fused is not None else None),
+            "ladder_rungs": len(self.ladder.ladder),
+            "fused_rungs": (len(self._fused.rungs)
+                            if self._fused is not None else 0),
+            "quant": "off",
+            "captures": g["captures"], "replays": g["replays"],
+            "captures_after_warmup": g["captures_after_warmup"],
+        }
 
     @property
     def model_config(self) -> ModelConfig:
@@ -152,9 +233,10 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
                         fused: bool = True,
                         page_windows: int | None = None,
                         coalesce_pages: int | None = None,
+                        coalesce_groups: int = 1,
                         device=None,
-                        recurrence: Recurrence | None = None
-                        ) -> "Predictor":
+                        recurrence: Recurrence | None = None,
+                        cuda_graphs: bool = True) -> "Predictor":
         """Restore params and host state from a ``deeprest-sharded-v1``
         checkpoint; the architecture comes from the sidecar's
         ``model_config`` with ``feature_dim`` and ``num_metrics`` taken from
@@ -187,5 +269,5 @@ class Predictor(BatchedBackendMixin, FusedInferenceMixin):
             space_dict=extra.get("space"),
             delta_mask=extra.get("delta_mask"),
             ladder=ladder, fused=fused, page_windows=page_windows,
-            coalesce_pages=coalesce_pages, device=device,
-            recurrence=recurrence)
+            coalesce_pages=coalesce_pages, coalesce_groups=coalesce_groups,
+            device=device, recurrence=recurrence, cuda_graphs=cuda_graphs)

@@ -17,32 +17,25 @@ replay:
   the same code runs eagerly (the CPU, ``steps_per_superstep=1``) and
   inside a graph.
 - :func:`capture_update` records one update on a side stream into a
-  :class:`CapturedUpdate`.  The caller runs the update eagerly first (the
+  ``CapturedGraph`` (``deeprest_tpu_torch/graphs.py``, shared with the
+  serving plane's rung graphs).  The caller runs the update eagerly first (the
   run's real first update, which builds the kernels and the optimizer's
   state), keeps the gradients allocated (they live in the graph's pool
   across replays), builds Adam with ``capturable=True`` and registers its
-  dropout generator.  A failed capture raises :class:`GraphCaptureError`
+  dropout generator.  A failed capture raises ``GraphCaptureError``
   naming the source line of the failing op; it never falls back to the
-  eager loop.
-- The launch ledger: a kernel wrapper counts its launch on the host when it
-  is called, which under capture is once, not once per replay.  So a
-  capture records how many launches of each kernel the graph holds, takes
-  them back off the counts, and :meth:`CapturedUpdate.replay` adds them
-  per replay.
+  eager loop.  A replay adds the graph's kernel launches to their counts
+  (the launch ledger).
 """
 
 from __future__ import annotations
 
-import os
-import traceback
 from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
-
-class GraphCaptureError(RuntimeError):
-    """The capture of an optimizer update failed."""
+from deeprest_tpu_torch.graphs import CapturedGraph, capture
 
 
 class EpochPlan:
@@ -91,72 +84,12 @@ class EpochPlan:
         return self.losses.reshape(-1)[lo:hi].cpu().numpy().copy()
 
 
-class CapturedUpdate:
-    """A captured optimizer update and the kernel launches it holds."""
-
-    def __init__(self, graph: torch.cuda.CUDAGraph, launches: dict):
-        self.graph = graph
-        self.launches = launches        # kernel -> launches per replay
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for kernel, count in self.launches.items():
-            kernel.launches += count
-
-
-def _failing_op(exc: BaseException) -> str:
-    """``file:line (function: source)`` of the innermost frame of the
-    port's code in ``exc``'s traceback (of any frame if none is the
-    port's)."""
-    frames = traceback.extract_tb(exc.__traceback__)
-    ours = [f for f in frames if "deeprest_tpu_torch" in f.filename]
-    frame = (ours or frames)[-1] if frames else None
-    if frame is None:
-        return "an unknown op"
-    return (f"{os.path.basename(frame.filename)}:{frame.lineno} "
-            f"({frame.name}: {(frame.line or '').strip()})")
-
-
 def capture_update(body: Callable[[], None], device: torch.device,
-                   kernels: Iterable,
                    generators: Iterable[torch.Generator] = ()
-                   ) -> CapturedUpdate:
+                   ) -> CapturedGraph:
     """Capture ``body`` (one optimizer update, already run eagerly once)
-    into a CUDA graph on a side stream of ``device``.  ``generators`` are
-    registered with the graph, so a replay draws from each one's offset
-    at replay time and advances it as an eager call would.  ``kernels``
-    are the counted kernel wrappers whose launches the ledger moves from
-    capture to replay.  Raises :class:`GraphCaptureError` if the capture
-    fails."""
-    kernels = list(kernels)
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    before = {k: k.launches for k in kernels}
-    torch.cuda.synchronize(device)
-    stream = torch.cuda.Stream(device=device)
-    stream.wait_stream(torch.cuda.current_stream(device))
-    failed = None
-    try:
-        with torch.cuda.stream(stream):
-            graph.capture_begin()
-            try:
-                body()
-            except Exception as exc:  # reported below, after the capture ends
-                failed = exc
-            finally:
-                try:
-                    graph.capture_end()
-                except Exception as exc:
-                    failed = failed or exc
-    finally:
-        held = {k: k.launches - before[k] for k in kernels}
-        for k in kernels:
-            k.launches = before[k]
-    torch.cuda.current_stream(device).wait_stream(stream)
-    if failed is not None:
-        raise GraphCaptureError(
-            f"CUDA-graph capture of one optimizer update failed at "
-            f"{_failing_op(failed)}: {type(failed).__name__}: {failed}"
-        ) from failed
-    return CapturedUpdate(graph, {k: n for k, n in held.items() if n})
+    into a CUDA graph on a side stream of ``device``; see
+    ``deeprest_tpu_torch/graphs.py``.  Raises ``GraphCaptureError`` if
+    the capture fails."""
+    graph, _ = capture(body, device, "one optimizer update", generators)
+    return graph

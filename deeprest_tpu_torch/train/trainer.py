@@ -59,17 +59,15 @@ import torch
 
 from deeprest_tpu_torch.config import Config
 from deeprest_tpu_torch.device import resolve_device
+from deeprest_tpu_torch.graphs import CapturedGraph
 from deeprest_tpu_torch.models.qrnn import (
     MASK_PARAM_NAMES, MASKED_PARAM_NAMES, QuantileGRU, fold_feature_mask,
     init_params,
 )
-from deeprest_tpu_torch.ops.cuda_gru import KERNELS
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.ops.quantile import pinball_loss
 from deeprest_tpu_torch.train.data import DatasetBundle, eval_window_indices
-from deeprest_tpu_torch.train.graphs import (
-    CapturedUpdate, EpochPlan, capture_update,
-)
+from deeprest_tpu_torch.train.graphs import EpochPlan, capture_update
 from deeprest_tpu_torch.train.metrics import Throughput, mae_report
 
 # Philox offsets between the dropout streams of two consecutive steps: far
@@ -88,7 +86,7 @@ class TrainState:
     model: QuantileGRU
     optimizer: torch.optim.Adam
     plan: EpochPlan | None = None
-    graph: CapturedUpdate | None = None
+    graph: CapturedGraph | None = None
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -459,8 +457,7 @@ class Trainer:
         with torch.cuda.stream(side):
             body()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        state.graph = capture_update(body, self.device, KERNELS,
-                                     [self._generator])
+        state.graph = capture_update(body, self.device, [self._generator])
         self.captures += 1
 
     def train_epoch(self, state: TrainState, bundle: DatasetBundle,

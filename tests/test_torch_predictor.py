@@ -232,8 +232,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 38 else 0)\n")
+        "need = {'graphs', 'obs', 'obs.metrics', 'obs.spans', "
+        "'obs.export', 'serve.batcher', 'serve.graphs', 'serve.surface', "
+        "'serve.server'}\n"
+        "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 44 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -30,8 +30,9 @@ from deeprest_tpu.train.trainer import Trainer as JaxTrainer
 from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
 from deeprest_tpu_torch.data.featurize import CallPathSpace, FeaturizedData
 from deeprest_tpu_torch.interop import params_from_jax
-from deeprest_tpu_torch.train import graphs
+from deeprest_tpu_torch import graphs
 from deeprest_tpu_torch.train.data import prepare_dataset
+from deeprest_tpu_torch.train.graphs import EpochPlan
 from deeprest_tpu_torch.train.trainer import Trainer
 
 TRAIN = dict(num_epochs=2, batch_size=16, window_size=12, eval_stride=12,
@@ -165,7 +166,7 @@ def test_log_lines_come_from_one_readback_per_superstep(corpus, init_params,
 
 
 def test_epoch_plan_buffers_take_and_put():
-    plan = graphs.EpochPlan(3, 2, 4, torch.device("cpu"))
+    plan = EpochPlan(3, 2, 4, torch.device("cpu"))
     starts = np.arange(24).reshape(6, 4)
     weights = np.ones((6, 4), np.float32)
     weights[5] = 0
@@ -195,7 +196,7 @@ class _Graph:
 
 def test_launch_ledger_counts_replays():
     k2, k3 = _Kernel(), _Kernel()
-    update = graphs.CapturedUpdate(_Graph(), {k2: 2, k3: 2})
+    update = graphs.CapturedGraph(_Graph(), {k2: 2, k3: 2})
     for _ in range(5):
         update.replay()
     assert (k2.launches, k3.launches) == (10, 10)
