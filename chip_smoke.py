@@ -56,7 +56,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 7. raw telemetry to what-if answers and anomaly verdicts, through the
    port's CLI alone, at the width of the reference's own deployment (the
    social network: F=128 from 60 call paths, E=88, H=128, bf16):
-   `simulate` 720 minutes of the normal scenario (seed 0), `featurize`,
+   `simulate` 360 minutes of the normal scenario (seed 0), `featurize`,
    `train` 2 epochs at B=32, T=60 with both baselines (K2 and K3 launched
    twice per step, the report's resrc and comp columns); `whatif` of the
    sample's mean mix over a day of minutes swept at 0.5, 1, 2 and 4 (the
@@ -104,11 +104,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    on from the same params (dropout 0); then `python -m
    deeprest_tpu_torch.benchmarks.kernel_tuning --quick`, its JSON printed
    on one line;
-10. the seconds of each phase, one JSON line of per-kernel numbers, then
+10. the 10k-endpoint sparse feed, quantized and exported serving, at
+    full width (F=10,240 hashed call-path columns, E=40, H=128, bf16,
+    K=64): a seeded day (1,440 x 10,240, 4-31 nonzero columns a row)
+    through `train --sparse-feed --sparse-nnz-cap 64` for 2 epochs (K2 =
+    K3 = 2 x steps); in-process 2 x 10 captured steps with the sparse feed
+    against the dense feed from the same params (dropout 0: per-step losses
+    equal); predict_series_many_sparse on 16 one-day series (384 windows)
+    against predict_series_many of a dense predictor (bit-identical;
+    windows/s in turns, host-to-device bytes a page, the busy share; the
+    day against the host loop over the plain recurrence, 2e-2 of scale);
+    int8 and bf16 on phase 5's flagship checkpoint (`predict --quant
+    int8` too) and on the 10k one (envelope written, re-read and re-gated,
+    weight bytes, a hand-tightened envelope raising QuantParityError,
+    windows/s per mode in turns); `export` of the flagship checkpoint (the
+    graph holds the gru_fwd operator and no plain-recurrence op) and
+    `serve --artifact` in its own process (/v1/predict on the day
+    bit-identical to the in-process predictor, K1 launched); one
+    /v1/predict of 60 x 10,240 through `serve --sparse-feed` equal to the
+    in-process sparse answer;
+11. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8 and the sweep of 9; a server process starts at 0) and read just
+7, 8, 10 and the sweep of 9; a server process starts at 0) and read just
 after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -146,7 +165,7 @@ TUNE_RAGGED = dict(E=4, T=12, B=37, H=128)
 F, W, DAY = 512, 60, 1440
 CORPUS_MINUTES = 3 * DAY
 RESOURCES = ("cpu", "memory", "wiops", "wthroughput", "usage")
-RAW_BUCKETS = 720                   # simulated social-network minutes
+RAW_BUCKETS = 360                   # simulated social-network minutes
 RAW_ANOMALY_BUCKETS = 240
 ANOMALY_WINDOW = (100, 160)
 SYNTH_BUCKETS = 120                 # the what-if synthesizer's sample
@@ -576,27 +595,28 @@ def device_rows(prof) -> list:
     return sorted((r for r in rows if r[0] > 0), reverse=True)
 
 
-def profile_what_if(pred, series):
+def profile_what_if(pred, series, call=None, label: str = "what-if"):
     """Where the what-if call's time goes: device time by kernel name and
     the device's busy share of the call's wall time, from torch.profiler
-    over one more predict_series_many call; returns (wall ms, busy ms), or
-    None when the profiler saw no device time."""
+    over one more predict_series_many call (or ``call(series)``); returns
+    (wall ms, busy ms), or None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    call = call or pred.predict_series_many
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict_series_many(series)
+        call(series)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     if not rows:
-        print("profile what-if: the profiler saw no device time "
+        print(f"profile {label}: the profiler saw no device time "
               "(device breakdown not measured)", flush=True)
         return None
-    print(f"profile what-if: wall {wall_us / 1e3:.3f} ms, device busy "
+    print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} % of wall)",
           flush=True)
     for dev_us, count, key in rows[:8]:
@@ -1482,16 +1502,27 @@ def request_breakdown(pred, bodies: list) -> dict:
     return ms
 
 
-def start_server(args: list, log_path: str, timeout: float = 300.0):
+def spawn_server(args: list, log_path: str):
     """``python -m deeprest_tpu_torch serve ARGS --port 0`` in its own
-    process, output to ``log_path``; returns (process, startup JSON) once
-    it listens."""
+    process, output to ``log_path``; returns the process at once."""
     env = dict(os.environ, PYTHONPATH=REPO)
     with open(log_path, "w", encoding="utf-8") as log:
-        proc = subprocess.Popen(
+        return subprocess.Popen(
             [sys.executable, "-m", "deeprest_tpu_torch", "serve",
              *map(str, args), "--port", "0"], cwd=REPO, env=env,
             stdout=log, stderr=subprocess.STDOUT, text=True)
+
+
+def start_server(args: list, log_path: str, timeout: float = 300.0):
+    """:func:`spawn_server`, then :func:`wait_listening`."""
+    return wait_listening(spawn_server(args, log_path), args, log_path,
+                          timeout)
+
+
+def wait_listening(proc, args: list, log_path: str,
+                   timeout: float = 300.0):
+    """(process, startup JSON) once the server listens; the process is
+    killed and the run fails if it does not."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         with open(log_path, encoding="utf-8") as log:
@@ -1949,6 +1980,455 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
     return result
 
 
+TENK_F, TENK_K = 10240, 64          # bench.py:37-39, tenk_bench.py:44-46
+TENK_SCALES = 16                    # one-day series of the serving check
+# 10 steps of B=32 in an epoch: int((1,440 - 60) x 0.2320) = 320 windows
+TENK_SPLIT_10_STEPS = 0.2320
+
+
+def tenk_corpus(path: str) -> str:
+    """One seeded day at the 10k-endpoint width: 1,440 x 10,240 hashed
+    call-path counts, each row 4 to 31 nonzero columns of counts 1-199
+    (``benchmarks/tenk_bench.py::_synthetic_sparse_rows``), and 40 resource
+    series as :func:`flagship_corpus` makes them.  Written with the port's
+    FeaturizedData and a hashed CallPathSpace; returns the file's path."""
+    import numpy as np
+
+    from deeprest_tpu_torch.data.featurize import CallPathSpace, FeaturizedData
+
+    rng = np.random.default_rng(SEED)
+    traffic = np.zeros((DAY, TENK_F), np.float32)
+    for row in traffic:
+        n = int(rng.integers(4, TENK_K // 2))
+        cols = rng.choice(TENK_F, size=n, replace=False)
+        row[cols] = rng.integers(1, 200, size=n)
+    resources = {}
+    for i in range(TRAIN["E"]):
+        res = RESOURCES[i % len(RESOURCES)]
+        w = rng.uniform(0.0, 1.0, TENK_F) * (rng.random(TENK_F) < 0.2)
+        level = traffic @ w
+        level = level + rng.normal(0.0, 0.05 * level.std(), DAY)
+        if res == "usage":
+            level = np.cumsum(np.abs(level)) / DAY
+        resources[f"comp{i // len(RESOURCES)}_{res}"] = level.astype(
+            np.float32)
+    space = {"config": {"capacity": TENK_F, "round_to": 128,
+                        "hash_features": True, "hash_seed": 0x5EED},
+             "vocabulary": [], "frozen_capacity": TENK_F}
+    return FeaturizedData(traffic=traffic, resources=resources,
+                          invocations={},
+                          space=CallPathSpace.from_dict(space)).save(path)
+
+
+def tenk_training(cuda_gru, data) -> dict:
+    """10 captured steps a feed, two epochs, sparse against dense from
+    the same seeded params (dropout 0): per-step losses must be equal, as
+    the densify is bit-exact.  Returns steady-state steps/s per feed."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.train.data import prepare_dataset
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    params = None
+    out = {}
+    for feed in ("sparse", "dense"):
+        cfg = Config(
+            model=ModelConfig(hidden_size=TRAIN["H"], dropout_rate=0.0,
+                              compute_dtype="bfloat16"),
+            train=TrainConfig(batch_size=TRAIN["B"], window_size=W,
+                              train_split=TENK_SPLIT_10_STEPS,
+                              steps_per_superstep=10,
+                              sparse_feed=feed == "sparse",
+                              sparse_nnz_cap=TENK_K))
+        bundle = prepare_dataset(data, cfg.train)
+        trainer = Trainer(cfg, TENK_F, bundle.metric_names, device="cuda")
+        if params is None:
+            params = init_params(trainer.model_config, seed=SEED)
+        staged = trainer.stage_dataset(bundle)
+        staged_bytes = (sum(t.numel() * t.element_size() for t in (
+            staged[0].cols, staged[0].vals)) if feed == "sparse"
+            else staged[0].numel() * staged[0].element_size())
+        state = trainer.init_state(params)
+        rng = np.random.default_rng(SEED)
+        losses = []
+        for _ in range(2):
+            state, _ = trainer.train_epoch(state, bundle, rng, staged)
+            losses.append(trainer.last_epoch_losses)
+        out[feed] = {"losses": np.concatenate(losses),
+                     "steps_per_s": trainer.throughput.steps_per_sec,
+                     "captures": trainer.captures,
+                     "replays": trainer.replays,
+                     "staged_x_bytes": staged_bytes}
+        if feed == "sparse":
+            out[feed]["busy_pct"] = profile_train_steps(
+                "tenk train sparse feed, one epoch of 10 replays",
+                lambda: trainer.train_epoch(state, bundle, rng, staged), 10)
+        print(f"tenk train {feed} feed: {len(out[feed]['losses'])} steps "
+              f"(S=10, {trainer.captures} capture, {trainer.replays} "
+              f"replays), steady-state {out[feed]['steps_per_s']:.2f} "
+              f"steps/s, staged traffic {staged_bytes} bytes", flush=True)
+        del state, staged, trainer, bundle
+        free_device()
+    a, b = out["sparse"]["losses"], out["dense"]["losses"]
+    print(f"check tenk train sparse vs dense feed: per-step losses equal "
+          f"{np.array_equal(a, b)} (max |diff| "
+          f"{float(np.abs(a - b).max()):.3e}); first {a[:3].tolist()}",
+          flush=True)
+    if not np.isfinite(a).all() or not np.array_equal(a, b):
+        fail("the sparse feed's training losses differ from the dense "
+             "feed's")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "losses"}
+            for k, v in out.items()}
+
+
+def free_device() -> None:
+    """Drop unreachable predictors (their engines and graphs refer back to
+    them) and hand their memory, graph pools included, back to the
+    card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def timed_many(call, args) -> float:
+    """Seconds of one call, the device drained after it."""
+    import torch
+
+    t0 = time.perf_counter()
+    call(args)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def tenk_serving(cuda_gru, ckpt: str, traffic) -> dict:
+    """The 16-series call (384 windows) at F=10240 through the sparse
+    entry of a sparse-feed predictor and the dense entry of a dense one:
+    bit-identical; windows/s in turns, host-to-device bytes a page, the
+    device busy share; the day against the host loop over the plain
+    recurrence."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.ops.densify import sparsify_rows
+    from deeprest_tpu_torch.serve.fused import plan_windows
+    from deeprest_tpu_torch.serve.predictor import (
+        Predictor, rolled_prediction_reference,
+    )
+
+    sp = Predictor.from_checkpoint(ckpt, sparse_feed=True,
+                                   sparse_nnz_cap=TENK_K, device="cuda")
+    t0 = time.perf_counter()
+    warm = sp.warm()
+    warm_s = time.perf_counter() - t0
+    sparse_graphs = sp.graphs.size("sparse")
+    dp = Predictor.from_checkpoint(ckpt, device="cuda")
+    dp.warm()
+    scales = np.linspace(0.5, 2.0, TENK_SCALES).astype(np.float32)
+    scales[0] = 1.0
+    series = [traffic * s for s in scales]
+    coo = [sparsify_rows(x, TENK_K)[:2] for x in series]
+    n_windows = len(plan_windows([len(x) for x in series], W))
+    runs = {"sparse": [], "dense": []}
+    got = want = None
+    for entry in ("sparse", "dense", "dense", "sparse"):
+        if entry == "sparse":
+            t = timed_many(lambda c: sp.predict_series_many_sparse(c), coo)
+            got = sp.predict_series_many_sparse(coo)
+        else:
+            t = timed_many(lambda x: dp.predict_series_many(x), series)
+            want = dp.predict_series_many(series)
+        runs[entry].append(n_windows / t)
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    page = sp.fused.rungs[-1]
+    h2d = {"sparse": page * W * TENK_K * 8, "dense": page * W * TENK_F * 4}
+    print(f"tenk serve: {TENK_SCALES} one-day series, {n_windows} windows; "
+          f"windows/s in turns sparse {runs['sparse'][0]:.1f}, dense "
+          f"{runs['dense'][0]:.1f}, dense {runs['dense'][1]:.1f}, sparse "
+          f"{runs['sparse'][1]:.1f}; host-to-device bytes a {page}-window "
+          f"page: sparse {h2d['sparse']}, dense {h2d['dense']} "
+          f"({h2d['dense'] / h2d['sparse']:.1f}x)", flush=True)
+    print(f"check tenk serve sparse entry vs dense entry: bit-identical "
+          f"{same}; sparse graphs captured at warm-up {sparse_graphs} "
+          f"({warm['captures']} in all, {warm_s:.2f} s), after "
+          f"{sp.jit_cache_stats()['captures_after_warmup']}; fused stats "
+          f"sparse_pages {sp.fused.stats()['sparse_pages']}", flush=True)
+    if not same:
+        fail("sparse served predictions differ from the dense ones")
+    if not sparse_graphs or sp.jit_cache_stats()["captures_after_warmup"]:
+        fail("the sparse programs were not all captured at warm-up")
+    busy = {}
+    for entry, call, arg in (("sparse", sp.predict_series_many_sparse, coo),
+                             ("dense", dp.predict_series_many, series)):
+        prof = profile_what_if(None, arg, call=call, label=f"tenk {entry}")
+        busy[entry] = (None if prof is None
+                       else round(100 * prof[1] / prof[0], 1))
+    model = dp.model
+
+    def plain_apply(x):
+        with torch.inference_mode():
+            return model(torch.from_numpy(x).cuda(),
+                         recurrence=cuda_gru.gru_recurrence_reference
+                         ).cpu().numpy()
+
+    delta = dp.delta_mask
+    ref = rolled_prediction_reference(
+        plain_apply, dp.x_stats, dp.y_stats, W, traffic, delta_mask=delta,
+        median_index=dp.median_index())
+    errs = {}
+    for cols, name in ((~delta, "non-delta"), (delta, "delta")):
+        diff = np.abs(got[0][:, cols] - ref[:, cols]).max()
+        errs[name] = float(diff / np.abs(ref[:, cols]).max())
+    print(f"check tenk serve day vs host loop over the plain recurrence: "
+          f"max_err/max|ref| {errs} (tol {TOL['bfloat16'][0]})", flush=True)
+    if max(errs.values()) > TOL["bfloat16"][0] or not np.isfinite(
+            got[0]).all():
+        fail("the 10k sparse day disagrees with the host loop")
+    one_hour = sp.predict_series(traffic[:W])
+    return {"sparse_windows_per_s": runs["sparse"],
+            "dense_windows_per_s": runs["dense"], "h2d_page_bytes": h2d,
+            "busy_pct": busy, "sparse_graphs": sparse_graphs,
+            "ref_err": errs, "one_hour": one_hour}
+
+
+def quant_checks(cuda_gru, ckpt: str, label: str, day) -> dict:
+    """int8 and bf16 from ``ckpt``: the envelope file written at the
+    first load and re-read and re-gated at a second; weight bytes against
+    "off"; the day's served deviation from "off" next to the budget."""
+    import numpy as np
+
+    from deeprest_tpu_torch.ops import quantize as quant_ops
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    off = Predictor.from_checkpoint(ckpt, device="cuda")
+    base = off.predict_series(day)
+    out = {"off_bytes": quant_ops.weight_bytes(off.params)}
+    y_rg = np.maximum(np.asarray(off.y_stats.range, np.float32).reshape(
+        1, -1, 1), 1e-12)
+    delta = off.delta_mask
+    del off
+    free_device()
+    for mode in ("int8", "bf16"):
+        path = Predictor._quant_envelope_path(ckpt, mode)
+        first = Predictor.from_checkpoint(ckpt, quant=mode, device="cuda")
+        written = os.path.exists(path)
+        second = Predictor.from_checkpoint(ckpt, quant=mode, device="cuda")
+        with open(path, encoding="utf-8") as fh:
+            stored = json.load(fh)
+        env = second.parity_envelope
+        worst = max(env["measured"].values())
+        cap = max(stored["budget"].values())
+        rel = np.abs(second.predict_series(day) - base) / y_rg
+        dev = {"non-delta": float(rel[:, ~delta].max()),
+               "delta": float(rel[:, delta].max())}
+        wb = quant_ops.weight_bytes(second.params)
+        print(f"check quant {label} {mode}: envelope file written "
+              f"{written}, re-gated on a second load (budget equal "
+              f"{env['budget'] == stored['budget']}); probe max |quant - "
+              f"f32| {worst:.3e} within budget max {cap:.3e}; served day "
+              f"max deviation from off, of each metric's y range, "
+              f"{ {k: float(f'{v:.3e}') for k, v in dev.items()} } (delta "
+              "columns integrate a day of increments); "
+              f"weight bytes {wb} vs off {out['off_bytes']} "
+              f"({out['off_bytes'] / wb:.2f}x fewer)", flush=True)
+        if not written or env["budget"] != stored["budget"] or \
+                quant_ops.check_envelope(env["measured"], stored["budget"]):
+            fail(f"{label} {mode}: the envelope was not written, re-read "
+                 "and met")
+        if not np.isfinite(list(dev.values())).all():
+            fail(f"{label} {mode}: non-finite quantized predictions")
+        out[mode] = {"probe_max": worst, "budget_max": cap,
+                     "day_dev": dev, "weight_bytes": wb}
+        del first, second
+        free_device()
+    return out
+
+
+def tightened_envelope_raises(ckpt: str) -> None:
+    """A hand-tightened stored budget (a quarter of each measured cell)
+    must make the next int8 load raise QuantParityError."""
+    from deeprest_tpu_torch.ops.quantize import QuantParityError
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    path = Predictor._quant_envelope_path(ckpt, "int8")
+    with open(path, encoding="utf-8") as fh:
+        original = fh.read()
+    env = json.loads(original)
+    env["budget"] = {k: v / 4 for k, v in env["measured"].items()}
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(env, fh)
+    try:
+        Predictor.from_checkpoint(ckpt, quant="int8", device="cuda")
+    except QuantParityError as exc:
+        print(f"check quant tightened envelope: QuantParityError "
+              f"({str(exc)[:120]}...)", flush=True)
+    else:
+        fail("a hand-tightened envelope did not raise QuantParityError")
+    finally:
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(original)
+
+
+def phase_tenk(cuda_gru, flagship: dict, workdir: str) -> dict:
+    """The 10k-endpoint sparse feed, quantized and exported serving:
+    `train --sparse-feed` at F=10240, sparse against dense training and
+    serving, int8 and bf16 on the flagship and 10k checkpoints, `export`
+    then `serve --artifact`, and one 10k request through `serve
+    --sparse-feed`."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.serve.export import GRU_OP, graph_ops
+    from deeprest_tpu_torch.serve.fused import plan_windows
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    wd = os.path.join(workdir, "tenk")
+    os.makedirs(wd, exist_ok=True)
+    t0 = time.perf_counter()
+    feats = tenk_corpus(os.path.join(wd, "tenk.npz"))
+    data = FeaturizedData.load(feats)
+    print(f"tenk corpus: {DAY} x {TENK_F}, "
+          f"{int((data.traffic != 0).sum(1).max())} nonzero columns in the "
+          f"fullest row, written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    ckpt = os.path.join(wd, "ckpt")
+    t0 = time.perf_counter()
+    report = run_cli(["train", "--features", feats, "--epochs", 2,
+                      "--compute-dtype", "bfloat16", "--sparse-feed",
+                      "--sparse-nnz-cap", TENK_K, "--no-baselines",
+                      "--ckpt-dir", ckpt], timeout=900)
+    cli_s = time.perf_counter() - t0
+    kl = report["kernel_launches"]
+    steps = report["steps"]
+    print(f"tenk train CLI --sparse-feed: {steps} steps in {cli_s:.2f} s "
+          f"(process start, load, stage, fit), epoch losses "
+          f"{report['epoch_losses']}, {report['steps_per_sec']:.2f} "
+          f"steps/s, captures {report['captures']}, replays "
+          f"{report['replays']}, launches {kl}", flush=True)
+    losses = [v for epoch in report["step_losses"] for v in epoch]
+    if not np.isfinite(losses).all() or not losses:
+        fail("10k sparse-feed training gave non-finite losses")
+    if kl["gru_fwd_train"] != 2 * steps or kl["gru_bwd"] != 2 * steps:
+        fail(f"10k training launched K2 {kl['gru_fwd_train']} and K3 "
+             f"{kl['gru_bwd']} times for {steps} steps (want 2 each a step)")
+    train = tenk_training(cuda_gru, data)
+    serve = tenk_serving(cuda_gru, ckpt, data.traffic)
+    free_device()
+
+    # export the flagship checkpoint; both servers start while the
+    # quantized checks run
+    art = os.path.join(wd, "artifact")
+    run_cli(["export", "--ckpt-dir", flagship["ckpt"], "--out", art],
+            timeout=600)
+    program = torch.export.load(os.path.join(art, "model.pt2"))
+    ops = graph_ops(program)
+    plain_ops = sorted({o for o in ops if o.startswith(
+        ("aten.sigmoid", "aten.tanh"))})
+    print(f"check export graph: {ops.count(GRU_OP)} {GRU_OP} nodes of "
+          f"{len(ops)} calls; plain-recurrence ops {plain_ops}", flush=True)
+    if ops.count(GRU_OP) != 2 or plain_ops:
+        fail("the exported program does not run the recurrence through "
+             "the gru_fwd operator alone")
+    logs = {name: os.path.join(wd, f"serve_{name}.log")
+            for name in ("artifact", "tenk")}
+    args = {"artifact": ["--artifact", art, "--no-batcher"],
+            "tenk": ["--ckpt-dir", ckpt, "--sparse-feed", "--sparse-nnz-cap",
+                     TENK_K, "--no-batcher"]}
+    procs = {}
+    try:
+        for name in args:
+            procs[name] = spawn_server(args[name], logs[name])
+        feats512 = os.path.join(wd, "flagship.npz")
+        np.savez(feats512, traffic=flagship["traffic"])
+        cli = run_cli(["predict", "--ckpt-dir", flagship["ckpt"],
+                       "--features", feats512, "--quant", "int8", "--out",
+                       os.path.join(wd, "int8.npz")], timeout=600)
+        quant = {"flagship": quant_checks(cuda_gru, flagship["ckpt"],
+                                          "flagship", flagship["traffic"]),
+                 "tenk": quant_checks(cuda_gru, ckpt, "tenk",
+                                      data.traffic)}
+        tightened_envelope_raises(flagship["ckpt"])
+        free_device()
+        http = {}
+        for name in args:
+            _, startup = wait_listening(procs[name], args[name], logs[name])
+            http[name] = startup
+        day = flagship["traffic"]
+        inproc = Predictor.from_checkpoint(flagship["ckpt"], device="cuda")
+        want = inproc.predict_series(day)
+        status, body = http_json(http["artifact"]["listening"]
+                                 + "/v1/predict", {"traffic": day.tolist()})
+        got = np.asarray(body.get("predictions"), np.float32)
+        _, health = http_json(http["artifact"]["listening"] + "/healthz")
+        art_k1 = health["kernel_launches"]["gru_fwd"]
+        print(f"check serve --artifact: /v1/predict on the day status "
+              f"{status}, bit-identical to the in-process predictor "
+              f"{np.array_equal(got, want)}; /healthz gru_fwd launches "
+              f"{art_k1}, graphs {health['jit_cache']}", flush=True)
+        if status != 200 or not np.array_equal(got, want) or art_k1 <= 0:
+            fail("the exported artifact over HTTP differs from the "
+                 "in-process predictor or launched no K1")
+        hour = data.traffic[:W]
+        status, body = http_json(http["tenk"]["listening"] + "/v1/predict",
+                                 {"traffic": hour.tolist()})
+        got = np.asarray(body.get("predictions"), np.float32)
+        _, health = http_json(http["tenk"]["listening"] + "/healthz")
+        tenk_k1 = health["kernel_launches"]["gru_fwd"]
+        same = np.array_equal(got, serve["one_hour"])
+        print(f"check serve --sparse-feed at F={TENK_F}: /v1/predict of "
+              f"{W} x {TENK_F} status {status}, equal to the in-process "
+              f"sparse answer {same}; sparse pages "
+              f"{health['fused_infer']['sparse_pages']}, captures after "
+              f"warm-up {health['jit_cache']['captures_after_warmup']}, "
+              f"gru_fwd launches {tenk_k1}; startup seconds "
+              f"{http['tenk']['seconds']}", flush=True)
+        if status != 200 or not same or not health["fused_infer"][
+                "sparse_pages"] or health["jit_cache"][
+                    "captures_after_warmup"]:
+            fail("the 10k sparse server's answer differs from the "
+                 "in-process one or left the sparse path")
+    finally:
+        for proc in procs.values():
+            stop_server(proc)
+    del inproc
+    free_device()
+    # windows/s of the flagship 16-series call per quant mode, in turns
+    scales = np.linspace(0.5, 2.0, 16).astype(np.float32)
+    scales[0] = 1.0
+    series = [flagship["traffic"] * s for s in scales]
+    n_windows = len(plan_windows([len(x) for x in series], W))
+    preds = {m: Predictor.from_checkpoint(flagship["ckpt"], quant=m,
+                                          device="cuda")
+             for m in ("off", "int8", "bf16")}
+    rates = {m: [] for m in preds}
+    for p in preds.values():
+        p.warm()
+    for m in ("off", "int8", "bf16", "bf16", "int8", "off"):
+        rates[m].append(n_windows / timed_many(
+            preds[m].predict_series_many, series))
+    print(f"quant flagship 16-series windows/s in turns: "
+          f"{ {m: [round(r, 1) for r in v] for m, v in rates.items()} }",
+          flush=True)
+    launches = {k.name: k.launches for k in cuda_gru.MODEL_KERNELS}
+    for name in launches:
+        launches[name] += kl[name] + cli["kernel_launches"][name]
+    launches["gru_fwd"] += art_k1 + tenk_k1
+    print(f"tenk phase launches: {launches} (in-process, CLIs, servers)",
+          flush=True)
+    return {"launches": launches, "train": train,
+            "cli_steps_per_s": report["steps_per_sec"],
+            "serve": {k: v for k, v in serve.items() if k != "one_hour"},
+            "quant": quant, "quant_windows_per_s": rates}
+
+
 def at_dtype(pred, dtype: str, **kwargs):
     """``pred``'s params and host state served at compute dtype
     ``dtype`` on the card."""
@@ -2267,6 +2747,8 @@ def main() -> int:
         plane = timed("serving plane", phase_serving_plane, cuda_gru,
                       serving, raw, wd)
         del raw
+        tenk = timed("tenk sparse quant export", phase_tenk, cuda_gru,
+                     serving, wd)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)
@@ -2275,6 +2757,8 @@ def main() -> int:
     launches = dict(training["launches"])
     launches["gru_fwd"] += serving["launches"] + plane["launches"]
     for name, count in raw_launches.items():
+        launches[name] += count
+    for name, count in tenk["launches"].items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -2307,7 +2791,8 @@ def main() -> int:
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
           f"training {training['launches']}; raw telemetry to answers "
           f"{raw_launches}; serving plane gru_fwd {plane['launches']} "
-          f"(the servers' ledgers); tuning sweep {sweep['kernel_launches']}",
+          f"(the servers' ledgers); 10k sparse, quantized and exported "
+          f"{tenk['launches']}; tuning sweep {sweep['kernel_launches']}",
           flush=True)
     print(f"seconds per phase {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -9,6 +9,8 @@ subcommands, with the JAX package's flags and last JSON lines):
     python -m deeprest_tpu_torch predict    --ckpt-dir=ckpt --raw=raw.jsonl --out=preds.npz
     python -m deeprest_tpu_torch anomaly    --ckpt-dir=ckpt --raw=raw.jsonl
     python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --raw=raw.jsonl --surface --port=2021
+    python -m deeprest_tpu_torch export     --ckpt-dir=ckpt --out=artifact
+    python -m deeprest_tpu_torch serve      --artifact=artifact --port=2021
 
 ``simulate``, ``featurize``, ``ingest`` and ``synthesize`` are host-only
 and touch no device.  ``train``, ``predict``, ``whatif``, ``anomaly`` and
@@ -23,9 +25,14 @@ with snapshots on, running the same command again after a kill resumes
 from the newest cursor snapshot.  ``serve`` takes the JAX CLI's
 single-engine flags (batcher, ladder, fused inference, obs, capacity
 surfaces, ``--watch``); it captures every rung's CUDA graph before it
-listens.  Mesh, elastic remeshing, quantized serving and exported
-artifacts, the sparse feed, the verdict surface, replicas and fleets, and
-profiling are not ported, and the port's CLI does not offer them.
+listens.  ``--quant off|int8|bf16`` reaches ``predict``, ``whatif``,
+``anomaly`` and ``serve``; ``--sparse-feed`` and ``--sparse-nnz-cap``
+reach ``train`` and ``serve``.  ``export`` writes a ``torch.export``
+artifact (``serve/export.py``) that ``serve --artifact`` serves; the JAX
+package's StableHLO artifacts are refused.  Mesh, elastic remeshing,
+streaming retrain, AOT executables (``export --aot``), the verdict
+surface, replicas and fleets, and profiling are not ported, and the port's
+CLI does not offer them.
 """
 
 from __future__ import annotations
@@ -102,7 +109,35 @@ def _add_fused_infer_args(p: argparse.ArgumentParser):
                    metavar="G",
                    help="fold up to G consecutive pages into one model call "
                         "(default: 4 on CUDA, 1 on the CPU)")
+    p.add_argument("--quant", choices=("off", "int8", "bf16"),
+                   default="off",
+                   help="quantized serving weights (ops/quantize.py): int8 "
+                        "stores GRU/dense matrices per-output-channel "
+                        "symmetric int8 (~3.9x fewer weight bytes), bf16 "
+                        "halves them; dequant happens at use inside each "
+                        "rung's program, drift vs f32 is pinned by a parity "
+                        "envelope stored next to the checkpoint (violations "
+                        "raise; default off)")
     _add_device_arg(p)
+
+
+def _add_sparse_args(p: argparse.ArgumentParser, serving: bool = False):
+    where = ("the fused engine / shape ladder densifies on device"
+             if serving else
+             "the staged train feed densifies on device inside each "
+             "update")
+    p.add_argument("--sparse-feed", action="store_true",
+                   help="sparse-first traffic pipeline (the 10k-endpoint "
+                        "tier): ship per-window call-path counts as "
+                        f"padded-COO (cols, vals) pairs — {where} "
+                        "(ops/densify.py) — cutting host->device bytes "
+                        "~F/(2K) at 10k width; bit-identical to the "
+                        "dense default")
+    p.add_argument("--sparse-nnz-cap", type=int, default=64, metavar="K",
+                   help="max nonzero traffic columns per bucket under "
+                        "--sparse-feed (the padded-COO row width); a "
+                        "fatter row raises rather than dropping call "
+                        "paths (default 64)")
 
 
 def _superstep_arg(v: str):
@@ -359,6 +394,8 @@ def cmd_train(args) -> int:
                           steps_per_superstep=args.steps_per_superstep,
                           grad_accum_windows=args.grad_accum_windows,
                           grad_accum_mode=args.grad_accum_mode,
+                          sparse_feed=args.sparse_feed,
+                          sparse_nnz_cap=args.sparse_nnz_cap,
                           snapshot_every_steps=args.snapshot_every_steps,
                           snapshot_keep=args.snapshot_keep),
     )
@@ -429,13 +466,15 @@ def _predictor(args):
     try:
         infer = InferConfig(fused=not args.no_fused_infer,
                             page_windows=args.infer_page_windows,
-                            coalesce_pages=args.infer_coalesce_pages)
+                            coalesce_pages=args.infer_coalesce_pages,
+                            quant=args.quant)
     except ValueError as exc:
         sys.exit(f"error: {exc}")
     # model architecture comes from the checkpoint sidecar
     return Predictor.from_checkpoint(
         args.ckpt_dir, fused=infer.fused, page_windows=infer.page_windows,
-        coalesce_pages=infer.coalesce_pages, device=args.device)
+        coalesce_pages=infer.coalesce_pages, quant=infer.quant,
+        device=args.device)
 
 
 def _serving_traffic(args, pred) -> np.ndarray:
@@ -612,10 +651,34 @@ def cmd_anomaly(args) -> int:
     return 1 if flagged and args.fail_on_anomaly else 0
 
 
+def cmd_export(args) -> int:
+    """Checkpoint → portable inference artifact (serve/export.py): the
+    forward program traced on the CPU with ``torch.export`` and its
+    manifest.  ``--aot`` (serialized executables next to the checkpoint
+    for fleet pool admission) is not ported."""
+    if args.aot:
+        sys.exit("error: --aot is not ported yet: serialized serving "
+                 "executables belong to the fleet tier (ROADMAP queue 1, "
+                 "item 7)")
+    from deeprest_tpu_torch.serve.export import export_predictor
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    pred = Predictor.from_checkpoint(args.ckpt_dir, fused=False,
+                                     device="cpu")
+    out = export_predictor(pred, args.out)
+    print(json.dumps({
+        "out": out,
+        "metrics": len(pred.metric_names),
+        "feature_dim": pred.feature_dim,
+        "window_size": pred.window_size,
+    }))
+    return 0
+
+
 def cmd_serve(args) -> int:
-    """Serve predict / what-if / anomaly over HTTP from a checkpoint
-    (serve/server.py), with cross-request micro-batching on by default
-    (serve/batcher.py; disable with --no-batcher).  Every rung graph is
+    """Serve predict / what-if / anomaly over HTTP from a checkpoint or an
+    exported artifact (serve/server.py), with cross-request micro-batching
+    on by default (serve/batcher.py; disable with --no-batcher).  Every rung graph is
     captured before the socket listens; with --watch a newer checkpoint
     step is loaded and warmed in the background, then swapped in."""
     from deeprest_tpu_torch import obs
@@ -624,9 +687,8 @@ def cmd_serve(args) -> int:
         CheckpointReloader, PredictionServer, PredictionService,
     )
 
-    if not args.ckpt_dir:
-        sys.exit("error: provide --ckpt-dir (exported artifacts are not "
-                 "ported yet)")
+    if bool(args.ckpt_dir) == bool(args.artifact):
+        sys.exit("error: provide exactly one of --ckpt-dir or --artifact")
     try:
         ladder = tuple(int(r) for r in args.batch_ladder.split(","))
     except ValueError:
@@ -646,6 +708,9 @@ def cmd_serve(args) -> int:
                      f"exceeds the top (coalesced) ladder rung {top}")
         batching = BatcherConfig(max_batch=args.batch_max_windows,
                                  max_linger_s=args.batch_linger_ms / 1e3)
+    if args.watch and not args.ckpt_dir:
+        sys.exit("error: --watch requires --ckpt-dir (artifacts are "
+                 "immutable; re-export and restart instead)")
     if args.watch < 0:
         sys.exit(f"error: --watch {args.watch} must be >= 0")
     if args.obs_span_capacity < 1:
@@ -659,31 +724,43 @@ def cmd_serve(args) -> int:
     try:
         infer = InferConfig(fused=not args.no_fused_infer,
                             page_windows=args.infer_page_windows,
-                            coalesce_pages=args.infer_coalesce_pages)
+                            coalesce_pages=args.infer_coalesce_pages,
+                            sparse_feed=args.sparse_feed,
+                            sparse_nnz_cap=args.sparse_nnz_cap,
+                            quant=args.quant)
     except ValueError as exc:
         sys.exit(f"error: {exc}")
     knobs = dict(ladder=ladder, fused=infer.fused,
                  page_windows=infer.page_windows,
                  coalesce_pages=infer.coalesce_pages,
                  coalesce_groups=args.batch_coalesce_groups,
-                 device=args.device)
-    reloader = None
-    if args.watch:
-        # Built BEFORE the initial load: a checkpoint the live trainer
-        # writes while we load would otherwise be recorded as already
-        # served and never reloaded.
-        reloader = CheckpointReloader(args.ckpt_dir, min_interval_s=args.watch,
-                                      **knobs)
+                 quant=infer.quant, device=args.device)
     seconds = {}
-    t0 = time.perf_counter()
-    pred = Predictor.from_checkpoint(args.ckpt_dir, **knobs)
+    reloader = None
+    if args.ckpt_dir:
+        sparse = dict(sparse_feed=infer.sparse_feed,
+                      sparse_nnz_cap=infer.sparse_nnz_cap)
+        if args.watch:
+            # Built BEFORE the initial load: a checkpoint the live trainer
+            # writes while we load would otherwise be recorded as already
+            # served and never reloaded.
+            reloader = CheckpointReloader(
+                args.ckpt_dir, min_interval_s=args.watch, **knobs, **sparse)
+        t0 = time.perf_counter()
+        pred = Predictor.from_checkpoint(args.ckpt_dir, **knobs, **sparse)
+        backend = f"checkpoint:{args.ckpt_dir}"
+        if reloader is not None:
+            backend += " (watching)"
+    else:
+        from deeprest_tpu_torch.serve.export import ExportedPredictor
+
+        t0 = time.perf_counter()
+        pred = ExportedPredictor.load(args.artifact, **knobs)
+        backend = f"artifact:{args.artifact}"
     seconds["load"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     graphs = pred.warm()
     seconds["warm"] = time.perf_counter() - t0
-    backend = f"checkpoint:{args.ckpt_dir}"
-    if reloader is not None:
-        backend += " (watching)"
 
     synthesizer = None
     if args.raw:
@@ -741,6 +818,11 @@ def cmd_serve(args) -> int:
                           "max_linger_ms": args.batch_linger_ms,
                           "ladder": list(ladder),
                       }),
+                      "quant": pred.quant,
+                      "quant_parity_max": (
+                          max(pred.parity_envelope["measured"].values())
+                          if pred.parity_envelope else None),
+                      "sparse_feed": getattr(pred, "sparse_feed", False),
                       "device": str(pred.device), "graphs": graphs,
                       "seconds": seconds}), flush=True)
     if args.deadline:
@@ -881,6 +963,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the ResourceAware and ComponentAware "
                         "baselines (the resrc and comp columns of the report)")
     _add_device_arg(p)
+    _add_sparse_args(p)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("synthesize", help="what-if traffic feature synthesis")
@@ -931,6 +1014,17 @@ def build_parser() -> argparse.ArgumentParser:
     _add_fused_infer_args(p)
     p.set_defaults(fn=cmd_anomaly)
 
+    p = sub.add_parser("export",
+                       help="checkpoint → portable inference artifact "
+                            "(torch.export program + JSON manifest)")
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--aot", action="store_true",
+                   help="also serialize the fused serving executables next "
+                        "to the checkpoint for fleet pool admission (not "
+                        "ported: exits with an error)")
+    p.set_defaults(fn=cmd_export)
+
     p = sub.add_parser("serve",
                        help="HTTP prediction service: predict / what-if / "
                             "anomaly")
@@ -940,6 +1034,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hot-reload newer checkpoints, polling at most every "
                         "SECONDS (0 = off); a new step is loaded and its "
                         "graphs captured before it is swapped in")
+    p.add_argument("--artifact", default=None,
+                   help="serve the exported artifact from this directory")
     p.add_argument("--raw", default=None,
                    help="raw corpus to fit the what-if trace synthesizer")
     p.add_argument("--host", default="127.0.0.1")
@@ -1005,6 +1101,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "background warm thread (first query pays the "
                         "build)")
     _add_fused_infer_args(p)
+    _add_sparse_args(p, serving=True)
     p.set_defaults(fn=cmd_serve)
     return ap
 

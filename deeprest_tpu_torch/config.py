@@ -68,11 +68,18 @@ class TrainConfig:
     at or past every N real steps, 0 = off; ``snapshot_keep`` keeps the
     newest K cursor snapshots, 0 = all.
 
+    ``sparse_feed`` stages the traffic as RAW padded-COO ``[T, K]`` rows
+    (``sparse_nnz_cap`` = K, the most nonzero columns a bucket row may
+    have; a fatter row raises) and densifies and normalizes each step's
+    windows on the device (``ops/densify.py``); losses are bit-identical
+    to the dense feed's.  Its staged bytes are held to
+    ``device_data_max_bytes`` under ``device_data="auto"``.
+
     Features of the JAX trainer the port does not have yet: the
-    host-streamed feed (``device_data="off"``), the sparse feed and elastic
-    remeshing.  The port always stages the normalized base series on its
-    device, so ``device_data`` takes "auto" or "always" (both stage), and
-    ``sparse_feed`` and ``elastic`` only False; anything else raises.
+    host-streamed feed (``device_data="off"``) and elastic remeshing.  The
+    port always stages the base series on its device, so ``device_data``
+    takes "auto" or "always" (both stage), and ``elastic`` only False;
+    anything else raises.
     """
 
     num_epochs: int = 50
@@ -90,12 +97,14 @@ class TrainConfig:
     # resources trained as per-bucket increments (train/data.py)
     delta_resources: tuple[str, ...] = LEVEL_RESOURCES
     device_data: str = "auto"
+    device_data_max_bytes: int = 4 << 30
     steps_per_superstep: int | str = "auto"
     grad_accum_windows: int = 1
     grad_accum_mode: str = "exact"
     snapshot_every_steps: int = 0
     snapshot_keep: int = 3
     sparse_feed: bool = False
+    sparse_nnz_cap: int = 64
     elastic: bool = False
 
     def __post_init__(self):
@@ -114,6 +123,12 @@ class TrainConfig:
             raise ValueError(
                 f"TrainConfig.grad_accum_mode={self.grad_accum_mode!r}: "
                 f"must be 'exact', 'flat', or 'loop'")
+        if not isinstance(self.sparse_nnz_cap, int) \
+                or isinstance(self.sparse_nnz_cap, bool) \
+                or self.sparse_nnz_cap < 1:
+            raise ValueError(
+                f"TrainConfig.sparse_nnz_cap={self.sparse_nnz_cap!r}: "
+                f"must be an int >= 1")
         s = self.snapshot_every_steps
         if not isinstance(s, int) or isinstance(s, bool) or s < 0:
             raise ValueError(
@@ -124,14 +139,17 @@ class TrainConfig:
             raise ValueError(
                 f"TrainConfig.snapshot_keep={k!r}: must be an int >= 0 "
                 "(0 = unlimited retention)")
+        if self.sparse_feed and self.device_data == "off":
+            raise ValueError(
+                "TrainConfig.sparse_feed=True requires the staged "
+                "(device-resident) feed — the on-device densify lives "
+                "inside the staged executables; set device_data to "
+                "'auto' or 'always'")
         unported = []
         if self.device_data not in ("auto", "always"):
             unported.append(f"device_data={self.device_data!r} (the port "
                             "always stages the base series: 'auto' or "
                             "'always')")
-        if self.sparse_feed:
-            unported.append("sparse_feed=True (the sparse feed is not "
-                            "ported)")
         if self.elastic:
             unported.append("elastic=True (elastic remeshing is not ported)")
         if unported:
@@ -144,13 +162,28 @@ class InferConfig:
     """Rolled-inference knobs (serve/fused.py).  ``page_windows`` and
     ``coalesce_pages`` left at None follow the device: the ladder's top
     rung and 4 coalesced pages on CUDA, the smallest rung >= 8 and 1 page
-    on the CPU."""
+    on the CPU.  ``sparse_feed`` ships series to the device as padded-COO
+    pages of ``sparse_nnz_cap`` columns a row (bit-identical outputs);
+    ``quant`` stores the weights int8 or bf16 (``ops/quantize.py``)."""
 
     fused: bool = True
     page_windows: int | None = None
     coalesce_pages: int | None = None
+    sparse_feed: bool = False
+    sparse_nnz_cap: int = 64
+    quant: str = "off"
 
     def __post_init__(self):
+        if self.quant not in ("off", "int8", "bf16"):
+            raise ValueError(
+                f"InferConfig.quant={self.quant!r}: must be one of "
+                "'off', 'int8', 'bf16'")
+        if not isinstance(self.sparse_nnz_cap, int) \
+                or isinstance(self.sparse_nnz_cap, bool) \
+                or self.sparse_nnz_cap < 1:
+            raise ValueError(
+                f"InferConfig.sparse_nnz_cap={self.sparse_nnz_cap!r}: "
+                f"must be an int >= 1")
         if self.page_windows is not None and self.page_windows < 1:
             raise ValueError(
                 f"InferConfig.page_windows={self.page_windows}: must be "

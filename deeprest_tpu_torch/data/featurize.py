@@ -1,6 +1,6 @@
 """Call-path featurization: span trees → fixed-width count vectors
-(``deeprest_tpu/data/featurize.py``, dense path; the sparse extraction
-functions wait for the port's sparse feed).
+(``deeprest_tpu/data/featurize.py``: dense counts, the sparse
+``(cols, counts)`` rows of the 10k-endpoint feed, and the fork pool).
 
 Semantics follow the reference's feature construction (reference:
 resource-estimation/featurize.py:11-57): every root-to-node *call path*
@@ -218,6 +218,90 @@ class CallPathSpace:
             return out
         return counts.astype(np.float32)
 
+    def extract_sparse(self, traces: Sequence[Span]
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """Sparse twin of :meth:`extract`: ``(cols, counts)`` for the
+        nonzero columns only, off the same memoized ``_trace_columns``
+        walk.
+
+        At the 10k-endpoint width any one bucket touches a handful of
+        call paths — the dense vector is >99% zeros — so the sparse-first
+        pipeline (ops/densify.densify_coo)
+        carries ``(cols, counts)`` and defers densification to one
+        on-device scatter.  Columns are unique and ascending
+        (``np.unique``); counts are float32 integers, so scattering them
+        into a zero vector is BIT-IDENTICAL to :meth:`extract` for any
+        count below 2**24.  Freezes the
+        capacity on first call, exactly like ``extract``.
+        """
+        self.freeze()
+        cols, counts = np.unique(self._trace_columns(traces),
+                                 return_counts=True)
+        return cols.astype(np.int32), counts.astype(np.float32)
+
+    def trace_columns_from_dict(self, trace) -> np.ndarray:
+        """Preorder int32 column ids for ONE raw span-tree dict.
+
+        The Span-free twin of :meth:`_trace_columns`: walking the parsed
+        JSON dict directly skips the per-span ``Span.from_dict`` object
+        construction, while producing the identical column multiset, so
+        ``np.unique`` downstream makes the two paths bit-identical.
+        Shares the hash memo with every other extraction path.  Freezes
+        the capacity like ``extract``.
+        """
+        self.freeze()
+        cols: list[int] = []
+        append = cols.append
+        if self.config.hash_features:
+            memo = self._hash_memo
+            memo_get = memo.get
+            cap = self.capacity
+            seed = self.config.hash_seed
+            stack = [((), trace)]
+            pop, push = stack.pop, stack.append
+            while stack:
+                prefix, node = pop()
+                path = prefix + (str(node["component"]) + "_"
+                                 + str(node["operation"]),)
+                c = memo_get(path)
+                if c is None:
+                    c = _stable_hash(path, seed) % cap
+                    memo[path] = c
+                append(c)
+                for child in node.get("children", ()):
+                    push((path, child))
+        else:
+            index_get = self.index.get
+            cap = self.capacity
+            stack = [((), trace)]
+            pop, push = stack.pop, stack.append
+            while stack:
+                prefix, node = pop()
+                path = prefix + (str(node["component"]) + "_"
+                                 + str(node["operation"]),)
+                idx = index_get(path)
+                if idx is not None and idx < cap:
+                    append(idx)
+                for child in node.get("children", ()):
+                    push((path, child))
+        return np.asarray(cols, dtype=np.int32)
+
+    def sparse_from_columns(self, col_parts: Sequence[np.ndarray]
+                            ) -> tuple[np.ndarray, np.ndarray]:
+        """``(cols, counts)`` from precomputed per-trace column arrays.
+
+        ``extract_sparse(traces)`` is exactly
+        ``sparse_from_columns([per-trace columns])`` because
+        ``_trace_columns`` is the per-trace concatenation and
+        ``np.unique`` consumes an order-free multiset."""
+        self.freeze()
+        if col_parts:
+            allcols = np.concatenate(col_parts)
+        else:
+            allcols = np.empty(0, dtype=np.int32)
+        cols, counts = np.unique(allcols, return_counts=True)
+        return cols.astype(np.int32), counts.astype(np.float32)
+
     def extract_reference(self, traces: Sequence[Span],
                           out: np.ndarray | None = None) -> np.ndarray:
         """The historical per-span accumulation loop, kept verbatim as the
@@ -405,6 +489,63 @@ def _extract_shard(span: tuple[int, int]) -> tuple[np.ndarray, list[dict[str, in
     chunk = _POOL_BUCKETS[lo:hi]
     traffic = _POOL_SPACE.extract_buckets(chunk)
     return traffic, [count_invocations(b.traces) for b in chunk]
+
+
+def _sparse_lines_shard(lines: Sequence[bytes]) -> list[tuple]:
+    """One pool worker's slice of raw bucket-JSONL lines →
+    ``((cols, vals), metrics_row)`` per bucket, all through the Span-free
+    dict walk.  The space rides the fork (``_POOL_SPACE``,
+    copy-on-write) so only the lines travel in and the small sparse rows
+    travel back; memo growth inside a worker is a private cache and
+    never affects results (hash columns are pure functions)."""
+    import json as _json
+
+    space = _POOL_SPACE
+    out = []
+    for line in lines:
+        d = _json.loads(line)
+        parts = [space.trace_columns_from_dict(t)
+                 for t in d.get("traces", ())]
+        row = space.sparse_from_columns(parts)
+        metrics = {f"{m['component']}_{m['resource']}": float(m["value"])
+                   for m in d.get("metrics", ())}
+        out.append((row, metrics))
+    return out
+
+
+def parallel_extract_sparse_lines(
+    lines: Sequence[bytes], space: CallPathSpace, workers: int = 0,
+    pool=None,
+) -> list[tuple]:
+    """Bulk sparse featurization of raw bucket-JSONL lines, sharded
+    across a fork pool.
+
+    ``pool`` may be a live ``multiprocessing`` fork pool whose workers
+    were forked AFTER ``bind_pool_space(space)`` (kept for the whole run:
+    forking per call would cost more than it shards).  Without one, the
+    serial shard runs in this process.  Hash-mode spaces only for the pooled path: a
+    dictionary-mode vocabulary may legally grow during extraction and
+    workers cannot share that growth."""
+    global _POOL_SPACE
+    if pool is not None and space.config.hash_features and len(lines) > 1:
+        w = max(1, workers)
+        chunks = [lines[lo:hi] for lo, hi in _shard_spans(len(lines), w)]
+        shard_results = pool.map(_sparse_lines_shard, chunks)
+        return [r for shard in shard_results for r in shard]
+    prev = _POOL_SPACE
+    _POOL_SPACE = space
+    try:
+        return _sparse_lines_shard(lines)
+    finally:
+        _POOL_SPACE = prev
+
+
+def bind_pool_space(space: CallPathSpace) -> None:
+    """Bind the shared space for a long-lived fork pool (call BEFORE
+    creating the pool so workers inherit it copy-on-write)."""
+    global _POOL_SPACE
+    space.freeze()
+    _POOL_SPACE = space
 
 
 def _shard_spans(n: int, workers: int) -> list[tuple[int, int]]:

@@ -15,6 +15,19 @@ import numpy as np
 import torch
 
 
+def _tensor_from_numpy(name: str, leaf) -> torch.Tensor:
+    """A copy of one numpy leaf as a CPU tensor; a bf16 leaf (ml_dtypes'
+    type, which torch cannot read) crosses as its bits."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr.view(np.uint16))).view(
+            torch.bfloat16)
+    if arr.dtype.char not in "?bhilqBHILQefdFD":
+        raise TypeError(f"leaf {name!r} has dtype {arr.dtype}; pass "
+                        "float32 (or other numpy-native) arrays")
+    return torch.from_numpy(np.array(arr))
+
+
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """A nested dict of numpy arrays (a flax ``params`` tree with each leaf
     copied by ``np.array``) → the port's flat parameter dict of CPU tensors.
@@ -26,12 +39,27 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
             for key, value in node.items():
                 walk(f"{prefix}/{key}" if prefix else str(key), value)
             return
-        arr = np.asarray(node)
-        if arr.dtype.char not in "?bhilqBHILQefdFD":
-            raise TypeError(f"leaf {prefix!r} has dtype {arr.dtype}; pass "
-                            "float32 (or other numpy-native) arrays")
-        out[prefix] = torch.from_numpy(np.array(arr))
+        out[prefix] = _tensor_from_numpy(prefix, node)
     walk("", tree)
+    return out
+
+
+def quant_params_from_jax(tree: Mapping) -> dict:
+    """A JAX quantized serving tree (``deeprest_tpu.ops.quantize.
+    quantize_params`` output, leaves copied to numpy; a ``QuantTensor``
+    leaf is any object with ``data`` and ``scale``) → the port's flat dict
+    of CPU tensors with ``ops.quantize.QuantTensor`` leaves: the same int8
+    bytes, f32 scales and bf16 bits."""
+    from deeprest_tpu_torch.ops.quantize import QuantTensor
+
+    out: dict = {}
+    for name, leaf in tree.items():
+        if hasattr(leaf, "data") and hasattr(leaf, "scale"):
+            out[name] = QuantTensor(
+                data=_tensor_from_numpy(f"{name}.data", leaf.data),
+                scale=_tensor_from_numpy(f"{name}.scale", leaf.scale))
+        else:
+            out[name] = _tensor_from_numpy(name, leaf)
     return out
 
 

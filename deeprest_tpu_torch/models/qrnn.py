@@ -54,11 +54,26 @@ MASK_PARAM_NAMES = ("mask_w1", "mask_b1", "mask_w2", "mask_b2")
 MASKED_PARAM_NAMES = ("gru_fwd_w_ih", "gru_bwd_w_ih")
 
 
+def resolve_params(params: Mapping) -> dict:
+    """Dequantize-at-use for a quantized serving params dict
+    (``ops.quantize.quantize_params``), identity for f32 and bf16 dicts:
+    every ``QuantTensor`` leaf through ``ops.quantize.dequantize``, the one
+    dequant site shared with ``ops.gru.resolve_weights``.  The serving
+    predictor calls it inside each rung's program, so on CUDA the dequant
+    is captured in the rung's graph."""
+    from deeprest_tpu_torch.ops.quantize import dequantize_params
+
+    return dequantize_params(params)
+
+
 def feature_mask(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """The soft feature mask ``[E, F]``: Linear(1→H) on a constant 1.0
-    (weight + bias), ReLU, Linear(H→F), softmax over F."""
+    (weight + bias), ReLU, Linear(H→F), softmax over F.  A bf16
+    ``mask_w2`` (bf16 quantized serving) widens to f32 exactly, as the
+    JAX einsum promotes it."""
     hidden = torch.relu(params["mask_w1"] + params["mask_b1"])          # [E, H]
-    logits = (torch.einsum("eh,ehf->ef", hidden, params["mask_w2"])
+    logits = (torch.einsum("eh,ehf->ef", hidden,
+                           params["mask_w2"].to(hidden.dtype))
               + params["mask_b2"])
     return torch.softmax(logits, dim=-1)
 

@@ -53,7 +53,9 @@ Dispatch and plain versions:
 - :func:`gru_recurrence` dispatches on what the call needs and where the
   tensors lie.  With autograd recording and an input that requires grad it
   runs :class:`GRURecurrence` (K2 forward, K3 backward); otherwise it runs
-  K1, which pays for none of K2's extra streams.  The CPU runs the plain
+  K1 through the registered operator ``deeprest_torch::gru_fwd``
+  (:func:`gru_fwd_op`), which pays for none of K2's extra streams and is
+  what an exported program records.  The CPU runs the plain
   versions, anything else the kernels, which launch or raise.  There is no
   fallback from a kernel to a plain version.
 - :func:`gru_recurrence_reference`, :func:`gru_fwd_train_reference`,
@@ -758,14 +760,42 @@ class GRURecurrence(torch.autograd.Function):
                 dh0.to(h0.dtype), None)
 
 
+# ---------------------------------------------------------------------------
+# the inference form as a registered operator
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("deeprest_torch::gru_fwd", mutates_args=(),
+                         device_types="cpu")
+def gru_fwd_op(proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+               h0: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """K1 as the operator ``torch.ops.deeprest_torch.gru_fwd``: the
+    dispatcher runs :func:`gru_fwd_cuda` for CUDA tensors and
+    :func:`gru_recurrence_reference` for CPU tensors.  A traced program
+    (``torch.export``, ``serve/export.py``) records this one node, so an
+    artifact exported on the CPU still launches K1 once its program is
+    placed on a GPU."""
+    return gru_recurrence_reference(proj, w_hh, b_hh, h0, reverse)
+
+
+@gru_fwd_op.register_kernel("cuda")
+def _gru_fwd_op_cuda(proj, w_hh, b_hh, h0, reverse):
+    return gru_fwd_cuda(proj, w_hh, b_hh, h0, reverse)
+
+
+@gru_fwd_op.register_fake
+def _gru_fwd_op_fake(proj, w_hh, b_hh, h0, reverse):
+    e, t, b, g3 = proj.shape
+    return proj.new_empty((e, t, b, g3 // 3))
+
+
 def gru_recurrence(proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                    h0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """The recurrence on proj's device: differentiable through
     :class:`GRURecurrence` when autograd records and an input requires
-    grad, else the inference form (K1, or its plain version on the CPU)."""
+    grad, else the inference form, the operator :func:`gru_fwd_op` (K1, or
+    its plain version on the CPU)."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (proj, w_hh, b_hh, h0)):
         return GRURecurrence.apply(proj, w_hh, b_hh, h0, reverse)
-    if proj.device.type == "cpu":
-        return gru_recurrence_reference(proj, w_hh, b_hh, h0, reverse)
-    return gru_fwd_cuda(proj, w_hh, b_hh, h0, reverse)
+    return gru_fwd_op(proj, w_hh, b_hh, h0, bool(reverse))

@@ -64,6 +64,21 @@ class GRUParams(NamedTuple):
         return self.w_hh.shape[-2]
 
 
+def resolve_weights(params: GRUParams) -> GRUParams:
+    """Dequantize-at-use for quantized serving weights (a
+    ``ops.quantize.QuantTensor`` ``w_ih`` or ``w_hh``), identity otherwise.
+    Called at the top of :func:`gru` and :func:`bidirectional_gru` (the
+    coalesced forms delegate to them), so every recurrence path shares the
+    one dequant site, ``ops.quantize.dequantize``."""
+    from deeprest_tpu_torch.ops.quantize import QuantTensor, dequantize
+
+    if isinstance(params.w_ih, QuantTensor) \
+            or isinstance(params.w_hh, QuantTensor):
+        return params._replace(w_ih=dequantize(params.w_ih),
+                               w_hh=dequantize(params.w_hh))
+    return params
+
+
 def _project(params: GRUParams, x: torch.Tensor) -> torch.Tensor:
     """``x @ W_ih + b_ih`` → contiguous ``[E, T, B, 3H]`` in the
     recurrence's io dtype.  ``x`` is ``[B, T, F]`` shared by all experts or
@@ -85,6 +100,7 @@ def gru(params: GRUParams, x: torch.Tensor, h0: torch.Tensor | None = None,
     that wants the plain version on a CUDA tensor passes
     ``gru_recurrence_reference``).  Returns ``[E, B, T, H]`` in x's dtype.
     """
+    params = resolve_weights(params)
     proj = _project(params, x)
     e, _, b, _ = proj.shape
     if h0 is None:
@@ -124,6 +140,7 @@ def bidirectional_gru(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
     last-axis halves are (forward, backward), each time-aligned with x.
     Two recurrence calls, or one over both directions with
     :data:`BIDIR_FUSED`."""
+    fwd, bwd = resolve_weights(fwd), resolve_weights(bwd)
     if BIDIR_FUSED:
         return _bidirectional_fused(fwd, bwd, x, recurrence)
     out_f = gru(fwd, x, reverse=False, recurrence=recurrence)

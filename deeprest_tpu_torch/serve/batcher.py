@@ -25,8 +25,9 @@ Two pieces, usable separately:
     the port records one ``torch.cuda.Event`` per dispatch and probes
     ``event.query()`` (on the CPU every dispatch has finished already).
 
-The sparse (padded-COO) staging of the JAX ladder waits for the port's
-sparse feed.
+With the sparse feed the ladder also takes RAW padded-COO window batches
+(``dispatch_sparse``): zero COO rows pad them up the same rungs, and the
+backend's sparse apply densifies and normalizes on the device.
 """
 
 from __future__ import annotations
@@ -87,7 +88,8 @@ class ShapeLadder:
     """
 
     def __init__(self, apply_fn, ladder=DEFAULT_LADDER,
-                 coalesce_groups: int = 1, device="cpu"):
+                 coalesce_groups: int = 1, device="cpu",
+                 apply_sparse_fn=None):
         base = tuple(sorted({int(r) for r in ladder}))
         if not base or base[0] < 1:
             raise ValueError(f"bad shape ladder {ladder!r}")
@@ -95,6 +97,9 @@ class ShapeLadder:
             raise ValueError(
                 f"coalesce_groups {coalesce_groups} must be >= 1")
         self._apply = apply_fn
+        # the sparse feed's apply: RAW (cols [n, W, K], vals [n, W, K])
+        # window batches, densified and normalized on the device
+        self._apply_sparse = apply_sparse_fn
         self.base_ladder = base
         self.coalesce_groups = int(coalesce_groups)
         # Coalesced super-rungs: top·{2..G} join the ladder so a deep
@@ -138,15 +143,50 @@ class ShapeLadder:
             if rung > len(chunk):
                 padded = np.zeros((rung, *chunk.shape[1:]), np.float32)
                 padded[:len(chunk)] = chunk
-            with self._lock:
-                self._calls += 1
-                self._windows += len(chunk)
-                self._padded_windows += rung - len(chunk)
-                if rung in self._compiled:
-                    self._rung_hits += 1
-                else:
-                    self._compiled.add(rung)
+            self._count(len(chunk), rung)
             parts.append((self._apply(padded), len(chunk)))
+        return parts
+
+    def _count(self, n: int, rung: int) -> None:
+        """One dispatch of ``n`` windows padded to ``rung``."""
+        with self._lock:
+            self._calls += 1
+            self._windows += n
+            self._padded_windows += rung - n
+            if rung in self._compiled:
+                self._rung_hits += 1
+            else:
+                self._compiled.add(rung)
+
+    def dispatch_sparse(self, cols: np.ndarray,
+                        vals: np.ndarray) -> list[tuple[object, int]]:
+        """COO twin of :meth:`dispatch`: RAW ``(cols [n, W, K], vals [n, W,
+        K])`` window batches as ladder-padded chunks (padding rows are zero
+        COO rows, whose densified windows are zero; materialize drops
+        them).  Host→device bytes per window are ``W·K·8`` instead of
+        ``W·F·4``."""
+        if self._apply_sparse is None:
+            raise ValueError("this ladder has no sparse apply; construct "
+                             "it with apply_sparse_fn (sparse_feed)")
+        cols = np.ascontiguousarray(cols, dtype=np.int32)
+        vals = np.ascontiguousarray(vals, dtype=np.float32)
+        if cols.shape != vals.shape:
+            raise ValueError(f"padded-COO halves disagree: cols "
+                             f"{cols.shape} vs vals {vals.shape}")
+        parts: list[tuple[object, int]] = []
+        for lo in range(0, len(cols), self.max_rung):
+            c = cols[lo:lo + self.max_rung]
+            v = vals[lo:lo + self.max_rung]
+            n = len(c)
+            rung = self.rung_for(n)
+            if rung > n:
+                pc = np.zeros((rung, *c.shape[1:]), np.int32)
+                pv = np.zeros((rung, *v.shape[1:]), np.float32)
+                pc[:n] = c
+                pv[:n] = v
+                c, v = pc, pv
+            self._count(n, rung)
+            parts.append((self._apply_sparse(c, v), n))
         return parts
 
     def materialize(self, parts: list[tuple[torch.Tensor, int]]
@@ -398,10 +438,12 @@ class BatchedBackendMixin:
     short enough for one ladder dispatch routes through."""
 
     def _init_batching(self, apply_fn, ladder=None,
-                       coalesce_groups: int = 1) -> None:
+                       coalesce_groups: int = 1,
+                       apply_sparse_fn=None) -> None:
         self.ladder = ShapeLadder(apply_fn, ladder or DEFAULT_LADDER,
                                   coalesce_groups=coalesce_groups,
-                                  device=self.device)
+                                  device=self.device,
+                                  apply_sparse_fn=apply_sparse_fn)
         self._batcher: MicroBatcher | None = None
 
     @property
@@ -425,3 +467,21 @@ class BatchedBackendMixin:
             except BatcherClosed:
                 pass      # hot-reload race: fall through to the direct path
         return self.ladder(x)
+
+    def apply_windows_sparse(self, cols: np.ndarray,
+                             vals: np.ndarray) -> np.ndarray:
+        """Padded-COO batch entry: RAW ``(cols [n, W, K], vals [n, W, K])``
+        windows → ``[n, W, E, Q]`` de-padded results, densified and
+        normalized on the device (the dense entry takes normalized
+        windows; the sparse one ships raw counts).  Straight through the
+        ladder's sparse staging: cross-request coalescing stays a
+        dense-plane feature.  A backend without a sparse apply densifies
+        on the host, bit-exact by construction."""
+        if self.ladder._apply_sparse is None:
+            from deeprest_tpu_torch.ops.densify import densify_rows
+
+            dense = densify_rows(cols, vals, self.feature_dim)
+            return self.apply_windows(
+                self.x_stats.apply(dense).astype(np.float32))
+        return self.ladder.materialize(
+            self.ladder.dispatch_sparse(cols, vals))

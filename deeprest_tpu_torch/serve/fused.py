@@ -1,5 +1,5 @@
 """Device-resident rolled inference, one model call per window page
-(``deeprest_tpu/serve/fused.py``, dense path).
+(``deeprest_tpu/serve/fused.py``).
 
 :class:`FusedRolledEngine` runs the rolled-prediction pipeline on the
 device page by page: raw windows go to the device once per page, then
@@ -20,6 +20,14 @@ each), copied ``non_blocking`` into the graph's static inputs, and every
 page's output is copied into one pinned host buffer before the next page
 runs; one event wait then reads them all.  The carry out of a page is
 copied into the next page's static input on the device.
+
+The sparse feed (``sparse_nnz_cap``): pages ship as padded-COO
+``(cols [R, W, K] int32, vals [R, W, K] f32)`` instead of ``[R, W, F]``
+floats, ~F/(2K) fewer host→device bytes, and :meth:`_program_sparse`
+densifies them on the device (one ``scatter_add_``, ``ops/densify.py``)
+before the same body runs, so sparse pages give the dense pages' outputs
+bit for bit.  A sparse engine's pinned slots hold cols/vals only; its
+sparse programs are captured per ``(rung, integrate)`` in :meth:`warm`.
 
 Numerics contract, as in the JAX package: non-delta columns come back
 NORMALIZED and the host inverts them with numpy after readback, the exact
@@ -99,8 +107,19 @@ class FusedRolledEngine:
                  rungs=DEFAULT_FUSED_RUNGS,
                  page_windows: int | None = None,
                  coalesce_pages: int | None = None,
-                 graphs: RungGraphs | None = None):
+                 graphs: RungGraphs | None = None,
+                 sparse_nnz_cap: int | None = None,
+                 feature_dim: int | None = None,
+                 quant: str = "off"):
         self.device = torch.device(device)
+        self.quant = quant
+        self._sparse_nnz_cap = (int(sparse_nnz_cap)
+                                if sparse_nnz_cap is not None else None)
+        self._feature_dim = (int(feature_dim) if feature_dim is not None
+                             else None)
+        if self._sparse_nnz_cap is not None and self._feature_dim is None:
+            raise ValueError("sparse_nnz_cap requires feature_dim (the "
+                             "static dense width the scatter targets)")
         on_cpu = self.device.type == "cpu"
         rung_set = {int(r) for r in rungs}
         if page_windows is not None:
@@ -162,9 +181,11 @@ class FusedRolledEngine:
         self._keep_delta = (self._keep | dm[:, None] if self._has_delta
                             else self._keep)
         self._staging: tuple[int, PinnedStaging] | None = None
+        self._sparse_staging: PinnedStaging | None = None
         self._readback = PinnedReadback(self.device)
         self._lock = threading.Lock()       # the counters below
         self._pages = 0
+        self._sparse_pages = 0
         self._windows = 0
         self._padded_windows = 0
         self._series = 0
@@ -213,24 +234,54 @@ class FusedRolledEngine:
         integrated = base[:, None, :, None] + csum
         return torch.where(self._delta_dev, integrated, preds), carry_out
 
+    def _program_sparse(self, cols, vals, carry_in, g, seg, n_valid,
+                        integrate: bool):
+        """Padded-COO twin of :meth:`_program`: one scatter-add rebuilds
+        the raw ``[R, W, F]`` page on the device (bit-exact, see
+        ``ops/densify.py``), then the same body runs."""
+        from deeprest_tpu_torch.ops.densify import densify_coo
+
+        x = densify_coo(cols, vals, self._feature_dim)
+        return self._program(x, carry_in, g, seg, n_valid, integrate)
+
+    def _plan_buffers(self) -> dict:
+        r = self.rungs[-1]
+        return {"g": ((r,), torch.int64), "seg": ((r,), torch.bool),
+                "n": ((1,), torch.int64)}
+
     def _staging_for(self, feature_dim: int) -> PinnedStaging:
         if self._staging is None or self._staging[0] != feature_dim:
             r, w = self.rungs[-1], self.window_size
             self._staging = (feature_dim, PinnedStaging(self.device, {
                 "x": ((r, w, feature_dim), torch.float32),
-                "g": ((r,), torch.int64), "seg": ((r,), torch.bool),
-                "n": ((1,), torch.int64)}))
+                **self._plan_buffers()}))
         return self._staging[1]
 
-    def _fill(self, slot, arrays, chunk, rung: int) -> None:
+    def _sparse_staging_for(self) -> PinnedStaging:
+        """Pinned cols/vals slots at ``[top rung, W, K]``; a sparse page
+        never allocates the dense ``[R, W, F]`` slot."""
+        if self._sparse_staging is None:
+            r, w, k = self.rungs[-1], self.window_size, self._sparse_nnz_cap
+            self._sparse_staging = PinnedStaging(self.device, {
+                "cols": ((r, w, k), torch.int32),
+                "vals": ((r, w, k), torch.float32),
+                **self._plan_buffers()})
+        return self._sparse_staging
+
+    def _fill(self, slot, arrays, chunk, rung: int,
+              names: tuple[str, ...] = ("x",)) -> None:
         """Assemble one page into a staging slot: the windows of each run
-        in one copy, zero padding rows (whose outputs are dropped)."""
+        in one copy per buffer of ``names`` (``arrays[si]`` holds one
+        ``[T, ...]`` array per name), zero padding rows (whose outputs are
+        dropped; a zero COO row densifies to zeros)."""
         w, n = self.window_size, len(chunk)
-        xs = slot["x"].numpy()
-        for lo, hi in _runs(chunk, w):
-            si, s = chunk[lo][0], chunk[lo][1]
-            xs[lo:hi] = arrays[si][s:s + (hi - lo) * w].reshape(hi - lo, w, -1)
-        xs[n:rung] = 0.0
+        for i, name in enumerate(names):
+            xs = slot[name].numpy()
+            for lo, hi in _runs(chunk, w):
+                si, s = chunk[lo][0], chunk[lo][1]
+                xs[lo:hi] = arrays[si][i][s:s + (hi - lo) * w].reshape(
+                    hi - lo, w, -1)
+            xs[n:rung] = 0
         gs, ss = slot["g"].numpy(), slot["seg"].numpy()
         gs[:n] = [m[2] for m in chunk]
         gs[n:rung] = w - 1
@@ -238,29 +289,43 @@ class FusedRolledEngine:
         ss[n:rung] = False
         slot["n"].numpy()[0] = n
 
-    def _page(self, slot, rung: int, integrate: bool, carry):
-        """One page through its rung's program; returns the (static on
-        CUDA) outputs ``(out [R, W, E, Q], carry [E])``."""
+    def _page(self, slot, rung: int, integrate: bool, carry,
+              sparse: bool = False):
+        """One page through its rung's program (``sparse_fused*`` for a
+        COO page); returns the (static on CUDA) outputs ``(out [R, W, E,
+        Q], carry [E])``."""
         program = ("fused_increments" if self._has_delta and not integrate
                    else "fused")
+        plan = (carry, slot["g"][:rung], slot["seg"][:rung], slot["n"])
+        if sparse:
+            return self._graphs.run(
+                ("sparse_" + program, rung),
+                lambda c, v, *rest: self._program_sparse(c, v, *rest,
+                                                         integrate),
+                (slot["cols"][:rung], slot["vals"][:rung], *plan),
+                staged=slot)
         return self._graphs.run(
             (program, rung),
-            lambda x, c, g, s, n: self._program(x, c, g, s, n, integrate),
-            (slot["x"][:rung], carry, slot["g"][:rung], slot["seg"][:rung],
-             slot["n"]), staged=slot)
+            lambda x, *rest: self._program(x, *rest, integrate),
+            (slot["x"][:rung], *plan), staged=slot)
 
     def warm(self, feature_dim: int) -> None:
         """Run every rung once per program in use (integrated and
         increments with a delta carry, else one) on zero pages: on CUDA
-        this captures each one's graph."""
+        this captures each one's graph.  A sparse engine warms its sparse
+        programs (its dense ones run only for a series with a row over the
+        cap, and capture then)."""
         flags = (True, False) if self._has_delta else (False,)
+        sparse = self.sparse_enabled
+        names = ("cols", "vals") if sparse else ("x",)
         with self._graphs.lock, torch.inference_mode():
-            staging = self._staging_for(feature_dim)
+            staging = (self._sparse_staging_for() if sparse
+                       else self._staging_for(feature_dim))
             for rung in self.rungs:
                 for integrate in flags:
                     slot = staging.take()
-                    self._fill(slot, [], [], rung)
-                    self._page(slot, rung, integrate, self._carry0)
+                    self._fill(slot, [], [], rung, names)
+                    self._page(slot, rung, integrate, self._carry0, sparse)
             self._readback.landed()
 
     # -- host paging ----------------------------------------------------
@@ -268,6 +333,14 @@ class FusedRolledEngine:
     @property
     def page_windows(self) -> int:
         return self.page
+
+    @property
+    def sparse_enabled(self) -> bool:
+        return self._sparse_nnz_cap is not None
+
+    @property
+    def sparse_nnz_cap(self) -> int | None:
+        return self._sparse_nnz_cap
 
     def rung_for(self, n: int) -> int:
         for r in self.rungs:
@@ -294,23 +367,65 @@ class FusedRolledEngine:
         with obs_spans.RECORDER.span("fused.predict",
                                      component="deeprest-engine") as sp:
             sp.tag(series=len(arrays), windows=len(metas))
-            return self._predict_many_inner(arrays, metas, integrate)
+            return self._predict_many_inner([(a,) for a in arrays], metas,
+                                            integrate)
 
-    def _predict_many_inner(self, arrays, metas, integrate: bool):
+    def predict_many_sparse(self, sparse_series_list,
+                            integrate: bool = True):
+        """Sparse entry: each series is a padded-COO ``(cols [T_i, K],
+        vals [T_i, K])`` pair of RAW counts (``CallPathSpace.
+        extract_sparse`` rows or ``ops.densify.sparsify_rows`` output);
+        returns the de-normalized ``[T_i, E, Q]`` arrays, bit for bit
+        those of :meth:`predict_many` on the equivalent dense series.
+        Pages ship as ``(cols, vals)`` and densify on the device."""
+        if not self.sparse_enabled:
+            raise ValueError(
+                "sparse feed is not enabled on this engine; construct it "
+                "with sparse_nnz_cap/feature_dim (InferConfig.sparse_feed)")
+        k = self._sparse_nnz_cap
+        arrays = []
+        for cols, vals in sparse_series_list:
+            cols = np.ascontiguousarray(cols, dtype=np.int32)
+            vals = np.ascontiguousarray(vals, dtype=np.float32)
+            if cols.shape != vals.shape or cols.ndim != 2:
+                raise ValueError(
+                    f"sparse series must be matching [T, K] cols/vals "
+                    f"pairs, got {cols.shape} vs {vals.shape}")
+            if cols.shape[1] != k:
+                raise ValueError(
+                    f"sparse series K={cols.shape[1]} != engine nnz cap "
+                    f"{k}; pad rows to the configured --sparse-nnz-cap "
+                    f"(a per-request K would compile per-request "
+                    f"executables)")
+            arrays.append((cols, vals))
+        if not arrays:
+            return []
+        metas = plan_windows([len(c) for c, _ in arrays], self.window_size)
+        with obs_spans.RECORDER.span("fused.predict_sparse",
+                                     component="deeprest-engine") as sp:
+            sp.tag(series=len(arrays), windows=len(metas))
+            return self._predict_many_inner(arrays, metas, integrate,
+                                            sparse=True)
+
+    def _predict_many_inner(self, arrays, metas, integrate: bool,
+                            sparse: bool = False):
         w = self.window_size
         stride = self.page * self.coalesce_pages
         chunks = [metas[lo:lo + stride] for lo in range(0, len(metas), stride)]
         rungs = [self.rung_for(len(c)) for c in chunks]
         use_device_delta = self._has_delta and bool(integrate)
+        names = ("cols", "vals") if sparse else ("x",)
         # The engine's graphs and its host buffers are held from the first
         # staging copy until the pages are back on the host.
         with self._graphs.lock, self._readback.lock, torch.inference_mode():
-            staging = self._staging_for(arrays[0].shape[1])
+            staging = (self._sparse_staging_for() if sparse
+                       else self._staging_for(arrays[0][0].shape[1]))
             carry, host, row = self._carry0, None, 0
             for chunk, rung in zip(chunks, rungs):
                 slot = staging.take()
-                self._fill(slot, arrays, chunk, rung)
-                out, carry = self._page(slot, rung, use_device_delta, carry)
+                self._fill(slot, arrays, chunk, rung, names)
+                out, carry = self._page(slot, rung, use_device_delta, carry,
+                                        sparse)
                 if host is None:
                     host = self._readback.buffer(
                         (sum(rungs), *out.shape[1:]), out.dtype)
@@ -322,7 +437,7 @@ class FusedRolledEngine:
             # the pinned buffer
             keep = self._keep_delta if use_device_delta else self._keep
             arr = np.where(keep, arr, arr * self._inv_rg + self._inv_mn)
-        outs = [np.empty((len(a), *arr.shape[2:]), np.float32)
+        outs = [np.empty((len(a[0]), *arr.shape[2:]), np.float32)
                 for a in arrays]
         row = 0
         for chunk, rung in zip(chunks, rungs):
@@ -334,6 +449,8 @@ class FusedRolledEngine:
             row += rung
         with self._lock:
             self._pages += len(chunks)
+            if sparse:
+                self._sparse_pages += len(chunks)
             self._windows += len(metas)
             self._padded_windows += sum(rungs) - len(metas)
             self._series += len(arrays)
@@ -345,7 +462,11 @@ class FusedRolledEngine:
         with self._lock:
             out = {"rungs": list(self.rungs), "page_windows": self.page,
                    "coalesce_pages": self.coalesce_pages,
-                   "pages": self._pages, "windows": self._windows,
+                   "pages": self._pages,
+                   "sparse_pages": self._sparse_pages,
+                   "sparse_nnz_cap": self._sparse_nnz_cap,
+                   "quant": self.quant,
+                   "windows": self._windows,
                    "padded_windows": self._padded_windows,
                    "series": self._series,
                    "max_dispatch_rows": self._max_dispatch_rows,
@@ -362,13 +483,16 @@ class FusedInferenceMixin:
     when no MicroBatcher is attached.  With one attached, a series that
     fits a single ladder dispatch goes through it (coalescing small
     concurrent requests is the batcher's win), and longer series take the
-    fused path."""
+    fused path.  A backend with ``sparse_feed`` converts dense series to
+    padded COO on the host and ships those (:meth:`_maybe_sparsify`)."""
 
     _fused: FusedRolledEngine | None = None
+    _warned_fat_rows = False
 
     def _init_fused(self, apply_fn, enabled: bool = True,
                     page_windows: int | None = None,
-                    coalesce_pages: int | None = None) -> None:
+                    coalesce_pages: int | None = None,
+                    sparse_nnz_cap: int | None = None) -> None:
         if not enabled:
             self._fused = None
             return
@@ -377,7 +501,10 @@ class FusedInferenceMixin:
             device=self.device, delta_mask=self.delta_mask,
             median_index=self.median_index(), rungs=self.ladder.base_ladder,
             page_windows=page_windows, coalesce_pages=coalesce_pages,
-            graphs=self.graphs)
+            graphs=self.graphs, sparse_nnz_cap=sparse_nnz_cap,
+            feature_dim=(self.feature_dim if sparse_nnz_cap is not None
+                         else None),
+            quant=getattr(self, "quant", "off"))
 
     @property
     def fused(self) -> FusedRolledEngine | None:
@@ -402,6 +529,10 @@ class FusedInferenceMixin:
         increments."""
         traffic = np.asarray(traffic)
         if self._route_fused(len(traffic)):
+            sparse = self._maybe_sparsify([traffic])
+            if sparse is not None:
+                return self._fused.predict_many_sparse(
+                    sparse, integrate=integrate)[0]
             return self._fused.predict_many([traffic], integrate=integrate)[0]
         from deeprest_tpu_torch.serve.predictor import (
             rolled_prediction_reference,
@@ -413,12 +544,75 @@ class FusedInferenceMixin:
             delta_mask=self.delta_mask if integrate else None,
             median_index=self.median_index())
 
+    def _maybe_sparsify(self, series_list):
+        """Dense → padded COO on the host for a ``sparse_feed`` backend,
+        so the device gets the smaller pages (outputs are bit-identical
+        either way).  None (ship dense) when the feature is off or a row
+        is over the cap; that overflow is warned once, not raised: a dense
+        caller never chose the COO form and must not fail because one
+        bucket ran hot."""
+        if not (getattr(self, "sparse_feed", False)
+                and self._fused is not None
+                and self._fused.sparse_enabled):
+            return None
+        from deeprest_tpu_torch.ops.densify import sparsify_rows
+
+        try:
+            return [sparsify_rows(s, self._fused.sparse_nnz_cap)[:2]
+                    for s in series_list]
+        except ValueError as exc:
+            if not FusedInferenceMixin._warned_fat_rows:
+                FusedInferenceMixin._warned_fat_rows = True
+                print(f"sparse-feed: dense fallback for a request "
+                      f"({exc}); raise --sparse-nnz-cap to keep the "
+                      "sparse feed (warned once)")
+            return None
+
+    def predict_series_sparse(self, cols: np.ndarray, vals: np.ndarray,
+                              integrate: bool = True) -> np.ndarray:
+        """``(cols [T, K], vals [T, K])`` padded-COO raw traffic →
+        de-normalized ``[T, E, Q]``, bit-identical to the dense entry on
+        the equivalent series: through the engine's sparse program when
+        the backend has one at this K, else densified on the host and
+        served dense."""
+        if (self._fused is not None and self._fused.sparse_enabled
+                and np.asarray(cols).shape[-1]
+                == self._fused.sparse_nnz_cap):
+            return self._fused.predict_many_sparse(
+                [(cols, vals)], integrate=integrate)[0]
+        from deeprest_tpu_torch.ops.densify import densify_rows
+
+        return self.predict_series(
+            densify_rows(cols, vals, self.feature_dim),
+            integrate=integrate)
+
+    def predict_series_many_sparse(self, sparse_series_list,
+                                   integrate: bool = True
+                                   ) -> list[np.ndarray]:
+        """S ``(cols [T_i, K], vals [T_i, K])`` pairs folded into shared
+        pages of the engine's sparse program, as
+        :meth:`predict_series_many` folds dense series."""
+        sparse_series_list = list(sparse_series_list)
+        if (self._fused is not None and self._fused.sparse_enabled
+                and all(np.shape(c)[-1] == self._fused.sparse_nnz_cap
+                        for c, _ in sparse_series_list)):
+            return self._fused.predict_many_sparse(sparse_series_list,
+                                                   integrate=integrate)
+        return [self.predict_series_sparse(c, v, integrate=integrate)
+                for c, v in sparse_series_list]
+
     def predict_series_many(self, series_list,
                             integrate: bool = True) -> list[np.ndarray]:
         """S raw ``[T_i, F]`` series folded into shared pages of the fused
         engine (per-series carry resets); one by one when it is off."""
         if self._fused is not None:
-            return self._fused.predict_many(list(series_list),
+            series_list = list(series_list)
+            sparse = self._maybe_sparsify([np.asarray(s)
+                                           for s in series_list])
+            if sparse is not None:
+                return self._fused.predict_many_sparse(sparse,
+                                                       integrate=integrate)
+            return self._fused.predict_many(series_list,
                                             integrate=integrate)
         return [self.predict_series(s, integrate=integrate)
                 for s in series_list]

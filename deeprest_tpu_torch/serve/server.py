@@ -73,7 +73,10 @@ class CheckpointReloader:
                  ladder: tuple[int, ...] | None = None,
                  fused: bool = True, page_windows: int | None = None,
                  coalesce_pages: int | None = None,
-                 coalesce_groups: int = 1, device=None):
+                 coalesce_groups: int = 1,
+                 sparse_feed: bool = False,
+                 sparse_nnz_cap: int = 64,
+                 quant: str = "off", device=None):
         from deeprest_tpu_torch.train.checkpoint import latest_step
 
         self.ckpt_dir = ckpt_dir
@@ -83,6 +86,10 @@ class CheckpointReloader:
         self.page_windows = page_windows
         self.coalesce_pages = coalesce_pages
         self.coalesce_groups = coalesce_groups
+        self.sparse_feed = sparse_feed   # ... and the sparse-feed plane
+        self.sparse_nnz_cap = sparse_nnz_cap
+        self.quant = quant        # ... and the quant mode (parity-gated
+        #                           per reload against the stored envelope)
         self.device = device
         self._last_step = latest_step(ckpt_dir)
         self._next_check = 0.0
@@ -128,15 +135,23 @@ class CheckpointReloader:
                 self.ckpt_dir, step=step, ladder=self.ladder,
                 fused=self.fused, page_windows=self.page_windows,
                 coalesce_pages=self.coalesce_pages,
-                coalesce_groups=self.coalesce_groups, device=self.device)
+                coalesce_groups=self.coalesce_groups,
+                sparse_feed=self.sparse_feed,
+                sparse_nnz_cap=self.sparse_nnz_cap, quant=self.quant,
+                device=self.device)
             fresh.warm()
         except Exception as e:
             # Mid-write/pruned steps are expected (FileNotFoundError/
             # ValueError); anything else is printed but must never wedge
             # the reloader: _loading MUST be cleared or the server would
-            # silently never reload again.
+            # silently never reload again.  A violated quant parity
+            # envelope is a ValueError but never benign: the server keeps
+            # the old step and says so.
+            from deeprest_tpu_torch.ops.quantize import QuantParityError
+
             fresh = None
-            if not isinstance(e, (FileNotFoundError, ValueError)):
+            if isinstance(e, QuantParityError) or not isinstance(
+                    e, (FileNotFoundError, ValueError)):
                 import sys
 
                 print(f"checkpoint reload of step {step} failed: {e!r}",
@@ -415,12 +430,19 @@ class PredictionService:
         fused = getattr(pred, "fused", None)
         if fused is not None:
             out["fused_infer"] = fused.stats()
-        out["quant"] = {"mode": "off"}
+        # the active quant mode and the stored envelope's worst cell
+        envelope = getattr(pred, "parity_envelope", None)
+        out["quant"] = {"mode": getattr(pred, "quant", "off")}
+        if envelope is not None:
+            measured = envelope.get("measured", {})
+            out["quant"]["parity_max"] = (max(measured.values())
+                                          if measured else None)
+            out["quant"]["parity_cells"] = len(measured)
         # One-tenant fleet view over the same objects the keys above
         # render, so consumers can read fleet.tenants[...] unconditionally.
         digest = getattr(pred, "params_digest", None)
         out["fleet"] = {"tenants": {"default": {
-            "quant": "off",
+            "quant": out["quant"]["mode"],
             "params_digest": digest() if callable(digest) else None,
             "resident": True,
         }}, "pool": None}

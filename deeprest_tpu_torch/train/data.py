@@ -5,8 +5,10 @@ Host numpy, bit-identical to the JAX package: sliding windows over the
 traffic and the stacked resource series, a leading-fraction train split,
 global min-max on the traffic and per-metric min-max on the targets, with
 the scales kept as :class:`MinMaxStats`.  Level-type resources are trained
-as per-bucket increments and integrated back for evaluation.  The sparse
-(padded-COO) fields of the JAX bundle are not ported yet.
+as per-bucket increments and integrated back for evaluation.  With
+``TrainConfig.sparse_feed`` the bundle also carries the RAW traffic as
+padded-COO rows (``x_cols``/``x_vals``/``x_nnz``), which the trainer
+stages in place of the dense base.
 """
 
 from __future__ import annotations
@@ -62,11 +64,12 @@ def integrate_level_columns(preds: np.ndarray, mask: np.ndarray,
 @dataclasses.dataclass
 class DatasetBundle:
     """Normalized windows plus everything needed to de-normalize and
-    compare (the dense fields of the JAX bundle)."""
+    compare.  Dense traffic windows may be None for a sparse-only bundle;
+    ``n_train``/``n_test`` then carry the window counts."""
 
-    x_train: np.ndarray        # [N_train, W, F] normalized traffic windows
+    x_train: np.ndarray | None  # [N_train, W, F] normalized traffic windows
     y_train: np.ndarray        # [N_train, W, E] normalized targets
-    x_test: np.ndarray         # [N_test, W, F]
+    x_test: np.ndarray | None  # [N_test, W, F]
     y_test: np.ndarray         # [N_test, W, E]
     x_stats: MinMaxStats
     y_stats: MinMaxStats       # per-metric (broadcast shape [1, E])
@@ -83,22 +86,36 @@ class DatasetBundle:
     # and the trainer stages them on its device
     x_base: np.ndarray | None = None
     y_base: np.ndarray | None = None
+    # sparse feed: RAW traffic as padded-COO rows, the trainer's staged
+    # alternative to x_base (densified and normalized on the device)
+    x_cols: np.ndarray | None = None       # [T, K] int32
+    x_vals: np.ndarray | None = None       # [T, K] float32 raw counts
+    x_nnz: np.ndarray | None = None        # [T] int32 row lengths
+    sparse_capacity: int | None = None     # dense width F of the COO rows
+    n_train: int | None = None             # window counts, sparse bundles
+    n_test: int | None = None
 
     @property
     def num_metrics(self) -> int:
         return len(self.metric_names)
 
     @property
+    def is_sparse(self) -> bool:
+        return self.x_cols is not None
+
+    @property
     def num_train_windows(self) -> int:
-        return len(self.x_train)
+        return self.n_train if self.n_train is not None else len(self.x_train)
 
     @property
     def num_test_windows(self) -> int:
-        return len(self.x_test)
+        return self.n_test if self.n_test is not None else len(self.x_test)
 
     @property
     def feature_dim(self) -> int:
-        return self.x_train.shape[-1]
+        if self.x_train is not None:
+            return self.x_train.shape[-1]
+        return int(self.sparse_capacity)
 
     def denorm_targets(self, y: np.ndarray) -> np.ndarray:
         return self.y_stats.invert(y)
@@ -165,6 +182,16 @@ def prepare_dataset(data: FeaturizedData, config: TrainConfig) -> DatasetBundle:
     y_n = y_stats.apply(targets).astype(np.float32)
     x = sliding_windows(x_n, w)                   # [N, W, F] view
     y = sliding_windows(y_n, w)                   # [N, W, E] view
+
+    # Sparse feed: the RAW traffic as padded-COO rows beside the dense
+    # views; the trainer stages cols/vals instead of x_base.  A row over
+    # the cap raises (ops/densify.sparsify_rows).
+    x_cols = x_vals = x_nnz = None
+    if getattr(config, "sparse_feed", False):
+        from deeprest_tpu_torch.ops.densify import sparsify_rows
+
+        x_cols, x_vals, x_nnz = sparsify_rows(traffic,
+                                              config.sparse_nnz_cap)
     return DatasetBundle(
         x_train=x[:split],
         y_train=y[:split],
@@ -180,6 +207,10 @@ def prepare_dataset(data: FeaturizedData, config: TrainConfig) -> DatasetBundle:
         raw_targets=raw_targets,
         x_base=x_n,
         y_base=y_n,
+        x_cols=x_cols,
+        x_vals=x_vals,
+        x_nnz=x_nnz,
+        sparse_capacity=(traffic.shape[-1] if x_cols is not None else None),
     )
 
 

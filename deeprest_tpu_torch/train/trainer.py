@@ -45,6 +45,10 @@ window, capped at ``eval_max_cycles``, median-quantile predictions floored
 at 1e-6 before de-normalization, delta columns integrated back to levels,
 absolute errors pooled into the MAE report.
 
+The sparse feed (``TrainConfig.sparse_feed``) stages padded-COO traffic
+rows instead of the dense base; each gather densifies and normalizes on
+the device, so losses equal the dense feed's bit for bit.
+
 Not ported yet: elastic remeshing, the mesh.
 """
 
@@ -283,9 +287,20 @@ class Trainer:
                 weights.reshape(n_chunks, s, bs), num_steps)
 
     def stage_dataset(self, bundle: DatasetBundle):
-        """The normalized base series on the device: ``(x_base [T, F]`` in
-        the compute dtype, ``y_base [T, E]`` f32).  Train window i starts at
-        base row i, test window i at ``split + i``."""
+        """The base series on the device: ``(x_base [T, F]`` normalized in
+        the compute dtype, ``y_base [T, E]`` f32), or with
+        ``TrainConfig.sparse_feed`` and a sparse bundle ``(SparseBase,
+        y_base)`` (:meth:`_stage_sparse`).  Train window i starts at base
+        row i, test window i at ``split + i``."""
+        cfg = self.config.train
+        if cfg.sparse_feed and bundle.is_sparse:
+            return self._stage_sparse(bundle)
+        if bundle.x_base is None and bundle.is_sparse:
+            # A sparse-only bundle has no dense base to fall back to.
+            raise ValueError(
+                "bundle carries only sparse (padded-COO) traffic but "
+                "TrainConfig.sparse_feed is off; enable sparse_feed or "
+                "rebuild the bundle with dense traffic")
         if bundle.x_base is None or bundle.y_base is None:
             raise ValueError("bundle carries no base series to stage; build "
                              "it with prepare_dataset")
@@ -294,11 +309,57 @@ class Trainer:
         y = torch.from_numpy(np.ascontiguousarray(bundle.y_base))
         return (x.to(self.device, dtype), y.to(self.device, torch.float32))
 
+    def _stage_sparse(self, bundle: DatasetBundle):
+        """The padded-COO traffic base and its normalization stats on the
+        device: RAW ``cols``/``vals`` rows (~F/(2K) fewer bytes than the
+        dense base) that each step's gather densifies and normalizes
+        there (``ops/densify.py``; bit-identical to the dense feed).  There
+        is no host-fed fallback, so a base over ``device_data_max_bytes``
+        raises under "auto"."""
+        from deeprest_tpu_torch.ops.densify import SparseBase
+
+        cfg = self.config.train
+        if bundle.y_base is None:
+            raise ValueError("sparse bundle lacks y_base; the targets "
+                             "stay dense and must be stageable")
+        total = (bundle.x_cols.nbytes + bundle.x_vals.nbytes
+                 + bundle.y_base.nbytes)
+        if cfg.device_data == "auto" and total > cfg.device_data_max_bytes:
+            raise ValueError(
+                f"sparse base ({total} bytes) exceeds "
+                f"device_data_max_bytes ({cfg.device_data_max_bytes}); "
+                "there is no host-feed fallback for the sparse form — "
+                "raise the budget or shrink history_max/nnz_cap")
+
+        def dev(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+                self.device)
+
+        x_stats = bundle.x_stats
+        base = SparseBase(
+            cols=dev(bundle.x_cols, np.int32),
+            vals=dev(bundle.x_vals, np.float32),
+            mn=dev(np.asarray(x_stats.min, np.float32).reshape(-1),
+                   np.float32),
+            rg=dev(np.asarray(x_stats.range, np.float32).reshape(-1),
+                   np.float32),
+            capacity=int(bundle.sparse_capacity or bundle.feature_dim))
+        return base, dev(bundle.y_base, np.float32)
+
     def _gather(self, staged, starts: torch.Tensor):
         """``[n, W, F]`` inputs and ``[n, W, E]`` targets of the windows
-        starting at ``starts`` (a device tensor) in the staged series."""
+        starting at ``starts`` (a device tensor) in the staged series; a
+        sparse base gathers ``[n, W, K]`` rows and densifies and
+        normalizes them on the device (inside a captured update too: the
+        dense windows come from the graph's pool)."""
+        from deeprest_tpu_torch.ops.densify import (
+            SparseBase, gather_densify_normalize,
+        )
+
         x_base, y_base = staged
         idx = starts[:, None] + self._window_offsets[None, :]
+        if isinstance(x_base, SparseBase):
+            return gather_densify_normalize(x_base, idx), y_base[idx]
         return x_base[idx], y_base[idx]
 
     def _windows(self, staged, starts: np.ndarray):

@@ -8,7 +8,11 @@ repository's conftest imports JAX, which the GPU machine does not have):
 
 Captured and eager engines run the same kernels on the same values, so
 they must agree bit for bit, over many pages, with and without the delta
-carry chained between pages.
+carry chained between pages.  The sparse feed's engines (padded-COO pages
+densified on the device) must give the dense engines' answers bit for bit,
+and their captured graphs the eager ones'; a quantized predictor's
+captured graphs (dequant at use) equal its eager ones; an exported
+artifact placed on the card runs K1 through the registered operator.
 """
 
 import threading
@@ -22,6 +26,7 @@ from deeprest_tpu_torch.config import ModelConfig
 from deeprest_tpu_torch.data.windows import MinMaxStats
 from deeprest_tpu_torch.models.qrnn import init_params
 from deeprest_tpu_torch.ops import cuda_gru
+from deeprest_tpu_torch.ops.densify import sparsify_rows
 from deeprest_tpu_torch.serve.fused import plan_windows
 from deeprest_tpu_torch.serve.graphs import RungGraphs
 from deeprest_tpu_torch.graphs import GraphCaptureError
@@ -229,3 +234,67 @@ def test_failed_capture_raises(cuda):
                                                match="bad at rung 4"):
         graphs.run(("bad", 4), lambda t: t * float(t.sum().item()), (x,))
     assert graphs.stats()["captures"] == 0
+
+
+def sparse_series(many, k=F):
+    return [sparsify_rows(s, k)[:2] for s in many]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [False, True])
+def test_sparse_engine_equals_dense_bit_for_bit(cuda, delta):
+    sparse = make(True, delta, sparse_feed=True, sparse_nnz_cap=F)
+    eager_sparse = make(False, delta, sparse_feed=True, sparse_nnz_cap=F)
+    dense = make(True, delta)
+    many = series(5)
+    coo = sparse_series(many)
+    stats = sparse.warm()
+    assert sparse.graphs.size("sparse") > 0 == stats["captures_after_warmup"]
+    for integrate in (True, False):
+        want = dense.predict_series_many(many, integrate=integrate)
+        got = sparse.predict_series_many_sparse(coo, integrate=integrate)
+        eager = eager_sparse.predict_series_many_sparse(
+            coo, integrate=integrate)
+        for g, e, w in zip(got, eager, want):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(e, w)
+    cols = np.stack([c[:W] for c, _ in coo[:3]])
+    vals = np.stack([v[:W] for _, v in coo[:3]])
+    x = sparse.x_stats.apply(np.stack([s[:W] for s in many[:3]]))
+    np.testing.assert_array_equal(sparse.apply_windows_sparse(cols, vals),
+                                  dense.apply_windows(x.astype(np.float32)))
+    assert sparse.jit_cache_stats()["captures_after_warmup"] == 0
+    assert sparse.fused.stats()["sparse_pages"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "bf16"])
+def test_quantized_captured_equals_eager(cuda, quant):
+    captured, eager = make(True, True, quant=quant), make(False, True,
+                                                          quant=quant)
+    assert captured.parity_envelope["mode"] == quant
+    many = series(3)
+    for g, w in zip(captured.predict_series_many(many),
+                    eager.predict_series_many(many)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_exported_artifact_launches_k1_on_the_card(cuda, tmp_path):
+    from deeprest_tpu_torch.serve.export import (
+        ExportedPredictor, export_predictor,
+    )
+
+    pred = make(True, True)
+    export_predictor(pred, str(tmp_path / "art"))
+    art = ExportedPredictor.load(str(tmp_path / "art"), ladder=(4, 8),
+                                 page_windows=8, coalesce_pages=1,
+                                 device="cuda")
+    art.warm()
+    before = cuda_gru.GRU_FWD.launches
+    many = series(3)
+    for g, w in zip(art.predict_series_many(many),
+                    pred.predict_series_many(many)):
+        np.testing.assert_array_equal(g, w)
+    assert cuda_gru.GRU_FWD.launches > before
+    assert art.jit_cache_stats()["captures_after_warmup"] == 0

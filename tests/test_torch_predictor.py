@@ -230,14 +230,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "import tempfile, numpy as np\n"
+        "from deeprest_tpu_torch.config import ModelConfig, TrainConfig\n"
+        "from deeprest_tpu_torch.data.windows import MinMaxStats\n"
+        "from deeprest_tpu_torch.models.qrnn import init_params\n"
+        "from deeprest_tpu_torch.serve.predictor import Predictor\n"
+        "from deeprest_tpu_torch.serve import export\n"
+        "TrainConfig(sparse_feed=True)\n"
+        "cfg = ModelConfig(feature_dim=8, num_metrics=2, hidden_size=8)\n"
+        "st = MinMaxStats(min=np.float32(0), max=np.float32(1))\n"
+        "p = Predictor(init_params(cfg), cfg, st, st, ['a_cpu', 'b_cpu'], "
+        "4, sparse_feed=True, quant='int8', device='cpu')\n"
+        "p.predict_series(np.ones((9, 8), np.float32))\n"
+        "d = tempfile.mkdtemp()\n"
+        "export.export_predictor(p, d)\n"
+        "export.ExportedPredictor.load(d, quant='int8', device='cpu')"
+        ".predict_series(np.ones((9, 8), np.float32))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
         "need = {'graphs', 'obs', 'obs.metrics', 'obs.spans', "
         "'obs.export', 'serve.batcher', 'serve.graphs', 'serve.surface', "
-        "'serve.server'}\n"
+        "'serve.server', 'ops.densify', 'ops.quantize', 'serve.export'}\n"
         "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 44 else 0)\n")
+        "sys.exit(1 if bad or missing or len(names) < 47 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -308,11 +308,12 @@ def test_train_cli_runs_end_to_end_on_cpu(corpus, tmp_path, capsys):
 
 def test_unported_train_features_raise_and_device_defaults_to_cuda(
         monkeypatch):
-    for kw in (dict(device_data="off"), dict(sparse_feed=True),
-               dict(elastic=True)):
+    for kw in (dict(device_data="off"), dict(elastic=True)):
         with pytest.raises(ValueError, match="does not implement"):
             TrainConfig(**kw)
     TrainConfig(device_data="always")
+    # the sparse feed is ported (tests/test_torch_sparse.py)
+    assert TrainConfig(sparse_feed=True).sparse_nnz_cap == 64
     # supersteps and accumulation are ported; the JAX defaults hold
     assert TrainConfig().steps_per_superstep == "auto"
     assert TrainConfig(grad_accum_windows=2).grad_accum_mode == "exact"
@@ -328,7 +329,9 @@ def test_unported_train_features_raise_and_device_defaults_to_cuda(
                      "be 'exact', 'flat', or 'loop'"),
                     (dict(snapshot_every_steps=-1), "snapshot_every_steps"),
                     (dict(snapshot_keep=-1), "snapshot_keep=-1: must be an "
-                     "int >= 0")):
+                     "int >= 0"),
+                    (dict(sparse_nnz_cap=0), "sparse_nnz_cap=0: must be an "
+                     "int >= 1")):
         with pytest.raises(ValueError) as port_err:
             TrainConfig(**kw)
         with pytest.raises(ValueError) as jax_err:
