@@ -123,12 +123,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     bit-identical to the in-process predictor, K1 launched); one
     /v1/predict of 60 x 10,240 through `serve --sparse-feed` equal to the
     in-process sparse answer;
-11. the seconds of each phase, one JSON line of per-kernel numbers, then
+11. streaming retrain on phase 7's corpus (the social network, hashed
+    into capacity 512, E=88, W=60, B=32, H=128): `python -m
+    deeprest_tpu_torch stream` at its defaults in f32 on a file a writer
+    thread grows chunk by chunk, killed after refresh 2's checkpoint and
+    run again (it resumes at refresh 2 with the same frozen metric set and
+    a watermark that goes on, and refreshes at 360 buckets): finite losses,
+    K2 = K3 = 2 x fine-tune steps, K1 launched by the evaluation, the
+    captures and seconds of each refresh (stage, capture, fine-tune,
+    evaluation, checkpoint write), the ETL stall overlapped and serial;
+    in-process from the refresh-2 checkpoint, one refresh through the
+    kernels against the plain recurrence (f32, dropout 0: losses and
+    params within 1e-4), device memory over four refreshes at 360
+    buckets (flat), one profiled; wire-fed against tailer-fed streams
+    (bf16, sparse feed) bit for bit over two refreshes, and each source's
+    ingest buckets/s; the drift->retrain loop on drift_bench's detection
+    corpus (quick cycle) at the stream's widths in bf16 (the verdict
+    enters after the shift, a refresh fires on drift, the WindowBackend
+    sweep on K1 within 2e-2 of scale of the plain recurrence); `serve
+    --verdict-raw --watch` on the stream's checkpoint in its own process
+    (/v1/verdict 200 with states, the next stream checkpoint reloaded and
+    swept, no capture after warm-up);
+12. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 10 and the sweep of 9; a server process starts at 0) and read just
-after it; launches made to check or
+7, 8, 10, 11 and the sweep of 9; a server or CLI process starts at 0) and
+read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
 adds them once per replay (deeprest_tpu_torch/graphs.py).
@@ -1440,6 +1461,7 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
     return {"launches": launches, "seconds": secs, "total_s": total,
             "windows_per_s": n_windows / t_many, "sweep_rel": sweep_rel,
             "score_err": score_err, "ckpt": ckpt, "sample": sample,
+            "raw": raw,
             "mix": mix, "plain": plain, "synth": synth,
             "crypto": (data.traffic, data.targets())}
 
@@ -2702,6 +2724,632 @@ def phase_tuning_sweep(cuda_gru) -> dict:
     return sweep
 
 
+# Phase 11: streaming retrain (the stream at the CLI's defaults, wire =
+# tailer, the drift->retrain loop, the verdict surface).
+STREAM_EVERY = 60          # --refresh-buckets
+# the first bucket count a refresh fires at: W + eval_holdout (8) + 2
+# windows, and at least --refresh-buckets
+STREAM_FIRST = max(STREAM_EVERY, W + 11)
+STREAM_SMALL = STREAM_FIRST + STREAM_EVERY       # two refreshes' buckets
+DRIFT_CYCLE = 30           # drift_bench's quick cycle (full: 60)
+STREAM_TOL = 1e-4          # kernels vs plain refresh, f32
+STREAM_RATE_BUCKETS = 30   # buckets each source's ingest rate is timed on
+
+
+def stream_cli(args: list, log_path: str):
+    """``python -m deeprest_tpu_torch stream ARGS`` in its own process,
+    stdout piped line by line, stderr to ``log_path``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with open(log_path, "w", encoding="utf-8") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "deeprest_tpu_torch", "stream",
+             *map(str, args)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=log, text=True, bufsize=1)
+
+
+def stream_refreshes(proc, n: int, log_path: str, feed=None,
+                     timeout: float = 300.0) -> tuple[list, list]:
+    """The first ``n`` refresh lines of a stream process (JSON), with its
+    other stdout lines; ``feed(i)`` runs after refresh line ``i``.  The run
+    fails if the process exits or times out first."""
+    import select
+
+    refreshes, other = [], []
+    deadline = time.monotonic() + timeout
+    while len(refreshes) < n:
+        ready, _, _ = select.select([proc.stdout], [], [],
+                                    max(0.0, deadline - time.monotonic()))
+        line = proc.stdout.readline() if ready else ""
+        if not line:
+            proc.kill()
+            proc.wait(timeout=60)
+            with open(log_path, encoding="utf-8") as log:
+                fail(f"stream gave {len(refreshes)} of {n} refreshes "
+                     f"(exit {proc.returncode}):\n{''.join(other)[-3000:]}"
+                     f"\n{log.read()[-6000:]}")
+        if line.startswith('{"refresh"'):
+            refreshes.append(json.loads(line))
+            if feed is not None:
+                feed(len(refreshes))
+        else:
+            other.append(line)
+    return refreshes, other
+
+
+def print_refreshes(label: str, lines: list) -> None:
+    for r in lines:
+        s = r["seconds"]
+        other = s["finetune"] - s["capture"]
+        print(f"stream {label} refresh {r['refresh']} ({r['trigger']}): "
+              f"{r['buckets']} buckets, {r['steps']} fine-tune steps, "
+              f"{r['captures']} captures; train_loss {r['train_loss']}, "
+              f"eval_loss {r['eval_loss']}; seconds: prepare "
+              f"{s['prepare']:.4f}, stage {s['stage']:.4f}, capture "
+              f"{s['capture']:.4f}, fine-tune epochs less capture "
+              f"{other:.4f}, eval {s['eval']:.4f}, checkpoint write "
+              f"{s['checkpoint']:.4f}; "
+              f"{r['steps'] / max(s['finetune'], 1e-9):.1f} steps/s in the "
+              f"fine-tune; ETL stall {r['etl']['stall_s']} s", flush=True)
+
+
+def stream_config(compute: str, sparse: bool = False, dropout: float = 0.5,
+                  history_max: int = 4096, refresh: int = STREAM_EVERY,
+                  eval_holdout: int = 8):
+    """The stream CLI's defaults as (Config, StreamConfig): capacity 512,
+    W=60, B=32, H=128, 2 fine-tune epochs."""
+    from deeprest_tpu_torch.config import (
+        Config, EtlConfig, ModelConfig, TrainConfig,
+    )
+    from deeprest_tpu_torch.train.stream import StreamConfig
+
+    cfg = Config(
+        model=ModelConfig(feature_dim=F, hidden_size=TRAIN["H"],
+                          dropout_rate=dropout, compute_dtype=compute),
+        train=TrainConfig(batch_size=TRAIN["B"], window_size=W, seed=SEED,
+                          eval_stride=1, eval_max_cycles=eval_holdout,
+                          log_every_steps=0, sparse_feed=sparse),
+        etl=EtlConfig())
+    return cfg, StreamConfig(refresh_buckets=refresh, finetune_epochs=2,
+                             history_max=history_max,
+                             eval_holdout=eval_holdout, poll_interval_s=0.05)
+
+
+def streaming_trainer(compute: str, ckpt_dir=None, recurrence=None, **kw):
+    from deeprest_tpu_torch.config import FeaturizeConfig
+    from deeprest_tpu_torch.train.stream import StreamingTrainer
+
+    cfg, sc = stream_config(compute, **kw)
+    return StreamingTrainer(
+        cfg, sc, ckpt_dir=ckpt_dir, device="cuda", recurrence=recurrence,
+        feature_config=FeaturizeConfig(hash_features=True, capacity=F))
+
+
+def stream_cli_path(cuda_gru, lines: list, wd: str, after_run1) -> dict:
+    """The stream CLI at its defaults (f32) on a growing copy of phase 7's
+    corpus: two refreshes, a kill, a resumed run of two more.
+    ``after_run1(ckpt_r2)`` runs once refresh 2's checkpoint is copied to
+    ``ckpt_r2``, before the second run starts."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from deeprest_tpu_torch.train.checkpoint import (
+        latest_step, list_steps, load_sidecar,
+    )
+
+    growing = os.path.join(wd, "growing.jsonl")
+    ckpt = os.path.join(wd, "ckpt")
+    chunks = [lines[:STREAM_FIRST], lines[STREAM_FIRST:STREAM_SMALL],
+              lines[STREAM_SMALL:]]
+    todo = threading.Semaphore(0)
+    writer_done = threading.Event()
+
+    def writer():
+        # appends one chunk each time the reader asks for it
+        for chunk in chunks:
+            todo.acquire()
+            with open(growing, "ab") as f:
+                f.write(b"".join(chunk))
+        writer_done.set()
+
+    threading.Thread(target=writer, daemon=True).start()
+    todo.release()                              # chunk 1 before the start
+    common = ["--raw", growing, "--ckpt-dir", ckpt, "--capacity", F,
+              "--window", W, "--batch-size", TRAIN["B"], "--hidden-size",
+              TRAIN["H"], "--compute-dtype", "float32", "--refresh-buckets",
+              STREAM_EVERY, "--finetune-epochs", 2, "--poll-interval", 0.1,
+              "--max-refreshes", 3]
+    log1 = os.path.join(wd, "stream_run1.log")
+    t0 = time.perf_counter()
+    proc = stream_cli(common, log1)
+    run1, _ = stream_refreshes(
+        proc, 2, log1, feed=lambda i: i == 1 and todo.release())
+    proc.kill()                                  # after refresh 2's line
+    proc.wait(timeout=60)
+    t_run1 = time.perf_counter() - t0
+    step2 = latest_step(ckpt)
+    side2 = load_sidecar(ckpt, step2)
+    ckpt_r2 = os.path.join(wd, "ckpt_refresh2")
+    shutil.copytree(ckpt, ckpt_r2)
+    print_refreshes("run 1 (overlapped ETL)", run1)
+    after_run1(ckpt_r2)
+
+    log2 = os.path.join(wd, "stream_run2.log")
+    t0 = time.perf_counter()
+    proc = stream_cli(common + ["--no-etl-overlap"], log2)
+    run2, other = stream_refreshes(
+        proc, 2, log2, feed=lambda i: i == 1 and todo.release())
+    proc.kill()
+    proc.wait(timeout=60)
+    t_run2 = time.perf_counter() - t0
+    if not writer_done.wait(30):
+        fail("the stream corpus writer did not finish")
+    print_refreshes("run 2 (resumed, serial ETL)", run2)
+    resumed = [ln.strip() for ln in other if "resumed from" in ln]
+    side3 = load_sidecar(ckpt, min(s for s in list_steps(ckpt)
+                                   if s > step2))
+    losses = [(r["train_loss"], r["eval_loss"]) for r in run1 + run2]
+    print(f"stream CLI: run 1 {t_run1:.1f} s (killed after refresh 2), "
+          f"run 2 {t_run2:.1f} s; {resumed}; frozen metrics "
+          f"{len(side2['metric_names'])}; ingest watermark at refresh 2 "
+          f"{side2['stream_ring_watermark']}, at refresh 3 "
+          f"{side3['stream_ring_watermark']}", flush=True)
+    if not np.isfinite(np.asarray(losses, np.float64)).all():
+        fail(f"the stream's refresh losses are not finite: {losses}")
+    if [r["refresh"] for r in run1 + run2] != [1, 2, 3, 4]:
+        fail("the resumed stream did not continue at refresh 3")
+    if not resumed or "refresh 2," not in resumed[0]:
+        fail(f"the second stream run did not resume at refresh 2: {other}")
+    if side3["metric_names"] != side2["metric_names"] \
+            or len(side2["metric_names"]) != 88:
+        fail("the resumed stream changed its frozen metric set")
+    wm2 = side2["stream_ring_watermark"]["ingested_total"]
+    wm3 = side3["stream_ring_watermark"]["ingested_total"]
+    if (wm2, wm3) != (STREAM_SMALL, 2 * STREAM_SMALL):
+        fail(f"ingest watermark {wm2} -> {wm3}; want {STREAM_SMALL} -> "
+             f"{2 * STREAM_SMALL} (the resumed run re-reads the file)")
+    launches = dict.fromkeys((k.name for k in cuda_gru.MODEL_KERNELS), 0)
+    for label, run in (("run 1", run1), ("run 2", run2)):
+        led = run[-1]["kernel_launches"]
+        steps = sum(r["steps"] for r in run)
+        print(f"stream CLI {label} launches {led} for {steps} fine-tune "
+              f"steps; captures per refresh "
+              f"{[r['captures'] for r in run]}", flush=True)
+        for name in ("gru_fwd_train", "gru_bwd"):
+            if led[name] != 2 * steps:
+                fail(f"stream {label}: {name} launched {led[name]} times "
+                     f"for {steps} steps; want 2 x steps")
+        if led["gru_fwd"] == 0:
+            fail(f"stream {label}: the evaluation never launched gru_fwd")
+        for k, v in led.items():
+            launches[k] += v
+    return {"run1": run1, "run2": run2, "ckpt": ckpt, "ckpt_r2": ckpt_r2,
+            "growing": growing, "launches": launches,
+            "seconds": {"run1": t_run1, "run2": t_run2}}
+
+
+def stream_in_process(cuda_gru, buckets: list, ckpt_r2: str) -> dict:
+    """From the refresh-2 checkpoint (f32, dropout 0): one refresh through
+    the kernels against the plain recurrence, device memory over five
+    refreshes, one refresh at 360 buckets profiled."""
+    import numpy as np
+    import torch
+
+    def resumed(recurrence=None, steps_per_superstep=None):
+        st = streaming_trainer("float32", ckpt_dir=ckpt_r2, dropout=0.0,
+                               recurrence=recurrence, history_max=RAW_BUCKETS)
+        st.ckpt_dir = None                  # resume only: no writes here
+        if steps_per_superstep is not None:
+            import dataclasses
+
+            st.trainer.config = dataclasses.replace(
+                st.trainer.config, train=dataclasses.replace(
+                    st.trainer.config.train,
+                    steps_per_superstep=steps_per_superstep))
+        return st
+
+    kern = resumed()
+    plain = resumed(cuda_gru.gru_recurrence_reference, steps_per_superstep=1)
+    for st in (kern, plain):
+        for b in buckets[:STREAM_FIRST + 9]:
+            st.ingest(b)
+    rk, rp = kern.refresh(), plain.refresh()
+    loss_rel = max(abs(rk.train_loss - rp.train_loss) / abs(rp.train_loss),
+                   abs(rk.eval_loss - rp.eval_loss) / abs(rp.eval_loss))
+    prel, pabs, _ = params_rel_diff(kern.state, plain.state)
+    print(f"check stream refresh kernels vs plain recurrence (f32, dropout "
+          f"0, from the refresh-2 checkpoint, {rk.steps} steps): train "
+          f"{rk.train_loss:.7f} vs {rp.train_loss:.7f}, eval "
+          f"{rk.eval_loss:.7f} vs {rp.eval_loss:.7f}, max relative loss "
+          f"difference {loss_rel:.3e}; params max_err/scale {prel:.3e} "
+          f"(max abs {pabs:.3e}); tol {STREAM_TOL}", flush=True)
+    if loss_rel > STREAM_TOL or prel > STREAM_TOL:
+        fail("the stream refresh on the kernels disagrees with the plain "
+             "recurrence")
+    del plain
+    free_device()
+
+    memory, profiled = [], None
+    i = STREAM_FIRST + 9
+    for n in range(2, 6):
+        want = RAW_BUCKETS if n == 2 else STREAM_EVERY
+        for _ in range(want):
+            kern.ingest(buckets[i % len(buckets)])
+            i += 1
+        if n == 5:
+            profiled = profile_train_steps(
+                "stream refresh at 360 buckets (f32)",
+                lambda: memory.append(kern.refresh()), 20)
+            r = memory.pop()
+        else:
+            r = kern.refresh()
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats()
+        memory.append((n, r.num_buckets, r.steps, r.captures,
+                       torch.cuda.memory_allocated(),
+                       torch.cuda.memory_reserved(),
+                       stats.get("segment.all.current", 0),
+                       stats.get("allocation.all.current", 0)))
+    for n, nb, steps, caps, alloc, res, segs, allocs in memory:
+        print(f"stream device memory after in-process refresh {n} ({nb} "
+              f"buckets, {steps} steps, {caps} captures): allocated "
+              f"{alloc / 2**20:.1f} MiB in {allocs} blocks, reserved "
+              f"{res / 2**20:.1f} MiB in {segs} segments", flush=True)
+    first, last = memory[0], memory[-1]
+    grow = (last[4] - first[4], last[5] - first[5])
+    print(f"check stream device memory flat from refresh 2 to 5: allocated "
+          f"{grow[0] / 2**20:+.2f} MiB, reserved {grow[1] / 2**20:+.2f} MiB "
+          f"(tol +1 MiB allocated, +0 reserved)", flush=True)
+    if grow[0] > 2**20 or grow[1] > 0:
+        fail("device memory grows across refreshes (a dropped graph's "
+             "pool is not freed)")
+    return {"stream": kern, "loss_rel": loss_rel, "params_rel": prel,
+            "busy_pct": profiled, "memory": memory}
+
+
+def stream_wire_vs_tailer(buckets: list, lines: list, wd: str) -> dict:
+    """Two bf16 sparse-feed streams from the same seed, one fed by a
+    SpanFirehoseReceiver through push_corpus, one by a BucketTailer, over
+    the same two refreshes' buckets: params and losses bit for bit; then
+    host ingest buckets/s of each source."""
+    import threading
+
+    import torch
+
+    from deeprest_tpu_torch.data.wire import SpanFirehoseReceiver, push_corpus
+    from deeprest_tpu_torch.train.stream import BucketTailer
+
+    parts = [(0, STREAM_FIRST), (STREAM_FIRST, STREAM_SMALL)]
+    path = os.path.join(wd, "tailed.jsonl")
+    open(path, "wb").close()
+    st_file = streaming_trainer("bfloat16", sparse=True)
+    tailer = BucketTailer(path)
+    gen = st_file.run(tailer, max_refreshes=2)
+    res_file = []
+    for lo, hi in parts:
+        with open(path, "ab") as f:
+            f.write(b"".join(lines[lo:hi]))
+        res_file.append(next(gen))
+    gen.close()
+    tailer.close()
+
+    st_wire = streaming_trainer("bfloat16", sparse=True)
+    rx = SpanFirehoseReceiver("127.0.0.1", 0, space=st_wire.space).start()
+    gen = st_wire.run(rx, max_refreshes=2)
+    res_wire = []
+    try:
+        for lo, hi in parts:
+            t = threading.Thread(target=push_corpus, daemon=True, args=(
+                rx.address, buckets[lo:hi]), kwargs={"client_id": "smoke"})
+            t.start()
+            res_wire.append(next(gen))
+            t.join(timeout=60)
+        gen.close()
+    finally:
+        rx.close()
+    same_loss = [(a.train_loss, a.eval_loss) == (b.train_loss, b.eval_loss)
+                 for a, b in zip(res_file, res_wire)]
+    diffs = {n: float((a - st_wire.state.params[n]).detach().abs().max())
+             for n, a in st_file.state.params.items()}
+    same = all(torch.equal(a, st_wire.state.params[n])
+               for n, a in st_file.state.params.items())
+    print(f"check stream wire-fed vs tailer-fed (bf16, sparse feed, "
+          f"{[r.num_buckets for r in res_file]} buckets): refresh losses "
+          f"equal {same_loss} ({[(r.train_loss, r.eval_loss) for r in res_file]}"
+          f" vs {[(r.train_loss, r.eval_loss) for r in res_wire]}); params "
+          f"bit-identical {same} (max |diff| {max(diffs.values()):.3e})",
+          flush=True)
+    if not (same and all(same_loss)):
+        fail("wire-fed and tailer-fed streams differ")
+
+    # host ingest rates: the tailer parses and featurizes, the wire
+    # encodes, sends, decodes and featurizes
+    n = STREAM_RATE_BUCKETS
+    path = os.path.join(wd, "rate.jsonl")
+    with open(path, "wb") as f:
+        f.write(b"".join(lines[:n]))
+    st = streaming_trainer("bfloat16", sparse=True)
+    t0 = time.perf_counter()
+    tailer = BucketTailer(path)
+    got = 0
+    while got < n:
+        for b in tailer.poll():
+            st.ingest(b)
+            got += 1
+    t_tail = time.perf_counter() - t0
+    tailer.close()
+    rx = SpanFirehoseReceiver("127.0.0.1", 0, space=st.space).start()
+    try:
+        t0 = time.perf_counter()
+        t = threading.Thread(target=push_corpus, daemon=True, args=(
+            rx.address, buckets[:n]))
+        t.start()
+        got = 0
+        while got < n:
+            items = rx.poll()
+            for feat in items:
+                st._ingest_featurized(feat)
+            got += len(items)
+            if not items:
+                time.sleep(0.001)
+        t_wire = time.perf_counter() - t0
+        t.join(timeout=60)
+    finally:
+        rx.close()
+    rates = {"tailer": n / t_tail, "wire": n / t_wire}
+    print(f"stream ingest: {n} buckets of the social network (F=512, "
+          f"sparse rows): tailer (parse + featurize) {rates['tailer']:.1f} "
+          f"buckets/s, wire (encode + send + decode + featurize) "
+          f"{rates['wire']:.1f} buckets/s", flush=True)
+    return {"rates": rates}
+
+
+def stream_drift(cuda_gru, corpus: list) -> dict:
+    """The drift->retrain loop on drift_bench's detection corpus (quick
+    cycle) at the stream's widths, bf16: the verdict enters after the
+    shift, a refresh fires on "drift", and the WindowBackend sweeps run K1
+    within 2e-2 of scale of the plain recurrence."""
+    import numpy as np
+
+    from deeprest_tpu_torch.config import QualityConfig
+    from deeprest_tpu_torch.obs.quality import WindowBackend, model_apply
+    from deeprest_tpu_torch.train.stream import DriftController
+
+    cycle = DRIFT_CYCLE
+    shift, total = 8 * cycle, len(corpus)
+    qc = QualityConfig(
+        enabled=True, sweep_every_buckets=cycle // 2,
+        live_window=2 * cycle, reference_window=4 * cycle,
+        min_sweep_buckets=W, sustain_enter=2, sustain_exit=2,
+        drift_enter=1.0, drift_exit=0.5, calibration_enter=0.5,
+        calibration_exit=0.25, retrain_cooldown_buckets=3 * cycle,
+        model_warmup_refreshes=4)
+    st = streaming_trainer("bfloat16", refresh=40, history_max=12 * cycle,
+                           eval_holdout=2)
+    controller = DriftController(st, qc)
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    refreshes, events, seen = [], [], 0
+    t0 = time.perf_counter()
+    for i, b in enumerate(corpus):
+        st.ingest(b)
+        if st.ready():
+            refreshes.append((i, st.refresh().trigger))
+        if controller.monitor is not None:
+            fresh = controller.monitor.events[seen:]
+            seen += len(fresh)
+            events.extend((i, s, state) for _, s, state in fresh)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_gru.MODEL_KERNELS}
+    enter = next((b for b, s, state in events
+                  if s == "feature_drift" and state == "drift"), None)
+    early = [b for b, s, state in events
+             if s == "feature_drift" and state == "drift" and b < shift]
+    drift_refreshes = [i for i, t in refreshes if t == "drift"]
+    print(f"stream drift loop: {total} buckets (shift at {shift}, cycle "
+          f"{cycle}), E={len(st.metric_names)},"
+          f" {len(refreshes)} refreshes {refreshes}, drift verdict entered "
+          f"at bucket {enter}, {controller.stats['sweeps']} sweeps, stats "
+          f"{controller.stats}; {wall:.1f} s; launches {launches}",
+          flush=True)
+    if enter is None or early:
+        fail(f"the drift verdict did not enter after the shift: {events}")
+    if not drift_refreshes:
+        fail(f"no refresh fired on drift: {refreshes}")
+
+    # the sweeps' backend on the kernels against the plain recurrence
+    backend = controller._backend()
+    plain = WindowBackend(
+        model_apply(st.state.model, cuda_gru.gru_recurrence_reference),
+        st.state.params, st.x_stats, st.y_stats, st.metric_names,
+        st.config.model.quantiles, W, delta_mask=st.current_delta_mask(),
+        feature_dim=F)
+    traffic = st.traffic.view()[-W:].copy()
+    k1 = cuda_gru.GRU_FWD.launches
+    got = backend.predict_series(traffic, integrate=False)
+    k1 = cuda_gru.GRU_FWD.launches - k1
+    want = plain.predict_series(traffic, integrate=False)
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    print(f"check stream drift WindowBackend sweep (K1, {k1} launches) vs "
+          f"the plain recurrence: max_err/scale={err:.3e} (tol "
+          f"{TOL['bfloat16'][0]})", flush=True)
+    if k1 == 0 or err > TOL["bfloat16"][0]:
+        fail("the drift sweep's backend disagrees with the plain path or "
+             "did not launch gru_fwd")
+    return {"launches": launches, "enter": enter, "refreshes": refreshes,
+            "sweep_rel": err, "wall_s": wall}
+
+
+def drift_corpus() -> list:
+    """drift_bench's detection corpus at its quick cycle: a synthetic
+    8-service app that becomes a 14-service one at bucket 8 x cycle, 14
+    cycles in all (benchmarks/drift_bench.py)."""
+    from deeprest_tpu_torch.workload.scenarios import normal_scenario
+    from deeprest_tpu_torch.workload.simulator import (
+        build_shifted_app, simulate_drift_corpus_iter,
+    )
+
+    cycle = DRIFT_CYCLE
+    sc = normal_scenario(seed=SEED)
+    sc.calls_per_user, sc.base_users = 0.5, 40.0
+    sc.peak_range, sc.cycle_len = (56.0, 80.0), cycle
+    before, after, endpoints = build_shifted_app(sc, 8, 14, 4, seed=SEED)
+    return list(simulate_drift_corpus_iter(sc, 14 * cycle, 8 * cycle,
+                                           before, after, endpoints))
+
+
+def phase_stream(cuda_gru, raw_path: str, workdir: str) -> dict:
+    """Phase 11: streaming retrain on the card (see the module
+    docstring)."""
+    import json as _json
+    import threading
+
+    from deeprest_tpu_torch.data.schema import Bucket
+
+    t_phase = time.perf_counter()
+    wd = os.path.join(workdir, "stream")
+    os.makedirs(wd)
+    with open(raw_path, "rb") as f:
+        lines = f.readlines()
+    if len(lines) != RAW_BUCKETS:
+        fail(f"phase 7's corpus has {len(lines)} lines")
+    free_device()
+    # host work the in-process checks need, done while the stream CLI
+    # runs in its own process: parse two refreshes' buckets, simulate the
+    # drift corpus
+    host = {}
+
+    def prepare():
+        t0 = time.perf_counter()
+        host["buckets"] = [Bucket.from_dict(_json.loads(ln))
+                           for ln in lines[:STREAM_SMALL]]
+        host["parse_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host["drift"] = drift_corpus()
+        host["simulate_s"] = time.perf_counter() - t0
+
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    # the verdict surface in its own process on refresh 2's checkpoint
+    # (a copy the second run does not write to), started after the first
+    # run so it loads, warms and tails while the rest runs; it tails a
+    # collector file of its own that grows after the reload
+    log = os.path.join(wd, "serve_verdict.log")
+    verdict_raw = os.path.join(wd, "verdict.jsonl")
+    with open(verdict_raw, "wb") as f:
+        f.write(b"".join(lines[:STREAM_SMALL]))
+    server, args = [], []
+
+    def spawn_verdict(ckpt_r2):
+        args.extend(["--ckpt-dir", ckpt_r2, "--verdict-raw", verdict_raw,
+                     "--verdict-sweep-every", 30,
+                     "--verdict-live-window", 60, "--watch", 1])
+        server.append(spawn_server(args, log))
+
+    prep = threading.Thread(target=prepare, daemon=True)
+    prep.start()
+    try:
+        cli = part("stream CLI", stream_cli_path, cuda_gru, lines, wd,
+                   spawn_verdict)
+        prep.join(timeout=300)
+        if "drift" not in host:
+            fail("parsing the stream's buckets or simulating the drift "
+                 "corpus failed")
+        buckets = host["buckets"]
+        inproc = part("in-process refreshes", stream_in_process, cuda_gru,
+                      buckets, cli["ckpt_r2"])
+        wire = part("wire vs tailer", stream_wire_vs_tailer, buckets, lines,
+                    wd)
+        drift = part("drift loop", stream_drift, cuda_gru, host["drift"])
+        verdict = part("verdict surface", stream_verdict, server[0], args,
+                       log, inproc["stream"], cli["ckpt_r2"], verdict_raw,
+                       lines, buckets)
+    finally:
+        for proc in server:
+            stop_server(proc)
+    total = time.perf_counter() - t_phase
+    launches = dict(cli["launches"])
+    for name, count in drift["launches"].items():
+        launches[name] += count
+    launches["gru_fwd"] += verdict["gru_fwd"]
+    print(f"stream phase: {total:.1f} s of wall time: {rounded(parts)} "
+          f"(stream CLI runs {rounded(cli['seconds'])}; beside them, in "
+          f"this process, the "
+          f"parse of {STREAM_SMALL} buckets {host['parse_s']:.2f} s and the "
+          f"drift corpus {host['simulate_s']:.2f} s); launches of this "
+          f"path {launches}", flush=True)
+    f32 = dict(cli["launches"])          # the stream CLI and the server
+    f32["gru_fwd"] += verdict["gru_fwd"]
+    return {"launches": launches, "f32_launches": f32,
+            "total_s": total, "rates": wire["rates"],
+            "busy_pct": inproc["busy_pct"]}
+
+
+def stream_verdict(server, args, log, kern, ckpt: str, verdict_raw: str,
+                   lines: list, buckets: list) -> dict:
+    """``serve --verdict-raw`` on the stream's checkpoint: /v1/verdict 200
+    with states once the reference arms, --watch picks up the next stream
+    checkpoint and the ingestor rebases (sweeps go on against the fresh
+    model), no capture after warm-up."""
+    from deeprest_tpu_torch.train.checkpoint import latest_step
+
+    proc, start = wait_listening(server, args, log)
+    base = start["listening"]
+
+    def sweeps_at_least(n, what):
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            status, v = http_json(base + "/v1/verdict")
+            if status == 200 and v.get("sweeps", 0) >= n:
+                return v
+            time.sleep(0.2)
+        fail(f"/v1/verdict never reached {n} sweeps ({what}): {status} {v}")
+
+    v1 = sweeps_at_least(1, "armed")
+    health = http_json(base + "/healthz")[1]
+    before = latest_step(ckpt)
+    kern.ckpt_dir = ckpt                        # the next stream checkpoint
+    for b in buckets[:STREAM_EVERY]:
+        kern.ingest(b)
+    r = kern.refresh()
+    if latest_step(ckpt) <= before:
+        fail("the in-process refresh did not write a newer step")
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        health = http_json(base + "/healthz")[1]
+        if health["reloads"] >= 1:
+            break
+        time.sleep(0.2)
+    else:
+        fail(f"serve --watch never picked up step {latest_step(ckpt)}")
+    with open(verdict_raw, "ab") as f:          # new traffic after the swap
+        f.write(b"".join(lines[STREAM_SMALL:STREAM_SMALL + 30]))
+    v2 = sweeps_at_least(v1["sweeps"] + 1, "after the reload")
+    health = http_json(base + "/healthz")[1]
+    cache = health["jit_cache"]
+    print(f"check stream verdict surface: /v1/verdict 200, sweeps "
+          f"{v1['sweeps']} -> {v2['sweeps']}, states {v2['states']}, "
+          f"feature drift {v2['feature_drift']}; reloads "
+          f"{health['reloads']} (step {r.checkpoint_path}); graphs "
+          f"captured {cache['captures']}, after warm-up "
+          f"{cache['captures_after_warmup']}; launches "
+          f"{health['kernel_launches']}", flush=True)
+    if sum(v2["states"].values()) != 88:
+        fail(f"/v1/verdict has states for {sum(v2['states'].values())} "
+             "metrics; want 88")
+    if cache["captures_after_warmup"]:
+        fail("the verdict server captured graphs after warm-up")
+    return {"gru_fwd": health["kernel_launches"]["gru_fwd"],
+            "sweeps": v2["sweeps"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -2742,6 +3390,7 @@ def main() -> int:
         training = timed("training", phase_training, cuda_gru)
         raw = timed("raw to answers", phase_raw_to_answers, cuda_gru, wd)
         raw_launches = raw["launches"]
+        raw_path = raw["raw"]
         for k in cuda_gru.KERNELS:
             k.launches = 0
         plane = timed("serving plane", phase_serving_plane, cuda_gru,
@@ -2749,6 +3398,10 @@ def main() -> int:
         del raw
         tenk = timed("tenk sparse quant export", phase_tenk, cuda_gru,
                      serving, wd)
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+        stream = timed("streaming retrain", phase_stream, cuda_gru,
+                       raw_path, wd)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)
@@ -2759,6 +3412,8 @@ def main() -> int:
     for name, count in raw_launches.items():
         launches[name] += count
     for name, count in tenk["launches"].items():
+        launches[name] += count
+    for name, count in stream["launches"].items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -2792,8 +3447,10 @@ def main() -> int:
           f"training {training['launches']}; raw telemetry to answers "
           f"{raw_launches}; serving plane gru_fwd {plane['launches']} "
           f"(the servers' ledgers); 10k sparse, quantized and exported "
-          f"{tenk['launches']}; tuning sweep {sweep['kernel_launches']}",
-          flush=True)
+          f"{tenk['launches']}; streaming retrain {stream['launches']} "
+          f"(f32: the stream CLI runs and the verdict server "
+          f"{stream['f32_launches']}); tuning sweep "
+          f"{sweep['kernel_launches']}", flush=True)
     print(f"seconds per phase {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)

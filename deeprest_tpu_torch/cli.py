@@ -1,6 +1,7 @@
 """Command-line drivers of the port (``deeprest_tpu/cli.py``: the simulate,
-featurize, ingest, train, synthesize, whatif, predict, anomaly and serve
-subcommands, with the JAX package's flags and last JSON lines):
+featurize, ingest, train, stream, synthesize, whatif, predict, anomaly,
+export and serve subcommands, with the JAX package's flags and last JSON
+lines):
 
     python -m deeprest_tpu_torch simulate   --scenario=normal --ticks=480 --out=raw.jsonl
     python -m deeprest_tpu_torch featurize  --raw=raw.jsonl --out=input.npz
@@ -10,6 +11,8 @@ subcommands, with the JAX package's flags and last JSON lines):
     python -m deeprest_tpu_torch anomaly    --ckpt-dir=ckpt --raw=raw.jsonl
     python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --raw=raw.jsonl --surface --port=2021
     python -m deeprest_tpu_torch export     --ckpt-dir=ckpt --out=artifact
+    python -m deeprest_tpu_torch stream     --raw=growing.jsonl --ckpt-dir=ckpt
+    python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --verdict-raw=growing.jsonl --watch=5
     python -m deeprest_tpu_torch serve      --artifact=artifact --port=2021
 
 ``simulate``, ``featurize``, ``ingest`` and ``synthesize`` are host-only
@@ -29,10 +32,15 @@ listens.  ``--quant off|int8|bf16`` reaches ``predict``, ``whatif``,
 ``anomaly`` and ``serve``; ``--sparse-feed`` and ``--sparse-nnz-cap``
 reach ``train`` and ``serve``.  ``export`` writes a ``torch.export``
 artifact (``serve/export.py``) that ``serve --artifact`` serves; the JAX
-package's StableHLO artifacts are refused.  Mesh, elastic remeshing,
-streaming retrain, AOT executables (``export --aot``), the verdict
-surface, replicas and fleets, and profiling are not ported, and the port's
-CLI does not offer them.
+package's StableHLO artifacts are refused.  ``stream`` tails a growing
+corpus (or polls live endpoints, or listens for pushed span batches),
+fine-tunes on the device every ``--refresh-buckets`` buckets and
+re-checkpoints; run again it resumes, and ``--drift-detect`` arms the
+drift→retrain loop.  ``serve --verdict-raw`` (or
+``--verdict-wire-listen``) arms ``GET /v1/verdict``.  Mesh, elastic
+remeshing (``stream --elastic`` exits 2), AOT executables (``export
+--aot``), replicas and fleets, and profiling are not ported, and the
+port's CLI does not offer them.
 """
 
 from __future__ import annotations
@@ -533,6 +541,156 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_stream(args) -> int:
+    """Continuous retrain (train/stream.py): tail a growing raw-data JSONL,
+    poll live Jaeger/Prometheus endpoints or listen for pushed span
+    batches, fine-tune on the device every ``--refresh-buckets`` buckets
+    and re-checkpoint; run again on the same ``--ckpt-dir`` it resumes.
+    One JSON line per refresh, with the JAX CLI's keys plus ``device``,
+    ``steps``, ``captures`` (CUDA graphs captured in the refresh),
+    ``seconds`` (its stages) and ``kernel_launches``."""
+    from deeprest_tpu_torch.config import (
+        Config, EtlConfig, FeaturizeConfig, ModelConfig, QualityConfig,
+        TrainConfig,
+    )
+    from deeprest_tpu_torch.train.stream import (
+        BucketTailer, StreamConfig, StreamingTrainer,
+    )
+
+    if args.elastic:
+        print("stream: --elastic is not ported yet: elastic remeshing "
+              "comes with the multi-GPU work (ROADMAP queue 1, item 6)")
+        return 2
+    live = bool(args.jaeger_url or args.prom_url)
+    wire = bool(args.wire_listen)
+    if sum((bool(args.raw), live, wire)) != 1:
+        print("stream: need exactly one source — --raw JSONL, live "
+              "--jaeger-url/--prom-url endpoints, or a --wire-listen "
+              "push receiver")
+        return 2
+    if wire and not args.sparse_feed:
+        print("stream: --wire-listen requires the sparse feed "
+              "(the firehose is sparse-first by design; drop "
+              "--no-sparse-feed)")
+        return 2
+    if args.metric_map is not None and not live:
+        print("stream: --metric-map only applies to the live "
+              "Jaeger/Prometheus source, not --raw JSONL")
+        return 2
+
+    quality = None
+    if args.drift_detect:
+        quality = QualityConfig(
+            enabled=True,
+            sweep_every_buckets=args.drift_sweep_every,
+            live_window=args.drift_live_window,
+            reference_window=args.drift_reference_window,
+            drift_enter=args.drift_enter, drift_exit=args.drift_exit,
+            auto_retrain=not args.no_drift_auto_retrain,
+            retrain_cooldown_buckets=args.drift_cooldown_buckets)
+    cfg = Config(
+        model=ModelConfig(feature_dim=args.capacity,
+                          hidden_size=args.hidden_size,
+                          compute_dtype=args.compute_dtype),
+        train=TrainConfig(batch_size=args.batch_size, window_size=args.window,
+                          learning_rate=args.lr, seed=args.seed,
+                          eval_stride=1, eval_max_cycles=args.eval_holdout,
+                          log_every_steps=0,
+                          steps_per_superstep=args.steps_per_superstep,
+                          grad_accum_windows=args.grad_accum_windows,
+                          grad_accum_mode=args.grad_accum_mode,
+                          sparse_feed=args.sparse_feed,
+                          sparse_nnz_cap=args.sparse_nnz_cap,
+                          snapshot_every_steps=args.snapshot_every_steps,
+                          snapshot_keep=args.snapshot_keep),
+        etl=EtlConfig(overlap=not args.no_etl_overlap,
+                      queue_depth=args.etl_queue_depth),
+        quality=quality or QualityConfig(),
+    )
+    st = StreamingTrainer(
+        cfg,
+        StreamConfig(refresh_buckets=args.refresh_buckets,
+                     finetune_epochs=args.finetune_epochs,
+                     history_max=args.history_max,
+                     eval_holdout=args.eval_holdout,
+                     poll_interval_s=args.poll_interval,
+                     keep_checkpoints=args.keep_checkpoints),
+        ckpt_dir=args.ckpt_dir,
+        feature_config=FeaturizeConfig(hash_features=True,
+                                       capacity=args.capacity,
+                                       hash_seed=args.hash_seed),
+        device=args.device,
+    )
+    receiver = None
+    if live:
+        from deeprest_tpu_torch.data.ingest import (
+            LiveEndpointTailer, MetricRule,
+        )
+
+        try:
+            rmap = _parse_metric_map(args.metric_map, MetricRule)
+        except ValueError as exc:
+            print(exc)
+            return 2
+        tailer = LiveEndpointTailer(
+            jaeger_url=args.jaeger_url, prom_url=args.prom_url,
+            bucket_s=args.bucket_seconds, resource_map=rmap)
+    elif wire:
+        from deeprest_tpu_torch.data.wire import (
+            SpanFirehoseReceiver, parse_hostport,
+        )
+
+        host, port = parse_hostport(args.wire_listen)
+        # The receiver featurizes in its connection threads against the
+        # trainer's own CallPathSpace, so wire rows land in the ring
+        # bit-identical to the tailer path.
+        receiver = SpanFirehoseReceiver(
+            host, port, space=st.space, sparse=True,
+            queue_depth=args.wire_queue_depth).start()
+        print(json.dumps({"wire_listen": "%s:%d" % receiver.address}),
+              flush=True)
+        tailer = receiver
+    else:
+        tailer = BucketTailer(args.raw)
+    controller = None
+    if quality is not None:
+        from deeprest_tpu_torch.train.stream import DriftController
+
+        controller = DriftController(st, quality)
+    try:
+        for r in st.run(tailer,
+                        max_refreshes=args.max_refreshes or None,
+                        deadline_s=args.deadline or None):
+            rec = {
+                "refresh": r.refresh, "buckets": r.num_buckets,
+                "train_loss": round(r.train_loss, 6),
+                "eval_loss": round(r.eval_loss, 6),
+                "checkpoint": r.checkpoint_path,
+                "trigger": r.trigger,
+                "etl": {"stall_s": round(r.etl_stall_s, 4),
+                        "lag_buckets": r.etl_lag_buckets,
+                        "dropped": r.etl_dropped},
+            }
+            if receiver is not None:
+                rec["wire"] = receiver.stats()
+            if controller is not None and controller.monitor is not None:
+                v = controller.monitor.verdicts()
+                rec["quality"] = {"states": v.get("states"),
+                                  "feature_drift":
+                                      v["feature_drift"].get("state"),
+                                  "psi": v["feature_drift"].get("psi"),
+                                  **{k: controller.stats[k]
+                                     for k in ("sweeps",
+                                               "retrains_triggered")}}
+            rec.update(device=str(st.device), steps=r.steps,
+                       captures=r.captures, seconds=r.seconds,
+                       kernel_launches=_kernel_launches())
+            print(json.dumps(rec), flush=True)
+    finally:
+        tailer.close()
+    return 0
+
+
 def cmd_whatif(args) -> int:
     """What-if capacity estimation from the command line: a hypothetical
     traffic mix (optionally swept over a scale grid) → per-metric peak
@@ -797,6 +955,42 @@ def cmd_serve(args) -> int:
     service = PredictionService(pred, synthesizer, backend=backend,
                                 reloader=reloader, batching=batching,
                                 surface=surface_cfg)
+    verdict_wire = args.verdict_wire_listen
+    if args.verdict_raw and verdict_wire:
+        sys.exit("error: --verdict-raw and --verdict-wire-listen are "
+                 "alternative verdict-corpus sources; pick one")
+    vtailer = None
+    if args.verdict_raw or verdict_wire:
+        from deeprest_tpu_torch.config import QualityConfig
+        from deeprest_tpu_torch.obs.quality import QualityMonitor
+        from deeprest_tpu_torch.serve.server import VerdictIngestor
+        from deeprest_tpu_torch.train.stream import BucketTailer
+
+        space = pred.space()
+        if space is None:
+            sys.exit("error: model has no feature space; the verdict "
+                     "surface needs the training-time call-path space to "
+                     "featurize the tailed corpus")
+        monitor = QualityMonitor(
+            list(pred.metric_names),
+            QualityConfig(enabled=True,
+                          sweep_every_buckets=args.verdict_sweep_every,
+                          live_window=args.verdict_live_window))
+        if verdict_wire:
+            from deeprest_tpu_torch.data.wire import (
+                SpanFirehoseReceiver, parse_hostport,
+            )
+
+            # Bucket-mode receiver: the VerdictIngestor featurizes the
+            # buckets itself, so the wire stays a transport here.
+            whost, wport = parse_hostport(verdict_wire)
+            vtailer = SpanFirehoseReceiver(whost, wport).start()
+            service.attach_wire(vtailer)
+        else:
+            vtailer = BucketTailer(args.verdict_raw)
+        ingestor = VerdictIngestor(service, vtailer,
+                                   space, monitor).start()
+        service.attach_quality(monitor, ingestor)
     server = PredictionServer(service, host=args.host, port=args.port)
     host, port = server.address
     print(json.dumps({"listening": f"http://{host}:{port}",
@@ -809,7 +1003,11 @@ def cmd_serve(args) -> int:
                                    "max_bytes": surface_cfg.max_bytes}
                                   if surface_cfg is not None else None),
                       "replicas": 1, "fleet": None, "autoscale": False,
-                      "verdict": None,
+                      "verdict": ({"raw": args.verdict_raw,
+                                   "wire": ("%s:%d" % vtailer.address
+                                            if verdict_wire else None),
+                                   "sweep_every": args.verdict_sweep_every}
+                                  if vtailer is not None else None),
                       "obs": {"spans": not args.no_obs,
                               "span_capacity": args.obs_span_capacity,
                               "metrics": "/metrics"},
@@ -978,6 +1176,146 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="synthetic.npz")
     p.set_defaults(fn=cmd_synthesize)
 
+    p = sub.add_parser("stream",
+                       help="tail a growing raw corpus (or poll live "
+                            "Jaeger/Prometheus, or take pushed span "
+                            "batches); fine-tune + re-checkpoint "
+                            "continuously")
+    p.add_argument("--raw", default=None,
+                   help="raw-data JSONL being appended to (collector --out)")
+    p.add_argument("--jaeger-url", default=None,
+                   help="live Jaeger query API base URL (alternative "
+                        "source to --raw)")
+    p.add_argument("--prom-url", default=None,
+                   help="live Prometheus base URL (alternative source "
+                        "to --raw)")
+    p.add_argument("--wire-listen", default=None, metavar="HOST:PORT",
+                   help="push-based span firehose: listen for framed "
+                        "span batches (data/wire.py protocol) and "
+                        "featurize them straight into the sparse ring "
+                        "— requires --sparse-feed")
+    p.add_argument("--wire-queue-depth", type=int, default=256,
+                   help="per-connection inflight frame budget before "
+                        "the receiver sends SLOWDOWN (2x = fast-drop "
+                        "with accounting, 4x drop streak = eviction)")
+    p.add_argument("--bucket-seconds", type=float, default=5.0,
+                   help="live-source discretization window (= scrape "
+                        "interval)")
+    p.add_argument("--metric-map", nargs="*", default=None,
+                   metavar="PROM_METRIC:RESOURCE[:MODE]",
+                   help="live-source metric map override "
+                        "(default: cadvisor names; mode: gauge|counter)")
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--capacity", type=int, default=512,
+                   help="hash-feature width (static model input dim)")
+    p.add_argument("--hash-seed", type=int, default=0x5EED)
+    p.add_argument("--window", type=int, default=60)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--hidden-size", type=int, default=128)
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--steps-per-superstep", type=_superstep_arg,
+                   default="auto", metavar="N|auto|epoch",
+                   help="train steps per superstep of the fine-tune "
+                        "epochs (on a GPU one captured CUDA graph per "
+                        "update, replayed; 1 = per-step loop)")
+    p.add_argument("--grad-accum-windows", type=int, default=1, metavar="G",
+                   help="fold G consecutive microbatches into one "
+                        "optimizer update on summed grads (1 = per-step "
+                        "updates, the default)")
+    p.add_argument("--grad-accum-mode", default="exact",
+                   choices=("exact", "flat", "loop"),
+                   help="how the G microbatches fuse: 'exact' (default) "
+                        "is bit-identical to the unfused accumulation "
+                        "loop; 'flat' runs the G batches as one row batch "
+                        "(weight-grad sums re-associate); 'loop' is the "
+                        "unfused reference")
+    p.add_argument("--snapshot-every-steps", type=int, default=0,
+                   metavar="N",
+                   help="preemption-safe fine-tuning: checkpoint the full "
+                        "state + stream sidecar (frozen metric set, "
+                        "stats, refresh counter, retained-ring "
+                        "watermarks) every N fine-tune steps, so a "
+                        "stream killed MID-refresh resumes at most N "
+                        "steps stale instead of losing the refresh "
+                        "(0 = off; refresh-end checkpoints always "
+                        "happen)")
+    p.add_argument("--elastic", action="store_true",
+                   help="survive device loss in-process (elastic "
+                        "remeshing; not ported: exits 2)")
+    p.add_argument("--remesh-max-attempts", type=int, default=3,
+                   metavar="N", help="elastic remeshing knob (not ported)")
+    p.add_argument("--remesh-backoff-ms", type=float, default=100.0,
+                   metavar="MS", help="elastic remeshing knob (not ported)")
+    p.add_argument("--snapshot-keep", type=int, default=3, metavar="K",
+                   help="newest cursor snapshots retained (0 = keep "
+                        "everything)")
+    _add_sparse_args(p)
+    p.add_argument("--refresh-buckets", type=int, default=60,
+                   help="fine-tune after this many new buckets")
+    p.add_argument("--finetune-epochs", type=int, default=2)
+    p.add_argument("--history-max", type=int, default=4096)
+
+    def positive_int(v: str) -> int:
+        n = int(v)
+        if n < 1:
+            raise argparse.ArgumentTypeError(f"{v} must be >= 1")
+        return n
+
+    p.add_argument("--keep-checkpoints", type=positive_int, default=3,
+                   help="newest checkpoint steps retained (disk bound, "
+                        ">= 1)")
+    p.add_argument("--eval-holdout", type=int, default=8,
+                   help="newest windows held out for eval each refresh")
+    p.add_argument("--poll-interval", type=float, default=0.5)
+    p.add_argument("--no-etl-overlap", action="store_true",
+                   help="run tail→parse→featurize inline on the train "
+                        "thread instead of the background ETL thread "
+                        "(same refresh results; only the overlap differs)")
+    p.add_argument("--etl-queue-depth", type=int, default=512,
+                   help="buckets buffered between the ETL thread and the "
+                        "train loop (backpressure bound)")
+    p.add_argument("--max-refreshes", type=int, default=0,
+                   help="stop after N refreshes (0 = run forever)")
+    p.add_argument("--deadline", type=float, default=0,
+                   help="stop after this many seconds (0 = no deadline)")
+    p.add_argument("--drift-detect", action="store_true",
+                   help="arm the online quality monitors + the "
+                        "drift→retrain loop (obs/quality.py, "
+                        "DriftController): streaming per-call-path "
+                        "PSI/KS vs the training reference, rolling band "
+                        "coverage/pinball, the continuous "
+                        "not-justified-by-traffic check, and "
+                        "auto-retrain on sustained drift")
+    p.add_argument("--drift-sweep-every", type=int, default=30,
+                   metavar="N", help="buckets between monitor sweeps")
+    p.add_argument("--drift-live-window", type=int, default=120,
+                   metavar="N",
+                   help="trailing buckets the drift score compares "
+                        "against the training reference")
+    p.add_argument("--drift-reference-window", type=int, default=240,
+                   metavar="N",
+                   help="retained-ring tail re-anchored as the drift "
+                        "reference after each (re)train")
+    p.add_argument("--drift-enter", type=float, default=0.25,
+                   help="weighted-PSI threshold entering the drift "
+                        "verdict (sustained sweeps required — "
+                        "hysteresis)")
+    p.add_argument("--drift-exit", type=float, default=0.10,
+                   help="weighted-PSI threshold exiting the drift "
+                        "verdict")
+    p.add_argument("--drift-cooldown-buckets", type=int, default=240,
+                   metavar="N",
+                   help="minimum buckets between drift-triggered "
+                        "retrains")
+    p.add_argument("--no-drift-auto-retrain", action="store_true",
+                   help="manual override: verdicts only — sustained "
+                        "drift never fires a retrain by itself")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_stream)
+
     p = sub.add_parser("whatif",
                        help="hypothetical traffic mix → per-metric peak "
                             "utilization; --sweep runs a batched capacity-"
@@ -1100,6 +1438,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="build cache-miss surfaces inline instead of on a "
                         "background warm thread (first query pays the "
                         "build)")
+    p.add_argument("--verdict-raw", default=None, metavar="PATH",
+                   help="arm the streaming verdict surface (GET "
+                        "/v1/verdict): tail this growing collector JSONL, "
+                        "featurize against the served model's call-path "
+                        "space, and run the online quality monitors "
+                        "(drift PSI/KS, band coverage/pinball, the "
+                        "continuous not-justified-by-traffic check) — "
+                        "the streaming replacement for the batch anomaly "
+                        "CLI")
+    p.add_argument("--verdict-wire-listen", default=None,
+                   metavar="HOST:PORT",
+                   help="arm the verdict surface from a push firehose "
+                        "instead of a tailed JSONL: listen for framed "
+                        "span batches (data/wire.py) and feed them to "
+                        "the VerdictIngestor — alternative to "
+                        "--verdict-raw")
+    p.add_argument("--verdict-sweep-every", type=int, default=30,
+                   metavar="N",
+                   help="buckets between verdict-surface monitor sweeps")
+    p.add_argument("--verdict-live-window", type=int, default=120,
+                   metavar="N",
+                   help="trailing buckets in the drift live window (also "
+                        "the auto-arm reference size)")
     _add_fused_infer_args(p)
     _add_sparse_args(p, serving=True)
     p.set_defaults(fn=cmd_serve)

@@ -1,7 +1,8 @@
 """Typed configuration: the fields of ``deeprest_tpu/config.py`` that the
 port reads.
 
-``ModelConfig`` and ``SurfaceConfig`` are field-for-field copies (the
+``ModelConfig``, ``SurfaceConfig``, ``EtlConfig`` and ``QualityConfig``
+are field-for-field copies (the
 ``model_config`` dict a checkpoint sidecar carries constructs the first as
 it is).  ``rnn_backend`` is carried for that reason only: the port picks
 the recurrence from the tensors' device (ops/gru.py), never from this
@@ -261,7 +262,124 @@ class FeaturizeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EtlConfig:
+    """Host-ETL pipeline knobs (featurization + streaming ingest).
+
+    The featurization firehose is host-side work (trace walking, hashing,
+    counting) that must keep up with the device:
+    ``workers`` shards offline corpus featurization across a forked
+    process pool, and ``overlap`` moves the streaming trainer's
+    tail→parse→featurize onto a background thread double-buffered against
+    device fine-tuning, with ``queue_depth`` bounding the featurized-but-
+    not-yet-ingested backlog (backpressure blocks the ETL thread, which
+    in turn stops draining the tailer).
+    """
+
+    workers: int = 1              # offline featurize pool: 1 = serial, 0 = per-CPU
+    queue_depth: int = 512        # buckets buffered between ETL and train threads
+    overlap: bool = True          # background ETL thread in StreamingTrainer.run
+
+    def __post_init__(self):
+        if self.workers < 0:
+            raise ValueError(f"EtlConfig.workers={self.workers}: must be >= 0")
+        if self.queue_depth < 1:
+            raise ValueError(
+                f"EtlConfig.queue_depth={self.queue_depth}: must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class QualityConfig:
+    """Model-quality monitors + the drift→retrain→reload loop
+    (obs/quality.py, train/stream.DriftController).
+
+    The monitors watch the live bucket stream: feature-distribution
+    drift (streaming per-call-path PSI/KS vs the training reference),
+    rolling q-band coverage + pinball calibration, and the continuous
+    not-justified-by-traffic anomaly check.  Every verdict stream runs
+    through a hysteresis machine — separate enter/exit thresholds plus
+    sustained-sweep counts — so one noisy window never flaps the
+    surface.  ``auto_retrain`` is the act half: sustained drift triggers
+    an out-of-cadence retrain on the retained rings, then a rolling
+    reload into the serving plane (``retrain_cooldown_buckets`` bounds
+    the loop's own thrash; ``auto_retrain=False`` is the manual
+    override — verdicts only, a human pulls the trigger).
+    """
+
+    enabled: bool = False
+    # sweep cadence (buckets between monitor passes) and the trailing
+    # live window the drift score compares against the reference
+    sweep_every_buckets: int = 30
+    live_window: int = 120
+    min_sweep_buckets: int = 8
+    # Drift-reference anchor: the trailing this-many retained buckets at
+    # (re)train time.  The verdict's question is "has the distribution
+    # moved since the model last trained" — anchoring on the ring TAIL
+    # (not the whole history) lets the verdict EXIT once a retrain has
+    # adapted to the new regime, instead of forever comparing the live
+    # stream against a pre/post mixture.
+    reference_window: int = 240
+    # hysteresis: enter/exit thresholds per stream + sustained counts
+    drift_enter: float = 0.25          # traffic-mass-weighted PSI
+    drift_exit: float = 0.10
+    calibration_enter: float = 0.30    # undercoverage (nominal - observed)
+    calibration_exit: float = 0.15
+    anomaly_enter: float = 1.00        # mean normalized excess (≥ one
+    anomaly_exit: float = 0.25         # full scale unit above the band)
+    sustain_enter: int = 2
+    sustain_exit: int = 2
+    # calibration rolling window, in sweeps
+    calibration_sweeps: int = 8
+    # the continuous not-justified-by-traffic check's knobs (the same
+    # meaning as the batch /v1/anomaly route's)
+    anomaly_tolerance: float = 0.10
+    anomaly_min_run: int = 5
+    # Cold-start honesty: a stream's model in its first refreshes is
+    # undertrained, and a bad band produces one-sided excess that is
+    # indistinguishable from a real traffic-decoupled consumer.  The
+    # model-CONDITIONED verdict streams (calibration, anomaly) therefore
+    # arm only after this many
+    # refreshes on the train plane; the serving plane arms immediately
+    # (its checkpoint is trusted by definition of serving it).
+    model_warmup_refreshes: int = 3
+    # the act half (DriftController)
+    auto_retrain: bool = True
+    retrain_cooldown_buckets: int = 240
+    # retraining ON anomalous data would teach the model the very
+    # consumption the paper's sanity check exists to flag; default off
+    retrain_during_anomaly: bool = False
+
+    def __post_init__(self):
+        for name in ("sweep_every_buckets", "live_window",
+                     "min_sweep_buckets", "reference_window",
+                     "sustain_enter", "sustain_exit",
+                     "calibration_sweeps", "anomaly_min_run"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(
+                    f"QualityConfig.{name}={v!r}: must be an int >= 1")
+        if self.retrain_cooldown_buckets < 0:
+            raise ValueError(
+                f"QualityConfig.retrain_cooldown_buckets="
+                f"{self.retrain_cooldown_buckets}: must be >= 0")
+        if not isinstance(self.model_warmup_refreshes, int) \
+                or isinstance(self.model_warmup_refreshes, bool) \
+                or self.model_warmup_refreshes < 0:
+            raise ValueError(
+                f"QualityConfig.model_warmup_refreshes="
+                f"{self.model_warmup_refreshes!r}: must be an int >= 0")
+        for enter, exit_ in (("drift_enter", "drift_exit"),
+                             ("calibration_enter", "calibration_exit"),
+                             ("anomaly_enter", "anomaly_exit")):
+            if getattr(self, exit_) > getattr(self, enter):
+                raise ValueError(
+                    f"QualityConfig.{exit_} must be <= {enter} "
+                    "(hysteresis needs exit at or below enter)")
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     infer: InferConfig = dataclasses.field(default_factory=InferConfig)
+    etl: EtlConfig = dataclasses.field(default_factory=EtlConfig)
+    quality: QualityConfig = dataclasses.field(default_factory=QualityConfig)

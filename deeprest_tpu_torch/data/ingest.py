@@ -1,6 +1,5 @@
 """Ingestion adapters: real telemetry systems → the raw-data contract
-(``deeprest_tpu/data/ingest.py``, without ``LiveEndpointTailer``, the live
-source of the streaming retrainer, which the port does not have yet).
+(``deeprest_tpu/data/ingest.py``, whole).
 
 The reference's input contract is "Jaeger span trees + Prometheus metrics
 from an instrumented cluster" (reference: resource-estimation/README.md:29-63
@@ -523,6 +522,160 @@ def ingest_live(
     # placement is unaffected — only the range arithmetic sees t1.
     return bucketize(traces, samples, bucket_s, t0=start_s,
                      t1=max(start_s, end_s - 1e-3 * bucket_s))
+
+
+class LiveEndpointTailer:
+    """A ``BucketTailer``-protocol source polling live Jaeger/Prometheus.
+
+    Each ``poll()`` pulls the closed bucket range since the previous poll
+    (aligned down to whole buckets, ``lag_s`` behind the clock so
+    scrape/collection stragglers land before their bucket is read) and
+    returns it as Buckets — plugging a live cluster straight into
+    ``StreamingTrainer.run`` with no hand-carried dumps.
+
+    A successful pull that yields NO data for its range emits zero-filled
+    buckets for the skipped grid cells (a quiet cluster, or series gone
+    stale) rather than silently advancing past them: downstream windowing
+    treats consecutive list entries as time-adjacent, and a counter
+    increase across a silent gap must not collapse into one bucket.
+
+    Failures escalate instead of retrying forever: DETERMINISTIC errors
+    (bad URL, HTTP 4xx like 404/auth) raise after
+    ``max_deterministic_failures`` consecutive occurrences — a stream
+    that can never succeed must not look healthy while ingesting nothing.
+    Transient errors (timeouts, connection resets, 5xx) keep retrying the
+    same range but set ``degraded`` after ``max_transient_failures`` in a
+    row so operators can see the outage; any success clears both.
+    """
+
+    backlog = False     # the pull is always caught up to now - lag
+
+    def __init__(self, jaeger_url: str | None = None,
+                 prom_url: str | None = None, bucket_s: float = 5.0,
+                 step_s: float | None = None,
+                 resource_map: Mapping[str, MetricRule] | None = None,
+                 services: Sequence[str] | None = None,
+                 lag_s: float | None = None, timeout_s: float = 30.0,
+                 max_deterministic_failures: int = 3,
+                 max_transient_failures: int = 8,
+                 now=None, fetch=_http_get_json):
+        if not jaeger_url and not prom_url:
+            raise ValueError("need at least one of jaeger_url/prom_url")
+        import time as _time
+
+        self.jaeger_url = jaeger_url
+        self.prom_url = prom_url
+        self.bucket_s = bucket_s
+        self.step_s = step_s
+        self.resource_map = resource_map
+        self.services = services
+        self.lag_s = 2 * bucket_s if lag_s is None else lag_s
+        self.timeout_s = timeout_s
+        self.max_deterministic_failures = max_deterministic_failures
+        self.max_transient_failures = max_transient_failures
+        self.consecutive_failures = 0
+        self._deterministic_failures = 0
+        self.degraded = False
+        self._now = now if now is not None else _time.time
+        self._fetch = fetch
+        # Start at the previous whole bucket so the first poll returns at
+        # most one bucket instead of an unbounded history backfill.
+        self._cursor = (math.floor((self._now() - self.lag_s) / bucket_s)
+                        * bucket_s)
+
+    # -- ingest-watermark convention (shared with the wire receiver in
+    # -- data/wire.py; train/stream.py persists it in the checkpoint
+    # -- sidecar and hands it back on resume) ---------------------------
+
+    def ingest_watermark(self) -> dict:
+        """This source's resume cursor: the bucket-aligned instant up to
+        which every poll result has been handed to the stream."""
+        return {"kind": "time_cursor", "position": float(self._cursor)}
+
+    def resume_from(self, wm: dict) -> None:
+        """Adopt a persisted cursor so a restarted stream re-polls the
+        gap since its last checkpoint exactly once — no bucket skipped,
+        none double-counted.  Foreign/malformed dialects are ignored
+        (the fresh now-lag cursor stands)."""
+        if not isinstance(wm, dict) or wm.get("kind") != "time_cursor":
+            return
+        try:
+            pos = float(wm["position"])
+        except (KeyError, TypeError, ValueError):
+            return
+        if pos > 0:
+            # re-align defensively: a cursor off the bucket grid would
+            # shift every subsequent bucket boundary
+            self._cursor = math.floor(pos / self.bucket_s) * self.bucket_s
+
+    def _note_failure(self, exc: Exception) -> None:
+        import urllib.error
+
+        self.consecutive_failures += 1
+        # HTTPError before ValueError cannot overlap (HTTPError is an
+        # OSError); 4xx minus 429 is deterministic — the same request will
+        # fail the same way (wrong path, missing series endpoint, auth) —
+        # while 5xx/429 and transport errors are worth retrying.
+        deterministic = (
+            isinstance(exc, urllib.error.HTTPError)
+            and 400 <= exc.code < 500 and exc.code != 429
+        ) or (isinstance(exc, (ValueError, TypeError))
+              and not isinstance(exc, urllib.error.URLError))
+        if deterministic:
+            self._deterministic_failures += 1
+            if self._deterministic_failures >= self.max_deterministic_failures:
+                raise RuntimeError(
+                    f"live ingest: {self._deterministic_failures} consecutive "
+                    f"deterministic failures (last: {exc!r}) — the endpoint "
+                    "configuration is wrong; retrying cannot succeed"
+                ) from exc
+        else:
+            self._deterministic_failures = 0
+        if (not self.degraded
+                and self.consecutive_failures >= self.max_transient_failures):
+            self.degraded = True
+            print(f"live ingest: DEGRADED — {self.consecutive_failures} "
+                  f"consecutive pull failures (last: {exc!r})")
+        print(f"live ingest: pull failed ({exc}); will retry")
+
+    def poll(self) -> list[Bucket]:
+        edge = (math.floor((self._now() - self.lag_s) / self.bucket_s)
+                * self.bucket_s)
+        if edge <= self._cursor:
+            return []
+        try:
+            # Pull ONE lead-in bucket before the cursor and drop it: a
+            # counter's per-bucket increase needs a base sample BEFORE the
+            # first reported bucket — without the lead-in, every poll's
+            # first bucket (i.e. every bucket, at one-bucket-per-poll
+            # cadence) would re-establish bases and stream counters as 0.
+            buckets = ingest_live(
+                self.jaeger_url, self.prom_url,
+                self._cursor - self.bucket_s, edge,
+                self.bucket_s, step_s=self.step_s,
+                resource_map=self.resource_map, services=self.services,
+                timeout_s=self.timeout_s, fetch=self._fetch)[1:]
+        except Exception as exc:   # blip: retry the SAME range (bounded)
+            self._note_failure(exc)
+            return []
+        self.consecutive_failures = 0
+        self._deterministic_failures = 0
+        self.degraded = False
+        cells = int(round((edge - self._cursor) / self.bucket_s))
+        if len(buckets) < cells:
+            # bucketize zero-fills interior grid cells whenever ANY data
+            # exists in the range, so a short return means the whole range
+            # was silent: keep the bucket stream's continuous cadence with
+            # explicitly empty buckets (and a log line for operators).
+            missing = cells - len(buckets)
+            print(f"live ingest: no data for {missing} of {cells} bucket(s) "
+                  f"in [{self._cursor:.0f}, {edge:.0f}); zero-filling")
+            buckets = buckets + [Bucket() for _ in range(missing)]
+        self._cursor = edge
+        return buckets
+
+    def close(self) -> None:
+        pass
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,13 @@ profiler, which waits for a later slice).
 - :mod:`.metrics`: counters, gauges and histograms rendered as Prometheus
   text at ``GET /metrics``.
 - :mod:`.export`: spans as Jaeger-style JSON and span-derived busy-seconds
-  as Prometheus range JSON, both read by the port's ``data/ingest.py``.
+  as Prometheus range JSON, both read by the port's ``data/ingest.py``,
+  and ``push_self_corpus`` over the span wire.
+- :mod:`.quality`: the online drift and calibration monitors behind
+  ``GET /v1/verdict`` and the stream's drift→retrain loop.
 
-Nothing here imports torch; the modules are stdlib-only copies of the JAX
-package's.
+Nothing here imports torch at module scope; the modules are copies of the
+JAX package's (stdlib and numpy).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Self-ingestion: the plane's own spans become a DeepRest corpus
-(``deeprest_tpu/obs/export.py`` without ``push_self_corpus``, which needs
-the span wire of a later slice).
+(``deeprest_tpu/obs/export.py``, whole; ``push_self_corpus`` pushes the
+corpus over the span wire, ``data/wire.py``).
 
 The paper's loop is traces + utilization → model (PAPERS.md [1]).  This
 module closes that loop on the estimator itself: the obs recorder's spans
@@ -123,3 +123,34 @@ def self_corpus(spans: Sequence[SpanRecord], bucket_s: float):
     return bucketize(jaeger_traces(spans_to_jaeger(spans)),
                      prometheus_series(spans_to_prometheus(spans)),
                      bucket_s)
+
+
+def push_self_corpus(address, bucket_s: float = 5.0,
+                     spans: Sequence[SpanRecord] | None = None,
+                     client_id: str = "deeprest-obs") -> int:
+    """Self-ingestion over the wire: drain the plane's own span recorder
+    into Buckets (via :func:`self_corpus` — the SAME adapters as the
+    file path) and push them to a listening SpanFirehoseReceiver
+    (data/wire.py).  This makes the serving plane its own first live
+    wire client: ``serve`` records spans, ``stream --wire-listen``
+    retrains on them, no files in between.
+
+    Returns the number of buckets pushed (0 when the recorder is empty
+    — an idle plane pushes nothing rather than an empty frame)."""
+    from deeprest_tpu_torch.data.wire import push_corpus
+    from deeprest_tpu_torch.obs.spans import RECORDER
+
+    if spans is None:
+        spans = RECORDER.drain()
+    if not spans:
+        return 0
+    buckets = self_corpus(spans, bucket_s)
+    if not buckets:
+        return 0
+    push_corpus(address, buckets, client_id=client_id)
+    return len(buckets)
+
+
+__all__ = ["spans_to_jaeger", "spans_to_prometheus", "write_jaeger_json",
+           "write_prometheus_json", "self_corpus", "push_self_corpus",
+           "BUSY_METRIC"]

@@ -21,10 +21,10 @@ from deeprest_tpu_torch.serve.predictor import Predictor
 @dataclasses.dataclass
 class AlignedBands:
     """The detector's aligned comparison space — everything downstream of
-    the model call and upstream of the excess/flag logic.  In the JAX
-    package the streaming quality monitor (obs/quality.py, not ported yet)
-    reads band coverage and pinball loss off the same arrays, so its
-    verdicts and the batch CLI's agree by construction."""
+    the model call and upstream of the excess/flag logic.  The streaming
+    quality monitor (obs/quality.py) reads band coverage and pinball loss
+    off the same arrays, so its verdicts and the batch CLI's agree by
+    construction."""
 
     preds: np.ndarray          # [T, E, Q] monotone-rearranged, re-anchored
     observed: np.ndarray       # [T, E] adjusted (delta metrics differenced)

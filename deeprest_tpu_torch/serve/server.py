@@ -7,7 +7,8 @@ Routes (all JSON but ``/metrics``):
     GET  /v1/meta             metric names, quantiles, window, endpoints
     GET  /metrics             Prometheus text exposition (obs/metrics.py)
     GET  /v1/spans            retained spans as Jaeger query-API JSON
-    GET  /v1/verdict          503: no quality monitor (ROADMAP queue 1, item 5)
+    GET  /v1/verdict          the streaming ok|drift|anomaly surface (503 with
+                              no quality monitor attached)
     POST /v1/predict          {"traffic": [[F floats] x T]}          → [T,E,Q]
     POST /v1/whatif           {"expected_traffic": [{endpoint: n}xT]} → series
     POST /v1/whatif/scaling   {"baseline_traffic", "hypothetical_traffic"}
@@ -23,9 +24,17 @@ shape-laddered device batches (one captured CUDA graph per rung on a GPU)
 and demultiplex back per request; ``/healthz`` exposes queue depth, the
 ladder's hit statistics and the graph ledger.
 
-The JAX server's replica router, fleet pool, verdict ingestor, span wire
-and profiler belong to later slices of the port; admission admits
-everything, as on a single JAX engine.
+The streaming verdict surface: :class:`VerdictIngestor` tails the
+collector's JSONL (or takes pushed span batches, ``data/wire.py``) on a
+host thread, featurizes against the served model's call-path space, feeds
+an ``obs/quality.QualityMonitor`` and sweeps it through the service's
+predictor snapshot (its rung graphs on a GPU); ``attach_quality`` wires it
+to ``GET /v1/verdict`` and the ``deeprest_quality_*`` gauges on
+``/metrics``.
+
+The JAX server's replica router, fleet pool and profiler belong to later
+slices of the port; admission admits everything, as on a single JAX
+engine.
 """
 
 from __future__ import annotations
@@ -230,6 +239,15 @@ class PredictionService:
         self.reloads = 0
         self.batcher: MicroBatcher | None = None
         self.batching = None
+        # Streaming verdict surface (obs/quality.py): attach_quality wires
+        # a QualityMonitor (+ optional VerdictIngestor feeding it from the
+        # collector JSONL); GET /v1/verdict renders its state.
+        self.quality = None
+        self._quality_ingestor = None
+        # Wire firehose (data/wire.py): attach_wire registers a started
+        # SpanFirehoseReceiver so /healthz renders its accounting; its
+        # poller (the VerdictIngestor) owns and closes it.
+        self._wire = None
         self.whatif = (WhatIfEstimator(predictor, synthesizer)
                        if synthesizer is not None else None)
         # Capacity-surface plane: a surface is built THROUGH the
@@ -269,6 +287,24 @@ class PredictionService:
         if old is not None:
             old.close()               # drain outside the lock
 
+    def attach_quality(self, monitor, ingestor=None) -> None:
+        """Wire the streaming verdict surface: ``monitor`` backs
+        ``GET /v1/verdict`` (and the deeprest_quality_* /metrics gauges
+        it publishes); ``ingestor`` (a started VerdictIngestor) is owned
+        by the service from here — close() stops it."""
+        with self._lock:
+            self.quality = monitor
+            old, self._quality_ingestor = self._quality_ingestor, ingestor
+        if old is not None:
+            old.stop()
+
+    def attach_wire(self, receiver) -> None:
+        """Register a started SpanFirehoseReceiver for observability:
+        /healthz gains a ``wire`` key with its span/drop/backpressure
+        accounting.  Its lifecycle stays with its poller."""
+        with self._lock:
+            self._wire = receiver
+
     def close(self) -> None:
         """Release the batcher's worker thread and the surface builders
         (idempotent)."""
@@ -282,9 +318,12 @@ class PredictionService:
             old, self.batcher = self.batcher, None
             self.batching = None
             pred = self.predictor
+            ingestor, self._quality_ingestor = self._quality_ingestor, None
             surface, self.surface = self.surface, None
         if surface is not None:
             surface.close()       # join warm-builder threads
+        if ingestor is not None:
+            ingestor.stop()
         detach = getattr(pred, "attach_batcher", None)
         if callable(detach):
             detach(None)
@@ -446,7 +485,19 @@ class PredictionService:
             "params_digest": digest() if callable(digest) else None,
             "resident": True,
         }}, "pool": None}
+        with self._lock:
+            wire = self._wire
+        if wire is not None:
+            out["wire"] = wire.stats()
         out["obs"] = obs_spans.RECORDER.stats()
+        with self._lock:
+            quality = self.quality
+        if quality is not None:
+            # summary; the per-metric table lives at GET /v1/verdict
+            v = quality.verdicts()
+            out["quality"] = {"armed": v.get("armed", False),
+                              "sweeps": v.get("sweeps", 0),
+                              "states": v.get("states")}
         with self._lock:
             surface = self.surface
         if surface is not None:
@@ -459,13 +510,28 @@ class PredictionService:
         return out
 
     def verdict(self) -> dict:
-        """``GET /v1/verdict``: 503, as the JAX server answers with no
-        quality monitor attached; the streaming verdict surface is a later
-        slice of the port."""
-        raise ServingError(
-            "no quality monitor attached: the streaming verdict surface "
-            "(--verdict-raw) is not ported yet (ROADMAP queue 1, item 5)",
-            status=503)
+        """``GET /v1/verdict`` — the streaming per-(component,resource)
+        ``ok|drift|anomaly`` surface (obs/quality.py).  503 when no monitor
+        is attached (serve with --verdict-raw)."""
+        with self._lock:
+            quality = self.quality
+        if quality is None:
+            raise ServingError(
+                "no quality monitor attached: start the server with "
+                "--verdict-raw <collector jsonl> (or attach_quality) to "
+                "enable the streaming verdict surface", status=503)
+        out = quality.verdicts()
+        # the quant parity envelope: per-(metric, quantile) measured
+        # deviation vs the f32 reference and the budget it is gated on
+        pred, _, _, _ = self._snapshot()
+        envelope = getattr(pred, "parity_envelope", None)
+        if envelope is not None:
+            out["quant_parity"] = {
+                "mode": getattr(pred, "quant", "off"),
+                "measured": dict(envelope.get("measured", {})),
+                "budget": dict(envelope.get("budget", {})),
+            }
+        return out
 
     def meta(self) -> dict:
         pred, whatif, _, _ = self._snapshot()
@@ -647,6 +713,121 @@ class PredictionService:
             "flagged": r.flagged,
             "first_flag_index": r.first_flag_index,
         } for r in reports], "flagged": [r.metric for r in reports if r.flagged]}
+
+
+class VerdictIngestor:
+    """Feed the serving plane's QualityMonitor from the collector's raw
+    JSONL — the serve-side half of the streaming verdict surface.
+
+    A daemon thread tails the same growing file the streaming trainer
+    tails (train/stream.BucketTailer), featurizes each bucket against the
+    SERVED model's call-path space (``predictor.space()`` — column-exact
+    with training by construction), and feeds the monitor; every
+    ``sweep_every_buckets`` buckets it runs a quality sweep THROUGH the
+    current serving backend snapshot: the sweep's model calls ride the
+    ordinary dispatch path, as any request's do (the MicroBatcher's when
+    batching is on; on a GPU the predictor's captured rung graphs, a
+    single-window sweep landing on the smallest rung).
+
+    Reference handling: the drift reference auto-arms from the first
+    ``live_window`` tailed buckets ("the stream you trusted at attach
+    time"), and RE-ANCHORS whenever the service hot-reloads a new
+    checkpoint (the fresh params trained on recent data, so recent data
+    is the new no-drift baseline) — which also restarts the
+    model-conditioned calibration/anomaly streams via
+    ``on_model_refresh``, making post-reload band-coverage recovery
+    visible instead of averaged into the stale model's tail.
+    """
+
+    def __init__(self, service: PredictionService, tailer, space, monitor,
+                 poll_interval_s: float = 0.5):
+        self._service = service
+        self._tailer = tailer               # ingestor-thread-owned
+        self._space = space
+        self.monitor = monitor              # carries its own lock
+        self._poll_interval_s = float(poll_interval_s)
+        self._stop = threading.Event()
+        # Guards the error counter (read by tests/healthz from handler
+        # threads while the ingestor thread increments) and the thread
+        # handle across start/stop.
+        self._lock = threading.Lock()
+        self._thread: threading.Thread | None = None
+        self._errors = 0
+
+    def start(self) -> "VerdictIngestor":
+        t = threading.Thread(target=self._loop, daemon=True,
+                             name="deeprest-verdict-ingest")
+        with self._lock:
+            self._thread = t
+        t.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._lock:
+            t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=10.0)
+        close = getattr(self._tailer, "close", None)
+        if callable(close):
+            close()
+
+    @property
+    def errors(self) -> int:
+        with self._lock:
+            return self._errors
+
+    # -- the loop (ingestor thread only; cross-iteration state lives in
+    # locals so nothing here is shared off-lock) -------------------------
+
+    def _loop(self) -> None:
+        since_sweep = 0
+        last_reloads: int | None = None
+        while not self._stop.is_set():
+            try:
+                got = self._tailer.poll()
+                for bucket in got:
+                    cols, vals = self._space.extract_sparse(bucket.traces)
+                    self.monitor.observe(
+                        cols, vals,
+                        {m.key: m.value for m in bucket.metrics})
+                    since_sweep += 1
+                last_reloads = self._maybe_rebase(last_reloads)
+                if (self.monitor.drift.ready and since_sweep
+                        >= self.monitor.config.sweep_every_buckets):
+                    since_sweep = 0
+                    pred = self._service._snapshot()[0]
+                    self.monitor.sweep(pred)
+            except Exception as exc:
+                # A malformed bucket or a mid-reload model error must not
+                # kill the surface; count it (scrapeable) and keep
+                # tailing — the first occurrence is printed for triage.
+                with self._lock:
+                    self._errors += 1
+                    first = self._errors == 1
+                obs_metrics.REGISTRY.counter(
+                    "deeprest_verdict_ingest_errors_total",
+                    "verdict-ingest loop errors (kept running)").inc()
+                if first:
+                    print(f"verdict-ingest: {type(exc).__name__}: {exc}")
+            if not getattr(self._tailer, "backlog", False):
+                self._stop.wait(self._poll_interval_s)
+
+    def _maybe_rebase(self, last_reloads: int | None) -> int:
+        cfg = self.monitor.config
+        reloads = self._service._snapshot()[3]   # lock-protected read
+        if last_reloads is not None and reloads != last_reloads:
+            # a fresh checkpoint rolled in: recent traffic is the new
+            # no-drift baseline, and calibration/anomaly restart against
+            # the fresh band
+            if self.monitor.observed_buckets >= cfg.min_sweep_buckets:
+                self.monitor.rebase_reference()
+            self.monitor.on_model_refresh()
+            return reloads
+        if (not self.monitor.drift.ready
+                and self.monitor.observed_buckets >= cfg.live_window):
+            self.monitor.rebase_reference()     # auto-arm
+        return reloads
 
 
 _GET_ROUTES = {"/healthz": "healthz", "/v1/meta": "meta",

@@ -8,7 +8,9 @@ the scales kept as :class:`MinMaxStats`.  Level-type resources are trained
 as per-bucket increments and integrated back for evaluation.  With
 ``TrainConfig.sparse_feed`` the bundle also carries the RAW traffic as
 padded-COO rows (``x_cols``/``x_vals``/``x_nnz``), which the trainer
-stages in place of the dense base.
+stages in place of the dense base.  The streaming trainer's retained
+corpus lives in the host rings :class:`SeriesRing` and
+:class:`SparseSeriesRing` (numpy, zero-copy views).
 """
 
 from __future__ import annotations
@@ -23,6 +25,161 @@ from deeprest_tpu_torch.data.featurize import FeaturizedData
 from deeprest_tpu_torch.data.windows import (
     MinMaxStats, minmax_fit, sliding_windows,
 )
+
+
+class SeriesRing:
+    """Bounded row history as one preallocated, always-contiguous block.
+
+    The streaming trainer's retained corpus was a ``deque[np.ndarray]``:
+    every refresh re-stacked the whole history (O(history) Python-level
+    copies) before it could window.  This ring keeps the newest ``maxlen``
+    rows physically contiguous inside a ``[2·maxlen, width]`` buffer —
+    ``view()`` is a zero-copy slice that ``sliding_windows`` strides over
+    directly, so refresh-time assembly is O(1) and the per-append cost is
+    amortized O(width) (one block memmove per ``maxlen`` appends when the
+    write cursor hits the end).
+
+    ``append_slot()`` exposes the next row for in-place writes
+    (``extract(out=...)``) so the ingest path allocates nothing.  Rows
+    handed out by ``view()``/iteration are views into the buffer: valid
+    until ~maxlen further appends (the compaction memmove), so consumers
+    that outlive the refresh they were built in must copy.
+    """
+
+    def __init__(self, maxlen: int, width: int, dtype=np.float32):
+        if maxlen < 1:
+            raise ValueError(f"maxlen must be >= 1, got {maxlen}")
+        self.maxlen = maxlen
+        self._buf = np.zeros((2 * maxlen, width), dtype)
+        self._start = 0
+        self._len = 0
+
+    def __len__(self) -> int:
+        return self._len
+
+    @property
+    def width(self) -> int:
+        return self._buf.shape[1]
+
+    def append_slot(self) -> np.ndarray:
+        """Advance the ring by one row and return it for in-place writing.
+
+        The returned row holds stale bytes — callers must fully overwrite
+        it (``extract(out=...)`` does)."""
+        if self._start + self._len == len(self._buf):
+            # Cursor at the physical end: memmove the retained rows to the
+            # front.  Here len == maxlen (eviction keeps len <= maxlen and
+            # the buffer is 2*maxlen), so source and destination are the
+            # disjoint halves.
+            self._buf[:self._len] = self._buf[self._start:self._start + self._len]
+            self._start = 0
+        if self._len == self.maxlen:
+            self._start += 1          # evict the oldest row
+            self._len -= 1
+        row = self._buf[self._start + self._len]
+        self._len += 1
+        return row
+
+    def append(self, row: np.ndarray) -> None:
+        self.append_slot()[:] = row
+
+    def view(self) -> np.ndarray:
+        """Zero-copy contiguous ``[len, width]`` of the retained history,
+        oldest first.  Invalidated by later appends (see class docstring)."""
+        return self._buf[self._start:self._start + self._len]
+
+    def __iter__(self):
+        return iter(self.view())
+
+    def clear(self) -> None:
+        self._start = 0
+        self._len = 0
+
+
+class SparseSeriesRing:
+    """Bounded padded-COO row history: the sparse-first twin of
+    :class:`SeriesRing` for the traffic half of the streaming corpus.
+
+    Each retained row is ``(cols[K], vals[K], nnz)`` — the
+    ``CallPathSpace.extract_sparse`` output padded to the fixed
+    ``nnz_cap`` with ``(0, 0.0)`` entries — instead of a dense
+    ``[capacity]`` float32 vector.  At F=10240, K=64 the resident bytes
+    drop ~F/(2K) (int32 cols + float32 vals vs dense float32): a
+    month-scale retained corpus goes from ~3.5 GB of ring to ~44 MB.
+
+    Storage is three lock-stepped :class:`SeriesRing` buffers so the
+    wrap/eviction/zero-copy-view semantics (and their tests) are shared,
+    not re-implemented; ``view()`` returns the same oldest-first
+    contiguous views, valid until ~maxlen further appends.
+
+    A row with more than ``nnz_cap`` nonzero columns RAISES — the
+    documented K-cap policy (silently dropping call paths would corrupt
+    the count vector; size ``--sparse-nnz-cap`` to the corpus instead).
+    """
+
+    def __init__(self, maxlen: int, capacity: int, nnz_cap: int):
+        if nnz_cap < 1:
+            raise ValueError(f"nnz_cap must be >= 1, got {nnz_cap}")
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self.nnz_cap = int(nnz_cap)
+        self._cols = SeriesRing(maxlen, nnz_cap, np.int32)
+        self._vals = SeriesRing(maxlen, nnz_cap, np.float32)
+        self._nnz = SeriesRing(maxlen, 1, np.int32)
+
+    def __len__(self) -> int:
+        return len(self._cols)
+
+    @property
+    def maxlen(self) -> int:
+        return self._cols.maxlen
+
+    @property
+    def nbytes(self) -> int:
+        """Resident buffer bytes."""
+        return (self._cols._buf.nbytes + self._vals._buf.nbytes
+                + self._nnz._buf.nbytes)
+
+    def append_sparse(self, cols: np.ndarray, vals: np.ndarray) -> None:
+        """Append one ``(cols, vals)`` sparse row (unpadded, as
+        ``extract_sparse`` returns it)."""
+        n = len(cols)
+        if n != len(vals):
+            raise ValueError(f"cols/vals length mismatch: {n} vs {len(vals)}")
+        if n > self.nnz_cap:
+            raise ValueError(
+                f"sparse traffic row has {n} nonzero columns, over the "
+                f"nnz cap {self.nnz_cap}; raise --sparse-nnz-cap (or "
+                f"disable --sparse-feed) — silently dropping call paths "
+                f"would corrupt the count vector")
+        cslot = self._cols.append_slot()
+        cslot[:n] = cols
+        cslot[n:] = 0
+        vslot = self._vals.append_slot()
+        vslot[:n] = vals
+        vslot[n:] = 0.0
+        self._nnz.append_slot()[0] = n
+
+    def view(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Zero-copy ``(cols[T, K], vals[T, K], nnz[T])`` of the retained
+        history, oldest first (SeriesRing.view validity contract)."""
+        return self._cols.view(), self._vals.view(), self._nnz.view()[:, 0]
+
+    def densify(self) -> np.ndarray:
+        """Dense ``[T, capacity]`` reconstruction — the parity reference
+        (bit-identical to a SeriesRing fed from ``extract``) and the
+        escape hatch for dense-only consumers.  Materializes the full
+        matrix: never call this on the 10k-wide hot path."""
+        from deeprest_tpu_torch.ops.densify import densify_rows
+
+        cols, vals, _ = self.view()
+        return densify_rows(cols, vals, self.capacity)
+
+    def clear(self) -> None:
+        self._cols.clear()
+        self._vals.clear()
+        self._nnz.clear()
 
 
 def delta_mask(metric_names: Sequence[str],

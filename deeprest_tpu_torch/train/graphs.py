@@ -85,11 +85,14 @@ class EpochPlan:
 
 
 def capture_update(body: Callable[[], None], device: torch.device,
-                   generators: Iterable[torch.Generator] = ()
+                   generators: Iterable[torch.Generator] = (),
+                   pool=None, stream: torch.cuda.Stream | None = None
                    ) -> CapturedGraph:
     """Capture ``body`` (one optimizer update, already run eagerly once)
-    into a CUDA graph on a side stream of ``device``; see
-    ``deeprest_tpu_torch/graphs.py``.  Raises ``GraphCaptureError`` if
-    the capture fails."""
-    graph, _ = capture(body, device, "one optimizer update", generators)
+    into a CUDA graph on ``stream`` (a new side stream of ``device`` when
+    None), in memory ``pool`` (a retired graph's, which must never replay
+    again; the graph's own when None); see ``deeprest_tpu_torch/graphs.py``.
+    Raises ``GraphCaptureError`` if the capture fails."""
+    graph, _ = capture(body, device, "one optimizer update", generators,
+                       pool=pool, stream=stream)
     return graph

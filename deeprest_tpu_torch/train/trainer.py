@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -83,14 +84,20 @@ DROPOUT_OFFSET_STRIDE = 1 << 20
 class TrainState:
     """The model (its parameters), the Adam optimizer over them, the count
     of real train steps (microbatches) taken, and the superstep machinery
-    bound to this state's tensors: the staged epoch plan and the captured
-    update that reads it."""
+    bound to this state's tensors: the staged epoch plan, the captured
+    update that reads it, and the last update graph dropped, which never
+    replays again and lends its memory pool to the next capture."""
 
     step: int
     model: QuantileGRU
     optimizer: torch.optim.Adam
     plan: EpochPlan | None = None
     graph: CapturedGraph | None = None
+    retired: CapturedGraph | None = None
+
+    def retire_graph(self) -> None:
+        if self.graph is not None:
+            self.retired, self.graph = self.graph, None
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -123,7 +130,8 @@ class Trainer:
     version on a CUDA device, differentiated by torch autograd).
 
     Counters: ``dispatches`` (optimizer updates run: graph replays plus
-    eager updates), ``captures`` (CUDA graphs captured) and ``replays``.
+    eager updates), ``captures`` (CUDA graphs captured), ``replays`` and
+    ``capture_seconds`` (host seconds spent capturing).
     """
 
     def __init__(self, config: Config, feature_dim: int,
@@ -146,17 +154,23 @@ class Trainer:
         self._window_offsets = torch.arange(config.train.window_size,
                                             device=self.device)
         self._generator = None
+        # the one side stream of every eager first update and capture: the
+        # caching allocator keeps freed blocks per stream, so a new stream
+        # per capture would strand an update's working memory each time
+        self._side_stream = None
         if self.device.type == "cuda":
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(config.train.seed)
         self.dispatches = 0
         self.captures = 0
         self.replays = 0
+        self.capture_seconds = 0.0
         self.superstep_len: int | None = None     # S of the latest epoch
         self.resumed_from_step: int | None = None
         # the epoch-plan cursor of preemption-safe snapshots
         self._snapshot_dir: str | None = None
         self._snapshot_every = 0
+        self._snapshot_extra_fn = None
         self._steps_since_snapshot = 0
         self._cursor_epoch: int | None = None
         self._cursor_rng_state: dict | None = None
@@ -483,15 +497,24 @@ class Trainer:
         shape = (starts.size // (g * starts.shape[-1]), g, starts.shape[-1])
         if state.plan is None or state.plan.shape != shape:
             state.plan = EpochPlan(*shape, device=self.device)
-            state.graph = None
+            state.retire_graph()
         if state.plan.staged is None or any(
                 a is not b for a, b in zip(state.plan.staged, staged)):
             state.plan.staged = staged
-            state.graph = None
+            state.retire_graph()
         state.plan.stage(starts.reshape(-1, starts.shape[-1]),
                          weights.reshape(-1, weights.shape[-1]),
                          first_update)
         return state.plan
+
+    def release_staged(self, state: TrainState) -> None:
+        """Let go of the staged series ``state``'s plan holds before new
+        ones are staged (a streaming refresh re-stages its grown corpus),
+        so the card holds one staged corpus at a time; the captured update
+        that reads them retires."""
+        if state.plan is not None and state.plan.staged is not None:
+            state.plan.staged = None
+            state.retire_graph()
 
     def _run_update(self, state: TrainState, captured: bool) -> None:
         """The update at the plan's cursor: a replay of ``state``'s graph
@@ -513,12 +536,22 @@ class Trainer:
         if not captured:
             body()
             return
-        side = torch.cuda.Stream(device=self.device)
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(device=self.device)
+        side = self._side_stream
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             body()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        state.graph = capture_update(body, self.device, [self._generator])
+        current = torch.cuda.current_stream(self.device)
+        current.wait_stream(side)
+        current.synchronize()          # the eager update stays out of the time
+        t0 = time.perf_counter()
+        pool = (state.retired.graph.pool() if state.retired is not None
+                else None)
+        state.graph = capture_update(body, self.device, [self._generator],
+                                     pool=pool, stream=side)
+        state.retired = None
+        self.capture_seconds += time.perf_counter() - t0
         self.captures += 1
 
     def train_epoch(self, state: TrainState, bundle: DatasetBundle,
@@ -594,17 +627,22 @@ class Trainer:
 
     # -- preemption-safe snapshots -----------------------------------------
 
-    def enable_snapshots(self, directory: str, every_steps: int) -> None:
+    def enable_snapshots(self, directory: str, every_steps: int,
+                         extra_fn=None) -> None:
         """Cursor snapshots every ``every_steps`` real steps (at the first
         superstep boundary at or past the cadence): the full state and the
         epoch-plan cursor (epoch, steps done in it, the shuffle rng's state
-        at the epoch's start, global step), written atomically."""
+        at the epoch's start, global step), written atomically.
+        ``extra_fn`` (optional) supplies extra sidecar keys per snapshot
+        (the streaming trainer's refresh counter, stats union and ring
+        watermarks, so a mid-refresh snapshot is a stream-resume point)."""
         if every_steps < 1:
             raise ValueError(
                 f"enable_snapshots(every_steps={every_steps}): must be "
                 ">= 1 (leave snapshots unconfigured to disable)")
         self._snapshot_dir = directory
         self._snapshot_every = int(every_steps)
+        self._snapshot_extra_fn = extra_fn
         self._steps_since_snapshot = 0
 
     def _begin_epoch_cursor(self, epoch: int,
@@ -634,12 +672,14 @@ class Trainer:
         ``snapshot_keep`` (see :meth:`enable_snapshots`)."""
         if self._snapshot_dir is None:
             raise RuntimeError("snapshots not enabled (enable_snapshots)")
-        extra = {"train_cursor": {
+        extra = (dict(self._snapshot_extra_fn())
+                 if self._snapshot_extra_fn is not None else {})
+        extra["train_cursor"] = {
             "epoch": self._cursor_epoch,
             "steps_done": int(self._epoch_steps_done),
             "rng_state": self._cursor_rng_state,
             "global_step": int(self._global_step),
-        }}
+        }
         self._steps_since_snapshot = 0
         path = self.save(self._snapshot_dir, state, bundle,
                          extra_host_state=extra)

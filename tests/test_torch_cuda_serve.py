@@ -298,3 +298,54 @@ def test_exported_artifact_launches_k1_on_the_card(cuda, tmp_path):
         np.testing.assert_array_equal(g, w)
     assert cuda_gru.GRU_FWD.launches > before
     assert art.jit_cache_stats()["captures_after_warmup"] == 0
+
+
+@pytest.mark.cuda
+def test_verdict_sweeps_on_rung_graphs_equal_eager(cuda):
+    """``/v1/verdict`` on the card: the quality monitor's sweeps go through
+    the served predictor's rung graphs (a single window lands on the
+    smallest rung, captured at warm-up, none after) and give the verdict an
+    eager predictor gives on the same rows."""
+    import json
+    import urllib.request
+
+    from deeprest_tpu_torch.config import QualityConfig
+    from deeprest_tpu_torch.obs.metrics import MetricsRegistry
+    from deeprest_tpu_torch.obs.quality import QualityMonitor
+    from deeprest_tpu_torch.serve.server import PredictionServer
+
+    rng = np.random.default_rng(3)
+    rows = [(np.sort(rng.choice(F, 4, replace=False)).astype(np.int32),
+             rng.poisson(4.0, 4).astype(np.float32) + 1.0,
+             rng.uniform(0.0, 6.0, E).astype(np.float32))
+            for _ in range(4 * W)]
+    out = {}
+    for graphs in (True, False):
+        pred = make(graphs, delta=True, dtype="float32")
+        pred.warm()
+        qc = QualityConfig(enabled=True, sweep_every_buckets=W,
+                           live_window=2 * W, min_sweep_buckets=W)
+        monitor = QualityMonitor(pred.metric_names, qc,
+                                 registry=MetricsRegistry())
+        for i, (cols, vals, y) in enumerate(rows):
+            monitor.observe(cols, vals, y)
+            if i == 2 * W - 1:
+                monitor.rebase_reference()
+            if i >= 2 * W and (i + 1) % W == 0:
+                assert monitor.sweep(pred)["armed"]
+        svc = PredictionService(pred)
+        svc.attach_quality(monitor)
+        server = PredictionServer(svc, port=0).start()
+        try:
+            host, port = server.address
+            with urllib.request.urlopen(
+                    f"http://{host}:{port}/v1/verdict", timeout=60) as r:
+                out[graphs] = json.loads(r.read())
+            health = svc.healthz()
+        finally:
+            server.stop()
+        if graphs:
+            assert health["jit_cache"]["captures_after_warmup"] == 0
+            assert health["jit_cache"]["replays"] > 0
+    assert out[True]["sweeps"] == 2
+    assert out[True] == out[False]

@@ -246,14 +246,35 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "export.export_predictor(p, d)\n"
         "export.ExportedPredictor.load(d, quant='int8', device='cpu')"
         ".predict_series(np.ones((9, 8), np.float32))\n"
+        "from deeprest_tpu_torch.config import (Config, FeaturizeConfig, "
+        "QualityConfig)\n"
+        "from deeprest_tpu_torch.data.schema import Bucket, MetricSample, "
+        "Span\n"
+        "from deeprest_tpu_torch.train.stream import (DriftController, "
+        "StreamConfig, StreamingTrainer)\n"
+        "st = StreamingTrainer(Config(model=ModelConfig(hidden_size=4), "
+        "train=TrainConfig(batch_size=4, window_size=4, eval_stride=1, "
+        "log_every_steps=0)), StreamConfig(refresh_buckets=16, "
+        "finetune_epochs=1, eval_holdout=2), ckpt_dir=d + '/s', "
+        "feature_config=FeaturizeConfig(hash_features=True, capacity=8), "
+        "device='cpu')\n"
+        "DriftController(st, QualityConfig(enabled=True, "
+        "sweep_every_buckets=4, live_window=4, min_sweep_buckets=4, "
+        "reference_window=8))\n"
+        "for i in range(40):\n"
+        "    st.ingest(Bucket([MetricSample('a', 'cpu', float(i % 5))], "
+        "[Span('a', '/x')] * (i % 5)))\n"
+        "    st.refresh() if st.ready() else None\n"
+        "assert st.quality.stats['sweeps'] > 0, st.quality.stats\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
         "need = {'graphs', 'obs', 'obs.metrics', 'obs.spans', "
         "'obs.export', 'serve.batcher', 'serve.graphs', 'serve.surface', "
-        "'serve.server', 'ops.densify', 'ops.quantize', 'serve.export'}\n"
+        "'serve.server', 'ops.densify', 'ops.quantize', 'serve.export', "
+        "'obs.quality', 'data.wire', 'train.stream'}\n"
         "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 47 else 0)\n")
+        "sys.exit(1 if bad or missing or len(names) < 50 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
