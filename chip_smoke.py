@@ -12,9 +12,12 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    gru_fwd_blocked.cu with the blocked forward K4 of the tuning sweep, all
    three including the tensor-core header gru_mma.cuh), one nvcc per
    source, all started together, into build/kernels/; ptxas's registers
-   and spills of every kernel and instantiation; the block plan's
-   shared-memory mirrors held against the sources' *_smem_bytes (K4 at
-   every --quick blocking, both io dtypes, both dots);
+   and spills of every kernel and instantiation, and of each kernel's f32
+   form by its design (K1 and K3: 3xTF32 on the tensor cores; K2 and
+   K4's f32 dot: FMA); the block plan's shared-memory mirrors and f32
+   launch bounds held against the sources' (K4 at every --quick blocking,
+   both io dtypes, both dots), and its f32 plans at the main paths'
+   shapes;
 3. each kernel against its plain PyTorch version on the card, with the JAX
    package's kernel tolerances (forward: f32 1e-5, bf16 2e-2; gradients
    relative to each tensor's largest magnitude: f32 2e-4, bf16 2e-2): K1 at
@@ -23,12 +26,22 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    autograd through the plain recurrence) at the flagship training shape
    (B=32); all at ragged shapes (E=3, T=7, B=37 at H=128 and H=96;
    E=2, T=5, B=21 at H=64: bf16 runs H/16 warps on the tensor cores) too,
-   in bf16 and f32, forward and reverse;
+   in bf16 and f32, forward and reverse; in f32 also at the main paths'
+   shapes (K1 at E=88, B=8, the verdict sweeps' and the stream
+   evaluation's rung; K2, K3 and the Function at E=88, B=32, the stream's
+   fine-tune) and at H=40 (E=3, T=7, B=37: a last warp of the 3xTF32 forms
+   with units past H);
 4. times: K1 at the serving shape, K2 and K3 at the training shape, each
    beside its plain version, the least time the card could take (bound),
    and cuDNN's GRU as a yardstick (torch.nn.GRU with W_ih = identity on the
    projections, one module per expert: forward for K1 and K2, autograd
-   backward for K3; the port never calls it);
+   backward for K3; the port never calls it); then K1 and K3 in f32 at the
+   table's and the main paths' shapes (deeprest_tpu_torch/benchmarks/
+   f32_kernels.py): CUDA events over 20 launches, the bytes, FMA and 3xTF32
+   bounds, K3's recurrence and dW kernels apart (torch.profiler), K3 run
+   twice for the same bits, and each form's error against an f64 run of
+   the plain recurrence (held to 1e-5 forward, 2e-4 of scale for
+   gradients);
 5. the serving main path at full width: a seeded flagship checkpoint
    (F=512, E=40, H=128, bidirectional, bf16) written with the port's
    writer, then `python -m deeprest_tpu_torch predict` on a day of minutes
@@ -181,6 +194,12 @@ RAGGED_96 = dict(E=3, T=7, B=37, H=96)           # 6 warps in bf16
 RAGGED_64 = dict(E=2, T=5, B=21, H=64)           # 4 warps in bf16
 CHECK_SHAPES = (("ragged", RAGGED), ("ragged H=96", RAGGED_96),
                 ("ragged H=64", RAGGED_64))
+# f32 only: the stream's fine-tune (K2, K3), the verdict sweeps' and the
+# stream evaluation's smallest rung (K1), and H=40, where the 3xTF32 forms'
+# last warp holds units past H (the bf16 forms refuse it)
+STREAM_TRAIN = dict(E=88, T=60, B=32, H=128)
+VERDICT = dict(E=88, T=60, B=8, H=128)
+RAGGED_40 = dict(E=3, T=7, B=37, H=40)
 FUSED = dict(E=80, T=60, B=32, H=128)            # both directions stacked
 TUNE_RAGGED = dict(E=4, T=12, B=37, H=128)
 F, W, DAY = 512, 60, 1440
@@ -339,8 +358,13 @@ def phase_kernel_checks(cuda_gru) -> dict:
             worst = check_train_kernels(cuda_gru, label, shape, dtype)
             if dtype == torch.bfloat16 and shape is TRAIN:
                 worst_train = worst
-    for label, shape in (("flagship", FLAGSHIP),) + CHECK_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
+    for label, shape in (("stream fine-tune", STREAM_TRAIN),
+                         ("ragged H=40", RAGGED_40)):
+        check_train_kernels(cuda_gru, label, shape, torch.float32)
+    f32_only = (("verdict", VERDICT), ("ragged H=40", RAGGED_40))
+    for label, shape in (("flagship", FLAGSHIP),) + CHECK_SHAPES + f32_only:
+        for dtype in ((torch.float32,) if (label, shape) in f32_only
+                      else (torch.bfloat16, torch.float32)):
             name = str(dtype).removeprefix("torch.")
             args = recurrence_inputs(shape, dtype)
             for reverse in (False, True):
@@ -491,6 +515,41 @@ def phase_times(cuda_gru) -> dict:
         del args, proj, w_hh, b_hh, h0, h_all, h_prev, gates, dout, bwd_in
         del dproj, dw, db, dh0
         torch.cuda.empty_cache()
+    for name, shapes in f32_main_path_times(cuda_gru).items():
+        results[name]["float32"]["shapes"] = shapes
+    return results
+
+
+def f32_main_path_times(cuda_gru) -> dict:
+    """K1 and K3 in f32 (3xTF32) at the table's and the main paths' shapes
+    (``deeprest_tpu_torch/benchmarks/f32_kernels.py``): times, bounds,
+    K3's recurrence/dW split, K3 run twice for the same bits, and each
+    form's error against an f64 run of the plain recurrence, held to the
+    f32 tolerances."""
+    from deeprest_tpu_torch.benchmarks import f32_kernels
+
+    results = f32_kernels.measure(cuda_gru)
+    for name, shapes in results.items():
+        for label, m in shapes.items():
+            errs, plain = m["err_f64"], m["plain_err_f64"]
+            split = (f" recurrence_ms={m['recurrence_ms']:.4f} "
+                     f"dw_ms={m['dw_ms']:.4f} deterministic="
+                     f"{m['deterministic']}" if name == "gru_bwd" else "")
+            print(f"times {name} float32 {label} {m['shape']}: "
+                  f"kernel_ms={m['ms']:.4f}{split} bound_ms bytes="
+                  f"{m['bytes_ms']:.4f} fma={m['fma_ms']:.4f} "
+                  f"3xtf32={m['tf32x3_ms']:.4f}; err_f64 "
+                  f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (plain f32 "
+                  f"{ {k: f'{v:.3e}' for k, v in plain.items()} })",
+                  flush=True)
+            tol = TOL["float32"][0] if name == "gru_fwd" \
+                else GRAD_TOL["float32"]
+            if max(errs.values()) > tol:
+                fail(f"{name} f32 at {label} is {max(errs.values()):.3e} of "
+                     f"scale from the f64 recurrence, above {tol}")
+            if name == "gru_bwd" and not m["deterministic"]:
+                fail(f"gru_bwd f32 at {label} gave other bits on a second "
+                     "run")
     return results
 
 
@@ -507,13 +566,23 @@ DESIGNS = {
                         ("gru_fwd_blocked_mma_kernelI13__nv_bfloat16Li1ELi1E",),
                         None),
 }
+# The same for each kernel's f32 instantiation (K1 and K3: 3xTF32 on the
+# tensor cores; K2 and K4's f32 dot: FMA).
+F32_DESIGNS = {
+    "gru_fwd": ("3xTF32 mma.sync", ("gru_fwd_tf32_kernel",), None),
+    "gru_fwd_train": ("FMA", ("gru_fwd_kernelIfLb1E",), None),
+    "gru_bwd": ("3xTF32 mma.sync", ("gru_bwd_tf32_kernelILb1E",),
+                ("gru_bwd_dw_tf32_kernel",)),
+    "gru_fwd_blocked": ("FMA", ("gru_fwd_blocked_kernelIfLi1E",), None),
+}
 
 
 def phase_build(build, cuda_gru, kernel_tuning) -> dict:
     """Build every source; print ptxas's registers and spills per kernel;
     hold the plan's shared-memory mirrors against the built entries.
     Returns {kernel name: {"registers", "spill_bytes"[, "registers_dw",
-    "spill_bytes_dw"]}} of each kernel's bf16 instantiation."""
+    "spill_bytes_dw"], "f32": the same of its f32 instantiation with its
+    "design"}} of each kernel's bf16 instantiation."""
     import torch
 
     build_s = build.build_all(cuda_gru.SOURCES)
@@ -530,23 +599,34 @@ def phase_build(build, cuda_gru, kernel_tuning) -> dict:
         hits = [u for fn, u in usage.items() if all(n in fn for n in needles)]
         return hits[0] if hits else {"registers": None, "spill_bytes": None}
 
-    regs = {}
-    for name, (_, needles, dw_needles) in DESIGNS.items():
-        regs[name] = dict(find(needles))
+    def regs_of(needles, dw_needles):
+        out = dict(find(needles))
         if dw_needles:
             dw = find(dw_needles)
-            regs[name].update(registers_dw=dw["registers"],
-                              spill_bytes_dw=dw["spill_bytes"])
+            out.update(registers_dw=dw["registers"],
+                       spill_bytes_dw=dw["spill_bytes"])
+        return out
+
+    regs = {}
+    for name, (_, needles, dw_needles) in DESIGNS.items():
+        regs[name] = regs_of(needles, dw_needles)
+    for name, (design, needles, dw_needles) in F32_DESIGNS.items():
+        f32 = regs_of(needles, dw_needles)
+        print(f"  f32 {name} ({design}): {f32}", flush=True)
+        regs[name]["f32"] = {"design": design, **f32}
     fwd = cuda_gru.GRU_FWD_SOURCE.library()
     bwd = cuda_gru.GRU_BWD_SOURCE.library()
     blk = cuda_gru.GRU_FWD_BLOCKED_SOURCE.library()
-    for h in (64, 96, 128):
+    if (fwd.gru_fwd_tf32_max_threads(), bwd.gru_bwd_tf32_max_threads()) != (
+            cuda_gru.TF32_FWD_MAX_THREADS, cuda_gru.TF32_BWD_MAX_THREADS):
+        fail("block_plan's f32 launch bounds disagree with the sources")
+    for h in (40, 64, 96, 128):
         for bf16 in (0, 1):
-            pairs = [(fwd.gru_fwd_smem_bytes(h, bf16),
-                      cuda_gru.fwd_smem_bytes(h, bool(bf16)))]
-            pairs += [(bwd.gru_bwd_smem_bytes(h, bf16, stash),
-                       cuda_gru.bwd_smem_bytes(h, bool(bf16), bool(stash)))
-                      for stash in (0, 1)]
+            pairs = [(fwd.gru_fwd_smem_bytes(h, bf16, train),
+                      cuda_gru.fwd_smem_bytes(h, bool(bf16), bool(train)))
+                     for train in (0, 1)]
+            pairs += [(bwd.gru_bwd_smem_bytes(h, bf16),
+                       cuda_gru.bwd_smem_bytes(h, bool(bf16)))]
             pairs += [(blk.gru_fwd_blocked_smem_bytes(h, rows, e_blk, t_blk,
                                                       bf16, dot),
                        cuda_gru.fwd_blocked_smem_bytes(
@@ -558,10 +638,19 @@ def phase_build(build, cuda_gru, kernel_tuning) -> dict:
                 fail(f"block_plan's shared-memory mirrors {pairs} disagree "
                      f"with the sources at H={h} bf16={bf16}")
     plan = cuda_gru.block_plan(TRAIN["E"], TRAIN["T"], TRAIN["B"], TRAIN["H"],
-                               torch.bfloat16, training=True, stash=True)
+                               torch.bfloat16, training=True)
     print(f"plan: the mirrors equal the sources; flagship bf16 training: "
           f"{ {k: (v['smem_bytes'], v['ctas_per_sm'], v['waves']) for k, v in plan['kernels'].items()} } "
           f"(bytes, CTAs per SM, waves)", flush=True)
+    for label, shape, training in (("K1 table", FLAGSHIP, False),
+                                   ("K1 verdict", VERDICT, False),
+                                   ("K2/K3 stream", STREAM_TRAIN, True)):
+        plan = cuda_gru.block_plan(shape["E"], shape["T"], shape["B"],
+                                   shape["H"], torch.float32,
+                                   training=training)
+        print(f"plan f32 {label}: "
+              f"{ {k: (v['smem_bytes'], v['threads_per_cta'], v['ctas_per_sm'], v['ctas'], v['waves']) for k, v in plan['kernels'].items()} } "
+              f"(bytes, threads, CTAs per SM, CTAs, waves)", flush=True)
     return regs
 
 
@@ -3429,8 +3518,9 @@ def main() -> int:
             "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
             "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
             "library_ms": bf16["library_ms"], "design": DESIGNS[name][0],
-            **regs[name]})
-        print(f"f32 {name}: {json.dumps(times[name]['float32'])}", flush=True)
+            **{k: v for k, v in regs[name].items() if k != "f32"}})
+        print(f"f32 {name}: {json.dumps({**times[name]['float32'], **regs[name]['f32']})}",
+              flush=True)
     line["kernels"].append({
         "name": "gru_fwd_blocked", "route": "cuda",
         "source": "deeprest_tpu_torch/csrc/gru_fwd_blocked.cu",
@@ -3440,8 +3530,10 @@ def main() -> int:
             "max_abs_err", "ms", "fastest_ms", "fastest_blocking",
             "blocking_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "design": DESIGNS["gru_fwd_blocked"][0], **regs["gru_fwd_blocked"]})
-    print(f"f32 gru_fwd_blocked: {json.dumps(blocked['float32'])}",
+        "design": DESIGNS["gru_fwd_blocked"][0],
+        **{k: v for k, v in regs["gru_fwd_blocked"].items() if k != "f32"}})
+    print(f"f32 gru_fwd_blocked: "
+          f"{json.dumps({**blocked['float32'], **regs['gru_fwd_blocked']['f32']})}",
           flush=True)
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
           f"training {training['launches']}; raw telemetry to answers "

@@ -79,8 +79,9 @@ class TrainConfig:
     Features of the JAX trainer the port does not have yet: the
     host-streamed feed (``device_data="off"``) and elastic remeshing.  The
     port always stages the base series on its device, so ``device_data``
-    takes "auto" or "always" (both stage), and ``elastic`` only False;
-    anything else raises.
+    takes "auto" (stages, and raises over ``device_data_max_bytes`` where
+    the reference would host-feed) or "always" (stages), and ``elastic``
+    only False; anything else raises.
     """
 
     num_epochs: int = 50

@@ -30,10 +30,14 @@
 // The carry and all gate math are float.  For bf16 the dot consumes h rounded
 // to bf16 and W_hh in bf16; their products are exact in float and accumulate
 // in float (the TPU kernel's bf16 dot with preferred_element_type=f32), here
-// on the tensor cores.  For float the dot is full-precision float FMA (no
-// TF32: a TF32 product would break the 1e-5 float tolerance).
+// on the tensor cores.  For float the inference form's dot runs 3xTF32 on
+// the tensor cores (gru_mma.cuh): a plain TF32 product keeps 10 mantissa
+// bits and would break the 1e-5 float tolerance, the split keeps about 21
+// (on an H100 2.0e-7 of scale from an f64 recurrence at the serving
+// shape, the FMA form's 2.0e-7); the training form's float dot stays
+// plain float FMA.
 //
-// Both forms: one CTA per (row tile of 16 batch rows, expert), 2H threads;
+// Every form: one CTA per (row tile of 16 batch rows, expert);
 // the time loop runs inside the CTA and replaces the TPU's sequential grid
 // axis, so no time, expert or batch padding exists: ragged rows are masked
 // here.  W_hh[e] is staged into dynamic shared memory once per CTA and read
@@ -56,10 +60,32 @@
 // latency hides behind a whole step.  At H=128: 100,352 + 8,704 = 109,056
 // bytes, two CTAs an SM.
 //
-// float (gru_fwd_kernel<float>): plain FMA.  Thread (k, rg) owns hidden unit
-// k of 8 rows of row group rg (two row groups): it computes the three gate
-// columns k, H+k, 2H+k of its rows from W_hh in shared memory (192 KiB at
-// H=128) and a double-buffered shared [2][16][H] float carry tile.
+// float inference (gru_fwd_tf32_kernel, K1): the bf16 form's layout and
+// gate math with 3xTF32 products, but warp w owns the 8 hidden units
+// [8w, 8w+8) of all three gates (three n8 tiles, ceil(H/8) warps): W_hh in
+// f32 allows one CTA an SM, and 8 warps of 16 units left a step's
+// dependent chain of loads, splits and mma.sync to 2 warps a scheduler;
+// 16 warps of 8 units halve each warp's chain and double the warps that
+// hide it, for one more split of the A fragment per warp (faster on the
+// card than warps of 16 units).  W_hh stays f32 in
+// shared memory, [H][3H+8] (the pad puts the 4 k rows of a B fragment on
+// distinct banks), and each B value is split as it is loaded: a split
+// copy would need twice the bytes.  The carry tile is f32 [2][16][K+4]
+// (K = H rounded up to the k8 step, zero beyond H; the pad spreads the A
+// fragment's 8 rows over the banks) and is split at its A fragment load
+// too: a split copy beside W_hh would need 234,496 bytes at H=128, above
+// one CTA's 232,448.  The last k step reads W_hh row H-1 for rows past H,
+// against A zeros.  Units past H (H % 8 != 0) are computed on junk and
+// never stored; the pad reads stay inside the row.  At H=128: 200,704 +
+// 16,896 = 217,600 bytes, one CTA an SM, 16 warps, and __launch_bounds__
+// of the 544 threads the largest admitted H (132) launches, so a thread
+// may keep up to 120 registers.
+//
+// float training (gru_fwd_kernel<float, true>, K2): plain FMA.  Thread (k,
+// rg) owns hidden unit k of 8 rows of row group rg (two row groups, 2H
+// threads): it computes the three gate columns k, H+k, 2H+k of its rows
+// from W_hh in shared memory (192 KiB at H=128) and a double-buffered
+// shared [2][16][H] float carry tile.
 //
 // Bound at the flagship serving shape, per launch (one direction,
 // E=40, T=60, B=256, H=128, bf16):
@@ -72,8 +98,10 @@
 // (0.048 ms) for 7.5 GFLOP (0.008 ms): bytes again, though at B=32 the
 // 16-row tiles give only 2 x 40 = 80 CTAs for 132 SMs.  The extra streams
 // are stores from values the inference form already holds in registers.
-// The float form's dot runs on FMA (~2x60 GFLOP at 67 TFLOP/s) far above
-// its bound.
+// The float inference form at the serving shape moves proj 944 MB + h 315 MB +
+// W_hh 8 MB = 1,266 MB (0.378 ms at 3.35 TB/s); its 60.4 GFLOP take 0.902 ms
+// on FMA at 67 TFLOP/s and, as three TF32 products, 0.366 ms at 495
+// TFLOP/s.  640 CTAs at one an SM are 4.85 waves.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,13 +129,28 @@ __host__ __device__ __forceinline__ size_t weight_bytes(int H, int bf16) {
 // of the bf16 form carry 8 more (16 bytes) against ldmatrix bank conflicts.
 __host__ __device__ __forceinline__ int padded(int n) { return n + 8; }
 
-size_t smem_bytes(int H, int bf16) {
+// The float inference form: floats after each W_hh and h tile row, hidden
+// units a warp owns, and the threads of the largest H whose W_hh fits
+// (H <= 132: 17 warps).
+constexpr int kTf32WPad = 8;
+constexpr int kTf32HPad = 4;
+constexpr int kTf32Units = 8;
+constexpr int kTf32MaxThreads = 544;
+
+__host__ __device__ __forceinline__ int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+size_t smem_bytes(int H, int bf16, int train) {
   if (bf16)   // W_hh [H][3H+8] and the h tile [2][16][H+8], bf16
     return ((size_t)H * padded(3 * H) + 2 * (size_t)kRowTile * padded(H)) * 2;
+  if (!train)   // W_hh [H][3H+8] and the h tile [2][16][K+4], float
+    return ((size_t)H * (3 * H + kTf32WPad) +
+            2 * (size_t)kRowTile * (round_up(H, 8) + kTf32HPad)) * sizeof(float);
   return weight_bytes(H, bf16) + 2 * (size_t)kRowTile * H * sizeof(float);
 }
 
-// The float form (instantiated for T = float only).
+// The float training form (instantiated for T = float, kEmitPrev = true).
 template <typename T, bool kEmitPrev>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
@@ -372,7 +415,140 @@ gru_fwd_mma_kernel(const bf16* __restrict__ proj, const bf16* __restrict__ w_hh,
   }
 }
 
-// The kernel of each form: bf16 takes the tensor cores, float the FMA loop.
+// The float inference form: 3xTF32 products (see the design note at the top).
+__global__ void __launch_bounds__(kTf32MaxThreads, 1)
+gru_fwd_tf32_kernel(const float* __restrict__ proj, const float* __restrict__ w_hh,
+                    const float* __restrict__ b_hh, const float* __restrict__ h0,
+                    float* __restrict__ out, int n_t, int n_b, int H, int reverse) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G3 = 3 * H;
+  const int w_ld = G3 + kTf32WPad;
+  const int k_pad = round_up(H, 8);
+  const int h_ld = k_pad + kTf32HPad;
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* h_s = w_s + (size_t)H * w_ld;           // [2][kRowTile][h_ld]
+
+  const int e = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = frag_row(lane), t = lane & 3;
+  const int row0 = blockIdx.x * kRowTile;
+
+  // W_hh[e] into padded rows 16 bytes at a time, the pads zeroed; both h
+  // tiles zeroed (units H .. k_pad-1 stay zero).
+  const float* w_e = w_hh + (size_t)e * H * G3;
+  const int vec_per_row = w_ld / 4;
+  for (int i = threadIdx.x; i < H * vec_per_row; i += blockDim.x) {
+    const int r = i / vec_per_row, c = (i - r * vec_per_row) * 4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c < G3) v = *reinterpret_cast<const float4*>(w_e + (size_t)r * G3 + c);
+    *reinterpret_cast<float4*>(w_s + (size_t)r * w_ld + c) = v;
+  }
+  for (int i = threadIdx.x; i < 2 * kRowTile * h_ld; i += blockDim.x) h_s[i] = 0.0f;
+
+  // This lane's elements: rows g + 8 rr, units u and u + 1 (both below H or
+  // both not, as H is even).
+  const int u = kTf32Units * warp + frag_col(lane);
+  const bool unit_ok = u < H;
+  int row[2];
+  bool valid[2];
+  float h[2][2];                                 // [rr][unit pair]
+  float bias[3][2];                              // [gate][unit pair]
+  const float* b_e = b_hh + (size_t)e * G3;
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate) {
+    bias[gate][0] = unit_ok ? b_e[gate * H + u] : 0.0f;
+    bias[gate][1] = unit_ok ? b_e[gate * H + u + 1] : 0.0f;
+  }
+  __syncthreads();                               // the tiles are zeroed
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    row[rr] = row0 + g + 8 * rr;
+    valid[rr] = row[rr] < n_b;
+    float2 v = make_float2(0.0f, 0.0f);
+    if (valid[rr] && unit_ok)
+      v = *reinterpret_cast<const float2*>(h0 + ((size_t)e * n_b + row[rr]) * H + u);
+    h[rr][0] = v.x;
+    h[rr][1] = v.y;
+    if (unit_ok) *reinterpret_cast<float2*>(h_s + (g + 8 * rr) * h_ld + u) = v;
+  }
+  __syncthreads();
+
+  // A step's projections of this lane's elements, [gate][rr] pairs, loaded
+  // one step ahead as in the bf16 form.
+  auto load_x = [&](int s, float2 (&x)[3][2]) {
+    const int tt = reverse ? n_t - 1 - s : s;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float* p = proj + (((size_t)e * n_t + tt) * n_b + row[rr]) * G3 + u;
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate)
+        x[gate][rr] = valid[rr] && unit_ok
+                          ? *reinterpret_cast<const float2*>(p + gate * H)
+                          : make_float2(0.0f, 0.0f);
+    }
+  };
+  float2 x_next[3][2];
+  load_x(0, x_next);
+
+  for (int s = 0; s < n_t; ++s) {
+    const int tt = reverse ? n_t - 1 - s : s;
+    const float* h_cur = h_s + (s & 1) * kRowTile * h_ld;
+    float* h_nxt = h_s + ((s + 1) & 1) * kRowTile * h_ld;
+    const size_t step_row = ((size_t)e * n_t + tt) * n_b;
+
+    float2 x[3][2];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) x[gate][rr] = x_next[gate][rr];
+    if (s + 1 < n_t) load_x(s + 1, x_next);
+
+    // acc[gate] + cor[gate] = columns gate*H + 8 warp .. +7 of h . W_hh
+    float acc[3][4], cor[3][4];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[gate][i] = cor[gate][i] = 0.0f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < k_pad; k0 += 8) {
+      const SplitFrag<4> a = load_a_tf32(h_cur + k0, h_ld, lane);
+      const float* w0 = w_s + (size_t)min(k0 + t, H - 1) * w_ld + kTf32Units * warp + g;
+      const float* w1 = w_s + (size_t)min(k0 + t + 4, H - 1) * w_ld + kTf32Units * warp + g;
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate)
+        mma_3xtf32(acc[gate], cor[gate], a, split_b_tf32(w0[gate * H], w1[gate * H]));
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float xr[2] = {x[0][rr].x, x[0][rr].y};
+      const float xz[2] = {x[1][rr].x, x[1][rr].y};
+      const float xn[2] = {x[2][rr].x, x[2][rr].y};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = 2 * rr + c;
+        const float g_r = acc[0][i] + cor[0][i] + bias[0][c];
+        const float g_z = acc[1][i] + cor[1][i] + bias[1][c];
+        const float g_n = acc[2][i] + cor[2][i] + bias[2][c];
+        const float r = sigmoid_f32(xr[c] + g_r);
+        const float z = sigmoid_f32(xz[c] + g_z);
+        const float n = tanhf(xn[c] + r * g_n);
+        h[rr][c] = (1.0f - z) * n + z * h[rr][c];
+      }
+      const float2 hv = valid[rr] ? make_float2(h[rr][0], h[rr][1])
+                                  : make_float2(0.0f, 0.0f);
+      if (unit_ok) {
+        if (valid[rr])
+          *reinterpret_cast<float2*>(out + (step_row + row[rr]) * H + u) = hv;
+        *reinterpret_cast<float2*>(h_nxt + (g + 8 * rr) * h_ld + u) = hv;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The kernel of each form: bf16 takes the tensor cores, float training the
+// FMA loop (float inference launches gru_fwd_tf32_kernel).
 template <typename T, bool kEmitPrev>
 constexpr auto fwd_kernel() {
   if constexpr (sizeof(T) == 2)
@@ -385,7 +561,7 @@ template <typename T, bool kEmitPrev>
 int launch(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
            void* out, void* h_prev, void* gates, int E, int n_t, int n_b,
            int H, int reverse, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, sizeof(T) == 2);
+  const size_t smem = smem_bytes(H, sizeof(T) == 2, kEmitPrev);
   const auto kernel = fwd_kernel<T, kEmitPrev>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -400,15 +576,36 @@ int launch(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
   return (int)cudaGetLastError();
 }
 
+int launch_tf32(const void* proj, const void* w_hh, const void* b_hh,
+                const void* h0, void* out, int E, int n_t, int n_b, int H,
+                int reverse, cudaStream_t stream) {
+  const size_t smem = smem_bytes(H, 0, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_b + kRowTile - 1) / kRowTile, E);
+  const dim3 block(32 * ((H + kTf32Units - 1) / kTf32Units));
+  gru_fwd_tf32_kernel<<<grid, block, smem, stream>>>(
+      static_cast<const float*>(proj), static_cast<const float*>(w_hh),
+      static_cast<const float*>(b_hh), static_cast<const float*>(h0),
+      static_cast<float*>(out), n_t, n_b, H, reverse);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one CTA needs at hidden size H (the wrapper refuses
-// shapes above the device's opt-in limit before launching).
-size_t gru_fwd_smem_bytes(int H, int bf16) { return smem_bytes(H, bf16); }
+// Dynamic shared memory one CTA needs at hidden size H, in the inference
+// (train = 0) or training form (the wrapper refuses shapes above the
+// device's opt-in limit before launching).
+size_t gru_fwd_smem_bytes(int H, int bf16, int train) {
+  return smem_bytes(H, bf16, train);
+}
 
 int gru_fwd_max_threads(void) { return kMaxThreads; }
+
+int gru_fwd_tf32_max_threads(void) { return kTf32MaxThreads; }
 
 int gru_fwd_row_groups(void) { return kRowGroups; }
 
@@ -421,8 +618,7 @@ int gru_fwd(const void* proj, const void* w_hh, const void* b_hh, const void* h0
   if (bf16)
     return launch<__nv_bfloat16, false>(proj, w_hh, b_hh, h0, out, nullptr,
                                         nullptr, E, n_t, n_b, H, reverse, st);
-  return launch<float, false>(proj, w_hh, b_hh, h0, out, nullptr, nullptr, E,
-                              n_t, n_b, H, reverse, st);
+  return launch_tf32(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, reverse, st);
 }
 
 // Training form: also writes h_prev and, unless `gates` is null, the hidden

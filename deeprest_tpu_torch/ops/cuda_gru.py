@@ -7,17 +7,21 @@ Counterpart of ``deeprest_tpu/ops/pallas_gru.py``:
 - K1, the inference forward (``_fwd_call`` with ``emit_prev=False``):
   :func:`gru_fwd_cuda`, kernel ``csrc/gru_fwd.cu`` entry ``gru_fwd``
   (bf16: ``gru_fwd_mma_kernel``, its product on the tensor cores with
-  ``mma.sync`` m16n8k16 from ``ldmatrix`` fragments; f32: plain float FMA,
-  since an f32 ``mma`` would be TF32 and break the 1e-5 tolerance);
+  ``mma.sync`` m16n8k16 from ``ldmatrix`` fragments; f32:
+  ``gru_fwd_tf32_kernel``, the same layout on ``mma.sync`` m16n8k8 in
+  3xTF32, each f32 operand split into two TF32 halves so the product keeps
+  the 1e-5 tolerance that one TF32 product would break);
 - K2, the training forward (``emit_prev=True``): :func:`gru_fwd_train_cuda`,
   the same source's ``gru_fwd_train`` entry, which also streams out
-  ``h_prev`` and, with :data:`STASH_GATES`, the hidden gates;
+  ``h_prev`` and, with :data:`STASH_GATES`, the hidden gates; bf16 on the
+  tensor cores, f32 on plain FMA;
 - K3, the backward (``_bwd_call``): :func:`gru_bwd_cuda`, kernel
   ``csrc/gru_bwd.cu`` (the reverse-time recurrence plus the dW/db product),
-  which recomputes the hidden gates when the forward stashed none; bf16
-  runs both products on the tensor cores, f32 on FMA, as K1 and K2 do;
+  which recomputes the hidden gates when the forward stashed none; both
+  products on the tensor cores, bf16 like K1's bf16 form and f32 in
+  3xTF32 like K1's f32 form;
 - ``csrc/gru_mma.cuh``, the device header every source includes (the
-  ``ldmatrix`` / ``mma.sync`` / ``cp.async`` helpers and the gate
+  ``ldmatrix`` / ``mma.sync`` / 3xTF32 / ``cp.async`` helpers and the gate
   nonlinearities); its bytes enter every library's digest;
 - K4, the blocked forward of the tuning sweep
   (``benchmarks/kernel_tuning.py::make_fwd_call``):
@@ -102,14 +106,16 @@ GRU_FWD_SOURCE = CudaSource("gru_fwd.cu", headers=MMA_HEADERS, signatures={
                        _INT, _INT, _INT, _INT, _INT, _INT, _PTR]),
     "gru_fwd_train": (_INT, [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, _INT, _INT, _PTR]),
-    "gru_fwd_smem_bytes": (ctypes.c_size_t, [_INT, _INT]),
+    "gru_fwd_smem_bytes": (ctypes.c_size_t, [_INT, _INT, _INT]),
     "gru_fwd_max_threads": (_INT, []),
+    "gru_fwd_tf32_max_threads": (_INT, []),
     "gru_fwd_row_groups": (_INT, []),
 })
 GRU_BWD_SOURCE = CudaSource("gru_bwd.cu", headers=MMA_HEADERS, signatures={
     "gru_bwd": (_INT, [_PTR] * 12 + [_INT] * 6 + [_PTR]),
-    "gru_bwd_smem_bytes": (ctypes.c_size_t, [_INT, _INT, _INT]),
+    "gru_bwd_smem_bytes": (ctypes.c_size_t, [_INT, _INT]),
     "gru_bwd_max_threads": (_INT, []),
+    "gru_bwd_tf32_max_threads": (_INT, []),
     "gru_bwd_row_groups": (_INT, []),
     "gru_bwd_row_tile": (_INT, []),
 })
@@ -166,16 +172,24 @@ SMEM_RESERVED_PER_CTA = 1_024   # the runtime's own share of each CTA
 THREADS_PER_SM = 2_048
 CTAS_PER_SM = 32
 REGISTERS_PER_SM = 65_536
-# Every kernel is compiled with __launch_bounds__(512), which caps a thread
-# at 128 registers; the plan counts that cap.  K4's tensor-core form is
-# bounded to 256 threads: its single-chain instantiation (16 rows, one
-# expert) at two CTAs an SM, so 128 registers, the others at one, so up to
-# 255.
+# The bf16 and FMA kernels are compiled with __launch_bounds__(512), which
+# caps a thread at 128 registers; the plan counts that cap.  K4's
+# tensor-core form is bounded to 256 threads: its single-chain
+# instantiation (16 rows, one expert) at two CTAs an SM, so 128 registers,
+# the others at one, so up to 255.  The f32 3xTF32 forms of K1 and K3 are
+# bounded to the threads of their largest admitted H, one CTA an SM:
+# 544 (K1, H <= 132 on 17 warps of 8 units: 120 registers) and 256 (K3,
+# H <= 128 on 8 warps of 16 units: 255).
 REGISTERS_PER_THREAD = 128
 REGISTERS_PER_THREAD_MAX = 255
+TF32_FWD_MAX_THREADS = 544
+TF32_BWD_MAX_THREADS = 256
+TF32_FWD_UNITS = 8      # hidden units per warp of the f32 K1
 # Mirrors of the sources' constants: csrc/gru_fwd.cu and csrc/gru_bwd.cu
-# run 16 rows per CTA on 2H threads (f32: each thread one hidden unit of 8
-# rows, 2 such row groups; bf16: H/16 warps of 16 hidden units each);
+# run 16 rows per CTA: the bf16 forms and the f32 3xTF32 K3 on one warp
+# per 16 hidden units (ceil(H/16) warps, 2H threads when H % 16 == 0), the
+# f32 3xTF32 K1 on one warp per 8 units (ceil(H/8) warps), the f32 FMA
+# form (K2) on 2H threads, each one hidden unit of 8 rows in 2 row groups;
 # csrc/gru_fwd_blocked.cu takes rows / 8 row groups with the f32 dot, and
 # one or two m16 tiles of rows on H/16 warps with the bf16 dot.
 ROWS_PER_THREAD = 8
@@ -183,6 +197,11 @@ ROW_GROUPS = 2
 ROW_TILE = ROW_GROUPS * ROWS_PER_THREAD
 MAX_THREADS = 512
 MMA_UNITS = 16   # hidden units per warp (and the k16 step) of the bf16 kernels
+# Floats of pad after each shared row of the f32 3xTF32 forms: K1's W_hh
+# (8) and carry tile (4), K3's W_hh and dgates tile (4).
+TF32_FWD_W_PAD = 8
+TF32_FWD_H_PAD = 4
+TF32_BWD_PAD = 4
 BLOCKED_E_BLKS = (1, 2, 4)      # the e_blk instantiations of K4
 BLOCKED_MMA_ROWS = (16, 32)     # K4's bf16-dot batch tiles: 1 or 2 m16 tiles
 BLOCKED_MMA_MAX_THREADS = 256   # K4's bf16-dot CTA: H/16 warps, so H <= 128
@@ -192,26 +211,33 @@ def _round16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def fwd_smem_bytes(h: int, bf16: bool) -> int:
-    """``gru_fwd_smem_bytes`` (K1 and K2).  bf16: W_hh and the
-    double-buffered bf16 h tile of 16 rows, every row padded by 16 bytes
-    against ldmatrix bank conflicts.  f32: W_hh padded to 16 bytes and the
-    double-buffered f32 carry tile."""
+def fwd_smem_bytes(h: int, bf16: bool, train: bool = True) -> int:
+    """``gru_fwd_smem_bytes`` of K2 (``train``) or K1.  bf16, both: W_hh
+    and the double-buffered bf16 h tile of 16 rows, every row padded by 16
+    bytes against ldmatrix bank conflicts.  f32 K1 (3xTF32): W_hh with
+    rows of 3H + 8 floats and the double-buffered f32 carry tile with rows
+    of H rounded up to 8, plus 4.  f32 K2 (FMA): W_hh padded to 16 bytes
+    and the double-buffered f32 carry tile."""
     if bf16:
         return (h * (3 * h + 8) + 2 * ROW_TILE * (h + 8)) * 2
+    if not train:
+        k_pad = -(-h // 8) * 8
+        return (h * (3 * h + TF32_FWD_W_PAD)
+                + 2 * ROW_TILE * (k_pad + TF32_FWD_H_PAD)) * 4
     return _round16(h * 3 * h * 4) + 2 * ROW_TILE * h * 4
 
 
-def bwd_smem_bytes(h: int, bf16: bool, stash: bool) -> int:
-    """``gru_bwd_smem_bytes`` (K3's recurrence kernel): W_hh with each row
-    padded by 16 bytes and the dgates tile of 16 rows.  bf16: the tile is
-    bf16 with the same padded rows, and the stash-off recompute reads its
-    h_prev fragments from global memory (no tile).  f32: an f32 dgates
-    tile and, without the stash, an f32 h_prev tile."""
+def bwd_smem_bytes(h: int, bf16: bool) -> int:
+    """``gru_bwd_smem_bytes`` (K3's recurrence kernel): W_hh and the
+    dgates tile of 16 rows, every row padded by 16 bytes (bf16: 8
+    elements, against ldmatrix bank conflicts; f32: 4 floats, so the A and
+    B fragments' rows fall on distinct banks, and W_hh's rows, permuted so
+    a lane holds 4 consecutive units, rounded up to whole warps of 16).
+    Either way the stash-off recompute reads its h_prev fragments from
+    global memory, so the gate stash does not change the bytes."""
     if bf16:
         return (h + ROW_TILE) * (3 * h * 2 + 16)
-    return (h * (3 * h * 4 + 16) + ROW_TILE * 3 * h * 4
-            + (0 if stash else ROW_TILE * h * 4))
+    return (_round16(h) + ROW_TILE) * (3 * h + TF32_BWD_PAD) * 4
 
 
 def fwd_blocked_smem_bytes(h: int, rows: int, e_blk: int, t_blk: int,
@@ -279,12 +305,23 @@ def _blocked_refusal(h: int, rows: int, e_blk: int, threads: int,
     return None
 
 
+def _register_cap(max_threads: int) -> int:
+    """Registers a thread may keep under ``__launch_bounds__(max_threads,
+    1)``: an SM's 65,536 over the threads, in steps of 8, at most 255."""
+    return min(REGISTERS_PER_THREAD_MAX,
+               REGISTERS_PER_SM // max_threads // 8 * 8)
+
+
 def _plan_entry(rows: int, threads: int, smem: int, ctas: int,
                 refusal: str | None,
-                registers: int = REGISTERS_PER_THREAD) -> dict:
+                registers: int = REGISTERS_PER_THREAD,
+                max_threads: int = MAX_THREADS) -> dict:
     if refusal is None and smem > SMEM_OPTIN_BYTES:
         refusal = (f"needs {smem} bytes of shared memory per CTA, above the "
                    f"{SMEM_OPTIN_BYTES} one CTA may opt into")
+    if refusal is None and threads > max_threads:
+        refusal = (f"launches {threads} threads, above the "
+                   f"__launch_bounds__({max_threads}) it is built for")
     resident = 0
     if refusal is None:
         resident = min(SMEM_PER_SM_BYTES // (smem + SMEM_RESERVED_PER_CTA),
@@ -292,7 +329,8 @@ def _plan_entry(rows: int, threads: int, smem: int, ctas: int,
                        REGISTERS_PER_SM // (threads * registers),
                        CTAS_PER_SM)
     return {"rows_per_cta": rows, "threads_per_cta": threads,
-            "smem_bytes": smem, "ctas": ctas, "ctas_per_sm": resident,
+            "smem_bytes": smem, "registers_cap": registers,
+            "cluster_ctas": 1, "ctas": ctas, "ctas_per_sm": resident,
             "waves": math.ceil(ctas / (resident * H100_SMS)) if resident
             else None, "smem_limit": SMEM_OPTIN_BYTES,
             "fits": refusal is None, "refusal": refusal}
@@ -301,8 +339,7 @@ def _plan_entry(rows: int, threads: int, smem: int, ctas: int,
 def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
                training: bool = True, rows: int | None = None,
                e_blk: int = 1, t_blk: int = 1, *, blocked: bool = False,
-               bf16_dot: bool | None = None,
-               stash: bool | None = None) -> dict:
+               bf16_dot: bool | None = None) -> dict:
     """The Hopper block plan of one recurrence call at ``proj [E, T, B,
     3H]`` in ``dtype`` (the kernel io dtype, bf16 or f32).
 
@@ -316,17 +353,22 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
     bf16 dot runs on the tensor cores and takes H % 16, H <= 128 and
     16 or 32 rows (8 rows are refused, not run half empty), its f32 dot
     on FMA.  K1-K3
-    have a fixed blocking of 16 rows and one expert per CTA; ``stash``
-    (default :data:`STASH_GATES`) sizes K3 in f32.  In bf16 K1-K3 run on
-    the tensor cores in warps of 16 hidden units and refuse ``H % 16``;
-    there is no FMA fallback for a bf16 shape.
+    have a fixed blocking of 16 rows and one expert per CTA, and K3's
+    bytes are the same with the gate stash on or off.  In bf16 K1-K3 run
+    on the tensor cores in warps of 16 hidden units and refuse ``H % 16``;
+    there is no FMA fallback for a bf16 shape.  In f32 K1 and K3 run
+    3xTF32 on the tensor cores in ceil(H/8) and ceil(H/16) warps (the last
+    one's units past H masked, so they keep taking H % 4 and H % 8), one
+    CTA an SM at H=128, and K2 runs FMA on 2H threads.
 
     Returns ``{"kernels": {name: entry}, "binding": name, **entry of the
     binding kernel}``: the first kernel that does not fit, else the one
     with the most shared memory per CTA.  Each entry holds
-    ``rows_per_cta``, ``threads_per_cta``, ``smem_bytes``, ``ctas``,
-    ``ctas_per_sm`` (the least of what shared memory, threads and
-    :data:`REGISTERS_PER_THREAD` registers a thread allow), ``waves`` over
+    ``rows_per_cta``, ``threads_per_cta``, ``smem_bytes``,
+    ``registers_cap`` (what the kernel's ``__launch_bounds__`` lets a
+    thread keep), ``cluster_ctas`` (1: no kernel runs in thread block
+    clusters), ``ctas``, ``ctas_per_sm`` (the least of what shared memory,
+    threads and ``registers_cap`` registers a thread allow), ``waves`` over
     :data:`H100_SMS` (each CTA counted as one slot's worth of work),
     ``smem_limit``, ``fits``
     and ``refusal`` (None, or why the kernel would not launch).  Unlike
@@ -372,18 +414,29 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
         if refusal is None and (h % 4 or threads > MAX_THREADS):
             refusal = (f"takes hidden sizes H % 4 == 0 with {ROW_GROUPS}*H "
                        f"<= {MAX_THREADS} threads; got H={h}")
-        kernels["fwd_train" if training else "fwd"] = _plan_entry(
-            ROW_TILE, threads, fwd_smem_bytes(h, io_bf16), ctas, refusal)
+        if training or io_bf16:
+            kernels["fwd_train" if training else "fwd"] = _plan_entry(
+                ROW_TILE, threads, fwd_smem_bytes(h, io_bf16, training),
+                ctas, refusal)
+        else:       # 3xTF32: one warp per 8 units, those past H masked
+            kernels["fwd"] = _plan_entry(
+                ROW_TILE, 32 * -(-h // TF32_FWD_UNITS),
+                fwd_smem_bytes(h, False, False),
+                ctas, refusal, _register_cap(TF32_FWD_MAX_THREADS),
+                TF32_FWD_MAX_THREADS)
         if training:
-            stash = STASH_GATES if stash is None else bool(stash)
             refusal = mma_refusal
             if refusal is None and (h % 8 or threads > MAX_THREADS):
                 refusal = (f"takes hidden sizes H % 8 == 0 with "
                            f"{ROW_GROUPS}*H <= {MAX_THREADS} threads; got "
                            f"H={h}")
-            kernels["bwd"] = _plan_entry(
-                ROW_TILE, threads, bwd_smem_bytes(h, io_bf16, stash), ctas,
-                refusal)
+            smem = bwd_smem_bytes(h, io_bf16)
+            kernels["bwd"] = (
+                _plan_entry(ROW_TILE, threads, smem, ctas, refusal)
+                if io_bf16 else     # 3xTF32: one warp per 16 units
+                _plan_entry(ROW_TILE, 32 * -(-h // MMA_UNITS), smem, ctas,
+                            refusal, _register_cap(TF32_BWD_MAX_THREADS),
+                            TF32_BWD_MAX_THREADS))
     refused = [k for k, v in kernels.items() if not v["fits"]]
     binding = refused[0] if refused else max(
         kernels, key=lambda k: kernels[k]["smem_bytes"])
@@ -672,9 +725,8 @@ def gru_bwd_cuda(proj: torch.Tensor, h_prev: torch.Tensor,
     if gates is not None:
         expect["gates"] = (gates, (e, t, b, g3), io)
     _check("gru_bwd_cuda", proj, expect)
-    _refuse("gru_bwd_cuda", block_plan(
-        e, t, b, h, io, training=True, stash=gates is not None)["kernels"][
-            "bwd"], proj)
+    _refuse("gru_bwd_cuda", block_plan(e, t, b, h, io, training=True)[
+        "kernels"]["bwd"], proj)
     dev = proj.device
     n_tiles = -(-b // ROW_TILE)
     dproj = torch.empty_like(proj)

@@ -32,7 +32,7 @@ from deeprest_tpu_torch.serve.predictor import Predictor
 # Per-estimator raw-prediction memo size.  Sized for the repeat pattern
 # that actually occurs (the BASELINE program re-estimated by every
 # scaling_factor/sweep call against the same snapshot), not as a general
-# result cache (the JAX package's serve/surface.py, not ported yet).
+# result cache: that is serve/surface.py's capacity surface.
 _RAW_CACHE_MAX = 32
 
 

@@ -305,7 +305,10 @@ class Trainer:
         the compute dtype, ``y_base [T, E]`` f32), or with
         ``TrainConfig.sparse_feed`` and a sparse bundle ``(SparseBase,
         y_base)`` (:meth:`_stage_sparse`).  Train window i starts at base
-        row i, test window i at ``split + i``."""
+        row i, test window i at ``split + i``.  Under ``device_data="auto"``
+        a dense base over ``device_data_max_bytes`` raises, where the
+        reference would host-feed it (ROADMAP queue 1, item 13);
+        ``"always"`` stages it."""
         cfg = self.config.train
         if cfg.sparse_feed and bundle.is_sparse:
             return self._stage_sparse(bundle)
@@ -319,6 +322,18 @@ class Trainer:
             raise ValueError("bundle carries no base series to stage; build "
                              "it with prepare_dataset")
         dtype = getattr(torch, self.model_config.compute_dtype)
+        # Counted before the cast, as the reference counts it: x at 2 bytes
+        # an element in bf16, else as it lies, plus the targets.
+        x_bytes = (bundle.x_base.size * 2 if dtype == torch.bfloat16
+                   else bundle.x_base.nbytes)
+        total = x_bytes + bundle.y_base.nbytes
+        if cfg.device_data == "auto" and total > cfg.device_data_max_bytes:
+            raise ValueError(
+                f"dense base ({total} bytes) exceeds device_data_max_bytes "
+                f"({cfg.device_data_max_bytes}); the host-streamed feed "
+                "that the reference falls back to is not ported yet "
+                "(ROADMAP queue 1, item 13) — raise the budget, shrink the "
+                'corpus, or pass device_data="always"')
         x = torch.from_numpy(np.ascontiguousarray(bundle.x_base))
         y = torch.from_numpy(np.ascontiguousarray(bundle.y_base))
         return (x.to(self.device, dtype), y.to(self.device, torch.float32))

@@ -10,13 +10,15 @@ Tolerances are the JAX package's own kernel tolerances
 (tests/test_pallas_gru.py): forward 1e-5 in float32, 2e-2 relative in
 bfloat16; gradients 2e-4 (float32) and 2e-2 (bfloat16) relative to each
 tensor's largest magnitude, since the kernels sum in another order than the
-plain versions.
+plain versions.  The float32 K1 and K3 run 3xTF32 on the tensor cores; they
+are also held against an f64 run of the plain recurrence.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deeprest_tpu_torch.benchmarks import f32_kernels
 from deeprest_tpu_torch.ops import cuda_gru
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -27,6 +29,17 @@ GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # kernels' warp-per-16-units layout
 NEW_H_SHAPES = [(3, 7, 37, 96), (2, 5, 21, 64)]
 TRAIN_SHAPES = [(40, 60, 32, 128), (3, 7, 37, 128)] + NEW_H_SHAPES
+# the main paths' f32 shapes: the stream's fine-tune (E=88, B=32) and the
+# verdict sweeps' smallest rung (B=8); and H=40, where the f32 tensor-core
+# forms run a last warp with units past H (the bf16 forms refuse it)
+MAIN_PATH_SHAPES = [(88, 60, 32, 128), (88, 60, 8, 128)]
+F32_ONLY_SHAPES = [(3, 7, 37, 40)]
+BOTH = (torch.float32, torch.bfloat16)
+
+
+def _shapes_and_dtypes(shapes):
+    return ([(s, d) for s in shapes + MAIN_PATH_SHAPES for d in BOTH]
+            + [(s, torch.float32) for s in F32_ONLY_SHAPES])
 
 
 @pytest.fixture
@@ -59,10 +72,9 @@ def _close_to_scale(got, want, tol, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", [(3, 7, 37, 128), (40, 60, 256, 128),
-                                   (2, 1, 1, 64)] + NEW_H_SHAPES)
+@pytest.mark.parametrize("shape,dtype", _shapes_and_dtypes(
+    [(3, 7, 37, 128), (40, 60, 256, 128), (2, 1, 1, 64)] + NEW_H_SHAPES))
 def test_kernel_matches_plain(cuda, shape, reverse, dtype):
     args = _inputs(*shape, dtype, cuda)
     before = cuda_gru.GRU_FWD.launches
@@ -93,9 +105,8 @@ def test_train_forward_matches_plain(cuda, shape, reverse, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stash", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("shape,dtype", _shapes_and_dtypes(TRAIN_SHAPES))
 def test_backward_matches_plain(cuda, shape, reverse, dtype, stash):
     proj, w_hh, b_hh, h0 = _inputs(*shape, dtype, cuda, seed=2)
     _, h_prev, gates = cuda_gru.gru_fwd_train_reference(proj, w_hh, b_hh, h0,
@@ -116,11 +127,12 @@ def test_backward_matches_plain(cuda, shape, reverse, dtype, stash):
 
 
 @pytest.mark.cuda
-def test_backward_is_deterministic(cuda):
-    proj, w_hh, b_hh, h0 = _inputs(40, 60, 32, 128, torch.bfloat16, cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_is_deterministic(cuda, dtype):
+    proj, w_hh, b_hh, h0 = _inputs(40, 60, 32, 128, dtype, cuda)
     _, h_prev, gates = cuda_gru.gru_fwd_train_cuda(proj, w_hh, b_hh, h0)
     dout = torch.ones_like(h_prev)
-    for stash in (gates, None):     # the bf16 tensor-core K3, both forms
+    for stash in (gates, None):     # the tensor-core K3, both forms
         first = cuda_gru.gru_bwd_cuda(proj, h_prev, stash, w_hh, b_hh, dout)
         again = cuda_gru.gru_bwd_cuda(proj, h_prev, stash, w_hh, b_hh, dout)
         for a, b in zip(first, again):
@@ -128,9 +140,39 @@ def test_backward_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("shape", [(40, 60, 32, 128), (88, 60, 8, 128),
+                                   (3, 7, 37, 40)])
+def test_f32_kernels_against_an_f64_recurrence(cuda, shape, reverse):
+    """The 3xTF32 K1 and K3 against the plain recurrence run in f64 on the
+    same f32 inputs: each within 4x the plain f32 version's own error
+    (cuBLAS f32 products) and under 1e-5 of scale."""
+    args = f32_kernels.recurrence_inputs(shape, seed=6)
+    want = f32_kernels.recurrence_f64(*args, reverse=reverse)
+    got = cuda_gru.gru_fwd_cuda(*args, reverse=reverse)
+    plain = cuda_gru.gru_recurrence_reference(*args, reverse=reverse)
+    err = f32_kernels.scaled_error(got, want)
+    assert err <= min(1e-5, 4 * f32_kernels.scaled_error(plain, want)), err
+    proj, w_hh, b_hh, h0 = args
+    _, h_prev, gates = cuda_gru.gru_fwd_train_reference(proj, w_hh, b_hh,
+                                                        h0, reverse)
+    dout = torch.randn(h_prev.shape, generator=torch.Generator(
+        cuda).manual_seed(7), device=cuda)
+    for stash in (gates, None):
+        bwd_in = (proj, h_prev, stash, w_hh, b_hh, dout)
+        want_b = f32_kernels.bwd_f64(*bwd_in, reverse=reverse)
+        got_b = cuda_gru.gru_bwd_cuda(*bwd_in, reverse=reverse)
+        plain_b = cuda_gru.gru_bwd_reference(*bwd_in, reverse=reverse)
+        for name, g, p, w in zip(("dproj", "dW_hh", "db_hh", "dh0"), got_b,
+                                 plain_b, want_b):
+            err = f32_kernels.scaled_error(g, w)
+            bound = min(1e-5, 4 * f32_kernels.scaled_error(p, w))
+            assert err <= bound, (name, stash is not None, err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,dtype", _shapes_and_dtypes(TRAIN_SHAPES))
 def test_function_grads_match_autograd_through_plain(cuda, shape, reverse,
                                                      dtype):
     base = _inputs(*shape, dtype, cuda, seed=4)
@@ -270,15 +312,17 @@ def test_plan_bytes_equal_the_sources(cuda):
     assert bwd.gru_bwd_row_tile() == cuda_gru.ROW_TILE
     assert fwd.gru_fwd_max_threads() == bwd.gru_bwd_max_threads() \
         == blk.gru_fwd_blocked_max_threads() == cuda_gru.MAX_THREADS
+    assert fwd.gru_fwd_tf32_max_threads() == cuda_gru.TF32_FWD_MAX_THREADS
+    assert bwd.gru_bwd_tf32_max_threads() == cuda_gru.TF32_BWD_MAX_THREADS
     assert blk.gru_fwd_blocked_mma_max_threads() == \
         cuda_gru.BLOCKED_MMA_MAX_THREADS
-    for h in (12, 64, 72, 96, 128, 256):
+    for h in (12, 40, 64, 72, 96, 128, 132, 256):
         for bf16 in (0, 1):
-            assert fwd.gru_fwd_smem_bytes(h, bf16) == \
-                cuda_gru.fwd_smem_bytes(h, bool(bf16))
-            for stash in (0, 1):
-                assert bwd.gru_bwd_smem_bytes(h, bf16, stash) == \
-                    cuda_gru.bwd_smem_bytes(h, bool(bf16), bool(stash))
+            for train in (0, 1):
+                assert fwd.gru_fwd_smem_bytes(h, bf16, train) == \
+                    cuda_gru.fwd_smem_bytes(h, bool(bf16), bool(train))
+            assert bwd.gru_bwd_smem_bytes(h, bf16) == \
+                cuda_gru.bwd_smem_bytes(h, bool(bf16))
             for rows, e_blk, t_blk in BLOCKED_MENU:
                 rows = rows or 32
                 for dot in (0, 1):

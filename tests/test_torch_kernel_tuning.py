@@ -122,37 +122,38 @@ def test_block_plan_flagship_at_coalesced_rows(g, dtype, training):
     assert set(plan["kernels"]) == ({"fwd_train", "bwd"} if training
                                     else {"fwd"})
     assert plan["binding"] == ("bwd" if training else "fwd")
-    for entry in plan["kernels"].values():
-        assert entry["rows_per_cta"] == 16 and entry["threads_per_cta"] == 256
+    for name, entry in plan["kernels"].items():
+        # the f32 K1 runs one warp per 8 units, the others 2H threads
+        assert entry["rows_per_cta"] == 16 and entry["threads_per_cta"] == (
+            512 if (name, bf16) == ("fwd", False) else 256)
         assert entry["ctas"] == 2 * g * 40
         assert entry["smem_limit"] == 232_448
         assert entry["ctas_per_sm"] >= 1
         assert entry["waves"] == -(-entry["ctas"] // (
             entry["ctas_per_sm"] * cuda_gru.H100_SMS))
     fwd = plan["kernels"]["fwd_train" if training else "fwd"]
-    # bf16: W_hh [128][392] and the h tile [2][16][136], bf16; f32: W_hh and
-    # the double-buffered f32 carry tile
-    assert fwd["smem_bytes"] == ((128 * 392 + 2 * 16 * 136) * 2 if bf16
-                                 else 196_608 + 16_384)
+    # bf16: W_hh [128][392] and the h tile [2][16][136], bf16; f32 K2 (FMA):
+    # W_hh and the double-buffered f32 carry tile; f32 K1 (3xTF32): W_hh
+    # [128][392] and the carry tile [2][16][132], f32
+    assert fwd["smem_bytes"] == (
+        (128 * 392 + 2 * 16 * 136) * 2 if bf16
+        else 196_608 + 16_384 if training
+        else (128 * 392 + 2 * 16 * 132) * 4)
     assert fwd["ctas_per_sm"] == (2 if bf16 else 1)
     if training:
-        # bf16: W_hh and the dgates tile [16][392], bf16; f32: padded W_hh
-        # and the f32 dgates tile
+        # bf16: W_hh and the dgates tile [16][392], bf16; f32 (3xTF32):
+        # W_hh and the dgates tile [16][388], f32
         assert plan["smem_bytes"] == ((128 + 16) * 392 * 2 if bf16 else
-                                      128 * (384 * 4 + 16) + 16 * 384 * 4)
-        off = cuda_gru.block_plan(40, 60, 32 * g, 128, dtype, stash=False)
-        # the bf16 recompute reads h_prev from global memory, f32 stages it
-        assert off["smem_bytes"] == plan["smem_bytes"] + (
-            0 if bf16 else 16 * 128 * 4)
-        assert off["fits"]
+                                      (128 + 16) * 388 * 4)
 
 
-@pytest.mark.parametrize("stash", [True, False])
-def test_block_plan_bf16_training_fits_two_ctas_per_sm(stash):
+def test_block_plan_bf16_training_fits_two_ctas_per_sm():
     """At the flagship the bf16 K2 and K3 CTAs (109,056 and 112,896 bytes)
-    both fit twice in an SM's 233,472 bytes, with the stash on or off."""
+    both fit twice in an SM's 233,472 bytes; K3's bytes are the same with
+    the gate stash on or off (its recompute reads h_prev from global
+    memory)."""
     plan = cuda_gru.block_plan(40, 60, 32, 128, torch.bfloat16,
-                               training=True, stash=stash)
+                               training=True)
     fwd, bwd = plan["kernels"]["fwd_train"], plan["kernels"]["bwd"]
     assert (fwd["smem_bytes"], bwd["smem_bytes"]) == (109_056, 112_896)
     assert fwd["ctas_per_sm"] == bwd["ctas_per_sm"] == 2
@@ -167,7 +168,7 @@ def test_block_plan_bf16_training_fits_two_ctas_per_sm(stash):
 def test_block_plan_bf16_training_waves(e, g, waves):
     """2 x G x E CTAs at two CTAs an SM over 132 SMs."""
     plan = cuda_gru.block_plan(e, 60, 32 * g, 128, torch.bfloat16,
-                               training=True, stash=True)
+                               training=True)
     for entry in plan["kernels"].values():
         assert entry["ctas"] == 2 * g * e
         assert entry["ctas_per_sm"] == 2 and entry["waves"] == waves
@@ -175,19 +176,18 @@ def test_block_plan_bf16_training_waves(e, g, waves):
 
 @pytest.mark.parametrize("training", [True, False])
 def test_block_plan_f32_entries_keep_the_fma_bytes(training):
-    """The f32 kernels keep their FMA design and its bytes: one CTA an SM,
-    so the fused E=80 training call takes twice the waves of E=40."""
+    """K2 in f32 keeps its FMA design and its bytes; K1 and K3 in f32 run
+    3xTF32 with padded rows (K3's bytes the same with the stash on or
+    off).  All hold one CTA an SM at H=128, so the fused E=80 training
+    call takes twice the waves of E=40."""
     for e, waves in ((40, 1), (80, 2)):
         plan = cuda_gru.block_plan(e, 60, 32, 128, torch.float32,
-                                   training=training, stash=True)
+                                   training=training)
         fwd = plan["kernels"]["fwd_train" if training else "fwd"]
-        assert fwd["smem_bytes"] == 212_992
+        assert fwd["smem_bytes"] == (212_992 if training else 217_600)
         assert (fwd["ctas_per_sm"], fwd["waves"]) == (1, waves)
         if training:
-            assert plan["kernels"]["bwd"]["smem_bytes"] == 223_232
-            assert cuda_gru.block_plan(
-                e, 60, 32, 128, torch.float32, stash=False)[
-                    "smem_bytes"] == 231_424
+            assert plan["kernels"]["bwd"]["smem_bytes"] == 223_488
     assert cuda_gru.fwd_smem_bytes(72, False) == 72 * 216 * 4 + 2 * 16 * 72 * 4
 
 
@@ -293,7 +293,7 @@ def test_block_plan_blocked_defaults_and_waves():
     assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 2, False, True) \
         == 109_056 + 2 * 16 * (384 * 4 + 16)
     # the f32 dot keeps the FMA layout (unpadded W_hh in the io dtype, an
-    # f32 carry tile, t_blk steps of proj); f32 K1 has that layout
+    # f32 carry tile, t_blk steps of proj); f32 K2 has that layout
     assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 1, False, False) \
         == cuda_gru.fwd_smem_bytes(128, False) + 16 * 384 * 4
     assert cuda_gru.fwd_blocked_smem_bytes(128, 8, 1, 1, True, False) \

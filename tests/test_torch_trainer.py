@@ -306,6 +306,34 @@ def test_train_cli_runs_end_to_end_on_cpu(corpus, tmp_path, capsys):
     assert np.isfinite(_report_values(report["report"])).all()
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_dense_base_over_the_budget_raises_under_auto(bundles, compute):
+    """The reference host-feeds a dense base over device_data_max_bytes
+    under "auto"; the port has no host feed yet, so it raises, naming the
+    item that brings it, and counts the bytes as the reference does (x at
+    2 bytes an element in bf16, before the cast, plus y).  "always" still
+    stages."""
+    pb = bundles[1]
+    x_bytes = pb.x_base.size * 2 if compute == "bfloat16" else \
+        pb.x_base.nbytes
+    total = x_bytes + pb.y_base.nbytes
+
+    def trainer(budget, device_data="auto"):
+        _, cfg = _configs(model=dict(compute_dtype=compute), train=dict(
+            device_data=device_data, device_data_max_bytes=budget))
+        return Trainer(cfg, pb.feature_dim, pb.metric_names, device="cpu")
+
+    with pytest.raises(ValueError, match="queue 1, item 13") as err:
+        trainer(total - 1).stage_dataset(pb)
+    assert f"dense base ({total} bytes)" in str(err.value)
+    for staged in (trainer(total).stage_dataset(pb),
+                   trainer(total - 1, "always").stage_dataset(pb)):
+        x, y = staged
+        assert x.dtype == getattr(torch, compute)
+        assert tuple(x.shape) == pb.x_base.shape
+        assert y.dtype == torch.float32
+
+
 def test_unported_train_features_raise_and_device_defaults_to_cuda(
         monkeypatch):
     for kw in (dict(device_data="off"), dict(elastic=True)):
