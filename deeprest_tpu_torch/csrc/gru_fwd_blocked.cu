@@ -59,8 +59,9 @@
 // t_blk > 1 the ring t_blk rows (3H io + 16) bytes.  At H=128, 16 rows and
 // one expert: 100,352 + 8,704 = 109,056 bytes, as K1, two CTAs an SM.
 //
-// The float dot (gru_fwd_blocked_kernel, f32 or bf16 io): plain FMA, since
-// an f32 mma is TF32 and breaks the 1e-5 tolerance.  rows / 8 row groups of
+// The float dot (gru_fwd_blocked_kernel, f32 or bf16 io): plain FMA (one
+// TF32 mma would break the 1e-5 tolerance; K1's 3xTF32 scheme in
+// gru_mma.cuh is not carried over to this form yet).  rows / 8 row groups of
 // H threads, each thread one hidden unit of 8 rows, its rows' float carry in
 // registers, at most 512 threads; per expert W_hh in the io type, a
 // double-buffered [2][rows][H] float carry tile (one __syncthreads per
