@@ -30,7 +30,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    shapes (K1 at E=88, B=8, the verdict sweeps' and the stream
    evaluation's rung; K2, K3 and the Function at E=88, B=32, the stream's
    fine-tune) and at H=40 (E=3, T=7, B=37: a last warp of the 3xTF32 forms
-   with units past H);
+   with units past H), K1 also at H=132 (E=2, T=4, B=9: its largest H, a
+   last k step half past H);
 4. times: K1 at the serving shape, K2 and K3 at the training shape, each
    beside its plain version, the least time the card could take (bound),
    and cuDNN's GRU as a yardstick (torch.nn.GRU with W_ih = identity on the
@@ -200,6 +201,7 @@ CHECK_SHAPES = (("ragged", RAGGED), ("ragged H=96", RAGGED_96),
 STREAM_TRAIN = dict(E=88, T=60, B=32, H=128)
 VERDICT = dict(E=88, T=60, B=8, H=128)
 RAGGED_40 = dict(E=3, T=7, B=37, H=40)
+RAGGED_132 = dict(E=2, T=4, B=9, H=132)  # f32 K1's largest H, H % 8 == 4
 FUSED = dict(E=80, T=60, B=32, H=128)            # both directions stacked
 TUNE_RAGGED = dict(E=4, T=12, B=37, H=128)
 F, W, DAY = 512, 60, 1440
@@ -361,7 +363,8 @@ def phase_kernel_checks(cuda_gru) -> dict:
     for label, shape in (("stream fine-tune", STREAM_TRAIN),
                          ("ragged H=40", RAGGED_40)):
         check_train_kernels(cuda_gru, label, shape, torch.float32)
-    f32_only = (("verdict", VERDICT), ("ragged H=40", RAGGED_40))
+    f32_only = (("verdict", VERDICT), ("ragged H=40", RAGGED_40),
+                ("ragged H=132", RAGGED_132))
     for label, shape in (("flagship", FLAGSHIP),) + CHECK_SHAPES + f32_only:
         for dtype in ((torch.float32,) if (label, shape) in f32_only
                       else (torch.bfloat16, torch.float32)):

@@ -74,8 +74,8 @@
 // (K = H rounded up to the k8 step, zero beyond H; the pad spreads the A
 // fragment's 8 rows over the banks) and is split at its A fragment load
 // too: a split copy beside W_hh would need 234,496 bytes at H=128, above
-// one CTA's 232,448.  The last k step reads W_hh row H-1 for rows past H,
-// against A zeros.  Units past H (H % 8 != 0) are computed on junk and
+// one CTA's 232,448.  When H % 8 == 4 the last k step reads its 4 rows
+// again for the 4 past H, against A zeros.  Units past H (H % 8 != 0) are computed on junk and
 // never stored; the pad reads stay inside the row.  At H=128: 200,704 +
 // 16,896 = 217,600 bytes, one CTA an SM, 16 warps, and __launch_bounds__
 // of the 544 threads the largest admitted H (132) launches, so a thread
@@ -509,15 +509,21 @@ gru_fwd_tf32_kernel(const float* __restrict__ proj, const float* __restrict__ w_
     for (int gate = 0; gate < 3; ++gate)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[gate][i] = cor[gate][i] = 0.0f;
-#pragma unroll 2
-    for (int k0 = 0; k0 < k_pad; k0 += 8) {
+    auto k_step = [&](int k0, const float* w0, const float* w1) {
       const SplitFrag<4> a = load_a_tf32(h_cur + k0, h_ld, lane);
-      const float* w0 = w_s + (size_t)min(k0 + t, H - 1) * w_ld + kTf32Units * warp + g;
-      const float* w1 = w_s + (size_t)min(k0 + t + 4, H - 1) * w_ld + kTf32Units * warp + g;
 #pragma unroll
       for (int gate = 0; gate < 3; ++gate)
         mma_3xtf32(acc[gate], cor[gate], a, split_b_tf32(w0[gate * H], w1[gate * H]));
-    }
+    };
+    const float* w_col = w_s + (size_t)t * w_ld + kTf32Units * warp + g;
+    const int k_full = H & ~7;
+#pragma unroll 2
+    for (int k0 = 0; k0 < k_full; k0 += 8)
+      k_step(k0, w_col + (size_t)k0 * w_ld, w_col + (size_t)(k0 + 4) * w_ld);
+    // H % 8 == 4: rows k_full + 4 .. +7 do not exist; their A columns are
+    // zero, so B reads row k_full + t again
+    if (k_full < H)
+      k_step(k_full, w_col + (size_t)k_full * w_ld, w_col + (size_t)k_full * w_ld);
 
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {

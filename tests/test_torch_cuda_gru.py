@@ -34,6 +34,8 @@ TRAIN_SHAPES = [(40, 60, 32, 128), (3, 7, 37, 128)] + NEW_H_SHAPES
 # forms run a last warp with units past H (the bf16 forms refuse it)
 MAIN_PATH_SHAPES = [(88, 60, 32, 128), (88, 60, 8, 128)]
 F32_ONLY_SHAPES = [(3, 7, 37, 40)]
+# f32 K1 takes H % 4: at H % 8 == 4 its last k step is half past H
+F32_FORWARD_ONLY_SHAPES = [(3, 7, 37, 36), (2, 4, 9, 132)]
 BOTH = (torch.float32, torch.bfloat16)
 
 
@@ -74,7 +76,8 @@ def _close_to_scale(got, want, tol, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape,dtype", _shapes_and_dtypes(
-    [(3, 7, 37, 128), (40, 60, 256, 128), (2, 1, 1, 64)] + NEW_H_SHAPES))
+    [(3, 7, 37, 128), (40, 60, 256, 128), (2, 1, 1, 64)] + NEW_H_SHAPES)
+    + [(s, torch.float32) for s in F32_FORWARD_ONLY_SHAPES])
 def test_kernel_matches_plain(cuda, shape, reverse, dtype):
     args = _inputs(*shape, dtype, cuda)
     before = cuda_gru.GRU_FWD.launches
