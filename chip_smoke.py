@@ -13,11 +13,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    three including the tensor-core header gru_mma.cuh), one nvcc per
    source, all started together, into build/kernels/; ptxas's registers
    and spills of every kernel and instantiation, and of each kernel's f32
-   form by its design (K1 and K3: 3xTF32 on the tensor cores; K2 and
-   K4's f32 dot: FMA); the block plan's shared-memory mirrors and f32
-   launch bounds held against the sources' (K4 at every --quick blocking,
-   both io dtypes, both dots), and its f32 plans at the main paths'
-   shapes;
+   form by its design (all four 3xTF32 on the tensor cores); the block
+   plan's shared-memory mirrors and f32 launch bounds held against the
+   sources' (K4 at every --quick blocking, both io dtypes, both dots), and
+   its f32 plans at the main paths' shapes and K4's f32 blockings (8, 1, 1)
+   and (16, 1, 1);
 3. each kernel against its plain PyTorch version on the card, with the JAX
    package's kernel tolerances (forward: f32 1e-5, bf16 2e-2; gradients
    relative to each tensor's largest magnitude: f32 2e-4, bf16 2e-2): K1 at
@@ -30,16 +30,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    shapes (K1 at E=88, B=8, the verdict sweeps' and the stream
    evaluation's rung; K2, K3 and the Function at E=88, B=32, the stream's
    fine-tune) and at H=40 (E=3, T=7, B=37: a last warp of the 3xTF32 forms
-   with units past H), K1 also at H=132 (E=2, T=4, B=9: its largest H, a
-   last k step half past H);
+   with units past H), K1 and K2 (forward only: K3 refuses it) also at
+   H=132 (E=2, T=4, B=9: their largest H, a last k step half past H);
 4. times: K1 at the serving shape, K2 and K3 at the training shape, each
    beside its plain version, the least time the card could take (bound),
    and cuDNN's GRU as a yardstick (torch.nn.GRU with W_ih = identity on the
    projections, one module per expert: forward for K1 and K2, autograd
-   backward for K3; the port never calls it); then K1 and K3 in f32 at the
-   table's and the main paths' shapes (deeprest_tpu_torch/benchmarks/
-   f32_kernels.py): CUDA events over 20 launches, the bytes, FMA and 3xTF32
-   bounds, K3's recurrence and dW kernels apart (torch.profiler), K3 run
+   backward for K3; the port never calls it); then K1, K2 and K3 in f32 at
+   the table's and the main paths' shapes and K4's f32 dot at (8, 1, 1)
+   and (16, 1, 1) (deeprest_tpu_torch/benchmarks/f32_kernels.py): CUDA
+   events over 20 launches, the bytes, FMA and 3xTF32 bounds, K3's
+   recurrence and dW kernels apart (torch.profiler), K2, K3 and K4 run
    twice for the same bits, and each form's error against an f64 run of
    the plain recurrence (held to 1e-5 forward, 2e-4 of scale for
    gradients);
@@ -363,6 +364,17 @@ def phase_kernel_checks(cuda_gru) -> dict:
     for label, shape in (("stream fine-tune", STREAM_TRAIN),
                          ("ragged H=40", RAGGED_40)):
         check_train_kernels(cuda_gru, label, shape, torch.float32)
+    # K2 takes H = 132 and K3 does not: the forward alone
+    args = recurrence_inputs(RAGGED_132, torch.float32, seed=SEED + 1)
+    for reverse in (False, True):
+        got = cuda_gru.gru_fwd_train_cuda(*args, reverse=reverse)
+        torch.cuda.synchronize()
+        want = cuda_gru.gru_fwd_train_reference(*args, reverse=reverse)
+        for out_name, g, w_ in zip(("h_all", "h_prev", "gates"), got, want):
+            report_check("gru_fwd_train", "ragged H=132", RAGGED_132,
+                         "float32", f"reverse={reverse} {out_name}",
+                         compare(g, w_, "float32"), TOL["float32"])
+    del args
     f32_only = (("verdict", VERDICT), ("ragged H=40", RAGGED_40),
                 ("ragged H=132", RAGGED_132))
     for label, shape in (("flagship", FLAGSHIP),) + CHECK_SHAPES + f32_only:
@@ -519,39 +531,46 @@ def phase_times(cuda_gru) -> dict:
         del dproj, dw, db, dh0
         torch.cuda.empty_cache()
     for name, shapes in f32_main_path_times(cuda_gru).items():
-        results[name]["float32"]["shapes"] = shapes
+        results.setdefault(name, {"float32": {}})["float32"]["shapes"] = shapes
     return results
 
 
 def f32_main_path_times(cuda_gru) -> dict:
-    """K1 and K3 in f32 (3xTF32) at the table's and the main paths' shapes
+    """K1, K2, K3 and K4's f32 dot in f32 (3xTF32) at the table's and the
+    main paths' shapes and K4's blockings (8, 1, 1) and (16, 1, 1)
     (``deeprest_tpu_torch/benchmarks/f32_kernels.py``): times, bounds,
-    K3's recurrence/dW split, K3 run twice for the same bits, and each
-    form's error against an f64 run of the plain recurrence, held to the
-    f32 tolerances."""
+    K3's recurrence/dW split, K2, K3 and K4 run twice for the same bits,
+    and each form's error against an f64 run of the plain recurrence, held
+    to the f32 tolerances (forwards 1e-5, K3 2e-4 of scale); each error's
+    ratio to the plain f32 version's is printed beside it."""
     from deeprest_tpu_torch.benchmarks import f32_kernels
 
     results = f32_kernels.measure(cuda_gru)
     for name, shapes in results.items():
         for label, m in shapes.items():
+            if "refused" in m:
+                fail(f"{name} f32 {label} was refused: {m['refused']}")
             errs, plain = m["err_f64"], m["plain_err_f64"]
             split = (f" recurrence_ms={m['recurrence_ms']:.4f} "
-                     f"dw_ms={m['dw_ms']:.4f} deterministic="
-                     f"{m['deterministic']}" if name == "gru_bwd" else "")
-            print(f"times {name} float32 {label} {m['shape']}: "
+                     f"dw_ms={m['dw_ms']:.4f}" if name == "gru_bwd" else "")
+            waves = (f" ({m['ctas']} CTAs, {m['waves']} waves)"
+                     if name == "gru_fwd_blocked" else "")
+            ratio = max(errs[k] / max(plain[k], 1e-30) for k in errs)
+            print(f"times {name} float32 {label} {m['shape']}{waves}: "
                   f"kernel_ms={m['ms']:.4f}{split} bound_ms bytes="
                   f"{m['bytes_ms']:.4f} fma={m['fma_ms']:.4f} "
-                  f"3xtf32={m['tf32x3_ms']:.4f}; err_f64 "
+                  f"3xtf32={m['tf32x3_ms']:.4f}; deterministic="
+                  f"{m.get('deterministic')}; err_f64 "
                   f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (plain f32 "
-                  f"{ {k: f'{v:.3e}' for k, v in plain.items()} })",
-                  flush=True)
-            tol = TOL["float32"][0] if name == "gru_fwd" \
-                else GRAD_TOL["float32"]
+                  f"{ {k: f'{v:.3e}' for k, v in plain.items()} }; at most "
+                  f"{ratio:.2f}x the plain f32's)", flush=True)
+            tol = GRAD_TOL["float32"] if name == "gru_bwd" \
+                else TOL["float32"][0]
             if max(errs.values()) > tol:
                 fail(f"{name} f32 at {label} is {max(errs.values()):.3e} of "
                      f"scale from the f64 recurrence, above {tol}")
-            if name == "gru_bwd" and not m["deterministic"]:
-                fail(f"gru_bwd f32 at {label} gave other bits on a second "
+            if "deterministic" in m and not m["deterministic"]:
+                fail(f"{name} f32 at {label} gave other bits on a second "
                      "run")
     return results
 
@@ -569,14 +588,15 @@ DESIGNS = {
                         ("gru_fwd_blocked_mma_kernelI13__nv_bfloat16Li1ELi1E",),
                         None),
 }
-# The same for each kernel's f32 instantiation (K1 and K3: 3xTF32 on the
-# tensor cores; K2 and K4's f32 dot: FMA).
+# The same for each kernel's f32 instantiation, all 3xTF32 on the tensor
+# cores (K4: f32 io, the f32 dot, one expert, 16 rows).
 F32_DESIGNS = {
-    "gru_fwd": ("3xTF32 mma.sync", ("gru_fwd_tf32_kernel",), None),
-    "gru_fwd_train": ("FMA", ("gru_fwd_kernelIfLb1E",), None),
+    "gru_fwd": ("3xTF32 mma.sync", ("gru_fwd_tf32_kernelILb0E",), None),
+    "gru_fwd_train": ("3xTF32 mma.sync", ("gru_fwd_tf32_kernelILb1E",), None),
     "gru_bwd": ("3xTF32 mma.sync", ("gru_bwd_tf32_kernelILb1E",),
                 ("gru_bwd_dw_tf32_kernel",)),
-    "gru_fwd_blocked": ("FMA", ("gru_fwd_blocked_kernelIfLi1E",), None),
+    "gru_fwd_blocked": ("3xTF32 mma.sync",
+                        ("gru_fwd_blocked_tf32_kernelIfLi1ELi16E",), None),
 }
 
 
@@ -620,14 +640,15 @@ def phase_build(build, cuda_gru, kernel_tuning) -> dict:
     fwd = cuda_gru.GRU_FWD_SOURCE.library()
     bwd = cuda_gru.GRU_BWD_SOURCE.library()
     blk = cuda_gru.GRU_FWD_BLOCKED_SOURCE.library()
-    if (fwd.gru_fwd_tf32_max_threads(), bwd.gru_bwd_tf32_max_threads()) != (
-            cuda_gru.TF32_FWD_MAX_THREADS, cuda_gru.TF32_BWD_MAX_THREADS):
+    if (fwd.gru_fwd_tf32_max_threads(), bwd.gru_bwd_tf32_max_threads(),
+            blk.gru_fwd_blocked_tf32_max_threads()) != (
+            cuda_gru.TF32_FWD_MAX_THREADS, cuda_gru.TF32_BWD_MAX_THREADS,
+            cuda_gru.TF32_FWD_MAX_THREADS):
         fail("block_plan's f32 launch bounds disagree with the sources")
     for h in (40, 64, 96, 128):
         for bf16 in (0, 1):
-            pairs = [(fwd.gru_fwd_smem_bytes(h, bf16, train),
-                      cuda_gru.fwd_smem_bytes(h, bool(bf16), bool(train)))
-                     for train in (0, 1)]
+            pairs = [(fwd.gru_fwd_smem_bytes(h, bf16),
+                      cuda_gru.fwd_smem_bytes(h, bool(bf16)))]
             pairs += [(bwd.gru_bwd_smem_bytes(h, bf16),
                        cuda_gru.bwd_smem_bytes(h, bool(bf16)))]
             pairs += [(blk.gru_fwd_blocked_smem_bytes(h, rows, e_blk, t_blk,
@@ -653,6 +674,13 @@ def phase_build(build, cuda_gru, kernel_tuning) -> dict:
                                    training=training)
         print(f"plan f32 {label}: "
               f"{ {k: (v['smem_bytes'], v['threads_per_cta'], v['ctas_per_sm'], v['ctas'], v['waves']) for k, v in plan['kernels'].items()} } "
+              f"(bytes, threads, CTAs per SM, CTAs, waves)", flush=True)
+    for rows in (8, 16):
+        p = cuda_gru.block_plan(FUSED["E"], FUSED["T"], FUSED["B"], FUSED["H"],
+                                torch.float32, training=False, rows=rows,
+                                blocked=True, bf16_dot=False)
+        print(f"plan f32 K4 ({rows},1,1) f32 dot: "
+              f"{(p['smem_bytes'], p['threads_per_cta'], p['ctas_per_sm'], p['ctas'], p['waves'])} "
               f"(bytes, threads, CTAs per SM, CTAs, waves)", flush=True)
     return regs
 
@@ -2655,7 +2683,8 @@ def phase_blocked(cuda_gru, kernel_tuning) -> dict:
                               for k, ms in times.items()})
     del args, proj, w_hh, b_hh, h0, lib_out
 
-    # the f32 dot (FMA) on f32 inputs, at the first blocking the plan admits
+    # the f32 dot (3xTF32) on f32 inputs, at the first blocking the plan
+    # admits
     args = recurrence_inputs(FUSED, torch.float32)
     rows, e_blk, t_blk = next(
         k for k in kernel_tuning.blocking_menu(e, t, b, h, quick=True)
@@ -3536,7 +3565,7 @@ def main() -> int:
         "design": DESIGNS["gru_fwd_blocked"][0],
         **{k: v for k, v in regs["gru_fwd_blocked"].items() if k != "f32"}})
     print(f"f32 gru_fwd_blocked: "
-          f"{json.dumps({**blocked['float32'], **regs['gru_fwd_blocked']['f32']})}",
+          f"{json.dumps({**blocked['float32'], **times['gru_fwd_blocked']['float32'], **regs['gru_fwd_blocked']['f32']})}",
           flush=True)
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
           f"training {training['launches']}; raw telemetry to answers "

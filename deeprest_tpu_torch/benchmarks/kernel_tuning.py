@@ -16,7 +16,8 @@ rows, H=128), with CUDA events after ``torch.cuda.synchronize()``:
 - ``STASH_GATES`` on and off, fwd+bwd in bf16 at E80;
 - K4 (``gru_fwd_blocked_cuda``) over a menu of blockings (rows per CTA,
   experts per CTA, steps of proj in shared memory) at E80, f32 inputs
-  with the f32 dot and bf16 inputs with the bf16 dot (tensor cores):
+  with the f32 dot (3xTF32) and bf16 inputs with the bf16 dot, both on
+  the tensor cores:
   ``ms`` and ``max_err`` against the production f32 output, as the JAX
   sweep records them, each blocking also held against K4's plain version;
 - fused against unfused bidirectional (``BIDIR_FUSED``) forward, against
@@ -65,7 +66,7 @@ gru_mod = importlib.import_module("deeprest_tpu_torch.ops.gru")
 B, T, F, E, H = 32, 60, 512, 40, 128
 E2 = 2 * E                      # fused bidirectional stacking
 COALESCE_GS = (1, 2, 4, 8)      # window-coalescing factors (G·B rows)
-# K4 blockings: rows per CTA (None: all B rows, capped at 512 threads),
+# K4 blockings: rows per CTA (None: all B rows, capped at two m16 tiles),
 # experts per CTA, steps of proj held in shared memory (with the bf16 dot,
 # 1 loads them into registers)
 MENU_ROWS = (None, 16, 8)
@@ -89,7 +90,7 @@ def blocking_menu(e: int, t: int, b: int, h: int,
     blockings with ``e_blk | e`` and ``t_blk | t``, no duplicates."""
     menu = []
     for rows in MENU_ROWS:
-        r = cuda_gru.default_blocked_rows(b, h) if rows is None else rows
+        r = cuda_gru.default_blocked_rows(b) if rows is None else rows
         for e_blk in MENU_E_BLKS:
             for t_blk in QUICK_T_BLKS if quick else MENU_T_BLKS:
                 if not (e % e_blk or t % t_blk or (r, e_blk, t_blk) in menu):

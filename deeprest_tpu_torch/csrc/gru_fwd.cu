@@ -30,12 +30,11 @@
 // The carry and all gate math are float.  For bf16 the dot consumes h rounded
 // to bf16 and W_hh in bf16; their products are exact in float and accumulate
 // in float (the TPU kernel's bf16 dot with preferred_element_type=f32), here
-// on the tensor cores.  For float the inference form's dot runs 3xTF32 on
-// the tensor cores (gru_mma.cuh): a plain TF32 product keeps 10 mantissa
-// bits and would break the 1e-5 float tolerance, the split keeps about 21
-// (on an H100 2.0e-7 of scale from an f64 recurrence at the serving
-// shape, the FMA form's 2.0e-7); the training form's float dot stays
-// plain float FMA.
+// on the tensor cores.  For float both forms' dot runs 3xTF32 on the
+// tensor cores (gru_mma.cuh): a plain TF32 product keeps 10 mantissa bits
+// and would break the 1e-5 float tolerance, the split keeps about 21 (on
+// an H100 2.0e-7 of scale from an f64 recurrence at the serving shape, the
+// FMA form's 2.0e-7).
 //
 // Every form: one CTA per (row tile of 16 batch rows, expert);
 // the time loop runs inside the CTA and replaces the TPU's sequential grid
@@ -60,8 +59,8 @@
 // latency hides behind a whole step.  At H=128: 100,352 + 8,704 = 109,056
 // bytes, two CTAs an SM.
 //
-// float inference (gru_fwd_tf32_kernel, K1): the bf16 form's layout and
-// gate math with 3xTF32 products, but warp w owns the 8 hidden units
+// float (gru_fwd_tf32_kernel<kEmitPrev>, K1 and K2): the bf16 form's
+// layout and gate math with 3xTF32 products, but warp w owns the 8 units
 // [8w, 8w+8) of all three gates (three n8 tiles, ceil(H/8) warps): W_hh in
 // f32 allows one CTA an SM, and 8 warps of 16 units left a step's
 // dependent chain of loads, splits and mma.sync to 2 warps a scheduler;
@@ -75,17 +74,19 @@
 // fragment's 8 rows over the banks) and is split at its A fragment load
 // too: a split copy beside W_hh would need 234,496 bytes at H=128, above
 // one CTA's 232,448.  When H % 8 == 4 the last k step reads its 4 rows
-// again for the 4 past H, against A zeros.  Units past H (H % 8 != 0) are computed on junk and
-// never stored; the pad reads stay inside the row.  At H=128: 200,704 +
-// 16,896 = 217,600 bytes, one CTA an SM, 16 warps, and __launch_bounds__
-// of the 544 threads the largest admitted H (132) launches, so a thread
-// may keep up to 120 registers.
+// again for the 4 past H, against A zeros.  Units past H (H % 8 != 0) are
+// computed on junk and never stored; the pad reads stay inside the row.
+// At H=128: 200,704 + 16,896 = 217,600 bytes, one CTA an SM, 16 warps, and
+// __launch_bounds__ of the 544 threads the largest admitted H (132)
+// launches, so a thread may keep up to 120 registers.
 //
-// float training (gru_fwd_kernel<float, true>, K2): plain FMA.  Thread (k,
-// rg) owns hidden unit k of 8 rows of row group rg (two row groups, 2H
-// threads): it computes the three gate columns k, H+k, 2H+k of its rows
-// from W_hh in shared memory (192 KiB at H=128) and a double-buffered
-// shared [2][16][H] float carry tile.
+// The training form (K2) is the same kernel instantiated with kEmitPrev:
+// after the step's last mma.sync each lane also stores its h_prev pair
+// (the carry before the update) and the three pre-activations acc + cor +
+// b_hh exactly as its gate math uses them, so K3's stash reads the values
+// K2 used, under the mask of the out store.  No lane-dependent load or
+// store sits before a mma.sync.aligned of its step: a warp that reaches
+// one diverged never finishes it.
 //
 // Bound at the flagship serving shape, per launch (one direction,
 // E=40, T=60, B=256, H=128, bf16):
@@ -98,6 +99,9 @@
 // (0.048 ms) for 7.5 GFLOP (0.008 ms): bytes again, though at B=32 the
 // 16-row tiles give only 2 x 40 = 80 CTAs for 132 SMs.  The extra streams
 // are stores from values the inference form already holds in registers.
+// In float at that shape it moves proj 118 MB + h_all, h_prev 39 MB each
+// + gates 118 + W_hh 8 = 323 MB (0.096 ms) for three TF32 products of 7.5
+// GFLOP (0.046 ms at 495 TFLOP/s; 0.113 ms on FMA at 67).
 // The float inference form at the serving shape moves proj 944 MB + h 315 MB +
 // W_hh 8 MB = 1,266 MB (0.378 ms at 3.35 TB/s); its 60.4 GFLOP take 0.902 ms
 // on FMA at 67 TFLOP/s and, as three TF32 products, 0.366 ms at 495
@@ -115,23 +119,17 @@ namespace {
 using namespace gru_mma;
 using bf16 = __nv_bfloat16;
 
-constexpr int kRowGroups = 2;
-constexpr int kRowsPerThread = 8;
-constexpr int kRowTile = kRowGroups * kRowsPerThread;
+constexpr int kRowTile = 16;     // batch rows a CTA runs: one m16 tile
+constexpr int kRowGroups = 2;    // bf16: 2H threads, one warp per 16 units
 constexpr int kMaxThreads = 512;
-
-__host__ __device__ __forceinline__ size_t weight_bytes(int H, int bf16) {
-  size_t bytes = (size_t)H * 3 * H * (bf16 ? 2 : 4);
-  return (bytes + 15) & ~(size_t)15;
-}
 
 // Elements of one padded shared row: W_hh rows (3H) and h tile rows (H)
 // of the bf16 form carry 8 more (16 bytes) against ldmatrix bank conflicts.
 __host__ __device__ __forceinline__ int padded(int n) { return n + 8; }
 
-// The float inference form: floats after each W_hh and h tile row, hidden
-// units a warp owns, and the threads of the largest H whose W_hh fits
-// (H <= 132: 17 warps).
+// The float forms (K1 and K2): floats after each W_hh and h tile row,
+// hidden units a warp owns, and the threads of the largest H whose W_hh
+// fits (H <= 132: 17 warps).
 constexpr int kTf32WPad = 8;
 constexpr int kTf32HPad = 4;
 constexpr int kTf32Units = 8;
@@ -141,125 +139,14 @@ __host__ __device__ __forceinline__ int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
 
-size_t smem_bytes(int H, int bf16, int train) {
+// One CTA's dynamic shared memory, the same in the inference and the
+// training form.
+size_t smem_bytes(int H, int bf16) {
   if (bf16)   // W_hh [H][3H+8] and the h tile [2][16][H+8], bf16
     return ((size_t)H * padded(3 * H) + 2 * (size_t)kRowTile * padded(H)) * 2;
-  if (!train)   // W_hh [H][3H+8] and the h tile [2][16][K+4], float
-    return ((size_t)H * (3 * H + kTf32WPad) +
-            2 * (size_t)kRowTile * (round_up(H, 8) + kTf32HPad)) * sizeof(float);
-  return weight_bytes(H, bf16) + 2 * (size_t)kRowTile * H * sizeof(float);
-}
-
-// The float training form (instantiated for T = float, kEmitPrev = true).
-template <typename T, bool kEmitPrev>
-__global__ void __launch_bounds__(kMaxThreads)
-gru_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
-               const float* __restrict__ b_hh, const float* __restrict__ h0,
-               T* __restrict__ out, T* __restrict__ h_prev,
-               T* __restrict__ gates, int n_t, int n_b, int H, int reverse) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G3 = 3 * H;
-  T* w_s = reinterpret_cast<T*>(smem);
-  float* h_s = reinterpret_cast<float*>(smem + weight_bytes(H, sizeof(T) == 2));
-
-  const int e = blockIdx.y;
-  const int k = threadIdx.x % H;
-  const int rg = threadIdx.x / H;
-  const int row0 = blockIdx.x * kRowTile + rg * kRowsPerThread;
-
-  const T* w_e = w_hh + (size_t)e * H * G3;
-  for (int i = threadIdx.x; i < H * G3; i += blockDim.x) w_s[i] = w_e[i];
-
-  const float* b_e = b_hh + (size_t)e * G3;
-  const float b_r = b_e[k], b_z = b_e[H + k], b_n = b_e[2 * H + k];
-
-  float h[kRowsPerThread];
-  bool valid[kRowsPerThread];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    const int row = row0 + j;
-    valid[j] = row < n_b;
-    h[j] = valid[j] ? h0[((size_t)e * n_b + row) * H + k] : 0.0f;
-    h_s[(rg * kRowsPerThread + j) * H + k] = dot_operand<T>(h[j]);
-  }
-  __syncthreads();
-
-  for (int s = 0; s < n_t; ++s) {
-    const int t = reverse ? n_t - 1 - s : s;
-    const float* h_cur = h_s + (s & 1) * kRowTile * H + rg * kRowsPerThread * H;
-    float* h_nxt = h_s + ((s + 1) & 1) * kRowTile * H + rg * kRowsPerThread * H;
-
-    // This step's projections, issued before the dot so their latency hides
-    // behind it.
-    const T* p_t = proj + ((size_t)e * n_t + t) * n_b * G3;
-    float x_r[kRowsPerThread], x_z[kRowsPerThread], x_n[kRowsPerThread];
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      if (valid[j]) {
-        const T* p = p_t + (size_t)(row0 + j) * G3;
-        x_r[j] = to_f32(p[k]);
-        x_z[j] = to_f32(p[H + k]);
-        x_n[j] = to_f32(p[2 * H + k]);
-      } else {
-        x_r[j] = x_z[j] = x_n[j] = 0.0f;
-      }
-    }
-
-    float a_r[kRowsPerThread], a_z[kRowsPerThread], a_n[kRowsPerThread];
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) a_r[j] = a_z[j] = a_n[j] = 0.0f;
-
-#pragma unroll 2
-    for (int i = 0; i < H; i += 4) {
-      float w_r[4], w_z[4], w_n[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const T* w_row = w_s + (size_t)(i + u) * G3;
-        w_r[u] = to_f32(w_row[k]);
-        w_z[u] = to_f32(w_row[H + k]);
-        w_n[u] = to_f32(w_row[2 * H + k]);
-      }
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        const float4 hv = *reinterpret_cast<const float4*>(h_cur + j * H + i);
-        a_r[j] = fmaf(hv.x, w_r[0], a_r[j]);
-        a_z[j] = fmaf(hv.x, w_z[0], a_z[j]);
-        a_n[j] = fmaf(hv.x, w_n[0], a_n[j]);
-        a_r[j] = fmaf(hv.y, w_r[1], a_r[j]);
-        a_z[j] = fmaf(hv.y, w_z[1], a_z[j]);
-        a_n[j] = fmaf(hv.y, w_n[1], a_n[j]);
-        a_r[j] = fmaf(hv.z, w_r[2], a_r[j]);
-        a_z[j] = fmaf(hv.z, w_z[2], a_z[j]);
-        a_n[j] = fmaf(hv.z, w_n[2], a_n[j]);
-        a_r[j] = fmaf(hv.w, w_r[3], a_r[j]);
-        a_z[j] = fmaf(hv.w, w_z[3], a_z[j]);
-        a_n[j] = fmaf(hv.w, w_n[3], a_n[j]);
-      }
-    }
-
-    T* o_t = out + ((size_t)e * n_t + t) * n_b * H;
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const float g_r = a_r[j] + b_r, g_z = a_z[j] + b_z, g_n = a_n[j] + b_n;
-      if (kEmitPrev && valid[j]) {
-        const size_t row = ((size_t)e * n_t + t) * n_b + row0 + j;
-        h_prev[row * H + k] = from_f32<T>(h[j]);
-        if (gates != nullptr) {          // the gate stash (STASH_GATES)
-          T* g_row = gates + row * 3 * H;
-          g_row[k] = from_f32<T>(g_r);
-          g_row[H + k] = from_f32<T>(g_z);
-          g_row[2 * H + k] = from_f32<T>(g_n);
-        }
-      }
-      const float r = sigmoid_f32(x_r[j] + g_r);
-      const float z = sigmoid_f32(x_z[j] + g_z);
-      const float n = tanhf(x_n[j] + r * g_n);
-      h[j] = (1.0f - z) * n + z * h[j];
-      if (valid[j]) o_t[(size_t)(row0 + j) * H + k] = from_f32<T>(h[j]);
-      h_nxt[j * H + k] = dot_operand<T>(h[j]);
-    }
-    __syncthreads();
-  }
+  // W_hh [H][3H+8] and the h tile [2][16][K+4], float
+  return ((size_t)H * (3 * H + kTf32WPad) +
+          2 * (size_t)kRowTile * (round_up(H, 8) + kTf32HPad)) * sizeof(float);
 }
 
 // The bf16 form: tensor-core products (see the design note at the top).
@@ -415,11 +302,13 @@ gru_fwd_mma_kernel(const bf16* __restrict__ proj, const bf16* __restrict__ w_hh,
   }
 }
 
-// The float inference form: 3xTF32 products (see the design note at the top).
+// The float forms: 3xTF32 products (see the design note at the top).
+template <bool kEmitPrev>
 __global__ void __launch_bounds__(kTf32MaxThreads, 1)
 gru_fwd_tf32_kernel(const float* __restrict__ proj, const float* __restrict__ w_hh,
                     const float* __restrict__ b_hh, const float* __restrict__ h0,
-                    float* __restrict__ out, int n_t, int n_b, int H, int reverse) {
+                    float* __restrict__ out, float* __restrict__ h_prev,
+                    float* __restrict__ gates, int n_t, int n_b, int H, int reverse) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G3 = 3 * H;
   const int w_ld = G3 + kTf32WPad;
@@ -525,27 +414,43 @@ gru_fwd_tf32_kernel(const float* __restrict__ proj, const float* __restrict__ w_
     if (k_full < H)
       k_step(k_full, w_col + (size_t)k_full * w_ld, w_col + (size_t)k_full * w_ld);
 
+    // Every mma.sync of the step is behind: the stores below may branch
+    // on the lane.
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const float xr[2] = {x[0][rr].x, x[0][rr].y};
       const float xz[2] = {x[1][rr].x, x[1][rr].y};
       const float xn[2] = {x[2][rr].x, x[2][rr].y};
+      const size_t orow = step_row + row[rr];
+      if (kEmitPrev && valid[rr] && unit_ok)
+        *reinterpret_cast<float2*>(h_prev + orow * H + u) =
+            make_float2(h[rr][0], h[rr][1]);
+      float gv[3][2];                            // [gate][unit pair]
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int i = 2 * rr + c;
         const float g_r = acc[0][i] + cor[0][i] + bias[0][c];
         const float g_z = acc[1][i] + cor[1][i] + bias[1][c];
         const float g_n = acc[2][i] + cor[2][i] + bias[2][c];
+        gv[0][c] = g_r;
+        gv[1][c] = g_z;
+        gv[2][c] = g_n;
         const float r = sigmoid_f32(xr[c] + g_r);
         const float z = sigmoid_f32(xz[c] + g_z);
         const float n = tanhf(xn[c] + r * g_n);
         h[rr][c] = (1.0f - z) * n + z * h[rr][c];
       }
+      if (kEmitPrev && gates != nullptr && valid[rr] && unit_ok) {
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)     // the gate stash (STASH_GATES)
+          *reinterpret_cast<float2*>(gates + orow * G3 + gate * H + u) =
+              make_float2(gv[gate][0], gv[gate][1]);
+      }
       const float2 hv = valid[rr] ? make_float2(h[rr][0], h[rr][1])
                                   : make_float2(0.0f, 0.0f);
       if (unit_ok) {
         if (valid[rr])
-          *reinterpret_cast<float2*>(out + (step_row + row[rr]) * H + u) = hv;
+          *reinterpret_cast<float2*>(out + orow * H + u) = hv;
         *reinterpret_cast<float2*>(h_nxt + (g + 8 * rr) * h_ld + u) = hv;
       }
     }
@@ -553,48 +458,41 @@ gru_fwd_tf32_kernel(const float* __restrict__ proj, const float* __restrict__ w_
   }
 }
 
-// The kernel of each form: bf16 takes the tensor cores, float training the
-// FMA loop (float inference launches gru_fwd_tf32_kernel).
-template <typename T, bool kEmitPrev>
-constexpr auto fwd_kernel() {
-  if constexpr (sizeof(T) == 2)
-    return gru_fwd_mma_kernel<kEmitPrev>;
-  else
-    return gru_fwd_kernel<T, kEmitPrev>;
-}
-
-template <typename T, bool kEmitPrev>
-int launch(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
-           void* out, void* h_prev, void* gates, int E, int n_t, int n_b,
-           int H, int reverse, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, sizeof(T) == 2, kEmitPrev);
-  const auto kernel = fwd_kernel<T, kEmitPrev>();
+template <bool kEmitPrev>
+int launch_mma(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
+               void* out, void* h_prev, void* gates, int E, int n_t, int n_b,
+               int H, int reverse, cudaStream_t stream) {
+  const size_t smem = smem_bytes(H, 1);
+  const auto kernel = gru_fwd_mma_kernel<kEmitPrev>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_b + kRowTile - 1) / kRowTile, E);
-  const dim3 block(kRowGroups * H);            // = H / 16 warps in bf16
+  const dim3 block(kRowGroups * H);            // H / 16 warps
   kernel<<<grid, block, smem, stream>>>(
-      static_cast<const T*>(proj), static_cast<const T*>(w_hh),
+      static_cast<const bf16*>(proj), static_cast<const bf16*>(w_hh),
       static_cast<const float*>(b_hh), static_cast<const float*>(h0),
-      static_cast<T*>(out), static_cast<T*>(h_prev), static_cast<T*>(gates),
-      n_t, n_b, H, reverse);
+      static_cast<bf16*>(out), static_cast<bf16*>(h_prev),
+      static_cast<bf16*>(gates), n_t, n_b, H, reverse);
   return (int)cudaGetLastError();
 }
 
+template <bool kEmitPrev>
 int launch_tf32(const void* proj, const void* w_hh, const void* b_hh,
-                const void* h0, void* out, int E, int n_t, int n_b, int H,
-                int reverse, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, 0, 0);
+                const void* h0, void* out, void* h_prev, void* gates, int E,
+                int n_t, int n_b, int H, int reverse, cudaStream_t stream) {
+  const size_t smem = smem_bytes(H, 0);
+  const auto kernel = gru_fwd_tf32_kernel<kEmitPrev>;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_b + kRowTile - 1) / kRowTile, E);
   const dim3 block(32 * ((H + kTf32Units - 1) / kTf32Units));
-  gru_fwd_tf32_kernel<<<grid, block, smem, stream>>>(
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const float*>(proj), static_cast<const float*>(w_hh),
       static_cast<const float*>(b_hh), static_cast<const float*>(h0),
-      static_cast<float*>(out), n_t, n_b, H, reverse);
+      static_cast<float*>(out), static_cast<float*>(h_prev),
+      static_cast<float*>(gates), n_t, n_b, H, reverse);
   return (int)cudaGetLastError();
 }
 
@@ -602,12 +500,10 @@ int launch_tf32(const void* proj, const void* w_hh, const void* b_hh,
 
 extern "C" {
 
-// Dynamic shared memory one CTA needs at hidden size H, in the inference
-// (train = 0) or training form (the wrapper refuses shapes above the
-// device's opt-in limit before launching).
-size_t gru_fwd_smem_bytes(int H, int bf16, int train) {
-  return smem_bytes(H, bf16, train);
-}
+// Dynamic shared memory one CTA needs at hidden size H, in either form
+// (the wrapper refuses shapes above the device's opt-in limit before
+// launching).
+size_t gru_fwd_smem_bytes(int H, int bf16) { return smem_bytes(H, bf16); }
 
 int gru_fwd_max_threads(void) { return kMaxThreads; }
 
@@ -622,9 +518,10 @@ int gru_fwd(const void* proj, const void* w_hh, const void* b_hh, const void* h0
             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16, false>(proj, w_hh, b_hh, h0, out, nullptr,
-                                        nullptr, E, n_t, n_b, H, reverse, st);
-  return launch_tf32(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, reverse, st);
+    return launch_mma<false>(proj, w_hh, b_hh, h0, out, nullptr, nullptr, E,
+                             n_t, n_b, H, reverse, st);
+  return launch_tf32<false>(proj, w_hh, b_hh, h0, out, nullptr, nullptr, E,
+                            n_t, n_b, H, reverse, st);
 }
 
 // Training form: also writes h_prev and, unless `gates` is null, the hidden
@@ -634,10 +531,10 @@ int gru_fwd_train(const void* proj, const void* w_hh, const void* b_hh,
                   int n_t, int n_b, int H, int bf16, int reverse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16, true>(proj, w_hh, b_hh, h0, out, h_prev, gates,
-                                       E, n_t, n_b, H, reverse, st);
-  return launch<float, true>(proj, w_hh, b_hh, h0, out, h_prev, gates, E, n_t,
-                             n_b, H, reverse, st);
+    return launch_mma<true>(proj, w_hh, b_hh, h0, out, h_prev, gates, E, n_t,
+                            n_b, H, reverse, st);
+  return launch_tf32<true>(proj, w_hh, b_hh, h0, out, h_prev, gates, E, n_t,
+                           n_b, H, reverse, st);
 }
 
 }  // extern "C"

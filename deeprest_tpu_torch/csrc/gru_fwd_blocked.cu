@@ -40,8 +40,8 @@
 // 16 or 32: one or two m16 tiles, run as independent chains that share
 // each W_hh fragment; each expert of the block adds its own chains within
 // the step.  8 rows are refused by the plan rather than run as a half-empty
-// tile (and never sent to the FMA loop).  Ragged rows enter A as zeros and
-// are never stored.  f32 io converts W_hh to bf16 while staging it.
+// tile.  Ragged rows enter A as zeros and are never stored.  f32 io
+// converts W_hh to bf16 while staging it.
 //   Proj: at t_blk = 1 each lane loads its own proj elements from device
 // memory into registers one step ahead (right after its expert's gate math
 // of the step before), as gru_fwd_mma_kernel does: a 12 KiB shared slot
@@ -59,13 +59,26 @@
 // t_blk > 1 the ring t_blk rows (3H io + 16) bytes.  At H=128, 16 rows and
 // one expert: 100,352 + 8,704 = 109,056 bytes, as K1, two CTAs an SM.
 //
-// The float dot (gru_fwd_blocked_kernel, f32 or bf16 io): plain FMA (one
-// TF32 mma would break the 1e-5 tolerance; K1's 3xTF32 scheme in
-// gru_mma.cuh is not carried over to this form yet).  rows / 8 row groups of
-// H threads, each thread one hidden unit of 8 rows, its rows' float carry in
-// registers, at most 512 threads; per expert W_hh in the io type, a
-// double-buffered [2][rows][H] float carry tile (one __syncthreads per
-// step), and [t_blk][rows][3H] proj staged by synchronous coalesced copies.
+// The float dot (gru_fwd_blocked_tf32_kernel, f32 or bf16 io): 3xTF32 on
+// the tensor cores in the layout of gru_fwd.cu's float forms (K1, K2): warp
+// w of the ceil(H/8) warps owns units [8w, 8w+8) of r, z and n, mma.sync
+// m16n8k8 over round8(H)/8 k steps, each f32 operand split into a TF32
+// big half and its remainder (gru_mma.cuh), since one TF32 product would
+// break the 1e-5 tolerance.  Per expert W_hh stays in the io type in
+// padded rows [H][3H+8] and is widened and split as each B fragment is
+// loaded; a bf16 value is exact in TF32 (its small half is zero), so bf16
+// io runs two products, a_big b + a_small b, for the same error.  The carry
+// tile is f32 [2][rows][round8(H)+4] and is split at its A fragment load.
+// rows is 8, 16 or 32: half an m16 tile (rows 8..15 zero in A, never
+// loaded or stored), one or two.  Proj goes through registers at t_blk = 1
+// and through the cp.async ring above at t_blk > 1 (with bf16 io that takes
+// H % 8 == 0, 16-byte rows).  Every global load reads a row and unit that
+// exist and is masked where used, and the out stores are predicated
+// instructions, so no lane-dependent branch sits before a mma.sync.aligned
+// (a warp that reaches one diverged never finishes it).  At H=128, f32 io,
+// one expert: 200,704 + 8,448 = 209,152 bytes at 8 rows, 217,600 (K1's)
+// at 16; a ring of even 2 steps of 8 rows (24,832) no longer fits beside
+// the f32 W_hh, so f32 io takes t_blk = 1 there.
 //
 // The wrapper's plan (ops/cuda_gru.py block_plan) refuses a blocking above
 // the opt-in limit, or one no instantiation takes, before launching.
@@ -74,10 +87,10 @@
 //   bytes = proj 118.0 MB + out (float) 78.6 MB + W_hh 7.9 MB + h0, b_hh
 //           1.4 MB = 205.9 MB  -> 0.061 ms at 3.35 TB/s
 //   FLOPs = 2*80*60*32*128*384 = 15.1 GFLOP -> 0.015 ms at 989 TFLOP/s
-// so bytes bound it; with float inputs (331.7 MB, 0.099 ms) the 15.1 GFLOP
-// against 67 TFLOP/s of float (0.225 ms) do.  At B=32 the 60 dependent steps
-// set the latency: the design keeps each step to its mma chains, one
-// barrier and proj loads issued ahead.
+// so bytes bound it; with float inputs 331.7 MB (0.099 ms) against three
+// TF32 products of 15.1 GFLOP (0.092 ms at 495 TFLOP/s; 0.225 ms on FMA at
+// 67).  At B=32 the 60 dependent steps set the latency: the design keeps
+// each step to its mma chains, one barrier and proj loads issued ahead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,13 +104,18 @@ namespace {
 using namespace gru_mma;
 using bf16 = __nv_bfloat16;
 
-constexpr int kRowsPerThread = 8;
-constexpr int kMaxThreads = 512;
 constexpr int kMmaRows = 16;          // rows of one m16 tile
 constexpr int kMmaMaxThreads = 256;   // H/16 warps: H <= 128
+// The float dot, as gru_fwd.cu's float forms: floats after each W_hh and
+// carry tile row, hidden units a warp owns, and the threads of the largest
+// H it takes (17 warps: H <= 136).
+constexpr int kTf32WPad = 8;
+constexpr int kTf32HPad = 4;
+constexpr int kTf32Units = 8;
+constexpr int kTf32MaxThreads = 544;
 
-__host__ __device__ __forceinline__ size_t round16(size_t n) {
-  return (n + 15) & ~(size_t)15;
+__host__ __device__ __forceinline__ int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
 }
 
 // Elements of one padded bf16 row (W_hh, the h tile): 16 bytes more.
@@ -111,12 +129,20 @@ __host__ __device__ __forceinline__ size_t mma_expert_bytes(int H, int rows, int
   return bytes;
 }
 
+// Shared bytes of one expert of the float-dot form: W_hh [H][3H+8] in the
+// io type, the f32 carry tile [2][rows][round8(H)+4], the ring as above.
+__host__ __device__ __forceinline__ size_t tf32_expert_bytes(int H, int rows, int t_blk,
+                                                             int io_bytes) {
+  size_t bytes = (size_t)H * (3 * H + kTf32WPad) * io_bytes +
+                 2 * (size_t)rows * (round_up(H, 8) + kTf32HPad) * sizeof(float);
+  if (t_blk > 1) bytes += (size_t)t_blk * rows * ((size_t)3 * H * io_bytes + 16);
+  return bytes;
+}
+
 size_t smem_bytes(int H, int rows, int e_blk, int t_blk, int io_bf16, int bf16_dot) {
   const int io_bytes = io_bf16 ? 2 : 4;
-  if (bf16_dot) return (size_t)e_blk * mma_expert_bytes(H, rows, t_blk, io_bytes);
-  return (size_t)e_blk * (round16((size_t)H * 3 * H * io_bytes)
-                          + 2 * (size_t)rows * H * sizeof(float)
-                          + (size_t)t_blk * rows * 3 * H * io_bytes);
+  return (size_t)e_blk * (bf16_dot ? mma_expert_bytes(H, rows, t_blk, io_bytes)
+                                   : tf32_expert_bytes(H, rows, t_blk, io_bytes));
 }
 
 // ---------------------------------------------------------------------------
@@ -389,137 +415,281 @@ gru_fwd_blocked_mma_kernel(const TIO* __restrict__ proj, const TIO* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// the float dot: FMA
+// the float dot: 3xTF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-// T: proj and W_hh, in device and in shared memory.
-template <typename T, int kEBlk>
-__global__ void __launch_bounds__(kMaxThreads)
-gru_fwd_blocked_kernel(const T* __restrict__ proj, const T* __restrict__ w_hh,
-                       const float* __restrict__ b_hh, const float* __restrict__ h0,
-                       float* __restrict__ out, int n_t, int n_b, int H, int rows,
-                       int t_blk) {
+// 4 io elements as they lie (float: 16 bytes, bf16: 8), to stage W_hh.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<bf16> { using type = uint2; };
+
+// 16 bytes global -> shared on lanes where `pred` holds (cp_async16
+// otherwise): a predicated instruction, so no branch parts the warp.
+__device__ __forceinline__ void cp_async16_if(void* dst, const void* src, bool full,
+                                              bool pred) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
+               " @p cp.async.cg.shared.global [%0], [%1], 16, %2;\n}\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0), "r"((int)pred)
+               : "memory");
+}
+
+// *p = v on lanes where `pred` holds, one predicated store: the next
+// expert's mma.sync.aligned of the step finds the warp converged.
+__device__ __forceinline__ void store_f2_if(float* p, float2 v, bool pred) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
+               " @p st.global.v2.f32 [%0], {%1, %2};\n}\n"
+               :: "l"(p), "f"(v.x), "f"(v.y), "r"((int)pred)
+               : "memory");
+}
+
+// The A fragment of one m16 tile of the carry; an 8-row tile gives zeros
+// for rows 8..15, never loaded.
+template <int kRows>
+__device__ __forceinline__ SplitFrag<4> load_a_rows(const float* tile, int ld, int lane) {
+  if constexpr (kRows < kMmaRows) {
+    const int g = frag_row(lane), t = lane & 3;
+    SplitFrag<4> a;
+    split_tf32(tile[g * ld + t], a.big[0], a.small[0]);
+    split_tf32(tile[g * ld + t + 4], a.big[2], a.small[2]);
+    a.big[1] = a.small[1] = a.big[3] = a.small[3] = 0u;
+    return a;
+  } else {
+    return load_a_tf32(tile, ld, lane);
+  }
+}
+
+// kRows batch rows a CTA (8: half an m16 tile; 16, 32: one or two tiles).
+template <typename TIO, int kEBlk, int kRows>
+__global__ void __launch_bounds__(kTf32MaxThreads, 1)
+gru_fwd_blocked_tf32_kernel(const TIO* __restrict__ proj, const TIO* __restrict__ w_hh,
+                            const float* __restrict__ b_hh, const float* __restrict__ h0,
+                            float* __restrict__ out, int n_t, int n_b, int H, int t_blk) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kMTiles = kRows < kMmaRows ? 1 : kRows / kMmaRows;
+  constexpr int kRR = kRows < kMmaRows ? 1 : 2;  // rows g + 8 rr of a tile
+  constexpr bool kExactW = sizeof(TIO) == 2;     // bf16 W_hh is exact in TF32
   const int G3 = 3 * H;
-  const size_t w_bytes = round16((size_t)H * G3 * sizeof(T));
-  // [kEBlk] W_hh, then [kEBlk][2][rows][H] float, then [kEBlk][t_blk][rows][3H]
-  float* h_s = reinterpret_cast<float*>(smem + kEBlk * w_bytes);
-  T* p_s = reinterpret_cast<T*>(smem + kEBlk * w_bytes
-                                + (size_t)kEBlk * 2 * rows * H * sizeof(float));
+  const int w_ld = G3 + kTf32WPad;
+  const int h_ld = round_up(H, 8) + kTf32HPad;
+  const int x_ld = G3 + 16 / (int)sizeof(TIO);
+  const bool staged = t_blk > 1;
+  const size_t expert_bytes = tf32_expert_bytes(H, kRows, t_blk, sizeof(TIO));
+  // expert i: W_hh [H][w_ld] (io type), carry tile [2][kRows][h_ld] (float),
+  // ring [t_blk][kRows][x_ld] (io type)
+  auto w_s = [&](int i) { return reinterpret_cast<TIO*>(smem + i * expert_bytes); };
+  auto h_s = [&](int i) {
+    return reinterpret_cast<float*>(smem + i * expert_bytes + (size_t)H * w_ld * sizeof(TIO));
+  };
+  auto x_s = [&](int i) { return reinterpret_cast<TIO*>(h_s(i) + 2 * kRows * h_ld); };
 
   const int e0 = blockIdx.y * kEBlk;
-  const int k = threadIdx.x % H;
-  const int local0 = (threadIdx.x / H) * kRowsPerThread;
-  const int tile0 = blockIdx.x * rows;
-  const int row0 = tile0 + local0;
-  const int tile_rows = min(rows, n_b - tile0);
-  const size_t stage = (size_t)rows * G3;   // elements per (expert, step)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = frag_row(lane), t = lane & 3;
+  const int tile0 = blockIdx.x * kRows;
 
+  // W_hh of every expert into padded rows, 4 elements a copy, the pads
+  // zeroed; every carry tile zeroed (units H .. round8(H)-1 stay zero).
+  using V4 = typename Vec4<TIO>::type;
+  const int vec_per_row = w_ld / 4;
 #pragma unroll
   for (int i = 0; i < kEBlk; ++i) {
-    const T* w_e = w_hh + (size_t)(e0 + i) * H * G3;
-    T* w_d = reinterpret_cast<T*>(smem + i * w_bytes);
-    for (int idx = threadIdx.x; idx < H * G3; idx += blockDim.x) w_d[idx] = w_e[idx];
+    const TIO* w_e = w_hh + (size_t)(e0 + i) * H * G3;
+    TIO* w_d = w_s(i);
+    for (int idx = threadIdx.x; idx < H * vec_per_row; idx += blockDim.x) {
+      const int r = idx / vec_per_row, c = (idx - r * vec_per_row) * 4;
+      V4 v{};
+      if (c < G3) v = *reinterpret_cast<const V4*>(w_e + (size_t)r * G3 + c);
+      *reinterpret_cast<V4*>(w_d + (size_t)r * w_ld + c) = v;
+    }
+    float* h_i = h_s(i);
+    for (int idx = threadIdx.x; idx < 2 * kRows * h_ld; idx += blockDim.x) h_i[idx] = 0.0f;
   }
 
-  bool valid[kRowsPerThread];
+  // This lane's elements: rows g + 8 rr of each m tile, units u and u + 1
+  // (both below H or both not).  Every global load of the kernel reads a
+  // row and unit that exist (row_in, u_in) and the value is masked where
+  // used, so no load sits under a lane-dependent branch.
+  const int u = kTf32Units * warp + frag_col(lane);
+  const bool unit_ok = u < H;
+  const int u_in = unit_ok ? u : 0;
+  int row[kMTiles][kRR], row_in[kMTiles][kRR];
+  bool keep[kMTiles][kRR];                        // a row and units that exist
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) valid[j] = row0 + j < n_b;
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int rr = 0; rr < kRR; ++rr) {
+      row[mt][rr] = tile0 + kMmaRows * mt + g + 8 * rr;
+      row_in[mt][rr] = min(row[mt][rr], n_b - 1);
+      keep[mt][rr] = row[mt][rr] < n_b && unit_ok;
+    }
 
-  float b_r[kEBlk], b_z[kEBlk], b_n[kEBlk];
-  float h[kEBlk][kRowsPerThread];
+  float bias[kEBlk][3][2];                        // [i][gate][unit pair]
+  float h[kEBlk][kMTiles][kRR][2];                // [i][mt][rr][unit pair]
 #pragma unroll
   for (int i = 0; i < kEBlk; ++i) {
     const float* b_e = b_hh + (size_t)(e0 + i) * G3;
-    b_r[i] = b_e[k];
-    b_z[i] = b_e[H + k];
-    b_n[i] = b_e[2 * H + k];
-    float* h_i = h_s + (size_t)i * 2 * rows * H;
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      h[i][j] = valid[j] ? h0[((size_t)(e0 + i) * n_b + row0 + j) * H + k] : 0.0f;
-      h_i[(local0 + j) * H + k] = h[i][j];
+    for (int gate = 0; gate < 3; ++gate) {
+      bias[i][gate][0] = b_e[gate * H + u_in];
+      bias[i][gate][1] = b_e[gate * H + u_in + 1];
     }
   }
+  __syncthreads();                                // the tiles are zeroed
+#pragma unroll
+  for (int i = 0; i < kEBlk; ++i)
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int rr = 0; rr < kRR; ++rr) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            h0 + ((size_t)(e0 + i) * n_b + row_in[mt][rr]) * H + u_in);
+        const float2 hv = keep[mt][rr] ? v : make_float2(0.0f, 0.0f);
+        h[i][mt][rr][0] = hv.x;
+        h[i][mt][rr][1] = hv.y;
+        *reinterpret_cast<float2*>(h_s(i) + (kMmaRows * mt + g + 8 * rr) * h_ld + u) = hv;
+      }
 
-  for (int t0 = 0; t0 < n_t; t0 += t_blk) {
-    // (A) every read of the previous block's staged proj is done, and the
-    // carry tile written before the loop is visible
-    __syncthreads();
+  // t_blk > 1: step s's proj rows of every expert into ring slot s % t_blk,
+  // 16 bytes a copy, zeros for ragged rows; the loop's trip count is the
+  // warp's, its last copies predicated off; one commit group per call.
+  auto issue = [&](int s) {
+    const int slot = s % t_blk;
+    const int vec_row = G3 * (int)sizeof(TIO) / 16;
+    const int per_vec = 16 / (int)sizeof(TIO);
+    const int n_vec = kRows * vec_row;
+#pragma unroll
     for (int i = 0; i < kEBlk; ++i) {
-      for (int tt = 0; tt < t_blk; ++tt) {
-        const T* src = proj + (((size_t)(e0 + i) * n_t + t0 + tt) * n_b + tile0) * G3;
-        T* dst = p_s + ((size_t)i * t_blk + tt) * stage;
-        for (int idx = threadIdx.x; idx < tile_rows * G3; idx += blockDim.x)
-          dst[idx] = src[idx];
+      const TIO* src = proj + (((size_t)(e0 + i) * n_t + s) * n_b + tile0) * G3;
+      TIO* dst = x_s(i) + (size_t)slot * kRows * x_ld;
+      for (int base = threadIdx.x - lane; base < n_vec; base += blockDim.x) {
+        const int idx = base + lane;
+        const int r = idx / vec_row, c = (idx - r * vec_row) * per_vec;
+        const bool full = tile0 + r < n_b;
+        cp_async16_if(dst + (size_t)r * x_ld + c, full ? src + (size_t)r * G3 + c : proj,
+                      full, idx < n_vec);
       }
     }
-    // (B) this block's projections are staged
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    for (int tt = 0; tt < t_blk; ++tt) {
-      const int s = t0 + tt;
+  // t_blk = 1: expert i's proj elements of step s into registers.
+  Raw2<TIO> x[kEBlk][kMTiles][3][kRR];            // [i][mt][gate][rr]
+  auto load_x = [&](int i, int s) {
 #pragma unroll
-      for (int i = 0; i < kEBlk; ++i) {       // time outer, experts inner
-        const T* w_i = reinterpret_cast<const T*>(smem + i * w_bytes);
-        const float* h_cur = h_s + ((size_t)i * 2 + (s & 1)) * rows * H + local0 * H;
-        float* h_nxt = h_s + ((size_t)i * 2 + ((s + 1) & 1)) * rows * H + local0 * H;
-
-        float a_r[kRowsPerThread], a_z[kRowsPerThread], a_n[kRowsPerThread];
+    for (int mt = 0; mt < kMTiles; ++mt)
 #pragma unroll
-        for (int j = 0; j < kRowsPerThread; ++j) a_r[j] = a_z[j] = a_n[j] = 0.0f;
-
-#pragma unroll 2
-        for (int c = 0; c < H; c += 4) {
-          float w_r[4], w_z[4], w_n[4];
+      for (int rr = 0; rr < kRR; ++rr) {
+        const TIO* p = proj + (((size_t)(e0 + i) * n_t + s) * n_b + row_in[mt][rr]) * G3 + u_in;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const T* w_row = w_i + (size_t)(c + u) * G3;
-            w_r[u] = to_f32(w_row[k]);
-            w_z[u] = to_f32(w_row[H + k]);
-            w_n[u] = to_f32(w_row[2 * H + k]);
-          }
-#pragma unroll
-          for (int j = 0; j < kRowsPerThread; ++j) {
-            const float4 hv = *reinterpret_cast<const float4*>(h_cur + j * H + c);
-            a_r[j] = fmaf(hv.x, w_r[0], a_r[j]);
-            a_z[j] = fmaf(hv.x, w_z[0], a_z[j]);
-            a_n[j] = fmaf(hv.x, w_n[0], a_n[j]);
-            a_r[j] = fmaf(hv.y, w_r[1], a_r[j]);
-            a_z[j] = fmaf(hv.y, w_z[1], a_z[j]);
-            a_n[j] = fmaf(hv.y, w_n[1], a_n[j]);
-            a_r[j] = fmaf(hv.z, w_r[2], a_r[j]);
-            a_z[j] = fmaf(hv.z, w_z[2], a_z[j]);
-            a_n[j] = fmaf(hv.z, w_n[2], a_n[j]);
-            a_r[j] = fmaf(hv.w, w_r[3], a_r[j]);
-            a_z[j] = fmaf(hv.w, w_z[3], a_z[j]);
-            a_n[j] = fmaf(hv.w, w_n[3], a_n[j]);
-          }
-        }
-
-        const T* x_s = p_s + ((size_t)i * t_blk + tt) * stage + (size_t)local0 * G3;
-        float* o_t = out + ((size_t)(e0 + i) * n_t + s) * n_b * H;
-#pragma unroll
-        for (int j = 0; j < kRowsPerThread; ++j) {
-          float x_r = 0.0f, x_z = 0.0f, x_n = 0.0f;
-          if (valid[j]) {
-            const T* x = x_s + (size_t)j * G3;
-            x_r = to_f32(x[k]);
-            x_z = to_f32(x[H + k]);
-            x_n = to_f32(x[2 * H + k]);
-          }
-          const float g_r = a_r[j] + b_r[i], g_z = a_z[j] + b_z[i];
-          const float g_n = a_n[j] + b_n[i];
-          const float r = sigmoid_f32(x_r + g_r);
-          const float z = sigmoid_f32(x_z + g_z);
-          const float n = tanhf(x_n + r * g_n);
-          h[i][j] = (1.0f - z) * n + z * h[i][j];
-          if (valid[j]) o_t[(size_t)(row0 + j) * H + k] = h[i][j];
-          h_nxt[j * H + k] = h[i][j];
-        }
+        for (int gate = 0; gate < 3; ++gate) x[i][mt][gate][rr].load(p + gate * H);
       }
-      // (C) step s's carry values are written before step s + 1 reads them
-      __syncthreads();
+  };
+
+  if (staged) {
+    for (int s = 0; s < t_blk; ++s) issue(s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kEBlk; ++i) load_x(i, 0);
+  }
+
+  for (int s = 0; s < n_t; ++s) {
+    // the ring and the barrier as in gru_fwd_blocked_mma_kernel
+    if (staged) cp_async_wait_upto(t_blk - 2);
+    __syncthreads();
+    if (staged && s >= 1) {
+      if (s - 1 + t_blk < n_t)
+        issue(s - 1 + t_blk);
+      else
+        cp_async_commit();
+    }
+    const int cur = s & 1;
+#pragma unroll
+    for (int i = 0; i < kEBlk; ++i) {             // time outer, experts inner
+      const TIO* w_i = w_s(i);
+      const float* h_cur = h_s(i) + cur * kRows * h_ld;
+      float* h_nxt = h_s(i) + (cur ^ 1) * kRows * h_ld;
+
+      // acc[mt][gate] + cor[mt][gate] = columns gate*H + 8 warp .. +7 of
+      // h . W_hh for m tile mt
+      float acc[kMTiles][3][4], cor[kMTiles][3][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][gate][c] = cor[mt][gate][c] = 0.0f;
+      auto k_step = [&](int k0, const TIO* w0, const TIO* w1) {
+        SplitFrag<4> a[kMTiles];
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt)
+          a[mt] = load_a_rows<kRows>(h_cur + kMmaRows * mt * h_ld + k0, h_ld, lane);
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          if constexpr (kExactW) {      // a_big b + a_small b: b's small half is 0
+            const uint32_t b0 = __float_as_uint(to_f32(w0[gate * H]));
+            const uint32_t b1 = __float_as_uint(to_f32(w1[gate * H]));
+#pragma unroll
+            for (int mt = 0; mt < kMTiles; ++mt) {
+              mma_tf32(cor[mt][gate], a[mt].small, b0, b1);
+              mma_tf32(acc[mt][gate], a[mt].big, b0, b1);
+            }
+          } else {
+            const SplitFrag<2> b = split_b_tf32(w0[gate * H], w1[gate * H]);
+#pragma unroll
+            for (int mt = 0; mt < kMTiles; ++mt)
+              mma_3xtf32(acc[mt][gate], cor[mt][gate], a[mt], b);
+          }
+        }
+      };
+      const TIO* w_col = w_i + (size_t)t * w_ld + kTf32Units * warp + g;
+      const int k_full = H & ~7;
+#pragma unroll 2
+      for (int k0 = 0; k0 < k_full; k0 += 8)
+        k_step(k0, w_col + (size_t)k0 * w_ld, w_col + (size_t)(k0 + 4) * w_ld);
+      // H % 8 == 4: rows k_full + 4 .. +7 do not exist; their A columns are
+      // zero, so B reads row k_full + t again
+      if (k_full < H)
+        k_step(k_full, w_col + (size_t)k_full * w_ld, w_col + (size_t)k_full * w_ld);
+
+      const TIO* xs = x_s(i) + (size_t)(s % t_blk) * kRows * x_ld;
+      float* o_t = out + ((size_t)(e0 + i) * n_t + s) * n_b * H;
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+        for (int rr = 0; rr < kRR; ++rr) {
+          const int local = kMmaRows * mt + g + 8 * rr;
+          float2 xv[3];
+#pragma unroll
+          for (int gate = 0; gate < 3; ++gate) {
+            if (staged) {
+              Raw2<TIO> r2;
+              r2.load(xs + (size_t)local * x_ld + gate * H + u);
+              xv[gate] = r2.get();
+            } else {
+              xv[gate] = x[i][mt][gate][rr].get();
+            }
+          }
+          const float xr[2] = {xv[0].x, xv[0].y}, xz[2] = {xv[1].x, xv[1].y};
+          const float xn[2] = {xv[2].x, xv[2].y};
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int d = 2 * rr + c;
+            const float g_r = acc[mt][0][d] + cor[mt][0][d] + bias[i][0][c];
+            const float g_z = acc[mt][1][d] + cor[mt][1][d] + bias[i][1][c];
+            const float g_n = acc[mt][2][d] + cor[mt][2][d] + bias[i][2][c];
+            const float r = sigmoid_f32(xr[c] + g_r);
+            const float z = sigmoid_f32(xz[c] + g_z);
+            const float n = tanhf(xn[c] + r * g_n);
+            h[i][mt][rr][c] = (1.0f - z) * n + z * h[i][mt][rr][c];
+          }
+          const float2 hv = keep[mt][rr] ? make_float2(h[i][mt][rr][0], h[i][mt][rr][1])
+                                         : make_float2(0.0f, 0.0f);
+          store_f2_if(o_t + (size_t)row[mt][rr] * H + u, hv, keep[mt][rr]);
+          *reinterpret_cast<float2*>(h_nxt + local * h_ld + u) = hv;
+        }
+      // this expert's next proj, in flight across the barrier and the next
+      // step's products
+      if (!staged && s + 1 < n_t) load_x(i, s + 1);
     }
   }
 }
@@ -547,71 +717,71 @@ int launch_mma(const void* proj, const void* w_hh, const void* b_hh, const void*
   return (int)cudaGetLastError();
 }
 
+template <typename TIO, int kEBlk, int kRows>
+int launch_tf32(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
+                void* out, int E, int n_t, int n_b, int H, int t_blk,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes(H, kRows, kEBlk, t_blk, sizeof(TIO) == 2, 0);
+  const auto kernel = gru_fwd_blocked_tf32_kernel<TIO, kEBlk, kRows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_b + kRows - 1) / kRows, E / kEBlk);
+  const dim3 block(32 * ((H + kTf32Units - 1) / kTf32Units));
+  kernel<<<grid, block, smem, stream>>>(
+      static_cast<const TIO*>(proj), static_cast<const TIO*>(w_hh),
+      static_cast<const float*>(b_hh), static_cast<const float*>(h0),
+      static_cast<float*>(out), n_t, n_b, H, t_blk);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation of one io type and e_blk at `rows`: the bf16 dot in
+// one or two m16 tiles, the float dot in half a tile, one or two.
 template <typename TIO, int kEBlk>
-int launch_mma_rows(int rows, const void* proj, const void* w_hh, const void* b_hh,
-                    const void* h0, void* out, int E, int n_t, int n_b, int H,
-                    int t_blk, cudaStream_t stream) {
+int launch_rows(int bf16_dot, int rows, const void* proj, const void* w_hh,
+                const void* b_hh, const void* h0, void* out, int E, int n_t, int n_b,
+                int H, int t_blk, cudaStream_t stream) {
+  if (bf16_dot) {
+    switch (rows) {
+      case kMmaRows:
+        return launch_mma<TIO, kEBlk, 1>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H,
+                                         t_blk, stream);
+      case 2 * kMmaRows:
+        return launch_mma<TIO, kEBlk, 2>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H,
+                                         t_blk, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (rows) {
+    case kMmaRows / 2:
+      return launch_tf32<TIO, kEBlk, kMmaRows / 2>(proj, w_hh, b_hh, h0, out, E, n_t,
+                                                   n_b, H, t_blk, stream);
     case kMmaRows:
-      return launch_mma<TIO, kEBlk, 1>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H,
-                                       t_blk, stream);
+      return launch_tf32<TIO, kEBlk, kMmaRows>(proj, w_hh, b_hh, h0, out, E, n_t, n_b,
+                                               H, t_blk, stream);
     case 2 * kMmaRows:
-      return launch_mma<TIO, kEBlk, 2>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H,
-                                       t_blk, stream);
+      return launch_tf32<TIO, kEBlk, 2 * kMmaRows>(proj, w_hh, b_hh, h0, out, E, n_t,
+                                                   n_b, H, t_blk, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int kEBlk>
-int launch_fma(const void* proj, const void* w_hh, const void* b_hh, const void* h0,
-               void* out, int E, int n_t, int n_b, int H, int rows, int t_blk,
-               cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, rows, kEBlk, t_blk, sizeof(T) == 2, 0);
-  const auto kernel = gru_fwd_blocked_kernel<T, kEBlk>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_b + rows - 1) / rows, E / kEBlk);
-  const dim3 block((rows / kRowsPerThread) * H);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const T*>(proj), static_cast<const T*>(w_hh),
-      static_cast<const float*>(b_hh), static_cast<const float*>(h0),
-      static_cast<float*>(out), n_t, n_b, H, rows, t_blk);
-  return (int)cudaGetLastError();
-}
-
-// The instantiation of one io type: the bf16 dot on the tensor cores, the
-// float dot on FMA.
 template <typename TIO>
 int launch_io(int e_blk, int bf16_dot, const void* proj, const void* w_hh,
               const void* b_hh, const void* h0, void* out, int E, int n_t, int n_b,
               int H, int rows, int t_blk, cudaStream_t stream) {
-  if (bf16_dot) {
-    switch (e_blk) {
-      case 1:
-        return launch_mma_rows<TIO, 1>(rows, proj, w_hh, b_hh, h0, out, E, n_t, n_b,
-                                       H, t_blk, stream);
-      case 2:
-        return launch_mma_rows<TIO, 2>(rows, proj, w_hh, b_hh, h0, out, E, n_t, n_b,
-                                       H, t_blk, stream);
-      case 4:
-        return launch_mma_rows<TIO, 4>(rows, proj, w_hh, b_hh, h0, out, E, n_t, n_b,
-                                       H, t_blk, stream);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
   switch (e_blk) {
     case 1:
-      return launch_fma<TIO, 1>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
-                                t_blk, stream);
+      return launch_rows<TIO, 1>(bf16_dot, rows, proj, w_hh, b_hh, h0, out, E, n_t,
+                                 n_b, H, t_blk, stream);
     case 2:
-      return launch_fma<TIO, 2>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
-                                t_blk, stream);
+      return launch_rows<TIO, 2>(bf16_dot, rows, proj, w_hh, b_hh, h0, out, E, n_t,
+                                 n_b, H, t_blk, stream);
     case 4:
-      return launch_fma<TIO, 4>(proj, w_hh, b_hh, h0, out, E, n_t, n_b, H, rows,
-                                t_blk, stream);
+      return launch_rows<TIO, 4>(bf16_dot, rows, proj, w_hh, b_hh, h0, out, E, n_t,
+                                 n_b, H, t_blk, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -628,14 +798,14 @@ size_t gru_fwd_blocked_smem_bytes(int H, int rows, int e_blk, int t_blk,
   return smem_bytes(H, rows, e_blk, t_blk, io_bf16, bf16_dot);
 }
 
-int gru_fwd_blocked_max_threads(void) { return kMaxThreads; }
+int gru_fwd_blocked_tf32_max_threads(void) { return kTf32MaxThreads; }
 
 int gru_fwd_blocked_mma_max_threads(void) { return kMmaMaxThreads; }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  The caller
 // has checked e_blk | E and t_blk | T, and: with bf16_dot, H % 16 == 0,
-// H <= 128 and rows in {16, 32}; without it, rows % 8 == 0 and
-// (rows / 8) * H <= 512.
+// H <= 128 and rows in {16, 32}; without it, H % 4 == 0, H <= 136, rows in
+// {8, 16, 32} and, with bf16 io and t_blk > 1, H % 8 == 0.
 int gru_fwd_blocked(const void* proj, const void* w_hh, const void* b_hh,
                     const void* h0, void* out, int E, int n_t, int n_b, int H,
                     int rows, int e_blk, int t_blk, int bf16, int bf16_dot,

@@ -1,6 +1,6 @@
 // Device helpers shared by the GRU recurrence kernels (gru_fwd.cu, gru_bwd.cu,
 // gru_fwd_blocked.cu):
-// the float/bf16 conversions, the gate nonlinearities, and the Hopper
+// the bf16 to float conversion, the gate nonlinearities, and the Hopper
 // tensor-core pieces of their bf16 and f32 forms.
 //
 // The bf16 products use mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
@@ -46,17 +46,6 @@ namespace gru_mma {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The value a dot consumes: bf16 models round it to bf16 first.
-template <typename T> __device__ __forceinline__ float dot_operand(float v) {
-  return to_f32(from_f32<T>(v));
-}
 
 __device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
 

@@ -13,8 +13,9 @@ Counterpart of ``deeprest_tpu/ops/pallas_gru.py``:
   the 1e-5 tolerance that one TF32 product would break);
 - K2, the training forward (``emit_prev=True``): :func:`gru_fwd_train_cuda`,
   the same source's ``gru_fwd_train`` entry, which also streams out
-  ``h_prev`` and, with :data:`STASH_GATES`, the hidden gates; bf16 on the
-  tensor cores, f32 on plain FMA;
+  ``h_prev`` and, with :data:`STASH_GATES`, the hidden gates; the same two
+  kernels as K1 instantiated with those stores (bf16 ``mma.sync``, f32
+  3xTF32);
 - K3, the backward (``_bwd_call``): :func:`gru_bwd_cuda`, kernel
   ``csrc/gru_bwd.cu`` (the reverse-time recurrence plus the dW/db product),
   which recomputes the hidden gates when the forward stashed none; both
@@ -27,10 +28,10 @@ Counterpart of ``deeprest_tpu/ops/pallas_gru.py``:
   (``benchmarks/kernel_tuning.py::make_fwd_call``):
   :func:`gru_fwd_blocked_cuda`, kernel ``csrc/gru_fwd_blocked.cu``, with a
   caller-chosen blocking (rows per CTA, experts per CTA, time steps of
-  proj held in shared memory) and an f32 output; with the bf16 dot
-  (``gru_fwd_blocked_mma_kernel``) on the tensor cores like K1, proj
-  through registers (``t_blk = 1``) or a ``cp.async`` ring, with the f32
-  dot on FMA;
+  proj held in shared memory) and an f32 output, both dots on the tensor
+  cores, proj through registers (``t_blk = 1``) or a ``cp.async`` ring:
+  the bf16 dot (``gru_fwd_blocked_mma_kernel``) like K1's bf16 form, the
+  f32 dot (``gru_fwd_blocked_tf32_kernel``) in 3xTF32 like K1's f32 form;
 - the custom VJP ``gru_recurrence`` → :class:`GRURecurrence`;
 - ``_choose_blocks`` / ``block_plan`` → :func:`block_plan`, the Hopper
   plan: per kernel the rows, threads and shared-memory bytes of one CTA,
@@ -106,7 +107,7 @@ GRU_FWD_SOURCE = CudaSource("gru_fwd.cu", headers=MMA_HEADERS, signatures={
                        _INT, _INT, _INT, _INT, _INT, _INT, _PTR]),
     "gru_fwd_train": (_INT, [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, _INT, _INT, _PTR]),
-    "gru_fwd_smem_bytes": (ctypes.c_size_t, [_INT, _INT, _INT]),
+    "gru_fwd_smem_bytes": (ctypes.c_size_t, [_INT, _INT]),
     "gru_fwd_max_threads": (_INT, []),
     "gru_fwd_tf32_max_threads": (_INT, []),
     "gru_fwd_row_groups": (_INT, []),
@@ -123,7 +124,7 @@ GRU_FWD_BLOCKED_SOURCE = CudaSource(
     "gru_fwd_blocked.cu", headers=MMA_HEADERS, signatures={
         "gru_fwd_blocked": (_INT, [_PTR] * 5 + [_INT] * 9 + [_PTR]),
         "gru_fwd_blocked_smem_bytes": (ctypes.c_size_t, [_INT] * 6),
-        "gru_fwd_blocked_max_threads": (_INT, []),
+        "gru_fwd_blocked_tf32_max_threads": (_INT, []),
         "gru_fwd_blocked_mma_max_threads": (_INT, []),
     })
 SOURCES = (GRU_FWD_SOURCE, GRU_BWD_SOURCE, GRU_FWD_BLOCKED_SOURCE)
@@ -172,29 +173,28 @@ SMEM_RESERVED_PER_CTA = 1_024   # the runtime's own share of each CTA
 THREADS_PER_SM = 2_048
 CTAS_PER_SM = 32
 REGISTERS_PER_SM = 65_536
-# The bf16 and FMA kernels are compiled with __launch_bounds__(512), which
-# caps a thread at 128 registers; the plan counts that cap.  K4's
-# tensor-core form is bounded to 256 threads: its single-chain
-# instantiation (16 rows, one expert) at two CTAs an SM, so 128 registers,
-# the others at one, so up to 255.  The f32 3xTF32 forms of K1 and K3 are
-# bounded to the threads of their largest admitted H, one CTA an SM:
-# 544 (K1, H <= 132 on 17 warps of 8 units: 120 registers) and 256 (K3,
-# H <= 128 on 8 warps of 16 units: 255).
+# The bf16 kernels of K1-K3 are compiled with __launch_bounds__(512), which
+# caps a thread at 128 registers; the plan counts that cap.  K4's bf16-dot
+# form is bounded to 256 threads: its single-chain instantiation (16 rows,
+# one expert) at two CTAs an SM, so 128 registers, the others at one, so
+# up to 255.  The f32 3xTF32 forms are bounded to the threads of their
+# largest admitted H, one CTA an SM: 544 (K1, K2 and K4's f32 dot, H <=
+# 132 or 136 on 17 warps of 8 units: 96 registers, as ptxas allots them)
+# and 256 (K3, H <= 128 on 8 warps of 16 units: 255).
 REGISTERS_PER_THREAD = 128
 REGISTERS_PER_THREAD_MAX = 255
 TF32_FWD_MAX_THREADS = 544
 TF32_BWD_MAX_THREADS = 256
-TF32_FWD_UNITS = 8      # hidden units per warp of the f32 K1
+TF32_FWD_UNITS = 8      # hidden units per warp of the f32 K1, K2 and K4
 # Mirrors of the sources' constants: csrc/gru_fwd.cu and csrc/gru_bwd.cu
 # run 16 rows per CTA: the bf16 forms and the f32 3xTF32 K3 on one warp
 # per 16 hidden units (ceil(H/16) warps, 2H threads when H % 16 == 0), the
-# f32 3xTF32 K1 on one warp per 8 units (ceil(H/8) warps), the f32 FMA
-# form (K2) on 2H threads, each one hidden unit of 8 rows in 2 row groups;
-# csrc/gru_fwd_blocked.cu takes rows / 8 row groups with the f32 dot, and
-# one or two m16 tiles of rows on H/16 warps with the bf16 dot.
-ROWS_PER_THREAD = 8
-ROW_GROUPS = 2
-ROW_TILE = ROW_GROUPS * ROWS_PER_THREAD
+# f32 3xTF32 K1 and K2 on one warp per 8 units (ceil(H/8) warps);
+# csrc/gru_fwd_blocked.cu takes one or two m16 tiles of rows on H/16 warps
+# with the bf16 dot, and half an m16 tile, one or two on ceil(H/8) warps
+# with the f32 dot.
+ROW_GROUPS = 2     # bf16: 2H threads, one warp per 16 units
+ROW_TILE = 16
 MAX_THREADS = 512
 MMA_UNITS = 16   # hidden units per warp (and the k16 step) of the bf16 kernels
 # Floats of pad after each shared row of the f32 3xTF32 forms: K1's W_hh
@@ -205,26 +205,27 @@ TF32_BWD_PAD = 4
 BLOCKED_E_BLKS = (1, 2, 4)      # the e_blk instantiations of K4
 BLOCKED_MMA_ROWS = (16, 32)     # K4's bf16-dot batch tiles: 1 or 2 m16 tiles
 BLOCKED_MMA_MAX_THREADS = 256   # K4's bf16-dot CTA: H/16 warps, so H <= 128
+BLOCKED_TF32_ROWS = (8, 16, 32)  # K4's f32-dot tiles: half an m16, 1 or 2
 
 
 def _round16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def fwd_smem_bytes(h: int, bf16: bool, train: bool = True) -> int:
-    """``gru_fwd_smem_bytes`` of K2 (``train``) or K1.  bf16, both: W_hh
-    and the double-buffered bf16 h tile of 16 rows, every row padded by 16
-    bytes against ldmatrix bank conflicts.  f32 K1 (3xTF32): W_hh with
-    rows of 3H + 8 floats and the double-buffered f32 carry tile with rows
-    of H rounded up to 8, plus 4.  f32 K2 (FMA): W_hh padded to 16 bytes
-    and the double-buffered f32 carry tile."""
+def _tf32_tile_bytes(h: int, rows: int) -> int:
+    """The f32 3xTF32 forward's double-buffered carry tile: ``rows`` rows
+    of H rounded up to 8, plus 4 floats."""
+    return 2 * rows * (-(-h // 8) * 8 + TF32_FWD_H_PAD) * 4
+
+
+def fwd_smem_bytes(h: int, bf16: bool) -> int:
+    """``gru_fwd_smem_bytes`` of K1 and K2 (one layout for both).  bf16:
+    W_hh and the double-buffered bf16 h tile of 16 rows, every row padded
+    by 16 bytes against ldmatrix bank conflicts.  f32 (3xTF32): W_hh with
+    rows of 3H + 8 floats and the f32 carry tile of 16 rows."""
     if bf16:
         return (h * (3 * h + 8) + 2 * ROW_TILE * (h + 8)) * 2
-    if not train:
-        k_pad = -(-h // 8) * 8
-        return (h * (3 * h + TF32_FWD_W_PAD)
-                + 2 * ROW_TILE * (k_pad + TF32_FWD_H_PAD)) * 4
-    return _round16(h * 3 * h * 4) + 2 * ROW_TILE * h * 4
+    return h * (3 * h + TF32_FWD_W_PAD) * 4 + _tf32_tile_bytes(h, ROW_TILE)
 
 
 def bwd_smem_bytes(h: int, bf16: bool) -> int:
@@ -242,29 +243,27 @@ def bwd_smem_bytes(h: int, bf16: bool) -> int:
 
 def fwd_blocked_smem_bytes(h: int, rows: int, e_blk: int, t_blk: int,
                            io_bf16: bool, bf16_dot: bool) -> int:
-    """``gru_fwd_blocked_smem_bytes`` (K4), per expert of the block.  bf16
-    dot (tensor cores): W_hh in bf16 and the double-buffered bf16 h tile of
-    ``rows`` rows, every row padded by 16 bytes, and for ``t_blk > 1`` a
-    ring of ``t_blk`` steps of proj rows in the io dtype, padded likewise
-    (at ``t_blk = 1`` proj goes to registers).  f32 dot (FMA): W_hh in the
-    io dtype, the double-buffered f32 carry tile, and ``t_blk`` steps of
-    proj."""
+    """``gru_fwd_blocked_smem_bytes`` (K4), per expert of the block, both
+    dots on the tensor cores, and for ``t_blk > 1`` a ring of ``t_blk``
+    steps of proj rows in the io dtype, each padded by 16 bytes (at
+    ``t_blk = 1`` proj goes to registers).  bf16 dot: W_hh in bf16 and the
+    double-buffered bf16 h tile of ``rows`` rows, every row padded by 16
+    bytes.  f32 dot (3xTF32): W_hh in the io dtype with rows of 3H + 8
+    and the f32 carry tile of ``rows`` rows, as K1's f32 form."""
     io = 2 if io_bf16 else 4
+    ring = t_blk * rows * (3 * h * io + 16) if t_blk > 1 else 0
     if bf16_dot:
-        ring = t_blk * rows * (3 * h * io + 16) if t_blk > 1 else 0
         return e_blk * ((h * (3 * h + 8) + 2 * rows * (h + 8)) * 2 + ring)
-    return e_blk * (_round16(h * 3 * h * io) + 2 * rows * h * 4
-                    + t_blk * rows * 3 * h * io)
+    return e_blk * (h * (3 * h + TF32_FWD_W_PAD) * io
+                    + _tf32_tile_bytes(h, rows) + ring)
 
 
-def default_blocked_rows(b: int, h: int, bf16_dot: bool = False) -> int:
-    """K4's default batch tile: all B rows, rounded up to a row group and
-    capped at :data:`MAX_THREADS` threads of one hidden unit each (f32
-    dot), or rounded up to m16 tiles and capped at two (bf16 dot)."""
-    if bf16_dot:
-        return min(-(-b // MMA_UNITS) * MMA_UNITS, BLOCKED_MMA_ROWS[-1])
-    cap = max(ROWS_PER_THREAD, ROWS_PER_THREAD * (MAX_THREADS // max(h, 1)))
-    return min(-(-b // ROWS_PER_THREAD) * ROWS_PER_THREAD, cap)
+def default_blocked_rows(b: int, bf16_dot: bool = False) -> int:
+    """K4's default batch tile: all B rows, rounded up to whole m16 tiles
+    and capped at two, or with the f32 dot half a tile when B <= 8."""
+    if b <= BLOCKED_TF32_ROWS[0] and not bf16_dot:
+        return BLOCKED_TF32_ROWS[0]
+    return min(-(-b // MMA_UNITS) * MMA_UNITS, BLOCKED_MMA_ROWS[-1])
 
 
 def _check_blocking(e: int, t: int, e_blk: int, t_blk: int) -> None:
@@ -277,7 +276,8 @@ def _check_blocking(e: int, t: int, e_blk: int, t_blk: int) -> None:
         raise ValueError(f"T % t_blk must be 0; got T={t}, t_blk={t_blk}")
 
 
-def _blocked_refusal(h: int, rows: int, e_blk: int, threads: int,
+def _blocked_refusal(h: int, rows: int, e_blk: int, t_blk: int,
+                     threads: int, io_bf16: bool,
                      bf16_dot: bool) -> str | None:
     """Why no K4 instantiation takes this blocking (None if one does),
     before its shared memory is counted."""
@@ -297,19 +297,32 @@ def _blocked_refusal(h: int, rows: int, e_blk: int, threads: int,
                     f"{BLOCKED_MMA_ROWS} (one or two m16 tiles), got "
                     f"rows={rows}")
         return None
-    if rows < ROWS_PER_THREAD or rows % ROWS_PER_THREAD:
-        return f"rows must be a positive multiple of 8, got {rows}"
-    if h % 4 or threads > MAX_THREADS:
-        return (f"takes hidden sizes H % 4 == 0 with rows/8*H <= "
-                f"{MAX_THREADS} threads; got H={h}, rows={rows}")
+    if rows not in BLOCKED_TF32_ROWS:
+        return (f"rows must be 8, 16 or 32 with the f32 dot (3xTF32: half "
+                f"an m16 tile, one or two), got {rows}")
+    if h % 4:
+        return (f"the f32-dot 3xTF32 form takes hidden sizes H % 4 == 0; "
+                f"got H={h}")
+    if threads > TF32_FWD_MAX_THREADS:
+        return (f"the f32-dot 3xTF32 form runs ceil(H/8) warps in at most "
+                f"{TF32_FWD_MAX_THREADS} threads (H <= 136); got H={h}")
+    if io_bf16 and t_blk > 1 and h % 8:
+        return (f"the f32-dot form's cp.async ring copies 16-byte rows: "
+                f"with bf16 io and t_blk > 1 it takes H % 8 == 0; got H={h}")
     return None
 
 
 def _register_cap(max_threads: int) -> int:
     """Registers a thread may keep under ``__launch_bounds__(max_threads,
-    1)``: an SM's 65,536 over the threads, in steps of 8, at most 255."""
+    1)``, in steps of 8, at most 255.  An SM's 65,536 registers sit in 4
+    partitions of 16,384, one per warp scheduler, and the warps of a CTA
+    are dealt over the 4, so the fullest partition sets the cap: 17 warps
+    (544 threads) put 5 on one, 16,384 / (5 x 32) = 102 -> 96 (ptxas on
+    the H100 caps every such kernel at 96), not 65,536 / 544 = 120."""
+    warps = -(-max_threads // 32)
+    per_partition = -(-warps // 4)
     return min(REGISTERS_PER_THREAD_MAX,
-               REGISTERS_PER_SM // max_threads // 8 * 8)
+               REGISTERS_PER_SM // 4 // (32 * per_partition) // 8 * 8)
 
 
 def _plan_entry(rows: int, threads: int, smem: int, ctas: int,
@@ -350,16 +363,16 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
     ``blocked`` K4 alone (``fwd_blocked``, inference only) at the
     blocking ``rows`` (default :func:`default_blocked_rows`),
     ``e_blk``, ``t_blk`` and ``bf16_dot`` (default: the io dtype's); K4's
-    bf16 dot runs on the tensor cores and takes H % 16, H <= 128 and
-    16 or 32 rows (8 rows are refused, not run half empty), its f32 dot
-    on FMA.  K1-K3
+    bf16 dot takes H % 16, H <= 128 and 16 or 32 rows (8 rows are refused,
+    not run half empty), its f32 dot (3xTF32 in ceil(H/8) warps) H % 4,
+    H <= 136 and 8, 16 or 32 rows.  K1-K3
     have a fixed blocking of 16 rows and one expert per CTA, and K3's
     bytes are the same with the gate stash on or off.  In bf16 K1-K3 run
     on the tensor cores in warps of 16 hidden units and refuse ``H % 16``;
-    there is no FMA fallback for a bf16 shape.  In f32 K1 and K3 run
-    3xTF32 on the tensor cores in ceil(H/8) and ceil(H/16) warps (the last
-    one's units past H masked, so they keep taking H % 4 and H % 8), one
-    CTA an SM at H=128, and K2 runs FMA on 2H threads.
+    there is no FMA fallback for a bf16 shape.  In f32 K1 and K2 run
+    3xTF32 on the tensor cores in ceil(H/8) warps and K3 in ceil(H/16)
+    (the last one's units past H masked, so they keep taking H % 4 and
+    H % 8), one CTA an SM at H=128.
 
     Returns ``{"kernels": {name: entry}, "binding": name, **entry of the
     binding kernel}``: the first kernel that does not fit, else the one
@@ -385,19 +398,22 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
                              "training=False")
         _check_blocking(e, t, e_blk, t_blk)
         dot16 = io_bf16 if bf16_dot is None else bool(bf16_dot)
-        rows = default_blocked_rows(b, h, dot16) if rows is None else rows
-        if dot16:       # the tensor-core form: H/16 warps, m16 row tiles
+        rows = default_blocked_rows(b, dot16) if rows is None else rows
+        if dot16:       # H/16 warps, m16 row tiles
             threads = (h // MMA_UNITS) * 32
             registers = (REGISTERS_PER_THREAD
                          if (rows, e_blk) == (MMA_UNITS, 1)
                          else REGISTERS_PER_THREAD_MAX)
-        else:           # the FMA form: rows/8 row groups of H threads
-            threads = (rows // ROWS_PER_THREAD) * h
-            registers = REGISTERS_PER_THREAD
+            max_threads = MAX_THREADS
+        else:           # 3xTF32: one warp per 8 units, those past H masked
+            threads = 32 * -(-h // TF32_FWD_UNITS)
+            registers = _register_cap(TF32_FWD_MAX_THREADS)
+            max_threads = TF32_FWD_MAX_THREADS
         smem = fwd_blocked_smem_bytes(h, rows, e_blk, t_blk, io_bf16, dot16)
         kernels["fwd_blocked"] = _plan_entry(
             rows, threads, smem, -(-b // max(rows, 1)) * (e // e_blk),
-            _blocked_refusal(h, rows, e_blk, threads, dot16), registers)
+            _blocked_refusal(h, rows, e_blk, t_blk, threads, io_bf16, dot16),
+            registers, max_threads)
     else:
         if rows is not None or e_blk != 1 or t_blk != 1:
             raise ValueError("K1-K3 run 16 rows and one expert per CTA over "
@@ -414,16 +430,15 @@ def block_plan(e: int, t: int, b: int, h: int, dtype=torch.float32,
         if refusal is None and (h % 4 or threads > MAX_THREADS):
             refusal = (f"takes hidden sizes H % 4 == 0 with {ROW_GROUPS}*H "
                        f"<= {MAX_THREADS} threads; got H={h}")
-        if training or io_bf16:
-            kernels["fwd_train" if training else "fwd"] = _plan_entry(
-                ROW_TILE, threads, fwd_smem_bytes(h, io_bf16, training),
-                ctas, refusal)
+        fwd = "fwd_train" if training else "fwd"
+        if io_bf16:
+            kernels[fwd] = _plan_entry(ROW_TILE, threads,
+                                       fwd_smem_bytes(h, True), ctas, refusal)
         else:       # 3xTF32: one warp per 8 units, those past H masked
-            kernels["fwd"] = _plan_entry(
+            kernels[fwd] = _plan_entry(
                 ROW_TILE, 32 * -(-h // TF32_FWD_UNITS),
-                fwd_smem_bytes(h, False, False),
-                ctas, refusal, _register_cap(TF32_FWD_MAX_THREADS),
-                TF32_FWD_MAX_THREADS)
+                fwd_smem_bytes(h, False), ctas, refusal,
+                _register_cap(TF32_FWD_MAX_THREADS), TF32_FWD_MAX_THREADS)
         if training:
             refusal = mma_refusal
             if refusal is None and (h % 8 or threads > MAX_THREADS):
@@ -754,7 +769,8 @@ def gru_fwd_blocked_cuda(proj: torch.Tensor, w_hh: torch.Tensor,
     :func:`default_blocked_rows`), ``e_blk`` (experts per CTA, stepped
     time outer and expert inner) and ``t_blk`` (steps of proj held in
     shared memory; 1 loads them into registers).  The bf16 dot launches
-    the tensor-core form, the f32 dot the FMA form.
+    ``gru_fwd_blocked_mma_kernel``, the f32 dot the 3xTF32
+    ``gru_fwd_blocked_tf32_kernel``.
 
     Contract of :func:`gru_fwd_blocked_reference` with the inputs of
     :func:`gru_fwd_cuda`; returns ``h_all [E, T, B, H]`` in f32.  Raises

@@ -10,15 +10,16 @@ Tolerances are the JAX package's own kernel tolerances
 (tests/test_pallas_gru.py): forward 1e-5 in float32, 2e-2 relative in
 bfloat16; gradients 2e-4 (float32) and 2e-2 (bfloat16) relative to each
 tensor's largest magnitude, since the kernels sum in another order than the
-plain versions.  The float32 K1 and K3 run 3xTF32 on the tensor cores; they
-are also held against an f64 run of the plain recurrence.
+plain versions.  Every float32 kernel (K1, K2, K3 and K4's f32 dot) runs
+3xTF32 on the tensor cores; each is also held against an f64 run of the
+plain recurrence.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from deeprest_tpu_torch.benchmarks import f32_kernels
+from deeprest_tpu_torch.benchmarks import f32_kernels, kernel_tuning
 from deeprest_tpu_torch.ops import cuda_gru
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -34,7 +35,7 @@ TRAIN_SHAPES = [(40, 60, 32, 128), (3, 7, 37, 128)] + NEW_H_SHAPES
 # forms run a last warp with units past H (the bf16 forms refuse it)
 MAIN_PATH_SHAPES = [(88, 60, 32, 128), (88, 60, 8, 128)]
 F32_ONLY_SHAPES = [(3, 7, 37, 40)]
-# f32 K1 takes H % 4: at H % 8 == 4 its last k step is half past H
+# f32 K1 and K2 take H % 4: at H % 8 == 4 their last k step is half past H
 F32_FORWARD_ONLY_SHAPES = [(3, 7, 37, 36), (2, 4, 9, 132)]
 BOTH = (torch.float32, torch.bfloat16)
 
@@ -90,9 +91,10 @@ def test_kernel_matches_plain(cuda, shape, reverse, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("shape,dtype", _shapes_and_dtypes(TRAIN_SHAPES)
+                         + [(s, torch.float32)
+                            for s in F32_FORWARD_ONLY_SHAPES])
 def test_train_forward_matches_plain(cuda, shape, reverse, dtype):
     args = _inputs(*shape, dtype, cuda, seed=1)
     before = cuda_gru.GRU_FWD_TRAIN.launches
@@ -142,23 +144,51 @@ def test_backward_is_deterministic(cuda, dtype):
             assert torch.equal(a, b)
 
 
+def _within_f64(got, plain, want, what):
+    """``got`` within 4x the plain f32 version's distance from the f64
+    recurrence (cuBLAS f32 products) and under 1e-5 of scale."""
+    err = f32_kernels.scaled_error(got, want)
+    bound = min(1e-5, 4 * f32_kernels.scaled_error(plain, want))
+    assert err <= bound, (what, err, bound)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", [(40, 60, 32, 128), (88, 60, 8, 128),
-                                   (3, 7, 37, 40)])
+@pytest.mark.parametrize("shape", [(40, 60, 32, 128), (88, 60, 32, 128),
+                                   (88, 60, 8, 128), (3, 7, 37, 40)])
 def test_f32_kernels_against_an_f64_recurrence(cuda, shape, reverse):
-    """The 3xTF32 K1 and K3 against the plain recurrence run in f64 on the
-    same f32 inputs: each within 4x the plain f32 version's own error
-    (cuBLAS f32 products) and under 1e-5 of scale."""
+    """The 3xTF32 K1, K2 (h_all, h_prev and gates), K3 and, forward, K4's
+    f32 dot at every f32 blocking of the sweep's --quick menu the plan
+    admits, against the plain recurrence run in f64 on the same f32
+    inputs."""
     args = f32_kernels.recurrence_inputs(shape, seed=6)
-    want = f32_kernels.recurrence_f64(*args, reverse=reverse)
-    got = cuda_gru.gru_fwd_cuda(*args, reverse=reverse)
-    plain = cuda_gru.gru_recurrence_reference(*args, reverse=reverse)
-    err = f32_kernels.scaled_error(got, want)
-    assert err <= min(1e-5, 4 * f32_kernels.scaled_error(plain, want)), err
+    want, want_prev, want_gates = f32_kernels.recurrence_f64(
+        *args, reverse=reverse, emit_prev=True)
+    _within_f64(cuda_gru.gru_fwd_cuda(*args, reverse=reverse),
+                cuda_gru.gru_recurrence_reference(*args, reverse=reverse),
+                want, "K1 h_all")
+    got = cuda_gru.gru_fwd_train_cuda(*args, reverse=reverse)
+    plain = cuda_gru.gru_fwd_train_reference(*args, reverse=reverse)
+    for name, g, p, w in zip(("h_all", "h_prev", "gates"), got, plain,
+                             (want, want_prev, want_gates)):
+        _within_f64(g, p, w, f"K2 {name}")
+    if not reverse:             # K4 runs forward only
+        e, t, b, h = shape
+        blocked = 0
+        for rows, e_blk, t_blk in kernel_tuning.blocking_menu(e, t, b, h,
+                                                              quick=True):
+            if not cuda_gru.block_plan(e, t, b, h, torch.float32,
+                                       training=False, rows=rows,
+                                       e_blk=e_blk, t_blk=t_blk, blocked=True,
+                                       bf16_dot=False)["fits"]:
+                continue
+            blocked += 1
+            _within_f64(cuda_gru.gru_fwd_blocked_cuda(
+                *args, e_blk=e_blk, t_blk=t_blk, rows=rows),
+                plain[0], want, f"K4 {(rows, e_blk, t_blk)}")
+        assert blocked > 0
     proj, w_hh, b_hh, h0 = args
-    _, h_prev, gates = cuda_gru.gru_fwd_train_reference(proj, w_hh, b_hh,
-                                                        h0, reverse)
+    _, h_prev, gates = plain
     dout = torch.randn(h_prev.shape, generator=torch.Generator(
         cuda).manual_seed(7), device=cuda)
     for stash in (gates, None):
@@ -168,9 +198,29 @@ def test_f32_kernels_against_an_f64_recurrence(cuda, shape, reverse):
         plain_b = cuda_gru.gru_bwd_reference(*bwd_in, reverse=reverse)
         for name, g, p, w in zip(("dproj", "dW_hh", "db_hh", "dh0"), got_b,
                                  plain_b, want_b):
-            err = f32_kernels.scaled_error(g, w)
-            bound = min(1e-5, 4 * f32_kernels.scaled_error(p, w))
-            assert err <= bound, (name, stash is not None, err, bound)
+            _within_f64(g, p, w, (name, stash is not None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_f32_forwards_repeat_their_bits(cuda, reverse):
+    """K2 and K4's f32 dot give the same bits on a second run (a captured
+    update equals an eager one, and a resumed run the uninterrupted one,
+    only if they do); K4 at one and two m16 tiles, half a tile, and with
+    the cp.async ring in bf16 io."""
+    args = f32_kernels.recurrence_inputs((40, 60, 32, 128), seed=8)
+    first = cuda_gru.gru_fwd_train_cuda(*args, reverse=reverse)
+    again = cuda_gru.gru_fwd_train_cuda(*args, reverse=reverse)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    if reverse:
+        return
+    bf16 = (args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)) + args[2:]
+    for inputs, rows, t_blk in ((args, 8, 1), (args, 16, 1), (bf16, 32, 1),
+                                (bf16, 16, 6)):
+        runs = [cuda_gru.gru_fwd_blocked_cuda(*inputs, t_blk=t_blk, rows=rows)
+                for _ in range(2)]
+        assert torch.equal(*runs), (rows, t_blk, inputs[0].dtype)
 
 
 @pytest.mark.cuda
@@ -314,16 +364,16 @@ def test_plan_bytes_equal_the_sources(cuda):
     assert fwd.gru_fwd_row_groups() == cuda_gru.ROW_GROUPS
     assert bwd.gru_bwd_row_tile() == cuda_gru.ROW_TILE
     assert fwd.gru_fwd_max_threads() == bwd.gru_bwd_max_threads() \
-        == blk.gru_fwd_blocked_max_threads() == cuda_gru.MAX_THREADS
-    assert fwd.gru_fwd_tf32_max_threads() == cuda_gru.TF32_FWD_MAX_THREADS
+        == cuda_gru.MAX_THREADS
+    assert fwd.gru_fwd_tf32_max_threads() == \
+        blk.gru_fwd_blocked_tf32_max_threads() == cuda_gru.TF32_FWD_MAX_THREADS
     assert bwd.gru_bwd_tf32_max_threads() == cuda_gru.TF32_BWD_MAX_THREADS
     assert blk.gru_fwd_blocked_mma_max_threads() == \
         cuda_gru.BLOCKED_MMA_MAX_THREADS
     for h in (12, 40, 64, 72, 96, 128, 132, 256):
         for bf16 in (0, 1):
-            for train in (0, 1):
-                assert fwd.gru_fwd_smem_bytes(h, bf16, train) == \
-                    cuda_gru.fwd_smem_bytes(h, bool(bf16), bool(train))
+            assert fwd.gru_fwd_smem_bytes(h, bf16) == \
+                cuda_gru.fwd_smem_bytes(h, bool(bf16))
             assert bwd.gru_bwd_smem_bytes(h, bf16) == \
                 cuda_gru.bwd_smem_bytes(h, bool(bf16))
             for rows, e_blk, t_blk in BLOCKED_MENU:
@@ -344,11 +394,12 @@ def test_every_wrapper_refuses_what_the_plan_refuses_without_launching(cuda):
     for call in (lambda: cuda_gru.gru_fwd_cuda(proj, w_hh, b_hh, h0),
                  lambda: cuda_gru.gru_fwd_train_cuda(proj, w_hh, b_hh, h0),
                  lambda: cuda_gru.gru_bwd_cuda(proj, h_prev, None, w_hh,
-                                               b_hh, h_prev),
-                 lambda: cuda_gru.gru_fwd_blocked_cuda(proj, w_hh, b_hh, h0,
-                                                       rows=8)):
+                                               b_hh, h_prev)):
         with pytest.raises(ValueError, match="bytes of shared memory"):
             call()
+    # K4's f32 dot runs one warp per 8 units: H=256 needs 32 warps
+    with pytest.raises(ValueError, match="threads"):
+        cuda_gru.gru_fwd_blocked_cuda(proj, w_hh, b_hh, h0, rows=8)
     # e_blk=2 f32 at H=128: two 192 KiB W_hh tiles
     args = _inputs(2, 6, 8, 128, torch.float32, cuda)
     assert not cuda_gru.block_plan(2, 6, 8, 128, torch.float32,
@@ -358,6 +409,10 @@ def test_every_wrapper_refuses_what_the_plan_refuses_without_launching(cuda):
         cuda_gru.gru_fwd_blocked_cuda(*args, e_blk=2, rows=8)
     with pytest.raises(ValueError, match="rows must be"):
         cuda_gru.gru_fwd_blocked_cuda(*args, rows=12)
+    # f32 io with the f32 dot: a 2-step ring of 8 rows does not fit beside
+    # the padded f32 W_hh (the FMA form took it)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        cuda_gru.gru_fwd_blocked_cuda(*args, rows=8, t_blk=2)
     with pytest.raises(ValueError, match="T % t_blk"):
         cuda_gru.gru_fwd_blocked_cuda(*args, t_blk=4)
     with pytest.raises(ValueError, match="must divide E"):

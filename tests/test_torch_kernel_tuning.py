@@ -123,21 +123,19 @@ def test_block_plan_flagship_at_coalesced_rows(g, dtype, training):
                                     else {"fwd"})
     assert plan["binding"] == ("bwd" if training else "fwd")
     for name, entry in plan["kernels"].items():
-        # the f32 K1 runs one warp per 8 units, the others 2H threads
+        # the f32 K1 and K2 run one warp per 8 units, the others 2H threads
         assert entry["rows_per_cta"] == 16 and entry["threads_per_cta"] == (
-            512 if (name, bf16) == ("fwd", False) else 256)
+            512 if not bf16 and name != "bwd" else 256)
         assert entry["ctas"] == 2 * g * 40
         assert entry["smem_limit"] == 232_448
         assert entry["ctas_per_sm"] >= 1
         assert entry["waves"] == -(-entry["ctas"] // (
             entry["ctas_per_sm"] * cuda_gru.H100_SMS))
     fwd = plan["kernels"]["fwd_train" if training else "fwd"]
-    # bf16: W_hh [128][392] and the h tile [2][16][136], bf16; f32 K2 (FMA):
-    # W_hh and the double-buffered f32 carry tile; f32 K1 (3xTF32): W_hh
-    # [128][392] and the carry tile [2][16][132], f32
+    # bf16: W_hh [128][392] and the h tile [2][16][136], bf16; f32 K1 and
+    # K2 (3xTF32): W_hh [128][392] and the carry tile [2][16][132], f32
     assert fwd["smem_bytes"] == (
         (128 * 392 + 2 * 16 * 136) * 2 if bf16
-        else 196_608 + 16_384 if training
         else (128 * 392 + 2 * 16 * 132) * 4)
     assert fwd["ctas_per_sm"] == (2 if bf16 else 1)
     if training:
@@ -176,27 +174,28 @@ def test_block_plan_bf16_training_waves(e, g, waves):
 
 @pytest.mark.parametrize("training", [True, False])
 def test_block_plan_f32_entries_keep_the_fma_bytes(training):
-    """K2 in f32 keeps its FMA design and its bytes; K1 and K3 in f32 run
-    3xTF32 with padded rows (K3's bytes the same with the stash on or
-    off).  All hold one CTA an SM at H=128, so the fused E=80 training
-    call takes twice the waves of E=40."""
+    """K1, K2 and K3 in f32 run 3xTF32 with padded rows, K2 in K1's
+    layout and bytes (the FMA K2 took 212,992 at H=128), K3's bytes the
+    same with the stash on or off.  All hold one CTA an SM at H=128, so
+    the fused E=80 training call takes twice the waves of E=40."""
     for e, waves in ((40, 1), (80, 2)):
         plan = cuda_gru.block_plan(e, 60, 32, 128, torch.float32,
                                    training=training)
         fwd = plan["kernels"]["fwd_train" if training else "fwd"]
-        assert fwd["smem_bytes"] == (212_992 if training else 217_600)
+        assert fwd["smem_bytes"] == 217_600
         assert (fwd["ctas_per_sm"], fwd["waves"]) == (1, waves)
         if training:
             assert plan["kernels"]["bwd"]["smem_bytes"] == 223_488
-    assert cuda_gru.fwd_smem_bytes(72, False) == 72 * 216 * 4 + 2 * 16 * 72 * 4
+    assert cuda_gru.fwd_smem_bytes(72, False) == \
+        72 * 224 * 4 + 2 * 16 * 76 * 4
 
 
 @pytest.mark.parametrize("training", [True, False])
 def test_block_plan_bf16_refuses_h_not_a_multiple_of_16(training):
     """bf16 K1-K3 run one warp per 16 hidden units: H=72 is refused with a
     reason that names 16 (never sent to an FMA kernel), while f32 H=72 and
-    the bf16 K4 at H=72 with the f32 dot (its FMA form) still fit; K4's
-    bf16 dot runs on the tensor cores and refuses H=72 too."""
+    the bf16 K4 at H=72 with the f32 dot (3xTF32 in warps of 8 units)
+    still fit; K4's bf16 dot refuses H=72 too."""
     plan = cuda_gru.block_plan(2, 4, 8, 72, torch.bfloat16,
                                training=training)
     assert not plan["fits"]
@@ -230,8 +229,8 @@ def test_block_plan_refusals():
                                training=False, rows=8, e_blk=2,
                                blocked=True)
     assert not plan["fits"] and "bytes of shared memory" in plan["refusal"]
-    # the same blocking fits in bf16 on FMA (the f32 dot), W_hh 96 KiB each;
-    # the bf16 dot takes whole m16 tiles, so 8 rows are refused
+    # the same blocking fits in bf16 with the f32 dot (3xTF32, W_hh 98 KiB
+    # each); the bf16 dot takes whole m16 tiles, so 8 rows are refused
     assert cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
                                training=False, rows=8, e_blk=2,
                                blocked=True, bf16_dot=False)["fits"]
@@ -245,7 +244,7 @@ def test_block_plan_refusals():
         2, 4, 4, 128, torch.float32, training=False, rows=12,
         blocked=True)["refusal"]
     assert "threads" in cuda_gru.block_plan(
-        2, 4, 64, 128, torch.bfloat16, training=False, rows=64,
+        2, 4, 16, 144, torch.bfloat16, training=False, rows=16,
         blocked=True, bf16_dot=False)["refusal"]
     assert "threads (H <= 128)" in cuda_gru.block_plan(
         2, 4, 16, 144, torch.bfloat16, training=False, rows=16,
@@ -258,7 +257,8 @@ def test_block_plan_refusals():
 
 def test_block_plan_blocked_defaults_and_waves():
     # all 32 rows by default: two m16 tiles on H/16 = 8 warps with the
-    # bf16 dot; 8 rows on FMA (the f32 dot) give 320 CTAs at E80
+    # bf16 dot; 8 rows with the f32 dot (half an m16 tile on 16 warps of 8
+    # units, one CTA an SM) give 320 CTAs at E80, 3 waves
     plan = cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
                                training=False, blocked=True)
     assert plan["binding"] == "fwd_blocked"
@@ -267,19 +267,21 @@ def test_block_plan_blocked_defaults_and_waves():
     eight = cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
                                 training=False, rows=8, blocked=True,
                                 bf16_dot=False)
-    assert eight["ctas"] == 320 and eight["ctas_per_sm"] == 2
-    assert eight["waves"] == 2
+    assert eight["ctas"] == 320 and eight["ctas_per_sm"] == 1
+    assert eight["waves"] == 3
     assert cuda_gru.block_plan(80, 60, 32, 128, torch.bfloat16,
                                training=False, rows=16,
                                blocked=True)["ctas"] == 160
-    # the ragged batch rounds up to whole row groups, under the cap (f32
-    # dot), or to whole m16 tiles, at most two (bf16 dot)
-    assert cuda_gru.default_blocked_rows(37, 128) == 32
-    assert cuda_gru.default_blocked_rows(20, 128) == 24
-    assert cuda_gru.default_blocked_rows(37, 64) == 40
-    assert cuda_gru.default_blocked_rows(20, 128, bf16_dot=True) == 32
-    assert cuda_gru.default_blocked_rows(9, 64, bf16_dot=True) == 16
-    assert cuda_gru.default_blocked_rows(37, 64, bf16_dot=True) == 32
+    # the ragged batch rounds up to whole m16 tiles, at most two, or with
+    # the f32 dot to half a tile when it holds 8 rows or fewer
+    assert cuda_gru.default_blocked_rows(37) == 32
+    assert cuda_gru.default_blocked_rows(20) == 32
+    assert cuda_gru.default_blocked_rows(9) == 16
+    assert cuda_gru.default_blocked_rows(5) == 8
+    assert cuda_gru.default_blocked_rows(20, bf16_dot=True) == 32
+    assert cuda_gru.default_blocked_rows(9, bf16_dot=True) == 16
+    assert cuda_gru.default_blocked_rows(5, bf16_dot=True) == 16
+    assert cuda_gru.default_blocked_rows(37, bf16_dot=True) == 32
     # the bf16 dot keeps W_hh and the h tile in bf16 with 16-byte row pads,
     # f32 inputs or not; at t_blk = 1 proj goes to registers, so at K1's
     # blocking K4 needs K1's bytes
@@ -292,12 +294,13 @@ def test_block_plan_blocked_defaults_and_waves():
         == 109_056 + 6 * 16 * (384 * 2 + 16)
     assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 2, False, True) \
         == 109_056 + 2 * 16 * (384 * 4 + 16)
-    # the f32 dot keeps the FMA layout (unpadded W_hh in the io dtype, an
-    # f32 carry tile, t_blk steps of proj); f32 K2 has that layout
+    # the f32 dot takes the layout of the f32 K1 and K2 (W_hh rows of 3H +
+    # 8 in the io dtype, the f32 carry tile of rows of 132 floats); at K1's
+    # blocking, f32 io, it needs K1's bytes
     assert cuda_gru.fwd_blocked_smem_bytes(128, 16, 1, 1, False, False) \
-        == cuda_gru.fwd_smem_bytes(128, False) + 16 * 384 * 4
+        == cuda_gru.fwd_smem_bytes(128, False) == 217_600
     assert cuda_gru.fwd_blocked_smem_bytes(128, 8, 1, 1, True, False) \
-        == 98_304 + 2 * 8 * 128 * 4 + 8 * 384 * 2
+        == 128 * 392 * 2 + 2 * 8 * 132 * 4
 
 
 @pytest.mark.parametrize("rows,e_blk,smem,ctas,per_sm,waves", [
@@ -323,8 +326,8 @@ def test_block_plan_blocked_bf16_dot_fits_hopper(dtype, rows, e_blk, smem,
 def test_block_plan_blocked_bf16_dot_refuses_h(h):
     """One warp per 16 hidden units, at most 8 warps: H % 16 and H > 128
     are refused with the bf16 dot, whatever the io dtype, before any
-    launch; the FMA form (f32 dot) takes them (at H=136 in bf16 only: the
-    f32 W_hh alone is 221,952 bytes)."""
+    launch; the f32 dot (3xTF32, one warp per 8 units) takes them (at
+    H=136 in bf16 only: the padded f32 W_hh alone is 226,304 bytes)."""
     for dtype in (torch.bfloat16, torch.float32):
         plan = cuda_gru.block_plan(2, 4, 16, h, dtype, training=False,
                                    rows=16, blocked=True, bf16_dot=True)
@@ -343,12 +346,14 @@ def test_block_plan_blocked_bf16_dot_refuses_h(h):
 @pytest.mark.parametrize("h", [64, 96, 128])
 def test_block_plan_blocked_f32_dot_keeps_fma_bytes(h, io_bf16, rows, e_blk,
                                                     t_blk):
-    """The f32-dot forms keep the FMA layout and its bytes: per expert
-    W_hh in the io dtype padded to 16 bytes, the double-buffered f32 carry
-    tile, and t_blk steps of proj."""
+    """The f32-dot form takes the layout of the f32 K1: per expert W_hh
+    in the io dtype with rows of 3H + 8, the double-buffered f32 carry
+    tile with rows of H rounded up to 8, plus 4, and for t_blk > 1 a ring
+    of t_blk steps of proj rows padded by 16 bytes; one warp per 8
+    units."""
     io = 2 if io_bf16 else 4
-    want = e_blk * (-(-h * 3 * h * io // 16) * 16 + 2 * rows * h * 4
-                    + t_blk * rows * 3 * h * io)
+    ring = t_blk * rows * (3 * h * io + 16) if t_blk > 1 else 0
+    want = e_blk * (h * (3 * h + 8) * io + 2 * rows * (h + 4) * 4 + ring)
     assert cuda_gru.fwd_blocked_smem_bytes(h, rows, e_blk, t_blk, io_bf16,
                                            False) == want
     plan = cuda_gru.block_plan(4 * e_blk, 6 * t_blk, 37, h,
@@ -356,7 +361,7 @@ def test_block_plan_blocked_f32_dot_keeps_fma_bytes(h, io_bf16, rows, e_blk,
                                training=False, rows=rows, e_blk=e_blk,
                                t_blk=t_blk, blocked=True, bf16_dot=False)
     assert plan["smem_bytes"] == want
-    assert plan["threads_per_cta"] == rows // 8 * h
+    assert plan["threads_per_cta"] == 32 * h // 8
 
 
 QUICK_BF16_DOT_ADMITTED = {(32, 1, 1), (16, 1, 1), (16, 1, 6), (16, 2, 1)}
