@@ -159,11 +159,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     --verdict-raw --watch` on the stream's checkpoint in its own process
     (/v1/verdict 200 with states, the next stream checkpoint reloaded and
     swept, no capture after warm-up);
-12. the seconds of each phase, one JSON line of per-kernel numbers, then
+12. the replica plane on phase 5's checkpoint (run after phase 8):
+    `serve --replicas R --admission-depth 64` with the MicroBatcher,
+    process replicas at R = 1, 2 and 4 and thread replicas at 2 (every
+    worker captures its 18 graphs before its handshake and none after;
+    each answer to phase 8's request mix, posted alone, bit for bit the
+    single engine's; closed loops at concurrency 16 and 64 with the
+    clients in 4 spawned processes: requests/s, p50/p99, per-replica
+    served counts, each worker's graphs and device memory, sampled
+    answers against the single-client ones; 256 clients against depth 64
+    on R = 4); on R = 2 with `--watch`, a worker SIGKILLed under load
+    (no failed request, the probe restarts it, it serves again) and a
+    newer step written under load (the workers restart one at a time,
+    every answer's windows match one step, never a mix); `profile
+    --seconds 1` against the thread plane under load (K1 by its symbol
+    in the trace); 256 clients against depth 2 on one thread replica
+    (fast 429s with Retry-After); `train --epochs 1 --profile-dir` on
+    phase 6's corpus (K3 in the trace) and `measure_step_breakdown` on a
+    flagship trainer;
+13. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 10, 11 and the sweep of 9; a server or CLI process starts at 0) and
+7, 8, 12, 10, 11 and the sweep of 9; a server or CLI process starts at
+0, and phase 12 sums its workers' ledgers) and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -1939,6 +1958,8 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
             result["http"][label] = {"loads": loads,
                                      "coalesced_batches": coalesced,
                                      "predict_err": errs}
+            if label == "batcher":      # phase 12's single-engine answers
+                result.update(bodies=bodies, single=single)
         finally:
             stop_server(proc)
         print(f"main plane {label}: {time.perf_counter() - t_server:.1f} s "
@@ -2119,6 +2140,470 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
           flush=True)
     result.update(launches=launches, err_peaks=err_peaks,
                   err_surface=err_surface, series=series)
+    return result
+
+# -- phase 12: the replica plane --------------------------------------------
+
+# (mode, replicas, admission depth, closed-loop concurrencies, role)
+REPLICA_PLANES = (
+    ("process", 1, 64, (16, 64), None),
+    ("process", 2, 64, (16, 64), "chaos"),      # SIGKILL, then the reload
+    ("process", 4, 64, (16, 64, 256), None),
+    ("thread", 2, 64, (16, 64), "profile"),
+    # the front admits a few requests at a time (PERF.md §5), so a depth
+    # of 64 never binds on one card: the 429 path is driven at depth 2
+    ("thread", 1, 2, (256,), "shed"),
+)
+REPLICA_CONCURRENCY = (16, 64)
+REPLICA_OVERLOAD = 256
+REPLICA_LOAD_S = 3.0
+REPLICA_CLIENT_PROCS = 4            # client processes of a closed loop
+REPLICA_OVERLOAD_PROCS = 8          # ... and of the overload's
+RELOAD_SCALE = 1.25                 # the newer step's params, x this
+
+
+def replica_health(url: str) -> dict:
+    status, health = http_json(url + "/healthz", timeout=120)
+    if status != 200:
+        fail(f"replica plane /healthz answered {status}: {health}")
+    return health
+
+
+def worker_launches(health: dict) -> int:
+    """K1 launches of every worker of a process plane (their own
+    ledgers), or of the front of a thread plane."""
+    workers = [r.get("worker") for r in health["router"]["replicas"]]
+    if all(w is None for w in workers):
+        return health["kernel_launches"]["gru_fwd"]
+    return sum(w["kernel_launches"]["gru_fwd"] for w in workers if w)
+
+
+def check_worker_graphs(label: str, health: dict, warmed: int) -> list:
+    """Each worker's rung graphs (a thread plane's shared stack): every
+    capture at warm-up, none after; returns each worker's device memory."""
+    replicas = health["router"]["replicas"]
+    if replicas[0]["kind"] == "thread":
+        ledgers = [health["jit_cache"]]
+        memory = [health["device_memory"]]
+    else:
+        ledgers = [(r["worker"] or {}).get("jit_cache") for r in replicas]
+        memory = [(r["worker"] or {}).get("memory") for r in replicas]
+    for ledger in ledgers:
+        if ledger is None or ledger["captures"] != warmed \
+                or ledger["captures_after_warmup"]:
+            fail(f"replica plane {label}: graphs {ledger} (want {warmed} "
+                 "captured at warm-up, none after)")
+    print(f"check replica {label} graphs: {[g['captures'] for g in ledgers]}"
+          f" captured at warm-up, {[g['captures_after_warmup'] for g in ledgers]}"
+          f" after; device memory allocated/reserved MiB "
+          f"{[(m['allocated'] >> 20, m['reserved'] >> 20) if m else None for m in memory]};"
+          f" the front's {health['device_memory']}", flush=True)
+    return memory
+
+
+def window_verdicts(got, old, new) -> set:
+    """Which step each window of one answer matches (within the bf16
+    tolerance of scale): the first and the right-aligned last window."""
+    import numpy as np
+
+    out = set()
+    for rows in (slice(0, W), slice(len(got) - W, len(got))):
+        g, errs = got[rows], {}
+        for name, want in (("old", old), ("new", new)):
+            w = want[rows]
+            errs[name] = float(np.abs(g - w).max()
+                               / max(float(np.abs(w).max()), 1e-12))
+        out.add(min(errs, key=errs.get) if min(errs.values())
+                <= TOL["bfloat16"][0] else "neither")
+    return out
+
+
+def background_load(url: str, bodies: list, concurrency: int):
+    """Client threads posting ``bodies`` in turn until stopped; returns
+    (stop event, threads, records of (status, body index, answer))."""
+    import http.client
+    import threading
+    import urllib.parse
+
+    where = urllib.parse.urlsplit(url)
+    stop, lock, records = threading.Event(), threading.Lock(), []
+
+    def client(i):
+        conn = http.client.HTTPConnection(where.hostname, where.port,
+                                          timeout=120)
+        k = i
+        while not stop.is_set():
+            j = k % len(bodies)
+            k += 1
+            try:
+                conn.request("POST", "/v1/predict", bodies[j],
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                answer = resp.read()
+            except OSError as exc:
+                answer, status = repr(exc).encode(), -1
+                conn.close()
+                conn = http.client.HTTPConnection(where.hostname, where.port,
+                                                  timeout=120)
+            else:
+                status = resp.status
+            with lock:
+                records.append((status, j, answer))
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(concurrency)]
+    for t in threads:
+        t.start()
+    return stop, threads, records
+
+
+def stop_load(stop, threads) -> None:
+    stop.set()
+    for t in threads:
+        t.join(150)
+    if any(t.is_alive() for t in threads):
+        fail("replica plane: a client thread hung")
+
+
+def wait_for(what: str, cond, timeout: float = 180.0):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            fail(f"replica plane: {what} within {timeout:.0f} s")
+        time.sleep(0.25)
+
+
+def replica_chaos(url: str, bodies: list, single: list) -> dict:
+    """SIGKILL worker p0 of a two-worker process plane under load: its
+    in-flight requests retried on p1, no 5xx, the probe restarts it and it
+    serves again; returns its K1 launches before the kill."""
+    import signal
+
+    health = replica_health(url)
+    victim = health["router"]["replicas"][0]
+    survivor0 = health["router"]["replicas"][1]["served_requests"]
+    victim_k1 = victim["worker"]["kernel_launches"]["gru_fwd"]
+    stop, threads, records = background_load(url, bodies, 16)
+    try:
+        time.sleep(1.0)
+        t_kill = time.perf_counter()
+        os.kill(victim["pid"], signal.SIGKILL)
+
+        def rejoined():
+            h = replica_health(url)
+            r = h["router"]["replicas"][0]
+            return h if (not r["health"]["ejected"] and r["pid"]
+                         != victim["pid"] and r["worker"]) else None
+
+        health = wait_for("the killed worker rejoining", rejoined)
+        rejoin_s = time.perf_counter() - t_kill
+        time.sleep(1.0)                 # it serves again under the load
+    finally:
+        stop_load(stop, threads)
+    statuses = [s for s, _, _ in records]
+    bad = [s for s in statuses if s != 200]
+    totals = health["router"]["health"]
+    replicas = health["router"]["replicas"]
+    print(f"check replica chaos: SIGKILL of p0 (pid {victim['pid']}) under "
+          f"16 clients: {len(statuses)} requests, non-200 {bad[:5]} "
+          f"({len(bad)}), ejections {totals['ejections']}, retries "
+          f"{totals['retries']}, rejoins {totals['rejoins']} after "
+          f"{rejoin_s:.1f} s (restart with its graphs captured); p1 served "
+          f"{replicas[1]['served_requests'] - survivor0} meanwhile, p0 "
+          f"{replicas[0]['served_requests'] - victim['served_requests']} "
+          "since", flush=True)
+    if bad or totals["ejections"] < 1 or totals["rejoins"] < 1:
+        fail("replica plane: the killed worker was not retried around and "
+             "rejoined cleanly")
+    if replicas[1]["served_requests"] <= survivor0:
+        fail("replica plane: the surviving worker stopped serving")
+    # the rejoined worker answers bit for bit the single engine
+    after = replica_health(url)["router"]["replicas"][0]["served_requests"]
+    for i, body in enumerate(bodies):
+        status, answer = http_json(url + "/v1/predict", json.loads(body))
+        if status != 200 or answer["predictions"] != single[i]:
+            fail("replica plane: an answer after the rejoin differs from "
+                 "the single engine's")
+    if replica_health(url)["router"]["replicas"][0]["served_requests"] \
+            <= after:
+        fail("replica plane: the rejoined worker serves nothing")
+    return {"rejoin_s": rejoin_s, "requests": len(statuses),
+            "victim_k1": victim_k1, **totals}
+
+
+def replica_reload(url: str, ckpt: str, extra: dict, params: dict,
+                   bodies: list) -> dict:
+    """Write step 1 (params x RELOAD_SCALE) into the watched checkpoint
+    under load: the workers restart one at a time, every answer is the old
+    step's or the new step's (each of its windows, never a mix), and each
+    worker captures only at its re-warm; returns the workers' K1 launches
+    before the roll."""
+    import numpy as np
+
+    from deeprest_tpu_torch.train.checkpoint import save_checkpoint
+
+    body = bodies[-1]                    # two windows (117 minutes)
+    _, old = http_json(url + "/v1/predict", json.loads(body))
+    before = replica_health(url)
+    k1 = worker_launches(before)
+    pids = [r["pid"] for r in before["router"]["replicas"]]
+    stop, threads, records = background_load(url, [body], 8)
+    try:
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, {k: v * RELOAD_SCALE for k, v in
+                               params.items()}, step=1, extra=extra)
+
+        def rolled():
+            h = replica_health(url)
+            r = h["router"]
+            return h if (r["rolling_reloads"] >= 1 and all(
+                x["pid"] not in pids and x["worker"]
+                for x in r["replicas"])) else None
+
+        health = wait_for("the rolling reload", rolled, timeout=240)
+        roll_s = time.perf_counter() - t0
+        time.sleep(1.0)
+    finally:
+        stop_load(stop, threads)
+    _, new = http_json(url + "/v1/predict", json.loads(body))
+    old = np.asarray(old["predictions"], np.float32)
+    new = np.asarray(new["predictions"], np.float32)
+    gap = float(np.abs(new - old).max() / np.abs(old).max())
+    counts = {"old": 0, "new": 0, "mixed": 0, "non-200": 0}
+    for status, _, answer in records:
+        if status != 200:
+            counts["non-200"] += 1
+            continue
+        got = np.asarray(json.loads(answer)["predictions"], np.float32)
+        v = window_verdicts(got, old, new)
+        counts[v.pop() if len(v) == 1 and v <= {"old", "new"}
+               else "mixed"] += 1
+    check_worker_graphs("after the reload", health, before["router"][
+        "replicas"][0]["worker"]["jit_cache"]["captures"])
+    print(f"check replica reload: step 1 (x{RELOAD_SCALE}) written under 8 "
+          f"clients; both workers restarted one at a time in {roll_s:.1f} s;"
+          f" answers {counts} (old and new apart by {gap:.3f} of scale)",
+          flush=True)
+    if counts["mixed"] or counts["non-200"] or not counts["old"] \
+            or not counts["new"] or gap < 10 * TOL["bfloat16"][0]:
+        fail("replica plane: the rolling reload mixed params or failed "
+             "requests")
+    return {"roll_s": roll_s, "answers": counts, "workers_k1": k1}
+
+
+def replica_profile(url: str, bodies: list, wd: str) -> dict:
+    """``profile --seconds 1`` against a thread plane under load: the
+    Chrome trace holds K1's kernel by its symbol."""
+    stop, threads, records = background_load(url, bodies, 8)
+    try:
+        time.sleep(0.5)
+        out = run_cli(["profile", "--url", url, "--seconds", "1",
+                       "--out-dir", os.path.join(wd, "profile")],
+                      timeout=120)
+    finally:
+        stop_load(stop, threads)
+    with open(out["trace"], encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "gru_fwd" in e.get("name", "")]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e6
+    host = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e.get("dur"):
+            host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    print(f"check replica profile: a 1 s window under 8 clients "
+          f"({len(records)} requests): {len(events)} events, {len(kernels)} "
+          f"kernels ({busy * 1e3:.1f} ms of device time), K1 "
+          f"{len(k1)} x {sorted({e['name'][:60] for e in k1})}; all threads "
+          f"{out['all_threads']}; host ops by total ms {top}", flush=True)
+    if not k1:
+        fail("replica plane: the profiler window holds no K1 kernel")
+    return {"events": len(events), "kernels": len(kernels),
+            "k1": len(k1), "device_s": busy, "host_ms": top}
+
+
+def replica_training_tools(cuda_gru, wd: str) -> dict:
+    """``train --profile-dir`` on phase 6's corpus (one epoch traced) and
+    ``measure_step_breakdown`` on a flagship trainer."""
+    import numpy as np
+
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.obs.profiler import measure_step_breakdown
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+    prof = os.path.join(wd, "train_profile")
+    t0 = time.perf_counter()
+    report = run_cli(["train", "--features", feats, "--epochs", "1",
+                      "--batch-size", str(TRAIN["B"]), "--window", str(W),
+                      "--compute-dtype", "bfloat16", "--no-baselines",
+                      "--profile-dir", prof], timeout=600)
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(prof, "trace_epoch1.json"),
+              encoding="utf-8") as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    ours = sorted(n[:50] for n in names if "gru_" in n)
+    print(f"check replica train --profile-dir: 1 epoch ({report['steps']} "
+          f"steps, {train_s:.1f} s with the process start), trace kernels "
+          f"{len(names)}, ours {ours}", flush=True)
+    if not any("gru_bwd" in n for n in names):
+        fail("train --profile-dir: the trace holds no K3 kernel")
+    rng = np.random.default_rng(SEED)
+    b, e = TRAIN["B"], TRAIN["E"]
+    cfg = Config(model=ModelConfig(hidden_size=TRAIN["H"], dropout_rate=0.0,
+                                   compute_dtype="bfloat16"),
+                 train=TrainConfig(batch_size=b, window_size=W))
+    names = [f"comp{i // 5}_res{i % 5}" for i in range(e)]
+    breakdown = measure_step_breakdown(
+        Trainer(cfg, F, names, device="cuda"),
+        rng.poisson(5.0, (b, W, F)).astype(np.float32),
+        rng.random((b, W, e), np.float32), np.ones((b,), np.float32),
+        steps=20, warmup=3)
+    print(f"main replica step breakdown (flagship, eager steps, host "
+          f"feed of fresh batches): {json.dumps(breakdown)}", flush=True)
+    if breakdown["ledger"] != {"started": 3, "synced": 3}:
+        fail(f"step breakdown ledger {breakdown['ledger']}")
+    free_device()
+    return {"train_s": train_s, "breakdown": breakdown}
+
+
+def phase_replica_plane(cuda_gru, flagship: dict, plane: dict,
+                        wd: str) -> dict:
+    """The replica plane on the card: ``serve --replicas R`` with process
+    replicas at R = 1, 2 and 4 and thread replicas at 2, each with the
+    MicroBatcher and --admission-depth 64, on phase 5's checkpoint:
+    sequential answers bit for bit the single engine's (phase 8), closed
+    loops at concurrency 16 and 64 (requests/s, p50/p99, per-replica
+    served counts, each worker's graphs and device memory), concurrency
+    256 against depth 64 on R = 4, SIGKILL of a worker under load and a
+    rolling reload under load (the two-worker plane, --watch), a profiler
+    window on the thread plane, fast 429s with Retry-After at 256 against
+    depth 2 (one thread replica), then train --profile-dir and the step
+    breakdown."""
+    import shutil
+
+    import numpy as np
+
+    from deeprest_tpu_torch.benchmarks.serve_bench import closed_loop
+    from deeprest_tpu_torch.train.checkpoint import load_params, load_sidecar
+
+    import torch
+
+    free_device()       # the earlier phases' cached blocks: workers need them
+    print(f"main replica: this process holds "
+          f"{torch.cuda.memory_reserved() >> 20} MiB of the card before the "
+          f"replica servers start", flush=True)
+    bodies, single = plane["bodies"], plane["single"]
+    watched = os.path.join(wd, "replica_ckpt")    # the reload's own copy
+    shutil.copytree(flagship["ckpt"], watched)
+    launches, result = 0, {"cells": {}}
+    for mode, n, depth, concurrencies, role in REPLICA_PLANES:
+        label = f"{mode} x{n} depth {depth}"
+        t_server = time.perf_counter()
+        ckpt = flagship["ckpt"]
+        args = ["--replicas", n, "--replica-mode", mode,
+                "--admission-depth", depth]
+        if role == "chaos":
+            ckpt = watched
+            args += ["--watch", "1"]
+        if role == "shed":
+            args += ["--admission-wait-ms", 0]
+        args += ["--ckpt-dir", ckpt]
+        proc, start = start_server(args, os.path.join(
+            wd, f"serve_replicas_{mode}{n}_{depth}.log"), timeout=600)
+        try:
+            url = start["listening"]
+            graphs = start["graphs"] if mode == "process" \
+                else [start["graphs"]]
+            warmed = graphs[0]["captures"]
+            print(f"main replica {label}: listening after "
+                  f"{time.perf_counter() - t_server:.1f} s (seconds "
+                  f"{json.dumps(start['seconds'])}), graphs at warm-up "
+                  f"{[g['captures'] for g in graphs]}", flush=True)
+            for i, body in enumerate(bodies):
+                status, answer = http_json(url + "/v1/predict",
+                                           json.loads(body))
+                if status != 200 or answer["predictions"] != single[i]:
+                    fail(f"replica {label}: the answer to body {i} is not "
+                         "the single engine's, bit for bit")
+            host, port = url[len("http://"):].split(":")
+            loads, served = {}, []
+            for conc in concurrencies:
+                s0 = [r["served_requests"] for r in
+                      replica_health(url)["router"]["replicas"]]
+                load = closed_loop(
+                    (host, int(port)), bodies, conc, REPLICA_LOAD_S,
+                    procs=(REPLICA_OVERLOAD_PROCS if conc == REPLICA_OVERLOAD
+                           else REPLICA_CLIENT_PROCS), keep=2)
+                health = replica_health(url)
+                served.append([r["served_requests"] - a for r, a in zip(
+                    health["router"]["replicas"], s0)])
+                load["per_replica_served"] = served[-1]
+                load["admission"] = {k: health["router"]["admission"][k]
+                                     for k in ("admitted", "rejected",
+                                               "queued", "in_plane_p50_ms",
+                                               "in_plane_p99_ms")}
+                loads[conc] = load
+                print(f"main replica {label} concurrency {conc}: "
+                      f"{load['requests']} requests in {REPLICA_LOAD_S} s = "
+                      f"{load['rps']:.1f} requests/s, p50 "
+                      f"{load['p50_ms']:.2f} ms, p99 {load['p99_ms']:.2f} ms,"
+                      f" 429s {load['rejected_429']} (Retry-After "
+                      f"{load['retry_after']}), errors {load['errors']}, "
+                      f"served per replica {served[-1]}; admission so far "
+                      f"{load['admission']}", flush=True)
+                if load["errors"]:
+                    fail(f"replica {label}: {load['errors']} failed requests")
+            overload = loads.pop(REPLICA_OVERLOAD, None)
+            if overload is not None:
+                overload.pop("samples")
+                loads["overload"] = overload
+            if role == "shed" and (not overload["rejected_429"] or overload[
+                    "retry_after"] != ["0.050"] or not overload["requests"]):
+                fail(f"replica {label}: no fast 429 with Retry-After at "
+                     f"concurrency {REPLICA_OVERLOAD}")
+            if loads.keys() & set(REPLICA_CONCURRENCY):
+                concurrent_answers(f"replica {label}", {
+                    c: loads[c] for c in REPLICA_CONCURRENCY}, single,
+                    exact=False)
+            health = replica_health(url)
+            memory = check_worker_graphs(label, health, warmed)
+            if any(min(s) == 0 for s in served):
+                fail(f"replica {label}: a replica served nothing")
+            cell = {"loads": loads, "memory": memory,
+                    "front_memory": health["device_memory"]}
+            if role == "chaos":
+                chaos = replica_chaos(url, bodies, single)
+                launches += chaos["victim_k1"]
+                params = {k: v.float().cpu().numpy()
+                          for k, v in load_params(ckpt).items()}
+                reload = replica_reload(url, ckpt, load_sidecar(ckpt), params,
+                                        bodies)
+                launches += reload["workers_k1"]
+                cell.update(chaos=chaos, reload=reload)
+            if role == "profile":
+                cell["profile"] = replica_profile(url, bodies, wd)
+            k1 = worker_launches(replica_health(url))
+            print(f"main replica {label}: gru_fwd launches {k1} (the "
+                  f"workers' ledgers, graph replays counted); "
+                  f"{time.perf_counter() - t_server:.1f} s with the start",
+                  flush=True)
+            if k1 == 0:
+                fail(f"replica {label} never launched gru_fwd")
+            launches += k1
+            result["cells"][label] = cell
+        finally:
+            stop_server(proc)
+    shutil.rmtree(watched, ignore_errors=True)
+    result.update(tools=replica_training_tools(cuda_gru, wd),
+                  launches=launches)
     return result
 
 
@@ -3477,6 +3962,15 @@ def main() -> int:
               "beside it", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # The card's machine sets PYTHONDONTWRITEBYTECODE and its torch ships
+    # no bytecode, so every process would compile torch (and, at its first
+    # custom-op call, torch._dynamo) from source: ~13 s a process, over 30
+    # processes here.  This run compiles them once, into the gitignored
+    # build/pycache, and its CLI and server processes read them there.
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = os.path.join(REPO, "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
     import torch
 
     if not torch.cuda.is_available():
@@ -3517,6 +4011,10 @@ def main() -> int:
         plane = timed("serving plane", phase_serving_plane, cuda_gru,
                       serving, raw, wd)
         del raw
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+        replicas = timed("replica plane", phase_replica_plane, cuda_gru,
+                         serving, plane, wd)
         tenk = timed("tenk sparse quant export", phase_tenk, cuda_gru,
                      serving, wd)
         for k in cuda_gru.KERNELS:
@@ -3529,7 +4027,8 @@ def main() -> int:
     sweep = timed("tuning sweep", phase_tuning_sweep, cuda_gru)
 
     launches = dict(training["launches"])
-    launches["gru_fwd"] += serving["launches"] + plane["launches"]
+    launches["gru_fwd"] += (serving["launches"] + plane["launches"]
+                            + replicas["launches"])
     for name, count in raw_launches.items():
         launches[name] += count
     for name, count in tenk["launches"].items():
@@ -3570,7 +4069,10 @@ def main() -> int:
     print(f"main-path launches: serving gru_fwd {serving['launches']}; "
           f"training {training['launches']}; raw telemetry to answers "
           f"{raw_launches}; serving plane gru_fwd {plane['launches']} "
-          f"(the servers' ledgers); 10k sparse, quantized and exported "
+          f"(the servers' ledgers); replica plane gru_fwd "
+          f"{replicas['launches']} (the workers' ledgers, and the killed "
+          f"and reloaded workers' before they went); 10k sparse, quantized "
+          f"and exported "
           f"{tenk['launches']}; streaming retrain {stream['launches']} "
           f"(f32: the stream CLI runs and the verdict server "
           f"{stream['f32_launches']}); tuning sweep "

@@ -14,6 +14,8 @@ lines):
     python -m deeprest_tpu_torch stream     --raw=growing.jsonl --ckpt-dir=ckpt
     python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --verdict-raw=growing.jsonl --watch=5
     python -m deeprest_tpu_torch serve      --artifact=artifact --port=2021
+    python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --replicas=4 --replica-mode=process --admission-depth=64
+    python -m deeprest_tpu_torch profile    --url=http://127.0.0.1:2021 --seconds=1 --out-dir=trace
 
 ``simulate``, ``featurize``, ``ingest`` and ``synthesize`` are host-only
 and touch no device.  ``train``, ``predict``, ``whatif``, ``anomaly`` and
@@ -37,10 +39,17 @@ corpus (or polls live endpoints, or listens for pushed span batches),
 fine-tunes on the device every ``--refresh-buckets`` buckets and
 re-checkpoints; run again it resumes, and ``--drift-detect`` arms the
 drift→retrain loop.  ``serve --verdict-raw`` (or
-``--verdict-wire-listen``) arms ``GET /v1/verdict``.  Mesh, elastic
-remeshing (``stream --elastic`` exits 2), AOT executables (``export
---aot``), replicas and fleets, and profiling are not ported, and the
-port's CLI does not offer them.
+``--verdict-wire-listen``) arms ``GET /v1/verdict``.  ``serve --replicas
+N`` puts the routing front (serve/router.py) over N engine replicas
+(``--replica-mode thread``: one shared stack a card) or N worker
+processes (``process``: each its own CUDA context and rung graphs), with
+bounded admission, per-tenant fairness, health ejection, retry, rolling
+reload under ``--watch`` and the optional ``--autoscale`` loop.
+``profile`` opens a ``torch.profiler`` window on a running server, and
+``train --profile-dir`` traces the first epoch.  Mesh, elastic
+remeshing (``stream --elastic`` exits 2), the fleet tier and AOT
+executables (``export --aot``) are not ported, and the port's CLI does
+not offer them.
 """
 
 from __future__ import annotations
@@ -416,8 +425,34 @@ def cmd_train(args) -> int:
         baselines = baseline_predictions(data, bundle, device=trainer.device)
         seconds["baselines"] = time.perf_counter() - t0
     step_losses = []
+    # The first epoch is traced (its kernel loads, capture and steady
+    # steps); the Chrome trace lands in --profile-dir.
+    profiler = None
+    if args.profile_dir:
+        import os
+
+        import torch
+
+        os.makedirs(args.profile_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if trainer.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+
+    def stop_profiling():
+        nonlocal profiler
+        if profiler is not None:
+            import os
+
+            profiler.stop()
+            path = os.path.join(args.profile_dir, "trace_epoch1.json")
+            profiler.export_chrome_trace(path)
+            profiler = None
+            print(f"profiler trace written to {path}", flush=True)
 
     def on_epoch(result, state):
+        stop_profiling()    # first epoch captured
         step_losses.append(trainer.last_epoch_losses.tolist())
         print(f"epoch {result.epoch}: train {result.train_loss:.4f} "
               f"test {result.test_loss:.4f}", flush=True)
@@ -434,12 +469,15 @@ def cmd_train(args) -> int:
             print(f"resuming preempted run from {args.ckpt_dir} "
                   "(newest cursor snapshot)", flush=True)
     t0 = time.perf_counter()
-    if resume:
-        _, history = trainer.resume_training(bundle, baseline_preds=baselines,
-                                             on_epoch=on_epoch)
-    else:
-        _, history = trainer.fit(bundle, baseline_preds=baselines,
-                                 on_epoch=on_epoch)
+    try:
+        if resume:
+            _, history = trainer.resume_training(
+                bundle, baseline_preds=baselines, on_epoch=on_epoch)
+        else:
+            _, history = trainer.fit(bundle, baseline_preds=baselines,
+                                     on_epoch=on_epoch)
+    finally:
+        stop_profiling()    # a run with no epoch left still writes one
     seconds["fit"] = time.perf_counter() - t0
     if history:
         print(format_report(history[-1].report))
@@ -817,7 +855,7 @@ def cmd_export(args) -> int:
     if args.aot:
         sys.exit("error: --aot is not ported yet: serialized serving "
                  "executables belong to the fleet tier (ROADMAP queue 1, "
-                 "item 7)")
+                 "item 7c)")
     from deeprest_tpu_torch.serve.export import export_predictor
     from deeprest_tpu_torch.serve.predictor import Predictor
 
@@ -833,12 +871,94 @@ def cmd_export(args) -> int:
     return 0
 
 
+def _parse_tenant_weights(spec: str | None) -> dict[str, float] | None:
+    """``a=3,b=1`` → {"a": 3.0, "b": 1.0} (None/empty → None)."""
+    if not spec:
+        return None
+    out = {}
+    for part in spec.split(","):
+        name, _, w = part.partition("=")
+        try:
+            out[name.strip()] = float(w)
+        except ValueError:
+            raise ValueError(f"bad --tenant-weights entry {part!r} "
+                             "(want name=weight)") from None
+        if not name.strip() or out[name.strip()] <= 0:
+            raise ValueError(f"bad --tenant-weights entry {part!r} "
+                             "(weight must be > 0)")
+    return out
+
+
+def _load_autoscaler_module():
+    """deploy/autoscaler.py is deployment-plane code living next to the
+    manifests it rewrites (it imports no JAX); load it by path from the
+    repo layout."""
+    import importlib.util
+    import os
+
+    import deeprest_tpu_torch
+
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(
+            deeprest_tpu_torch.__file__))), "deploy", "autoscaler.py")
+    if not os.path.isfile(path):
+        sys.exit(f"error: autoscaler module not found at {path}")
+    spec = importlib.util.spec_from_file_location("deeprest_autoscaler", path)
+    mod = importlib.util.module_from_spec(spec)
+    # register BEFORE exec: the module's @dataclass decorators resolve
+    # sys.modules[cls.__module__] at class-creation time
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _router_config(args):
+    """The routing front's config from the ``serve`` flags, or None when
+    the plane is a single engine (JAX's rule: ``--replicas`` > 1, an
+    admission depth or tenant weights turn the router on)."""
+    if not (args.replicas > 1 or args.admission_depth
+            or args.tenant_weights):
+        if args.autoscale:
+            sys.exit("error: --autoscale needs --replicas > 1 (the router "
+                     "is the autoscaler's actuator)")
+        return None
+    from deeprest_tpu_torch.serve.router import RouterConfig
+
+    try:
+        weights = _parse_tenant_weights(args.tenant_weights)
+    except ValueError as exc:
+        sys.exit(f"error: {exc}")
+    if args.replica_timeout_ms < 0:
+        sys.exit(f"error: --replica-timeout-ms "
+                 f"{args.replica_timeout_ms} must be >= 0 (0 = none)")
+    try:
+        return RouterConfig(
+            admission_depth=args.admission_depth or 64,
+            max_wait_s=args.admission_wait_ms / 1e3,
+            retry_after_s=args.admission_retry_after_ms / 1e3,
+            tenant_weights=weights,
+            replica_timeout_s=(args.replica_timeout_ms / 1e3
+                               if args.replica_timeout_ms else None),
+            eject_after_failures=args.eject_after_failures,
+            retry_budget=args.retry_budget)
+    except ValueError as exc:
+        sys.exit(f"error: {exc}")
+
+
 def cmd_serve(args) -> int:
     """Serve predict / what-if / anomaly over HTTP from a checkpoint or an
     exported artifact (serve/server.py), with cross-request micro-batching
     on by default (serve/batcher.py; disable with --no-batcher).  Every rung graph is
     captured before the socket listens; with --watch a newer checkpoint
-    step is loaded and warmed in the background, then swapped in."""
+    step is loaded and warmed in the background, then swapped in.  With
+    --replicas N the backend becomes a routing front over N engine
+    replicas (serve/router.py): least-outstanding-work dispatch, bounded
+    admission (--admission-depth → fast 429 + Retry-After), per-tenant
+    weighted round-robin on the X-Tenant header, health ejection and
+    retry, zero-downtime rolling reload under --watch, and an optional
+    self-sizing control loop (--autoscale, deploy/autoscaler.py).  Process
+    replicas build and warm their own stacks; the front then loads no
+    model."""
     from deeprest_tpu_torch import obs
     from deeprest_tpu_torch.serve.batcher import BatcherConfig
     from deeprest_tpu_torch.serve.server import (
@@ -876,6 +996,8 @@ def cmd_serve(args) -> int:
                  "must be >= 1")
     obs.configure(enabled=not args.no_obs,
                   span_capacity=args.obs_span_capacity)
+    router_cfg = _router_config(args)
+    process = router_cfg is not None and args.replica_mode == "process"
     from deeprest_tpu_torch.config import InferConfig
     from deeprest_tpu_torch.serve.predictor import Predictor
 
@@ -895,30 +1017,73 @@ def cmd_serve(args) -> int:
                  quant=infer.quant, device=args.device)
     seconds = {}
     reloader = None
+    sparse = (dict(sparse_feed=infer.sparse_feed,
+                   sparse_nnz_cap=infer.sparse_nnz_cap)
+              if args.ckpt_dir else {})
     if args.ckpt_dir:
-        sparse = dict(sparse_feed=infer.sparse_feed,
-                      sparse_nnz_cap=infer.sparse_nnz_cap)
+        backend = f"checkpoint:{args.ckpt_dir}"
         if args.watch:
             # Built BEFORE the initial load: a checkpoint the live trainer
             # writes while we load would otherwise be recorded as already
-            # served and never reloaded.
+            # served and never reloaded.  A process plane's workers load
+            # the new step themselves, so its front only watches.
             reloader = CheckpointReloader(
-                args.ckpt_dir, min_interval_s=args.watch, **knobs, **sparse)
-        t0 = time.perf_counter()
-        pred = Predictor.from_checkpoint(args.ckpt_dir, **knobs, **sparse)
-        backend = f"checkpoint:{args.ckpt_dir}"
-        if reloader is not None:
+                args.ckpt_dir, min_interval_s=args.watch, load=not process,
+                **knobs, **sparse)
             backend += " (watching)"
     else:
-        from deeprest_tpu_torch.serve.export import ExportedPredictor
-
-        t0 = time.perf_counter()
-        pred = ExportedPredictor.load(args.artifact, **knobs)
         backend = f"artifact:{args.artifact}"
-    seconds["load"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    graphs = pred.warm()
-    seconds["warm"] = time.perf_counter() - t0
+    autoscaler = None
+    if process:
+        from deeprest_tpu_torch.serve.router import ReplicaRouter
+
+        # -- worker-process replicas: each rebuilds and warms its stack
+        spec = {"ckpt_dir": args.ckpt_dir, "artifact": args.artifact,
+                "device": args.device or "cuda",
+                "kwargs": {k: v for k, v in {**knobs, **sparse}.items()
+                           if k != "device"}}
+        t0 = time.perf_counter()
+        pred = ReplicaRouter.build_process(
+            spec, args.replicas, config=router_cfg, batching=batching)
+        seconds["boot"] = time.perf_counter() - t0
+        boots = [r.boot_info() for r in pred.replicas]
+        graphs = [b["graphs"] for b in boots]
+        seconds["workers"] = [b["seconds"] for b in boots]
+        device, quant, parity_max = spec["device"], infer.quant, None
+    else:
+        t0 = time.perf_counter()
+        if args.ckpt_dir:
+            pred = Predictor.from_checkpoint(args.ckpt_dir, **knobs, **sparse)
+        else:
+            from deeprest_tpu_torch.serve.export import ExportedPredictor
+
+            pred = ExportedPredictor.load(args.artifact, **knobs)
+        seconds["load"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graphs = pred.warm()
+        seconds["warm"] = time.perf_counter() - t0
+        device, quant = str(pred.device), pred.quant
+        parity_max = (max(pred.parity_envelope["measured"].values())
+                      if pred.parity_envelope else None)
+        if router_cfg is not None:
+            from deeprest_tpu_torch.serve.router import ReplicaRouter
+
+            # -- engine replicas: one shared stack on each card
+            pred = ReplicaRouter.build(pred, args.replicas,
+                                       config=router_cfg, batching=batching)
+    if router_cfg is not None:
+        batching = None          # the router owns per-replica batchers
+        backend = f"{backend} x{args.replicas} ({args.replica_mode})"
+        if args.autoscale:
+            mod = _load_autoscaler_module()
+            autoscaler = mod.Autoscaler(
+                pred,
+                mod.AutoscalerConfig(
+                    min_replicas=args.autoscale_min,
+                    max_replicas=args.autoscale_max,
+                    interval_s=args.autoscale_interval,
+                    capacity_rps_per_replica=args.autoscale_rps_per_replica),
+                manifest_path=args.autoscale_manifest or None).start()
 
     synthesizer = None
     if args.raw:
@@ -1002,7 +1167,8 @@ def cmd_serve(args) -> int:
                                    "max_surfaces": surface_cfg.max_surfaces,
                                    "max_bytes": surface_cfg.max_bytes}
                                   if surface_cfg is not None else None),
-                      "replicas": 1, "fleet": None, "autoscale": False,
+                      "replicas": args.replicas, "fleet": None,
+                      "autoscale": autoscaler is not None,
                       "verdict": ({"raw": args.verdict_raw,
                                    "wire": ("%s:%d" % vtailer.address
                                             if verdict_wire else None),
@@ -1016,22 +1182,51 @@ def cmd_serve(args) -> int:
                           "max_linger_ms": args.batch_linger_ms,
                           "ladder": list(ladder),
                       }),
-                      "quant": pred.quant,
-                      "quant_parity_max": (
-                          max(pred.parity_envelope["measured"].values())
-                          if pred.parity_envelope else None),
-                      "sparse_feed": getattr(pred, "sparse_feed", False),
-                      "device": str(pred.device), "graphs": graphs,
+                      "quant": quant, "quant_parity_max": parity_max,
+                      "sparse_feed": bool(sparse.get("sparse_feed")),
+                      "device": device, "graphs": graphs,
                       "seconds": seconds}), flush=True)
-    if args.deadline:
-        server.start()
-        time.sleep(args.deadline)
-        server.stop()
-    else:
-        try:
+    try:
+        if args.deadline:
+            server.start()
+            time.sleep(args.deadline)
+        else:
             server.serve_forever()
-        finally:
-            server.stop()
+    finally:
+        if autoscaler is not None:
+            autoscaler.stop()
+        server.stop()
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """Open a torch.profiler capture window on a RUNNING serving plane
+    (POST /v1/profile, obs/profiler.py): the server keeps answering
+    traffic on its other handler threads while the window is open, so the
+    trace shows the plane under its live load.  The server writes a
+    Chrome trace into --out-dir on its host."""
+    import urllib.error
+    import urllib.request
+
+    if args.seconds <= 0:
+        sys.exit(f"error: --seconds {args.seconds} must be > 0")
+    payload = {"seconds": args.seconds}
+    if args.out_dir:
+        payload["out_dir"] = args.out_dir
+    req = urllib.request.Request(
+        args.url.rstrip("/") + "/v1/profile",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req,
+                                    timeout=args.seconds + 60.0) as resp:
+            body = json.loads(resp.read().decode())
+    except urllib.error.HTTPError as exc:
+        detail = exc.read().decode(errors="replace")[:300]
+        sys.exit(f"error: server answered {exc.code}: {detail}")
+    except (urllib.error.URLError, OSError) as exc:
+        sys.exit(f"error: cannot reach {args.url}: {exc}")
+    print(json.dumps(body))
     return 0
 
 
@@ -1157,6 +1352,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "durable newer save; checkpoints without a cursor "
                         "are never touched; 0 = keep everything)")
     p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the first epoch "
+                        "(a Chrome trace, trace_epoch1.json, in this "
+                        "directory)")
     p.add_argument("--no-baselines", action="store_true",
                    help="skip the ResourceAware and ComponentAware "
                         "baselines (the resrc and comp columns of the report)")
@@ -1401,6 +1600,70 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatches one batch of top*G windows instead "
                         "of G sequential top-rung dispatches; raise "
                         "--batch-max-windows to match")
+    p.add_argument("--replicas", type=int, default=1, metavar="N",
+                   help="engine replicas behind the routing front "
+                        "(serve/router.py): each a full Predictor/"
+                        "MicroBatcher/fused-engine stack on its own "
+                        "device (replicas sharing a device share one "
+                        "stack and its rung graphs), dispatched "
+                        "least-outstanding-work; 1 = the single-engine "
+                        "path")
+    p.add_argument("--replica-mode", choices=("thread", "process"),
+                   default="thread",
+                   help="replica isolation: in-process threads (default) "
+                        "or worker subprocesses that each rebuild the "
+                        "full stack from --ckpt-dir/--artifact (their own "
+                        "CUDA context and rung graphs)")
+    p.add_argument("--admission-depth", type=int, default=0, metavar="N",
+                   help="max concurrently admitted requests across the "
+                        "plane; beyond it (plus a same-size bounded wait "
+                        "queue) requests fail fast with 429 + Retry-After "
+                        "instead of queueing into collapse (0 = default "
+                        "64 when the router is on)")
+    p.add_argument("--admission-wait-ms", type=float, default=250.0,
+                   help="max time a request may wait in the fairness "
+                        "queue for a slot before the 429")
+    p.add_argument("--admission-retry-after-ms", type=float, default=50.0,
+                   help="Retry-After hint sent with admission 429s")
+    p.add_argument("--tenant-weights", default=None, metavar="a=3,b=1",
+                   help="weighted round-robin shares per X-Tenant header "
+                        "value (unknown tenants weigh 1)")
+    p.add_argument("--replica-timeout-ms", type=float, default=30000.0,
+                   metavar="MS",
+                   help="per-request deadline on process replicas: a "
+                        "worker dead between heartbeats becomes a typed "
+                        "ReplicaDeadError instead of an indefinite pipe "
+                        "recv (0 = no deadline)")
+    p.add_argument("--eject-after-failures", type=int, default=3,
+                   metavar="N",
+                   help="consecutive dead-replica failures that eject a "
+                        "replica from dispatch (a confirmed-dead worker "
+                        "ejects immediately); the background probe "
+                        "reboots process replicas and rejoins them")
+    p.add_argument("--retry-budget", type=int, default=1, metavar="N",
+                   help="max re-dispatches of ONE request onto survivor "
+                        "replicas — only for failures proving the "
+                        "request never produced a response (worker dead "
+                        "/ send failed); deadline expiries on a live "
+                        "worker are never retried (no double-execution)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="run the self-sizing control loop "
+                        "(deploy/autoscaler.py): observed traffic -> "
+                        "what-if capacity estimate -> router.scale_to; "
+                        "decisions surface on /healthz under "
+                        "router.autoscaler")
+    p.add_argument("--autoscale-min", type=int, default=1)
+    p.add_argument("--autoscale-max", type=int, default=8)
+    p.add_argument("--autoscale-interval", type=float, default=10.0,
+                   help="control-tick seconds")
+    p.add_argument("--autoscale-rps-per-replica", type=float, default=None,
+                   help="measured per-replica capacity basis (rps; "
+                        "deeprest_tpu_torch/benchmarks/serve_bench.py "
+                        "measures it)")
+    p.add_argument("--autoscale-manifest", default=None, metavar="PATH",
+                   help="mirror decisions into this k8s manifest's "
+                        "deeprest-predictor Deployment spec.replicas "
+                        "(deploy/k8s/predictor.yaml)")
     p.add_argument("--no-obs", action="store_true",
                    help="disable span recording; /metrics and its counters "
                         "stay live, only the trace ring is gated")
@@ -1464,6 +1727,19 @@ def build_parser() -> argparse.ArgumentParser:
     _add_fused_infer_args(p)
     _add_sparse_args(p, serving=True)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("profile",
+                       help="open a torch.profiler capture window on a "
+                            "running serving plane (POST /v1/profile); "
+                            "inspect the Chrome trace in Perfetto")
+    p.add_argument("--url", default="http://127.0.0.1:2021",
+                   help="base URL of the running `serve` plane")
+    p.add_argument("--seconds", type=float, default=2.0,
+                   help="capture window length (server bounds it)")
+    p.add_argument("--out-dir", default=None,
+                   help="trace directory on the SERVER host (default: a "
+                        "server-side temp dir, echoed back)")
+    p.set_defaults(fn=cmd_profile)
     return ap
 
 

@@ -1,5 +1,5 @@
-"""Spans and metrics for the serving plane (``deeprest_tpu/obs``, less the
-profiler, which waits for a later slice).
+"""Spans, metrics and the profiler for the serving plane
+(``deeprest_tpu/obs``).
 
 - :mod:`.spans`: the ring-buffer span recorder with request-scoped trace
   ids propagated server → batcher → fused dispatch; near-zero cost when
@@ -11,9 +11,11 @@ profiler, which waits for a later slice).
   and ``push_self_corpus`` over the span wire.
 - :mod:`.quality`: the online drift and calibration monitors behind
   ``GET /v1/verdict`` and the stream's drift→retrain loop.
+- :mod:`.profiler`: bounded ``torch.profiler`` windows (``POST
+  /v1/profile``) and the train-step breakdown.
 
-Nothing here imports torch at module scope; the modules are copies of the
-JAX package's (stdlib and numpy).
+Nothing here imports torch at module scope; the modules but the profiler
+are copies of the JAX package's (stdlib and numpy).
 """
 
 from __future__ import annotations

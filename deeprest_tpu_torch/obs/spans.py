@@ -6,9 +6,8 @@ Jaeger just to feed the model), yet until now the plane that *serves*
 those estimates produced none of its own.  This module is the span half
 of the obs package: a bounded in-process recorder with a context-manager
 API, request-scoped trace ids propagated through the serving layers
-(server → batcher → fused dispatch; the router and replicas are the
-JAX package's, not ported yet) via a
-``contextvars`` context, and a wire-friendly record shape that
+(server → router → replica, across a worker process's pipe → batcher →
+fused dispatch) via a ``contextvars`` context, and a wire-friendly record shape that
 ``obs/export.py`` turns into Jaeger-style JSON the standard ingest
 pipeline (data/ingest.py) consumes — the self-ingestion loop.
 

@@ -192,6 +192,9 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
             self._fused.warm(f)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+            # the eager first run of each capture left its working memory
+            # cached outside the graphs' pool: hand it back to the card
+            torch.cuda.empty_cache()
         self.graphs.mark_warm()
         return self.graphs.stats()
 

@@ -14,7 +14,7 @@ Routes (all JSON but ``/metrics``):
     POST /v1/whatif/scaling   {"baseline_traffic", "hypothetical_traffic"}
     POST /v1/whatif/surface   {"base_traffic", "scales"|"factor"}     → peaks
     POST /v1/anomaly          {"traffic", "observed", "tolerance"?, "min_run"?}
-    POST /v1/profile          501: the profiler is ROADMAP queue 1, item 7
+    POST /v1/profile          {"seconds"?, "out_dir"?} → torch.profiler window
 
 Built on the stdlib ThreadingHTTPServer.  Concurrent requests do not each
 pay a device dispatch: the service attaches a cross-request MicroBatcher
@@ -32,9 +32,15 @@ predictor snapshot (its rung graphs on a GPU); ``attach_quality`` wires it
 to ``GET /v1/verdict`` and the ``deeprest_quality_*`` gauges on
 ``/metrics``.
 
-The JAX server's replica router, fleet pool and profiler belong to later
-slices of the port; admission admits everything, as on a single JAX
-engine.
+The backend may also be the multi-replica routing front
+(serve/router.ReplicaRouter): the same serving protocol plus an admission
+hook, so every route above runs unchanged over engine or process replicas.
+With it the handler meters each POST through the router's bounded,
+tenant-fair admission (fast 429 + ``Retry-After`` on overload), reloads
+roll one replica at a time, and ``/healthz`` gains a ``router`` key
+(per-replica outstanding work, health and served counts, admission
+counters, the autoscaler's decision).  The JAX server's fleet pool is a
+later slice of the port (ROADMAP queue 1, item 7c).
 """
 
 from __future__ import annotations
@@ -76,6 +82,10 @@ class CheckpointReloader:
     :meth:`~deeprest_tpu_torch.serve.predictor.Predictor.warm` (on CUDA,
     the capture of every rung graph) run on a background thread before
     the handoff, so no request pays a capture.
+
+    ``load=False`` is the trigger of a process-replica plane, whose
+    workers load the newest step themselves when they restart: ``poll()``
+    then hands over the new step number and the front loads nothing.
     """
 
     def __init__(self, ckpt_dir: str, min_interval_s: float = 2.0,
@@ -85,10 +95,11 @@ class CheckpointReloader:
                  coalesce_groups: int = 1,
                  sparse_feed: bool = False,
                  sparse_nnz_cap: int = 64,
-                 quant: str = "off", device=None):
+                 quant: str = "off", device=None, load: bool = True):
         from deeprest_tpu_torch.train.checkpoint import latest_step
 
         self.ckpt_dir = ckpt_dir
+        self.load = load
         self.min_interval_s = min_interval_s
         self.ladder = ladder      # reloaded predictors keep the serving ladder
         self.fused = fused        # ... and the fused-inference config
@@ -139,6 +150,12 @@ class CheckpointReloader:
         from deeprest_tpu_torch.serve.predictor import Predictor
 
         fresh = None
+        if not self.load:
+            with self._lock:
+                self._last_step = step
+                self._pending = step
+                self._loading = False
+            return
         try:
             fresh = Predictor.from_checkpoint(
                 self.ckpt_dir, step=step, ladder=self.ladder,
@@ -189,6 +206,17 @@ def _kernel_launches() -> dict[str, int]:
     from deeprest_tpu_torch.ops.cuda_gru import MODEL_KERNELS
 
     return {k.name: k.launches for k in MODEL_KERNELS}
+
+
+def _device_memory() -> dict | None:
+    """Bytes this process holds on the current card (None when it never
+    set up CUDA, as the front of a process-replica plane does not)."""
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return None
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
 
 
 class PredictionService:
@@ -276,9 +304,19 @@ class PredictionService:
 
     def enable_batching(self, config: BatcherConfig) -> None:
         """(Re)build the cross-request MicroBatcher over the current
-        predictor's shape ladder and route its traffic through it."""
+        predictor's shape ladder and route its traffic through it.
+
+        A multi-replica router backend owns one batcher PER stack, so the
+        config is delegated there and the service-level batcher slot stays
+        empty (``/healthz`` reports per-replica batcher stats under the
+        ``router`` key instead)."""
         with self._lock:
             pred = self.predictor
+        if hasattr(pred, "replicas"):          # ReplicaRouter backend
+            pred.enable_batching(config)
+            with self._lock:
+                self.batching = config
+            return
         fresh = MicroBatcher(pred.ladder, config)
         pred.attach_batcher(fresh)
         with self._lock:
@@ -306,8 +344,8 @@ class PredictionService:
             self._wire = receiver
 
     def close(self) -> None:
-        """Release the batcher's worker thread and the surface builders
-        (idempotent)."""
+        """Release the batcher's worker thread, the surface builders and a
+        router backend's replicas (idempotent)."""
         # Drop our render-time collector (conditionally: a rebuilt
         # service re-registers the name); a registered bound method in the
         # process-wide registry would pin the closed service and the
@@ -329,6 +367,9 @@ class PredictionService:
             detach(None)
         if old is not None:
             old.close()
+        shutdown = getattr(pred, "close", None)   # router: drain replicas
+        if callable(shutdown):
+            shutdown()
 
     def maybe_reload(self) -> None:
         """Swap in a newer predictor if the reloader has one."""
@@ -341,9 +382,11 @@ class PredictionService:
 
     def reload_from(self, fresh, reason: str = "manual") -> None:
         """Swap in ``fresh`` NOW (warm it first on CUDA, or its first
-        requests capture its graphs).  ``reason`` labels the capacity-
-        surface invalidation the swap forces: "watch" for the
-        checkpoint-dir cadence, "manual" for operator swaps.
+        requests capture its graphs).  ``reason`` labels the reload end to
+        end: a router's per-reason reload counter and the capacity-surface
+        invalidation the swap forces ("watch" for the checkpoint-dir
+        cadence, "manual" for operator swaps).  A router backend rolls:
+        one replica stack at a time drains, swaps and rejoins.
 
         The surface cache is bracketed around the swap (``begin_reload``
         → swap → ``end_reload``): while the backend is mid-swap no cached
@@ -351,38 +394,63 @@ class PredictionService:
         response can interpolate a surface built from pre-reload params.
         """
         with self._lock:
+            current = self.predictor
             surface = self.surface
-            batching = self.batching
         if surface is not None:
             surface.begin_reload()
         try:
-            # Build the fresh predictor's batcher/estimator BEFORE
-            # publishing, so other threads only ever see fully-wired
-            # predictors; the old batcher drains and closes after the
-            # swap (a request that raced it falls back to the direct
-            # laddered path: BatcherClosed is handled in apply_windows).
-            fresh_batcher = None
-            if batching is not None:
-                fresh_batcher = MicroBatcher(fresh.ladder, batching)
-                fresh.attach_batcher(fresh_batcher)
-            fresh_whatif = (WhatIfEstimator(fresh, self._synthesizer)
-                            if self._synthesizer is not None else None)
-            with self._lock:
-                old, self.batcher = self.batcher, fresh_batcher
-                self.predictor = fresh
-                self.whatif = fresh_whatif
-                self.reloads += 1
-            if old is not None:
-                old.close()
+            self._swap_backend(current, fresh, reason)
         finally:
             if surface is not None:
                 surface.end_reload(reason=reason)
 
+    def _swap_backend(self, current, fresh, reason: str) -> None:
+        if hasattr(current, "rolling_reload_from"):
+            # Multi-replica router: drain and re-image one stack at a time
+            # (each request is served end to end by the single backend its
+            # replica held when it was dispatched).
+            fresh_whatif = (WhatIfEstimator(current, self._synthesizer)
+                            if self._synthesizer is not None else None)
+            current.rolling_reload_from(fresh, reason=reason)
+            with self._lock:
+                self.whatif = fresh_whatif
+                self.reloads += 1
+            return
+        # Build the fresh predictor's batcher/estimator BEFORE publishing,
+        # so other threads only ever see fully-wired predictors; the old
+        # batcher drains and closes after the swap (a request that raced
+        # it falls back to the direct laddered path: BatcherClosed is
+        # handled in apply_windows).
+        with self._lock:
+            batching = self.batching
+        fresh_batcher = None
+        if batching is not None:
+            fresh_batcher = MicroBatcher(fresh.ladder, batching)
+            fresh.attach_batcher(fresh_batcher)
+        fresh_whatif = (WhatIfEstimator(fresh, self._synthesizer)
+                        if self._synthesizer is not None else None)
+        with self._lock:
+            old, self.batcher = self.batcher, fresh_batcher
+            self.predictor = fresh
+            self.whatif = fresh_whatif
+            self.reloads += 1
+        if old is not None:
+            old.close()
+
     # -- GET ------------------------------------------------------------
 
     def admission(self, tenant: str | None):
-        """Admission gate for one POST request: a single engine admits
-        everything (the JAX router's 429 path is a later slice)."""
+        """Admission gate for one POST request: a router backend meters
+        in-flight requests globally and per tenant (fast 429 +
+        ``Retry-After`` when the plane is saturated); a single engine
+        admits everything.  The handler enters this BEFORE parsing the
+        request body, so shed load costs a header read, not a JSON
+        parse."""
+        with self._lock:
+            pred = self.predictor
+        admit = getattr(pred, "admit", None)
+        if callable(admit):
+            return admit(tenant)
         return contextlib.nullcontext()
 
     def _note_request(self, route: str, status: int) -> None:
@@ -444,11 +512,26 @@ class PredictionService:
         return spans_to_jaeger(obs_spans.RECORDER.snapshot())
 
     def profile(self, payload: dict) -> dict:
-        """``POST /v1/profile``: not ported yet (501)."""
-        raise ServingError(
-            "profiling is not ported yet: the torch.profiler capture window "
-            "is ROADMAP queue 1, item 7 (serving plane and tools)",
-            status=501)
+        """On-demand ``torch.profiler`` capture window (``POST
+        /v1/profile``): the handler blocks for the window while the other
+        handler threads keep serving, so the trace captures the plane
+        under its live load.  One window at a time (409 when busy)."""
+        import tempfile
+
+        from deeprest_tpu_torch.obs import profiler
+
+        try:
+            seconds = float(payload.get("seconds", 1.0))
+        except (TypeError, ValueError) as e:
+            raise ServingError(f"bad seconds: {e}") from None
+        out_dir = payload.get("out_dir") or tempfile.mkdtemp(
+            prefix="deeprest-profile-")
+        try:
+            return profiler.capture(out_dir, seconds)
+        except profiler.ProfilerBusy as e:
+            raise ServingError(str(e), status=409) from None
+        except ValueError as e:
+            raise ServingError(str(e)) from None
 
     def healthz(self) -> dict:
         pred, _, batcher, reloads = self._snapshot()
@@ -459,6 +542,11 @@ class PredictionService:
             "window_size": pred.window_size,
             "reloads": reloads,
         }
+        router_stats = getattr(pred, "router_stats", None)
+        if callable(router_stats):
+            # replica plane: per-replica outstanding work and health,
+            # admission counters, per-tenant grants, autoscaler decision
+            out["router"] = router_stats()
         # Queue depth + shape-ladder hit stats ride on the liveness probe.
         # Batching disabled still reports the predictor's ladder.
         if batcher is not None:
@@ -502,11 +590,13 @@ class PredictionService:
             surface = self.surface
         if surface is not None:
             out["surface"] = surface.stats()
-        # Port-only keys: the rung graphs and the kernel launch ledger.
+        # Port-only keys: the rung graphs, the kernel launch ledger and
+        # this process's device memory.
         stats = getattr(pred, "jit_cache_stats", None)
         if callable(stats):
             out["jit_cache"] = stats()
         out["kernel_launches"] = _kernel_launches()
+        out["device_memory"] = _device_memory()
         return out
 
     def verdict(self) -> dict:

@@ -266,15 +266,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "[Span('a', '/x')] * (i % 5)))\n"
         "    st.refresh() if st.ready() else None\n"
         "assert st.quality.stats['sweeps'] > 0, st.quality.stats\n"
+        "from deeprest_tpu_torch.serve.router import ReplicaRouter\n"
+        "q = Predictor(init_params(cfg), cfg, MinMaxStats(min=np.float32(0), "
+        "max=np.float32(1)), MinMaxStats(min=np.zeros(2, np.float32), "
+        "max=np.ones(2, np.float32)), ['a_cpu', 'b_cpu'], 4, device='cpu')\n"
+        "router = ReplicaRouter.build(q, 2)\n"
+        "x = np.ones((9, 8), np.float32)\n"
+        "assert (router.predict_series(x) == q.predict_series(x)).all()\n"
+        "router.close()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
         "need = {'graphs', 'obs', 'obs.metrics', 'obs.spans', "
         "'obs.export', 'serve.batcher', 'serve.graphs', 'serve.surface', "
         "'serve.server', 'ops.densify', 'ops.quantize', 'serve.export', "
-        "'obs.quality', 'data.wire', 'train.stream'}\n"
+        "'obs.quality', 'data.wire', 'train.stream', 'serve.replica', "
+        "'serve.router', 'obs.profiler', 'benchmarks.serve_bench'}\n"
         "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 50 else 0)\n")
+        "sys.exit(1 if bad or missing or len(names) < 54 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -193,8 +193,10 @@ def test_unavailable_routes(setup):
             assert got == failure(getattr(jax_bare, route), {})
             assert got[0] == 503
         assert failure(bare.verdict)[0] == failure(jax_bare.verdict)[0] == 503
-        status, message = failure(bare.profile, {})
-        assert status == 501 and "queue 1, item 7" in message
+        bad = {"seconds": -1}
+        status, message = failure(bare.profile, bad)
+        assert (status, message) == failure(jax_bare.profile, bad)
+        assert status == 400 and "capture seconds" in message
     finally:
         bare.close()
         jax_bare.close()
@@ -203,7 +205,9 @@ def test_unavailable_routes(setup):
 def test_healthz_keys_and_digest_match_jax(setup):
     got, want = setup["port"].healthz(), setup["jax"].healthz()
     assert set(want) - {"wire", "router", "quality"} <= set(got)
-    assert set(got) - set(want) == {"jit_cache", "kernel_launches"}
+    assert set(got) - set(want) == {"jit_cache", "kernel_launches",
+                                    "device_memory"}
+    assert got["device_memory"] is None          # no CUDA on the CPU
     assert set(got["batcher"]) == set(want["batcher"])
     assert set(got["batcher"]["shape_ladder"]) == set(
         want["batcher"]["shape_ladder"])
@@ -274,7 +278,7 @@ def test_http_round_trip(setup):
         assert status == 200 and json.loads(body)["ok"]
         assert http(base + "/nope")[0] == 404
         assert http(base + "/v1/verdict")[0] == 503
-        assert http(base + "/v1/profile", {})[0] == 501
+        assert http(base + "/v1/profile", {"seconds": 0})[0] == 400
         assert http(base + "/v1/whatif", {"expected_traffic": []})[0] == 503
         status, body = http(base + "/metrics")
         assert status == 200
