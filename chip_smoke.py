@@ -81,15 +81,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    240 minutes of the crypto scenario with a cryptojacking burner on
    compose-post-service over minutes 100-160, held against the plain
    path (flagged set, first_flag_index, scores); `predict --raw` on the
-   training corpus equal to `predict --features`; the phase's seconds per
-   CLI and its launches per kernel;
+   corpus's first 120 minutes equal to the first 120 rows of `predict
+   --features` on the whole corpus; the phase's seconds per CLI and its
+   launches per kernel;
 8. the serving plane: `python -m deeprest_tpu_torch serve` in its own
    process on phase 5's flagship checkpoint, with the MicroBatcher and
    with --no-batcher: every rung's CUDA graph captured before it listens
    (4 ladder rungs, 7 fused rungs x 2 programs) and none after the load,
    `/v1/predict` on the day held against phase 5's host loop over the
    plain recurrence (2e-2 of scale), and a closed loop of
-   60/60/60/77/90/117-minute requests at concurrency 1 and 16
+   60/60/60/77/90/117-minute requests at concurrency 1 and 16 (2 s a cell)
    (requests/s, p50/p99, coalesced_batches), its sampled answers held
    against the single-client answer to the same body (bit for bit with
    --no-batcher, 2e-2 of scale with the batcher); in-process, captured against
@@ -132,8 +133,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     int8 and bf16 on phase 5's flagship checkpoint (`predict --quant
     int8` too) and on the 10k one (envelope written, re-read and re-gated,
     weight bytes, a hand-tightened envelope raising QuantParityError,
-    windows/s per mode in turns); `export` of the flagship checkpoint (the
-    graph holds the gru_fwd operator and no plain-recurrence op) and
+    windows/s per mode in turns); `export --aot` of the flagship
+    checkpoint (the graph holds the gru_fwd operator and no
+    plain-recurrence op; the fleet's sidecar, which phase 13 admits, is
+    written next to the checkpoint) and
     `serve --artifact` in its own process (/v1/predict on the day
     bit-identical to the in-process predictor, K1 launched); one
     /v1/predict of 60 x 10,240 through `serve --sparse-feed` equal to the
@@ -161,10 +164,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     swept, no capture after warm-up);
 12. the replica plane on phase 5's checkpoint (run after phase 8):
     `serve --replicas R --admission-depth 64` with the MicroBatcher,
-    process replicas at R = 1, 2 and 4 and thread replicas at 2 (every
+    process replicas at R = 2 and 4 and thread replicas at 2 (every
     worker captures its 18 graphs before its handshake and none after;
     each answer to phase 8's request mix, posted alone, bit for bit the
-    single engine's; closed loops at concurrency 16 and 64 with the
+    single engine's; closed loops (2 s a cell) at concurrency 16 and 64
+    with the
     clients in 4 spawned processes: requests/s, p50/p99, per-replica
     served counts, each worker's graphs and device memory, sampled
     answers against the single-client ones; 256 clients against depth 64
@@ -177,11 +181,32 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     (fast 429s with Retry-After); `train --epochs 1 --profile-dir` on
     phase 6's corpus (K3 in the trace) and `measure_step_breakdown` on a
     flagship trainer;
-13. the seconds of each phase, one JSON line of per-kernel numbers, then
+13. the fleet tier on phase 5's checkpoint (run after phases 12 and 10): 100
+    tenants (the checkpoint and copies scaled by 1 + 0.01 i; fewer, with
+    the reason printed, when the host cannot pin the spilled ones) in a
+    PredictorPool with budget 16 behind one plane's 18 graphs, through
+    fleet_bench's arms: admission ms per tenant, 18 graphs at warm-up and
+    none after, pinned host bytes beyond the spills; every tenant on phase
+    8's request mix; the checkpoint's day through the pool against phase
+    5's host loop over the plain recurrence (2e-2 of scale); 400 random
+    accesses (spills and restores nonzero, bind ms by CUDA events, spill
+    and restore ms, request p50/p99 within 100x, post-storm answers bit
+    for bit, device memory flat); tenant A bit for bit with tenant B
+    hammering and hot-reloaded from another thread; 2 resident and 2
+    spilled tenants bit for bit their standalone predictors on their own
+    graphs; `serve --replicas 2 --replica-mode thread --fleet blue=…
+    --fleet green=… --no-batcher` on a copy of the checkpoint without its
+    sidecar (its startup: a template admission without the sidecar, by
+    stage; X-Tenant answers equal the in-process pool's, an unknown tenant
+    404, /healthz's fleet view, 18 graphs and 0 after, /metrics's
+    deeprest_fleet_* series); a template cold start in a fresh process
+    with the sidecar phase 10's `export --aot` wrote, by stage
+    (fleet_bench --cold-start);
+14. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 11 and the sweep of 9; a server or CLI process starts at
+7, 8, 12, 10, 13, 11 and the sweep of 9; a server or CLI process starts at
 0, and phase 12 sums its workers' ledgers) and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
@@ -236,7 +261,7 @@ SWEEP = (0.5, 1.0, 2.0, 4.0)
 # bench's 24-47 minutes at W=24, scaled to W=60), concurrencies, seconds
 PLANE_REQUEST_MINUTES = (60, 60, 60, 77, 90, 117)
 PLANE_CONCURRENCY = (1, 16)
-PLANE_LOAD_S = 3.0
+PLANE_LOAD_S = 2.0
 
 
 def fail(msg: str) -> None:
@@ -1575,9 +1600,11 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
     if score_err > TOL["bfloat16"][0]:
         fail("anomaly scores disagree with the plain path")
 
-    # predict --raw on the training corpus == predict --features
+    # predict --raw on the corpus's first SYNTH_BUCKETS minutes (the
+    # sample) == the first rows of predict --features on the whole corpus:
+    # featurizing is per minute and those rows' windows tile alike
     t0 = time.perf_counter()
-    by_raw = run_cli(["predict", "--ckpt-dir", ckpt, "--raw", raw,
+    by_raw = run_cli(["predict", "--ckpt-dir", ckpt, "--raw", sample,
                       "--out", os.path.join(wd, "by_raw")], timeout=600)
     secs["predict --raw"] = time.perf_counter() - t0
     by_feats = run_cli(["predict", "--ckpt-dir", ckpt, "--features",
@@ -1586,12 +1613,13 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
     count(by_raw)
     count(by_feats)
     with np.load(by_raw["out"]) as a, np.load(by_feats["out"]) as b:
-        same = np.array_equal(a["predictions"], b["predictions"])
+        same = np.array_equal(a["predictions"],
+                              b["predictions"][:SYNTH_BUCKETS])
         shape = a["predictions"].shape
     print(f"check main raw predict --raw vs --features: {shape}, "
           f"bit-identical {same}; predict --raw {secs['predict --raw']:.2f}"
           f" s (stages {rounded(by_raw['seconds'])})", flush=True)
-    if not same or shape != (RAW_BUCKETS, 88, 3):
+    if not same or shape != (SYNTH_BUCKETS, 88, 3):
         fail("predict --raw differs from predict --features")
     total = time.perf_counter() - t_phase
     print(f"main raw phase: {total:.1f} s of wall time; CLI seconds "
@@ -2146,7 +2174,8 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
 
 # (mode, replicas, admission depth, closed-loop concurrencies, role)
 REPLICA_PLANES = (
-    ("process", 1, 64, (16, 64), None),
+    # (process R = 1 was cut to keep the script near 700 s with the fleet
+    # phase: phase 8's single engine is the one-replica baseline)
     ("process", 2, 64, (16, 64), "chaos"),      # SIGKILL, then the reload
     ("process", 4, 64, (16, 64, 256), None),
     ("thread", 2, 64, (16, 64), "profile"),
@@ -2156,7 +2185,7 @@ REPLICA_PLANES = (
 )
 REPLICA_CONCURRENCY = (16, 64)
 REPLICA_OVERLOAD = 256
-REPLICA_LOAD_S = 3.0
+REPLICA_LOAD_S = 2.0
 REPLICA_CLIENT_PROCS = 4            # client processes of a closed loop
 REPLICA_OVERLOAD_PROCS = 8          # ... and of the overload's
 RELOAD_SCALE = 1.25                 # the newer step's params, x this
@@ -2477,7 +2506,7 @@ def replica_training_tools(cuda_gru, wd: str) -> dict:
 def phase_replica_plane(cuda_gru, flagship: dict, plane: dict,
                         wd: str) -> dict:
     """The replica plane on the card: ``serve --replicas R`` with process
-    replicas at R = 1, 2 and 4 and thread replicas at 2, each with the
+    replicas at R = 2 and 4 and thread replicas at 2, each with the
     MicroBatcher and --admission-depth 64, on phase 5's checkpoint:
     sequential answers bit for bit the single engine's (phase 8), closed
     loops at concurrency 16 and 64 (requests/s, p50/p99, per-replica
@@ -2605,6 +2634,345 @@ def phase_replica_plane(cuda_gru, flagship: dict, plane: dict,
     result.update(tools=replica_training_tools(cuda_gru, wd),
                   launches=launches)
     return result
+
+
+# -- phase 13: the fleet tier -----------------------------------------------
+
+FLEET_TENANTS = 100                 # JAX's full fleet arm
+FLEET_BUDGET = 16
+FLEET_PIN_MARGIN = 2                # MemAvailable over the spill, at least
+
+
+def fleet_tenants(per_tenant: int) -> int:
+    """JAX's 100 tenants, cut when the host cannot pin the spilled ones
+    (``FLEET_PIN_MARGIN`` x their bytes must be available)."""
+    avail = None
+    with open("/proc/meminfo", encoding="utf-8") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    spill = (FLEET_TENANTS - FLEET_BUDGET) * per_tenant
+    if avail is None or avail >= FLEET_PIN_MARGIN * spill:
+        return FLEET_TENANTS
+    m = FLEET_BUDGET + int(avail // (FLEET_PIN_MARGIN * per_tenant))
+    print(f"fleet: cut to {m} tenants: {avail} bytes available cannot pin "
+          f"{FLEET_TENANTS - FLEET_BUDGET} spilled tenants of {per_tenant} "
+          f"bytes {FLEET_PIN_MARGIN} times over", flush=True)
+    return max(m, FLEET_BUDGET + 2)
+
+
+def tenant_post(url: str, body: bytes, tenant: str | None):
+    """POST ``body`` to ``url`` with ``X-Tenant`` (none when None)."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if tenant:
+        headers["X-Tenant"] = tenant
+    req = urllib.request.Request(url, data=body, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def fleet_http(ckpt: str, mix: list, want: dict, wd: str) -> int:
+    """``serve --replicas 2 --replica-mode thread --no-batcher --fleet
+    blue=… --fleet green=…`` on a copy of phase 5's checkpoint without its
+    AOT sidecar and two scaled copies: its startup is a template admission
+    without the sidecar, by stage; ``X-Tenant`` selects the model (answers
+    equal the in-process pool's for the same weights), an unknown tenant
+    is a 404, ``/healthz`` has the pool's view with 18 graphs on the plane
+    and none after, ``/metrics`` the ``deeprest_fleet_*`` series.  Returns
+    the server's K1 launches."""
+    import shutil
+
+    import numpy as np
+
+    bare = os.path.join(wd, "fleet_bare_ckpt")
+    shutil.copytree(ckpt, bare, ignore=shutil.ignore_patterns("aot"))
+
+    # --no-batcher: every tenant's request then takes the fused path, as
+    # in-process (a batcher would coalesce the default tenant's short
+    # requests through the ladder's program instead)
+    args = ["--ckpt-dir", bare, "--replicas", 2, "--replica-mode", "thread",
+            "--no-batcher", "--fleet", f"blue={want['blue'][0]}",
+            "--fleet", f"green={want['green'][0]}"]
+    t0 = time.perf_counter()
+    proc, start = start_server(args, os.path.join(wd, "serve_fleet.log"))
+    try:
+        url = start["listening"]
+        graphs = start["graphs"]
+        print(f"main fleet cold start without the sidecar (the fleet "
+              f"server's startup): listening after "
+              f"{time.perf_counter() - t0:.2f} s = interpreter, imports and "
+              f"kernel library, then seconds {json.dumps(start['seconds'])} "
+              f"(fleet: the plane and two more tenants' loads; warm: eager "
+              f"first calls {graphs['seconds']['eager']:.4f} s, captures "
+              f"{graphs['seconds']['capture']:.4f} s); graphs "
+              f"{graphs['captures']}; fleet {json.dumps(start['fleet'])}",
+              flush=True)
+        if start["fleet"]["tenants"] != ["default", "blue", "green"] or \
+                start["fleet"]["aot"]["last_reason"] != "no artifacts":
+            fail(f"serve --fleet startup {start['fleet']}")
+        for _ in range(2):
+            for tenant in ("blue", None, "green"):
+                for body, ref in zip(mix, want[tenant or "default"][1]):
+                    status, answer = tenant_post(url + "/v1/predict",
+                                                 body, tenant)
+                    if status != 200:
+                        fail(f"fleet /v1/predict ({tenant}) answered "
+                             f"{status}: {answer}")
+                    got = np.asarray(answer["predictions"], np.float32)
+                    if not np.array_equal(got, ref):
+                        fail(f"fleet /v1/predict ({tenant}) differs from "
+                             "the in-process pool's answer for the same "
+                             "weights")
+                    if answer["tenant"]["name"] != (tenant or "default"):
+                        fail(f"fleet answer names {answer['tenant']}")
+        status, answer = tenant_post(url + "/v1/predict", mix[0], "ghost")
+        if status != 404:
+            fail(f"an unknown tenant got {status}, not 404: {answer}")
+        status, health = http_json(url + "/healthz")
+        pool, cache = health["fleet"]["pool"], health["jit_cache"]
+        with urllib_open(url + "/metrics") as text:
+            series = sorted({line.split()[0] for line in text.splitlines()
+                             if line.startswith("deeprest_fleet_")})
+        print(f"check fleet http: X-Tenant blue, default and green each "
+              f"equal to the in-process pool's answers ({2 * len(mix)} "
+              f"requests each, bit for bit); ghost 404 "
+              f"({answer.get('error')}); /healthz fleet tenants "
+              f"{sorted(health['fleet']['tenants'])}, pool tenants "
+              f"{pool['tenants']} resident {pool['resident']}, plane "
+              f"{pool['plane']}; graphs {cache['captures']} at warm-up, "
+              f"{cache['captures_after_warmup']} after; /metrics {series}",
+              flush=True)
+        if cache["captures"] != 18 or cache["captures_after_warmup"]:
+            fail(f"fleet server graphs {cache}")
+        if "deeprest_fleet_tenants" not in series:
+            fail(f"/metrics has no deeprest_fleet_* series: {series}")
+        return health["kernel_launches"]["gru_fwd"]
+    finally:
+        stop_server(proc)
+
+
+def urllib_open(url: str):
+    """GET ``url`` as text, in a ``with``."""
+    import contextlib
+    import urllib.request
+
+    @contextlib.contextmanager
+    def opened():
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            yield resp.read().decode()
+
+    return opened()
+
+
+def fleet_aot(ckpt: str) -> dict:
+    """A template cold start of phase 5's checkpoint, with the sidecar
+    phase 10's ``export --aot`` wrote next to it, in a fresh process, by
+    stage (fleet_bench --cold-start)."""
+    from deeprest_tpu_torch.serve.aot import MANIFEST_NAME, aot_dir
+
+    if not os.path.exists(os.path.join(aot_dir(ckpt), MANIFEST_NAME)):
+        fail("phase 10's export --aot wrote no sidecar next to the "
+             "checkpoint")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeprest_tpu_torch.benchmarks.fleet_bench",
+         "--cold-start", ckpt], cwd=REPO, env=dict(os.environ,
+                                                   PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"fleet_bench --cold-start exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    stages, aot = cold["cold_start"], cold["aot"]
+    rest = wall - sum(v for k, v in stages.items()
+                      if k not in ("warm_eager", "warm_capture"))
+    print(f"main fleet cold start with the sidecar: process {wall:.2f} s = "
+          f"interpreter and imports {rest:.2f} s + "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items())
+          + f"; graphs {cold['graphs']}; load_aot loaded {aot['loaded']}, "
+          f"compile_fallbacks {aot['compile_fallbacks']}, reason "
+          f"{aot['last_reason']!r}", flush=True)
+    if aot["loaded"] != 0 or cold["graphs"] != 18 or \
+            not aot["last_reason"].startswith("manifest verified"):
+        fail(f"the sidecar export --aot wrote did not verify (or something "
+             f"was labelled loaded) on the card that wrote it: {cold}")
+    return {"wall_s": wall, **cold}
+
+
+def phase_fleet(cuda_gru, flagship: dict, wd: str) -> dict:
+    """The fleet tier on phase 5's flagship checkpoint: M tenants (the
+    checkpoint and scaled copies, x(1 + 0.01 i)) behind one plane's 18
+    graphs with budget 16 (fleet_bench's ledger, churn and isolation arms
+    on phase 8's request mix), 4 tenants held bit for bit against their
+    standalone predictors, the checkpoint's day against the host loop over
+    the plain recurrence, the pool over HTTP, and a template cold start
+    with and without the AOT sidecar (run after phase 10, whose ``export
+    --aot`` writes it)."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.benchmarks import fleet_bench
+    from deeprest_tpu_torch.serve.fleet import PredictorPool
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.train.checkpoint import (
+        load_sidecar, save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    ckpt, traffic, delta, ref = (flagship["ckpt"], flagship["traffic"],
+                                 flagship["delta"], flagship["ref"])
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    first = Predictor.from_checkpoint(ckpt, device="cuda")
+    base = {k: v.detach().clone() for k, v in first.params.items()}
+    per_tenant = sum(t.numel() * t.element_size()
+                     for t in first.bound_state().values())
+    m = fleet_tenants(per_tenant)
+
+    def make(i: int):
+        if i == 0:
+            return first if first is not None else Predictor.from_checkpoint(
+                ckpt, device="cuda")
+        scale = float(np.float32(1.0 + 0.01 * i))
+        return Predictor(
+            {k: v * scale for k, v in base.items()}, first_cfg, x_stats,
+            y_stats, names, W, delta_mask=delta, device="cuda")
+
+    first_cfg, x_stats, y_stats, names = (first.model_config, first.x_stats,
+                                          first.y_stats, first.metric_names)
+    rng = np.random.default_rng(SEED)
+    mix, bodies = [], []
+    for minutes in PLANE_REQUEST_MINUTES:     # phase 8's request mix
+        lo = int(rng.integers(0, DAY - minutes))
+        mix.append(traffic[lo:lo + minutes])
+        bodies.append(json.dumps({"traffic": mix[-1].tolist()}).encode())
+
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    pool = PredictorPool(hbm_budget=FLEET_BUDGET, aot=False)
+    ledger = fleet_bench.measure_ledger(pool, make, m, mix[-1], "cuda")
+    first = None                               # the pool's app000 now
+    t0 = time.perf_counter()
+    answers = {}
+    for i in range(m):
+        pred = pool.resolve(fleet_bench._name(i)).predictor()
+        answers[i] = [pred.predict_series(s) for s in mix]
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    frozen = pool.assert_frozen()
+    graphs = pool.resolve("app000").predictor().plane.graphs.stats()
+    print(f"main fleet ledger: {m} tenants admitted in "
+          f"{ledger['admit_ms_per_app']:.3f} ms each (construct + admit; the "
+          f"pool's admit alone median {ledger['pool_admit_ms_median']:.3f} "
+          f"ms, the first, which makes the plane, "
+          f"{ledger['pool_admit_ms_first']:.3f} ms); graphs "
+          f"{ledger['captures']} captured at warm-up "
+          f"({graphs['seconds']['eager']:.3f} s eager first calls, "
+          f"{graphs['seconds']['capture']:.3f} s captures), "
+          f"{ledger['captures_after_warmup']} after, plane count {frozen} "
+          f"frozen; bound slot {ledger['slot_bytes']} bytes; spilled "
+          f"{ledger['spilled']} ({ledger['spill_host_bytes']} pinned bytes); "
+          f"pinned bytes in use {ledger['pinned_bytes_before']} -> "
+          f"{ledger['pinned_bytes_after']}, beyond the spills per tenant "
+          f"{ledger['pinned_beyond_spill_per_app']}; every tenant on phase "
+          f"8's mix ({len(mix) * m} requests) in {mix_s:.2f} s", flush=True)
+    if ledger["captures"] != 18 or ledger["captures_after_warmup"] or \
+            frozen != 18 or not ledger["ok"]:
+        fail(f"fleet ledger: {ledger}")
+    # the checkpoint's day through the pool against phase 5's host loop
+    day = pool.resolve("app000").predictor().predict_series(traffic)
+    errs = {name: rel_err(day, ref, cols)
+            for cols, name in ((~delta, "non-delta"), (delta, "delta"))}
+    print(f"check fleet app000 (phase 5's checkpoint) day through the pool "
+          f"vs host loop over the plain recurrence: max_err/max|ref| {errs} "
+          f"(tol {TOL['bfloat16'][0]})", flush=True)
+    if max(errs.values()) > TOL["bfloat16"][0]:
+        fail("the pool's day disagrees with the plain path")
+    churn = fleet_bench.measure_churn(pool, m, mix[-1], False, "cuda")
+    print(f"main fleet churn: {churn['requests']} random accesses over {m} "
+          f"tenants: spills {churn['spills']}, restores {churn['restores']}; "
+          f"bind ms median {churn['bind_ms_median']:.4f} p99 "
+          f"{churn['bind_ms_p99']:.4f} (CUDA events), spill ms median "
+          f"{churn['spill_ms_median']:.3f} p99 {churn['spill_ms_p99']:.3f}, "
+          f"restore ms median {churn['restore_copy_ms_median']:.3f} p99 "
+          f"{churn['restore_copy_ms_p99']:.3f} (host clock, copies landed); "
+          f"request ms p50 {churn['request_ms_median']:.3f} p99 "
+          f"{churn['request_ms_p99']:.3f} = {churn['p99_over_median']:.2f}x "
+          f"(gate {fleet_bench.P99_FACTOR}x); post-storm bit-exact "
+          f"{churn['post_storm_bit_exact']}; device bytes allocated "
+          f"{churn['device_bytes_before']} -> {churn['device_bytes_after']} "
+          f"({(churn['device_bytes_after'] - mem0) / per_tenant:.2f} "
+          f"tenants' bytes above the phase's start, {FLEET_BUDGET} resident "
+          f"+ the slot + the copy of app000's weights + the graphs' pool)",
+          flush=True)
+    if not churn["ok"] or abs(churn["device_bytes_after"]
+                              - churn["device_bytes_before"]) > per_tenant:
+        fail(f"fleet churn: {churn}")
+    isolation = fleet_bench.measure_isolation(pool, make, mix[-1], m)
+    print(f"check fleet isolation: {json.dumps(isolation)}", flush=True)
+    if not isolation["ok"]:
+        fail(f"fleet isolation: {isolation}")
+    torch.cuda.synchronize()
+    launches = cuda_gru.GRU_FWD.launches
+    trains = cuda_gru.GRU_FWD_TRAIN.launches + cuda_gru.GRU_BWD.launches
+    print(f"main fleet in-process gru_fwd launches {launches}", flush=True)
+    if launches == 0 or trains:
+        fail(f"fleet launches gru_fwd {launches}, training kernels {trains}")
+
+    # 4 tenants, 2 resident and 2 spilled, against their own standalone
+    # predictors on their own graphs (the check against baked addresses)
+    # (the isolation arm reloaded app001 with other weights)
+    resident = [i for i in range(m - 1, 1, -1)
+                if pool.peek(fleet_bench._name(i)).resident][:2]
+    spilled = [i for i in range(2, m)
+               if not pool.peek(fleet_bench._name(i)).resident][:2]
+    want = {}
+    for i in resident + spilled:
+        was = pool.peek(fleet_bench._name(i)).resident
+        got = [pool.resolve(fleet_bench._name(i)).predictor()
+               .predict_series(s) for s in mix + [traffic]]
+        alone = make(i)
+        alone.warm()
+        ref_i = [alone.predict_series(s) for s in mix + [traffic]]
+        same = all(np.array_equal(a, b) for a, b in zip(got, ref_i))
+        print(f"check fleet app{i:03d} ({'resident' if was else 'spilled'}): "
+              f"the pool's answers to the mix and the day bit for bit its "
+              f"standalone predictor's on its own {alone.jit_cache_size()} "
+              f"graphs: {same}", flush=True)
+        if not same:
+            fail(f"fleet tenant {i} differs from its standalone predictor")
+        del alone
+        free_device()
+    # the HTTP plane: phase 5's checkpoint and two copies scaled as app002
+    # and app003, written with the port's writer
+    extra = load_sidecar(ckpt, 0)
+    for name, i in (("blue", 2), ("green", 3)):
+        path = os.path.join(wd, f"fleet_{name}")
+        scale = float(np.float32(1.0 + 0.01 * i))
+        save_checkpoint(path, {k: (v * scale).cpu() for k, v in base.items()},
+                        step=0, extra=extra)
+        want[name] = (path, [pool.resolve(fleet_bench._name(i)).predictor()
+                             .predict_series(s) for s in mix])
+    want["default"] = (ckpt, [pool.resolve("app000").predictor()
+                              .predict_series(s) for s in mix])
+    del pool, base
+    free_device()
+    server_launches = fleet_http(ckpt, bodies, want, wd)
+    aot = fleet_aot(ckpt)
+    total = time.perf_counter() - t_phase
+    print(f"fleet phase: {total:.1f} s of wall time; gru_fwd launches "
+          f"in-process {launches}, the fleet server {server_launches}",
+          flush=True)
+    return {"launches": launches + server_launches, "tenants": m,
+            "ledger": ledger, "churn": churn, "isolation": isolation,
+            "aot": aot, "total_s": total}
 
 
 TENK_F, TENK_K = 10240, 64          # bench.py:37-39, tenk_bench.py:44-46
@@ -2950,11 +3318,14 @@ def phase_tenk(cuda_gru, flagship: dict, workdir: str) -> dict:
     serve = tenk_serving(cuda_gru, ckpt, data.traffic)
     free_device()
 
-    # export the flagship checkpoint; both servers start while the
-    # quantized checks run
+    # export the flagship checkpoint, with the fleet's AOT sidecar next to
+    # it (phase 13 admits it); both servers start while the quantized
+    # checks run
     art = os.path.join(wd, "artifact")
-    run_cli(["export", "--ckpt-dir", flagship["ckpt"], "--out", art],
-            timeout=600)
+    exported = run_cli(["export", "--ckpt-dir", flagship["ckpt"], "--out",
+                        art, "--aot"], timeout=600)
+    print(f"main export --aot: sidecar {json.dumps(exported['aot'])}",
+          flush=True)
     program = torch.export.load(os.path.join(art, "model.pt2"))
     ops = graph_ops(program)
     plain_ops = sorted({o for o in ops if o.startswith(
@@ -4017,6 +4388,7 @@ def main() -> int:
                          serving, plane, wd)
         tenk = timed("tenk sparse quant export", phase_tenk, cuda_gru,
                      serving, wd)
+        fleet = timed("fleet tier", phase_fleet, cuda_gru, serving, wd)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         stream = timed("streaming retrain", phase_stream, cuda_gru,
@@ -4028,7 +4400,7 @@ def main() -> int:
 
     launches = dict(training["launches"])
     launches["gru_fwd"] += (serving["launches"] + plane["launches"]
-                            + replicas["launches"])
+                            + replicas["launches"] + fleet["launches"])
     for name, count in raw_launches.items():
         launches[name] += count
     for name, count in tenk["launches"].items():
@@ -4071,7 +4443,9 @@ def main() -> int:
           f"{raw_launches}; serving plane gru_fwd {plane['launches']} "
           f"(the servers' ledgers); replica plane gru_fwd "
           f"{replicas['launches']} (the workers' ledgers, and the killed "
-          f"and reloaded workers' before they went); 10k sparse, quantized "
+          f"and reloaded workers' before they went); fleet tier gru_fwd "
+          f"{fleet['launches']} ({fleet['tenants']} tenants in-process and "
+          f"the fleet server's ledger); 10k sparse, quantized "
           f"and exported "
           f"{tenk['launches']}; streaming retrain {stream['launches']} "
           f"(f32: the stream CLI runs and the verdict server "

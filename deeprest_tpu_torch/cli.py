@@ -15,6 +15,8 @@ lines):
     python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --verdict-raw=growing.jsonl --watch=5
     python -m deeprest_tpu_torch serve      --artifact=artifact --port=2021
     python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --replicas=4 --replica-mode=process --admission-depth=64
+    python -m deeprest_tpu_torch export     --ckpt-dir=ckpt --out=artifact --aot
+    python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --fleet blue=ckpt_b --fleet green=ckpt_c --fleet-hbm-budget=16
     python -m deeprest_tpu_torch profile    --url=http://127.0.0.1:2021 --seconds=1 --out-dir=trace
 
 ``simulate``, ``featurize``, ``ingest`` and ``synthesize`` are host-only
@@ -45,11 +47,16 @@ N`` puts the routing front (serve/router.py) over N engine replicas
 processes (``process``: each its own CUDA context and rung graphs), with
 bounded admission, per-tenant fairness, health ejection, retry, rolling
 reload under ``--watch`` and the optional ``--autoscale`` loop.
+``serve --fleet tenant=ckpt_dir`` (repeatable) puts more tenants'
+models behind the plane (serve/fleet.py): ``X-Tenant`` selects the model,
+every tenant serves through one set of captured rung graphs, and at most
+``--fleet-hbm-budget`` tenants stay on the card (the rest spill to pinned
+host memory).  ``export --aot`` writes the fleet's AOT sidecar, a
+fingerprinted manifest, next to the checkpoint (serve/aot.py).
 ``profile`` opens a ``torch.profiler`` window on a running server, and
-``train --profile-dir`` traces the first epoch.  Mesh, elastic
-remeshing (``stream --elastic`` exits 2), the fleet tier and AOT
-executables (``export --aot``) are not ported, and the port's CLI does
-not offer them.
+``train --profile-dir`` traces the first epoch.  Mesh and elastic
+remeshing (``stream --elastic`` exits 2) are not ported, and the port's
+CLI does not offer them.
 """
 
 from __future__ import annotations
@@ -850,24 +857,30 @@ def cmd_anomaly(args) -> int:
 def cmd_export(args) -> int:
     """Checkpoint → portable inference artifact (serve/export.py): the
     forward program traced on the CPU with ``torch.export`` and its
-    manifest.  ``--aot`` (serialized executables next to the checkpoint
-    for fleet pool admission) is not ported."""
-    if args.aot:
-        sys.exit("error: --aot is not ported yet: serialized serving "
-                 "executables belong to the fleet tier (ROADMAP queue 1, "
-                 "item 7c)")
-    from deeprest_tpu_torch.serve.export import export_predictor
+    manifest, plus, with ``--aot``, the fleet's AOT sidecar next to the
+    checkpoint (serve/aot.py), fingerprinted for the serving engine on
+    ``--device``."""
+    from deeprest_tpu_torch.serve.export import (
+        export_aot_sidecar, export_predictor,
+    )
     from deeprest_tpu_torch.serve.predictor import Predictor
 
     pred = Predictor.from_checkpoint(args.ckpt_dir, fused=False,
                                      device="cpu")
     out = export_predictor(pred, args.out)
-    print(json.dumps({
+    result = {
         "out": out,
         "metrics": len(pred.metric_names),
         "feature_dim": pred.feature_dim,
         "window_size": pred.window_size,
-    }))
+    }
+    if args.aot:
+        # the manifest a fleet pool admitting this checkpoint checks; its
+        # fingerprint is the serving engine's (defaults of `serve`)
+        serving = Predictor.from_checkpoint(args.ckpt_dir,
+                                            device=args.device)
+        result["aot"] = export_aot_sidecar(serving, args.ckpt_dir)
+    print(json.dumps(result))
     return 0
 
 
@@ -945,6 +958,35 @@ def _router_config(args):
         sys.exit(f"error: {exc}")
 
 
+def _fleet_pool(args, fleet_cfg, base_pred, knobs: dict):
+    """The fleet tier's pool: ``base_pred`` (``--ckpt-dir``) admitted as
+    the 'default' tenant, the plane's template, whose AOT sidecar the pool
+    checks; then every ``--fleet tenant=ckpt_dir``, loaded with the same
+    knobs, serving through the plane's graphs."""
+    from deeprest_tpu_torch.config import QualityConfig
+    from deeprest_tpu_torch.serve.fleet import PredictorPool
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    pool = PredictorPool(
+        hbm_budget=fleet_cfg.hbm_budget, aot=fleet_cfg.aot,
+        quality_config=(QualityConfig(enabled=True)
+                        if fleet_cfg.quality else None),
+        top_k_tenants=fleet_cfg.top_k_tenants)
+    pool.admit("default", base_pred, checkpoint_path=args.ckpt_dir)
+    for spec_item in args.fleet:
+        name, _, ckpt = spec_item.partition("=")
+        if not name.strip() or not ckpt.strip():
+            sys.exit(f"error: bad --fleet entry {spec_item!r} "
+                     "(want tenant=checkpoint_dir)")
+        tenant_pred = Predictor.from_checkpoint(ckpt.strip(), **knobs)
+        try:
+            pool.admit(name.strip(), tenant_pred,
+                       checkpoint_path=ckpt.strip())
+        except ValueError as e:
+            sys.exit(f"error: {e}")
+    return pool
+
+
 def cmd_serve(args) -> int:
     """Serve predict / what-if / anomaly over HTTP from a checkpoint or an
     exported artifact (serve/server.py), with cross-request micro-batching
@@ -960,6 +1002,7 @@ def cmd_serve(args) -> int:
     replicas build and warm their own stacks; the front then loads no
     model."""
     from deeprest_tpu_torch import obs
+    from deeprest_tpu_torch.obs import profiler
     from deeprest_tpu_torch.serve.batcher import BatcherConfig
     from deeprest_tpu_torch.serve.server import (
         CheckpointReloader, PredictionServer, PredictionService,
@@ -996,8 +1039,28 @@ def cmd_serve(args) -> int:
                  "must be >= 1")
     obs.configure(enabled=not args.no_obs,
                   span_capacity=args.obs_span_capacity)
+    profiler.preload()      # POST /v1/profile's imports, before any thread
     router_cfg = _router_config(args)
     process = router_cfg is not None and args.replica_mode == "process"
+    fleet_cfg = None
+    if args.fleet:
+        from deeprest_tpu_torch.config import FleetConfig
+
+        if not args.ckpt_dir:
+            sys.exit("error: --fleet needs --ckpt-dir (tenant pools hold "
+                     "Predictor params; artifacts bake theirs in)")
+        if process:
+            sys.exit("error: --fleet needs --replica-mode=thread (the "
+                     "per-request backend override would re-ship tenant "
+                     "params over the worker pipe)")
+        try:
+            fleet_cfg = FleetConfig(
+                enabled=True, hbm_budget=args.fleet_hbm_budget,
+                aot=not args.no_fleet_aot,
+                top_k_tenants=args.fleet_top_k,
+                quality=not args.no_fleet_quality)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
     from deeprest_tpu_torch.config import InferConfig
     from deeprest_tpu_torch.serve.predictor import Predictor
 
@@ -1034,6 +1097,7 @@ def cmd_serve(args) -> int:
     else:
         backend = f"artifact:{args.artifact}"
     autoscaler = None
+    fleet_pool = None
     if process:
         from deeprest_tpu_torch.serve.router import ReplicaRouter
 
@@ -1059,6 +1123,13 @@ def cmd_serve(args) -> int:
 
             pred = ExportedPredictor.load(args.artifact, **knobs)
         seconds["load"] = time.perf_counter() - t0
+        if fleet_cfg is not None:
+            # before warm(): the plane the pool makes from the default
+            # tenant captures the graphs every tenant then serves through
+            t0 = time.perf_counter()
+            fleet_pool = _fleet_pool(args, fleet_cfg, pred,
+                                     {**knobs, **sparse})
+            seconds["fleet"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         graphs = pred.warm()
         seconds["warm"] = time.perf_counter() - t0
@@ -1120,6 +1191,11 @@ def cmd_serve(args) -> int:
     service = PredictionService(pred, synthesizer, backend=backend,
                                 reloader=reloader, batching=batching,
                                 surface=surface_cfg)
+    if fleet_pool is not None:
+        try:
+            service.attach_fleet(fleet_pool)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
     verdict_wire = args.verdict_wire_listen
     if args.verdict_raw and verdict_wire:
         sys.exit("error: --verdict-raw and --verdict-wire-listen are "
@@ -1167,7 +1243,11 @@ def cmd_serve(args) -> int:
                                    "max_surfaces": surface_cfg.max_surfaces,
                                    "max_bytes": surface_cfg.max_bytes}
                                   if surface_cfg is not None else None),
-                      "replicas": args.replicas, "fleet": None,
+                      "replicas": args.replicas,
+                      "fleet": ({"tenants": fleet_pool.tenants(),
+                                 "hbm_budget": fleet_pool.hbm_budget,
+                                 "aot": fleet_pool.stats()["aot"]}
+                                if fleet_pool is not None else None),
                       "autoscale": autoscaler is not None,
                       "verdict": ({"raw": args.verdict_raw,
                                    "wire": ("%s:%d" % vtailer.address
@@ -1557,9 +1637,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--out", required=True, help="artifact directory")
     p.add_argument("--aot", action="store_true",
-                   help="also serialize the fused serving executables next "
-                        "to the checkpoint for fleet pool admission (not "
-                        "ported: exits with an error)")
+                   help="also write the fleet's AOT sidecar next to the "
+                        "checkpoint (<ckpt>/aot/, serve/aot.py): the "
+                        "fingerprinted manifest fleet pool admission "
+                        "checks (a CUDA graph cannot be serialized, so it "
+                        "holds no executable) — device-exact: export on "
+                        "the card that will serve")
+    _add_device_arg(p)
     p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("serve",
@@ -1724,6 +1808,29 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="N",
                    help="trailing buckets in the drift live window (also "
                         "the auto-arm reference size)")
+    p.add_argument("--fleet", action="append", default=None,
+                   metavar="TENANT=CKPT_DIR",
+                   help="admit another tenant application to this plane "
+                        "(repeatable; serve/fleet.py): X-Tenant then "
+                        "selects the MODEL, all tenants share one set of "
+                        "captured rung graphs, and --ckpt-dir serves as "
+                        "the 'default' tenant and the plane's template")
+    p.add_argument("--fleet-hbm-budget", type=int, default=4, metavar="N",
+                   help="max tenants with device-resident weights (LRU; "
+                        "evicted tenants spill to pinned host memory and "
+                        "restore with one host-to-device copy a tensor — "
+                        "never a disk read or a capture)")
+    p.add_argument("--no-fleet-aot", action="store_true",
+                   help="skip checking the AOT sidecar (<ckpt>/aot/, "
+                        "written by export --aot) at pool admission")
+    p.add_argument("--fleet-top-k", type=int, default=8, metavar="K",
+                   help="per-tenant observability cardinality bound: "
+                        "top-K tenants by serve count get their own "
+                        "/metrics labels and /healthz rows, the rest "
+                        "roll up under __other__")
+    p.add_argument("--no-fleet-quality", action="store_true",
+                   help="skip the per-tenant QualityMonitor (GET "
+                        "/v1/verdict then 503s for fleet tenants)")
     _add_fused_infer_args(p)
     _add_sparse_args(p, serving=True)
     p.set_defaults(fn=cmd_serve)

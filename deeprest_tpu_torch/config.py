@@ -1,8 +1,8 @@
 """Typed configuration: the fields of ``deeprest_tpu/config.py`` that the
 port reads.
 
-``ModelConfig``, ``SurfaceConfig``, ``EtlConfig`` and ``QualityConfig``
-are field-for-field copies (the
+``ModelConfig``, ``SurfaceConfig``, ``EtlConfig``, ``QualityConfig`` and
+``FleetConfig`` are field-for-field copies (the
 ``model_config`` dict a checkpoint sidecar carries constructs the first as
 it is).  ``rnn_backend`` is carried for that reason only: the port picks
 the recurrence from the tensors' device (ops/gru.py), never from this
@@ -378,9 +378,39 @@ class QualityConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Fleet tier (``deeprest_tpu/config.py``; serve/fleet.py): M tenant
+    applications on one serving plane through a checkpoint-keyed
+    predictor pool.
+
+    ``hbm_budget`` bounds how many tenants' weights stay device-resident
+    (the LRU working set; evicted tenants spill to pinned host memory and
+    restore with one host-to-device copy a tensor); ``aot`` checks the
+    AOT sidecar at admission (serve/aot.py); ``top_k_tenants`` bounds
+    per-tenant observability cardinality (/metrics labels, /healthz maps;
+    the rest rolls up under ``__other__``); ``quality`` attaches one
+    QualityMonitor per pool entry (per-tenant /v1/verdict).
+    """
+
+    enabled: bool = False
+    hbm_budget: int = 4
+    aot: bool = True
+    top_k_tenants: int = 8
+    quality: bool = True
+
+    def __post_init__(self):
+        for name in ("hbm_budget", "top_k_tenants"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(
+                    f"FleetConfig.{name}={v!r}: must be an int >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     infer: InferConfig = dataclasses.field(default_factory=InferConfig)
     etl: EtlConfig = dataclasses.field(default_factory=EtlConfig)
     quality: QualityConfig = dataclasses.field(default_factory=QualityConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)

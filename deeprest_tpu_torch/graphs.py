@@ -9,6 +9,11 @@ plane's rung programs (``serve/graphs.py``).
   the current stream only, never the whole device: a serving thread may be
   launching or replaying on another stream while a hot reload captures,
   and that must neither break the capture nor stall it.
+- Python's cyclic garbage collector is off while a graph captures: a
+  collection there could free an unrelated object's pinned host or device
+  memory (a fleet tenant's spilled weights, say), and the allocator's
+  event calls on this thread would invalidate the capture (CUDA error
+  901 at the next launch).
 - The launch ledger: a kernel wrapper called on a stream that captures
   (inside ``ops.cuda_gru.held_launches``) launches nothing, so its call is
   tallied instead of counted; the tally is the graph's ledger, and
@@ -17,7 +22,10 @@ plane's rung programs (``serve/graphs.py``).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
+import threading
 import traceback
 from typing import Any, Callable, Iterable
 
@@ -57,6 +65,28 @@ def _failing_op(exc: BaseException) -> str:
             f"({frame.name}: {(frame.line or '').strip()})")
 
 
+_PAUSE_LOCK = threading.Lock()
+_paused = [0, False]            # captures under way, collector was on
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """The cyclic garbage collector off for the block (and for every
+    capture overlapping it, from any thread); on again after the last."""
+    with _PAUSE_LOCK:
+        if _paused[0] == 0:
+            _paused[1] = gc.isenabled()
+            gc.disable()
+        _paused[0] += 1
+    try:
+        yield
+    finally:
+        with _PAUSE_LOCK:
+            _paused[0] -= 1
+            if _paused[0] == 0 and _paused[1]:
+                gc.enable()
+
+
 def capture(body: Callable[[], Any], device: torch.device, what: str,
             generators: Iterable[torch.Generator] = (),
             pool=None, stream: torch.cuda.Stream | None = None
@@ -76,7 +106,8 @@ def capture(body: Callable[[], Any], device: torch.device, what: str,
         stream = torch.cuda.Stream(device=device)
     stream.wait_stream(current)
     failed = result = None
-    with held_launches(stream) as held, torch.cuda.stream(stream):
+    with _collector_paused(), held_launches(stream) as held, \
+            torch.cuda.stream(stream):
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             result = body()

@@ -10,7 +10,9 @@ Two tools:
   over the wire: the handler keeps serving traffic on the other threads
   while the window is open, so the trace shows the plane under its real
   load.  The window writes a Chrome trace (``chrome://tracing``,
-  Perfetto) under ``out_dir``.
+  Perfetto) under ``out_dir``.  Opening the first window imports
+  ``torch._dynamo`` (seconds, and far longer while request threads hold
+  the GIL), so a server calls :func:`preload` before it serves.
 - :func:`measure_step_breakdown`: where a train step's wall time goes:
   host feed (the numpy batch staged to the device), dispatch (the step
   call returning to Python) and device wait (the last dispatch edge to an
@@ -32,6 +34,16 @@ _capture_lock = threading.Lock()
 
 class ProfilerBusy(RuntimeError):
     """A capture window is already open (one at a time, by design)."""
+
+
+def preload() -> None:
+    """Import what a capture window needs (``torch.profiler`` pulls in
+    ``torch._dynamo``) now, in the calling thread: a server calls it
+    before it starts any thread, so the first window under load does not
+    pay it.  (Not on a thread of its own: importing ``torch._dynamo``
+    while another thread imports ``torch.export`` fails on a partly
+    initialized module.)"""
+    import torch._dynamo  # noqa: F401
 
 
 def capture(out_dir: str, seconds: float,

@@ -58,9 +58,12 @@ Dispatch and plain versions:
 - :func:`gru_recurrence` dispatches on what the call needs and where the
   tensors lie.  With autograd recording and an input that requires grad it
   runs :class:`GRURecurrence` (K2 forward, K3 backward); otherwise it runs
-  K1 through the registered operator ``deeprest_torch::gru_fwd``
-  (:func:`gru_fwd_op`), which pays for none of K2's extra streams and is
-  what an exported program records.  The CPU runs the plain
+  K1, which pays for none of K2's extra streams: a traced call
+  (``torch.export``, ``torch.compile``) through the registered operator
+  ``deeprest_torch::gru_fwd`` (:func:`gru_fwd_op`), which is what an
+  exported program records, and an eager call on plain tensors directly,
+  which spares each process the import of ``torch._dynamo`` that the
+  operator's first call makes (seconds of a cold start).  The CPU runs the plain
   versions, anything else the kernels, which launch or raise.  There is no
   fallback from a kernel to a plain version.
 - :func:`gru_recurrence_reference`, :func:`gru_fwd_train_reference`,
@@ -861,9 +864,15 @@ def gru_recurrence(proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                    h0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """The recurrence on proj's device: differentiable through
     :class:`GRURecurrence` when autograd records and an input requires
-    grad, else the inference form, the operator :func:`gru_fwd_op` (K1, or
-    its plain version on the CPU)."""
+    grad, else the inference form (K1, or its plain version on the CPU):
+    the operator :func:`gru_fwd_op` when a tracer calls (its tensors are
+    a tensor subclass, or a compiler runs), the same function directly on
+    plain eager tensors."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (proj, w_hh, b_hh, h0)):
         return GRURecurrence.apply(proj, w_hh, b_hh, h0, reverse)
-    return gru_fwd_op(proj, w_hh, b_hh, h0, bool(reverse))
+    if type(proj) is not torch.Tensor or torch.compiler.is_compiling():
+        return gru_fwd_op(proj, w_hh, b_hh, h0, bool(reverse))
+    fwd = (gru_recurrence_reference if proj.device.type == "cpu"
+           else gru_fwd_cuda)
+    return fwd(proj, w_hh, b_hh, h0, bool(reverse))

@@ -23,6 +23,10 @@ Layout of an artifact directory::
 :class:`ExportedPredictor` serves an artifact through the same shape
 ladder, fused engine and rung graphs as ``Predictor``.  An artifact of the
 JAX package (``"format": "jax.export/stablehlo"``) is refused.
+
+:func:`export_aot_sidecar` writes the fleet's AOT sidecar next to a
+checkpoint (``<ckpt>/aot/``, serve/aot.py): the fingerprinted manifest a
+pool admitting that checkpoint checks.
 """
 
 from __future__ import annotations
@@ -103,6 +107,27 @@ def export_predictor(pred: Predictor, directory: str) -> str:
               encoding="utf-8") as f:
         json.dump(manifest, f, indent=2, sort_keys=True)
     return directory
+
+
+def export_aot_sidecar(pred: Predictor, checkpoint_dir: str) -> dict:
+    """Write the AOT sidecar NEXT TO THE CHECKPOINT (``<ckpt>/aot/``,
+    serve/aot.py): the manifest a fleet pool admitting this checkpoint
+    checks.  It holds no executable (a CUDA graph cannot be serialized),
+    so ``executables`` and ``bytes`` are 0; ``graphs`` counts the rung
+    graphs a plane of ``pred`` captures.  Returns a summary of what was
+    written."""
+    from deeprest_tpu_torch.serve.aot import aot_dir, export_aot
+
+    manifest = export_aot(pred, checkpoint_dir)
+    entries = manifest["entries"]
+    return {
+        "dir": aot_dir(checkpoint_dir),
+        "executables": len(entries),
+        "bytes": sum(e["bytes"] for e in entries),
+        "rungs": sorted({r for _, r in manifest["graphs"]}),
+        "graphs": len(manifest["graphs"]),
+        "device": manifest["fingerprint"]["device"],
+    }
 
 
 class ExportedPredictor(RungServing):

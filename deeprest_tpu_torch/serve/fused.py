@@ -29,6 +29,12 @@ before the same body runs, so sparse pages give the dense pages' outputs
 bit for bit.  A sparse engine's pinned slots hold cols/vals only; its
 sparse programs are captured per ``(rung, integrate)`` in :meth:`warm`.
 
+The fleet tier (serve/fleet.py): :meth:`FusedRolledEngine.adopt_executables`
+makes an engine page through a plane engine's programs, graphs, pinned
+staging and readback; the engine keeps its own stats on the device
+(:meth:`~FusedRolledEngine.bound_state`, bound into the plane's before
+each page) and its own host invert operands.
+
 Numerics contract, as in the JAX package: non-delta columns come back
 NORMALIZED and the host inverts them with numpy after readback, the exact
 per-element operations of ``y_stats.invert`` in
@@ -191,6 +197,68 @@ class FusedRolledEngine:
         self._series = 0
         self._max_dispatch_rows = 0
         self._dispatched: set[int] = set()
+        # the engine whose programs, staging and readback serve this one's
+        # pages (itself, or a plane's after adopt_executables), and the
+        # predictor each page binds into the plane's slot
+        self._exec = self
+        self._owner = None
+
+    # -- the fleet tier ---------------------------------------------------
+
+    _STATS = ("x_mn", "x_rg", "y_mn", "y_rg")
+
+    def bound_state(self) -> dict:
+        """The per-tenant device stats the page program reads, by name."""
+        return {f"fused.{k}": getattr(self, f"_{k}") for k in self._STATS}
+
+    def load_bound_state(self, state: dict) -> None:
+        for k in self._STATS:
+            setattr(self, f"_{k}", state[f"fused.{k}"])
+
+    def _geometry(self) -> dict:
+        return dict(window_size=self.window_size, rungs=self.rungs,
+                    page=self.page, quant=self.quant,
+                    has_delta=self._has_delta, median=self._median,
+                    sparse_nnz_cap=self._sparse_nnz_cap,
+                    feature_dim=self._feature_dim)
+
+    def check_adoptable(self, donor: "FusedRolledEngine") -> None:
+        """Raise unless this engine can page through ``donor``'s programs:
+        JAX's trace-time constants (window, rungs, page, quant, delta,
+        median, sparse cap, feature dim) and the delta mask, which the
+        programs read from the plane."""
+        mine, theirs = self._geometry(), donor._geometry()
+        if mine != theirs:
+            diff = {k: (mine[k], theirs[k]) for k in mine
+                    if mine[k] != theirs[k]}
+            raise ValueError(
+                "cannot share fused executables across mismatched engine "
+                f"geometry (mine vs donor): {diff}")
+        if self._has_delta and not torch.equal(
+                self._delta_dev.cpu(), donor._delta_dev.cpu()):
+            raise ValueError(
+                "cannot share fused executables: delta masks differ "
+                "(the mask is a trace-time constant of the program)")
+
+    def adopt_executables(self, donor: "FusedRolledEngine",
+                          owner=None) -> None:
+        """Page through ``donor``'s programs, graphs, pinned staging and
+        readback (fleet tier), binding ``owner`` (the tenant predictor)
+        into the donor plane's slot before each page.  The dispatched-rung
+        ledger and its lock are shared too, so ``stats()`` reads plane-wide
+        truth from any adopted engine."""
+        if donor is self:
+            return
+        self.check_adoptable(donor)
+        with self._lock:
+            self._exec = donor._exec
+            self._graphs = donor._graphs
+            self._readback = donor._readback
+            self._carry0 = donor._carry0
+            self._staging = self._sparse_staging = None
+            self._owner = owner
+            self._dispatched = donor._dispatched
+            self._lock = donor._lock
 
     # -- device program -------------------------------------------------
 
@@ -250,6 +318,8 @@ class FusedRolledEngine:
                 "n": ((1,), torch.int64)}
 
     def _staging_for(self, feature_dim: int) -> PinnedStaging:
+        if self._exec is not self:
+            return self._exec._staging_for(feature_dim)
         if self._staging is None or self._staging[0] != feature_dim:
             r, w = self.rungs[-1], self.window_size
             self._staging = (feature_dim, PinnedStaging(self.device, {
@@ -260,6 +330,8 @@ class FusedRolledEngine:
     def _sparse_staging_for(self) -> PinnedStaging:
         """Pinned cols/vals slots at ``[top rung, W, K]``; a sparse page
         never allocates the dense ``[R, W, F]`` slot."""
+        if self._exec is not self:
+            return self._exec._sparse_staging_for()
         if self._sparse_staging is None:
             r, w, k = self.rungs[-1], self.window_size, self._sparse_nnz_cap
             self._sparse_staging = PinnedStaging(self.device, {
@@ -297,17 +369,18 @@ class FusedRolledEngine:
         program = ("fused_increments" if self._has_delta and not integrate
                    else "fused")
         plan = (carry, slot["g"][:rung], slot["seg"][:rung], slot["n"])
+        prog = self._exec
         if sparse:
             return self._graphs.run(
                 ("sparse_" + program, rung),
-                lambda c, v, *rest: self._program_sparse(c, v, *rest,
+                lambda c, v, *rest: prog._program_sparse(c, v, *rest,
                                                          integrate),
                 (slot["cols"][:rung], slot["vals"][:rung], *plan),
-                staged=slot)
+                staged=slot, owner=self._owner)
         return self._graphs.run(
             (program, rung),
-            lambda x, *rest: self._program(x, *rest, integrate),
-            (slot["x"][:rung], *plan), staged=slot)
+            lambda x, *rest: prog._program(x, *rest, integrate),
+            (slot["x"][:rung], *plan), staged=slot, owner=self._owner)
 
     def warm(self, feature_dim: int) -> None:
         """Run every rung once per program in use (integrated and

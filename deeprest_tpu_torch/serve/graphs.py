@@ -31,6 +31,14 @@ stream and replayed for every later batch of that rung.
   chip check holds the graphs against), a run calls the program eagerly
   on device copies of its inputs; ``stats()`` then counts the keys
   dispatched.
+- The fleet tier (serve/fleet.py): a graph reads the tensors its program
+  closed over at capture, so tenants share one plane's graphs through a
+  :class:`BoundSlot`, the plane's own weights and stats.  ``run(...,
+  owner=tenant)`` first copies the tenant's tensors into the slot unless
+  it already holds them, under :attr:`RungGraphs.lock` and on the stream
+  the replay runs on; every serving program goes through ``run``, so no
+  path can skip the bind.  The CPU path runs the plane's program on the
+  slot the same way.
 
 :class:`PinnedStaging` double-buffers the host side of a batch in pinned
 memory: two slots used in turn, each refilled only after the event
@@ -42,6 +50,7 @@ results back through one growable pinned buffer (both the ladder's
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable
 
 import numpy as np
@@ -65,6 +74,37 @@ def _as_tuple(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
+class BoundSlot:
+    """The tensors a shared plane's programs read: the plane's own weights
+    and stats, at the addresses its graphs were captured against, and the
+    tenant whose values they hold.
+
+    ``tensors`` maps the names of ``bound_state()`` (serve/predictor.py) to
+    the plane's tensors; ``plane`` is the predictor they belong to, which
+    serves no tenant (a run of its own binds nothing)."""
+
+    def __init__(self, tensors: dict, plane):
+        self.tensors = dict(tensors)
+        self.plane = plane
+        self.owner = plane
+        self.binds = 0
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in self.tensors.values())
+
+    def bind(self, owner) -> None:
+        """Copy ``owner.bound_state()`` into the slot unless the slot holds
+        it already.  The caller holds the graphs' lock and is on the stream
+        its replay runs on, so the copies land before the replay reads
+        them; a spilled owner's pinned host tensors copy in the same way."""
+        if owner is self.owner or owner is self.plane:
+            return
+        state = owner.bound_state()
+        for name, dst in self.tensors.items():
+            dst.copy_(state[name], non_blocking=True)
+        self.owner = owner
+        self.binds += 1
+
+
 class RungGraphs:
     """The captured graphs of one predictor, keyed by ``(program, rung)``.
 
@@ -85,13 +125,21 @@ class RungGraphs:
         self._warm = False
         self._pool = None
         self._stream = None
+        self._eager_s = 0.0
+        self._capture_s = 0.0
+        self.slot: BoundSlot | None = None      # set when tenants share
 
-    def run(self, key: Key, fn: Callable, args: tuple, staged=None) -> tuple:
+    def run(self, key: Key, fn: Callable, args: tuple, staged=None,
+            owner=None) -> tuple:
         """``fn(*args)`` as ``key``'s program.  ``args`` are host (pinned)
         or device tensors; they are copied into the graph's static inputs
         with ``non_blocking=True``, then ``staged.record()`` (when given)
-        marks the point after which the host buffers may be refilled."""
+        marks the point after which the host buffers may be refilled.
+        With a :attr:`slot`, ``owner``'s weights and stats are bound into
+        it first."""
         with self.lock:
+            if self.slot is not None and owner is not None:
+                self.slot.bind(owner)
             self._dispatched.add(key)
             if not self.captured:
                 dev = tuple(a.to(self.device, non_blocking=True)
@@ -118,13 +166,18 @@ class RungGraphs:
             self._stream = torch.cuda.Stream(device=self.device)
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
+        t0 = time.perf_counter()
         with torch.cuda.stream(self._stream):
             fn(*inputs)          # eager: loads the kernels, warms the GEMMs
+        self._stream.synchronize()
+        t1 = time.perf_counter()
         current.wait_stream(self._stream)
         graph, outputs = capture(
             lambda: fn(*inputs), self.device,
             f"serving program {key[0]} at rung {key[1]}", pool=self._pool,
             stream=self._stream)
+        self._eager_s += t1 - t0
+        self._capture_s += time.perf_counter() - t1
         if self._pool is None:
             self._pool = graph.graph.pool()
         entry = _Graph(graph, inputs, _as_tuple(outputs))
@@ -151,7 +204,9 @@ class RungGraphs:
             return {"captured": self.captured,
                     "captures": self._captures, "replays": self._replays,
                     "rungs": [f"{p}:{r}" for p, r in sorted(self._dispatched)],
-                    "captures_after_warmup": self._after_warmup}
+                    "captures_after_warmup": self._after_warmup,
+                    "seconds": {"eager": self._eager_s,
+                                "capture": self._capture_s}}
 
 
 class _Slot:
@@ -178,19 +233,25 @@ class _Slot:
 
 
 class PinnedStaging:
-    """Two sets of named host buffers (pinned on CUDA) used in turn.
-    :meth:`take` returns the next slot once the copies recorded out of it
-    have landed.  Not thread-safe: callers hold their engine's lock."""
+    """Two sets of named host buffers (pinned on CUDA) used in turn,
+    allocated at the first :meth:`take`, which returns the next slot once
+    the copies recorded out of it have landed.  Not thread-safe: callers
+    hold their engine's lock."""
 
     def __init__(self, device, specs: dict):
-        cuda = torch.device(device).type == "cuda"
-        self._slots = [
-            _Slot({name: torch.zeros(shape, dtype=dtype, pin_memory=cuda)
-                   for name, (shape, dtype) in specs.items()}, cuda)
-            for _ in range(2)]
+        self._cuda = torch.device(device).type == "cuda"
+        self._specs = dict(specs)
+        self._slots = None             # allocated at the first take()
         self._next = 0
 
     def take(self) -> _Slot:
+        if self._slots is None:
+            self._slots = [
+                _Slot({name: torch.zeros(shape, dtype=dtype,
+                                         pin_memory=self._cuda)
+                       for name, (shape, dtype) in self._specs.items()},
+                      self._cuda)
+                for _ in range(2)]
         slot = self._slots[self._next]
         self._next = (self._next + 1) % len(self._slots)
         slot.wait()

@@ -9,6 +9,14 @@ their padded-COO twins under ``sparse_feed``), runs as captured CUDA
 graphs, one per rung (serve/graphs.py); :meth:`RungServing.warm` captures
 them all up front.
 
+The fleet tier (serve/fleet.py): :meth:`Predictor.share_executables_from`
+puts predictors of one architecture behind one plane's graphs.  A graph
+reads the tensors its program closed over at capture, so the plane is a
+predictor over COPIES of the first tenant's weights and stats whose
+tensors are the graphs' bound slot (serve/graphs.py ``BoundSlot``); each
+tenant keeps only its own weights, stats, host invert operands and names,
+and every run binds it into the slot first.  The plane serves no tenant.
+
 Quantized serving (``quant="int8"|"bf16"``, ``ops/quantize.py``): the
 weight leaves are stored narrow and dequantized at use inside each rung's
 program (``models.qrnn.resolve_params``), so no f32 copy sits beside them.
@@ -21,6 +29,7 @@ wrote the file.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import json
@@ -38,7 +47,9 @@ from deeprest_tpu_torch.ops.densify import densify_coo, normalize_minmax
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.serve.batcher import BatchedBackendMixin
 from deeprest_tpu_torch.serve.fused import FusedInferenceMixin
-from deeprest_tpu_torch.serve.graphs import PinnedStaging, RungGraphs
+from deeprest_tpu_torch.serve.graphs import (
+    BoundSlot, PinnedStaging, RungGraphs,
+)
 
 
 def rolled_prediction_reference(
@@ -110,6 +121,10 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
                       page_windows: int | None, coalesce_pages: int | None,
                       sparse_feed: bool, sparse_nnz_cap: int,
                       cuda_graphs: bool) -> None:
+        self._serving_args = (ladder, coalesce_groups, fused, page_windows,
+                              coalesce_pages, sparse_feed, sparse_nnz_cap,
+                              cuda_graphs)
+        self._plane = None           # the shared plane, once in a fleet
         self.graphs = RungGraphs(self.device, enabled=cuda_graphs)
         self.sparse_feed = bool(sparse_feed)
         self.sparse_nnz_cap = int(sparse_nnz_cap)
@@ -160,7 +175,7 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
                 slot[name][:r].numpy()[...] = a
             (y,) = self.graphs.run((program, r), fn,
                                    tuple(slot[n][:r] for n in arrays),
-                                   staged=slot)
+                                   staged=slot, owner=self)
             return y.clone() if self.graphs.captured else y
 
     def _apply_numpy(self, x: np.ndarray) -> torch.Tensor:
@@ -355,6 +370,162 @@ class Predictor(RungServing):
                        if len(violations) > 8 else ""))
         return envelope
 
+    # -- the fleet tier: one plane's graphs, many tenants' weights ------
+
+    def bound_state(self) -> dict[str, torch.Tensor]:
+        """The tensors of this predictor that its serving programs read and
+        that differ per tenant, by name: every weight leaf (a
+        ``QuantTensor``'s data and scale apart), the sparse apply's input
+        stats and the fused engine's stats.  A plane's are its graphs'
+        bound slot; a tenant's are copied into that slot before each run,
+        and are what the pool spills and restores."""
+        out = {}
+        params = self.params
+        for name in sorted(params):
+            leaf = params[name]
+            if isinstance(leaf, quant_ops.QuantTensor):
+                out[f"w.{name}.data"], out[f"w.{name}.scale"] = leaf
+            else:
+                out[f"w.{name}"] = leaf
+        if self.sparse_feed:
+            out["x_mn"], out["x_rg"] = self._x_mn, self._x_rg
+        if self._fused is not None:
+            out.update(self._fused.bound_state())
+        return out
+
+    def load_bound_state(self, state: dict) -> None:
+        """Point this predictor at ``state`` (:meth:`bound_state`'s names):
+        the pool's spill to pinned host copies and its restore.  Values are
+        not copied; the tensors it held are dropped."""
+        weights = {}
+        for key, t in state.items():
+            if not key.startswith("w."):
+                continue
+            name = key[2:]
+            if name.endswith((".data", ".scale")):
+                name, part = name.rsplit(".", 1)
+                weights.setdefault(name, {})[part] = t
+            else:
+                weights[name] = t
+        if self._qparams is None:
+            for name, t in weights.items():
+                setattr(self.model, name,
+                        torch.nn.Parameter(t, requires_grad=False))
+        else:
+            self._qparams = {
+                name: (quant_ops.QuantTensor(t["data"], t["scale"])
+                       if isinstance(t, dict) else t)
+                for name, t in weights.items()}
+        if self.sparse_feed:
+            self._x_mn, self._x_rg = state["x_mn"], state["x_rg"]
+        if self._fused is not None:
+            self._fused.load_bound_state(state)
+
+    def _new_plane(self) -> "Predictor":
+        """A serving plane for tenants of this predictor's architecture: a
+        predictor over copies of its weights and stats, with rung graphs,
+        staging and a fused engine of its own, whose tensors become the
+        graphs' bound slot.  No tenant's tensors are ever written."""
+        plane = copy.copy(self)
+        plane.model = copy.deepcopy(self.model)
+        if self._qparams is not None:
+            plane._qparams = {
+                name: (quant_ops.QuantTensor(v.data.clone(), v.scale.clone())
+                       if isinstance(v, quant_ops.QuantTensor) else v.clone())
+                for name, v in self._qparams.items()}
+        # fresh graphs, ladder, staging and fused engine (its stats made
+        # anew from the host stats), all running the plane's own _apply
+        plane._init_serving(*self._serving_args)
+        plane._plane = plane
+        plane.graphs.slot = BoundSlot(plane.bound_state(), plane)
+        return plane
+
+    def _adopt_plane(self, plane: "Predictor") -> None:
+        """Serve through ``plane``'s programs, graphs, pinned staging and
+        readback; this predictor keeps its own weights and stats, bound
+        into the plane's slot before each run."""
+        self._plane = plane
+        self.graphs = plane.graphs
+        self._apply = plane._apply
+        self._apply_sparse = plane._apply_sparse
+        self._apply_staging = plane._apply_staging
+        self._sparse_staging = plane._sparse_staging
+        self.ladder._readback = plane.ladder._readback
+        if self._fused is not None:
+            self._fused.adopt_executables(plane._fused, owner=self)
+
+    def share_executables_from(self, donor: "Predictor") -> None:
+        """Serve through the donor's rung graphs (fleet tier,
+        serve/fleet.py), as the JAX predictor adopts its donor's jitted
+        programs: predictors of the same architecture and quant mode then
+        serve different tenants' weights through ONE graph set, and
+        ``jit_cache_size`` stays flat in the number of tenants.
+
+        A graph reads the tensors its program closed over at capture, so
+        the graphs belong to a plane, a predictor over copies of the
+        donor's weights (made here, and adopted by the donor too, when the
+        donor serves through none yet); each run binds the caller's
+        weights and stats into the plane's slot first.  The compatibility
+        this needs is checked loudly here and in
+        ``FusedRolledEngine.adopt_executables``."""
+        if not isinstance(donor, Predictor):
+            raise TypeError(
+                f"can only share executables between Predictors, got "
+                f"{type(donor).__name__}")
+        if donor is self:
+            return
+        if self.model_config != donor.model_config:
+            raise ValueError(
+                "cannot share executables across architectures: "
+                f"{self.model_config} != {donor.model_config}")
+        if self.quant != donor.quant:
+            raise ValueError(
+                f"cannot share executables across quant modes "
+                f"({self.quant!r} vs {donor.quant!r}): the params tree "
+                "leaf dtypes differ, which re-traces per mode")
+        if self.window_size != donor.window_size:
+            raise ValueError(
+                f"cannot share executables across window sizes "
+                f"({self.window_size} vs {donor.window_size})")
+        if self.ladder.ladder != donor.ladder.ladder:
+            raise ValueError(
+                f"cannot share executables across shape ladders "
+                f"({self.ladder.ladder} vs {donor.ladder.ladder})")
+        if (self.sparse_feed, self.sparse_nnz_cap) != (
+                donor.sparse_feed, donor.sparse_nnz_cap):
+            raise ValueError(
+                "cannot share executables across sparse-feed settings")
+        if (self._fused is None) != (donor._fused is None):
+            raise ValueError(
+                "cannot share executables between a fused and an unfused "
+                "predictor")
+        if self.device != donor.device or (
+                self.graphs.captured != donor.graphs.captured):
+            raise ValueError(
+                "cannot share executables across devices or graph modes "
+                f"({self.device}, captured={self.graphs.captured} vs "
+                f"{donor.device}, captured={donor.graphs.captured})")
+        if self._fused is not None:
+            self._fused.check_adoptable(donor._fused)
+        mine, theirs = self.bound_state(), donor.bound_state()
+        if ({k: (tuple(v.shape), v.dtype) for k, v in mine.items()}
+                != {k: (tuple(v.shape), v.dtype) for k, v in theirs.items()}):
+            raise ValueError(
+                "cannot share fused executables: params tree structures "
+                "differ (a different tree re-traces a new executable)")
+        plane = donor._plane
+        if plane is None:
+            plane = donor._new_plane()
+            donor._adopt_plane(plane)
+        if self._plane is not plane:
+            self._adopt_plane(plane)
+
+    @property
+    def plane(self) -> "Predictor | None":
+        """The plane whose graphs this predictor serves through (itself for
+        a plane), or None outside a fleet."""
+        return self._plane
+
     def params_digest(self) -> str:
         """Stable fingerprint of the served params — the ``params_hash``
         half of the capacity-surface cache key (serve/surface.py): sha1
@@ -373,7 +544,7 @@ class Predictor(RungServing):
                 for t in (leaf if isinstance(leaf, quant_ops.QuantTensor)
                           else (leaf,)):
                     raw = t.detach().reshape(-1).view(torch.uint8)
-                    h.update(raw.cpu().numpy().tobytes())
+                    h.update(raw.cpu().numpy())     # no host copy of it
             self._params_digest = h.hexdigest()[:16]
         return self._params_digest
 

@@ -246,9 +246,15 @@ class EngineReplica:
         return int(self._m_served_windows.value(replica=self.name))
 
     def predict_series(self, traffic: np.ndarray,
-                       integrate: bool = True) -> np.ndarray:
-        with self._lock:
-            backend = self._backend
+                       integrate: bool = True, backend=None) -> np.ndarray:
+        # ``backend`` override: the fleet tier (serve/fleet.py) resolves
+        # tenant → pool-entry predictor BEFORE dispatch and serves this
+        # one request through it; the replica still owns the scheduling
+        # state (outstanding windows, drain flag), the pool owns the
+        # per-tenant weights.  None keeps the replica's own stack.
+        if backend is None:
+            with self._lock:
+                backend = self._backend
         n = self._begin(_num_windows(len(traffic), backend.window_size))
         try:
             with _device_ctx(self.device), \
@@ -260,9 +266,11 @@ class EngineReplica:
         finally:
             self._end(n)
 
-    def predict_series_many(self, series_list, integrate: bool = True):
-        with self._lock:
-            backend = self._backend
+    def predict_series_many(self, series_list, integrate: bool = True,
+                            backend=None):
+        if backend is None:
+            with self._lock:
+                backend = self._backend
         series_list = list(series_list)
         n = self._begin(sum(_num_windows(len(s), backend.window_size)
                             for s in series_list))

@@ -1,7 +1,6 @@
 """The routing front: least-outstanding-work dispatch, admission control,
 per-tenant fairness, health ejection with retry, and zero-downtime rolling
-reload over engine replicas (``deeprest_tpu/serve/router.py``, less the
-fleet tier).
+reload over engine replicas (``deeprest_tpu/serve/router.py``).
 
 The replicas are :mod:`serve/replica.py` stacks, and this router IS the
 serving backend the HTTP service sees: it exposes the protocol of a single
@@ -25,6 +24,10 @@ Policies:
   background probe restarts ejected process replicas and rejoins them.
 - **Rolling reload**: drain one stack at a time, swap it, and re-admit it
   before touching the next, so no response mixes old and new params.
+- **Fleet tier**: with a PredictorPool attached (``attach_fleet``), a
+  tenant-aware dispatch resolves tenant → pool entry once and serves
+  through the entry's predictor on a thread replica (the backend
+  override); process replicas refuse it.
 """
 
 from __future__ import annotations
@@ -400,6 +403,11 @@ class ReplicaRouter:
                   self._m_reloads_by_reason):
             obs_metrics.REGISTRY.expose(m)
         self._meta = self._probe_meta(replicas[0])
+        # Fleet tier (serve/fleet.py): attach_fleet installs a
+        # PredictorPool; tenant-aware dispatches then resolve tenant →
+        # pool entry FIRST and serve through the entry's predictor via
+        # the replica's backend override.
+        self._fleet = None
         # Render-time /metrics view over the replica plane (replace-by-
         # name: the newest router owns the exposition).
         obs_metrics.REGISTRY.register_collector("router",
@@ -540,6 +548,47 @@ class ReplicaRouter:
         """The PredictionService admission hook (fast 429 on overload)."""
         return self.admission.try_acquire(tenant)
 
+    # -- fleet tier (tenant → pool entry before dispatch) -----------------
+
+    def attach_fleet(self, pool) -> None:
+        """Install a :class:`~deeprest_tpu_torch.serve.fleet.PredictorPool`:
+        every tenant-aware dispatch resolves through it and rides the
+        replicas' backend override.  The ``X-Tenant`` WRR front keeps
+        metering fairness: same header, two layers (admission meters it,
+        the pool resolves it)."""
+        with self._lock:
+            replicas = list(self._replicas)
+        for r in replicas:
+            if not callable(getattr(r, "backend", None)):
+                raise ValueError(
+                    f"replica {r.name} ({r.kind}) cannot serve a fleet "
+                    "pool: the backend override needs in-process (thread) "
+                    "replicas — process workers would re-ship tenant "
+                    "params per request")
+        with self._lock:
+            self._fleet = pool
+
+    def fleet(self):
+        with self._lock:
+            return self._fleet
+
+    def _fleet_entry(self, tenant: str | None):
+        """Resolve tenant → pool entry for ONE request (LRU touch +
+        restore-if-spilled happen here, exactly once: retries reuse the
+        entry).  None when no pool is attached."""
+        with self._lock:
+            pool = self._fleet
+        if pool is None:
+            return None
+        from deeprest_tpu_torch.serve.fleet import UnknownTenantError
+
+        try:
+            return pool.resolve(tenant)
+        except UnknownTenantError as exc:
+            raise ServingError(
+                f"unknown tenant {exc.args[0]!r}: not admitted to the "
+                "fleet pool", status=404) from None
+
     def _health_locked(self, replica) -> _ReplicaHealth:
         """The replica's health record (caller holds ``self._lock``)."""
         h = self._health.get(id(replica))
@@ -626,13 +675,30 @@ class ReplicaRouter:
             return out
 
     def predict_series(self, traffic: np.ndarray,
-                       integrate: bool = True) -> np.ndarray:
+                       integrate: bool = True,
+                       tenant: str | None = None) -> np.ndarray:
+        entry = self._fleet_entry(tenant)
+        if entry is not None:
+            backend = entry.predictor()
+            return self._dispatch(
+                lambda r: r.predict_series(traffic, integrate=integrate,
+                                           backend=backend),
+                {"series": 1, "tenant": entry.tenant})
         return self._dispatch(
             lambda r: r.predict_series(traffic, integrate=integrate),
             {"series": 1})
 
-    def predict_series_many(self, series_list, integrate: bool = True):
+    def predict_series_many(self, series_list, integrate: bool = True,
+                            tenant: str | None = None):
         series_list = list(series_list)
+        entry = self._fleet_entry(tenant)
+        if entry is not None:
+            backend = entry.predictor()
+            return self._dispatch(
+                lambda r: r.predict_series_many(series_list,
+                                                integrate=integrate,
+                                                backend=backend),
+                {"series": len(series_list), "tenant": entry.tenant})
         return self._dispatch(
             lambda r: r.predict_series_many(series_list,
                                             integrate=integrate),

@@ -39,8 +39,14 @@ With it the handler meters each POST through the router's bounded,
 tenant-fair admission (fast 429 + ``Retry-After`` on overload), reloads
 roll one replica at a time, and ``/healthz`` gains a ``router`` key
 (per-replica outstanding work, health and served counts, admission
-counters, the autoscaler's decision).  The JAX server's fleet pool is a
-later slice of the port (ROADMAP queue 1, item 7c).
+counters, the autoscaler's decision).
+
+The fleet tier (serve/fleet.py): ``attach_fleet`` installs a
+PredictorPool, and ``X-Tenant`` then selects the MODEL on
+``/v1/predict`` (the response names the tenant) and the tenant's own
+monitor on ``/v1/verdict``; ``/healthz`` grows the pool's ``fleet`` view
+and ``/metrics`` the ``deeprest_fleet_*`` series and the per-tenant
+quality rollup, bounded to the top-K tenants plus ``__other__``.
 """
 
 from __future__ import annotations
@@ -276,6 +282,10 @@ class PredictionService:
         # SpanFirehoseReceiver so /healthz renders its accounting; its
         # poller (the VerdictIngestor) owns and closes it.
         self._wire = None
+        # Fleet tier (serve/fleet.py): attach_fleet installs a
+        # PredictorPool; X-Tenant then selects the MODEL (pool entry),
+        # not just the fairness bucket, on /v1/predict and /v1/verdict.
+        self.fleet = None
         self.whatif = (WhatIfEstimator(predictor, synthesizer)
                        if synthesizer is not None else None)
         # Capacity-surface plane: a surface is built THROUGH the
@@ -324,6 +334,38 @@ class PredictionService:
             self.batching = config
         if old is not None:
             old.close()               # drain outside the lock
+
+    def attach_fleet(self, pool) -> None:
+        """Wire the fleet tier: ``pool`` (serve/fleet.PredictorPool)
+        resolves ``X-Tenant`` to a per-tenant predictor on /v1/predict,
+        serves per-tenant verdicts on /v1/verdict, and reports under the
+        /healthz ``fleet`` key.  A router backend learns the pool too,
+        so tenant resolution happens exactly once per request, on the
+        dispatch path inside the router."""
+        with self._lock:
+            pred = self.predictor
+        attach = getattr(pred, "attach_fleet", None)
+        if callable(attach):
+            attach(pool)
+        with self._lock:
+            self.fleet = pool
+
+    @staticmethod
+    def _fleet_entry(pool, tenant: str | None, touch: bool):
+        """Tenant → pool entry, as HTTP: 404 for a tenant the pool never
+        admitted.  ``touch`` picks the dispatch-path resolve (LRU touch +
+        restore-if-spilled) vs the metadata peek: metadata reads must not
+        perturb the eviction order, and the router path resolves inside
+        the router, so the service only ever PEEKS there (one touch per
+        request, never two)."""
+        from deeprest_tpu_torch.serve.fleet import UnknownTenantError
+
+        try:
+            return pool.resolve(tenant) if touch else pool.peek(tenant)
+        except UnknownTenantError as exc:
+            raise ServingError(
+                f"unknown tenant {exc.args[0]!r}: not admitted to the "
+                "fleet pool", status=404) from None
 
     def attach_quality(self, monitor, ingestor=None) -> None:
         """Wire the streaming verdict surface: ``monitor`` backs
@@ -498,6 +540,58 @@ class PredictionService:
                    help="spans currently in the recorder ring")
         sink.counter("deeprest_obs_spans_recorded_total", rec["recorded"],
                      help="spans committed since process start")
+        with self._lock:
+            pool = self.fleet
+        if pool is not None:
+            self._collect_fleet(sink, pool)
+
+    @staticmethod
+    def _collect_fleet(sink, pool) -> None:
+        s = pool.stats()
+        sink.gauge("deeprest_fleet_tenants", s["tenants"],
+                   help="tenants admitted to the predictor pool")
+        sink.gauge("deeprest_fleet_resident_tenants", s["resident"],
+                   help="tenants with device-resident params (<= "
+                        "hbm_budget)")
+        sink.counter("deeprest_fleet_spills_total", s["spills"],
+                     help="tenant weight sets spilled to host memory")
+        sink.counter("deeprest_fleet_restores_total", s["restores"],
+                     help="tenant weight sets restored from host memory")
+        sink.counter("deeprest_fleet_aot_loaded_total",
+                     s["aot"]["loaded"],
+                     help="AOT executables loaded at admission (the "
+                          "port's sidecar holds none: serve/aot.py)")
+        sink.counter("deeprest_fleet_compile_fallbacks_total",
+                     s["aot"]["compile_fallbacks"],
+                     help="rung graphs the plane had to capture (no "
+                          "executable loaded at admission)")
+        # Per-tenant quality gauges, DISTINCT names from the global
+        # deeprest_quality_* family (those carry a ``metric`` label; these
+        # roll metrics up per tenant), bounded to the top-K tenants by
+        # serve count + one __other__ row.
+        for label, q in pool.quality_rollup():
+            labels = {"tenant": label}
+            sink.counter("deeprest_quality_tenant_sweeps_total",
+                         q["sweeps"], help="quality sweeps per tenant",
+                         labels=labels)
+            sink.gauge("deeprest_quality_tenant_verdict", q["verdict"],
+                       help="worst verdict state across the tenant's "
+                            "metrics (0 ok, 1 drift, 2 anomaly)",
+                       labels=labels)
+            sink.gauge("deeprest_quality_tenant_anomaly_score",
+                       q["anomaly_score"],
+                       help="worst anomaly score across the tenant's "
+                            "metrics", labels=labels)
+            if q["coverage"] is not None:
+                sink.gauge("deeprest_quality_tenant_band_coverage",
+                           q["coverage"],
+                           help="mean q-band coverage across the "
+                                "tenant's metrics", labels=labels)
+            if q["pinball"] is not None:
+                sink.gauge("deeprest_quality_tenant_pinball_loss",
+                           q["pinball"],
+                           help="mean pinball loss across the "
+                                "tenant's metrics", labels=labels)
 
     def metrics_text(self) -> str:
         """The Prometheus text exposition (``GET /metrics``)."""
@@ -565,14 +659,21 @@ class PredictionService:
             out["quant"]["parity_max"] = (max(measured.values())
                                           if measured else None)
             out["quant"]["parity_cells"] = len(measured)
-        # One-tenant fleet view over the same objects the keys above
+        # Fleet view: the pool's live per-tenant map and counters; without
+        # one a one-tenant view over the same objects the keys above
         # render, so consumers can read fleet.tenants[...] unconditionally.
-        digest = getattr(pred, "params_digest", None)
-        out["fleet"] = {"tenants": {"default": {
-            "quant": out["quant"]["mode"],
-            "params_digest": digest() if callable(digest) else None,
-            "resident": True,
-        }}, "pool": None}
+        with self._lock:
+            pool = self.fleet
+        if pool is not None:
+            out["fleet"] = {"tenants": pool.tenant_meta(
+                limit=pool.top_k_tenants), "pool": pool.stats()}
+        else:
+            digest = getattr(pred, "params_digest", None)
+            out["fleet"] = {"tenants": {"default": {
+                "quant": out["quant"]["mode"],
+                "params_digest": digest() if callable(digest) else None,
+                "resident": True,
+            }}, "pool": None}
         with self._lock:
             wire = self._wire
         if wire is not None:
@@ -599,10 +700,29 @@ class PredictionService:
         out["device_memory"] = _device_memory()
         return out
 
-    def verdict(self) -> dict:
+    def verdict(self, tenant: str | None = None) -> dict:
         """``GET /v1/verdict`` — the streaming per-(component,resource)
         ``ok|drift|anomaly`` surface (obs/quality.py).  503 when no monitor
-        is attached (serve with --verdict-raw)."""
+        is attached (serve with --verdict-raw).
+
+        With a fleet pool attached, ``X-Tenant`` selects the tenant's OWN
+        monitor (one per pool entry): the verdict surface is per-model
+        state, so it must never blend tenants."""
+        with self._lock:
+            pool = self.fleet
+        if pool is not None:
+            entry = self._fleet_entry(pool, tenant, touch=False)
+            monitor = entry.quality()
+            if monitor is None:
+                raise ServingError(
+                    f"tenant {entry.tenant!r} has no quality monitor: "
+                    "build the pool with quality enabled "
+                    "(FleetConfig.quality)", status=503)
+            out = monitor.verdicts()
+            out["tenant"] = {"name": entry.tenant,
+                             "params_digest": entry.key[1],
+                             "invalidations": entry.invalidations()}
+            return out
         with self._lock:
             quality = self.quality
         if quality is None:
@@ -650,12 +770,27 @@ class PredictionService:
                 f"{pred.window_size}")
         return traffic
 
-    def predict(self, payload: dict) -> dict:
+    def predict(self, payload: dict, tenant: str | None = None) -> dict:
         pred, _, _, _ = self._snapshot()
-        traffic = self._traffic_array(payload, pred)
-        preds = pred.predict_series(traffic)                  # [T, E, Q]
+        with self._lock:
+            pool = self.fleet
+        if pool is not None:
+            # Fleet tier: X-Tenant selects the MODEL.  Router backends
+            # resolve tenant → entry themselves (on the dispatch path,
+            # exactly once); the service peeks only for the response
+            # metadata.  Single-engine backends resolve here.
+            router = callable(getattr(pred, "attach_fleet", None))
+            entry = self._fleet_entry(pool, tenant, touch=not router)
+            model = entry.predictor()
+            traffic = self._traffic_array(payload, model)
+            preds = (pred.predict_series(traffic, tenant=tenant)
+                     if router else model.predict_series(traffic))
+            pred = model               # response metadata is per-tenant
+        else:
+            traffic = self._traffic_array(payload, pred)
+            preds = pred.predict_series(traffic)              # [T, E, Q]
         dm = getattr(pred, "delta_mask", None)
-        return {
+        out = {
             "metric_names": pred.metric_names,
             "quantiles": list(pred.quantiles),
             "predictions": preds.tolist(),
@@ -667,6 +802,12 @@ class PredictionService:
                 if dm is not None and bool(dm[e])
             ],
         }
+        if pool is not None:
+            # which pool entry answered (tenant + params_digest): clients
+            # can pin responses to a weight generation across hot-swaps
+            out["tenant"] = {"name": entry.tenant,
+                             "params_digest": entry.key[1]}
+        return out
 
     def _require_whatif(self, whatif) -> WhatIfEstimator:
         if whatif is None:
@@ -986,7 +1127,13 @@ class PredictionServer:
                     return self._reply(404, {"error": f"no route {self.path}"})
                 try:
                     outer.service.maybe_reload()
-                    body = getattr(outer.service, name)()
+                    if name == "verdict":
+                        # the verdict surface is per-tenant under a fleet
+                        # pool: same header as the WRR front
+                        body = outer.service.verdict(
+                            self.headers.get("X-Tenant"))
+                    else:
+                        body = getattr(outer.service, name)()
                     self._reply(200, body)
                 except ServingError as e:   # e.g. /v1/verdict unattached
                     self._reply(e.status, {"error": str(e)},
@@ -1032,7 +1179,14 @@ class PredictionServer:
                                 if not isinstance(payload, dict):
                                     raise ServingError(
                                         "request body must be a JSON object")
-                                body = getattr(outer.service, name)(payload)
+                                if name == "predict":
+                                    # tenant → model under a fleet pool
+                                    # (no pool: the kwarg is ignored)
+                                    body = outer.service.predict(
+                                        payload, tenant=tenant)
+                                else:
+                                    body = getattr(
+                                        outer.service, name)(payload)
                                 self._reply(200, body)
                 except ServingError as e:
                     self._reply(e.status, {"error": str(e)},

@@ -19,6 +19,7 @@ import dataclasses
 import importlib
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -165,10 +166,16 @@ def test_cli_export_and_serve_artifact_messages(ckpt, artifacts, tmp_path,
                  ["serve"],
                  ["serve", "--artifact", artifacts["off"], "--watch", "1"]):
         assert _exit_message(port_cli, argv) == _exit_message(jax_cli, argv)
-    msg = _exit_message(port_cli, ["export", "--ckpt-dir", ckpt, "--out",
-                                   str(tmp_path / "a"), "--aot"])
-    assert "--aot" in msg and "item 7" in msg
+    # --aot writes the fleet's sidecar next to (a copy of) the checkpoint
+    aot_ckpt = str(tmp_path / "aot_ckpt")
+    shutil.copytree(ckpt, aot_ckpt)
     capsys.readouterr()
+    assert port_cli.main(["export", "--ckpt-dir", aot_ckpt, "--out",
+                          str(tmp_path / "a"), "--aot", "--device",
+                          "cpu"]) == 0
+    sidecar = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sidecar["aot"]["executables"] == 0 and sidecar["aot"]["graphs"]
+    assert os.path.exists(os.path.join(aot_ckpt, "aot", "manifest.json"))
     assert port_cli.main(["export", "--ckpt-dir", ckpt, "--out",
                           str(tmp_path / "port")]) == 0
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -274,13 +274,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "x = np.ones((9, 8), np.float32)\n"
         "assert (router.predict_series(x) == q.predict_series(x)).all()\n"
         "router.close()\n"
+        "from deeprest_tpu_torch.serve.fleet import PredictorPool\n"
+        "pool = PredictorPool(hbm_budget=1, aot=False)\n"
+        "pool.admit('a', q)\n"
+        "pool.admit('b', Predictor({k: v * 2 for k, v in "
+        "init_params(cfg).items()}, cfg, q.x_stats, q.y_stats, "
+        "['a_cpu', 'b_cpu'], 4, device='cpu'))\n"
+        "ya = pool.resolve('a').predictor().predict_series(x)\n"
+        "yb = pool.resolve('b').predictor().predict_series(x)\n"
+        "assert (ya == q.predict_series(x)).all() and not (ya == yb).all()\n"
+        "assert pool.stats()['spills'] >= 2, pool.stats()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
         "need = {'graphs', 'obs', 'obs.metrics', 'obs.spans', "
         "'obs.export', 'serve.batcher', 'serve.graphs', 'serve.surface', "
         "'serve.server', 'ops.densify', 'ops.quantize', 'serve.export', "
         "'obs.quality', 'data.wire', 'train.stream', 'serve.replica', "
-        "'serve.router', 'obs.profiler', 'benchmarks.serve_bench'}\n"
+        "'serve.router', 'obs.profiler', 'benchmarks.serve_bench', "
+        "'serve.fleet', 'serve.aot', 'benchmarks.fleet_bench'}\n"
         "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 54 else 0)\n")
