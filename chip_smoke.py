@@ -202,11 +202,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     deeprest_fleet_* series); a template cold start in a fresh process
     with the sidecar phase 10's `export --aot` wrote, by stage
     (fleet_bench --cold-start);
-14. the seconds of each phase, one JSON line of per-kernel numbers, then
+14. the host-streamed trainer feed, the rest of `train` and the what-if
+    demo (run after phase 11): 20 host-fed steps (`device_data="off"`)
+    against 20 staged ones at the flagship width, captured S=10, dropout 0
+    and 0.5 (per-step losses equal, params bit for bit, K2 = K3 = 40
+    launches, 1 capture and 19 replays), the busy share of a host-fed
+    epoch of replays, the plot arrays (`train/plots.py`
+    `prediction_arrays`) on the kernels against the plain recurrence (2e-2
+    of scale), steady-state steps/s host-fed and staged in turns; the 10k
+    dense day under "auto" with the budget one byte under its staged
+    bytes (host-fed) against the default budget (staged), 2 x 10 captured
+    steps in turns (losses equal, steps/s); `train --device-data off
+    --report-every 1` on the flagship corpus against `--device-data
+    always` (feed "host", MAE tables every epoch, epoch losses equal at
+    dropout 0) and `--plots-dir` (without matplotlib: exits naming it
+    before training); the what-if demo's `precompute_results` on phase
+    7's checkpoint and first 120 minutes, on the kernels and through the
+    plain recurrence (4 datasets: the --quick grid's shape and
+    multipliers, one seen and one unseen composition, 60 ticks; calls,
+    ground truth and baselines equal, ours within 2e-2 of scale, a metric
+    constant over the train split scaled in its raw unit), and the 3x seen
+    dataset with the same params at f32 (2e-4), then
+    `python -m deeprest_tpu_torch.demo serve` and its routes;
+15. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11 and the sweep of 9; a server or CLI process starts at
+7, 8, 12, 10, 13, 11, 14 and the sweep of 9; a server or CLI process starts at
 0, and phase 12 sums its workers' ledgers) and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
@@ -4327,6 +4349,432 @@ def stream_verdict(server, args, log, kern, ckpt: str, verdict_raw: str,
             "sweeps": v2["sweeps"]}
 
 
+# The host-streamed feed, the rest of `train` and the what-if demo
+HOST_TURNS = ("staged", "host", "host", "staged")
+HOST_SCALE_TOL = 2e-2      # kernels vs plain recurrence, of each metric's scale
+# demo precompute: the --quick grid (waves at 1x and 3x, 9 seen and 9 unseen
+# compositions, 120 ticks) cut to one seen and one unseen composition and
+# 60 ticks (the window: the least a dataset predicts), on phase 7's first
+# SYNTH_BUCKETS minutes; its host simulation sets the time
+DEMO_TICKS = 60
+
+
+def scaled_error(got, want, y_range) -> float:
+    """Worst max |got - want| over the last axis's metrics, each over its
+    scale: the largest |want| of that metric floored at its train-split
+    range (``sweep_error``'s convention), a degenerate range counting as
+    1: the stats pass such a metric through unchanged (``MinMaxStats``),
+    so the model's unit is its raw unit, and its answers hover near 0."""
+    import numpy as np
+
+    got = np.asarray(got, np.float64).reshape(-1, len(y_range))
+    want = np.asarray(want, np.float64).reshape(-1, len(y_range))
+    y_range = np.asarray(y_range, np.float64)
+    scale = np.maximum(np.abs(want).max(axis=0),
+                       np.where(y_range == 0.0, 1.0, y_range))
+    return float((np.abs(got - want).max(axis=0) / scale).max())
+
+
+def host_feed_flagship(cuda_gru, data) -> dict:
+    """20 host-fed steps against 20 staged ones at the flagship width
+    (captured S=10, dropout 0 and 0.5: per-step losses equal, params bit
+    for bit), K2/K3 launches of the host-fed run, the busy share of a
+    host-fed epoch of replays, the plot arrays on the kernels against the
+    plain recurrence, and steady-state steps/s host-fed and staged in
+    turns."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.train.plots import prediction_arrays
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    out = {"launches": dict.fromkeys(
+        (k.name for k in cuda_gru.MODEL_KERNELS), 0)}
+    for dropout in (0.0, 0.5):
+        runs = {}
+        for label, device_data in (("staged", "always"), ("host", "off")):
+            trainer, bundle = flagship_trainer(
+                data, dropout, SPLIT_20_STEPS, steps_per_superstep=10,
+                device_data=device_data)
+            params = init_params(trainer.model_config, SEED)
+            for k in cuda_gru.KERNELS:
+                k.launches = 0
+            state, losses = train_epochs(trainer, bundle, params)
+            runs[label] = (trainer, state, losses,
+                           {k.name: k.launches for k in cuda_gru.KERNELS})
+        (tr_h, st_h, l_h, n_h), (tr_s, st_s, l_s, n_s) = (runs["host"],
+                                                          runs["staged"])
+        for name, count in n_h.items():
+            if name in out["launches"]:
+                out["launches"][name] += count
+        rel, absd, same = params_rel_diff(st_h, st_s)
+        equal = np.array_equal(l_h, l_s)
+        print(f"check host-fed vs staged 20 steps (S=10), dropout "
+              f"{dropout}: feeds {tr_h.feed}/{tr_s.feed}; losses equal "
+              f"{equal} (first {l_h[:3].tolist()}); params bit-identical "
+              f"{same} (max abs {absd:.3e}); host-fed captures "
+              f"{tr_h.captures}, replays {tr_h.replays}, dispatches "
+              f"{tr_h.dispatches}; launches host-fed {n_h}, staged {n_s}",
+              flush=True)
+        if tr_h.feed != "host" or tr_s.feed != "staged":
+            fail("device_data off did not host-feed, or always did not "
+                 "stage")
+        if len(l_h) != 20 or not equal or not same:
+            fail(f"host-fed training parts from staged training (dropout "
+                 f"{dropout}): losses equal {equal}, params bit-identical "
+                 f"{same}")
+        if (tr_h.captures, tr_h.replays, tr_h.dispatches) != (1, 19, 20):
+            fail("the host-fed run did not take 1 capture, 19 replays and "
+                 "20 dispatches")
+        for name in ("gru_fwd_train", "gru_bwd"):
+            if n_h[name] != 40:
+                fail(f"{name} counted {n_h[name]} launches over 20 "
+                     f"host-fed steps; want 40")
+        if dropout == 0.0:
+            rng = np.random.default_rng(SEED)
+            out["busy_host_pct"] = profile_train_steps(
+                "train host-fed epoch of replays (S=10)",
+                lambda: tr_h.train_epoch(st_h, bundle, rng), 20)
+            plain = Trainer(tr_h.config, F, bundle.metric_names,
+                            device="cuda",
+                            recurrence=cuda_gru.gru_recurrence_reference)
+            plain_state = plain.init_state(
+                {k: v.detach() for k, v in st_h.params.items()})
+            for k in cuda_gru.KERNELS:
+                k.launches = 0
+            got = prediction_arrays(tr_h, st_h, bundle)
+            out["launches"]["gru_fwd"] += cuda_gru.KERNELS[0].launches
+            want = prediction_arrays(plain, plain_state, bundle)
+            y_range = np.asarray(bundle.y_stats.range,
+                                 np.float64).reshape(-1)
+            err = max(scaled_error(got[k], want[k], y_range)
+                      for k in ("median", "lo", "hi"))
+            truth_same = np.array_equal(got["truth"], want["truth"])
+            print(f"check plot arrays (train/plots.py prediction_arrays, "
+                  f"{got['median'].shape} median, lo, hi) kernels vs plain "
+                  f"recurrence: {err:.3e} of scale (tol {HOST_SCALE_TOL}), "
+                  f"truth equal {truth_same}", flush=True)
+            if err > HOST_SCALE_TOL or not truth_same \
+                    or not np.isfinite(got["median"]).all():
+                fail("the plot arrays on the kernels part from the plain "
+                     "recurrence's")
+            out["plot_err"] = err
+            del plain, plain_state
+        del runs, tr_h, st_h, tr_s, st_s
+        free_device()
+
+    rates = {"staged": [], "host": []}
+    for label in HOST_TURNS:
+        trainer, bundle = flagship_trainer(
+            data, 0.5, device_data="always" if label == "staged" else "off")
+        train_epochs(trainer, bundle, init_params(trainer.model_config, SEED),
+                     epochs=2)
+        rates[label].append(trainer.throughput.steps_per_sec)
+        del trainer
+        free_device()
+    print(f"host feed steady-state steps/s (2 epochs of "
+          f"{bundle.num_train_windows} windows, S=auto, first update "
+          f"excluded), in turns: staged {rates['staged']}, host-fed "
+          f"{rates['host']}", flush=True)
+    out["steps_per_sec"] = rates
+    return out
+
+
+def host_feed_tenk(cuda_gru, data) -> dict:
+    """The 10k dense corpus under device_data="auto" with the budget one
+    byte under its staged bytes (host-fed) against the default budget
+    (staged), in turns: 2 epochs of 10 captured steps each, dropout 0,
+    losses equal; steady-state steps/s of each."""
+    import numpy as np
+
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.train.data import prepare_dataset
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    staged_bytes = DAY * TENK_F * 2 + DAY * TRAIN["E"] * 4
+    params = None
+    losses = {"staged": [], "host": []}
+    rates = {"staged": [], "host": []}
+    launches = dict.fromkeys((k.name for k in cuda_gru.MODEL_KERNELS), 0)
+    for label in HOST_TURNS:
+        budget = staged_bytes - 1 if label == "host" else 4 << 30
+        cfg = Config(
+            model=ModelConfig(hidden_size=TRAIN["H"], dropout_rate=0.0,
+                              compute_dtype="bfloat16"),
+            train=TrainConfig(batch_size=TRAIN["B"], window_size=W,
+                              train_split=TENK_SPLIT_10_STEPS,
+                              steps_per_superstep=10,
+                              device_data_max_bytes=budget))
+        bundle = prepare_dataset(data, cfg.train)
+        trainer = Trainer(cfg, TENK_F, bundle.metric_names, device="cuda")
+        if params is None:
+            params = init_params(trainer.model_config, seed=SEED)
+        staged = trainer.stage_dataset(bundle)
+        if (staged is None) != (label == "host"):
+            fail(f"the 10k base ({staged_bytes} bytes) under a budget of "
+                 f"{budget} did not {'host-feed' if label == 'host' else 'stage'}")
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+        state = trainer.init_state(params)
+        rng = np.random.default_rng(SEED)
+        run = []
+        for _ in range(2):
+            state, _ = trainer.train_epoch(state, bundle, rng, staged)
+            run.append(trainer.last_epoch_losses)
+        for k in cuda_gru.MODEL_KERNELS:
+            launches[k.name] += k.launches
+        losses[label].append(np.concatenate(run))
+        rates[label].append(trainer.throughput.steps_per_sec)
+        if trainer.feed != ("host" if label == "host" else "staged"):
+            fail(f"the 10k {label} run took the {trainer.feed} feed")
+        del state, staged, trainer, bundle
+        free_device()
+    want = losses["staged"][0]
+    equal = all(np.array_equal(a, want)
+                for a in losses["host"] + losses["staged"])
+    print(f"check tenk dense, auto over budget (budget {staged_bytes - 1} "
+          f"bytes, one under the staged base) host-fed vs staged, 20 steps "
+          f"(S=10): losses equal {equal} (first {want[:3].tolist()}); "
+          f"steady-state steps/s in turns: staged {rates['staged']}, "
+          f"host-fed {rates['host']}", flush=True)
+    if len(want) != 20 or not np.isfinite(want).all() or not equal:
+        fail("the host-fed 10k run's losses differ from the staged run's")
+    return {"steps_per_sec": rates, "launches": launches}
+
+
+def train_cli_flags(cuda_gru, feats: str, wd: str) -> dict:
+    """`train --device-data off --report-every 1` on the flagship features
+    against `--device-data always` (dropout 0: epoch losses equal), the
+    MAE table every epoch, the host-fed launches, and --plots-dir: fast
+    with a message naming matplotlib where it is missing, else the
+    PNGs."""
+    import importlib.util
+
+    base = ["train", "--features", feats, "--epochs", "2", "--batch-size",
+            str(TRAIN["B"]), "--window", str(W), "--compute-dtype",
+            "bfloat16", "--dropout", "0", "--no-baselines"]
+    plots = os.path.join(wd, "plots")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    t0 = time.perf_counter()
+    lines = run_cli_lines(base + ["--device-data", "off", "--report-every",
+                                  "1"] + (["--plots-dir", plots]
+                                          if have_mpl else []), timeout=600)
+    off_s = time.perf_counter() - t0
+    off = json.loads(lines[-1])
+    staged = run_cli(base + ["--device-data", "always"], timeout=600)
+    tables = sum(line.startswith("===== ") for line in lines)
+    steps = int(off["steps"])
+    launches = off["kernel_launches"]
+    print(f"main train CLI --device-data off --report-every 1: feed "
+          f"{off['feed']}, {steps} steps, {off_s:.2f} s wall, steady state "
+          f"{off['steps_per_sec']:.3f} steps/s (--device-data always "
+          f"{staged['steps_per_sec']:.3f}); epoch losses {off['epoch_losses']}"
+          f" vs always {staged['epoch_losses']}; {tables} metric tables "
+          f"printed; launches {launches}", flush=True)
+    if off["feed"] != "host" or staged["feed"] != "staged":
+        fail(f"train --device-data off reported feed {off['feed']!r}, "
+             f"always {staged['feed']!r}")
+    if off["epoch_losses"] != staged["epoch_losses"] \
+            or off["step_losses"] != staged["step_losses"]:
+        fail("train --device-data off and always disagree (dropout 0)")
+    if tables != 3 * TRAIN["E"]:
+        fail(f"--report-every 1 printed {tables} metric tables over 2 "
+             f"epochs and the final report; want {3 * TRAIN['E']}")
+    for name in ("gru_fwd_train", "gru_bwd"):
+        if launches[name] != 2 * steps:
+            fail(f"{name} launched {launches[name]} times in {steps} "
+                 "host-fed CLI steps; want 2 x steps")
+    if have_mpl:
+        pngs = sorted(os.listdir(plots))
+        print(f"check --plots-dir: {len(pngs)} PNGs written", flush=True)
+        if len(pngs) != TRAIN["E"] + 1:
+            fail("--plots-dir did not write a curve and a plot a metric")
+    else:
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deeprest_tpu_torch", *base,
+             "--plots-dir", plots], cwd=REPO, env=env, capture_output=True,
+            text=True, timeout=300)
+        fail_s = time.perf_counter() - t0
+        print(f"check --plots-dir without matplotlib: exit "
+              f"{proc.returncode} after {fail_s:.2f} s, "
+              f"{proc.stderr.strip().splitlines()[-1:]}", flush=True)
+        if proc.returncode == 0 or "matplotlib" not in proc.stderr \
+                or "epoch" in proc.stdout or os.path.exists(plots):
+            fail("--plots-dir without matplotlib did not fail before "
+                 "training with a message naming matplotlib")
+    return {"launches": launches, "steps_per_sec": off["steps_per_sec"],
+            "staged_steps_per_sec": staged["steps_per_sec"]}
+
+
+def demo_precompute(cuda_gru, ckpt: str, sample: str, wd: str) -> dict:
+    """The what-if demo on phase 7's checkpoint (F=128, E=88, H=128, bf16):
+    precompute_results on the kernels and through the plain recurrence on
+    the card, the same grid each way (calls, ground truth and baselines
+    equal; ours, ours_lo and ours_hi within 2e-2 of scale), and its 3x
+    seen dataset with the same params at f32 (2e-4), then `python -m
+    deeprest_tpu_torch.demo serve` on the artifact and its routes."""
+    import dataclasses
+    import urllib.request
+
+    import numpy as np
+
+    from deeprest_tpu_torch.cli import _load_buckets
+    from deeprest_tpu_torch.data.featurize import featurize_buckets
+    from deeprest_tpu_torch.demo.precompute import (
+        DemoConfig, precompute_results, save_results,
+    )
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.workload.scenarios import (
+        SEEN_COMPOSITIONS, UNSEEN_COMPOSITIONS,
+    )
+
+    buckets = _load_buckets(sample)
+    cfg = DemoConfig(shapes=("waves",), multipliers=(1, 3),
+                     seen=SEEN_COMPOSITIONS[:1],
+                     unseen=UNSEEN_COMPOSITIONS[:1], ticks=DEMO_TICKS)
+    # f32 on the 3x seen dataset only, where bf16 extrapolates furthest
+    cfg_f32 = dataclasses.replace(cfg, multipliers=(3,), unseen=())
+    kernels = Predictor.from_checkpoint(ckpt, device="cuda")
+    plain = dict(recurrence=cuda_gru.gru_recurrence_reference)
+    predictors = {  # bf16 as checkpointed, and the same params at f32
+        "kernels": (kernels, cfg),
+        "plain": (Predictor.from_checkpoint(ckpt, device="cuda", **plain),
+                  cfg),
+        "kernels f32": (at_dtype(kernels, "float32"), cfg_f32),
+        "plain f32": (at_dtype(kernels, "float32", cuda_graphs=False,
+                               **plain), cfg_f32)}
+    observed = featurize_buckets(buckets, space=kernels.space())
+    y_range = np.asarray(kernels.y_stats.range, np.float64).reshape(-1)
+    names = kernels.metric_names
+    results, secs = {}, {}
+    launches = 0
+    for label, (pred, grid) in predictors.items():
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        results[label] = precompute_results(pred, observed, buckets, grid)
+        secs[label] = time.perf_counter() - t0
+        if label == "kernels":
+            launches = cuda_gru.KERNELS[0].launches
+    del predictors, kernels
+
+    def ours_error(a: str, b: str) -> float:
+        worst = 0.0
+        for key, ds in results[b]["datasets"].items():
+            for comp, resources in ds["components"].items():
+                for res, rec in resources.items():
+                    m = names.index(f"{comp}_{res}")
+                    mine = results[a]["datasets"][key]["components"][comp][res]
+                    for s in ("ours", "ours_lo", "ours_hi"):
+                        worst = max(worst, scaled_error(
+                            mine[s], rec[s], y_range[m:m + 1]))
+        return worst
+
+    got, want = results["kernels"], results["plain"]
+    same_host = sorted(got["datasets"]) == sorted(want["datasets"])
+    for key, ds in want["datasets"].items():
+        mine = got["datasets"].get(key, {})
+        same_host = same_host and mine.get("calls") == ds["calls"] and all(
+            mine["components"][comp][res][s] == rec[s]
+            for comp, resources in ds["components"].items()
+            for res, rec in resources.items()
+            for s in ("groundtruth", "resrc", "comp", "observed"))
+    readings = {pair: ours_error(*pair) for pair in (
+        ("kernels", "plain"), ("kernels f32", "plain f32"),
+        ("plain", "plain f32"), ("kernels", "plain f32"))}
+    worst = readings[("kernels", "plain")]
+    n = len(got["datasets"])
+    print(f"check demo precompute ({n} datasets: waves x1 and x3, one seen "
+          f"and one unseen composition, {DEMO_TICKS} ticks) kernels vs plain "
+          f"recurrence: ours/ours_lo/ours_hi {worst:.3e} of scale (tol "
+          f"{HOST_SCALE_TOL}); at f32 (x3 seen) "
+          f"{readings[('kernels f32', 'plain f32')]:.3e} (tol "
+          f"{GRAD_TOL['float32']}); bf16 plain vs f32 plain "
+          f"{readings[('plain', 'plain f32')]:.3e}, bf16 kernels vs f32 "
+          f"plain {readings[('kernels', 'plain f32')]:.3e}; calls, "
+          f"groundtruth, resrc, comp, observed equal {same_host}; seconds "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }; K1 launches "
+          f"{launches}", flush=True)
+    if not same_host or worst > HOST_SCALE_TOL or n != 4 \
+            or readings[("kernels f32", "plain f32")] > GRAD_TOL["float32"]:
+        fail("the demo's precompute on the kernels parts from the plain "
+             "recurrence's")
+    if launches == 0:
+        fail("demo precompute never launched gru_fwd")
+    path = save_results(got, os.path.join(wd, "demo.json.gz"))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeprest_tpu_torch.demo", "serve",
+         "--results", path, "--port", "0"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        first = proc.stdout.readline()
+        if not first.startswith("demo at http://"):
+            fail(f"demo serve did not start: {first}{proc.stdout.read()}")
+        url = first.split()[2].rstrip("/")
+        with urllib.request.urlopen(url + "/", timeout=30) as resp:
+            page = resp.read()
+        with urllib.request.urlopen(url + "/api/meta", timeout=30) as resp:
+            meta = json.loads(resp.read())
+        key = next(iter(got["datasets"]))
+        ds = got["datasets"][key]
+        with urllib.request.urlopen(
+                f"{url}/api/panel?shape={ds['shape']}&multiplier="
+                f"{ds['multiplier']}&group={ds['group']}&index="
+                f"{ds['index']}", timeout=30) as resp:
+            panel = json.loads(resp.read())
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    print(f"check demo serve: / {len(page)} bytes, /api/meta "
+          f"multipliers {meta['multipliers']}, /api/panel {panel['key']} "
+          f"with {len(panel['components'])} components", flush=True)
+    if b"what-if" not in page or panel["key"] != key \
+            or meta["methods"] != ["groundtruth", "resrc", "comp", "ours"]:
+        fail("demo serve did not answer its routes")
+    return {"launches": launches, "seconds": secs, "datasets": n,
+            "ours_err": readings}
+
+
+def phase_host_feed(cuda_gru, social_ckpt: str, social_sample: str,
+                    workdir: str) -> dict:
+    """Phase 14: the host-streamed trainer feed at the flagship width and
+    on the 10k dense corpus, the `train` CLI's --device-data,
+    --report-every and --plots-dir, and the what-if demo."""
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+
+    wd = os.path.join(workdir, "host_feed")
+    os.makedirs(wd)
+    secs = {}
+    t0 = time.perf_counter()
+    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+    flagship = host_feed_flagship(cuda_gru, FeaturizedData.load(feats))
+    secs["flagship"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tenk = host_feed_tenk(cuda_gru, FeaturizedData.load(
+        tenk_corpus(os.path.join(wd, "tenk.npz"))))
+    secs["tenk"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = train_cli_flags(cuda_gru, feats, wd)
+    secs["train CLI"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    demo = demo_precompute(cuda_gru, social_ckpt, social_sample, wd)
+    secs["demo"] = time.perf_counter() - t0
+    launches = dict(flagship["launches"])
+    for part in (tenk["launches"], cli["launches"]):
+        for name, count in part.items():
+            launches[name] += count
+    launches["gru_fwd"] += demo["launches"]
+    print(f"main host feed phase: seconds {rounded(secs)}; launches "
+          f"{launches}", flush=True)
+    return {"launches": launches, "flagship": flagship, "tenk": tenk,
+            "cli": cli, "demo": demo, "seconds": secs}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -4377,6 +4825,7 @@ def main() -> int:
         raw = timed("raw to answers", phase_raw_to_answers, cuda_gru, wd)
         raw_launches = raw["launches"]
         raw_path = raw["raw"]
+        social = (raw["ckpt"], raw["sample"])
         for k in cuda_gru.KERNELS:
             k.launches = 0
         plane = timed("serving plane", phase_serving_plane, cuda_gru,
@@ -4393,6 +4842,8 @@ def main() -> int:
             k.launches = 0
         stream = timed("streaming retrain", phase_stream, cuda_gru,
                        raw_path, wd)
+        host = timed("host feed, train flags and demo", phase_host_feed,
+                     cuda_gru, *social, wd)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)
@@ -4406,6 +4857,8 @@ def main() -> int:
     for name, count in tenk["launches"].items():
         launches[name] += count
     for name, count in stream["launches"].items():
+        launches[name] += count
+    for name, count in host["launches"].items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -4449,7 +4902,8 @@ def main() -> int:
           f"and exported "
           f"{tenk['launches']}; streaming retrain {stream['launches']} "
           f"(f32: the stream CLI runs and the verdict server "
-          f"{stream['f32_launches']}); tuning sweep "
+          f"{stream['f32_launches']}); host feed, train flags and demo "
+          f"{host['launches']}; tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     print(f"seconds per phase {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

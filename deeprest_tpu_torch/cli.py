@@ -25,11 +25,14 @@ and touch no device.  ``train``, ``predict``, ``whatif``, ``anomaly`` and
 lines add the device, the kernel launches the call made and the seconds
 of its stages (``seconds``: loading and featurizing the input, the model
 work).
-``train`` takes the JAX CLI's ``--steps-per-superstep`` (default "auto":
-captured CUDA graphs on a GPU), ``--grad-accum-windows``,
-``--grad-accum-mode``, ``--snapshot-every-steps`` and ``--snapshot-keep``;
-with snapshots on, running the same command again after a kill resumes
-from the newest cursor snapshot.  ``serve`` takes the JAX CLI's
+``train`` takes the JAX CLI's ``--device-data`` (the host-streamed feed
+under ``off``, or ``auto`` over budget), ``--steps-per-superstep``
+(default "auto": captured CUDA graphs on a GPU), ``--grad-accum-windows``,
+``--grad-accum-mode``, ``--snapshot-every-steps``, ``--snapshot-keep``,
+``--report-every`` and ``--plots-dir`` (needs matplotlib, checked before
+the corpus loads); its JSON line names the ``feed`` it used ("staged",
+"sparse" or "host").  With snapshots on, running the same command again
+after a kill resumes from the newest cursor snapshot.  ``serve`` takes the JAX CLI's
 single-engine flags (batcher, ladder, fused inference, obs, capacity
 surfaces, ``--watch``); it captures every rung's CUDA graph before it
 listens.  ``--quant off|int8|bf16`` reaches ``predict``, ``whatif``,
@@ -56,7 +59,8 @@ fingerprinted manifest, next to the checkpoint (serve/aot.py).
 ``profile`` opens a ``torch.profiler`` window on a running server, and
 ``train --profile-dir`` traces the first epoch.  Mesh and elastic
 remeshing (``stream --elastic`` exits 2) are not ported, and the port's
-CLI does not offer them.
+CLI does not offer them.  The what-if demo is ``python -m
+deeprest_tpu_torch.demo precompute|serve`` (demo/).
 """
 
 from __future__ import annotations
@@ -403,6 +407,15 @@ def cmd_train(args) -> int:
     from deeprest_tpu_torch.train.trainer import Trainer
 
     _require_input(args)
+    if args.plots_dir:
+        # before the corpus loads: a missing matplotlib must not surface
+        # only after the training it was to draw
+        from deeprest_tpu_torch.train.plots import require_matplotlib
+
+        try:
+            require_matplotlib()
+        except RuntimeError as exc:
+            sys.exit(f"error: --plots-dir: {exc}")
     t0 = time.perf_counter()
     data = _load_features(args)
     seconds = {"load": time.perf_counter() - t0}
@@ -415,6 +428,7 @@ def cmd_train(args) -> int:
                           train_split=args.split, seed=args.seed,
                           eval_stride=args.window,
                           checkpoint_dir=args.ckpt_dir or "",
+                          device_data=args.device_data,
                           steps_per_superstep=args.steps_per_superstep,
                           grad_accum_windows=args.grad_accum_windows,
                           grad_accum_mode=args.grad_accum_mode,
@@ -463,6 +477,8 @@ def cmd_train(args) -> int:
         step_losses.append(trainer.last_epoch_losses.tolist())
         print(f"epoch {result.epoch}: train {result.train_loss:.4f} "
               f"test {result.test_loss:.4f}", flush=True)
+        if args.report_every and (result.epoch + 1) % args.report_every == 0:
+            print(format_report(result.report), flush=True)
 
     # Preemption-safe restarts: with --snapshot-every-steps and a cursor
     # snapshot on disk, running the same command again resumes the killed
@@ -478,11 +494,11 @@ def cmd_train(args) -> int:
     t0 = time.perf_counter()
     try:
         if resume:
-            _, history = trainer.resume_training(
+            state, history = trainer.resume_training(
                 bundle, baseline_preds=baselines, on_epoch=on_epoch)
         else:
-            _, history = trainer.fit(bundle, baseline_preds=baselines,
-                                     on_epoch=on_epoch)
+            state, history = trainer.fit(bundle, baseline_preds=baselines,
+                                         on_epoch=on_epoch)
     finally:
         stop_profiling()    # a run with no epoch left still writes one
     seconds["fit"] = time.perf_counter() - t0
@@ -492,6 +508,20 @@ def cmd_train(args) -> int:
         print("resume point is already past the final epoch; nothing to do")
     print(f"steady-state throughput: "
           f"{trainer.throughput.steps_per_sec:.2f} steps/s")
+    if args.plots_dir:
+        import os
+
+        from deeprest_tpu_torch.train.plots import (
+            learning_curves, prediction_arrays, prediction_plots,
+        )
+
+        learning_curves(history,
+                        os.path.join(args.plots_dir, "learning_curve.png"))
+        arrays = prediction_arrays(trainer, state, bundle)
+        prediction_plots(arrays["median"], arrays["truth"],
+                         bundle.metric_names, args.plots_dir,
+                         quantile_band=(arrays["lo"], arrays["hi"]))
+        print(f"plots written to {args.plots_dir}")
     print(json.dumps({
         "epoch_losses": [h.train_loss for h in history],
         "test_losses": [h.test_loss for h in history],
@@ -508,6 +538,7 @@ def cmd_train(args) -> int:
         "resumed_from_step": trainer.resumed_from_step,
         "grad_accum_windows": cfg.train.grad_accum_windows,
         "steps_per_superstep": trainer.superstep_len,
+        "feed": trainer.feed,
         "seconds": seconds}))
     return 0
 
@@ -1401,6 +1432,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--device-data", default="auto",
+                   choices=["auto", "always", "off"],
+                   help="stage the normalized base series in device memory "
+                        "and feed steps by start index (auto streams each "
+                        "step's windows from the host instead when the "
+                        "series exceed the 4 GiB budget; off always "
+                        "streams)")
     p.add_argument("--steps-per-superstep", type=_superstep_arg,
                    default="auto", metavar="N|auto|epoch",
                    help="train steps per superstep; on a GPU a superstep "
@@ -1432,10 +1470,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "durable newer save; checkpoints without a cursor "
                         "are never touched; 0 = keep everything)")
     p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--plots-dir", default=None,
+                   help="write the learning curve and one prediction plot "
+                        "per metric here after training (needs matplotlib)")
     p.add_argument("--profile-dir", default=None,
                    help="capture a torch.profiler trace of the first epoch "
                         "(a Chrome trace, trace_epoch1.json, in this "
                         "directory)")
+    p.add_argument("--report-every", type=int, default=0,
+                   help="print the full MAE table every N epochs (0 = end only)")
     p.add_argument("--no-baselines", action="store_true",
                    help="skip the ResourceAware and ComponentAware "
                         "baselines (the resrc and comp columns of the report)")

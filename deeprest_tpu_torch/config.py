@@ -76,12 +76,15 @@ class TrainConfig:
     to the dense feed's.  Its staged bytes are held to
     ``device_data_max_bytes`` under ``device_data="auto"``.
 
-    Features of the JAX trainer the port does not have yet: the
-    host-streamed feed (``device_data="off"``) and elastic remeshing.  The
-    port always stages the base series on its device, so ``device_data``
-    takes "auto" (stages, and raises over ``device_data_max_bytes`` where
-    the reference would host-feed) or "always" (stages), and ``elastic``
-    only False; anything else raises.
+    ``device_data``: "auto" stages the normalized base series on the
+    device when they fit ``device_data_max_bytes`` and otherwise streams
+    each step's windows from the host; "always" stages; "off" streams.
+    Unlike the JAX trainer, "auto" stages on the CPU too (torch's CPU
+    gather has no reason to avoid it).  The host-streamed feed keeps
+    ``prefetch_depth`` steps' windows in flight (at least one).
+
+    The JAX trainer's elastic remeshing is not ported: ``elastic`` takes
+    only False.
     """
 
     num_epochs: int = 50
@@ -96,6 +99,8 @@ class TrainConfig:
     checkpoint_dir: str | None = None
     checkpoint_every_epochs: int = 10
     log_every_steps: int = 50
+    # host-fed steps whose windows are in flight ahead of the update
+    prefetch_depth: int = 2
     # resources trained as per-bucket increments (train/data.py)
     delta_resources: tuple[str, ...] = LEVEL_RESOURCES
     device_data: str = "auto"
@@ -147,16 +152,14 @@ class TrainConfig:
                 "(device-resident) feed — the on-device densify lives "
                 "inside the staged executables; set device_data to "
                 "'auto' or 'always'")
-        unported = []
-        if self.device_data not in ("auto", "always"):
-            unported.append(f"device_data={self.device_data!r} (the port "
-                            "always stages the base series: 'auto' or "
-                            "'always')")
+        if self.device_data not in ("auto", "always", "off"):
+            raise ValueError(
+                f"TrainConfig.device_data={self.device_data!r}: must be "
+                "'auto', 'always', or 'off'")
         if self.elastic:
-            unported.append("elastic=True (elastic remeshing is not ported)")
-        if unported:
             raise ValueError("TrainConfig: the port does not implement "
-                             + "; ".join(unported))
+                             "elastic=True (elastic remeshing is not "
+                             "ported)")
 
 
 @dataclasses.dataclass(frozen=True)

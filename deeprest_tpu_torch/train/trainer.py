@@ -49,6 +49,15 @@ The sparse feed (``TrainConfig.sparse_feed``) stages padded-COO traffic
 rows instead of the dense base; each gather densifies and normalizes on
 the device, so losses equal the dense feed's bit for bit.
 
+The host-streamed feed (``device_data="off"``, or "auto" over
+``device_data_max_bytes``, or a bundle with no base series) sends each
+step's windows from the host into static device buffers
+(``graphs.HostFeed``, a ring of pinned slots on a copy stream) that the
+same update reads, eager or replayed: losses and params equal the staged
+feed's bit for bit.  As on the JAX trainer's host path, its cursor,
+``on_step`` and snapshots move every step, and it takes neither gradient
+accumulation nor a sparse bundle.
+
 Not ported yet: elastic remeshing, the mesh.
 """
 
@@ -72,7 +81,9 @@ from deeprest_tpu_torch.models.qrnn import (
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.ops.quantile import pinball_loss
 from deeprest_tpu_torch.train.data import DatasetBundle, eval_window_indices
-from deeprest_tpu_torch.train.graphs import EpochPlan, capture_update
+from deeprest_tpu_torch.train.graphs import (
+    EpochPlan, HostFeed, capture_update,
+)
 from deeprest_tpu_torch.train.metrics import Throughput, mae_report
 
 # Philox offsets between the dropout streams of two consecutive steps: far
@@ -122,6 +133,14 @@ def dropout_generator(device: torch.device, seed: int,
     return gen
 
 
+def _same_series(held, staged) -> bool:
+    """Whether a plan bound to ``held`` may keep its captured update for
+    ``staged``: the same staged tensors, or the same host feed."""
+    if isinstance(held, tuple) and isinstance(staged, tuple):
+        return all(a is b for a, b in zip(held, staged))
+    return held is not None and held is staged
+
+
 class Trainer:
     """Owns the model config, the device and the training loop.
 
@@ -166,6 +185,7 @@ class Trainer:
         self.replays = 0
         self.capture_seconds = 0.0
         self.superstep_len: int | None = None     # S of the latest epoch
+        self.feed: str | None = None     # "staged", "sparse" or "host"
         self.resumed_from_step: int | None = None
         # the epoch-plan cursor of preemption-safe snapshots
         self._snapshot_dir: str | None = None
@@ -176,6 +196,10 @@ class Trainer:
         self._cursor_rng_state: dict | None = None
         self._epoch_steps_done = 0
         self._epoch_num_steps = 0
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return getattr(torch, self.model_config.compute_dtype)
 
     @property
     def global_step(self) -> int:
@@ -305,10 +329,12 @@ class Trainer:
         the compute dtype, ``y_base [T, E]`` f32), or with
         ``TrainConfig.sparse_feed`` and a sparse bundle ``(SparseBase,
         y_base)`` (:meth:`_stage_sparse`).  Train window i starts at base
-        row i, test window i at ``split + i``.  Under ``device_data="auto"``
-        a dense base over ``device_data_max_bytes`` raises, where the
-        reference would host-feed it (ROADMAP queue 1, item 13);
-        ``"always"`` stages it."""
+        row i, test window i at ``split + i``.  None, for the host-streamed
+        feed, under ``device_data="off"``, for a bundle with no base
+        series, and under "auto" for a dense base over
+        ``device_data_max_bytes`` (counted as the reference counts it);
+        ``"always"`` stages it.  "auto" stages on the CPU too, where the
+        reference host-feeds."""
         cfg = self.config.train
         if cfg.sparse_feed and bundle.is_sparse:
             return self._stage_sparse(bundle)
@@ -318,22 +344,17 @@ class Trainer:
                 "bundle carries only sparse (padded-COO) traffic but "
                 "TrainConfig.sparse_feed is off; enable sparse_feed or "
                 "rebuild the bundle with dense traffic")
-        if bundle.x_base is None or bundle.y_base is None:
-            raise ValueError("bundle carries no base series to stage; build "
-                             "it with prepare_dataset")
-        dtype = getattr(torch, self.model_config.compute_dtype)
+        if (cfg.device_data == "off" or bundle.x_base is None
+                or bundle.y_base is None):
+            return None
+        dtype = self._dtype
         # Counted before the cast, as the reference counts it: x at 2 bytes
         # an element in bf16, else as it lies, plus the targets.
         x_bytes = (bundle.x_base.size * 2 if dtype == torch.bfloat16
                    else bundle.x_base.nbytes)
         total = x_bytes + bundle.y_base.nbytes
         if cfg.device_data == "auto" and total > cfg.device_data_max_bytes:
-            raise ValueError(
-                f"dense base ({total} bytes) exceeds device_data_max_bytes "
-                f"({cfg.device_data_max_bytes}); the host-streamed feed "
-                "that the reference falls back to is not ported yet "
-                "(ROADMAP queue 1, item 13) — raise the budget, shrink the "
-                'corpus, or pass device_data="always"')
+            return None
         x = torch.from_numpy(np.ascontiguousarray(bundle.x_base))
         y = torch.from_numpy(np.ascontiguousarray(bundle.y_base))
         return (x.to(self.device, dtype), y.to(self.device, torch.float32))
@@ -385,6 +406,8 @@ class Trainer:
             SparseBase, gather_densify_normalize,
         )
 
+        if isinstance(staged, HostFeed):
+            return staged.x[0], staged.y[0]
         x_base, y_base = staged
         idx = starts[:, None] + self._window_offsets[None, :]
         if isinstance(x_base, SparseBase):
@@ -513,8 +536,7 @@ class Trainer:
         if state.plan is None or state.plan.shape != shape:
             state.plan = EpochPlan(*shape, device=self.device)
             state.retire_graph()
-        if state.plan.staged is None or any(
-                a is not b for a, b in zip(state.plan.staged, staged)):
+        if not _same_series(state.plan.staged, staged):
             state.plan.staged = staged
             state.retire_graph()
         state.plan.stage(starts.reshape(-1, starts.shape[-1]),
@@ -581,10 +603,21 @@ class Trainer:
         uninterrupted epoch drew it); it must land on a superstep boundary.
         ``on_step(global_step)`` fires at every superstep boundary (every
         step at S = 1).  The throughput window leaves out the trainer's
-        first update, which builds the kernels and captures the graph."""
+        first update, which builds the kernels and captures the graph.
+
+        Without ``staged`` the epoch stages the dataset itself, or, where
+        :meth:`stage_dataset` returns None, streams it from the host
+        (:meth:`_train_epoch_host`)."""
         cfg = self.config.train
         if staged is None:
             staged = self.stage_dataset(bundle)
+        if staged is None:
+            return self._train_epoch_host(state, bundle, epoch_rng,
+                                          skip_steps, on_step)
+        from deeprest_tpu_torch.ops.densify import SparseBase
+
+        self.feed = ("sparse" if isinstance(staged[0], SparseBase)
+                     else "staged")
         num_steps = -(-bundle.num_train_windows // cfg.batch_size)
         s = self._superstep_len(num_steps)
         g = cfg.grad_accum_windows
@@ -617,14 +650,10 @@ class Trainer:
                 self._run_update(state, captured)
                 n_real = min(g, num_steps - lo)
                 state.step += n_real
-                if not self._warmed:
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                    self._warmed = True
-                    self.throughput.start()
-                    measuring = True
-                else:
+                if self._count_update():
                     steps += n_real
+                else:
+                    measuring = True
             prev = self._global_step
             self._global_step += real
             if log_every and prev // log_every != self._global_step // log_every:
@@ -634,11 +663,107 @@ class Trainer:
                     if gs % log_every == 0:
                         print(f"step {gs}: loss {vals[gs - prev - 1]:.6f}")
             self._note_steps(state, bundle, real, on_step)
+        return state, self._end_epoch(plan, skip_steps, num_steps,
+                                      measuring, steps)
+
+    def _end_epoch(self, plan: EpochPlan, skip_steps: int, num_steps: int,
+                   measuring: bool, steps: int) -> float:
+        """Close the throughput window and read the epoch's losses back
+        (once); returns their mean."""
         if measuring:
             self.throughput.stop(steps)
         epoch_losses = plan.microbatch_losses(skip_steps, num_steps)
         self._last_epoch_losses = epoch_losses
-        return state, float(np.mean(epoch_losses, dtype=np.float64))
+        return float(np.mean(epoch_losses, dtype=np.float64))
+
+    def _count_update(self) -> bool:
+        """After an update: True when it falls in the throughput window;
+        the trainer's first update (kernel build, capture) is waited for and
+        opens the window instead."""
+        if self._warmed:
+            return True
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warmed = True
+        self.throughput.start()
+        return False
+
+    def _host_feed(self, state: TrainState,
+                   bundle: DatasetBundle) -> HostFeed:
+        """``state``'s host feed, kept across epochs while its shapes hold
+        (a captured update reads its buffers)."""
+        cfg = self.config.train
+        held = state.plan.staged if state.plan is not None else None
+        dims = (cfg.batch_size, bundle.window_size, bundle.feature_dim,
+                bundle.num_metrics)
+        if isinstance(held, HostFeed) and held.shape == (*dims,
+                                                         self._dtype):
+            return held
+        return HostFeed(*dims, self._dtype, self.device, cfg.prefetch_depth)
+
+    def _train_epoch_host(self, state: TrainState, bundle: DatasetBundle,
+                          epoch_rng: np.random.Generator, skip_steps: int,
+                          on_step) -> tuple[TrainState, float]:
+        """One epoch on the host-streamed feed (the JAX trainer's host
+        path): the same shuffled plan and zero-weight padding, each step's
+        windows ``x_train[sel]`` / ``y_train[sel]`` put into the feed's
+        static buffers, then the staged path's update, captured where it
+        would be (S > 1 on a GPU, S only deciding that).  The cursor,
+        ``on_step``, log lines and snapshots move every step, so
+        ``skip_steps`` may be any step."""
+        cfg = self.config.train
+        if bundle.is_sparse:
+            raise ValueError(
+                "sparse (padded-COO) bundles train only through the "
+                "staged device-resident feed — the on-device densify "
+                "lives inside the staged update; call "
+                "stage_dataset(bundle) with TrainConfig.sparse_feed=True")
+        if cfg.grad_accum_windows > 1:
+            raise ValueError(
+                f"grad_accum_windows={cfg.grad_accum_windows} requires the "
+                "staged (device-resident) feed — the coalesced update "
+                "consumes its microbatches from the on-device plan; stage "
+                "the dataset (device_data='always') or set "
+                "grad_accum_windows=1")
+        n = bundle.num_train_windows
+        s = self._superstep_len(-(-n // cfg.batch_size))
+        starts, weights, num_steps = self._epoch_plan(n, epoch_rng, s)
+        self.superstep_len = s
+        self._epoch_num_steps = num_steps
+        self._epoch_steps_done = skip_steps
+        if skip_steps >= num_steps:
+            raise ValueError(
+                f"skip_steps={skip_steps} >= epoch length {num_steps}: a "
+                "finished epoch resumes at the NEXT epoch's cursor")
+        feed = self._host_feed(state, bundle)
+        self.feed = "host"
+        plan = self._stage_plan(state, feed, starts, weights, skip_steps)
+        selections = starts.reshape(-1, starts.shape[-1])
+        captured = self.device.type == "cuda" and s > 1
+        log_every = cfg.log_every_steps
+        measuring = self._warmed
+        if measuring:
+            self.throughput.start()
+        steps = 0
+        try:
+            for i in range(skip_steps, num_steps):
+                feed.put(bundle.x_train, bundle.y_train, selections[i])
+                self._run_update(state, captured)
+                state.step += 1
+                if self._count_update():
+                    steps += 1
+                else:
+                    measuring = True
+                self._global_step += 1
+                if log_every and self._global_step % log_every == 0:
+                    # graftlint: disable=JX003 -- designed sink: one scalar readback per log_every steps, the logging contract
+                    loss = plan.microbatch_losses(i, i + 1)[0]
+                    print(f"step {self._global_step}: loss {loss:.6f}")
+                self._note_steps(state, bundle, 1, on_step)
+        finally:
+            feed.close()
+        return state, self._end_epoch(plan, skip_steps, num_steps,
+                                      measuring, steps)
 
     # -- preemption-safe snapshots -----------------------------------------
 
@@ -716,11 +841,18 @@ class Trainer:
 
         ``baseline_preds`` maps method name → de-normalized ``[N_test, W,
         E]`` predictions aligned with ``bundle.x_test``.  Runs without
-        autograd, so the recurrence is the inference form.
+        autograd, so the recurrence is the inference form.  Without
+        ``staged`` it stages the dataset, or, where :meth:`stage_dataset`
+        returns None, pages ``x_test[sel]`` and ``y_test[sel]`` from the
+        host as the reference does.
         """
         cfg = self.config.train
         if staged is None:
             staged = self.stage_dataset(bundle)
+        if staged is None and bundle.is_sparse:
+            raise ValueError(
+                "sparse (padded-COO) bundles evaluate only through the "
+                "staged device-resident feed (see train_epoch)")
         idx = eval_window_indices(bundle.num_test_windows, cfg.eval_stride,
                                   cfg.eval_max_cycles)
         if len(idx) == 0:
@@ -729,7 +861,13 @@ class Trainer:
         with torch.no_grad():
             for lo in range(0, len(idx), cfg.eval_batch_size):
                 sel = idx[lo:lo + cfg.eval_batch_size]
-                xb, yb = self._windows(staged, bundle.split + sel)
+                if staged is None:
+                    xb = torch.from_numpy(np.ascontiguousarray(
+                        bundle.x_test[sel])).to(self.device, self._dtype)
+                    yb = torch.from_numpy(np.ascontiguousarray(
+                        bundle.y_test[sel])).to(self.device)
+                else:
+                    xb, yb = self._windows(staged, bundle.split + sel)
                 p = state.model(xb, recurrence=self.recurrence)
                 loss = pinball_loss(p, yb, self._quantiles)
                 preds_chunks.append(p.float().cpu().numpy())

@@ -237,6 +237,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from deeprest_tpu_torch.serve.predictor import Predictor\n"
         "from deeprest_tpu_torch.serve import export\n"
         "TrainConfig(sparse_feed=True)\n"
+        "TrainConfig(device_data='off')\n"
         "cfg = ModelConfig(feature_dim=8, num_metrics=2, hidden_size=8)\n"
         "st = MinMaxStats(min=np.float32(0), max=np.float32(1))\n"
         "p = Predictor(init_params(cfg), cfg, st, st, ['a_cpu', 'b_cpu'], "
@@ -291,10 +292,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'serve.server', 'ops.densify', 'ops.quantize', 'serve.export', "
         "'obs.quality', 'data.wire', 'train.stream', 'serve.replica', "
         "'serve.router', 'obs.profiler', 'benchmarks.serve_bench', "
-        "'serve.fleet', 'serve.aot', 'benchmarks.fleet_bench'}\n"
+        "'serve.fleet', 'serve.aot', 'benchmarks.fleet_bench', "
+        "'train.plots', 'demo', 'demo.__main__', 'demo.precompute', "
+        "'demo.results', 'demo.server'}\n"
         "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 54 else 0)\n")
+        "sys.exit(1 if bad or missing or len(names) < 60 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

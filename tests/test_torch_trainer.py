@@ -308,11 +308,13 @@ def test_train_cli_runs_end_to_end_on_cpu(corpus, tmp_path, capsys):
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_dense_base_over_the_budget_raises_under_auto(bundles, compute):
-    """The reference host-feeds a dense base over device_data_max_bytes
-    under "auto"; the port has no host feed yet, so it raises, naming the
-    item that brings it, and counts the bytes as the reference does (x at
-    2 bytes an element in bf16, before the cast, plus y).  "always" still
-    stages."""
+    """Under "auto" a dense base over device_data_max_bytes is no longer
+    refused: ``stage_dataset`` returns None, as the reference's does, and
+    the epoch streams its windows from the host.  The bytes are counted as
+    the reference counts them (x at 2 bytes an element in bf16, before the
+    cast, plus y): one byte under the count host-feeds, the count itself
+    stages, and "always" stages whatever the budget.  The host-fed epoch
+    equals the staged one bit for bit."""
     pb = bundles[1]
     x_bytes = pb.x_base.size * 2 if compute == "bfloat16" else \
         pb.x_base.nbytes
@@ -323,22 +325,37 @@ def test_dense_base_over_the_budget_raises_under_auto(bundles, compute):
             device_data=device_data, device_data_max_bytes=budget))
         return Trainer(cfg, pb.feature_dim, pb.metric_names, device="cpu")
 
-    with pytest.raises(ValueError, match="queue 1, item 13") as err:
-        trainer(total - 1).stage_dataset(pb)
-    assert f"dense base ({total} bytes)" in str(err.value)
+    assert trainer(total - 1).stage_dataset(pb) is None
     for staged in (trainer(total).stage_dataset(pb),
                    trainer(total - 1, "always").stage_dataset(pb)):
         x, y = staged
         assert x.dtype == getattr(torch, compute)
         assert tuple(x.shape) == pb.x_base.shape
         assert y.dtype == torch.float32
+    runs = {}
+    for label, device_data in (("host", "auto"), ("staged", "always")):
+        tr = trainer(total - 1, device_data)
+        state, hist = tr.fit(pb, num_epochs=1)
+        runs[label] = (tr, state, hist)
+    (host, s_h, h_h), (staged, s_s, h_s) = runs["host"], runs["staged"]
+    assert (host.feed, staged.feed) == ("host", "staged")
+    np.testing.assert_array_equal(host.last_epoch_losses,
+                                  staged.last_epoch_losses)
+    assert h_h[0].test_loss == h_s[0].test_loss
+    for name, value in s_s.params.items():
+        assert torch.equal(s_h.params[name], value), name
 
 
 def test_unported_train_features_raise_and_device_defaults_to_cuda(
         monkeypatch):
-    for kw in (dict(device_data="off"), dict(elastic=True)):
-        with pytest.raises(ValueError, match="does not implement"):
-            TrainConfig(**kw)
+    """The host-streamed feed is ported ("off" is accepted, an unknown
+    value raises); elastic remeshing still raises."""
+    with pytest.raises(ValueError, match="does not implement"):
+        TrainConfig(elastic=True)
+    assert TrainConfig(device_data="off").device_data == "off"
+    with pytest.raises(ValueError, match="'auto', 'always', or 'off'"):
+        TrainConfig(device_data="sometimes")
+    assert TrainConfig().prefetch_depth == JaxTrainConfig().prefetch_depth
     TrainConfig(device_data="always")
     # the sparse feed is ported (tests/test_torch_sparse.py)
     assert TrainConfig(sparse_feed=True).sparse_nnz_cap == 64
