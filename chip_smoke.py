@@ -167,7 +167,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     process replicas at R = 2 and 4 and thread replicas at 2 (every
     worker captures its 18 graphs before its handshake and none after;
     each answer to phase 8's request mix, posted alone, bit for bit the
-    single engine's; closed loops (2 s a cell) at concurrency 16 and 64
+    single engine's; closed loops (1 s a cell) at concurrency 16 and 64
     with the
     clients in 4 spawned processes: requests/s, p50/p99, per-replica
     served counts, each worker's graphs and device memory, sampled
@@ -224,12 +224,27 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     constant over the train split scaled in its raw unit), and the 3x seen
     dataset with the same params at f32 (2e-4), then
     `python -m deeprest_tpu_torch.demo serve` and its routes;
-15. the seconds of each phase, one JSON line of per-kernel numbers, then
+15. the mesh's data axis on torch.distributed (run after phase 14): (a)
+    NCCL at world size 1 in this process, flagship bf16, dropout 0.5,
+    captured S=10 (the all-reduce inside the captured update), 2 epochs of
+    20 steps in turns against the trainer with no process group (losses and
+    params bit for bit, K2 = K3 = 2 launches a replay, 1 capture and 39
+    replays, steady-state steps/s of each); (b) gloo at world size 2, two
+    spawned processes on the one card, flagship width, f32, dropout 0, 10
+    eager steps against world size 1 on the same params (params bit-equal
+    across the ranks, the first update's gradients within 1e-5 of each
+    leaf's scale, losses and final params within the JAX package's
+    sharded-training tolerances, K2 and K3 launched on both ranks, a
+    captured superstep under gloo refused); (c) `train --mesh 1,1,1` under
+    torchrun's env:// variables at world size 1 (NCCL) against phase 14's
+    plain `train --device-data always` (epoch and step losses equal);
+16. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11, 14 and the sweep of 9; a server or CLI process starts at
-0, and phase 12 sums its workers' ledgers) and
+7, 8, 12, 10, 13, 11, 14, 15 and the sweep of 9; a server or CLI process
+starts at 0, and phase 12 sums its workers' ledgers and phase 15 its
+ranks') and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -2207,7 +2222,7 @@ REPLICA_PLANES = (
 )
 REPLICA_CONCURRENCY = (16, 64)
 REPLICA_OVERLOAD = 256
-REPLICA_LOAD_S = 2.0
+REPLICA_LOAD_S = 1.0
 REPLICA_CLIENT_PROCS = 4            # client processes of a closed loop
 REPLICA_OVERLOAD_PROCS = 8          # ... and of the overload's
 RELOAD_SCALE = 1.25                 # the newer step's params, x this
@@ -4607,7 +4622,9 @@ def train_cli_flags(cuda_gru, feats: str, wd: str) -> dict:
             fail("--plots-dir without matplotlib did not fail before "
                  "training with a message naming matplotlib")
     return {"launches": launches, "steps_per_sec": off["steps_per_sec"],
-            "staged_steps_per_sec": staged["steps_per_sec"]}
+            "staged_steps_per_sec": staged["steps_per_sec"],
+            "staged_args": base + ["--device-data", "always"],
+            "staged": staged}
 
 
 def demo_precompute(cuda_gru, ckpt: str, sample: str, wd: str) -> dict:
@@ -4775,6 +4792,359 @@ def phase_host_feed(cuda_gru, social_ckpt: str, social_sample: str,
             "cli": cli, "demo": demo, "seconds": secs}
 
 
+# -- phase 15: the mesh's data axis -----------------------------------------
+
+# 10 steps of B=32: int((4,320 - 60) x 0.0752) = 320 windows
+SPLIT_10_STEPS = 0.0752
+DP_TURNS = ("no group", "nccl", "nccl", "no group")
+DP_LOSS_TOL = (2e-3, 1e-5)      # tests/test_parallel.py:80-90: rtol, atol
+DP_PARAM_TOL = (5e-3, 1e-4)
+DP_GRAD_TOL = 1e-5              # of each leaf's max |grad|
+
+
+def free_port() -> int:
+    """A free TCP port on localhost (the process group's rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_trainer(data, mesh, compute: str, dropout: float, split: float,
+               **train):
+    """A flagship-width Trainer (B=32 global, T=60, H=128) on ``mesh``
+    and the bundle of ``data``."""
+    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.train.data import prepare_dataset
+    from deeprest_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(model=ModelConfig(hidden_size=TRAIN["H"],
+                                   dropout_rate=dropout,
+                                   compute_dtype=compute),
+                 train=TrainConfig(batch_size=TRAIN["B"], window_size=W,
+                                   train_split=split, **train))
+    bundle = prepare_dataset(data, cfg.train)
+    return Trainer(cfg, F, bundle.metric_names, mesh=mesh), bundle
+
+
+def no_group_mesh():
+    """The one-process mesh with no process group on card 0, for a trainer
+    that must reduce nothing while this process is in a job."""
+    import torch
+
+    from deeprest_tpu_torch.config import MeshConfig
+    from deeprest_tpu_torch.parallel import Mesh
+
+    return Mesh(MeshConfig(), 0, torch.device("cuda", 0))
+
+
+def dp_eager_run(trainer, bundle, params) -> dict:
+    """One epoch of eager updates (S=1): per-step losses, the first
+    update's (all-reduced) gradients, final params, K2/K3 launches and
+    seconds."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.ops import cuda_gru
+
+    grads = {}
+    state = trainer.init_state(params)
+
+    def on_step(global_step):
+        if global_step == 1:
+            grads.update({n: p.grad.detach().cpu().numpy().copy()
+                          for n, p in state.model.named_parameters()})
+
+    staged = trainer.stage_dataset(bundle)
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, _ = trainer.train_epoch(state, bundle, np.random.default_rng(SEED),
+                                   staged, on_step=on_step)
+    torch.cuda.synchronize()
+    return {"losses": trainer.last_epoch_losses, "grads": grads,
+            "params": {n: p.detach().cpu().numpy().copy()
+                       for n, p in state.params.items()},
+            "launches": {k.name: k.launches for k in cuda_gru.KERNELS},
+            "seconds": time.perf_counter() - t0}
+
+
+def dp_rank_main(rank: int, world: int, port: int, feats: str,
+                 out: str) -> None:
+    """One rank of the gloo job on the card (spawned): the eager epoch of
+    :func:`dp_eager_run` on this rank's slice, written to ``out``, and
+    the refusal of a captured superstep under gloo."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeprest_tpu_torch.config import MeshConfig
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=world, rank=rank, backend="gloo",
+                           device="cuda")
+    mesh = make_mesh(MeshConfig(data=world), device="cuda")
+    trainer, bundle = dp_trainer(FeaturizedData.load(feats), mesh,
+                                 "float32", 0.0, SPLIT_10_STEPS,
+                                 steps_per_superstep=1)
+    run = dp_eager_run(trainer, bundle,
+                       init_params(trainer.model_config, SEED))
+    try:
+        trainer._captured(10)
+        refusal = ""
+    except ValueError as exc:
+        refusal = str(exc)
+    arrays = {"losses": run["losses"], "seconds": run["seconds"],
+              "refusal": np.asarray(refusal),
+              "device": np.asarray(str(trainer.device)),
+              "backend": np.asarray(mesh.backend)}
+    arrays.update({f"launches/{k}": v for k, v in run["launches"].items()})
+    arrays.update({f"params/{k}": v for k, v in run["params"].items()})
+    arrays.update({f"grads/{k}": v for k, v in run["grads"].items()})
+    np.savez(out, **arrays)
+    torch.distributed.destroy_process_group()
+
+
+def leaf_distance(got: dict, want: dict) -> float:
+    """Worst max |got - want| / max |want| over the leaves."""
+    import numpy as np
+
+    return max(float(np.abs(got[k] - v).max() / max(np.abs(v).max(), 1e-30))
+               for k, v in want.items())
+
+
+def data_parallel_nccl(cuda_gru, data) -> dict:
+    """(a) NCCL at world size 1 on the flagship, captured S=10, 2 epochs of
+    20 steps, in turns against the trainer with no process group: losses
+    and params bit-equal (an all-reduce over one rank is the identity),
+    K2 = K3 = 2 launches a replay, the capture form, steps/s of each."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.config import MeshConfig
+    from deeprest_tpu_torch.graphs import GraphCaptureError
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0, device="cuda")
+    out = {"launches": dict.fromkeys(
+        (k.name for k in cuda_gru.MODEL_KERNELS), 0)}
+    try:
+        mesh = make_mesh(MeshConfig(data=1), device="cuda")
+        runs, rates = {}, {label: [] for label in DP_TURNS}
+        for label in DP_TURNS:
+            trainer, bundle = dp_trainer(
+                data, mesh if label == "nccl" else no_group_mesh(),
+                "bfloat16", 0.5, SPLIT_20_STEPS, steps_per_superstep=10)
+            params = init_params(trainer.model_config, SEED)
+            for k in cuda_gru.KERNELS:
+                k.launches = 0
+            try:
+                state, losses = train_epochs(trainer, bundle, params, epochs=2)
+            except GraphCaptureError as exc:
+                fail(f"the captured update with its NCCL all-reduce did not "
+                     f"capture ({label}): {exc}")
+            counts = {k.name: k.launches for k in cuda_gru.KERNELS}
+            ledger = {k.name: n for k, n in state.graph.launches.items()}
+            rates[label].append(trainer.throughput.steps_per_sec)
+            runs[label] = (trainer, state, losses, counts, ledger)
+            if label == "nccl":
+                for name in out["launches"]:
+                    out["launches"][name] += counts[name]
+            del trainer, state
+            free_device()
+        (tr_n, st_n, l_n, n_n, g_n) = runs["nccl"]
+        (tr_p, st_p, l_p, n_p, g_p) = runs["no group"]
+        rel, absd, same = params_rel_diff(st_n, st_p)
+        equal = np.array_equal(l_n, l_p)
+        form = "whole: the NCCL all-reduce inside the captured update"
+        print(f"check data axis NCCL world size 1 (flagship bf16, dropout "
+              f"0.5, captured S=10, 2 x 20 steps) vs no process group: "
+              f"losses equal {equal}, params bit-identical {same} (max abs "
+              f"{absd:.3e}); backend {tr_n.mesh.backend}; capture form "
+              f"{form}; captures {tr_n.captures}, replays {tr_n.replays}; "
+              f"graph ledger {g_n} (no group {g_p}); launches {n_n}; "
+              f"steady-state steps/s in turns {rates}", flush=True)
+        if not equal or not same:
+            fail("data-parallel training at world size 1 (NCCL) parts from "
+                 "the trainer with no process group")
+        if tr_n.mesh.backend != "nccl" or (tr_n.captures, tr_n.replays) \
+                != (1, 39):
+            fail("the NCCL run did not take 1 capture and 39 replays")
+        if g_n.get("gru_fwd_train") != 2 or g_n.get("gru_bwd") != 2:
+            fail(f"the captured NCCL update holds {g_n} launches; want "
+                 "K2 = K3 = 2 a replay")
+        for name in ("gru_fwd_train", "gru_bwd"):
+            if n_n[name] != 80:
+                fail(f"{name} counted {n_n[name]} launches over 40 NCCL "
+                     "steps; want 80")
+        out.update(steps_per_sec=rates, capture_form=form, ledger=g_n)
+        del runs
+    finally:
+        torch.distributed.destroy_process_group()
+    free_device()
+    return out
+
+
+def data_parallel_gloo(cuda_gru, data, feats: str, wd: str) -> dict:
+    """(b) gloo at world size 2: two spawned ranks on the one card,
+    flagship width, f32, dropout 0, 10 eager steps, against world size 1
+    (no group) on the same params: params bit-equal across the ranks, the
+    first update's gradients within 1e-5 of each leaf's scale, losses and
+    final params within JAX's sharded-training tolerances, K2 and K3
+    launched on both ranks, a captured superstep refused."""
+    import multiprocessing
+
+    import numpy as np
+
+    from deeprest_tpu_torch.models.qrnn import init_params
+
+    trainer, bundle = dp_trainer(data, no_group_mesh(), "float32", 0.0,
+                                 SPLIT_10_STEPS, steps_per_superstep=1)
+    single = dp_eager_run(trainer, bundle,
+                          init_params(trainer.model_config, SEED))
+    del trainer
+    free_device()
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(wd, f"dp_rank{r}.npz") for r in range(2)]
+    procs = [ctx.Process(target=dp_rank_main,
+                         args=(r, 2, port, feats, outs[r]))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"gloo ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in outs:
+        with np.load(path) as z:
+            ranks.append({k: z[k] for k in z.files})
+
+    def group(r, prefix):
+        return {k[len(prefix):]: v for k, v in r.items()
+                if k.startswith(prefix)}
+
+    p0, p1 = group(ranks[0], "params/"), group(ranks[1], "params/")
+    across = all(np.array_equal(p0[k], p1[k]) for k in p0)
+    grad_d = leaf_distance(group(ranks[0], "grads/"), single["grads"])
+    param_d = leaf_distance(p0, single["params"])
+    loss_d = float(np.abs(ranks[0]["losses"] - single["losses"]).max())
+    loss_ok = np.allclose(ranks[0]["losses"], single["losses"],
+                          rtol=DP_LOSS_TOL[0], atol=DP_LOSS_TOL[1])
+    params_ok = all(np.allclose(p0[k], v, rtol=DP_PARAM_TOL[0],
+                                atol=DP_PARAM_TOL[1])
+                    for k, v in single["params"].items())
+    launches = [group(r, "launches/") for r in ranks]
+    print(f"check data axis gloo world size 2 (two processes on one card, "
+          f"{ranks[0]['device']} and {ranks[1]['device']}, flagship f32, "
+          f"dropout 0, {len(single['losses'])} eager steps) vs world size "
+          f"1: params bit-equal across ranks {across}; first update's grads "
+          f"{grad_d:.3e} of leaf scale (tol {DP_GRAD_TOL}); losses max abs "
+          f"{loss_d:.3e} (rtol {DP_LOSS_TOL[0]}, atol {DP_LOSS_TOL[1]}: "
+          f"{loss_ok}); final params {param_d:.3e} of leaf scale (rtol "
+          f"{DP_PARAM_TOL[0]}, atol {DP_PARAM_TOL[1]}: {params_ok}); "
+          f"launches rank 0 {launches[0]}, rank 1 {launches[1]}; seconds "
+          f"world size 1 {single['seconds']:.2f}, ranks "
+          f"{float(ranks[0]['seconds']):.2f}/{float(ranks[1]['seconds']):.2f}"
+          f" ({wall:.1f} s wall with spawn); backend {ranks[0]['backend']}",
+          flush=True)
+    if not across or grad_d > DP_GRAD_TOL or not loss_ok or not params_ok:
+        fail("gloo world size 2 parts from world size 1 beyond the stated "
+             "tolerances, or its ranks' params differ")
+    for r, counts in enumerate(launches):
+        for name in ("gru_fwd_train", "gru_bwd"):
+            if int(counts[name]) != 2 * len(single["losses"]):
+                fail(f"rank {r} launched {name} {int(counts[name])} times "
+                     f"in {len(single['losses'])} steps")
+    if "gloo's collectives cannot be captured" not in str(
+            ranks[1]["refusal"]):
+        fail("a captured superstep under gloo was not refused")
+    total = dict.fromkeys((k.name for k in cuda_gru.MODEL_KERNELS), 0)
+    for counts in launches:
+        for name in total:
+            total[name] += int(counts[name])
+    return {"launches": total, "grad_dist": grad_d, "param_dist": param_d,
+            "loss_max_abs": loss_d,
+            "rank_seconds": [float(r["seconds"]) for r in ranks]}
+
+
+def data_parallel_cli(base: list, plain: dict) -> dict:
+    """(c) ``train --mesh 1,1,1`` under torchrun's env:// variables at
+    world size 1 (NCCL) against the plain ``train`` command ``base``
+    (phase 14's ``--device-data always`` run, whose JSON is ``plain``):
+    epoch and step losses equal."""
+    env = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0")
+    proc = subprocess.run([sys.executable, "-m", "deeprest_tpu_torch", *base,
+                           "--mesh", "1,1,1"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"train --mesh 1,1,1 exited {proc.returncode}:\n{proc.stderr}")
+    lines = proc.stdout.strip().splitlines()
+    mesh = json.loads(lines[-1])
+    print(f"check train --mesh 1,1,1 (env://, world size 1): {lines[0]!r}; "
+          f"mesh {mesh['mesh']}; epoch losses {mesh['epoch_losses']} vs "
+          f"plain {plain['epoch_losses']}; steps/s {mesh['steps_per_sec']:.3f}"
+          f" vs {plain['steps_per_sec']:.3f}; launches "
+          f"{mesh['kernel_launches']}", flush=True)
+    if not lines[0].startswith("distributed: process 0 of 1") \
+            or "(nccl)" not in lines[0]:
+        fail("train --mesh under env:// did not join an NCCL job")
+    if mesh["epoch_losses"] != plain["epoch_losses"] \
+            or mesh["step_losses"] != plain["step_losses"]:
+        fail("train --mesh 1,1,1 in a job parts from the plain train")
+    return {"launches": mesh["kernel_launches"],
+            "steps_per_sec": [mesh["steps_per_sec"], plain["steps_per_sec"]]}
+
+
+def phase_data_parallel(cuda_gru, workdir: str, host: dict) -> dict:
+    """Phase 15: the mesh's data axis on torch.distributed (after phase
+    14, whose plain ``train`` run (c) repeats under a job)."""
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+
+    wd = os.path.join(workdir, "data_parallel")
+    os.makedirs(wd)
+    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+    data = FeaturizedData.load(feats)
+    secs = {}
+    t0 = time.perf_counter()
+    nccl = data_parallel_nccl(cuda_gru, data)
+    secs["nccl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = data_parallel_gloo(cuda_gru, data, feats, wd)
+    secs["gloo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = data_parallel_cli(host["cli"]["staged_args"],
+                            host["cli"]["staged"])
+    secs["cli"] = time.perf_counter() - t0
+    launches = dict(nccl["launches"])
+    for part in (gloo["launches"], cli["launches"]):
+        for name in launches:
+            launches[name] += part[name]
+    print(f"main data axis phase: seconds {rounded(secs)}; launches "
+          f"{launches}", flush=True)
+    return {"launches": launches, "nccl": nccl, "gloo": gloo, "cli": cli,
+            "seconds": secs}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -4844,6 +5214,7 @@ def main() -> int:
                        raw_path, wd)
         host = timed("host feed, train flags and demo", phase_host_feed,
                      cuda_gru, *social, wd)
+        dp = timed("data axis", phase_data_parallel, cuda_gru, wd, host)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)
@@ -4859,6 +5230,8 @@ def main() -> int:
     for name, count in stream["launches"].items():
         launches[name] += count
     for name, count in host["launches"].items():
+        launches[name] += count
+    for name, count in dp["launches"].items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -4903,7 +5276,8 @@ def main() -> int:
           f"{tenk['launches']}; streaming retrain {stream['launches']} "
           f"(f32: the stream CLI runs and the verdict server "
           f"{stream['f32_launches']}); host feed, train flags and demo "
-          f"{host['launches']}; tuning sweep "
+          f"{host['launches']}; data axis (NCCL world size 1, both gloo "
+          f"ranks, the --mesh CLI) {dp['launches']}; tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     print(f"seconds per phase {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

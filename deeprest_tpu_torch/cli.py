@@ -57,10 +57,14 @@ every tenant serves through one set of captured rung graphs, and at most
 host memory).  ``export --aot`` writes the fleet's AOT sidecar, a
 fingerprinted manifest, next to the checkpoint (serve/aot.py).
 ``profile`` opens a ``torch.profiler`` window on a running server, and
-``train --profile-dir`` traces the first epoch.  Mesh and elastic
-remeshing (``stream --elastic`` exits 2) are not ported, and the port's
-CLI does not offer them.  The what-if demo is ``python -m
-deeprest_tpu_torch.demo precompute|serve`` (demo/).
+``train --profile-dir`` traces the first epoch.  ``--mesh D,E,M`` reaches
+``train``, ``whatif``, ``serve`` and ``predict`` with the JAX CLI's exits on
+a bad spec: ``train`` joins a ``torch.distributed`` job from ``torchrun``'s
+``env://`` variables first and trains data-parallel over its ranks (rank 0
+prints the report and the JSON line); the serving commands take a mesh of
+size 1, and a larger one exits 2 (its axes are ROADMAP item 6b).  Elastic
+remeshing (``stream --elastic`` exits 2) is not ported.  The what-if demo
+is ``python -m deeprest_tpu_torch.demo precompute|serve`` (demo/).
 """
 
 from __future__ import annotations
@@ -116,6 +120,42 @@ def _add_input_args(p: argparse.ArgumentParser, features_ok: bool = True):
 def _require_input(args, features_ok: bool = True):
     if getattr(args, "features", None) is None and args.raw is None:
         sys.exit("error: provide --raw" + (" or --features" if features_ok else ""))
+
+
+def _add_mesh_arg(p: argparse.ArgumentParser, serving: bool = False):
+    extra = (" (serving: a mesh of size 1; a larger one waits for the "
+             "expert and model axes, ROADMAP item 6b)"
+             if serving else
+             " (a multi-process job joins through torchrun's env:// "
+             "variables first; one rank a device on the data axis)")
+    p.add_argument("--mesh", default=None, metavar="D,E,M",
+                   help="device mesh data,expert,model (default 1,1,1)"
+                        + extra)
+
+
+def _parse_mesh(args):
+    """``args.mesh`` → MeshConfig | None (exits with a message on a bad
+    spec — the shared contract of every --mesh flag)."""
+    from deeprest_tpu_torch.config import MeshConfig
+
+    if not getattr(args, "mesh", None):
+        return None
+    try:
+        return MeshConfig.parse(args.mesh)
+    except ValueError as exc:
+        sys.exit(f"error: {exc}")
+
+
+def _serving_mesh(args) -> None:
+    """The serving commands' ``--mesh``: size 1 serves as without it; a
+    larger mesh exits 2 (sharded serving is ROADMAP item 6b)."""
+    cfg = _parse_mesh(args)
+    if cfg is not None and cfg.size > 1:
+        print(f"{args.cmd}: --mesh {args.mesh} is not ported yet: serving "
+              "on a mesh of more than one device (the data, expert and "
+              "model axes of serve/predictor.py) is ROADMAP item 6b; "
+              "--mesh 1,1,1 serves on one device", file=sys.stderr)
+        sys.exit(2)
 
 
 def _add_device_arg(p: argparse.ArgumentParser):
@@ -400,12 +440,36 @@ def cmd_synthesize(args) -> int:
 
 
 def cmd_train(args) -> int:
-    from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deeprest_tpu_torch.parallel import initialize_distributed
+
+    # A multi-process job (torchrun's env:// variables) is joined first;
+    # --mesh then lays the data axis over its ranks.  No-op alone.
+    joined = initialize_distributed(device=args.device)
+    try:
+        return _train(args, joined)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args, joined: bool) -> int:
+    from deeprest_tpu_torch.config import (
+        Config, MeshConfig, ModelConfig, TrainConfig,
+    )
     from deeprest_tpu_torch.models.baselines import baseline_predictions
     from deeprest_tpu_torch.train.data import prepare_dataset
     from deeprest_tpu_torch.train.metrics import format_report
     from deeprest_tpu_torch.train.trainer import Trainer
 
+    if joined:
+        import torch.distributed as dist
+
+        print(f"distributed: process {dist.get_rank()} of "
+              f"{dist.get_world_size()}, {dist.get_world_size()} global "
+              f"devices ({dist.get_backend()})", flush=True)
+    mesh_cfg = _parse_mesh(args) or MeshConfig()
     _require_input(args)
     if args.plots_dir:
         # before the corpus loads: a missing matplotlib must not surface
@@ -436,12 +500,20 @@ def cmd_train(args) -> int:
                           sparse_nnz_cap=args.sparse_nnz_cap,
                           snapshot_every_steps=args.snapshot_every_steps,
                           snapshot_keep=args.snapshot_keep),
+        mesh=mesh_cfg,
     )
     bundle = prepare_dataset(data, cfg.train)
-    trainer = Trainer(cfg, bundle.feature_dim, bundle.metric_names,
-                      device=args.device)
+    try:
+        trainer = Trainer(cfg, bundle.feature_dim, bundle.metric_names,
+                          device=args.device)
+    except ValueError as exc:      # a mesh the job cannot lay out
+        print(f"train: {exc}", file=sys.stderr)
+        return 2
+    # rank 0 reports; the other ranks train in step with it silently
+    chief = trainer.is_chief
+    say = print if chief else (lambda *a, **k: None)
     baselines = None
-    if not args.no_baselines:
+    if not args.no_baselines and chief:
         t0 = time.perf_counter()
         baselines = baseline_predictions(data, bundle, device=trainer.device)
         seconds["baselines"] = time.perf_counter() - t0
@@ -449,7 +521,7 @@ def cmd_train(args) -> int:
     # The first epoch is traced (its kernel loads, capture and steady
     # steps); the Chrome trace lands in --profile-dir.
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and chief:
         import os
 
         import torch
@@ -475,10 +547,10 @@ def cmd_train(args) -> int:
     def on_epoch(result, state):
         stop_profiling()    # first epoch captured
         step_losses.append(trainer.last_epoch_losses.tolist())
-        print(f"epoch {result.epoch}: train {result.train_loss:.4f} "
-              f"test {result.test_loss:.4f}", flush=True)
+        say(f"epoch {result.epoch}: train {result.train_loss:.4f} "
+            f"test {result.test_loss:.4f}", flush=True)
         if args.report_every and (result.epoch + 1) % args.report_every == 0:
-            print(format_report(result.report), flush=True)
+            say(format_report(result.report), flush=True)
 
     # Preemption-safe restarts: with --snapshot-every-steps and a cursor
     # snapshot on disk, running the same command again resumes the killed
@@ -489,8 +561,8 @@ def cmd_train(args) -> int:
 
         resume = latest_cursor_step(args.ckpt_dir) is not None
         if resume:
-            print(f"resuming preempted run from {args.ckpt_dir} "
-                  "(newest cursor snapshot)", flush=True)
+            say(f"resuming preempted run from {args.ckpt_dir} "
+                "(newest cursor snapshot)", flush=True)
     t0 = time.perf_counter()
     try:
         if resume:
@@ -502,6 +574,8 @@ def cmd_train(args) -> int:
     finally:
         stop_profiling()    # a run with no epoch left still writes one
     seconds["fit"] = time.perf_counter() - t0
+    if not chief:
+        return 0
     if history:
         print(format_report(history[-1].report))
     else:
@@ -539,6 +613,7 @@ def cmd_train(args) -> int:
         "grad_accum_windows": cfg.train.grad_accum_windows,
         "steps_per_superstep": trainer.superstep_len,
         "feed": trainer.feed,
+        "mesh": trainer.mesh.shape,
         "seconds": seconds}))
     return 0
 
@@ -547,6 +622,7 @@ def _predictor(args):
     from deeprest_tpu_torch.config import InferConfig
     from deeprest_tpu_torch.serve.predictor import Predictor
 
+    _serving_mesh(args)
     try:
         infer = InferConfig(fused=not args.no_fused_infer,
                             page_windows=args.infer_page_windows,
@@ -1041,6 +1117,11 @@ def cmd_serve(args) -> int:
 
     if bool(args.ckpt_dir) == bool(args.artifact):
         sys.exit("error: provide exactly one of --ckpt-dir or --artifact")
+    if _parse_mesh(args) is not None and args.artifact:
+        sys.exit("error: --mesh requires --ckpt-dir (exported artifacts "
+                 "bake single-device params; re-serve from the checkpoint "
+                 "to shard them)")
+    _serving_mesh(args)
     try:
         ladder = tuple(int(r) for r in args.batch_ladder.split(","))
     except ValueError:
@@ -1482,6 +1563,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-baselines", action="store_true",
                    help="skip the ResourceAware and ComponentAware "
                         "baselines (the resrc and comp columns of the report)")
+    _add_mesh_arg(p)
     _add_device_arg(p)
     _add_sparse_args(p)
     p.set_defaults(fn=cmd_train)
@@ -1655,6 +1737,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(e.g. 0.5,1,2,4)")
     p.add_argument("--out", default=None,
                    help="also write the full result JSON here")
+    _add_mesh_arg(p, serving=True)
     _add_fused_infer_args(p)
     p.set_defaults(fn=cmd_whatif)
 
@@ -1662,6 +1745,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_input_args(p)
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--out", default="predictions.npz")
+    _add_mesh_arg(p, serving=True)
     _add_fused_infer_args(p)
     p.set_defaults(fn=cmd_predict)
 
@@ -1876,6 +1960,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "/v1/verdict then 503s for fleet tenants)")
     _add_fused_infer_args(p)
     _add_sparse_args(p, serving=True)
+    _add_mesh_arg(p, serving=True)
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("profile",

@@ -1,20 +1,21 @@
-"""Typed configuration: the fields of ``deeprest_tpu/config.py`` that the
-port reads.
+"""Typed configuration (``deeprest_tpu/config.py``).
 
-``ModelConfig``, ``SurfaceConfig``, ``EtlConfig``, ``QualityConfig`` and
-``FleetConfig`` are field-for-field copies (the
-``model_config`` dict a checkpoint sidecar carries constructs the first as
-it is).  ``rnn_backend`` is carried for that reason only: the port picks
-the recurrence from the tensors' device (ops/gru.py), never from this
-field.  ``TrainConfig`` copies the training fields the port's trainer
-reads, with the JAX package's defaults and validation messages, plus the
-fields of features it does not have yet, which raise on any value but the
-one the port implements.
+Every section of the JAX package's ``Config`` is here, field for field,
+with its defaults and validation messages, and ``Config`` has JAX's
+``replace``, ``to_json``, ``from_dict`` and ``from_json``: a JAX config's
+JSON loads here and writes back the same text.  ``rnn_backend`` is carried
+for that reason only (and because a checkpoint sidecar's ``model_config``
+constructs ``ModelConfig`` as it is): the port picks the recurrence from
+the tensors' device (ops/gru.py), never from this field.  Fields of
+features the port does not have yet raise on any value but the one it
+implements (``TrainConfig.elastic``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+from typing import Any, Mapping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +84,9 @@ class TrainConfig:
     gather has no reason to avoid it).  The host-streamed feed keeps
     ``prefetch_depth`` steps' windows in flight (at least one).
 
-    The JAX trainer's elastic remeshing is not ported: ``elastic`` takes
-    only False.
+    The JAX trainer's elastic remeshing is not ported (ROADMAP item 6c):
+    ``elastic`` takes only False, and ``remesh_max_attempts`` and
+    ``remesh_backoff_ms`` are carried, validated as JAX validates them.
     """
 
     num_epochs: int = 50
@@ -113,6 +115,8 @@ class TrainConfig:
     sparse_feed: bool = False
     sparse_nnz_cap: int = 64
     elastic: bool = False
+    remesh_max_attempts: int = 3
+    remesh_backoff_ms: float = 100.0
 
     def __post_init__(self):
         v = self.steps_per_superstep
@@ -156,6 +160,17 @@ class TrainConfig:
             raise ValueError(
                 f"TrainConfig.device_data={self.device_data!r}: must be "
                 "'auto', 'always', or 'off'")
+        a = self.remesh_max_attempts
+        if not isinstance(a, int) or isinstance(a, bool) or a < 1:
+            raise ValueError(
+                f"TrainConfig.remesh_max_attempts={a!r}: must be an "
+                "int >= 1 (the barrier must stay bounded)")
+        if not isinstance(self.remesh_backoff_ms, (int, float)) \
+                or isinstance(self.remesh_backoff_ms, bool) \
+                or self.remesh_backoff_ms < 0:
+            raise ValueError(
+                f"TrainConfig.remesh_backoff_ms="
+                f"{self.remesh_backoff_ms!r}: must be a number >= 0")
         if self.elastic:
             raise ValueError("TrainConfig: the port does not implement "
                              "elastic=True (elastic remeshing is not "
@@ -410,10 +425,93 @@ class FleetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Observability knobs (obs/).  ``enabled`` gates the span recorder
+    only; metrics counters are always live.  ``span_capacity`` bounds the
+    in-process span ring (newest win)."""
+
+    enabled: bool = False
+    span_capacity: int = 4096
+
+    def __post_init__(self):
+        if self.span_capacity < 1:
+            raise ValueError(
+                f"ObsConfig.span_capacity={self.span_capacity}: must be "
+                ">= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device-mesh shape (parallel/mesh.py): ``data`` shards the
+    batch (data parallelism, one rank a device, the gradients all-reduced),
+    ``expert`` the stacked per-metric experts and ``model`` the feature
+    dimension of the mask and GRU input projections.  The port runs the
+    data axis; ``expert`` and ``model`` above 1 wait for ROADMAP item 6b."""
+
+    data: int = 1
+    expert: int = 1
+    model: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.data * self.expert * self.model
+
+    @classmethod
+    def parse(cls, spec: str) -> "MeshConfig":
+        """``"D,E,M"`` → MeshConfig (the shared ``--mesh`` CLI contract
+        for train, serve, predict and whatif)."""
+        try:
+            d, e, m = (int(x) for x in spec.split(","))
+        except ValueError:
+            raise ValueError(
+                f"mesh spec {spec!r} is not data,expert,model") from None
+        if min(d, e, m) < 1:
+            raise ValueError(f"mesh spec {spec!r}: axis sizes must be >= 1")
+        return cls(data=d, expert=e, model=m)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
-    infer: InferConfig = dataclasses.field(default_factory=InferConfig)
+    featurize: FeaturizeConfig = dataclasses.field(
+        default_factory=FeaturizeConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     etl: EtlConfig = dataclasses.field(default_factory=EtlConfig)
+    infer: InferConfig = dataclasses.field(default_factory=InferConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     quality: QualityConfig = dataclasses.field(default_factory=QualityConfig)
+    surface: SurfaceConfig = dataclasses.field(default_factory=SurfaceConfig)
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
+
+    def replace(self, **sections: Any) -> "Config":
+        return dataclasses.replace(self, **sections)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "Config":
+        """A config from a dict of sections (each optional); an unknown key
+        raises naming the section's known keys, JSON lists become
+        tuples."""
+        def build(tp, section):
+            known = {f.name for f in dataclasses.fields(tp)}
+            kwargs = dict(section)
+            unknown = set(kwargs) - known
+            if unknown:
+                raise ValueError(
+                    f"unknown {tp.__name__} keys: {sorted(unknown)} "
+                    f"(known: {sorted(known)})"
+                )
+            for k, v in kwargs.items():
+                if isinstance(v, list):
+                    kwargs[k] = tuple(v)
+            return tp(**kwargs)
+
+        return cls(**{f.name: build(f.default_factory, d.get(f.name, {}))
+                      for f in dataclasses.fields(cls)})
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        return cls.from_dict(json.loads(s))

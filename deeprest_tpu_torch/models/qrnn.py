@@ -30,7 +30,8 @@ registers the generator replays as an eager step draws.  Serving is
 deterministic.  The parameters are registered without gradients; the
 trainer turns them on.  ``forward(params=...)`` runs the module on another
 params dict of the same names (the exact-mode accumulation passes the
-mask-folded one).  Input ``[B, T, F]`` (or ``[G, B, T, F]``, groups folded
+mask-folded one); ``forward(dropout_rows=...)`` draws the global batch's
+dropout mask and keeps a data-parallel rank's rows of it.  Input ``[B, T, F]`` (or ``[G, B, T, F]``, groups folded
 into the rows) → output ``[B, T, E, Q]`` (``[G, B, T, E, Q]``) in f32.
 """
 
@@ -91,16 +92,31 @@ def fold_feature_mask(params: Mapping[str, torch.Tensor]
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
+            generator: torch.Generator,
+            rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """``flax.linen.Dropout`` with ``deterministic=False``: keep each value
     with probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, in
-    x's dtype; the mask is drawn from ``generator``."""
+    x's dtype; the mask is drawn from ``generator``.
+
+    ``rows = (b, lo, hi)``: x's axis 1 holds rows ``lo:hi`` of each
+    ``b``-row batch of the global tensor (a data-parallel rank's slice).
+    The global tensor's mask is drawn and the rank's rows are cut from it,
+    so the ranks together drop what one process would."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if rows is None:
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+    else:
+        b, lo, hi = rows
+        lead, groups = x.shape[0], x.shape[1] // (hi - lo)
+        full = torch.rand((lead, groups * b, *x.shape[2:]),
+                          generator=generator, device=x.device)
+        mask = full.reshape(lead, groups, b, *x.shape[2:])[:, :, lo:hi] \
+            .reshape(x.shape) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -186,7 +202,8 @@ class QuantileGRU(nn.Module):
                 generator: torch.Generator | None = None,
                 mask_folded: bool = False,
                 recurrence: Recurrence | None = None,
-                params: Mapping[str, torch.Tensor] | None = None
+                params: Mapping[str, torch.Tensor] | None = None,
+                dropout_rows: tuple[int, int, int] | None = None
                 ) -> torch.Tensor:
         cfg = self.config
         if not deterministic and cfg.dropout_rate > 0.0 and generator is None:
@@ -224,7 +241,8 @@ class QuantileGRU(nn.Module):
                 out = gru(fwd, out, recurrence=recurrence)
         rnn_out = out                                                   # [E,B,T,D]
         if not deterministic:
-            rnn_out = dropout(rnn_out, cfg.dropout_rate, generator)
+            rnn_out = dropout(rnn_out, cfg.dropout_rate, generator,
+                              dropout_rows)
 
         if e > 1:
             own = rnn_out.float()

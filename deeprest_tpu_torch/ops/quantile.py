@@ -14,7 +14,8 @@ import torch
 def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
                  quantiles: Sequence[float] | torch.Tensor,
                  sample_weight: torch.Tensor | None = None,
-                 allow_empty: bool = False) -> torch.Tensor:
+                 allow_empty: bool = False,
+                 weight_sum: torch.Tensor | None = None) -> torch.Tensor:
     """Mean pinball loss.
 
     ``preds [B, T, E, Q]``, ``targets [B, T, E]``, ``quantiles`` the Q
@@ -25,7 +26,11 @@ def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
     size).  ``allow_empty`` floors the weighted mean's denominator at 1, so
     an all-zero-weight batch gives loss 0 and exactly-zero gradients
     instead of 0/0; a real batch has ``sum(weight) >= 1`` and the floor
-    changes nothing.  Returns the scalar
+    changes nothing.  ``weight_sum`` replaces ``sum(sample_weight)`` as
+    the denominator (the floor applies to it): a data-parallel rank holds
+    a slice of the batch's weights and divides by the GLOBAL batch's sum,
+    so its loss is its share of the global loss and the ranks' losses and
+    gradients sum to the global ones.  Returns the scalar
     ``mean_E(mean_{B,T}(sum_Q max((q-1)·err, q·err)))``, ``err = target -
     pred``.
     """
@@ -39,7 +44,7 @@ def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
         per_metric = per_sample.mean(dim=(0, 1))
     else:
         w = sample_weight.to(per_sample.dtype)[:, None, None]
-        den = sample_weight.sum()
+        den = sample_weight.sum() if weight_sum is None else weight_sum
         if allow_empty:
             den = torch.clamp_min(den, 1.0)
         per_metric = (per_sample * w).sum(dim=(0, 1)) / (

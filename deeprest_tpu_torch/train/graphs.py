@@ -10,12 +10,14 @@ replay:
 
 - :class:`EpochPlan` holds the epoch's shuffled batch plan in static device
   buffers, ``starts`` and ``weights`` ``[U, G, B]`` (U updates of G
-  microbatches of B windows), staged once per epoch, a device ``cursor``
-  (the next update) and the ``[U, G]`` per-microbatch losses of the
-  epoch.  An update reads its ``[G, B]`` starts and weights at the cursor,
-  writes its losses there and advances the cursor, all on the device, so
-  the same code runs eagerly (the CPU, ``steps_per_superstep=1``) and
-  inside a graph.
+  microbatches of B windows; a data-parallel rank's B is its slice of the
+  global batch), the global batch's weight sums ``den`` ``[U, G]`` (the
+  loss's denominator), staged once per epoch, a device ``cursor`` (the
+  next update) and the ``[U, G]`` per-microbatch losses of the epoch.  An
+  update reads its ``[G, B]`` starts and weights and its ``[G]`` sums at
+  the cursor, writes its losses there and advances the cursor, all on the
+  device, so the same code runs eagerly (the CPU,
+  ``steps_per_superstep=1``) and inside a graph.
 - :class:`HostFeed` is the host-streamed feed's counterpart of the staged
   series: static device buffers that hold the windows of the update about
   to run, filled before each update from a ring of pinned host slots (the
@@ -45,7 +47,7 @@ from deeprest_tpu_torch.graphs import CapturedGraph, capture
 
 class EpochPlan:
     """Static buffers of one epoch's plan, ``U`` updates of ``G``
-    microbatches of ``B`` windows, on ``device``."""
+    microbatches of ``B`` windows (this rank's), on ``device``."""
 
     def __init__(self, updates: int, groups: int, batch: int,
                  device: torch.device):
@@ -53,6 +55,8 @@ class EpochPlan:
                                   device=device)
         self.weights = torch.zeros((updates, groups, batch),
                                    dtype=torch.float32, device=device)
+        self.den = torch.zeros((updates, groups), dtype=torch.float32,
+                               device=device)
         self.losses = torch.zeros((updates, groups), dtype=torch.float32,
                                   device=device)
         self.cursor = torch.zeros((1,), dtype=torch.long, device=device)
@@ -63,19 +67,24 @@ class EpochPlan:
         return tuple(self.starts.shape)
 
     def stage(self, starts: np.ndarray, weights: np.ndarray,
-              first_update: int) -> None:
-        """Copy an epoch's ``[U·G, B]`` plan in (one host-to-device copy
-        each) and point the cursor at ``first_update``."""
+              den: np.ndarray, first_update: int) -> None:
+        """Copy an epoch's ``[U·G, B]`` plan and its ``[U·G]`` global
+        weight sums in (one host-to-device copy each) and point the cursor
+        at ``first_update``."""
         self.starts.copy_(torch.from_numpy(
             np.asarray(starts, np.int64).reshape(self.shape)))
         self.weights.copy_(torch.from_numpy(
             np.asarray(weights, np.float32).reshape(self.shape)))
+        self.den.copy_(torch.from_numpy(
+            np.asarray(den, np.float32).reshape(self.shape[:2])))
         self.cursor.fill_(first_update)
 
-    def take(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The ``[G, B]`` starts and weights of the update at the cursor."""
+    def take(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The ``[G, B]`` starts and weights and the ``[G]`` global weight
+        sums of the update at the cursor."""
         return (self.starts.index_select(0, self.cursor)[0],
-                self.weights.index_select(0, self.cursor)[0])
+                self.weights.index_select(0, self.cursor)[0],
+                self.den.index_select(0, self.cursor)[0])
 
     def put(self, losses: torch.Tensor) -> None:
         """Record the update's ``[G]`` losses at the cursor and advance
@@ -94,7 +103,9 @@ class HostFeed:
 
     ``x`` ``[1, B, W, F]`` in the compute dtype and ``y`` ``[1, B, W, E]``
     f32 are static device buffers the update reads (the trainer's
-    ``_gather`` returns them whatever the start indices).  :meth:`put`
+    ``_gather`` returns them whatever the start indices); a data-parallel
+    rank's B is its slice of the global batch, and it is fed only its own
+    rows.  :meth:`put`
     fills them with the windows ``x_windows[sel]`` and ``y_windows[sel]``.
 
     On a CUDA device it goes through a ring of ``depth`` slots: the host

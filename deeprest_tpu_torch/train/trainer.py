@@ -58,7 +58,21 @@ feed's bit for bit.  As on the JAX trainer's host path, its cursor,
 ``on_step`` and snapshots move every step, and it takes neither gradient
 accumulation nor a sparse bundle.
 
-Not ported yet: elastic remeshing, the mesh.
+Data parallelism (``mesh``, parallel/): one rank a device, every rank
+drawing the same global plan and keeping its slice of each batch
+(``parallel.stage_plan``).  The pinball loss divides by the GLOBAL batch's
+weight sum, staged with the plan, so each rank's loss is its share of the
+global loss (the zero-weight rows that pad a ragged batch all land on the
+last ranks) and one SUM all-reduce of the gradients and losses an update,
+after the backward of its G microbatches and before Adam, leaves every
+rank with the global gradients: the params stay bit-equal across ranks.
+Dropout draws the global batch's mask and keeps the rank's rows.  The
+all-reduce is captured with the update under NCCL; gloo runs eagerly, and
+a captured superstep under gloo raises.  Evaluation and prediction run
+replicated on every rank; checkpoints and log lines come from rank 0.
+Without a process group nothing is reduced.
+
+Not ported yet: elastic remeshing (ROADMAP item 6c).
 """
 
 from __future__ import annotations
@@ -70,9 +84,9 @@ from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deeprest_tpu_torch.config import Config
-from deeprest_tpu_torch.device import resolve_device
 from deeprest_tpu_torch.graphs import CapturedGraph
 from deeprest_tpu_torch.models.qrnn import (
     MASK_PARAM_NAMES, MASKED_PARAM_NAMES, QuantileGRU, fold_feature_mask,
@@ -80,6 +94,10 @@ from deeprest_tpu_torch.models.qrnn import (
 )
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.ops.quantile import pinball_loss
+from deeprest_tpu_torch.parallel.distributed import (
+    process_batch_slice, stage_plan,
+)
+from deeprest_tpu_torch.parallel.mesh import Mesh, make_mesh
 from deeprest_tpu_torch.train.data import DatasetBundle, eval_window_indices
 from deeprest_tpu_torch.train.graphs import (
     EpochPlan, HostFeed, capture_update,
@@ -133,6 +151,12 @@ def dropout_generator(device: torch.device, seed: int,
     return gen
 
 
+def _same_device(asked, device: torch.device) -> bool:
+    """Whether ``asked`` names ``device`` ("cuda" names any card)."""
+    asked = torch.device(asked)
+    return asked.type == device.type and asked.index in (None, device.index)
+
+
 def _same_series(held, staged) -> bool:
     """Whether a plan bound to ``held`` may keep its captured update for
     ``staged``: the same staged tensors, or the same host feed."""
@@ -148,6 +172,10 @@ class Trainer:
     ``ops.cuda_gru.gru_recurrence_reference`` to train through the plain
     version on a CUDA device, differentiated by torch autograd).
 
+    ``mesh`` (``parallel.make_mesh``) is this rank's data-parallel mesh;
+    None builds it from ``config.mesh`` on ``device``: without a process
+    group, the one-process mesh, which reduces nothing.
+
     Counters: ``dispatches`` (optimizer updates run: graph replays plus
     eager updates), ``captures`` (CUDA graphs captured), ``replays`` and
     ``capture_seconds`` (host seconds spent capturing).
@@ -155,13 +183,30 @@ class Trainer:
 
     def __init__(self, config: Config, feature_dim: int,
                  metric_names: list[str], device=None,
-                 recurrence: Recurrence | None = None):
+                 recurrence: Recurrence | None = None,
+                 mesh: Mesh | None = None):
         self.config = config
         self.metric_names = list(metric_names)
         self.model_config = dataclasses.replace(
             config.model, feature_dim=feature_dim,
             num_metrics=len(metric_names))
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = make_mesh(config.mesh, device)
+        elif device is not None and not _same_device(device, mesh.device):
+            raise ValueError(f"device {str(device)!r} is not the mesh's "
+                             f"device {str(mesh.device)!r}")
+        self.mesh = mesh
+        self.device = mesh.device
+        # this rank's rows of every global batch, and of its dropout mask
+        bs, data = config.train.batch_size, mesh.config.data
+        self._rows = process_batch_slice(bs, mesh.rank, data)
+        self._dropout_rows = (None if data == 1 else
+                              (bs, self._rows.start, self._rows.stop))
+        from deeprest_tpu_torch.obs import metrics as obs_metrics
+
+        obs_metrics.REGISTRY.gauge(
+            "deeprest_train_mesh_devices",
+            "devices in the trainer's current mesh").set(mesh.size)
         self.recurrence = recurrence
         self.throughput = Throughput(device=self.device)
         self._warmed = False       # first update (kernel build, capture) excluded
@@ -200,6 +245,11 @@ class Trainer:
     @property
     def _dtype(self) -> torch.dtype:
         return getattr(torch, self.model_config.compute_dtype)
+
+    @property
+    def is_chief(self) -> bool:
+        """Rank 0, which writes checkpoints and log lines."""
+        return self.mesh.rank == 0
 
     @property
     def global_step(self) -> int:
@@ -433,46 +483,70 @@ class Trainer:
             self._generator.set_offset(step * DROPOUT_OFFSET_STRIDE)
 
     def _update(self, state: TrainState, staged, starts: torch.Tensor,
-                weights: torch.Tensor, step: int) -> torch.Tensor:
+                weights: torch.Tensor, den: torch.Tensor,
+                step: int) -> torch.Tensor:
         """One optimizer update from the ``[G, B]`` microbatches ``starts``
-        / ``weights`` (device tensors); returns their ``[G]`` f32 losses.
-        Runs eagerly or under capture: no host sync, no host-to-device
-        copy.  ``step`` seeds the CPU dropout streams only."""
+        / ``weights`` (device tensors; this rank's rows) and their global
+        weight sums ``den`` ``[G]``; returns their ``[G]`` f32 losses
+        (global ones: all-reduced with the gradients).  Runs eagerly or
+        under capture: no host sync, no host-to-device copy.  ``step``
+        seeds the CPU dropout streams only."""
         g, b = starts.shape
         mode = self.config.train.grad_accum_mode if g > 1 else "loop"
         model, quantiles = state.model, self._quantiles
+        rows = self._dropout_rows
         state.optimizer.zero_grad(set_to_none=True)
         if mode == "flat":
             xb, yb = self._gather(staged, starts.reshape(-1))
             preds = model(xb.reshape(g, b, *xb.shape[1:]),
                           deterministic=False, generator=self._dropout(step, 0),
-                          recurrence=self.recurrence)
+                          recurrence=self.recurrence, dropout_rows=rows)
             yb = yb.reshape(g, b, *yb.shape[1:])
             losses = torch.stack([
                 pinball_loss(preds[i], yb[i], quantiles,
-                             sample_weight=weights[i], allow_empty=True)
+                             sample_weight=weights[i], allow_empty=True,
+                             weight_sum=den[i])
                 for i in range(g)])
             losses.sum().backward()
         elif mode == "exact":
-            losses = self._exact_grads(state, staged, starts, weights, step)
+            losses = self._exact_grads(state, staged, starts, weights, den,
+                                       step)
         else:
             losses = []
             for i in range(g):
                 xb, yb = self._gather(staged, starts[i])
                 preds = model(xb, deterministic=False,
                               generator=self._dropout(step, i),
-                              recurrence=self.recurrence)
+                              recurrence=self.recurrence, dropout_rows=rows)
                 loss = pinball_loss(preds, yb, quantiles,
                                     sample_weight=weights[i],
-                                    allow_empty=g > 1)
+                                    allow_empty=g > 1, weight_sum=den[i])
                 loss.backward()
                 losses.append(loss.detach())
             losses = torch.stack(losses)
+        losses = self._all_reduce(state, losses.detach().float())
         state.optimizer.step()
-        return losses.detach().float()
+        return losses
+
+    def _all_reduce(self, state: TrainState,
+                    losses: torch.Tensor) -> torch.Tensor:
+        """Sum every rank's gradients (in place) and ``[G]`` losses over
+        the mesh's process group in one flat f32 bucket; returns the
+        global losses.  Each rank's loss is its share of the global loss,
+        so the sum is the global gradient.  A no-op without a group."""
+        if self.mesh.group is None:
+            return losses
+        grads = [p.grad for p in state.model.parameters()]
+        bucket = torch.cat([gr.reshape(-1) for gr in grads] + [losses])
+        dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        lo = 0
+        for gr in grads:
+            gr.copy_(bucket[lo:lo + gr.numel()].view_as(gr))
+            lo += gr.numel()
+        return bucket[lo:]
 
     def _exact_grads(self, state: TrainState, staged, starts, weights,
-                     step: int) -> torch.Tensor:
+                     den, step: int) -> torch.Tensor:
         """"exact" accumulation: the feature mask folds into the layer-0
         input weights once; each microbatch runs forward/backward against
         the folded params, its cotangent of the folded weights goes back
@@ -493,9 +567,11 @@ class Trainer:
             preds = state.model(xb, deterministic=False,
                                 generator=self._dropout(step, i),
                                 mask_folded=True, params=folded,
-                                recurrence=self.recurrence)
+                                recurrence=self.recurrence,
+                                dropout_rows=self._dropout_rows)
             loss = pinball_loss(preds, yb, self._quantiles,
-                                sample_weight=weights[i], allow_empty=True)
+                                sample_weight=weights[i], allow_empty=True,
+                                weight_sum=den[i])
             grads = dict(zip(names, torch.autograd.grad(
                 loss, [folded[n] for n in names])))
             through = torch.autograd.grad(
@@ -513,13 +589,16 @@ class Trainer:
 
     def train_step(self, state: TrainState, staged, starts: np.ndarray,
                    weights: np.ndarray) -> torch.Tensor:
-        """One eager optimizer step on the windows starting at ``starts``
-        with sample weights ``weights``; returns the loss as a device
-        scalar."""
-        st = torch.from_numpy(np.asarray(starts, np.int64)).to(self.device)
-        wt = torch.from_numpy(np.asarray(weights, np.float32)).to(self.device)
+        """One eager optimizer step on the (global) batch of windows
+        starting at ``starts`` with sample weights ``weights``, this rank
+        taking its rows; returns the loss as a device scalar."""
+        starts, weights, den = stage_plan(
+            self.mesh, np.asarray(starts, np.int64)[None],
+            np.asarray(weights, np.float32)[None])
+        st, wt, dn = (torch.from_numpy(a).to(self.device)
+                      for a in (starts, weights, den))
         self._set_dropout_offset(state.step)
-        loss = self._update(state, staged, st[None], wt[None], state.step)[0]
+        loss = self._update(state, staged, st, wt, dn, state.step)[0]
         state.step += 1
         self.dispatches += 1
         return loss
@@ -532,6 +611,7 @@ class Trainer:
         staged tensors drop it, and the next update captures anew; the plan
         holds the staged tensors alive as long as a graph may read them."""
         g = self.config.train.grad_accum_windows
+        starts, weights, den = stage_plan(self.mesh, starts, weights)
         shape = (starts.size // (g * starts.shape[-1]), g, starts.shape[-1])
         if state.plan is None or state.plan.shape != shape:
             state.plan = EpochPlan(*shape, device=self.device)
@@ -541,7 +621,7 @@ class Trainer:
             state.retire_graph()
         state.plan.stage(starts.reshape(-1, starts.shape[-1]),
                          weights.reshape(-1, weights.shape[-1]),
-                         first_update)
+                         den.reshape(-1), first_update)
         return state.plan
 
     def release_staged(self, state: TrainState) -> None:
@@ -561,9 +641,9 @@ class Trainer:
         self._set_dropout_offset(step)
 
         def body():
-            starts, weights = state.plan.take()
+            starts, weights, den = state.plan.take()
             state.plan.put(self._update(state, state.plan.staged, starts,
-                                        weights, step))
+                                        weights, den, step))
 
         self.dispatches += 1
         if captured and state.graph is not None:
@@ -638,7 +718,7 @@ class Trainer:
                 "this config's steps_per_superstep/grad_accum_windows")
         plan = self._stage_plan(state, staged, starts, weights,
                                 skip_steps // g)
-        captured = self.device.type == "cuda" and s > 1
+        captured = self._captured(s)
         log_every = cfg.log_every_steps
         measuring = self._warmed
         if measuring:
@@ -660,11 +740,25 @@ class Trainer:
                 # graftlint: disable=JX003 -- designed sink: one readback per superstep, only when a log boundary passed
                 vals = plan.microbatch_losses(c * s, c * s + real)
                 for gs in range(prev + 1, self._global_step + 1):
-                    if gs % log_every == 0:
+                    if gs % log_every == 0 and self.is_chief:
                         print(f"step {gs}: loss {vals[gs - prev - 1]:.6f}")
             self._note_steps(state, bundle, real, on_step)
         return state, self._end_epoch(plan, skip_steps, num_steps,
                                       measuring, steps)
+
+    def _captured(self, s: int) -> bool:
+        """Whether an epoch of superstep ``s`` replays captured updates:
+        S > 1 on a CUDA device.  Under gloo that raises: gloo's collectives
+        cannot be captured, and the update never drops to eager quietly."""
+        if self.device.type != "cuda" or s == 1:
+            return False
+        if self.mesh.backend == "gloo":
+            raise ValueError(
+                f"steps_per_superstep resolves to {s} on a CUDA device, "
+                "which captures the update, all-reduce included, in a CUDA "
+                "graph: gloo's collectives cannot be captured; use NCCL, or "
+                "steps_per_superstep=1 for eager updates under gloo")
+        return True
 
     def _end_epoch(self, plan: EpochPlan, skip_steps: int, num_steps: int,
                    measuring: bool, steps: int) -> float:
@@ -694,8 +788,8 @@ class Trainer:
         (a captured update reads its buffers)."""
         cfg = self.config.train
         held = state.plan.staged if state.plan is not None else None
-        dims = (cfg.batch_size, bundle.window_size, bundle.feature_dim,
-                bundle.num_metrics)
+        dims = (self._rows.stop - self._rows.start, bundle.window_size,
+                bundle.feature_dim, bundle.num_metrics)
         if isinstance(held, HostFeed) and held.shape == (*dims,
                                                          self._dtype):
             return held
@@ -738,8 +832,8 @@ class Trainer:
         feed = self._host_feed(state, bundle)
         self.feed = "host"
         plan = self._stage_plan(state, feed, starts, weights, skip_steps)
-        selections = starts.reshape(-1, starts.shape[-1])
-        captured = self.device.type == "cuda" and s > 1
+        selections = starts.reshape(-1, starts.shape[-1])[:, self._rows]
+        captured = self._captured(s)
         log_every = cfg.log_every_steps
         measuring = self._warmed
         if measuring:
@@ -755,7 +849,8 @@ class Trainer:
                 else:
                     measuring = True
                 self._global_step += 1
-                if log_every and self._global_step % log_every == 0:
+                if log_every and self._global_step % log_every == 0 \
+                        and self.is_chief:
                     # graftlint: disable=JX003 -- designed sink: one scalar readback per log_every steps, the logging contract
                     loss = plan.microbatch_losses(i, i + 1)[0]
                     print(f"step {self._global_step}: loss {loss:.6f}")
@@ -824,7 +919,7 @@ class Trainer:
         path = self.save(self._snapshot_dir, state, bundle,
                          extra_host_state=extra)
         keep = self.config.train.snapshot_keep
-        if keep:
+        if keep and self.is_chief:
             from deeprest_tpu_torch.train.checkpoint import (
                 prune_cursor_snapshots,
             )
@@ -995,6 +1090,8 @@ class Trainer:
     def save(self, directory: str, state: TrainState, bundle: DatasetBundle,
              extra_host_state: Mapping[str, Any] | None = None) -> str:
         """Checkpoint the state plus the host-side stats needed to serve.
+        Under a process group rank 0 writes it, then every rank passes a
+        barrier: the params are replicated, so one copy is the checkpoint.
 
         The leaves carry the JAX ``TrainState`` names, so the JAX
         package's ``Predictor.from_checkpoint`` and
@@ -1004,8 +1101,13 @@ class Trainer:
         ``rng``, which holds the port's train seed (the port's dropout
         stream is not JAX's).
         """
-        from deeprest_tpu_torch.train.checkpoint import save_checkpoint
+        from deeprest_tpu_torch.train.checkpoint import (
+            _step_dir, save_checkpoint,
+        )
 
+        if not self.is_chief:
+            dist.barrier(group=self.mesh.group)
+            return _step_dir(directory, state.step)
         extra = {
             "metric_names": bundle.metric_names,
             "x_stats": bundle.x_stats.to_dict(),
@@ -1039,8 +1141,11 @@ class Trainer:
             if "step" in moments:
                 count = int(moments["step"])
         leaves["opt_state/0/count"] = np.asarray(count, np.int32)
-        return save_checkpoint(directory, state.params, state.step, extra,
+        path = save_checkpoint(directory, state.params, state.step, extra,
                                other_leaves=leaves)
+        if self.mesh.group is not None:
+            dist.barrier(group=self.mesh.group)
+        return path
 
     # ------------------------------------------------------------------
 

@@ -1,0 +1,163 @@
+"""Data-parallel training (parallel/, the trainer's mesh) on the card.
+
+Needs an NVIDIA GPU and nvcc (the updates launch K2 and K3, which have no
+CPU mode); without CUDA every test here skips.  Run on the card (the
+repository's conftest imports JAX, which the GPU machine does not have):
+
+    python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_parallel.py
+
+- NCCL at world size 1, captured S=2 (the all-reduce inside the graph),
+  bf16, dropout 0.5, 2 epochs: losses and params bit-equal to the trainer
+  with no process group, K2 = K3 = 2 launches in the captured update.
+- gloo at world size 2, two spawned processes on the one card, f32,
+  dropout 0, eager: params bit-equal across the ranks and within JAX's
+  sharded-training tolerances of world size 1 (losses rtol 2e-3, atol
+  1e-5; params rtol 5e-3, atol 1e-4); a captured superstep under gloo
+  raises.
+"""
+
+import multiprocessing
+import socket
+
+import numpy as np
+import pytest
+import torch
+
+from deeprest_tpu_torch.config import (
+    Config, MeshConfig, ModelConfig, TrainConfig,
+)
+from deeprest_tpu_torch.data.featurize import CallPathSpace, FeaturizedData
+from deeprest_tpu_torch.models.qrnn import init_params
+from deeprest_tpu_torch.parallel import (
+    Mesh, initialize_distributed, make_mesh,
+)
+from deeprest_tpu_torch.train.data import prepare_dataset
+from deeprest_tpu_torch.train.trainer import Trainer
+
+F, E, H, W, T = 24, 5, 64, 12, 300
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the update launches K2 and K3, "
+                    "which have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def corpus() -> FeaturizedData:
+    rng = np.random.default_rng(0)
+    traffic = rng.poisson(5.0, (T, F)).astype(np.float32)
+    resources = {f"c{i}_cpu": (traffic @ rng.uniform(0.0, 1.0, F)
+                               + rng.normal(0.0, 1.0, T)).astype(np.float32)
+                 for i in range(E)}
+    space = {"config": {"capacity": 0, "round_to": 8,
+                        "hash_features": False, "hash_seed": 0},
+             "vocabulary": [["s", f"/op{j}"] for j in range(F)],
+             "frozen_capacity": F}
+    return FeaturizedData(traffic=traffic, resources=resources,
+                          invocations={},
+                          space=CallPathSpace.from_dict(space))
+
+
+def train(mesh, compute, dropout, superstep, epochs=2):
+    """``epochs`` epochs (115 train windows at B=16: 8 steps, the last
+    with 3 real rows) on ``mesh``; returns (trainer, state, losses)."""
+    cfg = Config(model=ModelConfig(hidden_size=H, dropout_rate=dropout,
+                                   compute_dtype=compute),
+                 train=TrainConfig(batch_size=16, window_size=W,
+                                   steps_per_superstep=superstep,
+                                   log_every_steps=0))
+    bundle = prepare_dataset(corpus(), cfg.train)
+    trainer = Trainer(cfg, F, bundle.metric_names, mesh=mesh)
+    state = trainer.init_state(init_params(trainer.model_config, 0))
+    staged = trainer.stage_dataset(bundle)
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(epochs):
+        state, _ = trainer.train_epoch(state, bundle, rng, staged)
+        losses.append(trainer.last_epoch_losses)
+    return trainer, state, np.concatenate(losses)
+
+
+def numpy_params(state) -> dict:
+    return {k: v.detach().float().cpu().numpy() for k, v in
+            state.params.items()}
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_1_captured_equals_no_group(cuda):
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0, device="cuda")
+    try:
+        mesh = make_mesh(MeshConfig(data=1), device="cuda")
+        assert mesh.backend == "nccl" and mesh.group is not None
+        tr_n, st_n, l_n = train(mesh, "bfloat16", 0.5, 2)
+        tr_p, st_p, l_p = train(Mesh(MeshConfig(), 0, cuda), "bfloat16",
+                                0.5, 2)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert tr_n.captures == 1 and tr_n.replays == tr_p.replays > 0
+    ledger = {k.name: n for k, n in st_n.graph.launches.items()}
+    assert ledger["gru_fwd_train"] == ledger["gru_bwd"] == 2
+    np.testing.assert_array_equal(l_n, l_p)
+    for name, value in numpy_params(st_p).items():
+        np.testing.assert_array_equal(numpy_params(st_n)[name], value)
+
+
+def rank_main(rank: int, port: int, out: str) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    mesh = make_mesh(MeshConfig(data=2), device="cuda")
+    trainer, state, losses = train(mesh, "float32", 0.0, 1)
+    try:
+        trainer._captured(2)
+        refusal = ""
+    except ValueError as exc:
+        refusal = str(exc)
+    np.savez(out, losses=losses, refusal=np.asarray(refusal),
+             **{f"params/{k}": v for k, v in numpy_params(state).items()})
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_gloo_world_size_2_on_one_card(cuda, tmp_path):
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(2)]
+    procs = [ctx.Process(target=rank_main, args=(r, port, outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = [dict(np.load(path)) for path in outs]
+    _, st_1, l_1 = train(Mesh(MeshConfig(), 0, cuda), "float32", 0.0, 1)
+    for key in ranks[0]:
+        if key.startswith("params/") or key == "losses":
+            np.testing.assert_array_equal(ranks[0][key], ranks[1][key])
+    np.testing.assert_allclose(ranks[0]["losses"], l_1, rtol=2e-3,
+                               atol=1e-5)
+    for name, value in numpy_params(st_1).items():
+        np.testing.assert_allclose(ranks[0][f"params/{name}"], value,
+                                   rtol=5e-3, atol=1e-4)
+    assert "gloo's collectives cannot be captured" in str(
+        ranks[0]["refusal"])

@@ -170,15 +170,17 @@ def test_epoch_plan_buffers_take_and_put():
     starts = np.arange(24).reshape(6, 4)
     weights = np.ones((6, 4), np.float32)
     weights[5] = 0
-    plan.stage(starts, weights, first_update=1)
-    s, w = plan.take()
+    plan.stage(starts, weights, weights.sum(-1), first_update=1)
+    s, w, den = plan.take()
     assert s.tolist() == [[8, 9, 10, 11], [12, 13, 14, 15]]
     assert w.dtype == torch.float32 and w.shape == (2, 4)
+    assert den.dtype == torch.float32 and den.tolist() == [4.0, 4.0]
     plan.put(torch.tensor([0.5, 1.5]))
     assert int(plan.cursor) == 2
     assert plan.microbatch_losses(2, 4).tolist() == [0.5, 1.5]
-    s, w = plan.take()
+    s, w, den = plan.take()
     assert w[1].sum() == 0 and s[0, 0] == 16
+    assert den.tolist() == [4.0, 0.0]
 
 
 class _Kernel:
