@@ -164,7 +164,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     swept, no capture after warm-up);
 12. the replica plane on phase 5's checkpoint (run after phase 8):
     `serve --replicas R --admission-depth 64` with the MicroBatcher,
-    process replicas at R = 2 and 4 and thread replicas at 2 (every
+    process replicas at R = 2 and thread replicas at 2 (every
     worker captures its 18 graphs before its handshake and none after;
     each answer to phase 8's request mix, posted alone, bit for bit the
     single engine's; closed loops (1 s a cell) at concurrency 16 and 64
@@ -172,7 +172,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     clients in 4 spawned processes: requests/s, p50/p99, per-replica
     served counts, each worker's graphs and device memory, sampled
     answers against the single-client ones; 256 clients against depth 64
-    on R = 4); on R = 2 with `--watch`, a worker SIGKILLed under load
+    on process R = 2); on it, with `--watch`, a worker SIGKILLed under load
     (no failed request, the probe restarts it, it serves again) and a
     newer step written under load (the workers restart one at a time,
     every answer's windows match one step, never a mix); `profile
@@ -238,13 +238,27 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     captured superstep under gloo refused); (c) `train --mesh 1,1,1` under
     torchrun's env:// variables at world size 1 (NCCL) against phase 14's
     plain `train --device-data always` (epoch and step losses equal);
-16. the seconds of each phase, one JSON line of per-kernel numbers, then
+16. the mesh's expert and model axes (run after phase 15), two spawned
+    gloo processes sharing the one card: (a) training on mesh 1,2,1 at the
+    flagship (B=32, T=60, F=512, E=40 so 20 experts a rank, H=128, f32,
+    dropout 0, 10 eager steps) and (b) on mesh 1,1,2 at F=10,240 (5 eager
+    steps, each rank's w_ih [40, 5,120, 384]), each against world size 1
+    on the same params (run on rank 0 while rank 1 waits): the first
+    update's gradients within 1e-5 of each leaf's scale, losses and final
+    params within phase 15's tolerances, K2 = K3 = two launches a step
+    (one a direction) on each rank, each rank's params + Adam bytes and memory_allocated beside
+    world size 1's (a model-axis rank at most 0.55 of it); (c) the
+    Predictor on meshes 1,2,1 and 1,1,2 (eager, bf16) on phase 5's day
+    within 2e-2 of scale of phase 5's captured one-process answer, the
+    same on both ranks, K1 launched on each; then K2 and K3 in f32 at
+    E=20, B=32 timed (recorded only);
+17. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11, 14, 15 and the sweep of 9; a server or CLI process
-starts at 0, and phase 12 sums its workers' ledgers and phase 15 its
-ranks') and
+7, 8, 12, 10, 13, 11, 14, 15, 16 and the sweep of 9; a server or CLI
+process starts at 0, and phase 12 sums its workers' ledgers and phases 15
+and 16 their ranks') and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -947,7 +961,7 @@ def phase_main_path(cuda_gru, wd: str) -> dict:
                  "values")
     return {"launches": launches, "windows_per_s": n_windows / many_s,
             "checks": checks, "ckpt": ckpt, "traffic": traffic,
-            "delta": delta, "ref": ref}
+            "delta": delta, "ref": ref, "answer": many[0]}
 
 
 def train_step_flops(batch, window, features, experts, hidden, quantiles=3,
@@ -2212,9 +2226,10 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
 # (mode, replicas, admission depth, closed-loop concurrencies, role)
 REPLICA_PLANES = (
     # (process R = 1 was cut to keep the script near 700 s with the fleet
-    # phase: phase 8's single engine is the one-replica baseline)
-    ("process", 2, 64, (16, 64), "chaos"),      # SIGKILL, then the reload
-    ("process", 4, 64, (16, 64, 256), None),
+    # phase: phase 8's single engine is the one-replica baseline; R = 4,
+    # whose requests/s matched R = 2's on the card (the front sets the
+    # pace), was cut for phase 16's time, its overload cell moved to R = 2)
+    ("process", 2, 64, (16, 64, 256), "chaos"),  # SIGKILL, then the reload
     ("thread", 2, 64, (16, 64), "profile"),
     # the front admits a few requests at a time (PERF.md §5), so a depth
     # of 64 never binds on one card: the 429 path is driven at depth 2
@@ -2543,12 +2558,12 @@ def replica_training_tools(cuda_gru, wd: str) -> dict:
 def phase_replica_plane(cuda_gru, flagship: dict, plane: dict,
                         wd: str) -> dict:
     """The replica plane on the card: ``serve --replicas R`` with process
-    replicas at R = 2 and 4 and thread replicas at 2, each with the
+    replicas at R = 2 and thread replicas at 2, each with the
     MicroBatcher and --admission-depth 64, on phase 5's checkpoint:
     sequential answers bit for bit the single engine's (phase 8), closed
     loops at concurrency 16 and 64 (requests/s, p50/p99, per-replica
     served counts, each worker's graphs and device memory), concurrency
-    256 against depth 64 on R = 4, SIGKILL of a worker under load and a
+    256 against depth 64 on R = 2, SIGKILL of a worker under load and a
     rolling reload under load (the two-worker plane, --watch), a profiler
     window on the thread plane, fast 429s with Retry-After at 256 against
     depth 2 (one thread replica), then train --profile-dir and the step
@@ -4812,9 +4827,9 @@ def free_port() -> int:
 
 
 def dp_trainer(data, mesh, compute: str, dropout: float, split: float,
-               **train):
-    """A flagship-width Trainer (B=32 global, T=60, H=128) on ``mesh``
-    and the bundle of ``data``."""
+               features: int = F, **train):
+    """A flagship-width Trainer (B=32 global, T=60, H=128, ``features``
+    wide) on ``mesh`` and the bundle of ``data``."""
     from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
     from deeprest_tpu_torch.train.data import prepare_dataset
     from deeprest_tpu_torch.train.trainer import Trainer
@@ -4825,7 +4840,7 @@ def dp_trainer(data, mesh, compute: str, dropout: float, split: float,
                  train=TrainConfig(batch_size=TRAIN["B"], window_size=W,
                                    train_split=split, **train))
     bundle = prepare_dataset(data, cfg.train)
-    return Trainer(cfg, F, bundle.metric_names, mesh=mesh), bundle
+    return Trainer(cfg, features, bundle.metric_names, mesh=mesh), bundle
 
 
 def no_group_mesh():
@@ -5145,6 +5160,357 @@ def phase_data_parallel(cuda_gru, workdir: str, host: dict) -> dict:
             "seconds": secs}
 
 
+# Phase 16: the expert and model axes, two gloo ranks sharing the card.
+AXES_TRAIN_MESH = (1, 2, 1)         # flagship E=40: 20 experts a rank
+AXES_TENK_MESH = (1, 1, 2)          # F=10240: w_ih [40, 5120, 384] a rank
+AXES_SERVE_MESHES = ((1, 2, 1), (1, 1, 2))
+# 5 steps of B=32 in an epoch: int((1,440 - 60) x 0.1100) = 151 windows
+TENK_SPLIT_5_STEPS = 0.1100
+AXES_STATE_RATIO = 0.55             # a TP rank's params + Adam vs one device's
+
+
+def state_bytes(state) -> int:
+    """Bytes of a train state's params and Adam's two moments."""
+    total = 0
+    for p in state.model.parameters():
+        total += p.numel() * p.element_size()
+        for key in ("exp_avg", "exp_avg_sq"):
+            m = state.optimizer.state.get(p, {}).get(key)
+            if m is not None:
+                total += m.numel() * m.element_size()
+    return total
+
+
+def axes_eager_run(trainer, bundle, params) -> dict:
+    """One epoch of eager updates on ``trainer``'s mesh from the whole
+    ``params``: per-step losses, the first update's gradients and the
+    final params gathered whole (every rank must call it), K2/K3 launches,
+    the state's bytes and ``memory_allocated`` after the epoch, seconds."""
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.models.qrnn import param_shapes
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.parallel.sharding import gather_params
+
+    shapes = param_shapes(trainer.model_config)
+    mesh = trainer.mesh if trainer.mesh.group is not None else None
+
+    def whole(tensors):
+        if mesh is not None:
+            tensors = gather_params(mesh, tensors, shapes)
+        return {n: t.detach().cpu().numpy().copy()
+                for n, t in tensors.items()}
+
+    grads = {}
+    state = trainer.init_state(params)
+
+    def on_step(global_step):
+        if global_step == 1:
+            grads.update(whole({n: p.grad for n, p
+                                in state.model.named_parameters()}))
+
+    staged = trainer.stage_dataset(bundle)
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, _ = trainer.train_epoch(state, bundle, np.random.default_rng(SEED),
+                                   staged, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_gru.KERNELS}
+    return {"losses": trainer.last_epoch_losses, "grads": grads,
+            "params": whole(state.params), "launches": launches,
+            "state_bytes": state_bytes(state),
+            "allocated": torch.cuda.memory_allocated(),
+            "seconds": seconds}
+
+
+def axes_distances(got: dict, want: dict) -> dict:
+    """The mesh run ``got`` against world size 1's ``want``: grads and
+    params as worst fractions of leaf scale, losses' max |diff| and the
+    DP_* tolerances' verdicts."""
+    import numpy as np
+
+    return {
+        "grad_dist": leaf_distance(got["grads"], want["grads"]),
+        "param_dist": leaf_distance(got["params"], want["params"]),
+        "loss_max_abs": float(np.abs(got["losses"] - want["losses"]).max()),
+        "loss_ok": bool(np.allclose(got["losses"], want["losses"],
+                                    rtol=DP_LOSS_TOL[0],
+                                    atol=DP_LOSS_TOL[1])),
+        "params_ok": all(bool(np.allclose(got["params"][k], v,
+                                          rtol=DP_PARAM_TOL[0],
+                                          atol=DP_PARAM_TOL[1]))
+                         for k, v in want["params"].items()),
+        "steps": len(want["losses"])}
+
+
+def axes_train_case(data, mesh_shape, features: int, split: float,
+                    rank: int) -> dict:
+    """One mesh's training case inside a rank of the phase-16 job: the
+    eager epoch on the mesh, then (rank 0, the other rank waiting at a
+    barrier) world size 1 on the same params and data, compared there:
+    only numbers leave the rank."""
+    import torch
+
+    from deeprest_tpu_torch.config import MeshConfig
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(MeshConfig(*mesh_shape), device="cuda")
+    trainer, bundle = dp_trainer(data, mesh, "float32", 0.0, split,
+                                 features=features, steps_per_superstep=1)
+    params = init_params(trainer.model_config, SEED)
+    run = axes_eager_run(trainer, bundle, params)
+    del trainer
+    free_device()
+    out = {"launches": run["launches"], "state_bytes": run["state_bytes"],
+           "allocated": run["allocated"], "seconds": run["seconds"],
+           "experts": FLAGSHIP["E"] // mesh_shape[1],
+           "features": features // mesh_shape[2]}
+    if rank == 0:
+        single_trainer, bundle = dp_trainer(
+            data, no_group_mesh(), "float32", 0.0, split,
+            features=features, steps_per_superstep=1)
+        single = axes_eager_run(single_trainer, bundle, params)
+        del single_trainer
+        free_device()
+        out.update(axes_distances(run, single),
+                   single_state_bytes=single["state_bytes"],
+                   single_allocated=single["allocated"],
+                   single_seconds=single["seconds"])
+    torch.distributed.barrier()
+    return out
+
+
+def axes_serve_case(mesh_shape, ckpt: str, traffic) -> dict:
+    """The Predictor on ``mesh_shape`` (eager: gloo cannot be captured),
+    bf16, phase 5's checkpoint and day: the answer and K1's launches."""
+    import numpy as np
+
+    from deeprest_tpu_torch.config import MeshConfig
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    pred = Predictor.from_checkpoint(ckpt, device="cuda", cuda_graphs=False,
+                                     mesh_config=MeshConfig(*mesh_shape))
+    answer = np.asarray(pred.predict_series(traffic))
+    out = {"answer": answer, "launches": cuda_gru.GRU_FWD.launches,
+           "seconds": time.perf_counter() - t0,
+           "params_digest": pred.params_digest()}
+    del pred
+    free_device()
+    return out
+
+
+def axes_rank_main(rank: int, world: int, port: int, feats: str,
+                   tenk_feats: str, ckpt: str, traffic_path: str,
+                   out: str) -> None:
+    """One rank of phase 16's gloo job on the card (spawned): (a) the
+    flagship on AXES_TRAIN_MESH, (b) the 10k width on AXES_TENK_MESH, (c)
+    the Predictor on each of AXES_SERVE_MESHES; the numbers go to
+    ``out`` as JSON, the answers beside it."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=world, rank=rank, backend="gloo",
+                           device="cuda")
+    result = {"device": str(torch.device("cuda", torch.cuda.current_device()))}
+    result["train"] = axes_train_case(FeaturizedData.load(feats),
+                                      AXES_TRAIN_MESH, F, SPLIT_10_STEPS,
+                                      rank)
+    result["tenk"] = axes_train_case(FeaturizedData.load(tenk_feats),
+                                     AXES_TENK_MESH, TENK_F,
+                                     TENK_SPLIT_5_STEPS, rank)
+    traffic = np.load(traffic_path)
+    answers = {}
+    for shape in AXES_SERVE_MESHES:
+        label = "x".join(map(str, shape))
+        case = axes_serve_case(shape, ckpt, traffic)
+        answers[label] = case.pop("answer")
+        result[f"serve {label}"] = case
+    np.savez(out + ".npz", **answers)
+    with open(out, "w", encoding="utf-8") as fh:
+        json.dump(result, fh)
+    torch.distributed.destroy_process_group()
+
+
+def axes_k2_k3_ms(cuda_gru) -> dict:
+    """K2 and K3 in f32 at E=20, B=32 (an expert rank's share of the
+    flagship), CUDA events: recorded beside phase 4's E=40 times."""
+    import torch
+
+    shape = dict(TRAIN, E=FLAGSHIP["E"] // AXES_TRAIN_MESH[1])
+    args = recurrence_inputs(shape, torch.float32)
+    proj, w_hh, b_hh, _ = args
+    h_all, h_prev, gates = cuda_gru.gru_fwd_train_cuda(*args)
+    bwd_in = (proj, h_prev, gates, w_hh, b_hh, torch.ones_like(h_all))
+    out = {"gru_fwd_train": time_ms(lambda: cuda_gru.gru_fwd_train_cuda(
+        *args), iters=20),
+           "gru_bwd": time_ms(lambda: cuda_gru.gru_bwd_cuda(*bwd_in),
+                              iters=20)}
+    del args, proj, w_hh, b_hh, h_all, h_prev, gates, bwd_in
+    free_device()
+    return out
+
+
+def phase_expert_model_axes(cuda_gru, serving: dict, times: dict,
+                            workdir: str) -> dict:
+    """Phase 16: the mesh's expert and model axes, two gloo ranks sharing
+    the card (run after phase 15): (a) training on AXES_TRAIN_MESH at the
+    flagship, (b) on AXES_TENK_MESH at the 10k width, each against world
+    size 1; (c) the Predictor on AXES_SERVE_MESHES against phase 5's
+    captured one-process answer."""
+    import multiprocessing
+
+    import numpy as np
+
+    wd = os.path.join(workdir, "expert_model_axes")
+    os.makedirs(wd)
+    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+    tenk_feats = tenk_corpus(os.path.join(wd, "tenk.npz"))
+    traffic_path = os.path.join(wd, "day.npy")
+    np.save(traffic_path, serving["traffic"])
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(wd, f"rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=axes_rank_main,
+                         args=(r, 2, port, feats, tenk_feats,
+                               serving["ckpt"], traffic_path, outs[r]))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"phase 16's gloo ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in outs:
+        with open(path, encoding="utf-8") as fh:
+            ranks.append(json.load(fh))
+    launches = dict.fromkeys((k.name for k in cuda_gru.MODEL_KERNELS), 0)
+    for r in ranks:
+        for case in ("train", "tenk"):
+            for name in ("gru_fwd_train", "gru_bwd"):
+                launches[name] += r[case]["launches"][name]
+        for shape in AXES_SERVE_MESHES:
+            launches["gru_fwd"] += r[f"serve {'x'.join(map(str, shape))}"][
+                "launches"]
+    out = {"launches": launches, "wall": wall}
+    for case, shape in (("train", AXES_TRAIN_MESH),
+                        ("tenk", AXES_TENK_MESH)):
+        c = ranks[0][case]
+        label = "x".join(map(str, shape))
+        ratios = [r[case]["state_bytes"] / c["single_state_bytes"]
+                  for r in ranks]
+        print(f"check {case} on mesh {label} (gloo world size 2 on one card, "
+              f"not NCCL across cards; f32, dropout 0, {c['steps']} eager "
+              f"steps; {c['experts']} experts and {c['features']} features "
+              f"a rank) vs world size 1: first update's grads "
+              f"{c['grad_dist']:.3e} of leaf scale (tol {DP_GRAD_TOL}); "
+              f"losses max abs {c['loss_max_abs']:.3e} (rtol "
+              f"{DP_LOSS_TOL[0]}, atol {DP_LOSS_TOL[1]}: {c['loss_ok']}); "
+              f"final params {c['param_dist']:.3e} of leaf scale (rtol "
+              f"{DP_PARAM_TOL[0]}, atol {DP_PARAM_TOL[1]}: {c['params_ok']}); "
+              f"launches rank 0 {ranks[0][case]['launches']}, rank 1 "
+              f"{ranks[1][case]['launches']}; params + Adam bytes per rank "
+              f"{[r[case]['state_bytes'] for r in ranks]} vs world size 1 "
+              f"{c['single_state_bytes']} (ratios "
+              f"{[round(x, 4) for x in ratios]}); memory_allocated per rank "
+              f"{[r[case]['allocated'] for r in ranks]} vs world size 1 "
+              f"{c['single_allocated']}; epoch seconds per rank "
+              f"{[round(r[case]['seconds'], 3) for r in ranks]} vs "
+              f"{c['single_seconds']:.3f}", flush=True)
+        if c["grad_dist"] > DP_GRAD_TOL or not c["loss_ok"] \
+                or not c["params_ok"]:
+            fail(f"{case} on mesh {label} parts from world size 1 beyond "
+                 "the stated tolerances")
+        for r, rank in enumerate(ranks):
+            for name in ("gru_fwd_train", "gru_bwd"):
+                # one launch a direction a step
+                if rank[case]["launches"][name] != 2 * c["steps"]:
+                    fail(f"rank {r} launched {name} "
+                         f"{rank[case]['launches'][name]} times in "
+                         f"{c['steps']} steps of {case}")
+        if case == "tenk" and max(ratios) > AXES_STATE_RATIO:
+            fail(f"a model-axis rank holds {max(ratios):.3f} of world size "
+                 f"1's params and Adam state; want at most "
+                 f"{AXES_STATE_RATIO}")
+        out[case] = {**c, "rank_state_bytes": [r[case]["state_bytes"]
+                                                for r in ranks],
+                     "rank_allocated": [r[case]["allocated"] for r in ranks],
+                     "rank_seconds": [r[case]["seconds"] for r in ranks],
+                     "state_ratios": ratios}
+    want = serving["answer"]
+    delta = serving["delta"]
+    digest = None
+    for shape in AXES_SERVE_MESHES:
+        label = "x".join(map(str, shape))
+        answers = []
+        for path in outs:
+            with np.load(path + ".npz") as z:
+                answers.append(np.asarray(z[label]))
+        errs = {}
+        for cols, name in ((~delta, "non-delta"), (delta, "delta")):
+            scale = np.abs(want[:, cols]).max()
+            errs[name] = float(np.abs(answers[0][:, cols]
+                                      - want[:, cols]).max() / scale)
+        same = np.array_equal(answers[0], answers[1])
+        cases = [r[f"serve {label}"] for r in ranks]
+        print(f"check Predictor on mesh {label} (gloo world size 2 on one "
+              f"card, eager, bf16) vs phase 5's captured one-process answer "
+              f"on the day: {errs} of scale (tol {TOL['bfloat16'][0]}); "
+              f"ranks' answers equal {same}; gru_fwd launches per rank "
+              f"{[c['launches'] for c in cases]}; seconds per rank "
+              f"{[round(c['seconds'], 3) for c in cases]}; params_digest "
+              f"{cases[0]['params_digest']}", flush=True)
+        if max(errs.values()) > TOL["bfloat16"][0] or not same:
+            fail(f"the Predictor on mesh {label} parts from one process or "
+                 "between its ranks")
+        if answers[0].shape != want.shape or \
+                not np.isfinite(answers[0]).all():
+            fail(f"the Predictor on mesh {label} gave shape "
+                 f"{answers[0].shape} or non-finite values")
+        if any(c["launches"] == 0 for c in cases):
+            fail(f"a rank of mesh {label} never launched gru_fwd")
+        if digest is not None and cases[0]["params_digest"] != digest:
+            fail("the meshes' params digests differ")
+        digest = cases[0]["params_digest"]
+        out[f"serve {label}"] = {"errors": errs,
+                                 "launches": [c["launches"] for c in cases],
+                                 "seconds": [c["seconds"] for c in cases]}
+    k_ms = axes_k2_k3_ms(cuda_gru)
+    print(f"times K2/K3 float32 at E={FLAGSHIP['E'] // AXES_TRAIN_MESH[1]}, "
+          f"B={TRAIN['B']} (an expert rank's share): gru_fwd_train "
+          f"{k_ms['gru_fwd_train']:.4f} ms, gru_bwd {k_ms['gru_bwd']:.4f} ms "
+          f"(E=40: {times['gru_fwd_train']['float32']['ms']:.4f}, "
+          f"{times['gru_bwd']['float32']['ms']:.4f}); recorded only",
+          flush=True)
+    out["k2_k3_ms_e20"] = k_ms
+    print(f"main expert and model axes phase: launches {launches}; "
+          f"{wall:.1f} s wall for the job with its spawn", flush=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -5215,6 +5581,8 @@ def main() -> int:
         host = timed("host feed, train flags and demo", phase_host_feed,
                      cuda_gru, *social, wd)
         dp = timed("data axis", phase_data_parallel, cuda_gru, wd, host)
+        axes = timed("expert and model axes", phase_expert_model_axes,
+                     cuda_gru, serving, times, wd)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)
@@ -5232,6 +5600,8 @@ def main() -> int:
     for name, count in host["launches"].items():
         launches[name] += count
     for name, count in dp["launches"].items():
+        launches[name] += count
+    for name, count in axes["launches"].items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -5277,7 +5647,9 @@ def main() -> int:
           f"(f32: the stream CLI runs and the verdict server "
           f"{stream['f32_launches']}); host feed, train flags and demo "
           f"{host['launches']}; data axis (NCCL world size 1, both gloo "
-          f"ranks, the --mesh CLI) {dp['launches']}; tuning sweep "
+          f"ranks, the --mesh CLI) {dp['launches']}; expert and model "
+          f"axes (both gloo ranks: training on 1x2x1 and 1x1x2, the "
+          f"Predictor on both) {axes['launches']}; tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     print(f"seconds per phase {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

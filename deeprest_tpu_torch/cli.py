@@ -58,11 +58,13 @@ host memory).  ``export --aot`` writes the fleet's AOT sidecar, a
 fingerprinted manifest, next to the checkpoint (serve/aot.py).
 ``profile`` opens a ``torch.profiler`` window on a running server, and
 ``train --profile-dir`` traces the first epoch.  ``--mesh D,E,M`` reaches
-``train``, ``whatif``, ``serve`` and ``predict`` with the JAX CLI's exits on
-a bad spec: ``train`` joins a ``torch.distributed`` job from ``torchrun``'s
-``env://`` variables first and trains data-parallel over its ranks (rank 0
-prints the report and the JSON line); the serving commands take a mesh of
-size 1, and a larger one exits 2 (its axes are ROADMAP item 6b).  Elastic
+``train``, ``whatif``, ``serve``, ``predict`` and ``anomaly`` with the JAX
+CLI's exits on a bad spec: ``train``, ``predict``, ``whatif`` and
+``anomaly`` join a ``torch.distributed`` job from ``torchrun``'s ``env://``
+variables first and lay the ``data×expert×model`` mesh over its ranks
+(rank 0 prints and writes; the other ranks print only their
+``distributed:`` line).  ``serve`` takes a mesh of size 1; a larger one
+exits 2 (an HTTP plane over a multi-rank mesh is ROADMAP item 6d).  Elastic
 remeshing (``stream --elastic`` exits 2) is not ported.  The what-if demo
 is ``python -m deeprest_tpu_torch.demo precompute|serve`` (demo/).
 """
@@ -123,11 +125,13 @@ def _require_input(args, features_ok: bool = True):
 
 
 def _add_mesh_arg(p: argparse.ArgumentParser, serving: bool = False):
-    extra = (" (serving: a mesh of size 1; a larger one waits for the "
-             "expert and model axes, ROADMAP item 6b)"
+    extra = (" (serving: shardings resolve from the same partition-rule "
+             "table training places params with — parallel/sharding.py; a "
+             "multi-process job joins through torchrun's env:// variables "
+             "first, one rank a device; serve takes a mesh of size 1)"
              if serving else
              " (a multi-process job joins through torchrun's env:// "
-             "variables first; one rank a device on the data axis)")
+             "variables first; one rank a device)")
     p.add_argument("--mesh", default=None, metavar="D,E,M",
                    help="device mesh data,expert,model (default 1,1,1)"
                         + extra)
@@ -146,15 +150,51 @@ def _parse_mesh(args):
         sys.exit(f"error: {exc}")
 
 
-def _serving_mesh(args) -> None:
-    """The serving commands' ``--mesh``: size 1 serves as without it; a
-    larger mesh exits 2 (sharded serving is ROADMAP item 6b)."""
+def _join_job(args) -> bool:
+    """Join the multi-process job torchrun's ``env://`` variables describe
+    (a no-op returning False without them) and print this rank's
+    ``distributed:`` line."""
+    from deeprest_tpu_torch.parallel import initialize_distributed
+
+    joined = initialize_distributed(device=args.device)
+    if joined:
+        import torch.distributed as dist
+
+        print(f"distributed: process {dist.get_rank()} of "
+              f"{dist.get_world_size()}, {dist.get_world_size()} global "
+              f"devices ({dist.get_backend()})", flush=True)
+    return joined
+
+
+def _on_job(fn, args) -> int:
+    """``fn(args)`` inside the job :func:`_join_job` joins, left after."""
+    joined = _join_job(args)
+    try:
+        return fn(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _is_chief(pred) -> bool:
+    """Rank 0 of the predictor's mesh (or no mesh): the rank that prints
+    and writes; the other ranks run the same calls in step, silently."""
+    return pred.mesh is None or pred.mesh.rank == 0
+
+
+def _serve_mesh(args) -> None:
+    """``serve --mesh``: size 1 serves as without it; a larger mesh exits 2
+    (an HTTP plane over a multi-rank mesh is ROADMAP item 6d)."""
     cfg = _parse_mesh(args)
     if cfg is not None and cfg.size > 1:
-        print(f"{args.cmd}: --mesh {args.mesh} is not ported yet: serving "
-              "on a mesh of more than one device (the data, expert and "
-              "model axes of serve/predictor.py) is ROADMAP item 6b; "
-              "--mesh 1,1,1 serves on one device", file=sys.stderr)
+        print(f"{args.cmd}: --mesh {args.mesh} is not ported yet: an HTTP "
+              "serving plane over a multi-rank mesh (rank 0 fronting the "
+              "requests, every other rank replaying each rung in step) is "
+              "ROADMAP item 6d; `predict`, `whatif` and `anomaly` run on "
+              "such a mesh, and --mesh 1,1,1 serves on one device",
+              file=sys.stderr)
         sys.exit(2)
 
 
@@ -440,21 +480,12 @@ def cmd_synthesize(args) -> int:
 
 
 def cmd_train(args) -> int:
-    from deeprest_tpu_torch.parallel import initialize_distributed
-
     # A multi-process job (torchrun's env:// variables) is joined first;
-    # --mesh then lays the data axis over its ranks.  No-op alone.
-    joined = initialize_distributed(device=args.device)
-    try:
-        return _train(args, joined)
-    finally:
-        if joined:
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
+    # --mesh then lays the mesh over its ranks.  No-op alone.
+    return _on_job(_train, args)
 
 
-def _train(args, joined: bool) -> int:
+def _train(args) -> int:
     from deeprest_tpu_torch.config import (
         Config, MeshConfig, ModelConfig, TrainConfig,
     )
@@ -463,12 +494,6 @@ def _train(args, joined: bool) -> int:
     from deeprest_tpu_torch.train.metrics import format_report
     from deeprest_tpu_torch.train.trainer import Trainer
 
-    if joined:
-        import torch.distributed as dist
-
-        print(f"distributed: process {dist.get_rank()} of "
-              f"{dist.get_world_size()}, {dist.get_world_size()} global "
-              f"devices ({dist.get_backend()})", flush=True)
     mesh_cfg = _parse_mesh(args) or MeshConfig()
     _require_input(args)
     if args.plots_dir:
@@ -619,10 +644,13 @@ def _train(args, joined: bool) -> int:
 
 
 def _predictor(args):
+    """The checkpoint's predictor on ``--mesh`` (every rank of a joined job
+    builds its own; a gloo mesh serves eagerly, its collectives cannot be
+    captured).  A mesh the job cannot lay out exits 2."""
     from deeprest_tpu_torch.config import InferConfig
     from deeprest_tpu_torch.serve.predictor import Predictor
 
-    _serving_mesh(args)
+    mesh_cfg = _parse_mesh(args)
     try:
         infer = InferConfig(fused=not args.no_fused_infer,
                             page_windows=args.infer_page_windows,
@@ -630,11 +658,22 @@ def _predictor(args):
                             quant=args.quant)
     except ValueError as exc:
         sys.exit(f"error: {exc}")
+    import torch.distributed as dist
+
+    gloo = dist.is_initialized() and dist.get_backend() == "gloo"
     # model architecture comes from the checkpoint sidecar
-    return Predictor.from_checkpoint(
-        args.ckpt_dir, fused=infer.fused, page_windows=infer.page_windows,
-        coalesce_pages=infer.coalesce_pages, quant=infer.quant,
-        device=args.device)
+    try:
+        return Predictor.from_checkpoint(
+            args.ckpt_dir, fused=infer.fused,
+            page_windows=infer.page_windows,
+            coalesce_pages=infer.coalesce_pages, quant=infer.quant,
+            device=args.device, mesh_config=mesh_cfg,
+            cuda_graphs=not gloo)
+    except ValueError as exc:
+        if mesh_cfg is None or "mesh" not in str(exc):
+            raise
+        print(f"{args.cmd}: {exc}", file=sys.stderr)
+        sys.exit(2)
 
 
 def _serving_traffic(args, pred) -> np.ndarray:
@@ -674,6 +713,10 @@ def _serving_traffic(args, pred) -> np.ndarray:
 
 
 def cmd_predict(args) -> int:
+    return _on_job(_predict, args)
+
+
+def _predict(args) -> int:
     _require_input(args)
     pred = _predictor(args)
     t0 = time.perf_counter()
@@ -683,6 +726,8 @@ def cmd_predict(args) -> int:
     t0 = time.perf_counter()
     out = pred.predict_series(traffic)                           # [T, E, Q]
     seconds["predict"] = time.perf_counter() - t0
+    if not _is_chief(pred):
+        return 0
     np.savez_compressed(out_path, predictions=out,
                         metric_names=np.array(pred.metric_names))
     print(json.dumps({"out": out_path, "steps": int(out.shape[0]),
@@ -848,6 +893,10 @@ def cmd_whatif(args) -> int:
     traffic mix (optionally swept over a scale grid) → per-metric peak
     utilization, batched through the fused multi-scenario prediction
     pipeline (serve/whatif.py estimate_many / sweep)."""
+    return _on_job(_whatif, args)
+
+
+def _whatif(args) -> int:
     from deeprest_tpu_torch.data.synthesize import TraceSynthesizer
     from deeprest_tpu_torch.serve.whatif import WhatIfEstimator
 
@@ -894,6 +943,8 @@ def cmd_whatif(args) -> int:
         }
         result = {"ticks": args.ticks, "mix": mix, "peaks": peaks}
     seconds["estimate"] = time.perf_counter() - t0
+    if not _is_chief(pred):
+        return 0
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump(result, f, indent=2, sort_keys=True)
@@ -909,6 +960,10 @@ def cmd_anomaly(args) -> int:
     per metric report, then a JSON line with the device, the kernel
     launches and every report's score and first flag, then the JAX
     package's last line, ``{"flagged": [...]}``."""
+    return _on_job(_anomaly, args)
+
+
+def _anomaly(args) -> int:
     from deeprest_tpu_torch.serve.anomaly import AnomalyDetector
 
     _require_input(args)
@@ -947,6 +1002,8 @@ def cmd_anomaly(args) -> int:
     t0 = time.perf_counter()
     reports = detector.check(data.traffic, data.targets())
     seconds["check"] = time.perf_counter() - t0
+    if not _is_chief(pred):
+        return 0
     for r in reports:
         print(r)
     flagged = [r.metric for r in reports if r.flagged]
@@ -1121,7 +1178,7 @@ def cmd_serve(args) -> int:
         sys.exit("error: --mesh requires --ckpt-dir (exported artifacts "
                  "bake single-device params; re-serve from the checkpoint "
                  "to shard them)")
-    _serving_mesh(args)
+    _serve_mesh(args)
     try:
         ladder = tuple(int(r) for r in args.batch_ladder.split(","))
     except ValueError:
@@ -1755,6 +1812,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tolerance", type=float, default=0.10)
     p.add_argument("--min-run", type=int, default=5)
     p.add_argument("--fail-on-anomaly", action="store_true")
+    _add_mesh_arg(p, serving=True)
     _add_fused_infer_args(p)
     p.set_defaults(fn=cmd_anomaly)
 

@@ -442,11 +442,16 @@ class ObsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Logical device-mesh shape (parallel/mesh.py): ``data`` shards the
-    batch (data parallelism, one rank a device, the gradients all-reduced),
-    ``expert`` the stacked per-metric experts and ``model`` the feature
-    dimension of the mask and GRU input projections.  The port runs the
-    data axis; ``expert`` and ``model`` above 1 wait for ROADMAP item 6b."""
+    """Logical device-mesh shape (parallel/mesh.py), one rank a device:
+    ``data`` shards the batch (data parallelism, the gradients
+    all-reduced), ``expert`` the stacked per-metric experts (each rank its
+    ``E/expert``, the mixing sum all-reduced) and ``model`` the call-path
+    feature dimension F of the mask and the layer-0 GRU input projections
+    (tensor parallelism, the projection all-reduced), as the partition-rule
+    table places them (parallel/sharding.py).  Each axis must divide what
+    it shards: the batch size, E and F; a placement it does not divide
+    raises naming the leaf and the axis, with the words of JAX's
+    ``device_put`` ("should be divisible by N, but it is equal to ...")."""
 
     data: int = 1
     expert: int = 1

@@ -28,10 +28,13 @@ def _tensor_from_numpy(name: str, leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping, mesh=None) -> dict[str, torch.Tensor]:
     """A nested dict of numpy arrays (a flax ``params`` tree with each leaf
     copied by ``np.array``) → the port's flat parameter dict of CPU tensors.
-    Nested keys join with "/"; the QuantileGRU tree is flat already."""
+    Nested keys join with "/"; the QuantileGRU tree is flat already.  On a
+    ``mesh`` each leaf is cut to this rank's box
+    (``parallel.sharding.shard_params``), so every rank of a job starts
+    from the same JAX init."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node) -> None:
@@ -41,7 +44,11 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
             return
         out[prefix] = _tensor_from_numpy(prefix, node)
     walk("", tree)
-    return out
+    if mesh is None:
+        return out
+    from deeprest_tpu_torch.parallel.sharding import shard_params
+
+    return {k: v.contiguous() for k, v in shard_params(mesh, out).items()}
 
 
 def quant_params_from_jax(tree: Mapping) -> dict:

@@ -33,6 +33,20 @@ params dict of the same names (the exact-mode accumulation passes the
 mask-folded one); ``forward(dropout_rows=...)`` draws the global batch's
 dropout mask and keeps a data-parallel rank's rows of it.  Input ``[B, T, F]`` (or ``[G, B, T, F]``, groups folded
 into the rows) → output ``[B, T, E, Q]`` (``[G, B, T, E, Q]``) in f32.
+
+On a mesh (``QuantileGRU(config, mesh=...)``) the module holds this rank's
+box of every leaf by the partition-rule table (``parallel/sharding.py``):
+``E/e`` experts, and with a ``model`` axis ``F/M`` columns of ``mask_w2``,
+``mask_b2`` and the layer-0 ``w_ih``.  The forward runs the collectives
+GSPMD inserts for JAX (``parallel/collectives.py``): the softmax of the
+mask over the sharded F (a MAX shift, a SUM of exponentials with a SUM
+backward, the hidden layer through "f" so the ``mask_w1``/``mask_b1``
+gradients are whole on every model rank), the layer-0 projection summed
+over the model group (``ops/gru.py``), and the mixing total summed over
+the expert group with the global ``E − 1`` divisor.  The input stays the
+whole ``[B, T, F]``; the output is the rank's experts, ``[B, T, E/e, Q]``.
+Dropout draws the global ``[E, G·B, T, D]`` mask and cuts the rank's
+experts and rows, so the ranks drop what one process would.
 """
 
 from __future__ import annotations
@@ -47,6 +61,12 @@ from torch import nn
 from deeprest_tpu_torch.config import ModelConfig
 from deeprest_tpu_torch.ops.gru import (
     GRUParams, Recurrence, bidirectional_gru, gru,
+)
+from deeprest_tpu_torch.parallel.collectives import (
+    copy_replicated, max_replicated, sum_partials,
+)
+from deeprest_tpu_torch.parallel.sharding import (
+    box_slices, rank_box, spec_of,
 )
 
 MASK_PARAM_NAMES = ("mask_w1", "mask_b1", "mask_w2", "mask_b2")
@@ -67,23 +87,34 @@ def resolve_params(params: Mapping) -> dict:
     return dequantize_params(params)
 
 
-def feature_mask(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def feature_mask(params: Mapping[str, torch.Tensor],
+                 model_group=None) -> torch.Tensor:
     """The soft feature mask ``[E, F]``: Linear(1→H) on a constant 1.0
     (weight + bias), ReLU, Linear(H→F), softmax over F.  A bf16
     ``mask_w2`` (bf16 quantized serving) widens to f32 exactly, as the
-    JAX einsum promotes it."""
+    JAX einsum promotes it.  With ``model_group`` the params hold this
+    rank's F shard and the softmax runs over the whole F: a MAX shift
+    and a SUM of exponentials over the group; the result is the rank's
+    shard of the mask."""
     hidden = torch.relu(params["mask_w1"] + params["mask_b1"])          # [E, H]
+    hidden = copy_replicated(hidden, model_group)
     logits = (torch.einsum("eh,ehf->ef", hidden,
                            params["mask_w2"].to(hidden.dtype))
               + params["mask_b2"])
-    return torch.softmax(logits, dim=-1)
+    if model_group is None:
+        return torch.softmax(logits, dim=-1)
+    shift = max_replicated(logits.amax(dim=-1, keepdim=True), model_group)
+    ex = torch.exp(logits - shift)
+    return ex / sum_partials(ex.sum(dim=-1, keepdim=True), model_group)
 
 
-def fold_feature_mask(params: Mapping[str, torch.Tensor]
-                      ) -> dict[str, torch.Tensor]:
+def fold_feature_mask(params: Mapping[str, torch.Tensor],
+                      model_group=None) -> dict[str, torch.Tensor]:
     """A new params dict with the mask folded into every
-    ``MASKED_PARAM_NAMES`` leaf; apply it with ``mask_folded=True``."""
-    mask = feature_mask(params)
+    ``MASKED_PARAM_NAMES`` leaf; apply it with ``mask_folded=True``.
+    ``model_group`` as for :func:`feature_mask` (the fold is local to the
+    shard)."""
+    mask = feature_mask(params, model_group)
     out = dict(params)
     for name in MASKED_PARAM_NAMES:
         if name in out:
@@ -93,29 +124,33 @@ def fold_feature_mask(params: Mapping[str, torch.Tensor]
 
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator,
-            rows: tuple[int, int, int] | None = None) -> torch.Tensor:
+            rows: tuple[int, int, int] | None = None,
+            experts: tuple[int, int, int] | None = None) -> torch.Tensor:
     """``flax.linen.Dropout`` with ``deterministic=False``: keep each value
     with probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, in
     x's dtype; the mask is drawn from ``generator``.
 
     ``rows = (b, lo, hi)``: x's axis 1 holds rows ``lo:hi`` of each
-    ``b``-row batch of the global tensor (a data-parallel rank's slice).
-    The global tensor's mask is drawn and the rank's rows are cut from it,
-    so the ranks together drop what one process would."""
+    ``b``-row batch of the global tensor (a data-parallel rank's slice);
+    ``experts = (e, lo, hi)``: x's axis 0 holds experts ``lo:hi`` of the
+    global ``e`` (an expert rank's).  The global tensor's mask is drawn
+    and the rank's part is cut from it, so the ranks together drop what
+    one process would."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    if rows is None:
+    if rows is None and experts is None:
         mask = torch.rand(x.shape, generator=generator,
                           device=x.device) < keep
     else:
-        b, lo, hi = rows
-        lead, groups = x.shape[0], x.shape[1] // (hi - lo)
-        full = torch.rand((lead, groups * b, *x.shape[2:]),
-                          generator=generator, device=x.device)
-        mask = full.reshape(lead, groups, b, *x.shape[2:])[:, :, lo:hi] \
+        e, e_lo, e_hi = experts or (x.shape[0], 0, x.shape[0])
+        b, lo, hi = rows or (x.shape[1], 0, x.shape[1])
+        groups, rest = x.shape[1] // (hi - lo), x.shape[2:]
+        full = torch.rand((e, groups * b, *rest), generator=generator,
+                          device=x.device)
+        mask = full.reshape(e, groups, b, *rest)[e_lo:e_hi, :, lo:hi] \
             .reshape(x.shape) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
@@ -159,19 +194,58 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
 
 
 class QuantileGRU(nn.Module):
-    """Multi-task quantile GRU with the JAX module's parameter names."""
+    """Multi-task quantile GRU with the JAX module's parameter names; on a
+    ``mesh`` (``parallel.make_mesh``) it holds this rank's box of each
+    leaf and runs the mesh's collectives (see the module docstring)."""
 
-    def __init__(self, config: ModelConfig, device=None):
+    def __init__(self, config: ModelConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
-        for name, shape in param_shapes(config).items():
+        shapes = param_shapes(config)
+        self._boxes = {}
+        if mesh is not None and (mesh.config.expert > 1
+                                 or mesh.config.model > 1):
+            self._boxes = {name: rank_box(mesh, spec_of(name, shape), shape,
+                                          name)
+                           for name, shape in shapes.items()}
+        self.expert_group = None if mesh is None else mesh.expert_group
+        self.model_group = None if mesh is None else mesh.model_group
+        # a sharded module runs only with the groups its collectives need
+        # (a hand-built Mesh without a job holds the boxes, nothing more)
+        self._grouped = mesh is None or (
+            (mesh.config.expert == 1 or self.expert_group is not None)
+            and (mesh.config.model == 1 or self.model_group is not None))
+        # this rank's experts and columns of F (the whole without a mesh)
+        e_box, f_box = rank_box(mesh, ("expert", "model"),
+                                (config.num_metrics, config.feature_dim)) \
+            if mesh is not None else ((0, config.num_metrics),
+                                      (0, config.feature_dim))
+        self.experts = slice(*e_box)
+        self.features = slice(*f_box)
+        for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
-                torch.zeros(shape, device=device), requires_grad=False))
+                torch.zeros(self.local_shape(name, shape), device=device),
+                requires_grad=False))
+
+    def local_shape(self, name: str, shape: tuple[int, ...]
+                    ) -> tuple[int, ...]:
+        """The shape of this rank's box of leaf ``name`` (global
+        ``shape``)."""
+        box = self._boxes.get(name)
+        return shape if box is None else tuple(hi - lo for lo, hi in box)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the rank holds less than the whole of some leaf."""
+        return bool(self._boxes)
 
     def load_params(self, params: Mapping[str, torch.Tensor | np.ndarray]
                     ) -> "QuantileGRU":
-        """Copy a full params dict (JAX names and shapes) into the module,
-        keeping each leaf's dtype and each parameter's ``requires_grad``."""
+        """Copy a params dict (JAX names) into the module, keeping each
+        leaf's dtype and each parameter's ``requires_grad``.  Each leaf is
+        the whole (JAX's shape; on a mesh the rank's box is cut from it,
+        ``parallel.shard_params``) or, on a mesh, the rank's box
+        already."""
         expected = param_shapes(self.config)
         missing = set(expected) - set(params)
         extra = set(params) - set(expected)
@@ -180,10 +254,14 @@ class QuantileGRU(nn.Module):
                            f"{sorted(missing)}, unexpected {sorted(extra)}")
         for name, shape in expected.items():
             value = torch.as_tensor(params[name])
-            if tuple(value.shape) != shape:
+            local = self.local_shape(name, shape)
+            if local != shape and tuple(value.shape) == shape:
+                value = value[box_slices(self._boxes[name])]
+            if tuple(value.shape) != local:
+                box = "" if local == shape else f" (its box here {local})"
                 raise ValueError(f"param {name!r} has shape "
                                  f"{tuple(value.shape)}, the architecture "
-                                 f"needs {shape}")
+                                 f"needs {shape}{box}")
             old = getattr(self, name)
             setattr(self, name, nn.Parameter(
                 value.detach().to(old.device).clone(),
@@ -205,7 +283,13 @@ class QuantileGRU(nn.Module):
                 params: Mapping[str, torch.Tensor] | None = None,
                 dropout_rows: tuple[int, int, int] | None = None
                 ) -> torch.Tensor:
+        """``x [B, T, F]`` (or ``[G, B, T, F]``), the whole F on a mesh too
+        → this rank's experts' predictions ``[B, T, E/e, Q]`` in f32."""
         cfg = self.config
+        if not self._grouped:
+            raise ValueError("this module holds its rank's boxes of a mesh "
+                             "whose process groups it lacks; build the "
+                             "mesh with parallel.make_mesh in the job")
         if not deterministic and cfg.dropout_rate > 0.0 and generator is None:
             raise ValueError("dropout (deterministic=False) needs an explicit "
                              "torch.Generator on the input's device")
@@ -220,7 +304,8 @@ class QuantileGRU(nn.Module):
             x = x.reshape(group_shape[0] * group_shape[1], *x.shape[2:])
 
         p = self.params() if params is None else params
-        mask = None if mask_folded else feature_mask(p)                # [E, F]
+        tp = self.model_group
+        mask = None if mask_folded else feature_mask(p, tp)            # [E, F]
 
         def direction(name: str, layer: int) -> GRUParams:
             w_ih = p[f"{name}_w_ih"]
@@ -231,22 +316,29 @@ class QuantileGRU(nn.Module):
                              p[f"{name}_b_hh"].to(compute))
 
         out = x.to(compute)                                             # [B,T,F]
+        if tp is not None:
+            out = out[..., self.features]                  # the rank's F slice
         for layer in range(cfg.num_layers):
             sfx = "" if layer == 0 else f"_l{layer}"
             fwd = direction(f"gru_fwd{sfx}", layer)
+            layer_tp = tp if layer == 0 else None
             if cfg.bidirectional:
                 bwd = direction(f"gru_bwd{sfx}", layer)
-                out = bidirectional_gru(fwd, bwd, out, recurrence=recurrence)
+                out = bidirectional_gru(fwd, bwd, out, recurrence=recurrence,
+                                        tp_group=layer_tp)
             else:
-                out = gru(fwd, out, recurrence=recurrence)
+                out = gru(fwd, out, recurrence=recurrence, tp_group=layer_tp)
         rnn_out = out                                                   # [E,B,T,D]
         if not deterministic:
+            experts = (None if self.expert_group is None else
+                       (e, self.experts.start, self.experts.stop))
             rnn_out = dropout(rnn_out, cfg.dropout_rate, generator,
-                              dropout_rows)
+                              dropout_rows, experts)
 
         if e > 1:
             own = rnn_out.float()
-            total = own.sum(dim=0, keepdim=True)
+            total = sum_partials(own.sum(dim=0, keepdim=True),
+                                 self.expert_group)
             mix = ((total - own) / (e - 1)).to(compute)
         else:
             mix = rnn_out

@@ -19,6 +19,14 @@ one recurrence call over G·B rows: the groups share ``W_hh``, so the fold
 is a reshape, and each group's rows are computed as a standalone call
 would compute them.
 
+Feature-axis tensor parallelism (the mesh's ``model`` axis): with
+``tp_group``, ``x`` holds this rank's slice of F and ``W_ih`` its shard
+``[E, F/M, 3H]``; each rank's partial product is cast to f32, summed over
+the model group (``parallel.collectives.reduce_replicated``: what runs
+after it is replicated over the group, so its backward is the identity),
+and ``b_ih`` is added once, after the sum.  The recurrence then sees the
+whole projection, as without a mesh.
+
 ``BIDIR_FUSED`` (``DEEPREST_GRU_BIDIR_FUSED=1``, default off as in the JAX
 package) makes :func:`bidirectional_gru` stack both directions on the
 expert axis of one recurrence call, the backward direction's projections
@@ -79,18 +87,30 @@ def resolve_weights(params: GRUParams) -> GRUParams:
     return params
 
 
-def _project(params: GRUParams, x: torch.Tensor) -> torch.Tensor:
+def _project(params: GRUParams, x: torch.Tensor,
+             tp_group=None) -> torch.Tensor:
     """``x @ W_ih + b_ih`` → contiguous ``[E, T, B, 3H]`` in the
     recurrence's io dtype.  ``x`` is ``[B, T, F]`` shared by all experts or
-    ``[E, B, T, F]``."""
+    ``[E, B, T, F]``; with ``tp_group`` its F slice and ``W_ih``'s shard,
+    the f32 partial products summed over the group before ``b_ih``."""
     eq = "btf,efg->etbg" if x.dim() == 3 else "ebtf,efg->etbg"
-    proj = torch.einsum(eq, x, params.w_ih) + params.b_ih[:, None, None, :]
-    return proj.to(kernel_io_dtype(proj.dtype)).contiguous()
+    if tp_group is None:
+        proj = torch.einsum(eq, x, params.w_ih) + params.b_ih[:, None, None, :]
+        return proj.to(kernel_io_dtype(proj.dtype)).contiguous()
+    from deeprest_tpu_torch.parallel.collectives import reduce_replicated
+
+    partial = torch.einsum(eq, x, params.w_ih)
+    io = kernel_io_dtype(torch.promote_types(partial.dtype,
+                                             params.b_ih.dtype))
+    proj = (reduce_replicated(partial.float(), tp_group)
+            + params.b_ih.float()[:, None, None, :])
+    return proj.to(io).contiguous()
 
 
 def gru(params: GRUParams, x: torch.Tensor, h0: torch.Tensor | None = None,
         reverse: bool = False,
-        recurrence: Recurrence | None = None) -> torch.Tensor:
+        recurrence: Recurrence | None = None,
+        tp_group=None) -> torch.Tensor:
     """Single-direction GRU over the time axis.
 
     ``x``: ``[E, B, T, F]`` or ``[B, T, F]`` shared across experts; ``h0``:
@@ -98,10 +118,12 @@ def gru(params: GRUParams, x: torch.Tensor, h0: torch.Tensor | None = None,
     to front and the output stays time-aligned with ``x``.  ``recurrence``
     replaces the device dispatch of ``cuda_gru.gru_recurrence`` (a caller
     that wants the plain version on a CUDA tensor passes
-    ``gru_recurrence_reference``).  Returns ``[E, B, T, H]`` in x's dtype.
+    ``gru_recurrence_reference``).  ``tp_group``: ``x`` and ``W_ih`` hold
+    this rank's F slice (see the module docstring).  Returns ``[E, B, T,
+    H]`` in x's dtype.
     """
     params = resolve_weights(params)
-    proj = _project(params, x)
+    proj = _project(params, x, tp_group)
     e, _, b, _ = proj.shape
     if h0 is None:
         h0 = torch.zeros((e, b, params.hidden_size), dtype=torch.float32,
@@ -114,15 +136,16 @@ def gru(params: GRUParams, x: torch.Tensor, h0: torch.Tensor | None = None,
 
 
 def _bidirectional_fused(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
-                         recurrence: Recurrence | None) -> torch.Tensor:
+                         recurrence: Recurrence | None,
+                         tp_group=None) -> torch.Tensor:
     """Both directions in one recurrence call (``_bidir_pallas``): the
     backward direction's projections flipped in time and stacked after the
     forward's on the expert axis (2E), one forward-in-time run, the result
     split and the backward half flipped back.  Under autograd the flips
     and the split are torch ops, so the gradients route back by
     themselves."""
-    proj_f = _project(fwd, x)
-    proj_b = _project(bwd, x).flip(1)
+    proj_f = _project(fwd, x, tp_group)
+    proj_b = _project(bwd, x, tp_group).flip(1)
     proj = torch.cat([proj_f, proj_b], dim=0)
     e, _, b, _ = proj_f.shape
     w_hh = torch.cat([fwd.w_hh, bwd.w_hh]).to(proj.dtype).contiguous()
@@ -135,16 +158,19 @@ def _bidirectional_fused(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
 
 
 def bidirectional_gru(fwd: GRUParams, bwd: GRUParams, x: torch.Tensor,
-                      recurrence: Recurrence | None = None) -> torch.Tensor:
+                      recurrence: Recurrence | None = None,
+                      tp_group=None) -> torch.Tensor:
     """``[E, B, T, F]`` (or shared ``[B, T, F]``) → ``[E, B, T, 2H]``; the
     last-axis halves are (forward, backward), each time-aligned with x.
     Two recurrence calls, or one over both directions with
-    :data:`BIDIR_FUSED`."""
+    :data:`BIDIR_FUSED`.  ``tp_group`` as for :func:`gru`."""
     fwd, bwd = resolve_weights(fwd), resolve_weights(bwd)
     if BIDIR_FUSED:
-        return _bidirectional_fused(fwd, bwd, x, recurrence)
-    out_f = gru(fwd, x, reverse=False, recurrence=recurrence)
-    out_b = gru(bwd, x, reverse=True, recurrence=recurrence)
+        return _bidirectional_fused(fwd, bwd, x, recurrence, tp_group)
+    out_f = gru(fwd, x, reverse=False, recurrence=recurrence,
+                tp_group=tp_group)
+    out_b = gru(bwd, x, reverse=True, recurrence=recurrence,
+                tp_group=tp_group)
     return torch.cat([out_f, out_b], dim=-1)
 
 

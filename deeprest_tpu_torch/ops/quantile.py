@@ -15,7 +15,8 @@ def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
                  quantiles: Sequence[float] | torch.Tensor,
                  sample_weight: torch.Tensor | None = None,
                  allow_empty: bool = False,
-                 weight_sum: torch.Tensor | None = None) -> torch.Tensor:
+                 weight_sum: torch.Tensor | None = None,
+                 num_metrics: int | None = None) -> torch.Tensor:
     """Mean pinball loss.
 
     ``preds [B, T, E, Q]``, ``targets [B, T, E]``, ``quantiles`` the Q
@@ -30,7 +31,11 @@ def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
     the denominator (the floor applies to it): a data-parallel rank holds
     a slice of the batch's weights and divides by the GLOBAL batch's sum,
     so its loss is its share of the global loss and the ranks' losses and
-    gradients sum to the global ones.  Returns the scalar
+    gradients sum to the global ones.  ``num_metrics`` replaces the
+    metric count of the mean over metrics the same way: an expert rank
+    holds its experts' columns (``preds [B, T, E/e, Q]``) and divides their
+    sum by the GLOBAL E; without it the mean is ``per_metric.mean()``, bit
+    for bit.  Returns the scalar
     ``mean_E(mean_{B,T}(sum_Q max((q-1)·err, q·err)))``, ``err = target -
     pred``.
     """
@@ -49,4 +54,6 @@ def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
             den = torch.clamp_min(den, 1.0)
         per_metric = (per_sample * w).sum(dim=(0, 1)) / (
             den * per_sample.shape[1])
-    return per_metric.mean()
+    if num_metrics is None:
+        return per_metric.mean()
+    return per_metric.sum() / num_metrics

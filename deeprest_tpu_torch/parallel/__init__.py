@@ -1,8 +1,17 @@
-"""The mesh's data axis on ``torch.distributed`` (``deeprest_tpu/parallel``):
-one rank a device, each rank's slice of the global batch, the gradients
-all-reduced.  The expert and model axes (``sharding.py``) are ROADMAP item
-6b; elastic remeshing (``elastic.py``) is item 6c."""
+"""The device mesh on ``torch.distributed`` (``deeprest_tpu/parallel``):
+one rank a device on a ``data×expert×model`` mesh, each data coordinate
+its slice of the global batch, each rank its box of every leaf by the
+partition-rule table, and the collectives GSPMD would insert written out
+as autograd operators.  Elastic remeshing (``elastic.py``) is ROADMAP
+item 6c."""
 
+from deeprest_tpu_torch.parallel.collectives import (
+    copy_replicated,
+    gather_along,
+    max_replicated,
+    reduce_replicated,
+    sum_partials,
+)
 from deeprest_tpu_torch.parallel.distributed import (
     feed_global_batch,
     feed_global_coo,
@@ -20,12 +29,31 @@ from deeprest_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_config_of,
 )
+from deeprest_tpu_torch.parallel.sharding import (
+    PARTITION_RULES,
+    match_partition_rules,
+    param_specs,
+    rank_box,
+    shard_params,
+    state_specs,
+)
 
 __all__ = [
     "AXES",
     "Mesh",
     "make_mesh",
     "mesh_config_of",
+    "PARTITION_RULES",
+    "match_partition_rules",
+    "param_specs",
+    "rank_box",
+    "shard_params",
+    "state_specs",
+    "copy_replicated",
+    "gather_along",
+    "max_replicated",
+    "reduce_replicated",
+    "sum_partials",
     "feed_global_batch",
     "feed_global_coo",
     "feed_replicated",

@@ -7,11 +7,14 @@
   False when nothing is configured, so one code path serves one process
   and many.
 - One rank drives one device.  Every rank draws the same global batch
-  plan (the shuffle is seeded), keeps its :func:`process_batch_slice` of
-  the batch axis (:func:`feed_global_batch`, :func:`stage_plan`) and holds
-  the same replicated series and parameters (:func:`feed_replicated`,
+  plan (the shuffle is seeded), keeps the :func:`process_batch_slice` of
+  the batch axis its DATA coordinate names (:func:`feed_global_batch`,
+  :func:`stage_plan`; the ranks of one data coordinate, which differ in
+  their expert and model coordinates, hold the same rows) and holds the
+  same replicated series (:func:`feed_replicated`,
   :func:`stage_sparse_base`).  The trainer all-reduces (SUM) the
-  gradients once per update; :func:`gather_to_host` all-gathers.
+  gradients over the data group once per update; :func:`gather_to_host`
+  all-gathers over a group.
 - JAX's ``prefetch_to_device`` has its counterpart in
   ``train/graphs.py::HostFeed``, the host-streamed feed's ring of pinned
   slots on a copy stream.
@@ -107,7 +110,7 @@ def data_slice(mesh: Mesh, arr: np.ndarray, ax: int) -> np.ndarray:
             "trainer's _batches wrap-padding) or pick a batch size "
             "divisible by MeshConfig.data")
     sel = (slice(None),) * ax + (process_batch_slice(
-        n, mesh.rank, data_size),)
+        n, mesh.coords["data"], data_size),)
     return np.ascontiguousarray(arr[sel])
 
 
@@ -182,14 +185,17 @@ def stage_plan(mesh: Mesh, starts: np.ndarray, weights: np.ndarray
             weights.sum(axis=-1, dtype=np.float32))
 
 
-def gather_to_host(mesh: Mesh, tensor: torch.Tensor) -> np.ndarray:
-    """Every rank's ``tensor`` concatenated along axis 0, as numpy on
-    every rank (``all_gather``; the tensor itself in one process)."""
-    if mesh.group is None:
-        return tensor.detach().cpu().numpy()
-    parts = [torch.empty_like(tensor) for _ in range(mesh.size)]
-    dist.all_gather(parts, tensor.contiguous(), group=mesh.group)
-    return torch.cat(parts).detach().cpu().numpy()
+def gather_to_host(mesh: Mesh, tensor: torch.Tensor,
+                   axis: str | None = None, dim: int = 0) -> np.ndarray:
+    """Every rank's ``tensor`` concatenated along ``dim``, as numpy on
+    every rank: over the job (``axis`` None) or over one axis's group
+    (``"data"``, ``"expert"``, ``"model"``), in rank order; the tensor
+    itself without a group."""
+    from deeprest_tpu_torch.parallel.collectives import gather_along
+
+    group = mesh.group if axis is None else getattr(mesh, f"{axis}_group")
+    with torch.no_grad():
+        return gather_along(tensor, dim, group).detach().cpu().numpy()
 
 
 __all__ = [

@@ -5,12 +5,20 @@ JAX lays one ``jax.sharding.Mesh`` with the axes ``(data, expert,
 model)`` over every device of the job and lets GSPMD insert the
 collectives.  The port runs one process (a rank) per device, so its
 :class:`Mesh` is a small record of what a rank needs: the mesh's shape,
-the rank, the rank's device and the process group its collectives run on.
-The data axis spans every rank of the job: the trainer gives each rank its
-slice of the global batch and all-reduces the gradients
-(train/trainer.py).  The expert and model axes wait for ROADMAP item 6b.
-Elastic remeshing (``shrink_mesh_config``, ``NoValidMeshError``) waits
-for item 6c.
+the rank and its coordinates, the rank's device, the job's process group
+and one process group an axis.
+
+Rank ``r`` sits at ``(d, e, m)`` in JAX's C order, ``r = (d·E + e)·M +
+m`` (``np.asarray(devices).reshape(data, expert, model)``).  The data
+group holds the ranks that share ``(e, m)``, the expert group those that
+share ``(d, m)``, the model group those that share ``(d, e)``.  The
+trainer gives each data coordinate its slice of the global batch and
+all-reduces the gradients over the data group (train/trainer.py); the
+partition-rule table (``parallel/sharding.py``) gives each rank its box of
+every leaf, and the model runs the collectives GSPMD would have inserted
+over the expert and model groups (``parallel/collectives.py``).  Elastic
+remeshing (``shrink_mesh_config``, ``NoValidMeshError``) waits for ROADMAP
+item 6c.
 """
 
 from __future__ import annotations
@@ -30,17 +38,22 @@ AXES = ("data", "expert", "model")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the mesh: its ``config`` (the shape), the
-    ``rank`` on the data axis, the ``device`` the rank drives and the
-    process ``group`` of its collectives: the joined job's, a job of one
-    rank included (its all-reduce is the identity), or None without a
-    job, where nothing is reduced.  The stand-in for
-    ``jax.sharding.Mesh``."""
+    """One rank's view of the mesh: its ``config`` (the shape), its
+    ``rank`` in the job, the ``device`` it drives, the job's process
+    ``group`` (a job of one rank included, or None without a job, where
+    nothing is reduced) and the process group of each axis the rank's
+    collectives run on: ``data_group`` (the job's group when the data axis
+    spans it, so a job of one rank still all-reduces its gradients),
+    ``expert_group`` and ``model_group`` (None for an axis of one rank).
+    The stand-in for ``jax.sharding.Mesh``."""
 
     config: MeshConfig
     rank: int
     device: torch.device
     group: Any = None
+    data_group: Any = None
+    expert_group: Any = None
+    model_group: Any = None
 
     axis_names = AXES
 
@@ -54,6 +67,12 @@ class Mesh:
         return self.config.size
 
     @property
+    def coords(self) -> dict[str, int]:
+        """The rank's coordinates ``{"data": d, "expert": e, "model": m}``
+        in JAX's C order."""
+        return dict(zip(AXES, rank_coords(self.config, self.rank)))
+
+    @property
     def backend(self) -> str | None:
         """The process group's backend ("nccl" or "gloo"), None without a
         group."""
@@ -65,6 +84,51 @@ def mesh_config_of(mesh: Mesh) -> MeshConfig:
     return MeshConfig(data=int(mesh.shape["data"]),
                       expert=int(mesh.shape["expert"]),
                       model=int(mesh.shape["model"]))
+
+
+def rank_coords(config: MeshConfig, rank: int) -> tuple[int, int, int]:
+    """``(d, e, m)`` of ``rank`` on a mesh of ``config``'s shape, with
+    ``rank = (d·E + e)·M + m``."""
+    em = config.expert * config.model
+    return rank // em, (rank // config.model) % config.expert, \
+        rank % config.model
+
+
+def axis_ranks(config: MeshConfig, axis: str) -> list[list[int]]:
+    """The ranks of every group of ``axis``: the ranks that share the
+    other two coordinates, each list in coordinate order along ``axis``."""
+    groups: dict[tuple, list[int]] = {}
+    for r in range(config.size):
+        d, e, m = rank_coords(config, r)
+        key = {"data": (e, m), "expert": (d, m), "model": (d, e)}[axis]
+        groups.setdefault(key, []).append(r)
+    return [groups[k] for k in sorted(groups)]
+
+
+def _axis_groups(config: MeshConfig, rank: int, world_group) -> dict:
+    """This rank's process group of each axis: None without a job and
+    for an expert or model axis of one rank (nothing to reduce); the job's
+    group for an axis that spans the job (the data axis of a one-rank job
+    included: its gradient all-reduce, the identity, stays in the update);
+    else a new group.  ``dist.new_group`` is collective: every rank
+    creates every group, in the same order."""
+    out = {}
+    for axis in AXES:
+        extent = int(getattr(config, axis))
+        if world_group is None or (extent == 1 and axis != "data"):
+            out[axis] = None
+        elif extent == config.size:
+            out[axis] = world_group
+        elif extent == 1:
+            out[axis] = None
+        else:
+            mine = None
+            for ranks in axis_ranks(config, axis):
+                g = dist.new_group(ranks=ranks)
+                if rank in ranks:
+                    mine = g
+            out[axis] = mine
+    return out
 
 
 def _job() -> tuple[int, int, Any]:
@@ -92,21 +156,17 @@ def rank_device(device=None, local_rank: int | None = None) -> torch.device:
 
 
 def make_mesh(config: MeshConfig | None = None, device=None) -> Mesh:
-    """This rank's (data, expert, model) mesh.
+    """This rank's (data, expert, model) mesh, with its axis groups.
 
     Defaults to every rank of the job on the data axis when no config is
     given; a 1x1x1 config is the one-process mesh, so the trainer runs one
     code path everywhere.  One rank drives one device, so the mesh must
-    span the job: a config of another size raises, as do expert or model
-    axes above 1 (ROADMAP item 6b)."""
+    span the job: a config of another size raises.  In a job every rank
+    must call this with the same config (the axis groups are made
+    collectively)."""
     world, rank, group = _job()
     if config is None:
         config = MeshConfig(data=world)
-    if config.expert > 1 or config.model > 1:
-        raise ValueError(
-            f"mesh {config.data}x{config.expert}x{config.model}: the port "
-            "runs the data axis only; the expert and model axes are "
-            "ROADMAP item 6b")
     if config.size > world:
         raise ValueError(
             f"mesh {config.data}x{config.expert}x{config.model} needs "
@@ -116,6 +176,8 @@ def make_mesh(config: MeshConfig | None = None, device=None) -> Mesh:
         raise ValueError(
             f"mesh {config.data}x{config.expert}x{config.model} spans "
             f"{config.size} of the job's {world} ranks; one rank drives one "
-            "device, so the data axis must equal the world size")
+            "device, so the mesh must span the world")
+    groups = _axis_groups(config, rank, group)
     return Mesh(config=config, rank=rank, device=rank_device(device),
-                group=group)
+                group=group, data_group=groups["data"],
+                expert_group=groups["expert"], model_group=groups["model"])

@@ -35,6 +35,11 @@ staging and readback; the engine keeps its own stats on the device
 (:meth:`~FusedRolledEngine.bound_state`, bound into the plane's before
 each page) and its own host invert operands.
 
+On a mesh (``Predictor(mesh=...)``) the page program's model call is
+the predictor's apply, which returns every expert's answer (gathered on
+the expert axis), so the engine pages, integrates and reads back as on
+one device; every rank pages the same series in the same order.
+
 Numerics contract, as in the JAX package: non-delta columns come back
 NORMALIZED and the host inverts them with numpy after readback, the exact
 per-element operations of ``y_stats.invert`` in

@@ -31,6 +31,12 @@ stream and replayed for every later batch of that rung.
   chip check holds the graphs against), a run calls the program eagerly
   on device copies of its inputs; ``stats()`` then counts the keys
   dispatched.
+- A predictor on a mesh runs the mesh's collectives inside each program
+  (the model's over the expert and model groups, the answer's all-gather
+  over the expert group): under NCCL they are captured with the rung;
+  gloo's cannot be, so such a predictor is built with graphs off
+  (``Predictor`` raises otherwise), and every rank replays or runs the
+  same rungs in the same order.
 - The fleet tier (serve/fleet.py): a graph reads the tensors its program
   closed over at capture, so tenants share one plane's graphs through a
   :class:`BoundSlot`, the plane's own weights and stats.  ``run(...,

@@ -1,5 +1,5 @@
 """The inference engine: checkpointed model → utilization predictions
-(``deeprest_tpu/serve/predictor.py``; no mesh).
+(``deeprest_tpu/serve/predictor.py``).
 
 Everything a consumer needs — params, model config, normalization
 statistics, metric names — is restored from one checkpoint directory, so
@@ -25,6 +25,17 @@ measured on the seeded probe batch at load and stored next to the
 checkpoint as ``quant_parity_<mode>.json``; every later load re-measures
 it and raises ``QuantParityError`` on a violated budget, whichever package
 wrote the file.
+
+A mesh (``Predictor(mesh=...)``, ``from_checkpoint(mesh_config=...)``):
+the params are placed by the partition-rule table (``parallel/sharding.py``),
+each rank holding its experts and, on a ``model`` axis, its F columns,
+and each answer is all-gathered on the expert axis, so every rank returns
+``[..., E, Q]``.  JAX's serving data axis replicates the work (its
+predictor hands the mesh only to the params' placement), and so does the
+port's: every rank runs the same calls on the same inputs.  Rung graphs
+capture the mesh's collectives under NCCL; gloo's cannot be captured, so
+a gloo mesh on CUDA needs ``cuda_graphs=False`` and raises without it.
+Quantized serving and the fleet tier take no mesh above one rank.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from deeprest_tpu_torch.models.qrnn import QuantileGRU, resolve_params
 from deeprest_tpu_torch.ops import quantize as quant_ops
 from deeprest_tpu_torch.ops.densify import densify_coo, normalize_minmax
 from deeprest_tpu_torch.ops.gru import Recurrence
+from deeprest_tpu_torch.parallel.collectives import gather_along
 from deeprest_tpu_torch.serve.batcher import BatchedBackendMixin
 from deeprest_tpu_torch.serve.fused import FusedInferenceMixin
 from deeprest_tpu_torch.serve.graphs import (
@@ -285,18 +297,33 @@ class Predictor(RungServing):
                  quant_budget: dict | None = None,
                  device=None,
                  recurrence: Recurrence | None = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 mesh=None):
         if quant not in quant_ops.QUANT_MODES:
             raise ValueError(
                 f"quant mode {quant!r} not in {quant_ops.QUANT_MODES}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if mesh is not None and mesh.size > 1 and quant != "off":
+            raise ValueError(
+                f"quant={quant!r} on mesh {mesh.config.data}x"
+                f"{mesh.config.expert}x{mesh.config.model}: quantized "
+                "serving takes no mesh above one rank in the port; serve "
+                "the f32 checkpoint on the mesh or quantize on one device")
+        if (mesh is not None and mesh.backend == "gloo" and cuda_graphs
+                and self.device.type == "cuda"):
+            raise ValueError(
+                "cuda_graphs=True on a gloo mesh: gloo's collectives cannot "
+                "be captured in the rung graphs; pass cuda_graphs=False for "
+                "eager serving, or use NCCL")
         self.quant = quant
         self.recurrence = recurrence
         self._params_digest: str | None = None
         self._qparams = None
         ref_params = None
         if quant == "off":
-            self.model = QuantileGRU(model_config, device=self.device)
+            self.model = QuantileGRU(model_config, device=self.device,
+                                     mesh=mesh)
             self.model.load_params(params)
         else:
             # The module on the meta device checks the names and shapes and
@@ -335,7 +362,8 @@ class Predictor(RungServing):
         with torch.inference_mode():
             params = (None if self._qparams is None
                       else resolve_params(self._qparams))
-            return self.model(x, recurrence=self.recurrence, params=params)
+            preds = self.model(x, recurrence=self.recurrence, params=params)
+            return gather_along(preds, -2, self.model.expert_group)
 
     def _measure_parity(self, ref_params, budget: dict | None) -> dict:
         """The quantized apply against the f32 reference on the seeded
@@ -474,6 +502,11 @@ class Predictor(RungServing):
                 f"{type(donor).__name__}")
         if donor is self:
             return
+        if any(p.mesh is not None and p.mesh.size > 1
+               for p in (self, donor)):
+            raise ValueError(
+                "cannot share executables on a mesh above one rank: the "
+                "fleet tier serves one-device predictors")
         if self.model_config != donor.model_config:
             raise ValueError(
                 "cannot share executables across architectures: "
@@ -533,12 +566,23 @@ class Predictor(RungServing):
         names; a ``QuantTensor``'s data, then its scale) and stored dtypes,
         after the quant mode when it is not "off", so it equals the JAX
         ``Predictor``'s on the same checkpoint and mode.  Computed once per
-        predictor (one readback of every leaf) and cached."""
+        predictor (one readback of every leaf) and cached.  On a sharded
+        mesh the leaves are gathered whole first (a collective: every rank
+        calls it), so the digest is the one-device predictor's."""
         if self._params_digest is None:
             h = hashlib.sha1()
             if self.quant != "off":
                 h.update(self.quant.encode())
             params = self.params
+            if self.model.sharded:
+                from deeprest_tpu_torch.models.qrnn import param_shapes
+                from deeprest_tpu_torch.parallel.sharding import (
+                    gather_params,
+                )
+
+                with torch.inference_mode():
+                    params = gather_params(self.mesh, params,
+                                           param_shapes(self.model_config))
             for name in sorted(params):
                 leaf = params[name]
                 for t in (leaf if isinstance(leaf, quant_ops.QuantTensor)
@@ -576,20 +620,31 @@ class Predictor(RungServing):
                         quant: str = "off",
                         device=None,
                         recurrence: Recurrence | None = None,
-                        cuda_graphs: bool = True) -> "Predictor":
+                        cuda_graphs: bool = True,
+                        mesh_config=None) -> "Predictor":
         """Restore params and host state from a ``deeprest-sharded-v1``
         checkpoint; the architecture comes from the sidecar's
         ``model_config`` with ``feature_dim`` and ``num_metrics`` taken from
         the sidecar's data fields, as the JAX trainer sets them.
 
+        ``mesh_config`` (a ``MeshConfig`` or None) lays the serving mesh
+        under the params (``parallel.make_mesh`` on ``device``; in a job
+        every rank calls this): each rank reads only its boxes of them,
+        placed by the rule table training places them with, from a
+        checkpoint saved on any mesh.
+
         ``quant``: the first load at a mode measures the parity envelope
         and writes it next to the checkpoint (``quant_parity_<mode>.json``,
         the JAX package's file); every later load re-measures and is gated
         by the stored budget."""
+        from deeprest_tpu_torch.parallel.mesh import make_mesh
+        from deeprest_tpu_torch.parallel.sharding import box_reader
         from deeprest_tpu_torch.train.checkpoint import (
             latest_step, load_params, load_sidecar,
         )
 
+        mesh = None if mesh_config is None else make_mesh(mesh_config,
+                                                          device)
         if step is None:
             step = latest_step(directory)
             if step is None:
@@ -610,7 +665,7 @@ class Predictor(RungServing):
             with open(env_path, encoding="utf-8") as fh:
                 quant_budget = json.load(fh)
         predictor = cls(
-            params=load_params(directory, step),
+            params=load_params(directory, step, box_of=box_reader(mesh)),
             model_config=model_config,
             x_stats=MinMaxStats.from_dict(extra["x_stats"]),
             y_stats=MinMaxStats.from_dict(extra["y_stats"]),
@@ -622,7 +677,8 @@ class Predictor(RungServing):
             coalesce_pages=coalesce_pages, coalesce_groups=coalesce_groups,
             sparse_feed=sparse_feed, sparse_nnz_cap=sparse_nnz_cap,
             quant=quant, quant_budget=quant_budget,
-            device=device, recurrence=recurrence, cuda_graphs=cuda_graphs)
+            device=device, recurrence=recurrence, cuda_graphs=cuda_graphs,
+            mesh=mesh)
         if quant != "off" and quant_budget is None:
             with open(env_path, "w", encoding="utf-8") as fh:
                 json.dump({"step": step, **predictor.parity_envelope},

@@ -5,7 +5,13 @@ A checkpoint step is ``directory/step_NNNNNNNN/`` holding ``manifest.json``
 (every leaf's "/"-joined name, global shape, dtype and shard files with
 their global index boxes), one ``.npy`` per shard under ``arrays/``, and
 the ``host_state.json`` sidecar (normalization stats, metric names, model
-config).  Dtypes that ``.npy`` cannot hold, such as bfloat16, are stored as
+config).  Writes are per shard, as JAX's: on a mesh each rank writes its
+box of each leaf (``parallel/sharding.py``), a leaf replicated on an axis
+only from coordinate 0 of that axis, so every distinct box is written
+once; after a barrier rank 0 writes the manifest of all boxes and
+publishes the step.  A read cuts whatever box it asks for from whatever
+boxes are on disk, so a checkpoint saved on any mesh restores on any
+other, in either package.  Dtypes that ``.npy`` cannot hold, such as bfloat16, are stored as
 a same-width unsigned integer view with the real dtype named in the
 manifest; the reader turns them back into torch tensors without ml_dtypes.
 
@@ -33,6 +39,11 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from deeprest_tpu_torch.parallel.sharding import (
+    all_boxes, rank_box, replica_writer, spec_of,
+)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _SIDECAR = "host_state.json"
@@ -96,42 +107,66 @@ def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(signed).view(_TORCH_DTYPES[dtype_name])
 
 
-def _assemble(arrays_dir: str, entry: dict) -> torch.Tensor:
-    """The whole of one saved leaf from whatever shard boxes are on disk."""
+def _intersect(a, b):
+    """Overlap of two ``[[lo, hi], ...]`` boxes → (slices relative to
+    ``a``'s origin, slices relative to ``b``'s) or None."""
+    dst, src = [], []
+    for (alo, ahi), (blo, bhi) in zip(a, b):
+        lo, hi = max(alo, blo), min(ahi, bhi)
+        if lo >= hi:
+            return None
+        dst.append(slice(lo - alo, hi - alo))
+        src.append(slice(lo - blo, hi - blo))
+    return tuple(dst), tuple(src)
+
+
+def _assemble(arrays_dir: str, entry: dict, box=None) -> torch.Tensor:
+    """The ``box`` (``[(lo, hi), ...]``; None: the whole) of one saved leaf
+    from whatever shard boxes are on disk."""
     shape = tuple(entry["shape"])
+    box = [(0, d) for d in shape] if box is None else [tuple(b) for b in box]
+    out_shape = tuple(hi - lo for lo, hi in box)
     out = None
     filled = 0
     for shard in entry["shards"]:
+        hit = _intersect(box, shard["index"])
+        if hit is None:
+            continue
         fpath = os.path.join(arrays_dir, shard["file"])
         try:
-            data = np.load(fpath)
+            data = np.load(fpath, mmap_mode="r")
         except (ValueError, OSError, EOFError) as exc:
             raise ValueError(
                 f"checkpoint shard {shard['file']!r} of leaf "
                 f"{entry['name']!r} is truncated or corrupt ({exc})") from exc
-        box = tuple(slice(lo, hi) for lo, hi in shard["index"])
         expect = tuple(hi - lo for lo, hi in shard["index"])
         if data.shape != expect:
             raise ValueError(
                 f"checkpoint shard {shard['file']!r} of leaf "
                 f"{entry['name']!r} has shape {data.shape}, the manifest "
                 f"says {expect}")
+        dst, src = hit
         if out is None:
-            out = np.empty(shape, data.dtype)
-        out[box] = data
-        filled += int(np.prod(expect, dtype=np.int64))
-    if out is None or filled != int(np.prod(shape, dtype=np.int64)):
+            out = np.empty(out_shape, data.dtype)
+        out[dst] = data[src]
+        filled += int(np.prod([s.stop - s.start for s in dst],
+                              dtype=np.int64))
+    if out is None or filled != int(np.prod(out_shape, dtype=np.int64)):
         raise ValueError(f"checkpoint leaf {entry['name']!r}: its shards "
-                         f"cover {filled} of {int(np.prod(shape))} elements")
+                         f"cover {filled} of {int(np.prod(out_shape))} "
+                         "elements")
     return _to_torch(out, entry["dtype"])
 
 
 def load_leaves(directory: str, step: int | None = None,
-                prefix: str = "") -> dict[str, torch.Tensor]:
+                prefix: str = "", box_of=None) -> dict[str, torch.Tensor]:
     """Every leaf of one checkpoint step whose "/"-joined name starts with
     ``prefix``, by its name with the prefix cut, as CPU tensors in their
-    stored dtypes.  A shard that is missing, torn or short raises
-    ValueError naming its leaf."""
+    stored dtypes.  ``box_of(name, shape)`` (the leaf's full name and
+    global shape → a ``[(lo, hi), ...]`` box, or None for the whole) cuts
+    each leaf's box from the boxes on disk, a rank's restore on a mesh.
+    A shard that is missing, torn or short raises ValueError naming its
+    leaf."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -143,16 +178,19 @@ def load_leaves(directory: str, step: int | None = None,
         raise ValueError(f"unknown checkpoint format "
                          f"{manifest.get('format')!r} at {path}")
     arrays_dir = os.path.join(path, "arrays")
-    return {e["name"][len(prefix):]: _assemble(arrays_dir, e)
+    return {e["name"][len(prefix):]: _assemble(
+                arrays_dir, e,
+                None if box_of is None else box_of(e["name"],
+                                                   tuple(e["shape"])))
             for e in manifest["leaves"] if e["name"].startswith(prefix)}
 
 
-def load_params(directory: str, step: int | None = None
+def load_params(directory: str, step: int | None = None, box_of=None
                 ) -> dict[str, torch.Tensor]:
     """The ``params/*`` leaves of one checkpoint step, by leaf name
     (``mask_w1``, ``gru_fwd_w_ih``, ...), as CPU tensors in their stored
-    dtypes."""
-    params = load_leaves(directory, step, _PARAMS)
+    dtypes; ``box_of`` as for :func:`load_leaves`."""
+    params = load_leaves(directory, step, _PARAMS, box_of)
     if not params:
         raise ValueError(f"checkpoint under {directory!r} holds no params/* "
                          "leaves")
@@ -246,45 +284,85 @@ def _write_json(path: str, obj: Any, **kwargs) -> None:
         os.fsync(fh.fileno())
 
 
+def _shard_file(ord_: int, leaf: str, box) -> str:
+    safe = re.sub(r"[^A-Za-z0-9_.-]+", "-", leaf).strip("-") or "leaf"
+    start = "_".join(str(lo) for lo, _ in box) if box else "scalar"
+    return f"{ord_:03d}.{safe}.{start}.npy"
+
+
 def save_checkpoint(directory: str, params: Mapping[str, Any], step: int,
                     extra: dict | None = None,
-                    other_leaves: Mapping[str, Any] | None = None) -> str:
+                    other_leaves: Mapping[str, Any] | None = None,
+                    mesh=None,
+                    shapes: Mapping[str, tuple] | None = None) -> str:
     """Write ``directory/step_NNNNNNNN/`` with ``params/<name>`` leaves,
     ``other_leaves`` under their own "/"-joined names, and the sidecar
     ``extra``.  Staged under ``.tmp`` and renamed, with every file fsynced
-    first, so a crash leaves no step or a whole one."""
+    first, so a crash leaves no step or a whole one.
+
+    On a ``mesh`` with a process group every rank calls this with its
+    boxes of the leaves (``shapes`` gives each leaf's global shape by its
+    full name, default the value's own): each rank writes the boxes it
+    owns (:func:`parallel.sharding.replica_writer`), and rank 0 writes the
+    manifest of every box, the sidecar, and publishes the step between
+    barriers."""
+    group = None if mesh is None else mesh.group
+    chief = group is None or mesh.rank == 0
     path = _step_dir(directory, step)
     tmp = path + ".tmp"
     arrays_dir = os.path.join(tmp, "arrays")
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(arrays_dir)
+    if chief:
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(arrays_dir)
+    if group is not None:
+        dist.barrier(group=group)
     named = {_PARAMS + name: value for name, value in params.items()}
     named.update(other_leaves or {})
+    shapes = shapes or {}
     leaves = []
     for ord_, (leaf, value) in enumerate(sorted(named.items())):
         arr, dtype_name = _storage(value)
         arr = np.ascontiguousarray(arr) if arr.ndim else arr
-        safe = re.sub(r"[^A-Za-z0-9_.-]+", "-", leaf).strip("-") or "leaf"
-        start = "_".join("0" for _ in arr.shape) if arr.ndim else "scalar"
-        fname = f"{ord_:03d}.{safe}.{start}.npy"
-        fpath = os.path.join(arrays_dir, fname)
-        np.save(fpath, arr)
-        _fsync(fpath)
-        leaves.append({"name": leaf, "shape": list(arr.shape),
+        shape = tuple(int(d) for d in shapes.get(leaf, arr.shape))
+        if mesh is None:
+            spec, mine, boxes = (), True, [tuple((0, d) for d in shape)]
+        else:
+            spec = spec_of(leaf, shape)
+            mine = replica_writer(mesh, spec)
+            boxes = all_boxes(mesh.config, spec, shape)
+        if mine:
+            box = (boxes[0] if mesh is None
+                   else rank_box(mesh, spec, shape, leaf))
+            if arr.shape != tuple(hi - lo for lo, hi in box):
+                raise ValueError(
+                    f"checkpoint leaf {leaf!r}: this rank holds shape "
+                    f"{arr.shape}, its box {box} of {shape} wants "
+                    f"{tuple(hi - lo for lo, hi in box)}")
+            fpath = os.path.join(arrays_dir, _shard_file(ord_, leaf, box))
+            np.save(fpath, arr)
+            _fsync(fpath)
+        leaves.append({"name": leaf, "shape": list(shape),
                        "dtype": dtype_name,
-                       "shards": [{"index": [[0, int(d)] for d in arr.shape],
-                                   "file": fname}]})
-    _write_json(os.path.join(tmp, _MANIFEST),
-                {"format": _FORMAT, "step": int(step), "leaves": leaves},
-                indent=1, sort_keys=True)
-    if extra is not None:
-        _write_json(os.path.join(tmp, _SIDECAR), extra, indent=2,
-                    sort_keys=True)
-    _fsync(arrays_dir)
-    _fsync(tmp)
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    os.replace(tmp, path)
-    _fsync(os.path.dirname(path))
+                       "shards": [{"index": [[lo, hi] for lo, hi in b],
+                                   "file": _shard_file(ord_, leaf, b)}
+                                  for b in boxes]})
+    if group is not None:
+        # every shard file exists before the manifest names it
+        dist.barrier(group=group)
+    if chief:
+        _write_json(os.path.join(tmp, _MANIFEST),
+                    {"format": _FORMAT, "step": int(step), "leaves": leaves},
+                    indent=1, sort_keys=True)
+        if extra is not None:
+            _write_json(os.path.join(tmp, _SIDECAR), extra, indent=2,
+                        sort_keys=True)
+        _fsync(arrays_dir)
+        _fsync(tmp)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        _fsync(os.path.dirname(path))
+    if group is not None:
+        dist.barrier(group=group)
     return path

@@ -32,7 +32,11 @@ replay:
   dropout generator.  A failed capture raises ``GraphCaptureError``
   naming the source line of the failing op; it never falls back to the
   eager loop.  A replay adds the graph's kernel launches to their counts
-  (the launch ledger).
+  (the launch ledger).  On a mesh the captured update holds the mesh's
+  collectives too (the gradient bucket's all-reduce over the data group,
+  and the model's over the expert and model groups,
+  ``parallel/collectives.py``): NCCL's capture with the update; gloo's
+  cannot, and the trainer refuses a captured superstep under gloo.
 """
 
 from __future__ import annotations

@@ -68,9 +68,19 @@ after the backward of its G microbatches and before Adam, leaves every
 rank with the global gradients: the params stay bit-equal across ranks.
 Dropout draws the global batch's mask and keeps the rank's rows.  The
 all-reduce is captured with the update under NCCL; gloo runs eagerly, and
-a captured superstep under gloo raises.  Evaluation and prediction run
-replicated on every rank; checkpoints and log lines come from rank 0.
-Without a process group nothing is reduced.
+a captured superstep under gloo raises.  Without a process group nothing
+is reduced.
+
+The expert and model axes (``parallel/sharding.py``): each rank holds its
+box of every leaf and of Adam's moments, and the model runs the mesh's
+collectives (models/qrnn.py).  An expert rank's loss covers its experts'
+target columns over the GLOBAL metric count, a share of the global loss;
+the model ranks compute the same loss.  So the gradients come out whole
+on each rank up to the data axis: the one flat bucket is all-reduced over
+the data group, and the losses over the data and expert groups.
+Evaluation and prediction all-gather the expert axis, so every rank holds
+``[..., E, Q]``; checkpoints are written per shard by every rank
+(train/checkpoint.py), log lines come from rank 0.
 
 Not ported yet: elastic remeshing (ROADMAP item 6c).
 """
@@ -172,9 +182,9 @@ class Trainer:
     ``ops.cuda_gru.gru_recurrence_reference`` to train through the plain
     version on a CUDA device, differentiated by torch autograd).
 
-    ``mesh`` (``parallel.make_mesh``) is this rank's data-parallel mesh;
-    None builds it from ``config.mesh`` on ``device``: without a process
-    group, the one-process mesh, which reduces nothing.
+    ``mesh`` (``parallel.make_mesh``) is this rank's mesh; None builds it
+    from ``config.mesh`` on ``device``: without a process group, the
+    one-process mesh, which reduces nothing.
 
     Counters: ``dispatches`` (optimizer updates run: graph replays plus
     eager updates), ``captures`` (CUDA graphs captured), ``replays`` and
@@ -199,9 +209,27 @@ class Trainer:
         self.device = mesh.device
         # this rank's rows of every global batch, and of its dropout mask
         bs, data = config.train.batch_size, mesh.config.data
-        self._rows = process_batch_slice(bs, mesh.rank, data)
+        self._rows = process_batch_slice(bs, mesh.coords["data"], data)
         self._dropout_rows = (None if data == 1 else
                               (bs, self._rows.start, self._rows.stop))
+        # this rank's experts (target columns) and the loss's metric count
+        e = self.model_config.num_metrics
+        self._experts = None
+        self._loss_kw: dict = {}
+        if mesh.config.expert > 1 or mesh.config.model > 1:
+            from deeprest_tpu_torch.models.qrnn import param_shapes
+            from deeprest_tpu_torch.parallel.sharding import (
+                rank_box, spec_of,
+            )
+
+            # every leaf's placement first: an axis that does not divide
+            # what it shards raises here, naming the leaf
+            for name, shape in param_shapes(self.model_config).items():
+                rank_box(mesh, spec_of(name, shape), shape, name)
+            ((lo, hi),) = rank_box(mesh, ("expert",), (e,), "metrics")
+            if mesh.config.expert > 1:
+                self._experts = slice(lo, hi)
+                self._loss_kw = {"num_metrics": e}
         from deeprest_tpu_torch.obs import metrics as obs_metrics
 
         obs_metrics.REGISTRY.gauge(
@@ -271,7 +299,8 @@ class Trainer:
         if params is None:
             seed = self.config.train.seed if seed is None else seed
             params = init_params(self.model_config, seed)
-        model = QuantileGRU(self.model_config, device=self.device)
+        model = QuantileGRU(self.model_config, device=self.device,
+                            mesh=self.mesh)
         model.load_params(params)
         model.requires_grad_(True)
         opt = torch.optim.Adam(model.parameters(),
@@ -282,9 +311,11 @@ class Trainer:
 
     def restore_state(self, directory: str, step: int | None = None
                       ) -> tuple[TrainState, dict | None]:
-        """The full train state of a checkpoint either package wrote:
-        params, ``step``, Adam's moments (``opt_state/0/{mu,nu}/*``) and
-        count (``opt_state/0/count``), and the sidecar."""
+        """The full train state of a checkpoint either package wrote, on
+        any mesh: params, ``step``, Adam's moments (``opt_state/0/{mu,nu}/*``)
+        and count (``opt_state/0/count``), and the sidecar.  On a mesh each
+        rank reads only its boxes (``parallel.sharding.box_reader``)."""
+        from deeprest_tpu_torch.parallel.sharding import box_reader
         from deeprest_tpu_torch.train.checkpoint import (
             latest_step, load_leaves, load_sidecar,
         )
@@ -293,7 +324,7 @@ class Trainer:
             step = latest_step(directory)
             if step is None:
                 raise FileNotFoundError(f"no checkpoints under {directory!r}")
-        leaves = load_leaves(directory, step)
+        leaves = load_leaves(directory, step, box_of=box_reader(self.mesh))
         params = {k[len("params/"):]: v for k, v in leaves.items()
                   if k.startswith("params/")}
         state = self.init_state(params)
@@ -312,6 +343,17 @@ class Trainer:
                 }
         state.step = int(leaves["step"])
         return state, load_sidecar(directory, step, missing_ok=True)
+
+    def _own(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's experts' columns of targets ``[..., E]``."""
+        return y if self._experts is None else y[..., self._experts]
+
+    def _gather_experts(self, preds: torch.Tensor) -> torch.Tensor:
+        """Every expert rank's predictions ``[..., E/e, Q]`` → ``[..., E,
+        Q]`` on each rank."""
+        from deeprest_tpu_torch.parallel.collectives import gather_along
+
+        return gather_along(preds, -2, self.mesh.expert_group)
 
     # ------------------------------------------------------------------
 
@@ -501,11 +543,11 @@ class Trainer:
             preds = model(xb.reshape(g, b, *xb.shape[1:]),
                           deterministic=False, generator=self._dropout(step, 0),
                           recurrence=self.recurrence, dropout_rows=rows)
-            yb = yb.reshape(g, b, *yb.shape[1:])
+            yb = self._own(yb.reshape(g, b, *yb.shape[1:]))
             losses = torch.stack([
                 pinball_loss(preds[i], yb[i], quantiles,
                              sample_weight=weights[i], allow_empty=True,
-                             weight_sum=den[i])
+                             weight_sum=den[i], **self._loss_kw)
                 for i in range(g)])
             losses.sum().backward()
         elif mode == "exact":
@@ -518,9 +560,10 @@ class Trainer:
                 preds = model(xb, deterministic=False,
                               generator=self._dropout(step, i),
                               recurrence=self.recurrence, dropout_rows=rows)
-                loss = pinball_loss(preds, yb, quantiles,
+                loss = pinball_loss(preds, self._own(yb), quantiles,
                                     sample_weight=weights[i],
-                                    allow_empty=g > 1, weight_sum=den[i])
+                                    allow_empty=g > 1, weight_sum=den[i],
+                                    **self._loss_kw)
                 loss.backward()
                 losses.append(loss.detach())
             losses = torch.stack(losses)
@@ -531,19 +574,24 @@ class Trainer:
     def _all_reduce(self, state: TrainState,
                     losses: torch.Tensor) -> torch.Tensor:
         """Sum every rank's gradients (in place) and ``[G]`` losses over
-        the mesh's process group in one flat f32 bucket; returns the
-        global losses.  Each rank's loss is its share of the global loss,
-        so the sum is the global gradient.  A no-op without a group."""
-        if self.mesh.group is None:
-            return losses
-        grads = [p.grad for p in state.model.parameters()]
-        bucket = torch.cat([gr.reshape(-1) for gr in grads] + [losses])
-        dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=self.mesh.group)
-        lo = 0
-        for gr in grads:
-            gr.copy_(bucket[lo:lo + gr.numel()].view_as(gr))
-            lo += gr.numel()
-        return bucket[lo:]
+        the mesh's data group in one flat f32 bucket, then the losses over
+        the expert group; returns the global losses.  Each data (and
+        expert) rank's loss is its share of the global loss, and the mesh's
+        collectives leave each leaf's gradient whole up to the data axis,
+        so the sum is the global gradient.  A no-op without groups."""
+        data, expert = self.mesh.data_group, self.mesh.expert_group
+        if data is not None:
+            grads = [p.grad for p in state.model.parameters()]
+            bucket = torch.cat([gr.reshape(-1) for gr in grads] + [losses])
+            dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=data)
+            lo = 0
+            for gr in grads:
+                gr.copy_(bucket[lo:lo + gr.numel()].view_as(gr))
+                lo += gr.numel()
+            losses = bucket[lo:]
+        if expert is not None:
+            dist.all_reduce(losses, op=dist.ReduceOp.SUM, group=expert)
+        return losses
 
     def _exact_grads(self, state: TrainState, staged, starts, weights,
                      den, step: int) -> torch.Tensor:
@@ -554,7 +602,7 @@ class Trainer:
         (the JAX trainer's ``_accum_grads_exact``).  Sets ``.grad``;
         returns the ``[G]`` losses."""
         params = state.model.params()
-        folded = fold_feature_mask(params)
+        folded = fold_feature_mask(params, state.model.model_group)
         # what the model reads under mask_folded: all but the mask's params
         names = [n for n in folded if n not in MASK_PARAM_NAMES]
         masked = [n for n in MASKED_PARAM_NAMES if n in folded]
@@ -569,9 +617,9 @@ class Trainer:
                                 mask_folded=True, params=folded,
                                 recurrence=self.recurrence,
                                 dropout_rows=self._dropout_rows)
-            loss = pinball_loss(preds, yb, self._quantiles,
+            loss = pinball_loss(preds, self._own(yb), self._quantiles,
                                 sample_weight=weights[i], allow_empty=True,
-                                weight_sum=den[i])
+                                weight_sum=den[i], **self._loss_kw)
             grads = dict(zip(names, torch.autograd.grad(
                 loss, [folded[n] for n in names])))
             through = torch.autograd.grad(
@@ -963,7 +1011,8 @@ class Trainer:
                         bundle.y_test[sel])).to(self.device)
                 else:
                     xb, yb = self._windows(staged, bundle.split + sel)
-                p = state.model(xb, recurrence=self.recurrence)
+                p = self._gather_experts(
+                    state.model(xb, recurrence=self.recurrence))
                 loss = pinball_loss(p, yb, self._quantiles)
                 preds_chunks.append(p.float().cpu().numpy())
                 loss_terms.append(loss.float() * len(sel))
@@ -1090,24 +1139,19 @@ class Trainer:
     def save(self, directory: str, state: TrainState, bundle: DatasetBundle,
              extra_host_state: Mapping[str, Any] | None = None) -> str:
         """Checkpoint the state plus the host-side stats needed to serve.
-        Under a process group rank 0 writes it, then every rank passes a
-        barrier: the params are replicated, so one copy is the checkpoint.
+        Under a process group every rank calls it: each writes the boxes
+        of the leaves it owns (a leaf replicated on an axis from that
+        axis's coordinate 0 only), rank 0 the manifest and the sidecar
+        (train/checkpoint.py).
 
-        The leaves carry the JAX ``TrainState`` names, so the JAX
-        package's ``Predictor.from_checkpoint`` and
-        ``Trainer.resume_training`` restore the checkpoint as well as the
-        port's: ``params/*``, ``step``, Adam's moments and count in optax's
-        layout (``opt_state/0/{mu,nu}/*``, ``opt_state/0/count``), and
-        ``rng``, which holds the port's train seed (the port's dropout
-        stream is not JAX's).
+        The leaves carry the JAX ``TrainState`` names
+        (:meth:`state_leaves`), so the JAX package's
+        ``Predictor.from_checkpoint`` and ``Trainer.resume_training``
+        restore the checkpoint as well as the port's.
         """
-        from deeprest_tpu_torch.train.checkpoint import (
-            _step_dir, save_checkpoint,
-        )
+        from deeprest_tpu_torch.models.qrnn import param_shapes
+        from deeprest_tpu_torch.train.checkpoint import save_checkpoint
 
-        if not self.is_chief:
-            dist.barrier(group=self.mesh.group)
-            return _step_dir(directory, state.step)
         extra = {
             "metric_names": bundle.metric_names,
             "x_stats": bundle.x_stats.to_dict(),
@@ -1126,11 +1170,30 @@ class Trainer:
                     f"extra_host_state would overwrite reserved sidecar "
                     f"keys: {sorted(clash)}")
             extra.update(extra_host_state)
+        leaves = self.state_leaves(state)
+        params = {k[len("params/"):]: leaves.pop(k) for k in list(leaves)
+                  if k.startswith("params/")}
+        shapes = {}
+        for name, shape in param_shapes(self.model_config).items():
+            for pre in ("params/", "opt_state/0/mu/", "opt_state/0/nu/"):
+                shapes[pre + name] = shape
+        return save_checkpoint(directory, params, state.step, extra,
+                               other_leaves=leaves, mesh=self.mesh,
+                               shapes=shapes)
+
+    def state_leaves(self, state: TrainState) -> dict[str, Any]:
+        """Every leaf of ``state`` by the JAX ``TrainState``'s "/"-joined
+        name (this rank's boxes on a mesh): ``params/*``, ``step``,
+        Adam's moments and count in optax's layout
+        (``opt_state/0/{mu,nu}/*``, ``opt_state/0/count``), and ``rng``,
+        which holds the port's train seed (the port's dropout stream is
+        not JAX's).  What :meth:`save` writes and the rule table
+        places."""
         leaves: dict[str, Any] = {
-            "step": np.asarray(state.step, np.int32),
-            "rng": np.asarray([0, self.config.train.seed & 0xFFFFFFFF],
-                              np.uint32),
-        }
+            f"params/{name}": p for name, p in state.params.items()}
+        leaves["step"] = np.asarray(state.step, np.int32)
+        leaves["rng"] = np.asarray([0, self.config.train.seed & 0xFFFFFFFF],
+                                   np.uint32)
         count = 0
         for name, p in state.model.named_parameters():
             moments = state.optimizer.state.get(p, {})
@@ -1141,11 +1204,7 @@ class Trainer:
             if "step" in moments:
                 count = int(moments["step"])
         leaves["opt_state/0/count"] = np.asarray(count, np.int32)
-        path = save_checkpoint(directory, state.params, state.step, extra,
-                               other_leaves=leaves)
-        if self.mesh.group is not None:
-            dist.barrier(group=self.mesh.group)
-        return path
+        return leaves
 
     # ------------------------------------------------------------------
 
@@ -1157,6 +1216,7 @@ class Trainer:
             for lo in range(0, len(x), batch_size):
                 xb = torch.from_numpy(np.ascontiguousarray(
                     x[lo:lo + batch_size], np.float32)).to(self.device)
-                outs.append(state.model(xb, recurrence=self.recurrence)
-                            .float().cpu().numpy())
+                outs.append(self._gather_experts(
+                    state.model(xb, recurrence=self.recurrence))
+                    .float().cpu().numpy())
         return np.concatenate(outs, axis=0)

@@ -14,6 +14,12 @@ repository's conftest imports JAX, which the GPU machine does not have):
   sharded-training tolerances of world size 1 (losses rtol 2e-3, atol
   1e-5; params rtol 5e-3, atol 1e-4); a captured superstep under gloo
   raises.
+- The expert and model axes, gloo at world size 2 on the one card: mesh
+  1x2x1 with E=40 (K2 and K3 at 20 experts a rank, two launches a step,
+  one a direction, on each rank) within the same tolerances of world size 1, its checkpoint
+  saved per shard; the Predictor on mesh 1,1,2 (eager; captured rung
+  graphs under gloo raise) within 1e-4 of scale of the one-process
+  captured answer on that checkpoint, the same on both ranks.
 """
 
 import multiprocessing
@@ -53,12 +59,12 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def corpus() -> FeaturizedData:
+def corpus(metrics: int = E) -> FeaturizedData:
     rng = np.random.default_rng(0)
     traffic = rng.poisson(5.0, (T, F)).astype(np.float32)
     resources = {f"c{i}_cpu": (traffic @ rng.uniform(0.0, 1.0, F)
                                + rng.normal(0.0, 1.0, T)).astype(np.float32)
-                 for i in range(E)}
+                 for i in range(metrics)}
     space = {"config": {"capacity": 0, "round_to": 8,
                         "hash_features": False, "hash_seed": 0},
              "vocabulary": [["s", f"/op{j}"] for j in range(F)],
@@ -68,7 +74,7 @@ def corpus() -> FeaturizedData:
                           space=CallPathSpace.from_dict(space))
 
 
-def train(mesh, compute, dropout, superstep, epochs=2):
+def train(mesh, compute, dropout, superstep, epochs=2, metrics=E):
     """``epochs`` epochs (115 train windows at B=16: 8 steps, the last
     with 3 real rows) on ``mesh``; returns (trainer, state, losses)."""
     cfg = Config(model=ModelConfig(hidden_size=H, dropout_rate=dropout,
@@ -76,7 +82,7 @@ def train(mesh, compute, dropout, superstep, epochs=2):
                  train=TrainConfig(batch_size=16, window_size=W,
                                    steps_per_superstep=superstep,
                                    log_every_steps=0))
-    bundle = prepare_dataset(corpus(), cfg.train)
+    bundle = prepare_dataset(corpus(metrics), cfg.train)
     trainer = Trainer(cfg, F, bundle.metric_names, mesh=mesh)
     state = trainer.init_state(init_params(trainer.model_config, 0))
     staged = trainer.stage_dataset(bundle)
@@ -161,3 +167,96 @@ def test_gloo_world_size_2_on_one_card(cuda, tmp_path):
                                    rtol=5e-3, atol=1e-4)
     assert "gloo's collectives cannot be captured" in str(
         ranks[0]["refusal"])
+
+
+AXES_E = 40
+
+
+def whole_params(trainer, state) -> dict:
+    from deeprest_tpu_torch.models.qrnn import param_shapes
+    from deeprest_tpu_torch.parallel.sharding import gather_params
+
+    full = gather_params(trainer.mesh, state.params,
+                         param_shapes(trainer.model_config))
+    return {k: v.detach().float().cpu().numpy() for k, v in full.items()}
+
+
+def axes_rank_main(rank: int, port: int, ckpt: str, out: str) -> None:
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    mesh = make_mesh(MeshConfig(expert=2), device="cuda")
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    trainer, state, losses = train(mesh, "float32", 0.0, 1, epochs=1,
+                                   metrics=AXES_E)
+    launches = {k.name: k.launches for k in cuda_gru.KERNELS}
+    experts = state.params["head_w"].shape[0]
+    bundle = prepare_dataset(corpus(AXES_E), trainer.config.train)
+    trainer.save(ckpt, state, bundle)
+    params = whole_params(trainer, state)
+    try:
+        Predictor.from_checkpoint(ckpt, device="cuda",
+                                  mesh_config=MeshConfig(model=2))
+        refusal = ""
+    except ValueError as exc:
+        refusal = str(exc)
+    pred = Predictor.from_checkpoint(ckpt, device="cuda", cuda_graphs=False,
+                                     mesh_config=MeshConfig(model=2))
+    answer = pred.predict_series(corpus(AXES_E).traffic)
+    np.savez(out, losses=losses, refusal=np.asarray(refusal),
+             experts=np.asarray(experts), answer=answer,
+             **{f"launches/{k}": v for k, v in launches.items()},
+             **{f"params/{k}": v for k, v in params.items()})
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_gloo_expert_and_model_axes_on_one_card(cuda, tmp_path):
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    ckpt = str(tmp_path / "ckpt")
+    outs = [str(tmp_path / f"axes{r}.npz") for r in range(2)]
+    procs = [ctx.Process(target=axes_rank_main, args=(r, port, ckpt, outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = [dict(np.load(path)) for path in outs]
+    _, st_1, l_1 = train(Mesh(MeshConfig(), 0, cuda), "float32", 0.0, 1,
+                         epochs=1, metrics=AXES_E)
+    steps = len(l_1)
+    for r in ranks:
+        assert int(r["experts"]) == AXES_E // 2
+        # one launch a direction a step
+        assert int(r["launches/gru_fwd_train"]) == 2 * steps
+        assert int(r["launches/gru_bwd"]) == 2 * steps
+        assert "gloo's collectives cannot be captured" in str(r["refusal"])
+    for key in ranks[0]:
+        if key.startswith("params/") or key in ("losses", "answer"):
+            np.testing.assert_array_equal(ranks[0][key], ranks[1][key])
+    np.testing.assert_allclose(ranks[0]["losses"], l_1, rtol=2e-3,
+                               atol=1e-5)
+    for name, value in numpy_params(st_1).items():
+        np.testing.assert_allclose(ranks[0][f"params/{name}"], value,
+                                   rtol=5e-3, atol=1e-4)
+    one = Predictor.from_checkpoint(ckpt, device="cuda")
+    want = one.predict_series(corpus(AXES_E).traffic)
+    assert ranks[0]["answer"].shape == want.shape
+    assert np.abs(ranks[0]["answer"] - want).max() \
+        <= 1e-4 * np.abs(want).max()

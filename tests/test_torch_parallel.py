@@ -7,7 +7,8 @@ process.
   device) and raises JAX's message on a batch axis the data axis does not
   divide; ``initialize_distributed`` is a no-op without configuration; the
   default mesh is pure data; ``make_mesh`` refuses a mesh the job cannot
-  lay out, and the expert and model axes (ROADMAP item 6b).
+  lay out (the expert and model axes themselves are
+  tests/test_torch_parallel_axes.py's).
 - The pinball loss's global denominator: the ranks' losses and gradients
   on their slices sum to the global ones, a rank whose rows are all
   zero-weight padding included.  Dropout's rank rows are cut from the
@@ -27,8 +28,9 @@ process.
   uninterrupted run does.
 - ``train --mesh 2,1,1`` as two CLI processes (``env://``, ``--device
   cpu``): rank 0 prints the JSON line and rank 1 only its distributed
-  line; ``--mesh`` exits on the serving commands and on a bad spec as
-  JAX's CLI does.
+  line; ``--mesh`` exits on a bad spec as JAX's CLI does, a mesh the job
+  cannot lay out exits 2, and ``serve`` on a mesh above one rank exits 2
+  naming ROADMAP item 6d.
 """
 
 import argparse
@@ -152,9 +154,17 @@ def test_default_mesh_is_pure_data_and_refusals():
                                   "available")
     assert str(port_err.value) == ("mesh 2x1x1 needs 2 devices, only 1 "
                                    "available")
-    for cfg in (MeshConfig(expert=2), MeshConfig(model=2)):
-        with pytest.raises(ValueError, match="ROADMAP item 6b"):
+    # the expert and model axes are laid out like the data axis: only a
+    # mesh of another size than the job raises
+    for cfg, name in ((MeshConfig(expert=2), "1x2x1"),
+                      (MeshConfig(model=2), "1x1x2")):
+        with pytest.raises(ValueError) as exc:
             make_mesh(cfg, device="cpu")
+        assert str(exc.value) == (f"mesh {name} needs 2 devices, only 1 "
+                                  "available")
+    assert mesh.coords == {"data": 0, "expert": 0, "model": 0}
+    assert (mesh.data_group, mesh.expert_group, mesh.model_group) == (
+        None, None, None)
 
 
 # -- the loss's global denominator, dropout's rank rows ---------------------
@@ -429,18 +439,29 @@ def test_bad_mesh_spec_exits_as_jax_cli(spec):
 
 
 def test_mesh_beyond_the_data_axis_exits_2(job, tmp_path, capsys):
+    """A mesh the job cannot lay out exits 2 from ``train`` and
+    ``predict``; ``serve`` on any mesh above one rank exits 2 naming
+    ROADMAP item 6d (the HTTP plane over a multi-rank mesh), before it
+    loads anything; ``predict --mesh 1,1,1`` runs (a multi-rank ``predict
+    --mesh`` is tests/test_torch_sharded_ckpt.py's)."""
     cli = importlib.import_module("deeprest_tpu_torch.cli")
     corpus, ckpt = job["wd"] / "corpus.npz", job["wd"] / "snap2"
     assert cli.main(["train", "--features", str(corpus), "--epochs", "1",
                      "--mesh", "1,2,1", "--device", "cpu"]) == 2
-    assert "ROADMAP item 6b" in capsys.readouterr().err
-    for cmd in (["predict", "--ckpt-dir", str(ckpt), "--features",
-                 str(corpus)],
-                ["serve", "--ckpt-dir", str(ckpt)]):
+    assert capsys.readouterr().err == ("train: mesh 1x2x1 needs 2 devices, "
+                                       "only 1 available\n")
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["predict", "--ckpt-dir", str(ckpt), "--features",
+                  str(corpus), "--mesh", "1,1,2", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert capsys.readouterr().err == ("predict: mesh 1x1x2 needs 2 "
+                                       "devices, only 1 available\n")
+    for mesh in ("2,1,1", "1,2,1", "1,1,2"):
         with pytest.raises(SystemExit) as exc:
-            cli.main(cmd + ["--mesh", "2,1,1", "--device", "cpu"])
+            cli.main(["serve", "--ckpt-dir", str(ckpt), "--mesh", mesh,
+                      "--device", "cpu"])
         assert exc.value.code == 2
-        assert "ROADMAP item 6b" in capsys.readouterr().err
+        assert "ROADMAP item 6d" in capsys.readouterr().err
     with pytest.raises(SystemExit) as exc:
         cli.main(["serve", "--artifact", "a", "--mesh", "1,1,1"])
     assert "--mesh requires --ckpt-dir" in str(exc.value.code)
