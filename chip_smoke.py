@@ -252,13 +252,26 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     within 2e-2 of scale of phase 5's captured one-process answer, the
     same on both ranks, K1 launched on each; then K2 and K3 in f32 at
     E=20, B=32 timed (recorded only);
-17. the seconds of each phase, one JSON line of per-kernel numbers, then
+17. elastic remeshing (run after phase 16), two spawned gloo processes
+    sharing the card, the flagship (B=32, T=60, F=512, E=40, H=128,
+    bidirectional, bf16, dropout 0), 10 eager steps, a cursor snapshot
+    every 2 steps, each arm in a job of its own: (a) FaultInjector({5: 1})
+    on mesh 2,1,1: rank 1 leaves with DeviceLossError, rank 0 remeshes to
+    1,1,1, restores step 4 and finishes; (b) rank 1 SIGKILLs itself from
+    on_step at step 5: rank 0 notices through gloo, takes the census of
+    the ranks that still answer (it waits out the dead one), remeshes,
+    restores and finishes; each survivor bit for bit a trainer with no
+    process group resuming from its restored step; (c) a 1,2,1 job losing
+    rank 1 raises NoValidMeshError naming the expert axis; each arm's
+    recovery seconds, restored step, K2/K3 launches and steps/s before and
+    after the loss;
+18. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11, 14, 15, 16 and the sweep of 9; a server or CLI
-process starts at 0, and phase 12 sums its workers' ledgers and phases 15
-and 16 their ranks') and
+7, 8, 12, 10, 13, 11, 14, 15, 16, 17 and the sweep of 9; a server or CLI
+process starts at 0, and phase 12 sums its workers' ledgers and phases
+15, 16 and 17 their ranks') and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -5511,6 +5524,248 @@ def phase_expert_model_axes(cuda_gru, serving: dict, times: dict,
     return out
 
 
+# Phase 17: elastic remeshing, two gloo ranks sharing the card.
+ELASTIC_ARMS = ("injector", "refusal", "sigkill")   # rank 1 dies in the last
+ELASTIC_K = 5                   # the global step of the loss, mid-epoch
+ELASTIC_SNAPSHOT_EVERY = 2
+
+
+def elastic_steps_per_sec(stamps: list) -> tuple:
+    """Steps/s before and after the loss from ``on_step``'s ``(global
+    step, host seconds)`` stamps, the remesh marked by None (a snapshot
+    write every 2 steps included): each segment from its second step on."""
+    cut = stamps.index(None) if None in stamps else len(stamps)
+
+    def rate(seg):
+        if len(seg) < 3:
+            return None
+        return (seg[-1][0] - seg[1][0]) / (seg[-1][1] - seg[1][1])
+
+    return rate(stamps[:cut]), rate(stamps[cut + 1:])
+
+
+def elastic_arm(arm: str, rank: int, feats: str, wd: str) -> dict:
+    """One arm of phase 17 on this rank (see :func:`phase_elastic`); the
+    survivor of (a) and (b) then resumes a trainer with no process group
+    from its restored snapshot and holds the two runs' params and losses
+    bit for bit."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.config import MeshConfig
+    from deeprest_tpu_torch.data.featurize import FeaturizedData
+    from deeprest_tpu_torch.models.qrnn import init_params
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.parallel import FaultInjector, make_mesh
+
+    mesh = make_mesh(MeshConfig(*((1, 2, 1) if arm == "refusal"
+                                  else (2, 1, 1))), device="cuda")
+    ckpt = os.path.join(wd, f"{arm}_snap")
+    train = dict(steps_per_superstep=1, checkpoint_dir=ckpt,
+                 snapshot_every_steps=ELASTIC_SNAPSHOT_EVERY,
+                 snapshot_keep=0, num_epochs=1)
+    data = FeaturizedData.load(feats)
+    trainer, bundle = dp_trainer(data, mesh, "bfloat16", 0.0,
+                                 SPLIT_10_STEPS, elastic=True,
+                                 remesh_backoff_ms=1.0, **train)
+    if arm != "sigkill":
+        trainer.install_fault_injector(FaultInjector({ELASTIC_K: 1}))
+    params = init_params(trainer.model_config, SEED)
+    stamps = []
+    remesh = trainer.remesh
+
+    def marked(*args, **kwargs):
+        stamps.append(None)
+        return remesh(*args, **kwargs)
+
+    trainer.remesh = marked
+
+    def on_step(global_step):
+        torch.cuda.synchronize()
+        stamps.append((global_step, time.perf_counter()))
+        if arm == "sigkill" and rank == 1 and global_step == ELASTIC_K:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    out = {"outcome": "done", "device": str(trainer.device)}
+    t0 = time.perf_counter()
+    try:
+        state, hist = trainer.fit(bundle, state=trainer.init_state(params),
+                                  on_step=on_step)
+    except Exception as exc:        # the parent holds the outcome to the arm
+        out.update(outcome=type(exc).__name__, error=str(exc))
+        state = None
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0,
+               launches={k.name: k.launches for k in cuda_gru.KERNELS},
+               history=trainer.remesh_history, stamps=stamps,
+               steps_per_sec=elastic_steps_per_sec(stamps),
+               stood_down=trainer.stood_down)
+    if state is None or trainer.stood_down:
+        return out
+    losses = trainer.last_epoch_losses
+    restored = trainer.last_remesh["restored_step"]
+    cut = os.path.join(wd, f"{arm}_cut")
+    os.makedirs(cut)
+    shutil.copytree(os.path.join(ckpt, f"step_{restored:08d}"),
+                    os.path.join(cut, f"step_{restored:08d}"))
+    ref, _ = dp_trainer(data, no_group_mesh(), "bfloat16", 0.0,
+                        SPLIT_10_STEPS, **dict(train, checkpoint_dir=cut))
+    ref_state, ref_hist = ref.resume_training(bundle, cut)
+    got = {n: p.detach().float().cpu().numpy() for n, p in
+           state.params.items()}
+    want = {n: p.detach().float().cpu().numpy() for n, p in
+            ref_state.params.items()}
+    out.update(
+        mesh=dict(trainer.mesh.shape), step=int(state.step),
+        params_equal=all(np.array_equal(got[n], want[n]) for n in want),
+        params_max_abs=max(float(np.abs(got[n] - want[n]).max())
+                           for n in want),
+        losses_equal=bool(np.array_equal(losses, ref.last_epoch_losses)),
+        test_loss=[hist[-1].test_loss, ref_hist[-1].test_loss],
+        finite=bool(all(np.isfinite(v).all() for v in got.values())
+                    and np.isfinite(losses).all()))
+    del trainer, state, ref, ref_state
+    free_device()
+    return out
+
+
+def elastic_rank_main(rank: int, ports: list, feats: str, wd: str) -> None:
+    """One rank of phase 17 (spawned): each arm in a job of its own, on
+    ``ports``, its result written to ``wd/<arm>_rank<rank>.json``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeprest_tpu_torch.parallel import initialize_distributed
+    from deeprest_tpu_torch.parallel.distributed import leave_job
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arm, port in zip(ELASTIC_ARMS, ports):
+        initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                               world_size=2, rank=rank, backend="gloo",
+                               device="cuda")
+        result = elastic_arm(arm, rank, feats, wd)
+        with open(os.path.join(wd, f"{arm}_rank{rank}.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(result, fh)
+        leave_job()
+
+
+def phase_elastic(cuda_gru, workdir: str) -> dict:
+    """Phase 17: elastic remeshing (run after phase 16), two spawned gloo
+    ranks sharing the card, the flagship (B=32, T=60, F=512, E=40, H=128,
+    bidirectional, bf16, dropout 0), 10 eager steps, a cursor snapshot
+    every 2, the loss at step 5: (a) ``FaultInjector({5: 1})`` on mesh
+    2,1,1: rank 1 leaves with DeviceLossError, rank 0 remeshes to 1,1,1
+    and finishes; (b) rank 1 SIGKILLs itself from ``on_step`` at step 5:
+    rank 0 notices through gloo, takes the census, remeshes, restores and
+    finishes; each survivor bit for bit ``resume_training`` with no process
+    group from its restored step; (c) a 1,2,1 job losing rank 1 raises
+    NoValidMeshError naming the expert axis on rank 0."""
+    import multiprocessing
+
+    wd = os.path.join(workdir, "elastic")
+    os.makedirs(wd)
+    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+    ctx = multiprocessing.get_context("spawn")
+    ports = [free_port() for _ in ELASTIC_ARMS]
+    procs = [ctx.Process(target=elastic_rank_main,
+                         args=(r, ports, feats, wd)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    if [p.exitcode for p in procs] != [0, -9]:
+        fail(f"phase 17's ranks exited {[p.exitcode for p in procs]}; want "
+             "[0, -9] (rank 1 SIGKILLs itself in the last arm)")
+    arms = {}
+    for arm in ELASTIC_ARMS:
+        ranks = []
+        for r in range(2):
+            path = os.path.join(wd, f"{arm}_rank{r}.json")
+            if os.path.exists(path):
+                with open(path, encoding="utf-8") as fh:
+                    ranks.append(json.load(fh))
+            else:
+                ranks.append(None)
+        arms[arm] = ranks
+    launches = dict.fromkeys((k.name for k in cuda_gru.MODEL_KERNELS), 0)
+    out = {"wall": wall}
+    for arm, ranks in arms.items():
+        for res in ranks:
+            if res is not None:
+                for name in launches:
+                    launches[name] += res["launches"][name]
+        r0, r1 = ranks
+        hist = r0["history"]
+        before, after = r0["steps_per_sec"]
+        print(f"check elastic {arm} (gloo world size 2 on one card; "
+              f"flagship bf16, dropout 0, loss at step {ELASTIC_K}): rank 0 "
+              f"{r0['outcome']}, rank 1 "
+              f"{'SIGKILLed' if r1 is None else r1['outcome']}; remeshes "
+              f"{hist}; K2/K3 launches rank 0 "
+              f"{r0['launches']['gru_fwd_train']}/{r0['launches']['gru_bwd']}"
+              + ("" if r1 is None else
+                 f", rank 1 {r1['launches']['gru_fwd_train']}/"
+                 f"{r1['launches']['gru_bwd']}")
+              + f"; steps/s before {before} after {after} (host clock "
+              f"between on_step calls, snapshot writes included); "
+              f"{r0['seconds']:.2f} s", flush=True)
+        if arm == "refusal":
+            if r0["outcome"] != "NoValidMeshError" \
+                    or "expert" not in r0.get("error", ""):
+                fail(f"the 1,2,1 job that lost rank 1 gave {r0['outcome']} "
+                     f"({r0.get('error')}) on rank 0, not NoValidMeshError "
+                     "naming the expert axis")
+            out[arm] = {"error": r0["error"], "seconds": r0["seconds"]}
+            continue
+        print(f"check elastic {arm} survivor vs resume_training with no "
+              f"process group from step {hist[0]['restored_step'] if hist else None}: "
+              f"params bit-identical {r0.get('params_equal')} (max abs "
+              f"{r0.get('params_max_abs')}), last epoch's losses equal "
+              f"{r0.get('losses_equal')}, test loss {r0.get('test_loss')}",
+              flush=True)
+        if r0["outcome"] != "done" or len(hist) != 1 \
+                or hist[0]["mesh"] != {"data": 1, "expert": 1, "model": 1}:
+            fail(f"elastic {arm}: rank 0 {r0['outcome']} "
+                 f"({r0.get('error')}), remeshes {hist}; want one remesh "
+                 "to 1,1,1 and a finished run")
+        if arm == "injector" and (r1 is None
+                                  or r1["outcome"] != "DeviceLossError"):
+            fail("elastic injector: rank 1 did not leave with "
+                 "DeviceLossError")
+        if not (r0["params_equal"] and r0["losses_equal"] and r0["finite"]
+                and r0["step"] == 10):
+            fail(f"elastic {arm}: the survivor parts from resume_training "
+                 "from its restored step, or its run is not finite or "
+                 "complete")
+        if r0["launches"]["gru_fwd_train"] == 0 \
+                or r0["launches"]["gru_bwd"] == 0:
+            fail(f"elastic {arm}: K2 or K3 never launched on the survivor")
+        out[arm] = {"recovery_s": hist[0]["recovery_s"],
+                    "restored_step": hist[0]["restored_step"],
+                    "steps_per_sec": [before, after],
+                    "seconds": r0["seconds"],
+                    "launches": r0["launches"]}
+    print(f"main elastic phase: launches {launches}; {wall:.1f} s wall for "
+          f"the job with its spawn", flush=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -5583,6 +5838,7 @@ def main() -> int:
         dp = timed("data axis", phase_data_parallel, cuda_gru, wd, host)
         axes = timed("expert and model axes", phase_expert_model_axes,
                      cuda_gru, serving, times, wd)
+        elastic = timed("elastic remeshing", phase_elastic, cuda_gru, wd)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)
@@ -5602,6 +5858,8 @@ def main() -> int:
     for name, count in dp["launches"].items():
         launches[name] += count
     for name, count in axes["launches"].items():
+        launches[name] += count
+    for name, count in elastic["launches"].items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -5649,7 +5907,9 @@ def main() -> int:
           f"{host['launches']}; data axis (NCCL world size 1, both gloo "
           f"ranks, the --mesh CLI) {dp['launches']}; expert and model "
           f"axes (both gloo ranks: training on 1x2x1 and 1x1x2, the "
-          f"Predictor on both) {axes['launches']}; tuning sweep "
+          f"Predictor on both) {axes['launches']}; elastic remeshing "
+          f"(both gloo ranks, all three arms) {elastic['launches']}; "
+          f"tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     print(f"seconds per phase {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -64,8 +64,12 @@ CLI's exits on a bad spec: ``train``, ``predict``, ``whatif`` and
 variables first and lay the ``data×expert×model`` mesh over its ranks
 (rank 0 prints and writes; the other ranks print only their
 ``distributed:`` line).  ``serve`` takes a mesh of size 1; a larger one
-exits 2 (an HTTP plane over a multi-rank mesh is ROADMAP item 6d).  Elastic
-remeshing (``stream --elastic`` exits 2) is not ported.  The what-if demo
+exits 2 (an HTTP plane over a multi-rank mesh is ROADMAP item 6d).
+``train --elastic`` and ``stream --elastic`` survive the loss of ranks
+in-process (elastic remeshing; ``--remesh-max-attempts``,
+``--remesh-backoff-ms``): their JSON lines carry ``remeshes``, and a rank
+the shrunk mesh leaves out prints one line with ``stood_down`` and exits
+0.  ``stream`` joins the job too (rank 0 reads the source).  The what-if demo
 is ``python -m deeprest_tpu_torch.demo precompute|serve`` (demo/).
 """
 
@@ -124,6 +128,30 @@ def _require_input(args, features_ok: bool = True):
         sys.exit("error: provide --raw" + (" or --features" if features_ok else ""))
 
 
+def _add_elastic_args(p: argparse.ArgumentParser, streaming: bool = False):
+    what = ("the interrupted refresh defers through the remesh and "
+            "completes (never dropped)" if streaming else
+            "the continuation is bit-identical to killing the process "
+            "and resuming on the survivor mesh")
+    p.add_argument("--elastic", action="store_true",
+                   help="survive device loss IN-PROCESS (elastic "
+                        "remeshing): catch device-loss failures at the "
+                        "step dispatch, shrink the mesh's data axis over "
+                        "the surviving devices (expert/model preserved), "
+                        "restore the newest cursor snapshot through the "
+                        "cross-mesh assembly, and continue — "
+                        f"{what}; requires --snapshot-every-steps >= 1")
+    p.add_argument("--remesh-max-attempts", type=int, default=3,
+                   metavar="N",
+                   help="device losses one run may recover from before "
+                        "the barrier surfaces the failure instead of "
+                        "respinning (default 3)")
+    p.add_argument("--remesh-backoff-ms", type=float, default=100.0,
+                   metavar="MS",
+                   help="backoff slept before each remesh rebuild, "
+                        "scaled by the attempt number (default 100)")
+
+
 def _add_mesh_arg(p: argparse.ArgumentParser, serving: bool = False):
     extra = (" (serving: shardings resolve from the same partition-rule "
              "table training places params with — parallel/sharding.py; a "
@@ -173,9 +201,9 @@ def _on_job(fn, args) -> int:
         return fn(args)
     finally:
         if joined:
-            import torch.distributed as dist
+            from deeprest_tpu_torch.parallel.distributed import leave_job
 
-            dist.destroy_process_group()
+            leave_job()
 
 
 def _is_chief(pred) -> bool:
@@ -490,6 +518,7 @@ def _train(args) -> int:
         Config, MeshConfig, ModelConfig, TrainConfig,
     )
     from deeprest_tpu_torch.models.baselines import baseline_predictions
+    from deeprest_tpu_torch.parallel.elastic import DeviceLossError
     from deeprest_tpu_torch.train.data import prepare_dataset
     from deeprest_tpu_torch.train.metrics import format_report
     from deeprest_tpu_torch.train.trainer import Trainer
@@ -508,25 +537,31 @@ def _train(args) -> int:
     t0 = time.perf_counter()
     data = _load_features(args)
     seconds = {"load": time.perf_counter() - t0}
-    cfg = Config(
-        model=ModelConfig(hidden_size=args.hidden_size,
-                          dropout_rate=args.dropout,
-                          compute_dtype=args.compute_dtype),
-        train=TrainConfig(num_epochs=args.epochs, batch_size=args.batch_size,
-                          window_size=args.window, learning_rate=args.lr,
-                          train_split=args.split, seed=args.seed,
-                          eval_stride=args.window,
-                          checkpoint_dir=args.ckpt_dir or "",
-                          device_data=args.device_data,
-                          steps_per_superstep=args.steps_per_superstep,
-                          grad_accum_windows=args.grad_accum_windows,
-                          grad_accum_mode=args.grad_accum_mode,
-                          sparse_feed=args.sparse_feed,
-                          sparse_nnz_cap=args.sparse_nnz_cap,
-                          snapshot_every_steps=args.snapshot_every_steps,
-                          snapshot_keep=args.snapshot_keep),
-        mesh=mesh_cfg,
-    )
+    try:
+        cfg = Config(
+            model=ModelConfig(hidden_size=args.hidden_size,
+                              dropout_rate=args.dropout,
+                              compute_dtype=args.compute_dtype),
+            train=TrainConfig(
+                num_epochs=args.epochs, batch_size=args.batch_size,
+                window_size=args.window, learning_rate=args.lr,
+                train_split=args.split, seed=args.seed,
+                eval_stride=args.window, checkpoint_dir=args.ckpt_dir or "",
+                device_data=args.device_data,
+                steps_per_superstep=args.steps_per_superstep,
+                grad_accum_windows=args.grad_accum_windows,
+                grad_accum_mode=args.grad_accum_mode,
+                sparse_feed=args.sparse_feed,
+                sparse_nnz_cap=args.sparse_nnz_cap,
+                snapshot_every_steps=args.snapshot_every_steps,
+                snapshot_keep=args.snapshot_keep, elastic=args.elastic,
+                remesh_max_attempts=args.remesh_max_attempts,
+                remesh_backoff_ms=args.remesh_backoff_ms),
+            mesh=mesh_cfg,
+        )
+    except ValueError as exc:      # a flag combination the config refuses
+        print(f"train: {exc}", file=sys.stderr)
+        return 2
     bundle = prepare_dataset(data, cfg.train)
     try:
         trainer = Trainer(cfg, bundle.feature_dim, bundle.metric_names,
@@ -596,9 +631,18 @@ def _train(args) -> int:
         else:
             state, history = trainer.fit(bundle, baseline_preds=baselines,
                                          on_epoch=on_epoch)
+    except DeviceLossError as exc:
+        if not cfg.train.elastic:
+            raise
+        # this rank is the one lost: the survivors go on without it
+        print(json.dumps({"lost": True, "rank": trainer.mesh.rank,
+                          "error": str(exc)}), file=sys.stderr, flush=True)
+        return 1
     finally:
         stop_profiling()    # a run with no epoch left still writes one
     seconds["fit"] = time.perf_counter() - t0
+    if trainer.stood_down:
+        return _stood_down(trainer)
     if not chief:
         return 0
     if history:
@@ -639,7 +683,17 @@ def _train(args) -> int:
         "steps_per_superstep": trainer.superstep_len,
         "feed": trainer.feed,
         "mesh": trainer.mesh.shape,
+        "remeshes": trainer.remesh_count,
         "seconds": seconds}))
+    return 0
+
+
+def _stood_down(trainer) -> int:
+    """The one JSON line of a rank an elastic remesh left out of the
+    shrunk mesh: it is healthy, trains no further and exits 0."""
+    print(json.dumps({"stood_down": True, "rank": trainer.mesh.rank,
+                      "remeshes": trainer.remesh_count,
+                      "steps": trainer.global_step}), flush=True)
     return 0
 
 
@@ -745,19 +799,23 @@ def cmd_stream(args) -> int:
     and re-checkpoint; run again on the same ``--ckpt-dir`` it resumes.
     One JSON line per refresh, with the JAX CLI's keys plus ``device``,
     ``steps``, ``captures`` (CUDA graphs captured in the refresh),
-    ``seconds`` (its stages) and ``kernel_launches``."""
+    ``seconds`` (its stages), ``kernel_launches`` and ``remeshes``.  In a
+    job (torchrun's ``env://`` variables) every rank streams on the data
+    axis, rank 0 reading the source and printing."""
+    return _on_job(_stream, args)
+
+
+def _stream(args) -> int:
+    import torch.distributed as dist
+
     from deeprest_tpu_torch.config import (
-        Config, EtlConfig, FeaturizeConfig, ModelConfig, QualityConfig,
-        TrainConfig,
+        Config, EtlConfig, FeaturizeConfig, MeshConfig, ModelConfig,
+        QualityConfig, TrainConfig,
     )
     from deeprest_tpu_torch.train.stream import (
         BucketTailer, StreamConfig, StreamingTrainer,
     )
 
-    if args.elastic:
-        print("stream: --elastic is not ported yet: elastic remeshing "
-              "comes with the multi-GPU work (ROADMAP queue 1, item 6)")
-        return 2
     live = bool(args.jaeger_url or args.prom_url)
     wire = bool(args.wire_listen)
     if sum((bool(args.raw), live, wire)) != 1:
@@ -785,24 +843,34 @@ def cmd_stream(args) -> int:
             drift_enter=args.drift_enter, drift_exit=args.drift_exit,
             auto_retrain=not args.no_drift_auto_retrain,
             retrain_cooldown_buckets=args.drift_cooldown_buckets)
+    try:
+        train_cfg = TrainConfig(
+            batch_size=args.batch_size, window_size=args.window,
+            learning_rate=args.lr, seed=args.seed, eval_stride=1,
+            eval_max_cycles=args.eval_holdout, log_every_steps=0,
+            steps_per_superstep=args.steps_per_superstep,
+            grad_accum_windows=args.grad_accum_windows,
+            grad_accum_mode=args.grad_accum_mode,
+            sparse_feed=args.sparse_feed, sparse_nnz_cap=args.sparse_nnz_cap,
+            snapshot_every_steps=args.snapshot_every_steps,
+            snapshot_keep=args.snapshot_keep, elastic=args.elastic,
+            remesh_max_attempts=args.remesh_max_attempts,
+            remesh_backoff_ms=args.remesh_backoff_ms)
+    except ValueError as exc:
+        print(f"stream: {exc}")
+        return 2
+    # in a job every rank streams on the data axis
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    chief = not dist.is_initialized() or dist.get_rank() == 0
     cfg = Config(
         model=ModelConfig(feature_dim=args.capacity,
                           hidden_size=args.hidden_size,
                           compute_dtype=args.compute_dtype),
-        train=TrainConfig(batch_size=args.batch_size, window_size=args.window,
-                          learning_rate=args.lr, seed=args.seed,
-                          eval_stride=1, eval_max_cycles=args.eval_holdout,
-                          log_every_steps=0,
-                          steps_per_superstep=args.steps_per_superstep,
-                          grad_accum_windows=args.grad_accum_windows,
-                          grad_accum_mode=args.grad_accum_mode,
-                          sparse_feed=args.sparse_feed,
-                          sparse_nnz_cap=args.sparse_nnz_cap,
-                          snapshot_every_steps=args.snapshot_every_steps,
-                          snapshot_keep=args.snapshot_keep),
+        train=train_cfg,
         etl=EtlConfig(overlap=not args.no_etl_overlap,
                       queue_depth=args.etl_queue_depth),
         quality=quality or QualityConfig(),
+        mesh=MeshConfig(data=world),
     )
     st = StreamingTrainer(
         cfg,
@@ -818,8 +886,10 @@ def cmd_stream(args) -> int:
                                        hash_seed=args.hash_seed),
         device=args.device,
     )
-    receiver = None
-    if live:
+    receiver = tailer = None
+    if not chief:
+        pass            # rank 0 alone reads the source (train/stream.py)
+    elif live:
         from deeprest_tpu_torch.data.ingest import (
             LiveEndpointTailer, MetricRule,
         )
@@ -858,6 +928,8 @@ def cmd_stream(args) -> int:
         for r in st.run(tailer,
                         max_refreshes=args.max_refreshes or None,
                         deadline_s=args.deadline or None):
+            if not chief:
+                continue
             rec = {
                 "refresh": r.refresh, "buckets": r.num_buckets,
                 "train_loss": round(r.train_loss, 6),
@@ -881,10 +953,14 @@ def cmd_stream(args) -> int:
                                                "retrains_triggered")}}
             rec.update(device=str(st.device), steps=r.steps,
                        captures=r.captures, seconds=r.seconds,
-                       kernel_launches=_kernel_launches())
+                       kernel_launches=_kernel_launches(),
+                       remeshes=st.trainer.remesh_count)
             print(json.dumps(rec), flush=True)
     finally:
-        tailer.close()
+        if tailer is not None:
+            tailer.close()
+    if st.trainer is not None and st.trainer.stood_down:
+        return _stood_down(st.trainer)
     return 0
 
 
@@ -1603,6 +1679,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "every N real steps; running the same command again "
                         "after a kill resumes the run, as the uninterrupted "
                         "run would have gone on (0 = off)")
+    _add_elastic_args(p)
     p.add_argument("--snapshot-keep", type=int, default=3, metavar="K",
                    help="newest cursor snapshots kept (pruned only after a "
                         "durable newer save; checkpoints without a cursor "
@@ -1703,13 +1780,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "steps stale instead of losing the refresh "
                         "(0 = off; refresh-end checkpoints always "
                         "happen)")
-    p.add_argument("--elastic", action="store_true",
-                   help="survive device loss in-process (elastic "
-                        "remeshing; not ported: exits 2)")
-    p.add_argument("--remesh-max-attempts", type=int, default=3,
-                   metavar="N", help="elastic remeshing knob (not ported)")
-    p.add_argument("--remesh-backoff-ms", type=float, default=100.0,
-                   metavar="MS", help="elastic remeshing knob (not ported)")
+    _add_elastic_args(p, streaming=True)
     p.add_argument("--snapshot-keep", type=int, default=3, metavar="K",
                    help="newest cursor snapshots retained (0 = keep "
                         "everything)")

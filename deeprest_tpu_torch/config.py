@@ -6,9 +6,7 @@ with its defaults and validation messages, and ``Config`` has JAX's
 JSON loads here and writes back the same text.  ``rnn_backend`` is carried
 for that reason only (and because a checkpoint sidecar's ``model_config``
 constructs ``ModelConfig`` as it is): the port picks the recurrence from
-the tensors' device (ops/gru.py), never from this field.  Fields of
-features the port does not have yet raise on any value but the one it
-implements (``TrainConfig.elastic``).
+the tensors' device (ops/gru.py), never from this field.
 """
 
 from __future__ import annotations
@@ -84,9 +82,12 @@ class TrainConfig:
     gather has no reason to avoid it).  The host-streamed feed keeps
     ``prefetch_depth`` steps' windows in flight (at least one).
 
-    The JAX trainer's elastic remeshing is not ported (ROADMAP item 6c):
-    ``elastic`` takes only False, and ``remesh_max_attempts`` and
-    ``remesh_backoff_ms`` are carried, validated as JAX validates them.
+    ``elastic``: survive the loss of ranks in-process (elastic remeshing,
+    ``Trainer._run_epochs_elastic``): the survivors shrink the mesh's data
+    axis, restore the newest cursor snapshot and carry on, so it needs
+    ``snapshot_every_steps >= 1``.  ``remesh_max_attempts`` bounds the
+    losses one run recovers from; ``remesh_backoff_ms`` (times the
+    attempt) is slept before each rebuild.
     """
 
     num_epochs: int = 50
@@ -171,10 +172,12 @@ class TrainConfig:
             raise ValueError(
                 f"TrainConfig.remesh_backoff_ms="
                 f"{self.remesh_backoff_ms!r}: must be a number >= 0")
-        if self.elastic:
-            raise ValueError("TrainConfig: the port does not implement "
-                             "elastic=True (elastic remeshing is not "
-                             "ported)")
+        if self.elastic and self.snapshot_every_steps < 1:
+            raise ValueError(
+                "TrainConfig.elastic=True requires snapshot_every_steps "
+                ">= 1: the remesh barrier restores from cursor "
+                "snapshots; without them a device loss would restart "
+                "training from scratch silently")
 
 
 @dataclasses.dataclass(frozen=True)

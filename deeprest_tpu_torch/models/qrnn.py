@@ -65,6 +65,7 @@ from deeprest_tpu_torch.ops.gru import (
 from deeprest_tpu_torch.parallel.collectives import (
     copy_replicated, max_replicated, sum_partials,
 )
+from deeprest_tpu_torch.parallel.mesh import hold_groups
 from deeprest_tpu_torch.parallel.sharding import (
     box_slices, rank_box, spec_of,
 )
@@ -210,6 +211,9 @@ class QuantileGRU(nn.Module):
                            for name, shape in shapes.items()}
         self.expert_group = None if mesh is None else mesh.expert_group
         self.model_group = None if mesh is None else mesh.model_group
+        if mesh is not None and mesh.group is not None:
+            # a remesh's teardown severs these too (parallel/mesh.py)
+            hold_groups(self)
         # a sharded module runs only with the groups its collectives need
         # (a hand-built Mesh without a job holds the boxes, nothing more)
         self._grouped = mesh is None or (

@@ -2,8 +2,9 @@
 one rank a device on a ``data×expert×model`` mesh, each data coordinate
 its slice of the global batch, each rank its box of every leaf by the
 partition-rule table, and the collectives GSPMD would insert written out
-as autograd operators.  Elastic remeshing (``elastic.py``) is ROADMAP
-item 6c."""
+as autograd operators, and elastic remeshing (``elastic.py``): the fault
+barrier's loss detection, the census of the surviving ranks and the
+smaller job they form in-process."""
 
 from deeprest_tpu_torch.parallel.collectives import (
     copy_replicated,
@@ -23,11 +24,20 @@ from deeprest_tpu_torch.parallel.distributed import (
     stage_plan,
     stage_sparse_base,
 )
+from deeprest_tpu_torch.parallel.elastic import (
+    DeviceLossError,
+    FaultInjector,
+    RemeshExhaustedError,
+    enumerate_healthy,
+    is_device_loss,
+)
 from deeprest_tpu_torch.parallel.mesh import (
     AXES,
     Mesh,
+    NoValidMeshError,
     make_mesh,
     mesh_config_of,
+    shrink_mesh_config,
 )
 from deeprest_tpu_torch.parallel.sharding import (
     PARTITION_RULES,
@@ -43,6 +53,13 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "mesh_config_of",
+    "shrink_mesh_config",
+    "NoValidMeshError",
+    "DeviceLossError",
+    "FaultInjector",
+    "RemeshExhaustedError",
+    "enumerate_healthy",
+    "is_device_loss",
     "PARTITION_RULES",
     "match_partition_rules",
     "param_specs",

@@ -18,20 +18,89 @@
 - JAX's ``prefetch_to_device`` has its counterpart in
   ``train/graphs.py::HostFeed``, the host-streamed feed's ring of pinned
   slots on a copy stream.
+- The job keeps a handle on its store (:class:`Job`, :func:`current_job`),
+  so the survivors of a loss can form a smaller job in the same processes
+  (elastic remeshing, ``parallel/elastic.py``): :func:`teardown` destroys
+  every process group of the current generation, :func:`census` agrees on
+  the survivors through the store, and :func:`rejoin` renumbers each
+  survivor to its index among them and joins a group of the new size with
+  the same backend, under a per-generation prefix of the one store.  The
+  store lives in the process of rank 0 of the first generation: when that
+  rank is lost the store goes with it, and the survivors raise
+  :class:`JobStoreLostError` instead of waiting.  Every group has a bounded
+  timeout (:data:`JOB_TIMEOUT_S`), so a peer that hangs surfaces as an
+  exception rather than as gloo's 30-minute default.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
+import gc
+import importlib
+import json
 import os
+import time
+from typing import Any
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from deeprest_tpu_torch.config import MeshConfig
-from deeprest_tpu_torch.parallel.mesh import AXES, Mesh, make_mesh, rank_device
+from deeprest_tpu_torch.parallel.mesh import (
+    AXES, Mesh, make_mesh, rank_device, sever_meshes,
+)
 
 _ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+# The timeout of every process group of a job: a collective (or the
+# rendezvous of a new group) whose peer is gone raises after this long.
+# Long enough for rank 0's host work between collectives (the baselines
+# the train command computes on rank 0 alone, a checkpoint's manifest).
+JOB_TIMEOUT_S = 600.0
+
+
+class JobStoreLostError(RuntimeError):
+    """The job's store is unreachable: the rank that hosted it (rank 0 of
+    the first generation) is gone, and with it the means to agree on the
+    survivors, so the job cannot shrink in-process."""
+
+
+@dataclasses.dataclass
+class Job:
+    """This process's view of its job: the ``store`` every generation
+    rendezvouses on, the ``backend`` and group ``timeout``, this process's
+    ``rank`` in the current generation, the generation's ``world`` size and
+    its number (0 for the job as it started; each rejoin adds one)."""
+
+    store: Any
+    backend: str
+    timeout: datetime.timedelta
+    rank: int
+    world: int
+    generation: int = 0
+
+
+_JOB: Job | None = None
+
+
+def _generation_store(store, generation: int):
+    return dist.PrefixStore(f"gen{generation}/", store)
+
+
+def current_job() -> Job | None:
+    """The joined job (None without one).  A job joined other than by
+    :func:`initialize_distributed` is adopted on first use, with the
+    default group's store."""
+    global _JOB
+    if _JOB is None and dist.is_available() and dist.is_initialized():
+        from torch.distributed import distributed_c10d as c10d
+
+        _JOB = Job(store=c10d._get_default_store(),
+                   backend=dist.get_backend(),
+                   timeout=datetime.timedelta(seconds=JOB_TIMEOUT_S),
+                   rank=dist.get_rank(), world=dist.get_world_size())
+    return _JOB
 
 
 def initialize_distributed(init_method: str | None = None,
@@ -48,8 +117,9 @@ def initialize_distributed(init_method: str | None = None,
     returning False.  The backend is NCCL for a CUDA ``device`` (None
     means "cuda") and gloo for the CPU; ``backend`` overrides it (gloo
     takes CUDA tensors too, and lets two ranks share one card).  A CUDA
-    rank's current device becomes its local rank's card.  Joining an
-    already joined job returns True."""
+    rank's current device becomes its local rank's card.  Every group of
+    the job times out after :data:`JOB_TIMEOUT_S`.  Joining an already
+    joined job returns True."""
     env = os.environ
     if dist.is_initialized():
         return True
@@ -66,9 +136,119 @@ def initialize_distributed(init_method: str | None = None,
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend=backend, init_method=init_method,
-                            world_size=world_size, rank=rank)
+    timeout = datetime.timedelta(seconds=JOB_TIMEOUT_S)
+    # torch._dynamo's import keeps every process group alive at that moment
+    # for good (the optimizer imports it): imported first, it holds none of
+    # the job's, so a teardown frees them and closes their connections
+    importlib.import_module("torch._dynamo")
+    # the store first (rank 0 hosts it, or torchrun's agent), kept for the
+    # rejoins of elastic remeshing; each generation's groups live under a
+    # prefix of it
+    store, rank, world_size = next(dist.rendezvous(
+        init_method, rank=rank, world_size=world_size, timeout=timeout))
+    dist.init_process_group(backend=backend,
+                            store=_generation_store(store, 0),
+                            world_size=world_size, rank=rank,
+                            timeout=timeout)
+    global _JOB
+    _JOB = Job(store=store, backend=backend, timeout=timeout, rank=rank,
+               world=world_size)
     return True
+
+
+def teardown() -> None:
+    """Destroy every process group of the current generation (an NCCL
+    one is aborted: a communicator whose peer died may not finish its
+    collectives) and sever every mesh and module built on them
+    (``parallel/mesh.py::sever_meshes``); a collection then frees the
+    groups, whose connections close, so a peer blocked on one of them
+    fails at once.  A no-op without a joined group."""
+    sever_meshes()
+    if dist.is_available() and dist.is_initialized():
+        from torch.distributed import distributed_c10d as c10d
+
+        abort = getattr(c10d, "_abort_process_group", None)
+        if dist.get_backend() == "nccl" and abort is not None:
+            abort()
+        else:
+            dist.destroy_process_group()
+    gc.collect()
+
+
+def _census_key(generation: int, what: str) -> str:
+    return f"elastic/gen{generation}/{what}"
+
+
+def census(alive: bool, wait_s: float) -> list[int]:
+    """The ranks of the current generation that survive, agreed on
+    through the job's store for the generation being formed.
+
+    This rank checks in when ``alive``; the census closes when every rank
+    has checked in or ``wait_s`` has passed.  The first rank to close it
+    writes the list of those that checked in (compare-and-set on one key),
+    and every rank returns that one list, so survivors that closed at
+    different moments never form two jobs: a rank that checked in after
+    the list was written is not on it.  A store that no longer answers
+    raises :class:`JobStoreLostError`."""
+    job = current_job()
+    gen = job.generation + 1
+    store = job.store
+    try:
+        if alive:
+            store.set(_census_key(gen, f"alive/{job.rank}"), b"1")
+            store.add(_census_key(gen, "count"), 1)
+        deadline = time.monotonic() + wait_s
+        while (store.add(_census_key(gen, "count"), 0) < job.world
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        seen = [r for r in range(job.world)
+                if store.check([_census_key(gen, f"alive/{r}")])]
+        agreed = store.compare_set(_census_key(gen, "survivors"), "",
+                                   json.dumps(seen))
+    except RuntimeError as exc:
+        raise JobStoreLostError(
+            f"the job's store stopped answering during the census of "
+            f"generation {gen} ({type(exc).__name__}: {exc}); it lives in "
+            "the process of rank 0 of the first generation, so a job that "
+            "lost that rank cannot shrink in-process") from exc
+    return [int(r) for r in json.loads(bytes(agreed).decode())]
+
+
+def rejoin(survivors: list[int], generation: int) -> int:
+    """Form generation ``generation`` of the job over ``survivors`` (ranks
+    of the current generation, ascending): tear down the current groups if
+    that has not happened, renumber this rank to its index in
+    ``survivors`` and join a group of ``len(survivors)`` ranks with the
+    same backend and timeout.  Returns the new rank; a rank not among the
+    survivors raises ``ValueError``."""
+    job = current_job()
+    if job is None:
+        raise RuntimeError("rejoin: no job was joined")
+    if job.rank not in survivors:
+        raise ValueError(f"rejoin: rank {job.rank} is not among the "
+                         f"survivors {survivors}")
+    teardown()
+    rank = list(survivors).index(job.rank)
+    try:
+        dist.init_process_group(
+            backend=job.backend,
+            store=_generation_store(job.store, generation),
+            world_size=len(survivors), rank=rank, timeout=job.timeout)
+    except (dist.DistNetworkError, dist.DistStoreError) as exc:
+        raise JobStoreLostError(
+            f"the job's store stopped answering while generation "
+            f"{generation} formed ({exc})") from exc
+    job.rank, job.world, job.generation = rank, len(survivors), generation
+    return rank
+
+
+def leave_job() -> None:
+    """Leave the job: destroy the current generation's groups (if this
+    rank is still in one) and forget the job."""
+    global _JOB
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _JOB = None
 
 
 def global_mesh(config: MeshConfig | None = None, device=None) -> Mesh:
@@ -200,6 +380,14 @@ def gather_to_host(mesh: Mesh, tensor: torch.Tensor,
 
 __all__ = [
     "AXES",
+    "JOB_TIMEOUT_S",
+    "Job",
+    "JobStoreLostError",
+    "current_job",
+    "census",
+    "rejoin",
+    "teardown",
+    "leave_job",
     "initialize_distributed",
     "global_mesh",
     "process_batch_slice",

@@ -16,15 +16,25 @@ trainer gives each data coordinate its slice of the global batch and
 all-reduces the gradients over the data group (train/trainer.py); the
 partition-rule table (``parallel/sharding.py``) gives each rank its box of
 every leaf, and the model runs the collectives GSPMD would have inserted
-over the expert and model groups (``parallel/collectives.py``).  Elastic
-remeshing (``shrink_mesh_config``, ``NoValidMeshError``) waits for ROADMAP
-item 6c.
+over the expert and model groups (``parallel/collectives.py``).
+
+Elastic remeshing shrinks the mesh over the ranks that survive a loss
+(:func:`shrink_mesh_config`: the data axis first, expert and model kept,
+:class:`NoValidMeshError` when even ``data=1`` does not fit).  The
+teardown before the smaller job forms (``parallel/distributed.py``) severs
+every mesh :func:`make_mesh` built, and every module built on one, from
+its process groups (:func:`sever_meshes`): a stale one then raises at its
+first collective
+instead of running one on a group of the old job, and the old groups'
+connections close at once, so a peer blocked on one of them fails over
+too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import weakref
 from typing import Any
 
 import torch
@@ -34,6 +44,80 @@ from deeprest_tpu_torch.config import MeshConfig
 from deeprest_tpu_torch.device import resolve_device
 
 AXES = ("data", "expert", "model")
+GROUP_FIELDS = ("group", "data_group", "expert_group", "model_group")
+
+
+class NoValidMeshError(RuntimeError):
+    """No mesh shape fits the surviving devices (elastic remeshing): the
+    expert and model axes carry the parameter partitioning, so when
+    ``expert * model`` devices no longer exist there is nothing to rebuild
+    onto.  The trainer's fault barrier raises this typed error instead of
+    respinning."""
+
+
+def shrink_mesh_config(config: MeshConfig, healthy_count: int) -> MeshConfig:
+    """The largest valid mesh on ``healthy_count`` devices: shrink the
+    DATA axis first, keep expert and model.
+
+    The new data extent is the largest **divisor** of the old one that
+    fits, so a batch the old data axis divides stays divisible (8→4→2→1,
+    never 8→7).  Raises :class:`NoValidMeshError` when even ``data=1``
+    does not fit (fewer than ``expert * model`` healthy devices)."""
+    if healthy_count < 1:
+        raise NoValidMeshError(
+            f"no healthy devices remain (mesh was "
+            f"{config.data}x{config.expert}x{config.model})")
+    em = config.expert * config.model
+    if em > healthy_count:
+        raise NoValidMeshError(
+            f"only {healthy_count} healthy device(s) remain but the "
+            f"expert*model plane needs {em} "
+            f"({config.expert}x{config.model}); the expert/model axes "
+            "carry the parameter partitioning and cannot shrink in-run")
+    budget = healthy_count // em
+    d = next(d for d in range(min(config.data, budget), 0, -1)
+             if config.data % d == 0)
+    return MeshConfig(data=d, expert=config.expert, model=config.model)
+
+
+class _SeveredGroup:
+    """Stands in for a process group a remesh tore down: any use raises."""
+
+    def __getattr__(self, name):
+        raise RuntimeError(
+            "this mesh's process groups were torn down by an elastic "
+            "remesh; use the trainer's rebuilt mesh")
+
+    def __repr__(self) -> str:
+        return "<severed process group>"
+
+
+SEVERED = _SeveredGroup()
+# what holds the current job's process groups (every mesh make_mesh built
+# in a job, the modules built on them), until the next teardown
+_HOLDERS: list[weakref.ref] = []
+
+
+def hold_groups(holder) -> None:
+    """Register ``holder``, whose :data:`GROUP_FIELDS` attributes hold
+    process groups of the current job, with :func:`sever_meshes`."""
+    _HOLDERS[:] = [ref for ref in _HOLDERS if ref() is not None]
+    _HOLDERS.append(weakref.ref(holder))
+
+
+def sever_meshes() -> None:
+    """Replace every process group the registered holders keep (meshes
+    :func:`make_mesh` built, the modules built on them) with
+    :data:`SEVERED`: the remesh's teardown, after which nothing may reach
+    the old job's groups, and nothing may keep them alive."""
+    for ref in _HOLDERS:
+        holder = ref()
+        if holder is None:
+            continue
+        for name in GROUP_FIELDS:
+            if getattr(holder, name, None) is not None:
+                object.__setattr__(holder, name, SEVERED)
+    _HOLDERS.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +262,9 @@ def make_mesh(config: MeshConfig | None = None, device=None) -> Mesh:
             f"{config.size} of the job's {world} ranks; one rank drives one "
             "device, so the mesh must span the world")
     groups = _axis_groups(config, rank, group)
-    return Mesh(config=config, rank=rank, device=rank_device(device),
+    mesh = Mesh(config=config, rank=rank, device=rank_device(device),
                 group=group, data_group=groups["data"],
                 expert_group=groups["expert"], model_group=groups["model"])
+    if group is not None:
+        hold_groups(mesh)
+    return mesh

@@ -16,9 +16,22 @@ sweeps are forwards of the same module (K1).  Every thread but the train
 thread (the overlapped ETL thread, the wire receiver's connection threads)
 does host work only.
 
-Not ported: the elastic fault barrier (``TrainConfig.elastic``, refused by
-``config.py``) and the remesh deferral in ``ready()``; they come with the
-multi-GPU work.
+In a job (``torch.distributed``, ``Config.mesh`` over its ranks) every
+rank runs the same stream: rank 0 alone reads the source, and each poll's
+batch and its stop decision reach every rank in one broadcast
+(:class:`JobTailer`), so the ranks ingest the same buckets and refresh at
+the same points; the loop is the serial one there (the ETL thread may not
+run collectives), and checkpoints are written as the trainer writes them
+(rank 0 the manifest and the sidecar, and the retention).
+
+With ``TrainConfig.elastic`` the stream joins the trainer's fault barrier:
+a device loss mid-fine-tune remeshes the embedded trainer onto the
+survivors, restores the newest durable checkpoint (a mid-refresh snapshot
+or the last refresh-end save) and re-runs the interrupted fine-tune from
+it.  The refresh is deferred through the remesh, never dropped: ``ready()``
+says False while a remesh is in flight, and a queued ``request_refresh``
+trigger stays queued.  A rank the shrunk mesh leaves out stands down: its
+refresh returns None and ``run`` ends.
 
 Design decisions, as in the JAX package:
 
@@ -80,6 +93,7 @@ from collections import deque
 from typing import Callable, Iterator
 
 import numpy as np
+import torch.distributed as dist
 
 from deeprest_tpu_torch.config import Config, FeaturizeConfig
 from deeprest_tpu_torch.data.featurize import CallPathSpace
@@ -91,6 +105,9 @@ from deeprest_tpu_torch.device import resolve_device
 from deeprest_tpu_torch.obs import metrics as obs_metrics
 from deeprest_tpu_torch.obs import spans as obs_spans
 from deeprest_tpu_torch.ops.densify import sparse_minmax
+from deeprest_tpu_torch.parallel.elastic import (
+    RemeshExhaustedError, is_device_loss,
+)
 from deeprest_tpu_torch.train.data import (
     DatasetBundle, SeriesRing, SparseSeriesRing, delta_mask, to_increments,
 )
@@ -586,14 +603,21 @@ class StreamingTrainer:
                           self.config.train.delta_resources)
 
     def ready(self) -> bool:
+        if self.trainer is not None and self.trainer.remesh_in_flight:
+            # A remesh is rebuilding/restoring: refresh decisions are
+            # DEFERRED, never dropped — the pending count and any queued
+            # _force_refresh trigger survive untouched and fire at the
+            # next readiness check.
+            return False
         w = self.config.train.window_size
         min_windows = self.stream.eval_holdout + 2
         due = (self._pending >= self.stream.refresh_buckets
                or self._force_refresh is not None)
         return due and self.num_buckets > w + min_windows
 
-    def refresh(self) -> RefreshResult:
-        """Fine-tune on the retained corpus; returns the refresh record."""
+    def refresh(self) -> RefreshResult | None:
+        """Fine-tune on the retained corpus; returns the refresh record
+        (None on a rank that stood down in an elastic remesh)."""
         trigger, self._force_refresh = (self._force_refresh or "cadence",
                                         None)
         sw = obs_metrics.Stopwatch()
@@ -723,15 +747,46 @@ class StreamingTrainer:
         seconds["stage"] = sw.elapsed()
         step0, captures0 = tr.global_step, tr.captures
         capture_s0 = tr.capture_seconds
+        # The stream joins the trainer's elastic fault barrier
+        # (TrainConfig.elastic): a device loss mid-fine-tune remeshes,
+        # restores the newest durable checkpoint and re-runs the
+        # interrupted fine-tune from it; the refresh is deferred through
+        # the remesh, never dropped.  The stream does not plan-replay the
+        # interrupted epoch (see _wire_snapshots).
+        elastic = self.config.train.elastic
+        epochs_done = attempts = 0
         sw.restart()
-        for _ in range(self.stream.finetune_epochs):
-            self.state, train_loss = tr.train_epoch(
-                self.state, bundle, data_rng, staged=staged)
-        seconds["finetune"] = sw.elapsed()
+        while True:
+            reason = None
+            try:
+                while epochs_done < self.stream.finetune_epochs:
+                    self.state, train_loss = tr.train_epoch(
+                        self.state, bundle, data_rng, staged=staged)
+                    epochs_done += 1
+                seconds["finetune"] = sw.elapsed()
+                sw.restart()
+                eval_loss, _ = tr.evaluate(self.state, bundle, staged=staged)
+                seconds["eval"] = sw.elapsed()
+                break
+            except Exception as exc:
+                if not elastic or not is_device_loss(exc):
+                    raise
+                attempts += 1
+                if attempts > self.config.train.remesh_max_attempts:
+                    tr._m_remeshes.inc(outcome="exhausted")
+                    raise RemeshExhaustedError(
+                        f"device loss #{attempts} mid-refresh exceeds "
+                        "remesh_max_attempts="
+                        f"{self.config.train.remesh_max_attempts}"
+                    ) from exc
+                reason = f"{type(exc).__name__}: {exc}"
+            # Recovery outside the except block (the traceback pins the
+            # failed epoch's old-mesh buffers), as Trainer's barrier does.
+            staged = None
+            staged = self._handle_device_loss(bundle, attempts, reason)
+            if staged is None:
+                return None
         seconds["capture"] = tr.capture_seconds - capture_s0
-        sw.restart()
-        eval_loss, _ = tr.evaluate(self.state, bundle, staged=staged)
-        seconds["eval"] = sw.elapsed()
         del staged
 
         path = None
@@ -751,7 +806,8 @@ class StreamingTrainer:
                 })
             from deeprest_tpu_torch.train.checkpoint import prune_checkpoints
 
-            prune_checkpoints(self.ckpt_dir, self.stream.keep_checkpoints)
+            if tr.is_chief:
+                prune_checkpoints(self.ckpt_dir, self.stream.keep_checkpoints)
         seconds["checkpoint"] = sw.elapsed()
         result = RefreshResult(
             refresh=self._refresh_count, num_buckets=self.num_buckets,
@@ -765,6 +821,47 @@ class StreamingTrainer:
             # and (for drift/manual triggers) hot-swaps the serving plane.
             self.quality.on_refresh(result)
         return result
+
+    def _handle_device_loss(self, bundle: DatasetBundle, attempt: int,
+                            reason: str):
+        """The stream's leg of the elastic fault barrier: remesh the
+        embedded trainer onto the survivors, restore the newest durable
+        checkpoint (mid-refresh snapshot or refresh-end save; both carry
+        the full stream sidecar) and re-stage the refresh bundle on the new
+        mesh.  Returns the fresh staged feed (None on a rank that stood
+        down).  The restored params are at most ``snapshot_every_steps``
+        stale; the interrupted fine-tune re-runs from them."""
+        from deeprest_tpu_torch.train.checkpoint import (
+            list_steps, load_sidecar,
+        )
+
+        tr = self.trainer
+        tr._drop_device_state(self.state)
+        self.state = None
+        sw = obs_metrics.Stopwatch()
+        tr._remesh_in_flight = True
+        try:
+            tr._m_device_losses.inc()
+            tr.remesh(attempt=attempt, reason=reason)
+            if tr.stood_down:
+                return None
+            step = None
+            if self.ckpt_dir:
+                for cand in reversed(list_steps(self.ckpt_dir)):
+                    if load_sidecar(self.ckpt_dir, cand,
+                                    missing_ok=True) is not None:
+                        step = cand
+                        break
+            if step is not None:
+                self.state, _ = tr.restore_state(self.ckpt_dir, step)
+            else:
+                # lost before anything durable existed: re-init on the new
+                # mesh, as a restarted stream would
+                self.state = tr.init_state()
+            tr._record_remesh(attempt, step, sw.elapsed())
+            return tr.stage_dataset(bundle)
+        finally:
+            tr._remesh_in_flight = False
 
     def _make_trainer(self, metric_names: list[str]) -> Trainer:
         return Trainer(self.config, self.space.capacity, metric_names,
@@ -933,7 +1030,11 @@ class StreamingTrainer:
         rf = getattr(tailer, "resume_from", None)
         if callable(rf) and self._resume_source_watermark is not None:
             rf(self._resume_source_watermark)
-        if getattr(self.config, "etl", None) is not None \
+        if _job_world() > 1:
+            # rank 0 reads the source; every rank ingests its batches
+            yield from self._run_serial(JobTailer(tailer), max_refreshes,
+                                        should_stop, deadline_s)
+        elif getattr(self.config, "etl", None) is not None \
                 and self.config.etl.overlap:
             yield from self._run_overlapped(tailer, max_refreshes,
                                             should_stop, deadline_s)
@@ -942,8 +1043,10 @@ class StreamingTrainer:
                                         should_stop, deadline_s)
 
     def _finish_refresh(self, stall_s: float, lag: int,
-                        dropped: int) -> RefreshResult:
+                        dropped: int) -> RefreshResult | None:
         r = self.refresh()
+        if r is None:       # this rank stood down in an elastic remesh
+            return None
         r.etl_stall_s = stall_s
         r.etl_lag_buckets = lag
         r.etl_dropped = dropped
@@ -971,11 +1074,18 @@ class StreamingTrainer:
         performed = 0
         stall = 0.0     # train-thread time spent featurizing since last refresh
         while True:
-            if should_stop is not None and should_stop():
-                return
-            if deadline_s is not None and time.monotonic() - t0 > deadline_s:
-                return
-            got = tailer.poll()
+            stopping = ((should_stop is not None and should_stop())
+                        or (deadline_s is not None
+                            and time.monotonic() - t0 > deadline_s))
+            if isinstance(tailer, JobTailer):
+                # rank 0's verdict and batch, the same on every rank
+                stopping, got = tailer.exchange(stopping)
+                if stopping:
+                    return
+            else:
+                if stopping:
+                    return
+                got = tailer.poll()
             if got:
                 sw = obs_metrics.Stopwatch()
                 if getattr(tailer, "featurized", False):
@@ -986,8 +1096,11 @@ class StreamingTrainer:
                         self.ingest(bucket)
                 stall += sw.elapsed()
             if self.ready():
-                yield self._finish_refresh(
+                r = self._finish_refresh(
                     stall, 0, int(getattr(tailer, "dropped", 0)))
+                if r is None:
+                    return
+                yield r
                 stall = 0.0
                 performed += 1
                 if max_refreshes is not None and performed >= max_refreshes:
@@ -1074,8 +1187,11 @@ class StreamingTrainer:
                         # checkpoint persists
                         commit(token)
                 if self.ready():
-                    yield self._finish_refresh(stall, buf.pending(),
-                                               buf.dropped())
+                    r = self._finish_refresh(stall, buf.pending(),
+                                             buf.dropped())
+                    if r is None:
+                        return
+                    yield r
                     stall = 0.0
                     performed += 1
                     if max_refreshes is not None \
@@ -1085,6 +1201,44 @@ class StreamingTrainer:
             stop.set()
             buf.unblock()
             thread.join(timeout=10.0)
+
+
+def _job_world() -> int:
+    """The joined job's size (1 without one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+class JobTailer:
+    """A stream source shared by the ranks of a job: rank 0 polls the
+    wrapped ``source`` (None on the other ranks) and each poll's batch, with
+    rank 0's stop verdict, reaches every rank in one broadcast over the
+    job's current group, so every rank ingests the same buckets and stops
+    at the same poll.  ``featurized`` and the backlog and dropped counters
+    are rank 0's source's."""
+
+    def __init__(self, source):
+        self._source = source
+        self._chief = dist.get_rank() == 0
+        head = [bool(getattr(source, "featurized", False))]
+        dist.broadcast_object_list(head, src=0)
+        self.featurized = head[0]
+        self.backlog = False
+        self.dropped = 0
+
+    def exchange(self, stopping: bool) -> tuple[bool, list]:
+        """``(stop, batch)``: rank 0's ``stopping`` verdict and, unless it
+        stops, its next poll, on every rank."""
+        msg = [None]
+        if self._chief:
+            got = [] if stopping else self._source.poll()
+            msg = [(stopping, got,
+                    bool(getattr(self._source, "backlog", False)),
+                    int(getattr(self._source, "dropped", 0)))]
+        dist.broadcast_object_list(msg, src=0)
+        stopping, got, self.backlog, self.dropped = msg[0]
+        return stopping, got
 
 
 def _accepts_reason(fn) -> bool:

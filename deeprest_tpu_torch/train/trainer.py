@@ -82,7 +82,28 @@ Evaluation and prediction all-gather the expert axis, so every rank holds
 ``[..., E, Q]``; checkpoints are written per shard by every rank
 (train/checkpoint.py), log lines come from rank 0.
 
-Not ported yet: elastic remeshing (ROADMAP item 6c).
+Elastic remeshing (``TrainConfig.elastic``): a ``fit`` or
+``resume_training`` survives the loss of ranks in-process.  A probe right
+after each dispatch (``_fault_check``: a superstep chunk or an
+accumulation group is the unit that fails) raises the injector's loss
+before any bookkeeping; a collective whose peer died raises on its own.
+The barrier (``_run_epochs_elastic``) catches the device-loss family
+(``parallel.is_device_loss``), and outside the ``except`` block
+``_handle_device_loss`` runs the legs: DETECT (the injector's tail drop,
+or the census of the ranks that still answer, ``parallel/elastic.py``),
+REBUILD (``shrink_mesh_config``: the data axis first; the old job's
+groups torn down, the survivors renumbered into a smaller job,
+``parallel/distributed.py::rejoin``, and everything derived from the mesh
+rebuilt), RESTORE (the newest cursor snapshot onto the new mesh, or a
+fresh init before the first one) and RESUME (the epoch loop re-entered
+at the cursor).  The run that follows is the run ``resume_training`` on
+the same shrunk job gives from the same snapshot, bit for bit.  A rank the
+loss removed leaves ``fit`` with ``DeviceLossError``; a healthy rank the
+shrunk mesh leaves out (5 survivors of data=8 give data=4) stands down:
+its ``fit`` returns ``(None, [])`` and ``stood_down`` is True.  The
+losses recovered from are bounded by ``remesh_max_attempts``
+(``RemeshExhaustedError``); fewer than ``expert·model`` survivors raise
+``NoValidMeshError``.
 """
 
 from __future__ import annotations
@@ -98,6 +119,8 @@ import torch.distributed as dist
 
 from deeprest_tpu_torch.config import Config
 from deeprest_tpu_torch.graphs import CapturedGraph
+from deeprest_tpu_torch.obs import metrics as obs_metrics
+from deeprest_tpu_torch.obs import spans as obs_spans
 from deeprest_tpu_torch.models.qrnn import (
     MASK_PARAM_NAMES, MASKED_PARAM_NAMES, QuantileGRU, fold_feature_mask,
     init_params,
@@ -105,9 +128,15 @@ from deeprest_tpu_torch.models.qrnn import (
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.ops.quantile import pinball_loss
 from deeprest_tpu_torch.parallel.distributed import (
-    process_batch_slice, stage_plan,
+    current_job, process_batch_slice, rejoin, stage_plan, teardown,
 )
-from deeprest_tpu_torch.parallel.mesh import Mesh, make_mesh
+from deeprest_tpu_torch.parallel.elastic import (
+    DeviceLossError, FaultInjector, RemeshExhaustedError, enumerate_healthy,
+    is_device_loss,
+)
+from deeprest_tpu_torch.parallel.mesh import (
+    Mesh, NoValidMeshError, make_mesh, mesh_config_of, shrink_mesh_config,
+)
 from deeprest_tpu_torch.train.data import DatasetBundle, eval_window_indices
 from deeprest_tpu_torch.train.graphs import (
     EpochPlan, HostFeed, capture_update,
@@ -205,36 +234,28 @@ class Trainer:
         elif device is not None and not _same_device(device, mesh.device):
             raise ValueError(f"device {str(device)!r} is not the mesh's "
                              f"device {str(mesh.device)!r}")
-        self.mesh = mesh
         self.device = mesh.device
-        # this rank's rows of every global batch, and of its dropout mask
-        bs, data = config.train.batch_size, mesh.config.data
-        self._rows = process_batch_slice(bs, mesh.coords["data"], data)
-        self._dropout_rows = (None if data == 1 else
-                              (bs, self._rows.start, self._rows.stop))
-        # this rank's experts (target columns) and the loss's metric count
-        e = self.model_config.num_metrics
-        self._experts = None
-        self._loss_kw: dict = {}
-        if mesh.config.expert > 1 or mesh.config.model > 1:
-            from deeprest_tpu_torch.models.qrnn import param_shapes
-            from deeprest_tpu_torch.parallel.sharding import (
-                rank_box, spec_of,
-            )
-
-            # every leaf's placement first: an axis that does not divide
-            # what it shards raises here, naming the leaf
-            for name, shape in param_shapes(self.model_config).items():
-                rank_box(mesh, spec_of(name, shape), shape, name)
-            ((lo, hi),) = rank_box(mesh, ("expert",), (e,), "metrics")
-            if mesh.config.expert > 1:
-                self._experts = slice(lo, hi)
-                self._loss_kw = {"num_metrics": e}
-        from deeprest_tpu_torch.obs import metrics as obs_metrics
-
-        obs_metrics.REGISTRY.gauge(
+        # elastic remeshing (the fault barrier's legs and their record)
+        self._fault_injector: FaultInjector | None = None
+        self._remesh_in_flight = False
+        self.remesh_count = 0
+        self.last_remesh: dict | None = None
+        self.remesh_history: list[dict] = []
+        self.stood_down = False
+        self._m_device_losses = obs_metrics.REGISTRY.counter(
+            "deeprest_train_device_losses_total",
+            "device-loss events caught by the elastic fault barrier")
+        self._m_remeshes = obs_metrics.REGISTRY.counter(
+            "deeprest_train_remeshes_total",
+            "elastic remesh outcomes", labelnames=("outcome",))
+        self._m_mesh_devices = obs_metrics.REGISTRY.gauge(
             "deeprest_train_mesh_devices",
-            "devices in the trainer's current mesh").set(mesh.size)
+            "devices in the trainer's current mesh")
+        self._m_recovery = obs_metrics.REGISTRY.gauge(
+            "deeprest_train_remesh_recovery_seconds",
+            "wall seconds of the last remesh recovery "
+            "(detect through restore)")
+        self._bind_mesh(mesh)
         self.recurrence = recurrence
         self.throughput = Throughput(device=self.device)
         self._warmed = False       # first update (kernel build, capture) excluded
@@ -269,6 +290,36 @@ class Trainer:
         self._cursor_rng_state: dict | None = None
         self._epoch_steps_done = 0
         self._epoch_num_steps = 0
+
+    def _bind_mesh(self, mesh: Mesh) -> None:
+        """Everything derived from the mesh: this rank's rows of every
+        global batch and of its dropout mask, its experts (target columns)
+        and the loss's metric count, and the mesh gauge.  ``__init__`` and
+        :meth:`remesh` call it."""
+        config = self.config
+        self.mesh = mesh
+        bs, data = config.train.batch_size, mesh.config.data
+        self._rows = process_batch_slice(bs, mesh.coords["data"], data)
+        self._dropout_rows = (None if data == 1 else
+                              (bs, self._rows.start, self._rows.stop))
+        e = self.model_config.num_metrics
+        self._experts = None
+        self._loss_kw: dict = {}
+        if mesh.config.expert > 1 or mesh.config.model > 1:
+            from deeprest_tpu_torch.models.qrnn import param_shapes
+            from deeprest_tpu_torch.parallel.sharding import (
+                rank_box, spec_of,
+            )
+
+            # every leaf's placement first: an axis that does not divide
+            # what it shards raises here, naming the leaf
+            for name, shape in param_shapes(self.model_config).items():
+                rank_box(mesh, spec_of(name, shape), shape, name)
+            ((lo, hi),) = rank_box(mesh, ("expert",), (e,), "metrics")
+            if mesh.config.expert > 1:
+                self._experts = slice(lo, hi)
+                self._loss_kw = {"num_metrics": e}
+        self._m_mesh_devices.set(mesh.size)
 
     @property
     def _dtype(self) -> torch.dtype:
@@ -782,6 +833,11 @@ class Trainer:
                     steps += n_real
                 else:
                     measuring = True
+            # the fault barrier's probe, before the cursor moves: a loss
+            # during this chunk's dispatches rolls back to the newest
+            # durable snapshot (the chunk, an accumulation group at the
+            # least, is the unit that fails)
+            self._fault_check(real)
             prev = self._global_step
             self._global_step += real
             if log_every and prev // log_every != self._global_step // log_every:
@@ -896,6 +952,7 @@ class Trainer:
                     steps += 1
                 else:
                     measuring = True
+                self._fault_check(1)
                 self._global_step += 1
                 if log_every and self._global_step % log_every == 0 \
                         and self.is_chief:
@@ -975,6 +1032,199 @@ class Trainer:
             prune_cursor_snapshots(self._snapshot_dir, keep)
         return path
 
+    # -- elastic remeshing ----------------------------------------------
+
+    def install_fault_injector(self, injector: FaultInjector) -> None:
+        """Arm the deterministic synthetic device-loss injector (every rank
+        of a job installs the same one).  Without it the detect signal is a
+        collective that fails because a peer is gone."""
+        self._fault_injector = injector
+
+    def _fault_check(self, n: int) -> None:
+        """Probe the injector right after a dispatch covering the next
+        ``n`` global steps, before any cursor, snapshot or log bookkeeping,
+        so a loss rolls back to the newest durable snapshot as a dispatch
+        that failed on the device would."""
+        if self._fault_injector is not None:
+            self._fault_injector.note_steps(self._global_step, n)
+
+    @property
+    def remesh_in_flight(self) -> bool:
+        """True while the fault barrier rebuilds and restores: the
+        streaming trainer defers refresh decisions (never drops them)
+        while this holds."""
+        return self._remesh_in_flight
+
+    def remesh(self, attempt: int = 1, reason: str = "") -> int:
+        """The DETECT and REBUILD legs: tear down the job's groups, find the
+        surviving ranks (the injector's tail drop, or the census of
+        :func:`parallel.enumerate_healthy`), shrink the mesh over them
+        (data axis first, expert and model kept), join the survivors the
+        new mesh takes into a smaller job and rebuild everything derived
+        from the mesh.  Returns the healthy rank count.
+
+        Raises :class:`NoValidMeshError` (counted) when fewer than
+        ``expert * model`` ranks survive, and :class:`DeviceLossError` on
+        a rank that is itself lost.  A healthy rank the new mesh leaves out
+        sets :attr:`stood_down` and takes no part in the new job."""
+        mesh = self.mesh
+        with obs_spans.RECORDER.span("elastic.detect",
+                                     component="deeprest-elastic") as sp:
+            job = current_job() if mesh.group is not None else None
+            if job is not None:
+                # first, so a peer blocked on one of our groups fails over
+                # at once instead of at its timeout
+                teardown()
+            if self._fault_injector is not None:
+                healthy = self._fault_injector.healthy(list(range(mesh.size)))
+            else:
+                healthy = enumerate_healthy(self.device)
+            sp.tag(attempt=attempt, reason=reason[:200], devices=mesh.size,
+                   healthy=len(healthy))
+        backoff_s = self.config.train.remesh_backoff_ms / 1e3 * attempt
+        if backoff_s:
+            time.sleep(backoff_s)
+        with obs_spans.RECORDER.span("elastic.rebuild",
+                                     component="deeprest-elastic") as sp:
+            try:
+                cfg = shrink_mesh_config(mesh_config_of(mesh), len(healthy))
+            except NoValidMeshError:
+                self._m_remeshes.inc(outcome="no_valid_mesh")
+                raise
+            if mesh.rank not in healthy:
+                raise DeviceLossError(
+                    f"rank {mesh.rank} of {mesh.size} was lost "
+                    f"({reason[:200]}); the survivors {healthy} go on "
+                    "without it", lost=mesh.size - len(healthy))
+            survivors = healthy[:cfg.size]
+            if mesh.rank not in survivors:
+                self.stood_down = True
+                sp.tag(stood_down=True)
+                return len(healthy)
+            if job is not None:
+                rejoin(survivors, job.generation + 1)
+            self._bind_mesh(make_mesh(cfg, self.device))
+            sp.tag(mesh=f"{cfg.data}x{cfg.expert}x{cfg.model}")
+        return len(healthy)
+
+    def _handle_device_loss(self, bundle: DatasetBundle, directory: str,
+                            attempt: int, reason: str):
+        """The remesh handler the fault barrier routes every caught device
+        loss to: rebuild the mesh over the survivors, restore the newest
+        cursor snapshot onto it in-process and return the resume
+        coordinates ``resume_training`` would compute in a fresh job on the
+        same mesh, ``(state, data_rng, start_epoch, skip_steps)``; None on
+        a rank that stood down."""
+        from deeprest_tpu_torch.train.checkpoint import latest_cursor_step
+
+        sw = obs_metrics.Stopwatch()
+        self._remesh_in_flight = True
+        try:
+            self._m_device_losses.inc()
+            self.remesh(attempt=attempt, reason=reason)
+            if self.stood_down:
+                return None
+            seed = self.config.train.seed
+            with obs_spans.RECORDER.span(
+                    "elastic.restore", component="deeprest-elastic") as sp:
+                step = latest_cursor_step(directory)
+                data_rng = np.random.default_rng(seed)
+                if step is None:
+                    # lost before the first durable snapshot: nothing to
+                    # restore, so a fresh init on the new mesh, what a
+                    # restarted job would be forced to do
+                    state = self.init_state()
+                    start_epoch = skip_steps = 0
+                    self._global_step = 0
+                else:
+                    state, extra = self.restore_state(directory, step)
+                    cursor = extra["train_cursor"]
+                    self._global_step = int(cursor["global_step"])
+                    data_rng.bit_generator.state = cursor["rng_state"]
+                    start_epoch = int(cursor["epoch"])
+                    skip_steps = int(cursor["steps_done"])
+                sp.tag(restored_step=step, epoch=start_epoch,
+                       skip_steps=skip_steps)
+            self._steps_since_snapshot = 0
+            recovery_s = sw.elapsed()
+            self._record_remesh(attempt, step, recovery_s)
+            with obs_spans.RECORDER.span(
+                    "elastic.resume", component="deeprest-elastic") as sp:
+                # the resume leg proper is the re-entered epoch loop;
+                # this span marks the handoff
+                sp.tag(global_step=self._global_step,
+                       recovery_s=round(recovery_s, 4))
+            return state, data_rng, start_epoch, skip_steps
+        finally:
+            self._remesh_in_flight = False
+
+    def _record_remesh(self, attempt: int, restored_step: int | None,
+                       recovery_s: float) -> None:
+        """Count a finished recovery and keep its record."""
+        self.remesh_count += 1
+        self.last_remesh = {"attempt": attempt,
+                            "restored_step": restored_step,
+                            "mesh": dict(self.mesh.shape),
+                            "recovery_s": recovery_s}
+        self.remesh_history.append(self.last_remesh)
+        self._m_recovery.set(recovery_s)
+        self._m_remeshes.inc(outcome="ok")
+
+    @staticmethod
+    def _drop_device_state(state: TrainState | None) -> None:
+        """Let go of what a failed state holds on the device: its captured
+        updates (under NCCL a capture holds the old communicator, so none
+        may replay after a remesh) and its staged plan and series."""
+        if state is not None:
+            state.graph = state.retired = None
+            state.plan = None
+
+    def _run_epochs_elastic(self, bundle, state, data_rng, start_epoch,
+                            skip_steps, baseline_preds, on_epoch,
+                            num_epochs, on_step):
+        """THE fault barrier: run the epochs; on a device loss, remesh and
+        restore in-process and go on, bounded by ``remesh_max_attempts``,
+        each rebuild after a backoff.  A rank that stood down returns
+        ``(None, [])``."""
+        cfg = self.config.train
+        directory = self._snapshot_dir or cfg.checkpoint_dir
+        if not directory or not cfg.snapshot_every_steps:
+            raise ValueError(
+                "TrainConfig.elastic=True requires cursor snapshots: set "
+                "checkpoint_dir and snapshot_every_steps >= 1 (the "
+                "remesh barrier restores from the newest one)")
+        attempts = 0
+        while True:
+            reason = None
+            try:
+                return self._run_epochs(bundle, state, data_rng,
+                                        start_epoch, skip_steps,
+                                        baseline_preds, on_epoch,
+                                        num_epochs, on_step)
+            except Exception as exc:
+                if not is_device_loss(exc):
+                    raise
+                attempts += 1
+                if attempts > cfg.remesh_max_attempts:
+                    self._m_remeshes.inc(outcome="exhausted")
+                    raise RemeshExhaustedError(
+                        f"device loss #{attempts} exceeds "
+                        f"remesh_max_attempts={cfg.remesh_max_attempts}; "
+                        "surfacing the failure instead of respinning"
+                    ) from exc
+                reason = f"{type(exc).__name__}: {exc}"
+            # Recovery runs OUTSIDE the except block: the traceback pins
+            # the failed epoch loop's frames (its staged feed, the old
+            # mesh's groups) alive; leaving the handler first frees them
+            # before the teardown and the re-staging.
+            self._drop_device_state(state)
+            state = None
+            resumed = self._handle_device_loss(bundle, directory, attempts,
+                                               reason)
+            if resumed is None:
+                return None, []
+            state, data_rng, start_epoch, skip_steps = resumed
+
     # ------------------------------------------------------------------
 
     def evaluate(self, state: TrainState, bundle: DatasetBundle,
@@ -1050,12 +1300,16 @@ class Trainer:
         epochs, evaluating after each.  Saves into
         ``config.train.checkpoint_dir`` every ``checkpoint_every_epochs``
         epochs and after the last, or, with ``snapshot_every_steps``, writes
-        cursor snapshots there at the cadence and at every epoch's end."""
+        cursor snapshots there at the cadence and at every epoch's end.
+        With ``TrainConfig.elastic`` the epochs run behind the fault
+        barrier (:meth:`_run_epochs_elastic`)."""
         if state is None:
             state = self.init_state()
         data_rng = np.random.default_rng(self.config.train.seed)
-        return self._run_epochs(bundle, state, data_rng, 0, 0,
-                                baseline_preds, on_epoch, num_epochs, on_step)
+        run = (self._run_epochs_elastic if self.config.train.elastic
+               else self._run_epochs)
+        return run(bundle, state, data_rng, 0, 0, baseline_preds, on_epoch,
+                   num_epochs, on_step)
 
     def resume_training(self, bundle: DatasetBundle,
                         directory: str | None = None,
@@ -1091,10 +1345,10 @@ class Trainer:
         self.resumed_from_step = step
         data_rng = np.random.default_rng(cfg.seed)
         data_rng.bit_generator.state = cursor["rng_state"]
-        return self._run_epochs(bundle, state, data_rng,
-                                int(cursor["epoch"]),
-                                int(cursor["steps_done"]), baseline_preds,
-                                on_epoch, num_epochs, on_step)
+        run = self._run_epochs_elastic if cfg.elastic else self._run_epochs
+        return run(bundle, state, data_rng, int(cursor["epoch"]),
+                   int(cursor["steps_done"]), baseline_preds, on_epoch,
+                   num_epochs, on_step)
 
     def _run_epochs(self, bundle: DatasetBundle, state: TrainState,
                     data_rng: np.random.Generator, start_epoch: int,

@@ -20,6 +20,11 @@ repository's conftest imports JAX, which the GPU machine does not have):
   saved per shard; the Predictor on mesh 1,1,2 (eager; captured rung
   graphs under gloo raise) within 1e-4 of scale of the one-process
   captured answer on that checkpoint, the same on both ranks.
+- Elastic remeshing, gloo at world size 2 on the one card: bf16, dropout 0,
+  a cursor snapshot every 2 steps, ``FaultInjector({3: 1})``: rank 1 leaves
+  with DeviceLossError, rank 0 remeshes to 1,1,1, restores step 2 and
+  finishes bit for bit a trainer with no process group resuming from that
+  snapshot.
 """
 
 import multiprocessing
@@ -260,3 +265,94 @@ def test_gloo_expert_and_model_axes_on_one_card(cuda, tmp_path):
     assert ranks[0]["answer"].shape == want.shape
     assert np.abs(ranks[0]["answer"] - want).max() \
         <= 1e-4 * np.abs(want).max()
+
+
+def elastic_rank_main(rank: int, port: int, ckpt: str, out: str) -> None:
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.parallel import FaultInjector
+    from deeprest_tpu_torch.parallel.distributed import leave_job
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    mesh = make_mesh(MeshConfig(data=2), device="cuda")
+    cfg = Config(model=ModelConfig(hidden_size=H, dropout_rate=0.0,
+                                   compute_dtype="bfloat16"),
+                 train=elastic_train(ckpt, elastic=True))
+    bundle = prepare_dataset(corpus(), cfg.train)
+    trainer = Trainer(cfg, F, bundle.metric_names, mesh=mesh)
+    trainer.install_fault_injector(FaultInjector({3: 1}))
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    try:
+        state, _ = trainer.fit(
+            bundle, state=trainer.init_state(init_params(
+                trainer.model_config, 0)))
+        outcome = "done"
+    except Exception as exc:
+        outcome, state = type(exc).__name__, None
+    arrays = {"outcome": np.asarray(outcome),
+              "history": np.asarray(repr(trainer.remesh_history)),
+              **{f"launches/{k.name}": np.asarray(k.launches)
+                 for k in cuda_gru.KERNELS}}
+    if state is not None:
+        arrays.update({"losses": trainer.last_epoch_losses,
+                       "restored": np.asarray(
+                           trainer.last_remesh["restored_step"]),
+                       **{f"params/{k}": v for k, v in
+                          numpy_params(state).items()}})
+    np.savez(out, **arrays)
+    leave_job()
+
+
+def elastic_train(ckpt: str, elastic: bool) -> TrainConfig:
+    return TrainConfig(batch_size=16, window_size=W, steps_per_superstep=1,
+                       log_every_steps=0, num_epochs=2, checkpoint_dir=ckpt,
+                       snapshot_every_steps=2, snapshot_keep=0,
+                       elastic=elastic, remesh_backoff_ms=1.0)
+
+
+@pytest.mark.cuda
+def test_gloo_elastic_on_one_card(cuda, tmp_path):
+    import os
+    import shutil
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    ckpt = str(tmp_path / "snap")
+    outs = [str(tmp_path / f"elastic{r}.npz") for r in range(2)]
+    procs = [ctx.Process(target=elastic_rank_main,
+                         args=(r, port, ckpt, outs[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    assert [p.exitcode for p in procs] == [0, 0]
+    r0, r1 = (dict(np.load(path)) for path in outs)
+    assert str(r1["outcome"]) == "DeviceLossError"
+    assert str(r0["outcome"]) == "done", str(r0["history"])
+    assert int(r0["restored"]) == 2
+    assert int(r0["launches/gru_fwd_train"]) > 0
+    assert int(r0["launches/gru_bwd"]) > 0
+    cut = str(tmp_path / "cut")
+    os.makedirs(cut)
+    shutil.copytree(os.path.join(ckpt, "step_00000002"),
+                    os.path.join(cut, "step_00000002"))
+    cfg = Config(model=ModelConfig(hidden_size=H, dropout_rate=0.0,
+                                   compute_dtype="bfloat16"),
+                 train=elastic_train(cut, elastic=False))
+    bundle = prepare_dataset(corpus(), cfg.train)
+    ref = Trainer(cfg, F, bundle.metric_names,
+                  mesh=Mesh(MeshConfig(), 0, cuda))
+    state, _ = ref.resume_training(bundle, cut)
+    np.testing.assert_array_equal(r0["losses"], ref.last_epoch_losses)
+    for name, value in numpy_params(state).items():
+        np.testing.assert_array_equal(r0[f"params/{name}"], value, name)

@@ -296,7 +296,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'train.plots', 'demo', 'demo.__main__', 'demo.precompute', "
         "'demo.results', 'demo.server', 'parallel', 'parallel.mesh', "
         "'parallel.distributed', 'parallel.sharding', "
-        "'parallel.collectives'}\n"
+        "'parallel.collectives', 'parallel.elastic'}\n"
         "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 65 else 0)\n")

@@ -16,8 +16,9 @@ H=8, f32, dropout 0).
 - ``BucketTailer``: the scenarios of ``tests/test_stream.py`` (torn tails,
   garbage, late files, rotations, truncation, fd release, bounded polls)
   give equal bucket sequences from the port's tailer and the JAX tailer.
-- The ``stream`` CLI runs, is run again and resumes; ``--elastic`` exits 2;
-  with no GPU the stream raises unless ``device="cpu"``.
+- The ``stream`` CLI runs, is run again and resumes; ``--elastic`` runs
+  with a snapshot cadence and without one exits with JAX's message; with
+  no GPU the stream raises unless ``device="cpu"``.
 """
 
 import dataclasses
@@ -508,7 +509,15 @@ def test_cli_stream_refusals(tmp_path, capsys):
     path = str(tmp_path / "raw.jsonl")
     argv = _cli_argv(tmp_path, path)
     assert main(argv + ["--elastic"]) == 2
-    assert "ROADMAP queue 1, item 6" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    with pytest.raises(ValueError) as ref:
+        JaxTrainConfig(elastic=True)
+    assert str(ref.value) in out
+    save_raw_data_jsonl(make_series_buckets(60, seed=6), path)
+    assert main(argv + ["--elastic", "--snapshot-every-steps", "2",
+                        "--max-refreshes", "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["refresh"] == 1 and line["remeshes"] == 0
     assert main(argv + ["--wire-listen", "127.0.0.1:0"]) == 2
     assert "need exactly one source" in capsys.readouterr().out
 

@@ -349,9 +349,12 @@ def test_dense_base_over_the_budget_raises_under_auto(bundles, compute):
 def test_unported_train_features_raise_and_device_defaults_to_cuda(
         monkeypatch):
     """The host-streamed feed is ported ("off" is accepted, an unknown
-    value raises); elastic remeshing still raises."""
-    with pytest.raises(ValueError, match="does not implement"):
+    value raises); elastic remeshing is ported and, as JAX's, needs a
+    snapshot cadence."""
+    with pytest.raises(ValueError,
+                       match="elastic=True requires snapshot_every_steps"):
         TrainConfig(elastic=True)
+    assert TrainConfig(elastic=True, snapshot_every_steps=1).elastic
     assert TrainConfig(device_data="off").device_data == "off"
     with pytest.raises(ValueError, match="'auto', 'always', or 'off'"):
         TrainConfig(device_data="sometimes")
