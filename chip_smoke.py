@@ -238,8 +238,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     captured superstep under gloo refused); (c) `train --mesh 1,1,1` under
     torchrun's env:// variables at world size 1 (NCCL) against phase 14's
     plain `train --device-data always` (epoch and step losses equal);
-16. the mesh's expert and model axes (run after phase 15), two spawned
-    gloo processes sharing the one card: (a) training on mesh 1,2,1 at the
+16. the mesh's expert and model axes (in a thread beside phases 7 and 8:
+    its work is all in its ranks), two spawned gloo processes sharing the
+    one card: (a) training on mesh 1,2,1 at the
     flagship (B=32, T=60, F=512, E=40 so 20 experts a rank, H=128, f32,
     dropout 0, 10 eager steps) and (b) on mesh 1,1,2 at F=10,240 (5 eager
     steps, each rank's w_ih [40, 5,120, 384]), each against world size 1
@@ -250,10 +251,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     world size 1's (a model-axis rank at most 0.55 of it); (c) the
     Predictor on meshes 1,2,1 and 1,1,2 (eager, bf16) on phase 5's day
     within 2e-2 of scale of phase 5's captured one-process answer, the
-    same on both ranks, K1 launched on each; then K2 and K3 in f32 at
-    E=20, B=32 timed (recorded only);
-17. elastic remeshing (run after phase 16), two spawned gloo processes
-    sharing the card, the flagship (B=32, T=60, F=512, E=40, H=128,
+    same on both ranks, K1 launched on each; K2 and K3 in f32 at E=20,
+    B=32 timed after phase 15 (recorded only);
+17. elastic remeshing (in a thread beside phase 12: its work is all in
+    its ranks), two spawned gloo processes sharing the card, the flagship (B=32, T=60, F=512, E=40, H=128,
     bidirectional, bf16, dropout 0), 10 eager steps, a cursor snapshot
     every 2 steps, each arm in a job of its own: (a) FaultInjector({5: 1})
     on mesh 2,1,1: rank 1 leaves with DeviceLossError, rank 0 remeshes to
@@ -265,11 +266,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     rank 1 raises NoValidMeshError naming the expert axis; each arm's
     recovery seconds, restored step, K2/K3 launches and steps/s before and
     after the loss;
-18. the seconds of each phase, one JSON line of per-kernel numbers, then
+18. the raw side's native tools (run after phase 15): libdeeprest_etl
+    built from native/featurizer.cpp into build/native/ (g++, the flags of
+    native/Makefile); phase 7's corpus featurized through data/native.py
+    and through the numpy featurize_buckets (its JSONL load timed apart),
+    in dictionary mode and hashed into 512 columns, and a synthetic app's
+    corpus (200 services, 1,000 endpoints, 200 buckets) hashed into 10,240,
+    native = numpy with the JAX package's native-parity tolerances
+    (traffic bit for bit, resources rtol 1e-6, invocations, vocabulary
+    and capacity equal); phase 7's checkpoint serving the natively
+    featurized corpus on K1, bit for bit its answers on the numpy one;
+    `python -m deeprest_tpu_torch.loadgen --scenario crypto --ticks 3
+    --burn-local` against stub gateways and a stub collector in this
+    process (exit 0, its JSON line, one registration frame whose pid is
+    the CLI's burner child running the port's burner.py);
+19. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11, 14, 15, 16, 17 and the sweep of 9; a server or CLI
+7, 8, 12, 10, 13, 11, 14, 15, 16, 17, 18 and the sweep of 9; a server or CLI
 process starts at 0, and phase 12 sums its workers' ledgers and phases
 15, 16 and 17 their ranks') and
 read just after it; launches made to check or
@@ -277,12 +292,27 @@ time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
 adds them once per replay (deeprest_tpu_torch/graphs.py).
 
+Phases 1-5 and the timed kernels of 9 run alone.  After them, work that
+does not need another's output overlaps it, to keep the script well
+inside its time limit: a CLI or server process starts as soon as its
+inputs exist and is read when its output is needed (CliRun), and a job
+whose kernels all run in processes of its own runs in a thread
+(Background): phase 7's simulate and featurize beside phase 6, its four
+checkpoint CLIs beside its in-process plain path, phase 8's three
+servers and phase 12's planes loading together, phase 10's export
+beside the 10k training, phase 14's train CLIs and phase 15's
+`train --mesh` together, phase 11's second stream run beside its
+in-process checks, phase 15's gloo ranks beside phase 14's demo, and
+phases 16 and 17 as above.  The host-clock numbers of an overlapped
+phase are taken under that load; kernel times are not.
+
 It exits nonzero, printing no result, without CUDA or without the package
 beside it.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import subprocess
@@ -1023,21 +1053,143 @@ def flagship_corpus(path: str, minutes: int = CORPUS_MINUTES,
                           space=CallPathSpace.from_dict(space)).save(path)
 
 
+CHILDREN = []          # every process started with Popen, killed at exit
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+atexit.register(stop_children)
+
+
+class CliRun:
+    """One port CLI call in its own process, started now and read later,
+    so that calls that do not need each other's output overlap.
+    ``seconds`` is the process's own wall time, start to exit."""
+
+    def __init__(self, args: list, timeout: int, env: dict | None = None,
+                 check: bool = True):
+        import threading
+
+        self.args = [str(a) for a in args]
+        self.check = check
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "deeprest_tpu_torch", *self.args],
+            cwd=REPO,
+            env={**os.environ, "PYTHONPATH": REPO, **(env or {})},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(self.proc)
+        t0 = time.perf_counter()
+        self.out = self.err = ""
+        self.seconds = None
+
+        def collect():
+            try:
+                self.out, self.err = self.proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.out, self.err = self.proc.communicate()
+                self.err += f"\n(killed after {timeout} s)"
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=collect, daemon=True)
+        self.thread.start()
+
+    @property
+    def returncode(self) -> int:
+        self.thread.join()
+        return self.proc.returncode
+
+    def lines(self) -> list[str]:
+        """Its stdout lines; the run fails if it exited other than 0."""
+        if self.returncode != 0 and self.check:
+            fail(f"CLI {self.args[0]} exited {self.proc.returncode}:\n"
+                 f"{self.err}")
+        return self.out.strip().splitlines()
+
+    def json(self) -> dict:
+        """Its last line, parsed."""
+        return json.loads(self.lines()[-1])
+
+
 def run_cli_lines(args: list, timeout: int) -> list[str]:
     """One port CLI call in its own process; returns its stdout lines."""
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-m", "deeprest_tpu_torch",
-                           *map(str, args)],
-                          cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=timeout)
-    if proc.returncode != 0:
-        fail(f"CLI {args[0]} exited {proc.returncode}:\n{proc.stderr}")
-    return proc.stdout.strip().splitlines()
+    return CliRun(args, timeout).lines()
 
 
 def run_cli(args: list, timeout: int) -> dict:
     """One port CLI call in its own process; returns its last-line JSON."""
-    return json.loads(run_cli_lines(args, timeout)[-1])
+    return CliRun(args, timeout).json()
+
+
+class DeviceMemory:
+    """The card's memory in use by every process on it (nvidia-smi, MiB),
+    sampled by a thread every ``every`` seconds; ``take_peak()`` returns
+    the most seen since its last call.  Overlapped phases share the card,
+    so their peak is what bounds the overlap."""
+
+    def __init__(self, every: float = 2.0):
+        import threading
+
+        self._peak = 0
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, args=(every,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, every: float) -> None:
+        while not self._stop.wait(every):
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=60)
+            if out.returncode == 0 and out.stdout.split():
+                self._peak = max(self._peak, int(out.stdout.split()[0]))
+
+    def take_peak(self) -> int:
+        peak, self._peak = self._peak, 0
+        return peak
+
+    def stop(self) -> None:
+        self._stop.set()
+
+
+class Background:
+    """``fn(*args)`` in a thread beside the phases that follow.  Only for
+    work that launches no kernel in this process (its kernels run in
+    processes of its own), so the foreground phases' launch counts stay
+    their own.  ``result()`` joins it; a failure there fails the run."""
+
+    def __init__(self, name: str, fn, *args):
+        import threading
+
+        self.name, self.out, self.error = name, None, None
+        self.seconds = None
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                self.out = fn(*args)
+            except BaseException as exc:         # fail() raises SystemExit
+                self.error = exc
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, name=name, daemon=True)
+        self.thread.start()
+
+    def result(self, timeout: float = 900.0):
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            fail(f"{self.name} did not finish within {timeout} s")
+        if isinstance(self.error, SystemExit):
+            sys.exit(self.error.code)
+        if self.error is not None:
+            raise self.error
+        return self.out
 
 
 def profile_train_steps(label: str, run, steps: int) -> float | None:
@@ -1444,12 +1596,35 @@ def sweep_error(got: list, want: list, y_range) -> float:
     return worst
 
 
-def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
+def start_raw_corpus(workdir: str) -> dict:
+    """Phase 7's host-only head, started beside phase 6: ``simulate`` the
+    social network (the reference's own deployment), then ``featurize``
+    it, each in its own process; neither touches the card."""
+    wd = os.path.join(workdir, "raw")
+    os.makedirs(wd)
+    raw = os.path.join(wd, "raw.jsonl")
+    feats = os.path.join(wd, "input.npz")
+
+    def chain():
+        sim = CliRun(["simulate", "--scenario", "normal", "--seed", SEED,
+                      "--ticks", RAW_BUCKETS, "--out", raw], timeout=600)
+        sim.lines()
+        fz = CliRun(["featurize", "--raw", raw, "--out", feats],
+                    timeout=600)
+        return {"fz": fz.json(), "seconds": {"simulate": sim.seconds,
+                                             "featurize": fz.seconds}}
+
+    return {"wd": wd, "raw": raw, "feats": feats,
+            "job": Background("phase 7's simulate and featurize", chain)}
+
+
+def phase_raw_to_answers(cuda_gru, corpus: dict) -> dict:
     """Raw telemetry in, what-if answers and anomaly verdicts out, through
     the port's CLI: simulate the social network (the reference's own
-    deployment), featurize it (F=128 from 60 call paths, E=88), train at
-    H=128 with both baselines, then whatif, anomaly and predict --raw from
-    the checkpoint, each held against the plain path on the card."""
+    deployment), featurize it (F=128 from 60 call paths, E=88; both
+    started beside phase 6 by :func:`start_raw_corpus`), train at H=128
+    with both baselines, then whatif, anomaly and predict --raw from the
+    checkpoint, each held against the plain path on the card."""
     from collections import Counter
 
     import numpy as np
@@ -1476,21 +1651,14 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
 
     secs = {}
     t_phase = time.perf_counter()
-    wd = os.path.join(workdir, "raw")
-    os.makedirs(wd)
-    raw = os.path.join(wd, "raw.jsonl")
-    feats = os.path.join(wd, "input.npz")
+    wd, raw, feats = corpus["wd"], corpus["raw"], corpus["feats"]
     ckpt = os.path.join(wd, "ckpt")
     for k in cuda_gru.KERNELS:
         k.launches = 0
 
-    t0 = time.perf_counter()
-    run_cli(["simulate", "--scenario", "normal", "--seed", SEED,
-             "--ticks", RAW_BUCKETS, "--out", raw], timeout=600)
-    secs["simulate"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fz = run_cli(["featurize", "--raw", raw, "--out", feats], timeout=600)
-    secs["featurize"] = time.perf_counter() - t0
+    head = corpus["job"].result()
+    fz = head["fz"]
+    secs.update(head["seconds"])
     sizes = (fz["capacity"], fz["observed_paths"], len(fz["metrics"]))
     print(f"main raw simulate + featurize: {fz['buckets']} buckets of the "
           f"social network (normal, seed {SEED}) -> F={sizes[0]} from "
@@ -1501,12 +1669,32 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
     if sizes != (128, 60, 88):
         fail(f"featurize gave (F, paths, E) = {sizes}; want (128, 60, 88)")
 
+    train = CliRun(["train", "--features", feats, "--compute-dtype",
+                    "bfloat16", "--epochs", 2, "--batch-size", TRAIN["B"],
+                    "--window", W, "--hidden-size", TRAIN["H"],
+                    "--ckpt-dir", ckpt], timeout=900)
+    # while train runs: the anomaly CLI's corpus (a cryptojacking burner
+    # on compose-post-service) is simulated, and the corpus's first
+    # SYNTH_BUCKETS minutes read, which the what-if synthesizer is fit on
+    # (every endpoint's trace shapes, at a sixth of the load cost)
     t0 = time.perf_counter()
-    tr = run_cli(["train", "--features", feats, "--compute-dtype",
-                  "bfloat16", "--epochs", 2, "--batch-size", TRAIN["B"],
-                  "--window", W, "--hidden-size", TRAIN["H"],
-                  "--ckpt-dir", ckpt], timeout=900)
-    secs["train"] = time.perf_counter() - t0
+    crypto = simulate_corpus(
+        SCENARIOS["crypto"](SEED), RAW_ANOMALY_BUCKETS,
+        anomalies=[Anomaly("cryptojacking", "compose-post-service",
+                           *ANOMALY_WINDOW)])
+    crypto_path = os.path.join(wd, "crypto.jsonl")
+    save_raw_data_jsonl(crypto, crypto_path)
+    t_sim_crypto = time.perf_counter() - t0
+    sample = os.path.join(wd, "sample.jsonl")
+    with open(raw, encoding="utf-8") as src, \
+            open(sample, "w", encoding="utf-8") as dst:
+        for _, line in zip(range(SYNTH_BUCKETS), src):
+            dst.write(line)
+    t0 = time.perf_counter()
+    buckets = load_raw_data(sample)
+    t_load = time.perf_counter() - t0
+    tr = train.json()
+    secs["train"] = train.seconds
     count(tr)
     steps = int(tr["steps"])
     if not np.isfinite(np.asarray(tr["step_losses"], np.float64)).all():
@@ -1530,18 +1718,13 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
           f"{secs['train']:.2f} s (stages {rounded(tr['seconds'])})",
           flush=True)
 
-    # what-if: the CLI on the kernels against the same sweep through
-    # the plain recurrence in-process; the synthesizer is fit on the
-    # corpus's first SYNTH_BUCKETS minutes (every endpoint's trace
-    # shapes, at a sixth of the load cost)
-    sample = os.path.join(wd, "sample.jsonl")
-    with open(raw, encoding="utf-8") as src, \
-            open(sample, "w", encoding="utf-8") as dst:
-        for _, line in zip(range(SYNTH_BUCKETS), src):
-            dst.write(line)
-    t0 = time.perf_counter()
-    buckets = load_raw_data(sample)
-    t_load = time.perf_counter() - t0
+    # the CLIs that read the checkpoint start together and run while the
+    # plain path computes what they are held against, in this process:
+    # whatif on the kernels against the same sweep through the plain
+    # recurrence, anomaly, and predict --raw on the corpus's first
+    # SYNTH_BUCKETS minutes (the sample) == the first rows of predict
+    # --features on the whole corpus (featurizing is per minute and
+    # those rows' windows tile alike)
     plain = Predictor.from_checkpoint(
         ckpt, device="cuda",
         recurrence=cuda_gru.gru_recurrence_reference, cuda_graphs=False)
@@ -1555,32 +1738,28 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
     mix = {ep: int(round(calls[ep] / len(buckets)))
            for ep in synth.endpoints}
     del buckets
-    t0 = time.perf_counter()
-    wi = run_cli(["whatif", "--ckpt-dir", ckpt, "--raw", sample, "--mix",
-                  json.dumps(mix), "--ticks", DAY, "--sweep",
-                  ",".join(str(f) for f in SWEEP)], timeout=900)
-    secs["whatif"] = time.perf_counter() - t0
-    count(wi)
-    if wi["kernel_launches"]["gru_fwd"] == 0:
-        fail("the whatif CLI never launched gru_fwd")
+    clis = {
+        "whatif": CliRun(["whatif", "--ckpt-dir", ckpt, "--raw", sample,
+                          "--mix", json.dumps(mix), "--ticks", DAY,
+                          "--sweep", ",".join(str(f) for f in SWEEP)],
+                         timeout=900),
+        "anomaly": CliRun(["anomaly", "--ckpt-dir", ckpt, "--raw",
+                           crypto_path], timeout=600),
+        "predict --raw": CliRun(["predict", "--ckpt-dir", ckpt, "--raw",
+                                 sample, "--out",
+                                 os.path.join(wd, "by_raw")], timeout=600),
+        "predict --features": CliRun(["predict", "--ckpt-dir", ckpt,
+                                      "--features", feats, "--out",
+                                      os.path.join(wd, "by_feats")],
+                                     timeout=600)}
     want = WhatIfEstimator(plain, synth).sweep([mix] * DAY, list(SWEEP),
                                                seed=0)
     y_range = np.asarray(plain.y_stats.range, np.float32).reshape(-1)
-    sweep_rel = sweep_error(wi["sweep"], want, y_range)
-    peak = {r["factor"]: r["peaks"]["compose-post-service_cpu"]["q50"]
-            for r in wi["sweep"]}
-    print(f"main raw whatif CLI: mix {mix} x {DAY} ticks, sweep "
-          f"{list(SWEEP)}; {secs['whatif']:.2f} s (load and fit of the "
-          f"synthesizer on {SYNTH_BUCKETS} buckets included: in-process "
-          f"load {t_load:.2f} s, fit {t_fit:.2f} s); gru_fwd launches "
-          f"{wi['kernel_launches']['gru_fwd']}; stages "
-          f"{rounded(wi['seconds'])}; compose-post-service_cpu "
-          f"q50 peak per factor {peak}", flush=True)
-    print(f"check main raw whatif sweep vs the plain recurrence on the "
-          f"card: max_err/scale={sweep_rel:.3e} (tol "
-          f"{TOL['bfloat16'][0]})", flush=True)
-    if sweep_rel > TOL["bfloat16"][0]:
-        fail("the whatif sweep disagrees with the plain path")
+    data = featurize_buckets(crypto, space=plain.space())
+    if data.metric_names != plain.metric_names:
+        fail("the crypto corpus's metrics differ from the checkpoint's")
+    want_reports = AnomalyDetector(plain).check(data.traffic,
+                                                data.targets())
 
     # estimate_many over 16 one-day programs on the kernels
     pred = Predictor.from_checkpoint(ckpt, device="cuda")
@@ -1607,33 +1786,38 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
           f"windows/s end to end; host synthesis {t_synth:.4f} s, "
           f"predict_series_many {t_pred:.4f} s = "
           f"{n_windows / t_pred:.1f} windows/s; gru_fwd launches "
-          f"{cuda_gru.GRU_FWD.launches - k1_before} (in-process)",
-          flush=True)
+          f"{cuda_gru.GRU_FWD.launches - k1_before} (in-process; the "
+          f"whatif, anomaly and predict CLIs run beside it)", flush=True)
     profile_what_if(pred, series)
     del series
 
-    # anomaly: a cryptojacking burner on compose-post-service
-    t0 = time.perf_counter()
-    crypto = simulate_corpus(
-        SCENARIOS["crypto"](SEED), RAW_ANOMALY_BUCKETS,
-        anomalies=[Anomaly("cryptojacking", "compose-post-service",
-                           *ANOMALY_WINDOW)])
-    crypto_path = os.path.join(wd, "crypto.jsonl")
-    save_raw_data_jsonl(crypto, crypto_path)
-    t_sim_crypto = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lines = run_cli_lines(["anomaly", "--ckpt-dir", ckpt, "--raw",
-                           crypto_path], timeout=600)
-    secs["anomaly"] = time.perf_counter() - t0
+    wi = clis["whatif"].json()
+    secs["whatif"] = clis["whatif"].seconds
+    count(wi)
+    if wi["kernel_launches"]["gru_fwd"] == 0:
+        fail("the whatif CLI never launched gru_fwd")
+    sweep_rel = sweep_error(wi["sweep"], want, y_range)
+    peak = {r["factor"]: r["peaks"]["compose-post-service_cpu"]["q50"]
+            for r in wi["sweep"]}
+    print(f"main raw whatif CLI: mix {mix} x {DAY} ticks, sweep "
+          f"{list(SWEEP)}; {secs['whatif']:.2f} s (load and fit of the "
+          f"synthesizer on {SYNTH_BUCKETS} buckets included: in-process "
+          f"load {t_load:.2f} s, fit {t_fit:.2f} s); gru_fwd launches "
+          f"{wi['kernel_launches']['gru_fwd']}; stages "
+          f"{rounded(wi['seconds'])}; compose-post-service_cpu "
+          f"q50 peak per factor {peak}", flush=True)
+    print(f"check main raw whatif sweep vs the plain recurrence on the "
+          f"card: max_err/scale={sweep_rel:.3e} (tol "
+          f"{TOL['bfloat16'][0]})", flush=True)
+    if sweep_rel > TOL["bfloat16"][0]:
+        fail("the whatif sweep disagrees with the plain path")
+
+    lines = clis["anomaly"].lines()
+    secs["anomaly"] = clis["anomaly"].seconds
     detail, verdict = json.loads(lines[-2]), json.loads(lines[-1])
     count(detail)
     if detail["kernel_launches"]["gru_fwd"] == 0:
         fail("the anomaly CLI never launched gru_fwd")
-    data = featurize_buckets(crypto, space=plain.space())
-    if data.metric_names != plain.metric_names:
-        fail("the crypto corpus's metrics differ from the checkpoint's")
-    want_reports = AnomalyDetector(plain).check(data.traffic,
-                                                data.targets())
     flagged = sorted(r.metric for r in want_reports if r.flagged)
     firsts = [r.first_flag_index for r in want_reports]
     score_err = max(abs(r["score"] - w.score) / max(abs(w.score), 1.0)
@@ -1664,16 +1848,9 @@ def phase_raw_to_answers(cuda_gru, workdir: str) -> dict:
     if score_err > TOL["bfloat16"][0]:
         fail("anomaly scores disagree with the plain path")
 
-    # predict --raw on the corpus's first SYNTH_BUCKETS minutes (the
-    # sample) == the first rows of predict --features on the whole corpus:
-    # featurizing is per minute and those rows' windows tile alike
-    t0 = time.perf_counter()
-    by_raw = run_cli(["predict", "--ckpt-dir", ckpt, "--raw", sample,
-                      "--out", os.path.join(wd, "by_raw")], timeout=600)
-    secs["predict --raw"] = time.perf_counter() - t0
-    by_feats = run_cli(["predict", "--ckpt-dir", ckpt, "--features",
-                        feats, "--out", os.path.join(wd, "by_feats")],
-                       timeout=600)
+    by_raw = clis["predict --raw"].json()
+    secs["predict --raw"] = clis["predict --raw"].seconds
+    by_feats = clis["predict --features"].json()
     count(by_raw)
     count(by_feats)
     with np.load(by_raw["out"]) as a, np.load(by_feats["out"]) as b:
@@ -1760,10 +1937,12 @@ def spawn_server(args: list, log_path: str):
     process, output to ``log_path``; returns the process at once."""
     env = dict(os.environ, PYTHONPATH=REPO)
     with open(log_path, "w", encoding="utf-8") as log:
-        return subprocess.Popen(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "deeprest_tpu_torch", "serve",
              *map(str, args), "--port", "0"], cwd=REPO, env=env,
             stdout=log, stderr=subprocess.STDOUT, text=True)
+    CHILDREN.append(proc)
+    return proc
 
 
 def start_server(args: list, log_path: str, timeout: float = 300.0):
@@ -1988,10 +2167,27 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
         lo = int(rng.integers(0, DAY - minutes))
         bodies.append(json.dumps(
             {"traffic": traffic[lo:lo + minutes].tolist()}).encode())
-    for label, extra in (("batcher", []), ("no-batcher", ["--no-batcher"])):
+    # the flagship servers start together and the social one once the
+    # first has stopped (two servers at a time: the social one reserves
+    # ~27 GB at warm-up), each loading while another is read; this
+    # process's cached blocks go back to the card first
+    free_device()
+    server_args = {
+        "batcher": ["--ckpt-dir", flagship["ckpt"]],
+        "no-batcher": ["--ckpt-dir", flagship["ckpt"], "--no-batcher"],
+        "social": ["--ckpt-dir", raw["ckpt"], "--raw", raw["sample"],
+                   "--surface"]}
+    logs = {label: os.path.join(wd, f"serve_{label}.log")
+            for label in server_args}
+    procs = {label: spawn_server(server_args[label], logs[label])
+             for label in ("batcher", "no-batcher")}
+    for label in ("batcher", "no-batcher"):
+        if label == "no-batcher":
+            procs["social"] = spawn_server(server_args["social"],
+                                           logs["social"])
         t_server = time.perf_counter()
-        proc, start = start_server(["--ckpt-dir", flagship["ckpt"], *extra],
-                                   os.path.join(wd, f"serve_{label}.log"))
+        proc, start = wait_listening(procs[label], server_args[label],
+                                     logs[label])
         try:
             url = start["listening"]
             warmed = start["graphs"]["captures"]
@@ -2055,7 +2251,7 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
         finally:
             stop_server(proc)
         print(f"main plane {label}: {time.perf_counter() - t_server:.1f} s "
-              "with the server's start", flush=True)
+              "from the wait for its start", flush=True)
 
     # captured against eager, in-process
     t_inproc = time.perf_counter()
@@ -2130,9 +2326,8 @@ def phase_serving_plane(cuda_gru, flagship: dict, raw: dict,
     # too (the kernels against the plain recurrence, and the plain path's
     # own bf16 rounding), so a gap shows whether it is bf16 precision
     t_social = time.perf_counter()
-    proc, start = start_server(
-        ["--ckpt-dir", raw["ckpt"], "--raw", raw["sample"], "--surface"],
-        os.path.join(wd, "serve_social.log"))
+    proc, start = wait_listening(procs["social"], server_args["social"],
+                                 logs["social"])
     try:
         url = start["listening"]
         program = [raw["mix"]] * DAY
@@ -2522,8 +2717,19 @@ def replica_profile(url: str, bodies: list, wd: str) -> dict:
             "k1": len(k1), "device_s": busy, "host_ms": top}
 
 
-def replica_training_tools(cuda_gru, wd: str) -> dict:
-    """``train --profile-dir`` on phase 6's corpus (one epoch traced) and
+def start_profiled_train(wd: str) -> tuple[CliRun, str]:
+    """``train --profile-dir`` on phase 6's corpus (one epoch traced),
+    started now; returns the run and its trace directory."""
+    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+    prof = os.path.join(wd, "train_profile")
+    return CliRun(["train", "--features", feats, "--epochs", "1",
+                   "--batch-size", str(TRAIN["B"]), "--window", str(W),
+                   "--compute-dtype", "bfloat16", "--no-baselines",
+                   "--profile-dir", prof], timeout=600), prof
+
+
+def replica_training_tools(cuda_gru, profiled: tuple) -> dict:
+    """The traced epoch of :func:`start_profiled_train` and
     ``measure_step_breakdown`` on a flagship trainer."""
     import numpy as np
 
@@ -2531,14 +2737,9 @@ def replica_training_tools(cuda_gru, wd: str) -> dict:
     from deeprest_tpu_torch.obs.profiler import measure_step_breakdown
     from deeprest_tpu_torch.train.trainer import Trainer
 
-    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
-    prof = os.path.join(wd, "train_profile")
-    t0 = time.perf_counter()
-    report = run_cli(["train", "--features", feats, "--epochs", "1",
-                      "--batch-size", str(TRAIN["B"]), "--window", str(W),
-                      "--compute-dtype", "bfloat16", "--no-baselines",
-                      "--profile-dir", prof], timeout=600)
-    train_s = time.perf_counter() - t0
+    run, prof = profiled
+    report = run.json()
+    train_s = run.seconds
     with open(os.path.join(prof, "trace_epoch1.json"),
               encoding="utf-8") as fh:
         names = {e.get("name", "") for e in json.load(fh)["traceEvents"]
@@ -2598,26 +2799,39 @@ def phase_replica_plane(cuda_gru, flagship: dict, plane: dict,
     watched = os.path.join(wd, "replica_ckpt")    # the reload's own copy
     shutil.copytree(flagship["ckpt"], watched)
     launches, result = 0, {"cells": {}}
-    for mode, n, depth, concurrencies, role in REPLICA_PLANES:
-        label = f"{mode} x{n} depth {depth}"
-        t_server = time.perf_counter()
-        ckpt = flagship["ckpt"]
+    # the first plane starts now; the others, and the traced training
+    # epoch (its launches are not counted), once it listens, and they load
+    # while it is read
+    def spawn(mode, n, depth, role):
         args = ["--replicas", n, "--replica-mode", mode,
                 "--admission-depth", depth]
         if role == "chaos":
-            ckpt = watched
             args += ["--watch", "1"]
         if role == "shed":
             args += ["--admission-wait-ms", 0]
-        args += ["--ckpt-dir", ckpt]
-        proc, start = start_server(args, os.path.join(
-            wd, f"serve_replicas_{mode}{n}_{depth}.log"), timeout=600)
+        args += ["--ckpt-dir", watched if role == "chaos"
+                 else flagship["ckpt"]]
+        log = os.path.join(wd, f"serve_replicas_{mode}{n}_{depth}.log")
+        return spawn_server(args, log), args, log
+
+    spawned = [spawn(*(REPLICA_PLANES[0][:3] + REPLICA_PLANES[0][4:]))]
+    for i, (mode, n, depth, concurrencies, role) in enumerate(
+            REPLICA_PLANES):
+        label = f"{mode} x{n} depth {depth}"
+        t_server = time.perf_counter()
+        proc, args, log = spawned[i]
+        ckpt = args[-1]
+        proc, start = wait_listening(proc, args, log, timeout=600)
+        if i == 0:
+            spawned += [spawn(m, r, d, ro)
+                        for m, r, d, _, ro in REPLICA_PLANES[1:]]
+            profiled = start_profiled_train(wd)
         try:
             url = start["listening"]
             graphs = start["graphs"] if mode == "process" \
                 else [start["graphs"]]
             warmed = graphs[0]["captures"]
-            print(f"main replica {label}: listening after "
+            print(f"main replica {label}: listening after a wait of "
                   f"{time.perf_counter() - t_server:.1f} s (seconds "
                   f"{json.dumps(start['seconds'])}), graphs at warm-up "
                   f"{[g['captures'] for g in graphs]}", flush=True)
@@ -2696,7 +2910,7 @@ def phase_replica_plane(cuda_gru, flagship: dict, plane: dict,
         finally:
             stop_server(proc)
     shutil.rmtree(watched, ignore_errors=True)
-    result.update(tools=replica_training_tools(cuda_gru, wd),
+    result.update(tools=replica_training_tools(cuda_gru, profiled),
                   launches=launches)
     return result
 
@@ -3359,6 +3573,11 @@ def phase_tenk(cuda_gru, flagship: dict, workdir: str) -> dict:
           flush=True)
     for k in cuda_gru.KERNELS:
         k.launches = 0
+    # export the flagship checkpoint, with the fleet's AOT sidecar next to
+    # it (phase 13 admits it), while the 10k training runs
+    art = os.path.join(wd, "artifact")
+    export = CliRun(["export", "--ckpt-dir", flagship["ckpt"], "--out", art,
+                     "--aot"], timeout=600)
     ckpt = os.path.join(wd, "ckpt")
     t0 = time.perf_counter()
     report = run_cli(["train", "--features", feats, "--epochs", 2,
@@ -3383,14 +3602,10 @@ def phase_tenk(cuda_gru, flagship: dict, workdir: str) -> dict:
     serve = tenk_serving(cuda_gru, ckpt, data.traffic)
     free_device()
 
-    # export the flagship checkpoint, with the fleet's AOT sidecar next to
-    # it (phase 13 admits it); both servers start while the quantized
-    # checks run
-    art = os.path.join(wd, "artifact")
-    exported = run_cli(["export", "--ckpt-dir", flagship["ckpt"], "--out",
-                        art, "--aot"], timeout=600)
-    print(f"main export --aot: sidecar {json.dumps(exported['aot'])}",
-          flush=True)
+    # the export's servers start while the quantized checks run
+    exported = export.json()
+    print(f"main export --aot: sidecar {json.dumps(exported['aot'])} "
+          f"({export.seconds:.2f} s, beside the 10k training)", flush=True)
     program = torch.export.load(os.path.join(art, "model.pt2"))
     ops = graph_ops(program)
     plain_ops = sorted({o for o in ops if o.startswith(
@@ -3783,10 +3998,12 @@ def stream_cli(args: list, log_path: str):
     stdout piped line by line, stderr to ``log_path``."""
     env = dict(os.environ, PYTHONPATH=REPO)
     with open(log_path, "w", encoding="utf-8") as log:
-        return subprocess.Popen(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "deeprest_tpu_torch", "stream",
              *map(str, args)], cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=log, text=True, bufsize=1)
+    CHILDREN.append(proc)
+    return proc
 
 
 def stream_refreshes(proc, n: int, log_path: str, feed=None,
@@ -4289,27 +4506,42 @@ def phase_stream(cuda_gru, raw_path: str, workdir: str) -> dict:
         f.write(b"".join(lines[:STREAM_SMALL]))
     server, args = [], []
 
+    run1_done = threading.Event()
+    refresh2 = []
+
     def spawn_verdict(ckpt_r2):
         args.extend(["--ckpt-dir", ckpt_r2, "--verdict-raw", verdict_raw,
                      "--verdict-sweep-every", 30,
                      "--verdict-live-window", 60, "--watch", 1])
         server.append(spawn_server(args, log))
+        refresh2.append(ckpt_r2)
+        run1_done.set()
 
     prep = threading.Thread(target=prepare, daemon=True)
     prep.start()
     try:
-        cli = part("stream CLI", stream_cli_path, cuda_gru, lines, wd,
-                   spawn_verdict)
+        # the stream CLI's runs go on in their own processes; the checks
+        # in this process start once the first run's refresh-2 checkpoint
+        # is copied, beside the second run
+        stream = Background("stream CLI", part, "stream CLI",
+                            stream_cli_path, cuda_gru, lines, wd,
+                            spawn_verdict)
+        while not run1_done.wait(1.0):
+            if not stream.thread.is_alive():
+                stream.result()
+                fail("the stream CLI's first run ended without its "
+                     "refresh-2 checkpoint")
         prep.join(timeout=300)
         if "drift" not in host:
             fail("parsing the stream's buckets or simulating the drift "
                  "corpus failed")
         buckets = host["buckets"]
         inproc = part("in-process refreshes", stream_in_process, cuda_gru,
-                      buckets, cli["ckpt_r2"])
+                      buckets, refresh2[0])
         wire = part("wire vs tailer", stream_wire_vs_tailer, buckets, lines,
                     wd)
         drift = part("drift loop", stream_drift, cuda_gru, host["drift"])
+        cli = stream.result()
         verdict = part("verdict surface", stream_verdict, server[0], args,
                        log, inproc["stream"], cli["ckpt_r2"], verdict_raw,
                        lines, buckets)
@@ -4600,13 +4832,21 @@ def train_cli_flags(cuda_gru, feats: str, wd: str) -> dict:
             "bfloat16", "--dropout", "0", "--no-baselines"]
     plots = os.path.join(wd, "plots")
     have_mpl = importlib.util.find_spec("matplotlib") is not None
-    t0 = time.perf_counter()
-    lines = run_cli_lines(base + ["--device-data", "off", "--report-every",
+    # the runs start together: off, always, --plots-dir without
+    # matplotlib, and phase 15's `train --mesh 1,1,1` of the always run
+    staged_args = base + ["--device-data", "always"]
+    runs = {"off": CliRun(base + ["--device-data", "off", "--report-every",
                                   "1"] + (["--plots-dir", plots]
-                                          if have_mpl else []), timeout=600)
-    off_s = time.perf_counter() - t0
+                                          if have_mpl else []), timeout=600),
+            "always": CliRun(staged_args, timeout=600),
+            "mesh": start_mesh_cli(staged_args)}
+    if not have_mpl:
+        runs["no matplotlib"] = CliRun(base + ["--plots-dir", plots],
+                                       timeout=300, check=False)
+    lines = runs["off"].lines()
+    off_s = runs["off"].seconds
     off = json.loads(lines[-1])
-    staged = run_cli(base + ["--device-data", "always"], timeout=600)
+    staged = runs["always"].json()
     tables = sum(line.startswith("===== ") for line in lines)
     steps = int(off["steps"])
     launches = off["kernel_launches"]
@@ -4635,24 +4875,17 @@ def train_cli_flags(cuda_gru, feats: str, wd: str) -> dict:
         if len(pngs) != TRAIN["E"] + 1:
             fail("--plots-dir did not write a curve and a plot a metric")
     else:
-        env = dict(os.environ, PYTHONPATH=REPO)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "deeprest_tpu_torch", *base,
-             "--plots-dir", plots], cwd=REPO, env=env, capture_output=True,
-            text=True, timeout=300)
-        fail_s = time.perf_counter() - t0
+        proc = runs["no matplotlib"]
         print(f"check --plots-dir without matplotlib: exit "
-              f"{proc.returncode} after {fail_s:.2f} s, "
-              f"{proc.stderr.strip().splitlines()[-1:]}", flush=True)
-        if proc.returncode == 0 or "matplotlib" not in proc.stderr \
-                or "epoch" in proc.stdout or os.path.exists(plots):
+              f"{proc.returncode} after {proc.seconds:.2f} s, "
+              f"{proc.err.strip().splitlines()[-1:]}", flush=True)
+        if proc.returncode == 0 or "matplotlib" not in proc.err \
+                or "epoch" in proc.out or os.path.exists(plots):
             fail("--plots-dir without matplotlib did not fail before "
                  "training with a message naming matplotlib")
     return {"launches": launches, "steps_per_sec": off["steps_per_sec"],
             "staged_steps_per_sec": staged["steps_per_sec"],
-            "staged_args": base + ["--device-data", "always"],
-            "staged": staged}
+            "mesh": runs["mesh"], "staged": staged}
 
 
 def demo_precompute(cuda_gru, ckpt: str, sample: str, wd: str) -> dict:
@@ -4786,10 +5019,13 @@ def demo_precompute(cuda_gru, ckpt: str, sample: str, wd: str) -> dict:
 
 
 def phase_host_feed(cuda_gru, social_ckpt: str, social_sample: str,
-                    workdir: str) -> dict:
+                    workdir: str, beside_demo=None) -> dict:
     """Phase 14: the host-streamed trainer feed at the flagship width and
     on the 10k dense corpus, the `train` CLI's --device-data,
-    --report-every and --plots-dir, and the what-if demo."""
+    --report-every and --plots-dir, and the what-if demo;
+    ``beside_demo()``, when given, is called just before the demo (work
+    that launches no kernel in this process) and its result returned
+    under "beside_demo"."""
     from deeprest_tpu_torch.data.featurize import FeaturizedData
 
     wd = os.path.join(workdir, "host_feed")
@@ -4806,6 +5042,7 @@ def phase_host_feed(cuda_gru, social_ckpt: str, social_sample: str,
     t0 = time.perf_counter()
     cli = train_cli_flags(cuda_gru, feats, wd)
     secs["train CLI"] = time.perf_counter() - t0
+    beside = beside_demo() if beside_demo else None
     t0 = time.perf_counter()
     demo = demo_precompute(cuda_gru, social_ckpt, social_sample, wd)
     secs["demo"] = time.perf_counter() - t0
@@ -4817,7 +5054,8 @@ def phase_host_feed(cuda_gru, social_ckpt: str, social_sample: str,
     print(f"main host feed phase: seconds {rounded(secs)}; launches "
           f"{launches}", flush=True)
     return {"launches": launches, "flagship": flagship, "tenk": tenk,
-            "cli": cli, "demo": demo, "seconds": secs}
+            "cli": cli, "demo": demo, "seconds": secs,
+            "beside_demo": beside}
 
 
 # -- phase 15: the mesh's data axis -----------------------------------------
@@ -5021,15 +5259,57 @@ def data_parallel_nccl(cuda_gru, data) -> dict:
     return out
 
 
-def data_parallel_gloo(cuda_gru, data, feats: str, wd: str) -> dict:
-    """(b) gloo at world size 2: two spawned ranks on the one card,
+def start_gloo_ranks(workdir: str) -> dict:
+    """(b)'s two spawned gloo ranks on the one card, started beside phase
+    14's demo (no kernel of theirs launches in this process); returns the
+    phase's directory, its corpus and the job, whose result is the ranks'
+    outputs and wall seconds."""
+    import multiprocessing
+
+    import numpy as np
+
+    wd = os.path.join(workdir, "data_parallel")
+    os.makedirs(wd)
+    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
+
+    def ranks():
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        outs = [os.path.join(wd, f"dp_rank{r}.npz") for r in range(2)]
+        procs = [ctx.Process(target=dp_rank_main,
+                             args=(r, 2, port, feats, outs[r]))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        wall = time.perf_counter() - t0
+        if [p.exitcode for p in procs] != [0, 0]:
+            fail(f"gloo ranks exited {[p.exitcode for p in procs]}")
+        out = []
+        for path in outs:
+            with np.load(path) as z:
+                out.append({k: z[k] for k in z.files})
+        return out, wall
+
+    return {"wd": wd, "feats": feats,
+            "job": Background("phase 15's gloo ranks", ranks)}
+
+
+def data_parallel_gloo(cuda_gru, data, gloo: dict) -> dict:
+    """(b) gloo at world size 2: :func:`start_gloo_ranks`'s two ranks,
     flagship width, f32, dropout 0, 10 eager steps, against world size 1
     (no group) on the same params: params bit-equal across the ranks, the
     first update's gradients within 1e-5 of each leaf's scale, losses and
     final params within JAX's sharded-training tolerances, K2 and K3
     launched on both ranks, a captured superstep refused."""
-    import multiprocessing
-
     import numpy as np
 
     from deeprest_tpu_torch.models.qrnn import init_params
@@ -5040,30 +5320,7 @@ def data_parallel_gloo(cuda_gru, data, feats: str, wd: str) -> dict:
                           init_params(trainer.model_config, SEED))
     del trainer
     free_device()
-    ctx = multiprocessing.get_context("spawn")
-    port = free_port()
-    outs = [os.path.join(wd, f"dp_rank{r}.npz") for r in range(2)]
-    procs = [ctx.Process(target=dp_rank_main,
-                         args=(r, 2, port, feats, outs[r]))
-             for r in range(2)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(300)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(30)
-    wall = time.perf_counter() - t0
-    if [p.exitcode for p in procs] != [0, 0]:
-        fail(f"gloo ranks exited {[p.exitcode for p in procs]}")
-    ranks = []
-    for path in outs:
-        with np.load(path) as z:
-            ranks.append({k: z[k] for k in z.files})
+    ranks, wall = gloo["job"].result()
 
     def group(r, prefix):
         return {k[len(prefix):]: v for k, v in r.items()
@@ -5113,20 +5370,20 @@ def data_parallel_gloo(cuda_gru, data, feats: str, wd: str) -> dict:
             "rank_seconds": [float(r["seconds"]) for r in ranks]}
 
 
-def data_parallel_cli(base: list, plain: dict) -> dict:
+def start_mesh_cli(base: list) -> CliRun:
     """(c) ``train --mesh 1,1,1`` under torchrun's env:// variables at
-    world size 1 (NCCL) against the plain ``train`` command ``base``
-    (phase 14's ``--device-data always`` run, whose JSON is ``plain``):
-    epoch and step losses equal."""
-    env = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0",
-               LOCAL_RANK="0")
-    proc = subprocess.run([sys.executable, "-m", "deeprest_tpu_torch", *base,
-                           "--mesh", "1,1,1"], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        fail(f"train --mesh 1,1,1 exited {proc.returncode}:\n{proc.stderr}")
-    lines = proc.stdout.strip().splitlines()
+    world size 1 (NCCL) of the plain ``train`` command ``base``, started
+    now (beside phase 14's runs of ``base``)."""
+    return CliRun(base + ["--mesh", "1,1,1"], timeout=300, env=dict(
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+        WORLD_SIZE="1", RANK="0", LOCAL_RANK="0"))
+
+
+def data_parallel_cli(run: CliRun, plain: dict) -> dict:
+    """(c) :func:`start_mesh_cli`'s run against the plain ``train``
+    command (phase 14's ``--device-data always`` run, whose JSON is
+    ``plain``): epoch and step losses equal."""
+    lines = run.lines()
     mesh = json.loads(lines[-1])
     print(f"check train --mesh 1,1,1 (env://, world size 1): {lines[0]!r}; "
           f"mesh {mesh['mesh']}; epoch losses {mesh['epoch_losses']} vs "
@@ -5143,25 +5400,22 @@ def data_parallel_cli(base: list, plain: dict) -> dict:
             "steps_per_sec": [mesh["steps_per_sec"], plain["steps_per_sec"]]}
 
 
-def phase_data_parallel(cuda_gru, workdir: str, host: dict) -> dict:
+def phase_data_parallel(cuda_gru, host: dict) -> dict:
     """Phase 15: the mesh's data axis on torch.distributed (after phase
-    14, whose plain ``train`` run (c) repeats under a job)."""
+    14, whose plain ``train`` run (c) repeats under a job, and beside
+    whose demo (b)'s gloo ranks ran)."""
     from deeprest_tpu_torch.data.featurize import FeaturizedData
 
-    wd = os.path.join(workdir, "data_parallel")
-    os.makedirs(wd)
-    feats = flagship_corpus(os.path.join(wd, "corpus.npz"))
-    data = FeaturizedData.load(feats)
+    data = FeaturizedData.load(host["beside_demo"]["feats"])
     secs = {}
     t0 = time.perf_counter()
     nccl = data_parallel_nccl(cuda_gru, data)
     secs["nccl"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    gloo = data_parallel_gloo(cuda_gru, data, feats, wd)
+    gloo = data_parallel_gloo(cuda_gru, data, host["beside_demo"])
     secs["gloo"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cli = data_parallel_cli(host["cli"]["staged_args"],
-                            host["cli"]["staged"])
+    cli = data_parallel_cli(host["cli"]["mesh"], host["cli"]["staged"])
     secs["cli"] = time.perf_counter() - t0
     launches = dict(nccl["launches"])
     for part in (gloo["launches"], cli["launches"]):
@@ -5378,8 +5632,7 @@ def axes_k2_k3_ms(cuda_gru) -> dict:
     return out
 
 
-def phase_expert_model_axes(cuda_gru, serving: dict, times: dict,
-                            workdir: str) -> dict:
+def phase_expert_model_axes(cuda_gru, serving: dict, workdir: str) -> dict:
     """Phase 16: the mesh's expert and model axes, two gloo ranks sharing
     the card (run after phase 15): (a) training on AXES_TRAIN_MESH at the
     flagship, (b) on AXES_TENK_MESH at the 10k width, each against world
@@ -5511,6 +5764,14 @@ def phase_expert_model_axes(cuda_gru, serving: dict, times: dict,
         out[f"serve {label}"] = {"errors": errs,
                                  "launches": [c["launches"] for c in cases],
                                  "seconds": [c["seconds"] for c in cases]}
+    print(f"main expert and model axes phase: launches {launches}; "
+          f"{wall:.1f} s wall for the job with its spawn", flush=True)
+    return out
+
+
+def axes_k2_k3_times(cuda_gru, times: dict) -> dict:
+    """K2 and K3 in f32 at an expert rank's share of the flagship, beside
+    phase 3's E=40 times; recorded only."""
     k_ms = axes_k2_k3_ms(cuda_gru)
     print(f"times K2/K3 float32 at E={FLAGSHIP['E'] // AXES_TRAIN_MESH[1]}, "
           f"B={TRAIN['B']} (an expert rank's share): gru_fwd_train "
@@ -5518,10 +5779,10 @@ def phase_expert_model_axes(cuda_gru, serving: dict, times: dict,
           f"(E=40: {times['gru_fwd_train']['float32']['ms']:.4f}, "
           f"{times['gru_bwd']['float32']['ms']:.4f}); recorded only",
           flush=True)
-    out["k2_k3_ms_e20"] = k_ms
-    print(f"main expert and model axes phase: launches {launches}; "
-          f"{wall:.1f} s wall for the job with its spawn", flush=True)
-    return out
+    return k_ms
+
+
+
 
 
 # Phase 17: elastic remeshing, two gloo ranks sharing the card.
@@ -5766,6 +6027,366 @@ def phase_elastic(cuda_gru, workdir: str) -> dict:
     return out
 
 
+# the raw side's native tools (phase 18): the social corpus hashed as the
+# stream hashes it, a synthetic app's corpus hashed at the 10k tier's width
+RAW_SIDE_HASH_F = 512
+RAW_SIDE_SYNTH = dict(services=200, endpoints=1000, buckets=200,
+                      calls_per_user=0.4)
+LOADGEN_TICKS, LOADGEN_TICK_S = 3, 1.0
+
+
+class StubGateway:
+    """An HTTP server in this process standing in for snsd's two gateways:
+    it answers every request 200 and counts them by path."""
+
+    def __init__(self):
+        import collections
+        import http.server
+        import threading
+        import urllib.parse
+
+        paths = self.paths = collections.Counter()
+        lock = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def serve(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                if n:
+                    self.rfile.read(n)
+                path = urllib.parse.urlsplit(self.path).path
+                with lock:
+                    paths[path] += 1
+                body = (b'{"media_id": "m1"}' if path == "/upload-media"
+                        else b'{"ok": true}')
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            do_GET = do_POST = serve
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    @property
+    def spec(self) -> str:
+        host, port = self.server.server_address[:2]
+        return f"{host}:{port}"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class StubCollector:
+    """A socket in this process standing in for the trace collector: it
+    keeps each registration frame (4-byte big-endian length, JSON) with
+    the registered process's parent pid and command line, read from /proc
+    when the frame arrives."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(4)
+        self.frames = []
+        self.thread = threading.Thread(target=self._accept, daemon=True)
+        self.thread.start()
+
+    @property
+    def spec(self) -> str:
+        host, port = self.sock.getsockname()
+        return f"{host}:{port}"
+
+    def _accept(self) -> None:
+        import struct
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            with conn:
+                data = b""
+                while chunk := conn.recv(65536):
+                    data += chunk
+            (length,) = struct.unpack(">I", data[:4])
+            frame = json.loads(data[4:4 + length])
+            frame["length_ok"] = len(data) == 4 + length
+            try:
+                with open(f"/proc/{frame['pid']}/status",
+                          encoding="utf-8") as fh:
+                    frame["ppid"] = int(next(
+                        ln for ln in fh if ln.startswith("PPid:")).split()[1])
+                with open(f"/proc/{frame['pid']}/cmdline", "rb") as fh:
+                    frame["cmdline"] = fh.read().decode().split("\0")
+            except (OSError, StopIteration, KeyError) as e:
+                frame["proc_error"] = repr(e)
+            self.frames.append(frame)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def featurized_agreement(got, want) -> str:
+    """How the native ETL's output stands against the numpy featurizer's,
+    with the JAX package's native-parity tolerances (traffic bit-equal,
+    resources rtol 1e-6, invocations, vocabulary and capacity equal); an
+    empty string when they agree."""
+    import numpy as np
+
+    if got.traffic.shape != want.traffic.shape:
+        return f"traffic shape {got.traffic.shape} != {want.traffic.shape}"
+    if not np.array_equal(got.traffic, want.traffic):
+        return "traffic differs"
+    if got.space.frozen_capacity != want.space.capacity:
+        return (f"frozen_capacity {got.space.frozen_capacity} != "
+                f"{want.space.capacity}")
+    if got.space.vocabulary() != want.space.vocabulary():
+        return "vocabulary differs"
+    if list(got.resources) != list(want.resources):
+        return "metric keys differ"
+    for k, v in want.resources.items():
+        if not np.allclose(got.resources[k], v, rtol=1e-6, atol=0.0,
+                           equal_nan=True):
+            return f"resources[{k!r}] differs past rtol 1e-6"
+    if set(got.invocations) != set(want.invocations):
+        return "invocation components differ"
+    for k, v in want.invocations.items():
+        if not np.array_equal(got.invocations[k], v):
+            return f"invocations[{k!r}] differs"
+    return ""
+
+
+def phase_raw_side(cuda_gru, raw_path: str, social_ckpt: str,
+                   workdir: str) -> dict:
+    """Phase 18: the raw side's native tools.  (a) ``libdeeprest_etl``
+    built from native/featurizer.cpp into build/native/ (g++, the flags of
+    native/Makefile); (b) phase 7's corpus featurized through
+    ``data/native.py`` and through the numpy ``featurize_buckets`` (its
+    JSONL load apart), in dictionary mode and hashed into 512 columns, and
+    a synthetic app's corpus hashed into 10,240: native = numpy with the
+    JAX package's native-parity tolerances, and in hash mode the traffic
+    alone through the warm vectorized ``extract``; (c) phase 7's checkpoint
+    serving the natively featurized corpus on the card through K1, bit for
+    bit its answers on the numpy-featurized one; (d) ``python -m
+    deeprest_tpu_torch.loadgen`` in crypto mode against stub gateways and
+    a stub collector in this process: exit 0, its JSON line, one
+    registration frame carrying the pid of its burner child."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deeprest_tpu_torch.config import FeaturizeConfig
+    from deeprest_tpu_torch.data import native
+    from deeprest_tpu_torch.data.featurize import (
+        CallPathSpace, featurize_buckets,
+    )
+    from deeprest_tpu_torch.data.schema import (
+        load_raw_data, save_raw_data_jsonl,
+    )
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.workload import normal_scenario
+    from deeprest_tpu_torch.workload.simulator import (
+        build_synthetic_app, simulate_corpus,
+    )
+
+    t_phase = time.perf_counter()
+    wd = os.path.join(workdir, "raw_side")
+    os.makedirs(wd)
+    secs = {}
+
+    # (a) the build, from the checkout's source (a stale copy is removed
+    # so the seconds are a build's)
+    os.environ.pop(native.ENV_OVERRIDE, None)
+    lib_path = native.library_path()
+    if os.path.exists(lib_path):
+        os.remove(lib_path)
+    t0 = time.perf_counter()
+    native.build_library()
+    secs["build"] = time.perf_counter() - t0
+    lib = native.load_library()
+    if lib._name != lib_path or not lib_path.startswith(
+            os.path.join(REPO, "build", "native") + os.sep):
+        fail(f"the native ETL loaded {lib._name}; want {lib_path}")
+    print(f"raw side build: {os.path.relpath(lib_path, REPO)} from "
+          f"native/featurizer.cpp with {native.compiler()} "
+          f"{' '.join(native.CXX_FLAGS)} in {secs['build']:.2f} s",
+          flush=True)
+
+    # (b) native against numpy, per corpus and mode
+    def both(label, path, buckets, cfg):
+        t0 = time.perf_counter()
+        got = native.featurize_jsonl(path, cfg)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = featurize_buckets(buckets, cfg)
+        t_numpy = time.perf_counter() - t0
+        secs[f"{label} native"] = t_native
+        secs[f"{label} numpy"] = t_numpy
+        bad = featurized_agreement(got, want)
+        print(f"check raw side {label}: {got.traffic.shape[0]} buckets x "
+              f"F={got.traffic.shape[1]}, {len(got.resources)} metrics; "
+              f"native {t_native:.3f} s, numpy featurize_buckets "
+              f"{t_numpy:.3f} s (native/numpy {t_native / t_numpy:.3f}); "
+              f"{'agree' if not bad else 'DISAGREE: ' + bad}", flush=True)
+        if bad:
+            fail(f"the native ETL disagrees with the numpy featurizer on "
+                 f"{label}: {bad}")
+        if cfg.hash_features:
+            # the traffic alone through the vectorized path, its
+            # path->column memo warm (benchmarks/etl_bench.py's native arm)
+            space = CallPathSpace(config=cfg)
+            for b in buckets:
+                space.extract(b.traces)
+            t0 = time.perf_counter()
+            for b in buckets:
+                space.extract(b.traces)
+            t_vec = time.perf_counter() - t0
+            secs[f"{label} vectorized"] = t_vec
+            n = len(buckets)
+            print(f"raw side {label} traffic: native {n / t_native:.1f} "
+                  f"buckets/s (parse included), the warm vectorized extract "
+                  f"{n / t_vec:.1f} buckets/s (parse excluded); native/"
+                  f"vectorized {t_vec / t_native:.3f}", flush=True)
+        return got, want
+
+    t0 = time.perf_counter()
+    buckets = load_raw_data(raw_path)
+    secs["social load"] = time.perf_counter() - t0
+    mb = os.path.getsize(raw_path) / 1e6
+    print(f"raw side social corpus: {len(buckets)} buckets, {mb:.1f} MB of "
+          f"JSONL; the numpy path's load_raw_data {secs['social load']:.3f}"
+          f" s", flush=True)
+    by_native, by_numpy = both("social dict", raw_path, buckets,
+                               FeaturizeConfig())
+    both("social hash", raw_path, buckets,
+         FeaturizeConfig(hash_features=True, capacity=RAW_SIDE_HASH_F))
+    del buckets
+
+    syn = RAW_SIDE_SYNTH
+    t0 = time.perf_counter()
+    scn = normal_scenario(SEED)
+    scn.calls_per_user = syn["calls_per_user"]
+    app, endpoints = build_synthetic_app(scn, syn["services"],
+                                         syn["endpoints"], SEED)
+    synth_path = os.path.join(wd, "synthetic.jsonl")
+    synth = simulate_corpus(scn, syn["buckets"], app=app,
+                            endpoints=endpoints)
+    save_raw_data_jsonl(synth, synth_path)
+    secs["synthetic simulate"] = time.perf_counter() - t0
+    paths = len({p for b in synth for t in b.traces for p, _ in t.walk()})
+    del synth
+    t0 = time.perf_counter()
+    synth = load_raw_data(synth_path)
+    secs["synthetic load"] = time.perf_counter() - t0
+    print(f"raw side synthetic corpus: {syn['services']} services, "
+          f"{syn['endpoints']} endpoints, {syn['buckets']} buckets, {paths} "
+          f"distinct call paths, {os.path.getsize(synth_path) / 1e6:.1f} MB;"
+          f" simulated and written in {secs['synthetic simulate']:.2f} s, "
+          f"load_raw_data {secs['synthetic load']:.3f} s", flush=True)
+    tenk, _ = both("synthetic hash", synth_path, synth,
+                   FeaturizeConfig(hash_features=True, capacity=TENK_F))
+    print(f"raw side synthetic hash: {int((tenk.traffic.sum(0) > 0).sum())}"
+          f" of {TENK_F} columns hit", flush=True)
+    del synth, tenk
+
+    # (c) phase 7's checkpoint on the natively featurized corpus, on K1
+    for k in cuda_gru.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    pred = Predictor.from_checkpoint(social_ckpt, device="cuda")
+    space = pred.space()
+    if (space.vocabulary() != by_native.space.vocabulary()
+            or space.capacity != by_native.space.capacity
+            or pred.metric_names != by_native.metric_names):
+        fail("the natively featurized corpus's space or metrics differ "
+             "from phase 7's checkpoint's")
+    y_native = pred.predict_series(by_native.traffic)
+    y_numpy = pred.predict_series(by_numpy.traffic)
+    torch.cuda.synchronize()
+    secs["serve"] = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_gru.MODEL_KERNELS}
+    same = np.array_equal(y_native, y_numpy)
+    print(f"check raw side served: phase 7's checkpoint on the natively "
+          f"featurized corpus {y_native.shape} bit for bit the numpy "
+          f"corpus's {same}, finite {bool(np.isfinite(y_native).all())}; "
+          f"launches {launches}; {secs['serve']:.2f} s with the load",
+          flush=True)
+    if not same or not np.isfinite(y_native).all():
+        fail("phase 7's checkpoint answers the natively featurized corpus "
+             "differently from the numpy one")
+    if launches["gru_fwd"] == 0:
+        fail("serving the natively featurized corpus never launched gru_fwd")
+    del pred, by_native, by_numpy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the load generator's capture CLI against stubs
+    gateway, collector = StubGateway(), StubCollector()
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deeprest_tpu_torch.loadgen",
+             "--target", gateway.spec, "--media", gateway.spec,
+             "--collector", collector.spec, "--burn-local",
+             "--scenario", "crypto", "--ticks", str(LOADGEN_TICKS),
+             "--tick-seconds", str(LOADGEN_TICK_S), "--seed", str(SEED)],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            out, err = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        secs["loadgen"] = time.perf_counter() - t0
+        time.sleep(0.2)               # the collector thread's last append
+        frames = list(collector.frames)
+        paths_seen = dict(gateway.paths)
+    finally:
+        gateway.close()
+        collector.close()
+    if proc.returncode != 0:
+        fail(f"the loadgen CLI exited {proc.returncode}:\n{err[-2000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    burner_file = os.path.join(REPO, "deeprest_tpu_torch", "loadgen",
+                               "burner.py")
+    print(f"raw side loadgen CLI: {secs['loadgen']:.2f} s; its line {line};"
+          f" gateway requests by path {paths_seen}; collector frames "
+          f"{frames}", flush=True)
+    if line.get("scenario") != "crypto" or "burner_failed" in line or \
+            "peak_users" not in line:
+        fail(f"the loadgen CLI printed {line}")
+    if paths_seen.get("/wrk2-api/user/register", 0) < 96:
+        fail("the loadgen CLI's warmup registered fewer than 96 users")
+    if len(frames) != 1:
+        fail(f"the stub collector received {len(frames)} frames; want 1")
+    frame = frames[0]
+    if not (frame.get("register") == "compose-post-service"
+            and frame.get("length_ok") and frame.get("ppid") == proc.pid
+            and burner_file in frame.get("cmdline", [])):
+        fail(f"the registration frame {frame} does not carry the pid of "
+             f"the CLI's ({proc.pid}) burner child running {burner_file}")
+    total = time.perf_counter() - t_phase
+    print(f"raw side phase: {total:.1f} s of wall time; seconds "
+          f"{rounded(secs)}; launches of this path {launches}", flush=True)
+    return {"launches": launches, "seconds": secs, "total_s": total}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -5798,12 +6419,15 @@ def main() -> int:
     from deeprest_tpu_torch.benchmarks import kernel_tuning
     from deeprest_tpu_torch.ops import build, cuda_gru
 
-    seconds = {}
+    seconds, peaks = {}, {}
+    memory = DeviceMemory()
 
     def timed(name, fn, *args):
+        memory.take_peak()
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        peaks[name] = memory.take_peak()
         return out
 
     regs = timed("build", phase_build, build, cuda_gru, kernel_tuning)
@@ -5812,8 +6436,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
                                      dir=os.path.join(REPO, "build")) as wd:
         serving = timed("main path", phase_main_path, cuda_gru, wd)
+        # phase 7's simulate and featurize CLIs (host only) run beside
+        # phase 6
+        corpus = start_raw_corpus(wd)
         training = timed("training", phase_training, cuda_gru)
-        raw = timed("raw to answers", phase_raw_to_answers, cuda_gru, wd)
+        # phases 16 and 17 only spawn gloo ranks (no kernel of theirs
+        # launches in this process): 16 runs beside phases 7 and 8, 17
+        # beside phase 12
+        axes_job = Background("phase 16", phase_expert_model_axes,
+                              cuda_gru, serving, wd)
+        raw = timed("raw to answers", phase_raw_to_answers, cuda_gru, corpus)
         raw_launches = raw["launches"]
         raw_path = raw["raw"]
         social = (raw["ckpt"], raw["sample"])
@@ -5822,10 +6454,17 @@ def main() -> int:
         plane = timed("serving plane", phase_serving_plane, cuda_gru,
                       serving, raw, wd)
         del raw
+        axes = timed("wait for phase 16", axes_job.result)
+        seconds["expert and model axes (beside 7, 8)"] = round(
+            axes_job.seconds, 1)
+        elastic_job = Background("phase 17", phase_elastic, cuda_gru, wd)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         replicas = timed("replica plane", phase_replica_plane, cuda_gru,
                          serving, plane, wd)
+        elastic = timed("wait for phase 17", elastic_job.result)
+        seconds["elastic remeshing (beside 12)"] = round(
+            elastic_job.seconds, 1)
         tenk = timed("tenk sparse quant export", phase_tenk, cuda_gru,
                      serving, wd)
         fleet = timed("fleet tier", phase_fleet, cuda_gru, serving, wd)
@@ -5833,12 +6472,16 @@ def main() -> int:
             k.launches = 0
         stream = timed("streaming retrain", phase_stream, cuda_gru,
                        raw_path, wd)
+        # phase 15's gloo ranks run beside phase 14's demo
         host = timed("host feed, train flags and demo", phase_host_feed,
-                     cuda_gru, *social, wd)
-        dp = timed("data axis", phase_data_parallel, cuda_gru, wd, host)
-        axes = timed("expert and model axes", phase_expert_model_axes,
-                     cuda_gru, serving, times, wd)
-        elastic = timed("elastic remeshing", phase_elastic, cuda_gru, wd)
+                     cuda_gru, *social, wd, lambda: start_gloo_ranks(wd))
+        dp = timed("data axis", phase_data_parallel, cuda_gru, host)
+        axes["k2_k3_ms_e20"] = timed("K2/K3 at an expert rank's share",
+                                     axes_k2_k3_times, cuda_gru, times)
+        for k in cuda_gru.KERNELS:
+            k.launches = 0
+        raw_side = timed("raw side native tools", phase_raw_side, cuda_gru,
+                         raw_path, social[0], wd)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)
@@ -5860,6 +6503,8 @@ def main() -> int:
     for name, count in axes["launches"].items():
         launches[name] += count
     for name, count in elastic["launches"].items():
+        launches[name] += count
+    for name, count in raw_side["launches"].items():
         launches[name] += count
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
@@ -5909,9 +6554,14 @@ def main() -> int:
           f"axes (both gloo ranks: training on 1x2x1 and 1x1x2, the "
           f"Predictor on both) {axes['launches']}; elastic remeshing "
           f"(both gloo ranks, all three arms) {elastic['launches']}; "
+          f"raw side (phase 7's checkpoint on the natively and the numpy "
+          f"featurized corpus) {raw_side['launches']}; "
           f"tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
+    memory.stop()
     print(f"seconds per phase {seconds}", flush=True)
+    print(f"peak device memory per phase (MiB in use on the card by every "
+          f"process, nvidia-smi every 2 s) {peaks}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -285,6 +285,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "yb = pool.resolve('b').predictor().predict_series(x)\n"
         "assert (ya == q.predict_series(x)).all() and not (ya == yb).all()\n"
         "assert pool.stats()['spills'] >= 2, pool.stats()\n"
+        "from deeprest_tpu_torch.data import native\n"
+        "assert native.stable_hash_native('a_/op', 0x5EED) == "
+        "0x267F5D0AF14CE5E2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'deeprest_tpu'))\n"
         "need = {'graphs', 'obs', 'obs.metrics', 'obs.spans', "
@@ -296,10 +299,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'train.plots', 'demo', 'demo.__main__', 'demo.precompute', "
         "'demo.results', 'demo.server', 'parallel', 'parallel.mesh', "
         "'parallel.distributed', 'parallel.sharding', "
-        "'parallel.collectives', 'parallel.elastic'}\n"
+        "'parallel.collectives', 'parallel.elastic', 'data.native', "
+        "'loadgen', 'loadgen.__main__', 'loadgen.burner', 'loadgen.client', "
+        "'loadgen.cluster', 'loadgen.graph', 'loadgen.runner', "
+        "'loadgen.warmup'}\n"
         "missing = sorted(need - {n.split('.', 1)[1] for n in names})\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 65 else 0)\n")
+        "sys.exit(1 if bad or missing or len(names) < 82 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
