@@ -280,13 +280,26 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     --burn-local` against stub gateways and a stub collector in this
     process (exit 0, its JSON line, one registration frame whose pid is
     the CLI's burner child running the port's burner.py);
-19. the seconds of each phase, one JSON line of per-kernel numbers, then
+19. `serve --mesh 1,2,1` (in a thread beside phase 10: its work is all in
+    its ranks), two spawned gloo processes sharing the card, on phase 5's
+    flagship checkpoint (bf16, 20 experts a rank, eager, `--no-batcher`,
+    `--deadline`): rank 0 fronts HTTP and mirrors each device call to
+    rank 1, which replays it; phase 5's day within 2e-2 of scale of phase
+    5's captured one-process answer and within 1e-5 of scale, and bit for
+    bit, of phase 16's 1,2,1 Predictor (the same fused rung); phase 8's
+    mix within 2e-2 of scale of its one-process server; the `/healthz`
+    digest the one-process digest; closed loops at concurrency 1 and 16
+    (2 s each; sampled answers bit for bit the single-client ones;
+    requests/s, p50 and p99 recorded only); K1 launched as often on both
+    ranks; both ranks exit 0 at the deadline; the phase's seconds and
+    each rank's peak device memory;
+20. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11, 14, 15, 16, 17, 18 and the sweep of 9; a server or CLI
-process starts at 0, and phase 12 sums its workers' ledgers and phases
-15, 16 and 17 their ranks') and
+7, 8, 12, 10, 13, 11, 14, 15, 16, 17, 18, 19 and the sweep of 9; a server
+or CLI process starts at 0, and phase 12 sums its workers' ledgers and
+phases 15, 16, 17 and 19 their ranks') and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -303,7 +316,7 @@ servers and phase 12's planes loading together, phase 10's export
 beside the 10k training, phase 14's train CLIs and phase 15's
 `train --mesh` together, phase 11's second stream run beside its
 in-process checks, phase 15's gloo ranks beside phase 14's demo, and
-phases 16 and 17 as above.  The host-clock numbers of an overlapped
+phases 16, 17 and 19 as above.  The host-clock numbers of an overlapped
 phase are taken under that load; kernel times are not.
 
 It exits nonzero, printing no result, without CUDA or without the package
@@ -5764,6 +5777,7 @@ def phase_expert_model_axes(cuda_gru, serving: dict, workdir: str) -> dict:
         out[f"serve {label}"] = {"errors": errs,
                                  "launches": [c["launches"] for c in cases],
                                  "seconds": [c["seconds"] for c in cases]}
+        out.setdefault("answers", {})[label] = answers[0]
     print(f"main expert and model axes phase: launches {launches}; "
           f"{wall:.1f} s wall for the job with its spawn", flush=True)
     return out
@@ -6387,6 +6401,190 @@ def phase_raw_side(cuda_gru, raw_path: str, social_ckpt: str,
     return {"launches": launches, "seconds": secs, "total_s": total}
 
 
+# -- phase 19: serve --mesh over two gloo ranks sharing the card ----------
+
+SERVE_MESH = (1, 2, 1)              # the flagship's E=40: 20 experts a rank
+SERVE_MESH_DEADLINE_S = 30          # rank 0 stops this long after it listens
+SERVE_MESH_LOAD_S = 2.0             # each closed-loop cell
+
+
+def serve_mesh_rank_main(rank: int, port: int, ckpt: str, out: str) -> None:
+    """One rank of phase 19's plane (spawned): ``serve --mesh 1,2,1
+    --no-batcher --deadline`` on the card in a gloo job sharing it, its
+    output to ``out + ".log"``; then its exit code, K1 launches and peak
+    device memory to ``out``."""
+    import contextlib
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeprest_tpu_torch.cli import main
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    with open(out + ".log", "w", encoding="utf-8") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = main(["serve", "--ckpt-dir", ckpt, "--mesh",
+                   ",".join(map(str, SERVE_MESH)), "--no-batcher",
+                   "--port", "0", "--deadline", str(SERVE_MESH_DEADLINE_S)])
+    with open(out, "w", encoding="utf-8") as fh:
+        json.dump({"rc": rc, "launches": cuda_gru.GRU_FWD.launches,
+                   "max_allocated": torch.cuda.max_memory_allocated(),
+                   "max_reserved": torch.cuda.max_memory_reserved()}, fh)
+
+
+def phase_serve_mesh(cuda_gru, serving: dict, axes: dict, plane: dict,
+                     workdir: str) -> dict:
+    """Phase 19: ``serve --mesh 1,2,1`` as two spawned gloo ranks sharing
+    the card (eager: gloo's collectives cannot be captured), on phase 5's
+    checkpoint: the day against phase 5's captured answer and phase 16's
+    1,2,1 Predictor, phase 8's mix against its one-process server, the
+    digest, closed loops at PLANE_CONCURRENCY, K1 on both ranks, and both
+    ranks' exit at the deadline.  Its kernels launch in its ranks only."""
+    import multiprocessing
+
+    import numpy as np
+
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    t0 = time.perf_counter()
+    wd = os.path.join(workdir, "serve_mesh")
+    os.makedirs(wd)
+    label = "x".join(map(str, SERVE_MESH))
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(wd, f"rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=serve_mesh_rank_main,
+                         args=(r, port, serving["ckpt"], outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        start = None
+        deadline = time.monotonic() + 300
+        while start is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+            if not all(p.is_alive() for p in procs):
+                break
+            if os.path.exists(outs[0] + ".log"):
+                with open(outs[0] + ".log", encoding="utf-8") as log:
+                    for line in log:
+                        if line.startswith('{"listening"'):
+                            start = json.loads(line)
+        if start is None:
+            logs = ""
+            for path in outs:
+                if os.path.exists(path + ".log"):
+                    with open(path + ".log", encoding="utf-8") as log:
+                        logs += log.read()[-3000:]
+            fail(f"serve --mesh {label} did not listen:\n{logs}")
+        listened = time.perf_counter()
+        url = start["listening"]
+        if start["mesh"] != list(SERVE_MESH) or start["world"] != 2:
+            fail(f"serve --mesh {label}'s startup line names mesh "
+                 f"{start['mesh']}, world {start['world']}")
+        t_day = time.perf_counter()
+        status, body = http_json(url + "/v1/predict",
+                                 {"traffic": serving["traffic"].tolist()})
+        day_s = time.perf_counter() - t_day
+        if status != 200:
+            fail(f"serve --mesh {label} /v1/predict answered {status}: "
+                 f"{body}")
+        got = np.asarray(body["predictions"], np.float32)
+        single = []
+        for raw in plane["bodies"]:
+            status, answer = http_json(url + "/v1/predict", json.loads(raw))
+            if status != 200:
+                fail(f"serve --mesh {label} /v1/predict answered {status}")
+            single.append(answer["predictions"])
+        loads = {conc: closed_loop(url, plane["bodies"], conc,
+                                   SERVE_MESH_LOAD_S)
+                 for conc in PLANE_CONCURRENCY}
+        concurrent_answers(f"serve --mesh {label}", loads, single,
+                           exact=True)
+        status, health = http_json(url + "/healthz")
+        client_s = time.perf_counter() - listened
+        for p in procs:
+            p.join(SERVE_MESH_DEADLINE_S + 120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"serve --mesh {label}'s ranks exited "
+             f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for path in outs:
+        with open(path, encoding="utf-8") as fh:
+            ranks.append(json.load(fh))
+    if [r["rc"] for r in ranks] != [0, 0]:
+        fail(f"serve --mesh {label}'s ranks returned "
+             f"{[r['rc'] for r in ranks]} at the deadline")
+    k1 = [r["launches"] for r in ranks]
+    if k1[0] == 0 or k1[0] != k1[1]:
+        fail(f"serve --mesh {label}: gru_fwd launches per rank {k1}; want "
+             "the same nonzero count on both")
+    # the day against phase 5's captured one-process answer and phase 16's
+    # 1,2,1 Predictor (the same fused rung: --no-batcher pages every
+    # request, as predict_series does)
+    delta, want, mesh_answer = (serving["delta"], serving["answer"],
+                                axes["answers"][label])
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"serve --mesh {label} gave shape {got.shape} or non-finite "
+             "values")
+    errs, errs_mesh = {}, {}
+    for cols, name in ((~delta, "non-delta"), (delta, "delta")):
+        errs[name] = rel_err(got, want, cols)
+        errs_mesh[name] = rel_err(got, mesh_answer, cols)
+    same = bool(np.array_equal(got, mesh_answer))
+    mix_err = max(
+        float(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))
+              .max() / max(float(np.abs(np.asarray(b)).max()), 1e-12))
+        for a, b in zip(single, plane["single"]))
+    digest = Predictor.from_checkpoint(serving["ckpt"], device="cuda",
+                                       fused=False).params_digest()
+    served = health["fleet"]["tenants"]["default"]["params_digest"]
+    print(f"check serve --mesh {label} (gloo world size 2 on one card, "
+          f"eager, bf16, --no-batcher) /v1/predict {DAY}x{F} ({day_s:.2f} s "
+          f"with JSON): vs phase 5's captured one-process answer {errs} of "
+          f"scale (tol {TOL['bfloat16'][0]}); vs phase 16's {label} "
+          f"Predictor {errs_mesh} of scale (tol {TOL['float32'][0]}), bit "
+          f"for bit {same}; phase 8's mix vs its one-process batcher server "
+          f"{mix_err:.3e} of scale (tol {TOL['bfloat16'][0]}); /healthz "
+          f"digest {served} (one process {digest}); gru_fwd launches per "
+          f"rank {k1}; mirrored calls {health['mesh']['calls']}, "
+          f"heartbeats {health['mesh']['heartbeats']}", flush=True)
+    if (max(errs.values()) > TOL["bfloat16"][0]
+            or max(errs_mesh.values()) > TOL["float32"][0] or not same
+            or mix_err > TOL["bfloat16"][0] or served != digest):
+        fail(f"serve --mesh {label} parts from one process or from the "
+             f"{label} Predictor")
+    for conc, load in loads.items():
+        print(f"main serve --mesh {label} closed loop, concurrency {conc}: "
+              f"{load['requests']} requests in {SERVE_MESH_LOAD_S} s = "
+              f"{load['rps']:.1f} requests/s, p50 {load['p50_ms']:.2f} ms, "
+              f"p99 {load['p99_ms']:.2f} ms (eager, gloo)", flush=True)
+    peak = [round(r["max_reserved"] / 2**20) for r in ranks]
+    print(f"main serve mesh phase: {wall:.1f} s wall (listening after "
+          f"{start['seconds']}, spawn included {listened - t0:.1f} s; "
+          f"clients {client_s:.1f} s; deadline {SERVE_MESH_DEADLINE_S} s); "
+          f"peak device memory per rank {peak} MiB reserved "
+          f"({[round(r['max_allocated'] / 2**20) for r in ranks]} "
+          f"allocated); gru_fwd launches {sum(k1)}", flush=True)
+    return {"launches": {"gru_fwd": sum(k1)}, "wall": wall,
+            "errors": errs, "errors_mesh": errs_mesh, "bit_equal": same,
+            "mix_err": mix_err, "peak_mib": peak,
+            "loads": {c: {k: v for k, v in load.items()}
+                      for c, load in loads.items()}}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -6465,8 +6663,13 @@ def main() -> int:
         elastic = timed("wait for phase 17", elastic_job.result)
         seconds["elastic remeshing (beside 12)"] = round(
             elastic_job.seconds, 1)
+        # phase 19's ranks (its kernels launch in them only) beside 10
+        mesh_job = Background("phase 19", phase_serve_mesh, cuda_gru,
+                              serving, axes, plane, wd)
         tenk = timed("tenk sparse quant export", phase_tenk, cuda_gru,
                      serving, wd)
+        serve_mesh = timed("wait for phase 19", mesh_job.result)
+        seconds["serve --mesh (beside 10)"] = round(mesh_job.seconds, 1)
         fleet = timed("fleet tier", phase_fleet, cuda_gru, serving, wd)
         for k in cuda_gru.KERNELS:
             k.launches = 0
@@ -6506,6 +6709,7 @@ def main() -> int:
         launches[name] += count
     for name, count in raw_side["launches"].items():
         launches[name] += count
+    launches["gru_fwd"] += serve_mesh["launches"]["gru_fwd"]
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
                                  "deeprest_tpu/ops/pallas_gru.py:164"),
@@ -6555,7 +6759,9 @@ def main() -> int:
           f"Predictor on both) {axes['launches']}; elastic remeshing "
           f"(both gloo ranks, all three arms) {elastic['launches']}; "
           f"raw side (phase 7's checkpoint on the natively and the numpy "
-          f"featurized corpus) {raw_side['launches']}; "
+          f"featurized corpus) {raw_side['launches']}; serve --mesh (both "
+          f"gloo ranks: warm-up, requests and their replays) "
+          f"{serve_mesh['launches']}; "
           f"tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     memory.stop()

@@ -63,8 +63,12 @@ CLI's exits on a bad spec: ``train``, ``predict``, ``whatif`` and
 ``anomaly`` join a ``torch.distributed`` job from ``torchrun``'s ``env://``
 variables first and lay the ``data×expert×model`` mesh over its ranks
 (rank 0 prints and writes; the other ranks print only their
-``distributed:`` line).  ``serve`` takes a mesh of size 1; a larger one
-exits 2 (an HTTP plane over a multi-rank mesh is ROADMAP item 6d).
+``distributed:`` line).  ``serve --mesh`` above one rank joins the job
+too: rank 0 fronts the HTTP plane and mirrors each device call to the
+other ranks, which replay it in step (serve/mesh_front.py); ``--deadline``,
+SIGTERM or SIGINT on rank 0 stops every rank, and a lost rank stops rank 0
+with exit 1 (a 503 for the request in flight).  Its reloads, router,
+fleet, quantized, surface and verdict flags exit 2 (ROADMAP item 6e).
 ``train --elastic`` and ``stream --elastic`` survive the loss of ranks
 in-process (elastic remeshing; ``--remesh-max-attempts``,
 ``--remesh-backoff-ms``): their JSON lines carry ``remeshes``, and a rank
@@ -156,7 +160,8 @@ def _add_mesh_arg(p: argparse.ArgumentParser, serving: bool = False):
     extra = (" (serving: shardings resolve from the same partition-rule "
              "table training places params with — parallel/sharding.py; a "
              "multi-process job joins through torchrun's env:// variables "
-             "first, one rank a device; serve takes a mesh of size 1)"
+             "first, one rank a device; rank 0 serves HTTP and the "
+             "other ranks replay each of its device calls)"
              if serving else
              " (a multi-process job joins through torchrun's env:// "
              "variables first; one rank a device)")
@@ -212,18 +217,109 @@ def _is_chief(pred) -> bool:
     return pred.mesh is None or pred.mesh.rank == 0
 
 
-def _serve_mesh(args) -> None:
-    """``serve --mesh``: size 1 serves as without it; a larger mesh exits 2
-    (an HTTP plane over a multi-rank mesh is ROADMAP item 6d)."""
+# The serve flags a mesh above one rank does not take yet (ROADMAP item 6e),
+# each with the test that says it was given.
+_MESH_DEFERRED = (
+    ("--watch", lambda a: a.watch),
+    ("--replicas", lambda a: a.replicas > 1),
+    ("--admission-depth", lambda a: a.admission_depth),
+    ("--tenant-weights", lambda a: a.tenant_weights),
+    ("--autoscale", lambda a: a.autoscale),
+    ("--fleet", lambda a: a.fleet),
+    ("--quant", lambda a: a.quant != "off"),
+    ("--surface", lambda a: a.surface),
+    ("--verdict-raw", lambda a: a.verdict_raw),
+    ("--verdict-wire-listen", lambda a: a.verdict_wire_listen),
+)
+
+
+def _serve_mesh(args):
+    """``serve --mesh``'s config when it spans more than one rank (None for
+    no mesh or a mesh of size 1, which serve as without it).  A flag such
+    a mesh does not take yet exits 2."""
     cfg = _parse_mesh(args)
-    if cfg is not None and cfg.size > 1:
-        print(f"{args.cmd}: --mesh {args.mesh} is not ported yet: an HTTP "
-              "serving plane over a multi-rank mesh (rank 0 fronting the "
-              "requests, every other rank replaying each rung in step) is "
-              "ROADMAP item 6d; `predict`, `whatif` and `anomaly` run on "
-              "such a mesh, and --mesh 1,1,1 serves on one device",
+    if cfg is None or cfg.size == 1:
+        return None
+    given = [flag for flag, test in _MESH_DEFERRED if test(args)]
+    if given:
+        print(f"{args.cmd}: --mesh {args.mesh} with {', '.join(given)} is "
+              "not ported yet: reloads, the replica router, the fleet "
+              "tier, quantized serving, capacity surfaces and the verdict "
+              "surface on a mesh above one rank are ROADMAP item 6e; serve "
+              "on the mesh without them, or on one device",
               file=sys.stderr)
         sys.exit(2)
+    return cfg
+
+
+def _follow(pred) -> int:
+    """A follower of ``serve --mesh`` (every rank but 0): make each device
+    call rank 0 announces until its ``STOP``, then exit 0.  SIGTERM and
+    SIGINT are ignored: rank 0 stops the plane, and its ``STOP`` ends this
+    loop.  A lost peer ends it with 1, after the job's census."""
+    import signal
+
+    from deeprest_tpu_torch.parallel.distributed import (
+        JobStoreLostError, census, teardown,
+    )
+    from deeprest_tpu_torch.parallel.elastic import (
+        CENSUS_WAIT_S, is_device_loss,
+    )
+    from deeprest_tpu_torch.serve.mesh_front import follow
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, signal.SIG_IGN)
+    rank, world = pred.mesh.rank, pred.mesh.size
+    try:
+        follow(pred)
+    except Exception as exc:
+        if not is_device_loss(exc):
+            raise
+        teardown()
+        try:
+            survivors = census(True, CENSUS_WAIT_S)
+            lost = [r for r in range(world) if r not in survivors]
+            what = (f"lost rank(s) {lost}" if lost
+                    else "failed a collective with every rank alive")
+        except JobStoreLostError:
+            what = "lost rank 0, and the job's store with it"
+        print(f"serve: rank {rank}: the serving mesh {what}; the plane "
+              "stopped", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+def _serve_on_mesh(server, front, deadline: float) -> int:
+    """Rank 0's serving loop on a mesh above one rank: answer until
+    ``--deadline``, SIGTERM or SIGINT, then stop the server and send
+    ``STOP`` (every rank exits 0).  A lost rank stops the server too; the
+    ranks that are gone are named, and the exit is 1."""
+    import signal
+    import threading
+
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    end = time.monotonic() + deadline if deadline else None
+    server.start()
+    try:
+        while not (stop.is_set() or front.lost.is_set()):
+            left = 0.2 if end is None else min(end - time.monotonic(), 0.2)
+            if left <= 0:
+                break
+            stop.wait(left)
+    finally:
+        server.stop()
+    if front.lost.is_set():
+        lost = front.lost_ranks()
+        what = (f"lost rank(s) {lost}" if lost
+                else "failed a collective with every rank alive")
+        print(f"serve: the {front.world}-rank serving mesh {what}; the "
+              f"plane stopped rather than answer without them: "
+              f"{front.error}", file=sys.stderr, flush=True)
+        return 1
+    front.stop()
+    return 0
 
 
 def _add_device_arg(p: argparse.ArgumentParser):
@@ -697,10 +793,11 @@ def _stood_down(trainer) -> int:
     return 0
 
 
-def _predictor(args):
+def _predictor(args, **serving):
     """The checkpoint's predictor on ``--mesh`` (every rank of a joined job
     builds its own; a gloo mesh serves eagerly, its collectives cannot be
-    captured).  A mesh the job cannot lay out exits 2."""
+    captured), with ``serving``'s further ``Predictor.from_checkpoint``
+    knobs.  A mesh the job cannot lay out exits 2."""
     from deeprest_tpu_torch.config import InferConfig
     from deeprest_tpu_torch.serve.predictor import Predictor
 
@@ -722,7 +819,7 @@ def _predictor(args):
             page_windows=infer.page_windows,
             coalesce_pages=infer.coalesce_pages, quant=infer.quant,
             device=args.device, mesh_config=mesh_cfg,
-            cuda_graphs=not gloo)
+            cuda_graphs=not gloo, **serving)
     except ValueError as exc:
         if mesh_cfg is None or "mesh" not in str(exc):
             raise
@@ -1240,7 +1337,22 @@ def cmd_serve(args) -> int:
     retry, zero-downtime rolling reload under --watch, and an optional
     self-sizing control loop (--autoscale, deploy/autoscaler.py).  Process
     replicas build and warm their own stacks; the front then loads no
-    model."""
+    model.  With --mesh above one rank every rank joins the job and builds,
+    warms and digests its predictor in step; rank 0 then serves and
+    mirrors each device call to the other ranks, which replay it
+    (serve/mesh_front.py)."""
+    if bool(args.ckpt_dir) == bool(args.artifact):
+        sys.exit("error: provide exactly one of --ckpt-dir or --artifact")
+    if _parse_mesh(args) is not None and args.artifact:
+        sys.exit("error: --mesh requires --ckpt-dir (exported artifacts "
+                 "bake single-device params; re-serve from the checkpoint "
+                 "to shard them)")
+    if _serve_mesh(args) is not None:
+        return _on_job(_serve, args)
+    return _serve(args)
+
+
+def _serve(args) -> int:
     from deeprest_tpu_torch import obs
     from deeprest_tpu_torch.obs import profiler
     from deeprest_tpu_torch.serve.batcher import BatcherConfig
@@ -1248,13 +1360,7 @@ def cmd_serve(args) -> int:
         CheckpointReloader, PredictionServer, PredictionService,
     )
 
-    if bool(args.ckpt_dir) == bool(args.artifact):
-        sys.exit("error: provide exactly one of --ckpt-dir or --artifact")
-    if _parse_mesh(args) is not None and args.artifact:
-        sys.exit("error: --mesh requires --ckpt-dir (exported artifacts "
-                 "bake single-device params; re-serve from the checkpoint "
-                 "to shard them)")
-    _serve_mesh(args)
+    mesh_cfg = _serve_mesh(args)
     try:
         ladder = tuple(int(r) for r in args.batch_ladder.split(","))
     except ValueError:
@@ -1325,6 +1431,7 @@ def cmd_serve(args) -> int:
                  quant=infer.quant, device=args.device)
     seconds = {}
     reloader = None
+    front = None
     sparse = (dict(sparse_feed=infer.sparse_feed,
                    sparse_nnz_cap=infer.sparse_nnz_cap)
               if args.ckpt_dir else {})
@@ -1361,7 +1468,11 @@ def cmd_serve(args) -> int:
         device, quant, parity_max = spec["device"], infer.quant, None
     else:
         t0 = time.perf_counter()
-        if args.ckpt_dir:
+        if mesh_cfg is not None:
+            pred = _predictor(args, ladder=ladder,
+                              coalesce_groups=args.batch_coalesce_groups,
+                              **sparse)
+        elif args.ckpt_dir:
             pred = Predictor.from_checkpoint(args.ckpt_dir, **knobs, **sparse)
         else:
             from deeprest_tpu_torch.serve.export import ExportedPredictor
@@ -1378,6 +1489,17 @@ def cmd_serve(args) -> int:
         t0 = time.perf_counter()
         graphs = pred.warm()
         seconds["warm"] = time.perf_counter() - t0
+        if mesh_cfg is not None:
+            from deeprest_tpu_torch.serve.mesh_front import MeshFront
+
+            # the digest's gather on every rank before the socket listens
+            # (it is cached: no /healthz starts a collective on rank 0)
+            t0 = time.perf_counter()
+            pred.params_digest()
+            seconds["digest"] = time.perf_counter() - t0
+            if not _is_chief(pred):
+                return _follow(pred)
+            front = MeshFront(pred)
         device, quant = str(pred.device), pred.quant
         parity_max = (max(pred.parity_envelope["measured"].values())
                       if pred.parity_envelope else None)
@@ -1479,6 +1601,7 @@ def cmd_serve(args) -> int:
         service.attach_quality(monitor, ingestor)
     server = PredictionServer(service, host=args.host, port=args.port)
     host, port = server.address
+    mesh = _parse_mesh(args)
     print(json.dumps({"listening": f"http://{host}:{port}",
                       "backend": backend,
                       "whatif": synthesizer is not None,
@@ -1489,6 +1612,9 @@ def cmd_serve(args) -> int:
                                    "max_bytes": surface_cfg.max_bytes}
                                   if surface_cfg is not None else None),
                       "replicas": args.replicas,
+                      "mesh": (None if mesh is None else
+                               [mesh.data, mesh.expert, mesh.model]),
+                      "world": 1 if front is None else front.world,
                       "fleet": ({"tenants": fleet_pool.tenants(),
                                  "hbm_budget": fleet_pool.hbm_budget,
                                  "aot": fleet_pool.stats()["aot"]}
@@ -1511,6 +1637,8 @@ def cmd_serve(args) -> int:
                       "sparse_feed": bool(sparse.get("sparse_feed")),
                       "device": device, "graphs": graphs,
                       "seconds": seconds}), flush=True)
+    if front is not None:
+        return _serve_on_mesh(server, front, args.deadline)
     try:
         if args.deadline:
             server.start()

@@ -50,6 +50,7 @@ re-associates the reference's left-to-right float32 adds.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -207,6 +208,7 @@ class FusedRolledEngine:
         # predictor each page binds into the plane's slot
         self._exec = self
         self._owner = None
+        self._front = None       # rank 0's mesh front (serve/mesh_front.py)
 
     # -- the fleet tier ---------------------------------------------------
 
@@ -494,8 +496,12 @@ class FusedRolledEngine:
         use_device_delta = self._has_delta and bool(integrate)
         names = ("cols", "vals") if sparse else ("x",)
         # The engine's graphs and its host buffers are held from the first
-        # staging copy until the pages are back on the host.
-        with self._graphs.lock, self._readback.lock, torch.inference_mode():
+        # staging copy until the pages are back on the host; rank 0 of a
+        # serving mesh announces the call to the other ranks inside them
+        # (serve/mesh_front.py).
+        with self._graphs.lock, self._readback.lock, torch.inference_mode(), (
+                contextlib.nullcontext() if self._front is None
+                else self._front.fused(arrays, integrate, sparse)):
             staging = (self._sparse_staging_for() if sparse
                        else self._staging_for(arrays[0][0].shape[1]))
             carry, host, row = self._carry0, None, 0

@@ -40,6 +40,7 @@ Quantized serving and the fleet tier take no mesh above one rank.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -137,6 +138,7 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
                               coalesce_pages, sparse_feed, sparse_nnz_cap,
                               cuda_graphs)
         self._plane = None           # the shared plane, once in a fleet
+        self._front = None           # rank 0's mesh front, once attached
         self.graphs = RungGraphs(self.device, enabled=cuda_graphs)
         self.sparse_feed = bool(sparse_feed)
         self.sparse_nnz_cap = int(sparse_nnz_cap)
@@ -168,6 +170,19 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def attach_front(self, front) -> None:
+        """Announce every device call to the other ranks of the mesh
+        through ``front`` (rank 0 of ``serve --mesh``,
+        serve/mesh_front.py), inside the graphs lock each entry holds."""
+        self._front = front
+        if self._fused is not None:
+            self._fused._front = front
+
+    @property
+    def front(self):
+        """The attached mesh front (rank 0 of ``serve --mesh``), or None."""
+        return self._front
+
     def _apply_sparse(self, cols: torch.Tensor,
                       vals: torch.Tensor) -> torch.Tensor:
         """RAW padded-COO windows on the device → densified, normalized
@@ -179,9 +194,13 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
                   arrays: dict) -> torch.Tensor:
         """One ladder rung through its program's graph: ``arrays`` staged
         in a pinned slot, the output returned as the caller's own device
-        tensor (a clone of the graph's static output on CUDA)."""
+        tensor (a clone of the graph's static output on CUDA).  With a
+        mesh front attached the call is first announced to the other
+        ranks."""
         r = len(next(iter(arrays.values())))
-        with self.graphs.lock, torch.inference_mode():
+        with self.graphs.lock, torch.inference_mode(), (
+                contextlib.nullcontext() if self._front is None
+                else self._front.rung(program, arrays)):
             slot = staging.take()
             for name, a in arrays.items():
                 slot[name][:r].numpy()[...] = a

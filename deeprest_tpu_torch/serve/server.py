@@ -698,6 +698,10 @@ class PredictionService:
             out["jit_cache"] = stats()
         out["kernel_launches"] = _kernel_launches()
         out["device_memory"] = _device_memory()
+        front = getattr(pred, "front", None)
+        if front is not None:
+            # rank 0 of a serving mesh: the calls mirrored to the others
+            out["mesh"] = front.stats()
         return out
 
     def verdict(self, tenant: str | None = None) -> dict:

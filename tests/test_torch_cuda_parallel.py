@@ -25,6 +25,10 @@ repository's conftest imports JAX, which the GPU machine does not have):
   with DeviceLossError, rank 0 remeshes to 1,1,1, restores step 2 and
   finishes bit for bit a trainer with no process group resuming from that
   snapshot.
+- ``serve --mesh 1,2,1``, gloo at world size 2 on the one card, bf16,
+  eager: rank 0 fronts HTTP and rank 1 replays each device call;
+  ``/v1/predict`` within 2e-2 of scale of the one-process captured
+  answer, K1 launched as often on both ranks, both exit 0 at the deadline.
 """
 
 import multiprocessing
@@ -356,3 +360,91 @@ def test_gloo_elastic_on_one_card(cuda, tmp_path):
     np.testing.assert_array_equal(r0["losses"], ref.last_epoch_losses)
     for name, value in numpy_params(state).items():
         np.testing.assert_array_equal(r0[f"params/{name}"], value, name)
+
+
+SERVE_DEADLINE_S = 20
+
+
+def serve_rank_main(rank: int, port: int, ckpt: str, out: str) -> None:
+    """One rank of ``serve --mesh 1,2,1`` on the card, in a gloo job that
+    shares it: the CLI's stdout to ``out + ".log"``, then its exit code
+    and K1 launches to ``out``."""
+    import contextlib
+    import json
+
+    from deeprest_tpu_torch.cli import main
+    from deeprest_tpu_torch.ops import cuda_gru
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    with open(out + ".log", "w") as log, contextlib.redirect_stdout(log):
+        rc = main(["serve", "--ckpt-dir", ckpt, "--mesh", "1,2,1",
+                   "--port", "0", "--deadline", str(SERVE_DEADLINE_S)])
+    with open(out, "w") as fh:
+        json.dump({"rc": rc, "gru_fwd": cuda_gru.GRU_FWD.launches}, fh)
+
+
+@pytest.mark.cuda
+def test_gloo_serve_mesh_on_one_card(cuda, tmp_path):
+    """``serve --mesh 1,2,1`` (bf16, E=4: two experts a rank) as two gloo
+    ranks sharing the card, eager: /v1/predict within 2e-2 of scale of
+    the one-process captured answer, K1 launched as often on both ranks,
+    and both ranks exit 0 at the deadline."""
+    import json
+    import os
+    import time
+    import urllib.request
+
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    trainer, state, _ = train(Mesh(MeshConfig(), 0, cuda), "bfloat16", 0.0,
+                              1, epochs=1, metrics=4)
+    ckpt = str(tmp_path / "ckpt")
+    trainer.save(ckpt, state, prepare_dataset(corpus(4),
+                                              trainer.config.train))
+    traffic = corpus(4).traffic
+    want = Predictor.from_checkpoint(ckpt, device="cuda").predict_series(
+        traffic)
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [str(tmp_path / f"serve{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=serve_rank_main, args=(r, port, ckpt, outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        url, deadline = None, time.monotonic() + 300
+        while url is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+            assert all(p.is_alive() for p in procs)
+            if not os.path.exists(outs[0] + ".log"):
+                continue
+            with open(outs[0] + ".log") as fh:
+                for line in fh:
+                    if line.startswith('{"listening"'):
+                        url = json.loads(line)["listening"]
+        assert url is not None
+        req = urllib.request.Request(
+            url + "/v1/predict",
+            data=json.dumps({"traffic": traffic.tolist()}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            got = np.asarray(json.loads(resp.read())["predictions"])
+        for p in procs:
+            p.join(SERVE_DEADLINE_S + 120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = []
+    for path in outs:
+        with open(path) as fh:
+            ranks.append(json.load(fh))
+    assert [r["rc"] for r in ranks] == [0, 0]
+    assert ranks[0]["gru_fwd"] == ranks[1]["gru_fwd"] > 0
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()

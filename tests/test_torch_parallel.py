@@ -439,11 +439,11 @@ def test_bad_mesh_spec_exits_as_jax_cli(spec):
 
 
 def test_mesh_beyond_the_data_axis_exits_2(job, tmp_path, capsys):
-    """A mesh the job cannot lay out exits 2 from ``train`` and
-    ``predict``; ``serve`` on any mesh above one rank exits 2 naming
-    ROADMAP item 6d (the HTTP plane over a multi-rank mesh), before it
-    loads anything; ``predict --mesh 1,1,1`` runs (a multi-rank ``predict
-    --mesh`` is tests/test_torch_sharded_ckpt.py's)."""
+    """A mesh the job cannot lay out exits 2 from ``train``, ``predict``
+    and ``serve`` (before ``serve`` loads anything); ``predict --mesh
+    1,1,1`` runs (a multi-rank ``predict --mesh`` is
+    tests/test_torch_sharded_ckpt.py's, a multi-rank ``serve --mesh``
+    tests/test_torch_serve_mesh.py's)."""
     cli = importlib.import_module("deeprest_tpu_torch.cli")
     corpus, ckpt = job["wd"] / "corpus.npz", job["wd"] / "snap2"
     assert cli.main(["train", "--features", str(corpus), "--epochs", "1",
@@ -461,7 +461,9 @@ def test_mesh_beyond_the_data_axis_exits_2(job, tmp_path, capsys):
             cli.main(["serve", "--ckpt-dir", str(ckpt), "--mesh", mesh,
                       "--device", "cpu"])
         assert exc.value.code == 2
-        assert "ROADMAP item 6d" in capsys.readouterr().err
+        assert capsys.readouterr().err == (
+            f"serve: mesh {mesh.replace(',', 'x')} needs 2 devices, only 1 "
+            "available\n")
     with pytest.raises(SystemExit) as exc:
         cli.main(["serve", "--artifact", "a", "--mesh", "1,1,1"])
     assert "--mesh requires --ckpt-dir" in str(exc.value.code)
