@@ -293,13 +293,32 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     requests/s, p50 and p99 recorded only); K1 launched as often on both
     ranks; both ranks exit 0 at the deadline; the phase's seconds and
     each rank's peak device memory;
-20. the seconds of each phase, one JSON line of per-kernel numbers, then
+20. quantized serving, `--watch` and the capacity and verdict surfaces on
+    the mesh, beside phases 11, 14 and 15: `serve --mesh 1,1,2 --quant
+    int8 --watch 1 --surface --raw <phase 7's first 120 minutes>
+    --verdict-raw <its last 90> --no-batcher` as two spawned gloo ranks
+    sharing the card (eager), on phase 5's flagship params with phase 7's
+    call paths spread over its 512 columns: phase 5's day within 2e-2 of
+    scale of the one-process int8 predictor and every non-delta cell
+    within its stored budget (the worst printed); the one-process int8
+    digest; a step 1 (params x 1.1) written into the watched directory
+    with the stored envelope removed, `/healthz` naming it, then the day
+    within 2e-2 of the one-process int8 predictor of step 1 and its
+    digest; the envelope rank 0 stored at the reload equal to the plane's
+    and within its budget; `/v1/whatif/surface` (built on the request,
+    `wait`) within 2e-2 of scale of a one-process service at step 1,
+    keyed on step 1's digest; `/v1/verdict` swept; K1 launched as often
+    on both ranks; both exit 0 at the deadline; requests/s and p50/p99 at
+    concurrency 1, the reload's and the surface build's seconds, each
+    rank's peak device memory and the phase's seconds (the one-process
+    references run in the foreground after phase 15);
+21. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11, 14, 15, 16, 17, 18, 19 and the sweep of 9; a server
-or CLI process starts at 0, and phase 12 sums its workers' ledgers and
-phases 15, 16, 17 and 19 their ranks') and
+7, 8, 12, 10, 13, 11, 14, 15, 16, 17, 18, 19, 20 and the sweep of 9; a
+server or CLI process starts at 0, and phase 12 sums its workers' ledgers
+and phases 15, 16, 17, 19 and 20 their ranks') and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -316,7 +335,7 @@ servers and phase 12's planes loading together, phase 10's export
 beside the 10k training, phase 14's train CLIs and phase 15's
 `train --mesh` together, phase 11's second stream run beside its
 in-process checks, phase 15's gloo ranks beside phase 14's demo, and
-phases 16, 17 and 19 as above.  The host-clock numbers of an overlapped
+phases 16, 17, 19 and 20 as above.  The host-clock numbers of an overlapped
 phase are taken under that load; kernel times are not.
 
 It exits nonzero, printing no result, without CUDA or without the package
@@ -6465,24 +6484,7 @@ def phase_serve_mesh(cuda_gru, serving: dict, axes: dict, plane: dict,
     for p in procs:
         p.start()
     try:
-        start = None
-        deadline = time.monotonic() + 300
-        while start is None and time.monotonic() < deadline:
-            time.sleep(0.2)
-            if not all(p.is_alive() for p in procs):
-                break
-            if os.path.exists(outs[0] + ".log"):
-                with open(outs[0] + ".log", encoding="utf-8") as log:
-                    for line in log:
-                        if line.startswith('{"listening"'):
-                            start = json.loads(line)
-        if start is None:
-            logs = ""
-            for path in outs:
-                if os.path.exists(path + ".log"):
-                    with open(path + ".log", encoding="utf-8") as log:
-                        logs += log.read()[-3000:]
-            fail(f"serve --mesh {label} did not listen:\n{logs}")
+        start = wait_ranks_listening(procs, outs, f"serve --mesh {label}")
         listened = time.perf_counter()
         url = start["listening"]
         if start["mesh"] != list(SERVE_MESH) or start["world"] != 2:
@@ -6585,6 +6587,379 @@ def phase_serve_mesh(cuda_gru, serving: dict, axes: dict, plane: dict,
                       for c, load in loads.items()}}
 
 
+# -- phase 20: quantized serving, --watch and the surfaces on the mesh ----
+
+SERVE_MESH_QUANT = (1, 1, 2)        # F=512: w_ih's 256 columns a rank
+SERVE_MESH_QUANT_DEADLINE_S = 75    # rank 0 stops this long after it listens
+SERVE_MESH_QUANT_RELOAD = 1.1       # step 1's params, x this
+SERVE_MESH_QUANT_RELOAD_LOAD_S = 10.0   # the closed loop during the reload
+SERVE_MESH_QUANT_TAIL = 90          # the verdict tail: phase 7's last minutes
+SERVE_MESH_QUANT_SURFACE = ("--surface", "--surface-max-axes", "2",
+                            "--surface-jitter", "4")
+SERVE_MESH_QUANT_VERDICT = ("--verdict-sweep-every", "30",
+                            "--verdict-live-window", "60")
+
+
+def serve_mesh_quant_rank_main(rank: int, port: int, args: list,
+                               out: str) -> None:
+    """One rank of phase 20's plane (spawned): ``serve`` with ``args`` on
+    the card in a gloo job sharing it, its output to ``out + ".log"``;
+    then its exit code, K1 launches and peak device memory to ``out``."""
+    import contextlib
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeprest_tpu_torch.cli import main
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    with open(out + ".log", "w", encoding="utf-8") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = main(["serve", *args])
+    with open(out, "w", encoding="utf-8") as fh:
+        json.dump({"rc": rc, "launches": cuda_gru.GRU_FWD.launches,
+                   "max_allocated": torch.cuda.max_memory_allocated(),
+                   "max_reserved": torch.cuda.max_memory_reserved()}, fh)
+
+
+def wait_ranks_listening(procs, outs: list, label: str,
+                         timeout: float = 300.0) -> dict:
+    """Rank 0's startup line of a plane of spawned ranks (each writes its
+    output to ``outs[r] + ".log"``); fails with the ranks' logs when it
+    does not listen."""
+    start = None
+    deadline = time.monotonic() + timeout
+    while start is None and time.monotonic() < deadline:
+        time.sleep(0.2)
+        if not all(p.is_alive() for p in procs):
+            break
+        if os.path.exists(outs[0] + ".log"):
+            with open(outs[0] + ".log", encoding="utf-8") as log:
+                for line in log:
+                    if line.startswith('{"listening"'):
+                        start = json.loads(line)
+    if start is None:
+        logs = ""
+        for path in outs:
+            if os.path.exists(path + ".log"):
+                with open(path + ".log", encoding="utf-8") as log:
+                    logs += log.read()[-3000:]
+        fail(f"{label} did not listen:\n{logs}")
+    return start
+
+
+def serve_mesh_quant_checkpoint(serving: dict, social_ckpt: str,
+                                wd: str) -> str:
+    """Phase 20's watched checkpoint: phase 5's flagship params and stats
+    at step 0, with phase 7's call paths spread over its 512 columns (its
+    sidecar's space, every path ``F // paths`` columns after the last, the
+    columns between held by paths no trace takes, frozen at F), so
+    ``--raw`` and ``--verdict-raw`` featurize phase 7's corpus into
+    columns of both model-axis ranks."""
+    from deeprest_tpu_torch.train.checkpoint import (
+        load_params, load_sidecar, save_checkpoint,
+    )
+
+    extra = load_sidecar(serving["ckpt"], 0)
+    space = dict(load_sidecar(social_ckpt)["space"])
+    paths = space["vocabulary"]
+    spread = [["unused", f"/column{i}"] for i in range(F)]
+    for j, path in enumerate(paths):
+        spread[j * (F // len(paths))] = path
+    space["vocabulary"], space["frozen_capacity"] = spread, F
+    extra["space"] = space
+    ckpt = os.path.join(wd, "ckpt")
+    save_checkpoint(ckpt, load_params(serving["ckpt"], 0), 0, extra=extra)
+    return ckpt
+
+
+def write_reload_step(ckpt: str) -> None:
+    """Step 1 of phase 20's checkpoint: step 0's params x
+    SERVE_MESH_QUANT_RELOAD, the same sidecar.  The stored int8 envelope
+    goes first, so the reload measures and stores step 1's: in bf16 the
+    int8 deviation sits at the compute's rounding noise, and step 0's
+    budget (2x its measured cells) refuses a step whose noise is drawn
+    anew (the CPU at this shape: cells 2.6-3.8x step 0's at x1.01-1.25)."""
+    from deeprest_tpu_torch.train.checkpoint import (
+        load_params, load_sidecar, save_checkpoint,
+    )
+
+    os.remove(os.path.join(ckpt, "quant_parity_int8.json"))
+    save_checkpoint(ckpt, {k: v * SERVE_MESH_QUANT_RELOAD
+                           for k, v in load_params(ckpt, 0).items()}, 1,
+                    extra=load_sidecar(ckpt, 0))
+
+
+def phase_serve_mesh_quant(serving: dict, plane: dict, raw_path: str,
+                           social: tuple, workdir: str) -> dict:
+    """Phase 20: ``serve --mesh 1,1,2 --quant int8 --watch 1 --surface
+    --raw --verdict-raw --no-batcher`` as two spawned gloo ranks sharing
+    the card (eager), on phase 5's flagship with phase 7's call paths:
+    phase 5's day, a closed loop at concurrency 1, step 1 written into
+    the watched directory and served, a capacity surface, the verdict
+    surface and both ranks' exit at the deadline.  Its kernels launch in
+    its ranks only; the one-process references are
+    :func:`check_serve_mesh_quant`'s, in the foreground."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    wd = os.path.join(workdir, "serve_mesh_quant")
+    os.makedirs(wd)
+    label = "x".join(map(str, SERVE_MESH_QUANT))
+    ckpt = serve_mesh_quant_checkpoint(serving, social[0], wd)
+    tail = os.path.join(wd, "tail.jsonl")
+    with open(raw_path, encoding="utf-8") as src:
+        lines = src.readlines()[-SERVE_MESH_QUANT_TAIL:]
+    with open(tail, "w", encoding="utf-8") as dst:
+        dst.writelines(lines)
+    args = ["--ckpt-dir", ckpt, "--mesh", ",".join(map(str,
+                                                       SERVE_MESH_QUANT)),
+            "--quant", "int8", "--watch", "1", *SERVE_MESH_QUANT_SURFACE,
+            "--raw", social[1], "--verdict-raw", tail,
+            *SERVE_MESH_QUANT_VERDICT, "--no-batcher", "--port", "0",
+            "--deadline", str(SERVE_MESH_QUANT_DEADLINE_S)]
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(wd, f"rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=serve_mesh_quant_rank_main,
+                         args=(r, port, args, outs[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    out = {"ckpt": ckpt, "tail": tail}
+    try:
+        start = wait_ranks_listening(
+            procs, outs, f"serve --mesh {label} --quant int8 --watch")
+        listened = time.perf_counter()
+        url = start["listening"]
+        if (start["mesh"] != list(SERVE_MESH_QUANT) or start["world"] != 2
+                or start["quant"] != "int8" or start["verdict"] is None
+                or start["surface"] is None):
+            fail(f"phase 20's startup line: {start}")
+        day = {"traffic": serving["traffic"].tolist()}
+        status, body = http_json(url + "/v1/predict", day)
+        if status != 200:
+            fail(f"phase 20 /v1/predict answered {status}: {body}")
+        out["day0"] = body["predictions"]
+        out["health0"] = http_json(url + "/healthz")[1]
+        load = closed_loop(url, plane["bodies"], 1, SERVE_MESH_LOAD_S)
+        load.pop("samples")
+        out["load"] = load
+        with open(os.path.join(ckpt, "quant_parity_int8.json"),
+                  encoding="utf-8") as fh:
+            out["envelope0"] = json.load(fh)       # step 0's, stored at start
+        write_reload_step(ckpt)
+        t_written = time.perf_counter()
+        # a client through the reload: its ops hold the front's lock one
+        # at a time, so requests go on between them
+        during = Background("phase 20's reload clients", closed_loop, url,
+                            plane["bodies"], 1,
+                            SERVE_MESH_QUANT_RELOAD_LOAD_S)
+        health = None
+        while time.perf_counter() - t_written < 120:
+            health = http_json(url + "/healthz")[1]
+            if health["mesh"]["step"] == 1:
+                break
+            time.sleep(0.05)
+        out["reload_s"] = time.perf_counter() - t_written
+        out["load_reload"] = during.result(SERVE_MESH_QUANT_RELOAD_LOAD_S
+                                           + 300)
+        out["load_reload"].pop("samples")
+        if health is None or health["mesh"]["step"] != 1:
+            fail(f"phase 20: step 1 was not served within 120 s: "
+                 f"{health and health['mesh']}")
+        out["health1"] = health
+        status, body = http_json(url + "/v1/predict", day)
+        if status != 200:
+            fail(f"phase 20 /v1/predict after the reload answered {status}")
+        out["day1"] = body["predictions"]
+        endpoints = http_json(url + "/v1/meta")[1]["whatif_endpoints"]
+        program = [{ep: 30 for ep in endpoints[:2]}] * W
+        out["surface_body"] = {"base_traffic": program, "factor": 2,
+                               "wait": True}
+        t_surface = time.perf_counter()
+        status, body = http_json(url + "/v1/whatif/surface",
+                                 out["surface_body"])
+        out["surface_s"] = time.perf_counter() - t_surface
+        if status != 200:
+            fail(f"phase 20 /v1/whatif/surface answered {status}: {body}")
+        out["surface"] = body
+        verdict = None
+        while time.perf_counter() - t_surface < 120:
+            status, verdict = http_json(url + "/v1/verdict")
+            if status == 200 and verdict["sweeps"] >= 1:
+                break
+            time.sleep(0.2)
+        if status != 200 or verdict["sweeps"] < 1:
+            fail(f"phase 20 /v1/verdict: {status}, {verdict}")
+        out["verdict"] = verdict
+        out["health2"] = http_json(url + "/healthz")[1]
+        out["client_s"] = time.perf_counter() - listened
+        if out["client_s"] > SERVE_MESH_QUANT_DEADLINE_S - 5:
+            fail(f"phase 20's clients took {out['client_s']:.1f} s, too "
+                 f"close to the {SERVE_MESH_QUANT_DEADLINE_S}-s deadline")
+        for p in procs:
+            p.join(SERVE_MESH_QUANT_DEADLINE_S + 120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    out["wall"] = time.perf_counter() - t0
+    out["listening_s"] = listened - t0
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"phase 20's ranks exited {[p.exitcode for p in procs]}")
+    out["ranks"] = []
+    for path in outs:
+        with open(path, encoding="utf-8") as fh:
+            out["ranks"].append(json.load(fh))
+    if [r["rc"] for r in out["ranks"]] != [0, 0]:
+        fail(f"phase 20's ranks returned "
+             f"{[r['rc'] for r in out['ranks']]} at the deadline")
+    k1 = [r["launches"] for r in out["ranks"]]
+    if k1[0] == 0 or k1[0] != k1[1]:
+        fail(f"phase 20: gru_fwd launches per rank {k1}; want the same "
+             "nonzero count on both")
+    out["launches"] = {"gru_fwd": sum(k1)}
+    return out
+
+
+def check_serve_mesh_quant(cuda_gru, serving: dict, social: tuple,
+                           run: dict) -> dict:
+    """Phase 20 against one process on the card (foreground; these
+    reference launches count nowhere): the day at steps 0 and 1 against
+    the one-process int8 predictor (2e-2 of scale, and every non-delta
+    (metric, quantile) deviation, in the model's normalized units, within
+    the budget the plane stored for that step), the envelope stored at
+    the reload equal to the plane's, the digests, and the surface against
+    a one-process service at step 1."""
+    import numpy as np
+
+    from deeprest_tpu_torch.config import SurfaceConfig
+    from deeprest_tpu_torch.data.schema import load_raw_data
+    from deeprest_tpu_torch.data.synthesize import TraceSynthesizer
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.serve.server import PredictionService
+
+    import shutil
+
+    label = "x".join(map(str, SERVE_MESH_QUANT))
+    delta = serving["delta"]
+    with open(os.path.join(run["ckpt"], "quant_parity_int8.json"),
+              encoding="utf-8") as fh:
+        envelope = json.load(fh)
+    # each one-process predictor measures its own envelope: in bf16 the
+    # int8 deviation is near the compute's rounding noise, which another
+    # order of sums (the model axis's partial sums) or other params draw
+    # anew
+    one_dir = run["ckpt"] + "_one_process"
+    shutil.copytree(run["ckpt"], one_dir,
+                    ignore=shutil.ignore_patterns("quant_parity_*"))
+    errs, digests, preds = {}, {}, {}
+    for step in (0, 1):
+        stored = os.path.join(one_dir, "quant_parity_int8.json")
+        if os.path.exists(stored):
+            os.remove(stored)
+        pred = Predictor.from_checkpoint(one_dir, step=step, device="cuda",
+                                         quant="int8")
+        want = pred.predict_series(serving["traffic"])
+        got = np.asarray(run[f"day{step}"], np.float32)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"phase 20 step {step}: shape {got.shape} or non-finite")
+        errs[step] = {name: rel_err(got, want, cols) for cols, name in
+                      ((~delta, "non-delta"), (delta, "delta"))}
+        # the non-delta cells in the model's units against the budget
+        rng = np.maximum(np.asarray(pred.y_stats.range, np.float64), 1e-12)
+        dev = np.abs(got - want).max(axis=0) / rng[:, None]      # [E, Q]
+        stored = envelope if step else run["envelope0"]
+        ratio = max(float(dev[e, j]) / stored["budget"][
+            f"{m}|q{q:g}"]
+            for e, m in enumerate(pred.metric_names) if not delta[e]
+            for j, q in enumerate(pred.quantiles))
+        errs[step]["of budget"] = ratio
+        digests[step] = pred.params_digest()
+        preds[step] = pred
+    served = [run[f"health{i}"]["fleet"]["tenants"]["default"][
+        "params_digest"] for i in (0, 1)]
+    synth = TraceSynthesizer(preds[1].space()).fit(load_raw_data(social[1]))
+    svc = PredictionService(preds[1], synth, surface=SurfaceConfig(
+        enabled=True, max_axes=int(SERVE_MESH_QUANT_SURFACE[2]),
+        jitter=int(SERVE_MESH_QUANT_SURFACE[4])))
+    try:
+        one = svc.whatif_surface(run["surface_body"])
+    finally:
+        svc.close()
+    surface_err = max(
+        abs(run["surface"]["peaks"][m][q] - v)
+        / max(max(abs(x) for x in one["peaks"][m].values()), 1e-12)
+        for m, bands in one["peaks"].items() for q, v in bands.items())
+    verdict = run["verdict"]
+    states = sum(verdict["states"].values())
+    # the envelope rank 0 stored at the reload, and the plane's: the same
+    budget = envelope["budget"]
+    parity = verdict["quant_parity"]
+    over = max(v / budget[k] for k, v in parity["measured"].items())
+    k1 = [r["launches"] for r in run["ranks"]]
+    print(f"check serve --mesh {label} --quant int8 --watch --surface "
+          f"--verdict-raw (gloo world size 2 on one card, eager, bf16, "
+          f"--no-batcher): phase 5's day vs the one-process int8 "
+          f"predictor at step 0 {errs[0]}, at step 1 (x"
+          f"{SERVE_MESH_QUANT_RELOAD}, after the reload) {errs[1]} of "
+          f"scale (tol {TOL['bfloat16'][0]}; 'of budget': the worst "
+          f"non-delta cell's deviation over its stored budget, limit 1); "
+          f"/healthz digests {served}, one process {[digests[0], digests[1]]}"
+          f"; surface peaks vs the one-process service {surface_err:.3e} "
+          f"of scale (tol {TOL['bfloat16'][0]}), params_hash "
+          f"{run['surface']['surface'].get('params_hash')}; /v1/verdict "
+          f"{verdict['sweeps']} sweep(s), states {verdict['states']}; "
+          f"the envelope stored at the reload (step {envelope['step']}, max "
+          f"{max(envelope['measured'].values()):.3e}; step 0's max "
+          f"{run['health0']['quant']['parity_max']:.3e}) and the plane's "
+          f"cells over its budget {over:.3f} at worst (limit 1); "
+          f"gru_fwd launches per rank {k1}; mirrored calls "
+          f"{run['health2']['mesh']['calls']}, reloads "
+          f"{run['health2']['mesh']['reloads']}", flush=True)
+    if (max(max(e["non-delta"], e["delta"]) for e in errs.values())
+            > TOL["bfloat16"][0]
+            or max(e["of budget"] for e in errs.values()) > 1.0
+            or over > 1.0 or parity["budget"] != budget
+            or envelope["step"] != 1
+            or parity["measured"] != envelope["measured"]
+            or served != [digests[0], digests[1]]
+            or surface_err > TOL["bfloat16"][0]
+            or run["surface"]["surface"].get("params_hash")
+            != digests[1] + ":int8"
+            or states != len(preds[1].metric_names)):
+        fail(f"serve --mesh {label} --quant int8 --watch parts from one "
+             "process")
+    load, during = run["load"], run["load_reload"]
+    peak = [round(r["max_reserved"] / 2**20) for r in run["ranks"]]
+    print(f"main serve --mesh {label} --quant int8 closed loop, concurrency "
+          f"1: {load['requests']} requests in {SERVE_MESH_LOAD_S} s = "
+          f"{load['rps']:.1f} requests/s, p50 {load['p50_ms']:.2f} ms, "
+          f"p99 {load['p99_ms']:.2f} ms (eager, gloo); reload (step "
+          f"written to swapped) {run['reload_s']:.2f} s, and through its "
+          f"first {SERVE_MESH_QUANT_RELOAD_LOAD_S:g} s at concurrency 1 "
+          f"{during['requests']} requests = {during['rps']:.1f} "
+          f"requests/s, p50 {during['p50_ms']:.2f} ms, p99 "
+          f"{during['p99_ms']:.2f} ms; surface build (wait) "
+          f"{run['surface_s']:.2f} s", flush=True)
+    print(f"main serve mesh quant phase: {run['wall']:.1f} s wall "
+          f"(listening after {run['listening_s']:.1f} s of spawn; clients "
+          f"{run['client_s']:.1f} s; deadline "
+          f"{SERVE_MESH_QUANT_DEADLINE_S} s); peak device memory per rank "
+          f"{peak} MiB reserved "
+          f"({[round(r['max_allocated'] / 2**20) for r in run['ranks']]} "
+          f"allocated); gru_fwd launches {sum(k1)}", flush=True)
+    del preds
+    return {"errors": errs, "surface_err": surface_err, "peak_mib": peak}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -6671,6 +7046,10 @@ def main() -> int:
         serve_mesh = timed("wait for phase 19", mesh_job.result)
         seconds["serve --mesh (beside 10)"] = round(mesh_job.seconds, 1)
         fleet = timed("fleet tier", phase_fleet, cuda_gru, serving, wd)
+        # phase 20's ranks (its kernels launch in them only) beside 11, 14
+        # and 15; its one-process references after them, before the reset
+        quant_job = Background("phase 20", phase_serve_mesh_quant, serving,
+                               plane, raw_path, social, wd)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         stream = timed("streaming retrain", phase_stream, cuda_gru,
@@ -6681,6 +7060,11 @@ def main() -> int:
         dp = timed("data axis", phase_data_parallel, cuda_gru, host)
         axes["k2_k3_ms_e20"] = timed("K2/K3 at an expert rank's share",
                                      axes_k2_k3_times, cuda_gru, times)
+        mesh_quant = timed("wait for phase 20", quant_job.result)
+        seconds["serve --mesh --quant --watch (beside 11, 14, 15)"] = round(
+            quant_job.seconds, 1)
+        timed("phase 20 against one process", check_serve_mesh_quant,
+              cuda_gru, serving, social, mesh_quant)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         raw_side = timed("raw side native tools", phase_raw_side, cuda_gru,
@@ -6710,6 +7094,7 @@ def main() -> int:
     for name, count in raw_side["launches"].items():
         launches[name] += count
     launches["gru_fwd"] += serve_mesh["launches"]["gru_fwd"]
+    launches["gru_fwd"] += mesh_quant["launches"]["gru_fwd"]
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
                                  "deeprest_tpu/ops/pallas_gru.py:164"),
@@ -6761,7 +7146,10 @@ def main() -> int:
           f"raw side (phase 7's checkpoint on the natively and the numpy "
           f"featurized corpus) {raw_side['launches']}; serve --mesh (both "
           f"gloo ranks: warm-up, requests and their replays) "
-          f"{serve_mesh['launches']}; "
+          f"{serve_mesh['launches']}; serve --mesh --quant int8 --watch "
+          f"(both gloo ranks: warm-ups, the envelope probes, the reload, "
+          f"requests, the surface and the verdict sweep) "
+          f"{mesh_quant['launches']}; "
           f"tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     memory.stop()

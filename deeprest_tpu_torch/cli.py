@@ -67,8 +67,11 @@ variables first and lay the ``data×expert×model`` mesh over its ranks
 too: rank 0 fronts the HTTP plane and mirrors each device call to the
 other ranks, which replay it in step (serve/mesh_front.py); ``--deadline``,
 SIGTERM or SIGINT on rank 0 stops every rank, and a lost rank stops rank 0
-with exit 1 (a 503 for the request in flight).  Its reloads, router,
-fleet, quantized, surface and verdict flags exit 2 (ROADMAP item 6e).
+with exit 1 (a 503 for the request in flight).  It serves ``--quant``,
+``--watch`` (every rank loads the new step; serve/mesh_front.py), the
+capacity surfaces and the verdict surface, whose device calls are
+mirrored as any request's; its router, admission, tenant-weight,
+autoscaler and fleet flags exit 2 (ROADMAP item 6f).
 ``train --elastic`` and ``stream --elastic`` survive the loss of ranks
 in-process (elastic remeshing; ``--remesh-max-attempts``,
 ``--remesh-backoff-ms``): their JSON lines carry ``remeshes``, and a rank
@@ -217,19 +220,15 @@ def _is_chief(pred) -> bool:
     return pred.mesh is None or pred.mesh.rank == 0
 
 
-# The serve flags a mesh above one rank does not take yet (ROADMAP item 6e),
-# each with the test that says it was given.
+# The serve flags a mesh above one rank does not take yet (ROADMAP item 6f:
+# the multi-replica and multi-tenant plane), each with the test that says
+# it was given.
 _MESH_DEFERRED = (
-    ("--watch", lambda a: a.watch),
     ("--replicas", lambda a: a.replicas > 1),
     ("--admission-depth", lambda a: a.admission_depth),
     ("--tenant-weights", lambda a: a.tenant_weights),
     ("--autoscale", lambda a: a.autoscale),
     ("--fleet", lambda a: a.fleet),
-    ("--quant", lambda a: a.quant != "off"),
-    ("--surface", lambda a: a.surface),
-    ("--verdict-raw", lambda a: a.verdict_raw),
-    ("--verdict-wire-listen", lambda a: a.verdict_wire_listen),
 )
 
 
@@ -243,20 +242,20 @@ def _serve_mesh(args):
     given = [flag for flag, test in _MESH_DEFERRED if test(args)]
     if given:
         print(f"{args.cmd}: --mesh {args.mesh} with {', '.join(given)} is "
-              "not ported yet: reloads, the replica router, the fleet "
-              "tier, quantized serving, capacity surfaces and the verdict "
-              "surface on a mesh above one rank are ROADMAP item 6e; serve "
-              "on the mesh without them, or on one device",
-              file=sys.stderr)
+              "not ported yet: the replica router, admission, tenant "
+              "weights, the autoscaler and the fleet tier on a mesh above "
+              "one rank are ROADMAP item 6f; serve on the mesh without "
+              "them, or on one device", file=sys.stderr)
         sys.exit(2)
     return cfg
 
 
-def _follow(pred) -> int:
+def _follow(pred, load=None) -> int:
     """A follower of ``serve --mesh`` (every rank but 0): make each device
-    call rank 0 announces until its ``STOP``, then exit 0.  SIGTERM and
-    SIGINT are ignored: rank 0 stops the plane, and its ``STOP`` ends this
-    loop.  A lost peer ends it with 1, after the job's census."""
+    call rank 0 announces, and each reload with ``load``, until its
+    ``STOP``, then exit 0.  SIGTERM and SIGINT are ignored: rank 0 stops
+    the plane, and its ``STOP`` ends this loop.  A lost peer ends it with
+    1, after the job's census."""
     import signal
 
     from deeprest_tpu_torch.parallel.distributed import (
@@ -271,7 +270,7 @@ def _follow(pred) -> int:
         signal.signal(sig, signal.SIG_IGN)
     rank, world = pred.mesh.rank, pred.mesh.size
     try:
-        follow(pred)
+        follow(pred, load)
     except Exception as exc:
         if not is_device_loss(exc):
             raise
@@ -809,9 +808,6 @@ def _predictor(args, **serving):
                             quant=args.quant)
     except ValueError as exc:
         sys.exit(f"error: {exc}")
-    import torch.distributed as dist
-
-    gloo = dist.is_initialized() and dist.get_backend() == "gloo"
     # model architecture comes from the checkpoint sidecar
     try:
         return Predictor.from_checkpoint(
@@ -819,12 +815,20 @@ def _predictor(args, **serving):
             page_windows=infer.page_windows,
             coalesce_pages=infer.coalesce_pages, quant=infer.quant,
             device=args.device, mesh_config=mesh_cfg,
-            cuda_graphs=not gloo, **serving)
+            cuda_graphs=_job_graphs(), **serving)
     except ValueError as exc:
         if mesh_cfg is None or "mesh" not in str(exc):
             raise
         print(f"{args.cmd}: {exc}", file=sys.stderr)
         sys.exit(2)
+
+
+def _job_graphs() -> bool:
+    """Whether a predictor of this process's job captures its rung graphs:
+    not in a gloo job, whose collectives cannot be captured."""
+    import torch.distributed as dist
+
+    return not (dist.is_initialized() and dist.get_backend() == "gloo")
 
 
 def _serving_traffic(args, pred) -> np.ndarray:
@@ -1435,16 +1439,24 @@ def _serve(args) -> int:
     sparse = (dict(sparse_feed=infer.sparse_feed,
                    sparse_nnz_cap=infer.sparse_nnz_cap)
               if args.ckpt_dir else {})
+    chief = True
+    if mesh_cfg is not None:
+        import torch.distributed as dist
+
+        # a job too small for the mesh exits 2 at the load below
+        chief = not dist.is_initialized() or dist.get_rank() == 0
     if args.ckpt_dir:
         backend = f"checkpoint:{args.ckpt_dir}"
-        if args.watch:
+        if args.watch and chief:
             # Built BEFORE the initial load: a checkpoint the live trainer
             # writes while we load would otherwise be recorded as already
             # served and never reloaded.  A process plane's workers load
-            # the new step themselves, so its front only watches.
+            # the new step themselves, so its front only watches; on a
+            # mesh only rank 0 watches, and loads through its front.
             reloader = CheckpointReloader(
                 args.ckpt_dir, min_interval_s=args.watch, load=not process,
                 **knobs, **sparse)
+        if args.watch:
             backend += " (watching)"
     else:
         backend = f"artifact:{args.artifact}"
@@ -1490,6 +1502,8 @@ def _serve(args) -> int:
         graphs = pred.warm()
         seconds["warm"] = time.perf_counter() - t0
         if mesh_cfg is not None:
+            import functools
+
             from deeprest_tpu_torch.serve.mesh_front import MeshFront
 
             # the digest's gather on every rank before the socket listens
@@ -1497,9 +1511,17 @@ def _serve(args) -> int:
             t0 = time.perf_counter()
             pred.params_digest()
             seconds["digest"] = time.perf_counter() - t0
+            # a reload's load, the same on every rank: the plane's knobs
+            # on the mesh it serves on
+            load = (functools.partial(
+                Predictor.from_checkpoint, args.ckpt_dir, mesh=pred.mesh,
+                cuda_graphs=_job_graphs(), **knobs, **sparse)
+                if args.watch else None)
             if not _is_chief(pred):
-                return _follow(pred)
-            front = MeshFront(pred)
+                return _follow(pred, load)
+            front = MeshFront(pred, load=load)
+            if reloader is not None:
+                reloader.attach_front(front)
         device, quant = str(pred.device), pred.quant
         parity_max = (max(pred.parity_envelope["measured"].values())
                       if pred.parity_envelope else None)

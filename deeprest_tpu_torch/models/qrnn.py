@@ -238,6 +238,22 @@ class QuantileGRU(nn.Module):
         box = self._boxes.get(name)
         return shape if box is None else tuple(hi - lo for lo, hi in box)
 
+    def own_box(self, name: str, value) -> torch.Tensor:
+        """This rank's box of param ``name`` from ``value``, the whole
+        (JAX's shape; the box is cut from it) or the box already; a shape
+        that is neither raises."""
+        shape = param_shapes(self.config)[name]
+        value = torch.as_tensor(value)
+        local = self.local_shape(name, shape)
+        if local != shape and tuple(value.shape) == shape:
+            value = value[box_slices(self._boxes[name])]
+        if tuple(value.shape) != local:
+            box = "" if local == shape else f" (its box here {local})"
+            raise ValueError(f"param {name!r} has shape "
+                             f"{tuple(value.shape)}, the architecture "
+                             f"needs {shape}{box}")
+        return value
+
     @property
     def sharded(self) -> bool:
         """Whether the rank holds less than the whole of some leaf."""
@@ -256,16 +272,8 @@ class QuantileGRU(nn.Module):
         if missing or extra:
             raise KeyError(f"params do not match the architecture: missing "
                            f"{sorted(missing)}, unexpected {sorted(extra)}")
-        for name, shape in expected.items():
-            value = torch.as_tensor(params[name])
-            local = self.local_shape(name, shape)
-            if local != shape and tuple(value.shape) == shape:
-                value = value[box_slices(self._boxes[name])]
-            if tuple(value.shape) != local:
-                box = "" if local == shape else f" (its box here {local})"
-                raise ValueError(f"param {name!r} has shape "
-                                 f"{tuple(value.shape)}, the architecture "
-                                 f"needs {shape}{box}")
+        for name in expected:
+            value = self.own_box(name, params[name])
             old = getattr(self, name)
             setattr(self, name, nn.Parameter(
                 value.detach().to(old.device).clone(),

@@ -19,6 +19,14 @@ stored parity envelope (``deeprest_tpu/ops/quantize.py``).
 
 Rounding matches the JAX package: ``torch.round`` rounds half to even as
 ``jnp.round`` does, and the scale is ``max(max|w|, 1e-12) / 127`` in f32.
+
+On a mesh a rank quantizes its boxes of the weights (``parallel/
+sharding.py``).  JAX quantizes the whole array, so where a leaf's
+contraction axis is sharded (the layer-0 ``w_ih`` on the ``model`` axis)
+the per-column max |w| is MAX-reduced over that axis's group before the
+divide: every rank then holds, bit for bit, its slice of the one-process
+quantization, and its scale the weight's box with the contraction
+dimension whole.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
+
+from deeprest_tpu_torch.parallel.collectives import max_replicated
 
 # The serving quant modes (InferConfig.quant / --quant).
 QUANT_MODES = ("off", "int8", "bf16")
@@ -60,15 +70,17 @@ def is_weight_leaf(name: str) -> bool:
     return any(frag in name for frag in WEIGHT_FRAGMENTS)
 
 
-def quantize_leaf_int8(w: torch.Tensor) -> QuantTensor:
+def quantize_leaf_int8(w: torch.Tensor, group=None) -> QuantTensor:
     """Per-output-channel symmetric int8 quantization of one weight matrix
-    ``[..., K, C]`` (contraction axis second to last)."""
+    ``[..., K, C]`` (contraction axis second to last).  ``group``: the
+    process group K is sharded over (each rank holds a block of K), whose
+    MAX of the column maxima makes the scales the whole K's."""
     w = torch.as_tensor(w).float()
     if w.dim() < 2:
         raise ValueError(
             f"int8 quantization needs a [.., K, C] matrix, got "
             f"{tuple(w.shape)}")
-    amax = w.abs().amax(dim=-2, keepdim=True)
+    amax = max_replicated(w.abs().amax(dim=-2, keepdim=True), group)
     scale = torch.clamp_min(amax, 1e-12) / _INT8_MAX
     q = torch.clamp(torch.round(w / scale), -_INT8_MAX, _INT8_MAX)
     return QuantTensor(data=q.to(torch.int8), scale=scale.float())
@@ -85,10 +97,14 @@ def dequantize(leaf, dtype=None):
     return leaf
 
 
-def quantize_params(params: Mapping[str, torch.Tensor], mode: str) -> dict:
+def quantize_params(params: Mapping[str, torch.Tensor], mode: str,
+                    contraction_group=None) -> dict:
     """Quantize every matmul weight leaf of a flat params dict:
     ``"off"`` identity, ``"int8"`` :class:`QuantTensor` leaves, ``"bf16"``
-    bf16 tensors; every other leaf unchanged."""
+    bf16 tensors; every other leaf unchanged.  ``contraction_group(name)``
+    (a rank's boxes on a mesh) gives the process group a leaf's
+    contraction axis is sharded over, or None (:func:`quantize_leaf_int8`);
+    every rank of the mesh must call this, in the same leaf order."""
     if mode == "off":
         return dict(params)
     if mode not in QUANT_MODES:
@@ -98,7 +114,9 @@ def quantize_params(params: Mapping[str, torch.Tensor], mode: str) -> dict:
         if not is_weight_leaf(name):
             out[name] = leaf
         elif mode == "int8":
-            out[name] = quantize_leaf_int8(leaf)
+            out[name] = quantize_leaf_int8(
+                leaf, None if contraction_group is None
+                else contraction_group(name))
         else:
             out[name] = torch.as_tensor(leaf).to(torch.bfloat16)
     return out

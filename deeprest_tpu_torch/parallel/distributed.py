@@ -30,6 +30,9 @@
   :class:`JobStoreLostError` instead of waiting.  Every group has a bounded
   timeout (:data:`JOB_TIMEOUT_S`), so a peer that hangs surfaces as an
   exception rather than as gloo's 30-minute default.
+- :func:`agree` turns the ranks' local outcomes into one verdict and
+  :func:`broadcast_json` hands rank 0's host value to every rank (a
+  served mesh's checkpoint step and parity budget).
 """
 
 from __future__ import annotations
@@ -378,6 +381,44 @@ def gather_to_host(mesh: Mesh, tensor: torch.Tensor,
         return gather_along(tensor, dim, group).detach().cpu().numpy()
 
 
+def host_wire_device(mesh: Mesh) -> torch.device:
+    """Where a host value crosses the job's group: the rank's device under
+    NCCL, the CPU under gloo."""
+    return mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+
+def agree(mesh: Mesh, ok: bool) -> bool:
+    """Whether ``ok`` holds on every rank of the mesh's job (a MIN
+    all-reduce); ``ok`` itself without a group.  Every rank must call it:
+    the ranks' local outcomes (a checkpoint read, a reload) become one
+    verdict before any rank goes on to a collective that needs them all."""
+    if mesh.group is None:
+        return bool(ok)
+    flag = torch.tensor([1 if ok else 0], dtype=torch.int32,
+                        device=host_wire_device(mesh))
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(flag.item())
+
+
+def broadcast_json(mesh: Mesh, obj: Any = None) -> Any:
+    """Rank 0's ``obj`` (JSON-serializable) on every rank of the mesh's
+    job: its UTF-8 length, then its bytes.  ``obj`` itself without a
+    group.  Every rank must call it; only rank 0's ``obj`` is read."""
+    if mesh.group is None:
+        return obj
+    dev = host_wire_device(mesh)
+    blob = (json.dumps(obj, sort_keys=True).encode()
+            if mesh.rank == 0 else b"")
+    size = torch.tensor([len(blob)], dtype=torch.int64, device=dev)
+    dist.broadcast(size, 0, group=mesh.group)
+    data = (torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)
+            if mesh.rank == 0 else
+            torch.empty(int(size.item()), dtype=torch.uint8, device=dev))
+    if data.numel():
+        dist.broadcast(data, 0, group=mesh.group)
+    return json.loads(bytes(data.cpu().numpy()).decode())
+
+
 __all__ = [
     "AXES",
     "JOB_TIMEOUT_S",
@@ -397,4 +438,7 @@ __all__ = [
     "stage_sparse_base",
     "stage_plan",
     "gather_to_host",
+    "host_wire_device",
+    "agree",
+    "broadcast_json",
 ]

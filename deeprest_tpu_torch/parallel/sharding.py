@@ -175,21 +175,34 @@ def box_reader(mesh):
     return box_of
 
 
-def gather_params(mesh, params: Mapping[str, Any],
-                  shapes: Mapping[str, tuple]) -> dict[str, Any]:
-    """The whole of each param on every rank, from each rank's box: an
-    all-gather along every sharded dimension over its axis's group.
-    ``shapes`` gives the global shapes; every rank must call it."""
+def gather_leaf(mesh, value, spec: Spec):
+    """The whole of one leaf on every rank from each rank's box placed by
+    ``spec``: an all-gather along every sharded dimension over its axis's
+    group.  Every rank must call it."""
     from deeprest_tpu_torch.parallel.collectives import gather_along
 
-    out = {}
-    for name, value in params.items():
-        for dim, axis in enumerate(spec_of(name, shapes[name])):
-            if axis is not None:
-                value = gather_along(value, dim,
-                                     getattr(mesh, f"{axis}_group"))
-        out[name] = value
-    return out
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            value = gather_along(value, dim, getattr(mesh, f"{axis}_group"))
+    return value
+
+
+def gather_params(mesh, params: Mapping[str, Any],
+                  shapes: Mapping[str, tuple]) -> dict[str, Any]:
+    """The whole of each param on every rank, from each rank's box
+    (:func:`gather_leaf`).  ``shapes`` gives the global shapes; every rank
+    must call it."""
+    return {name: gather_leaf(mesh, value, spec_of(name, shapes[name]))
+            for name, value in params.items()}
+
+
+def contraction_axis(name: str, shape: Sequence[int]) -> str | None:
+    """The mesh axis that shards a matmul weight's contraction dimension
+    (its second to last) by the table, or None: the layer-0 ``w_ih`` on
+    ``model``."""
+    spec = spec_of(name, shape)
+    dim = len(shape) - 2
+    return spec[dim] if 0 <= dim < len(spec) else None
 
 
 def replica_writer(mesh, spec: Spec) -> bool:
@@ -225,6 +238,8 @@ __all__ = [
     "all_boxes",
     "box_reader",
     "box_slices",
+    "contraction_axis",
+    "gather_leaf",
     "gather_params",
     "leaf_path_name",
     "match_partition_rules",

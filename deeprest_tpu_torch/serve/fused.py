@@ -51,6 +51,7 @@ re-associates the reference's left-to-right float32 adds.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import numpy as np
@@ -395,17 +396,26 @@ class FusedRolledEngine:
         this captures each one's graph.  A sparse engine warms its sparse
         programs (its dense ones run only for a series with a row over the
         cap, and capture then)."""
+        for unit in self.warm_units(feature_dim):
+            unit()
+
+    def warm_units(self, feature_dim: int) -> list:
+        """:meth:`warm`'s pages in order, each a call of no arguments."""
         flags = (True, False) if self._has_delta else (False,)
+        return [functools.partial(self._warm_page, feature_dim, rung,
+                                  integrate)
+                for rung in self.rungs for integrate in flags]
+
+    def _warm_page(self, feature_dim: int, rung: int,
+                   integrate: bool) -> None:
         sparse = self.sparse_enabled
         names = ("cols", "vals") if sparse else ("x",)
         with self._graphs.lock, torch.inference_mode():
             staging = (self._sparse_staging_for() if sparse
                        else self._staging_for(feature_dim))
-            for rung in self.rungs:
-                for integrate in flags:
-                    slot = staging.take()
-                    self._fill(slot, [], [], rung, names)
-                    self._page(slot, rung, integrate, self._carry0, sparse)
+            slot = staging.take()
+            self._fill(slot, [], [], rung, names)
+            self._page(slot, rung, integrate, self._carry0, sparse)
             self._readback.landed()
 
     # -- host paging ----------------------------------------------------

@@ -14,14 +14,18 @@ program on the same inputs in the same order.
   and ``FusedRolledEngine._predict_many_inner`` (the fused engine's
   pages).  Each holds its predictor's ``graphs.lock`` across the call.
   With a :class:`MeshFront` attached (rank 0), each entry announces its
-  call inside that lock, before its first copy-in, so calls from the HTTP
-  handler threads, the batcher's flush thread and the what-if path reach
-  every rank in the one order the lock gave them on rank 0.
+  call inside that lock, before its first copy-in, and holds the front's
+  own lock until the call is done, so calls from the HTTP handler
+  threads, the batcher's flush thread, the what-if path, the capacity
+  surfaces' warm threads and the verdict ingestor's sweeps reach every
+  rank in the one order the front's lock gave them on rank 0, whichever
+  predictor made them.
 - :func:`follow` (every other rank) receives each call and enters the
   same function with the same inputs, so the page plan, the rungs and the
   carry are the same on every rank.  It discards the answer.
-- The wire: a header of :data:`HEADER` int64 fields (op, flags, three
-  dims) broadcast from rank 0 over the job's group, then each array as a
+- The wire: a header of :data:`HEADER` int64 fields (op, flags, the
+  predictor's generation, three dims) broadcast from rank 0 over the
+  job's group, then each array as a
   broadcast of its own: CPU tensors under gloo, device tensors under NCCL.
   A fused call sends its series' lengths and the series concatenated on
   the row axis; each rank plans the same windows from the lengths
@@ -41,6 +45,22 @@ program on the same inputs in the same order.
 - The ``params_digest`` of a sharded predictor is a collective.  Every
   rank computes it before the socket listens and it is cached, so no
   ``/healthz`` starts one.
+- Reloads (``serve --mesh --watch``): rank 0's ``CheckpointReloader``
+  lists the directory alone and hands a new step to :meth:`MeshFront.
+  reload`, which names a new generation and runs the reload as mirrored
+  ops, each under the front's lock and the lock released between them, so
+  requests go on meanwhile: ``RELOAD`` (every rank loads the step on the
+  served mesh with the same ``load``, the quant mode and serving knobs of
+  the plane, and the ranks agree: :func:`load_agreed`), one ``WARM`` per
+  unit of its warm-up (``Predictor.warm_units``), and ``READY`` (its
+  digest, and the ranks' agreement that every unit ran: :func:`settle`).
+  A step that failed on any rank leaves every rank on the old one.  The
+  service's swap announces ``SWAP``, which names the served generation;
+  every call carries the generation of the predictor that makes it, so a
+  request that took the old predictor before the swap is replayed on the
+  old one by every rank.  At each ``RELOAD`` every rank drops the
+  generations older than the served one (a newer one loaded and not yet
+  swapped in stays), and rank 0 refuses (503) a call from a dropped one.
 """
 
 from __future__ import annotations
@@ -56,18 +76,19 @@ import torch
 import torch.distributed as dist
 
 from deeprest_tpu_torch.parallel.distributed import (
-    census, current_job, teardown,
+    agree, census, current_job, host_wire_device, teardown,
 )
 from deeprest_tpu_torch.parallel.elastic import CENSUS_WAIT_S, is_device_loss
 from deeprest_tpu_torch.serve.fused import plan_windows
 from deeprest_tpu_torch.serve.server import ServingError
 
 # The ops of the wire, and the flags of a fused call.
-APPLY, SPARSE_APPLY, FUSED, HEARTBEAT, STOP = range(5)
+(APPLY, SPARSE_APPLY, FUSED, HEARTBEAT, STOP, RELOAD, WARM, READY,
+ SWAP) = range(9)
 _RUNG_OPS = {"apply": APPLY, "sparse_apply": SPARSE_APPLY}
 INTEGRATE, SPARSE = 1, 2
-# op, flags, dims[3]
-HEADER = 5
+# op, flags, generation, dims[3]
+HEADER = 6
 # the arrays a call sends, by whether its windows are padded COO
 _DTYPES = {False: (np.float32,), True: (np.int32, np.float32)}
 
@@ -86,8 +107,7 @@ class _Wire:
 
     def __init__(self, mesh):
         self.group = mesh.group
-        self.device = (mesh.device if mesh.backend == "nccl"
-                       else torch.device("cpu"))
+        self.device = host_wire_device(mesh)
 
     def send(self, arr: np.ndarray, dtype=np.int64) -> None:
         t = torch.from_numpy(np.ascontiguousarray(arr, dtype))
@@ -99,38 +119,109 @@ class _Wire:
         return t.cpu().numpy()
 
 
-def _header(op: int, flags: int = 0, dims=()) -> np.ndarray:
+def _header(op: int, flags: int = 0, gen: int = 0, dims=()) -> np.ndarray:
     h = np.zeros(HEADER, np.int64)
-    h[0], h[1] = op, flags
-    h[2:2 + len(dims)] = dims
+    h[0], h[1], h[2] = op, flags, gen
+    h[3:3 + len(dims)] = dims
     return h
+
+
+def load_agreed(mesh, load, step: int):
+    """Every rank's ``RELOAD``: ``load(step)`` (a ``Predictor`` on
+    ``mesh``), then the ranks' agreement.  Returns the predictor when
+    every rank got there; raises this rank's error, or a
+    ``FileNotFoundError`` where the failure was another rank's, on every
+    rank otherwise.  A lost peer raises at once."""
+    fresh, error = None, None
+    try:
+        fresh = load(step)
+    except Exception as exc:
+        if is_device_loss(exc):
+            raise
+        fresh, error = None, exc
+    if agree(mesh, error is None):
+        return fresh
+    raise error or FileNotFoundError(
+        f"checkpoint step {step} failed to load on another rank of the "
+        "serving mesh")
+
+
+def settle(mesh, fresh, ok: bool) -> bool:
+    """Every rank's ``READY``: the end of ``fresh``'s warm-up
+    (``Predictor.warmed``) and its digest (a collective), then whether
+    every rank got there with ``ok`` (its ``WARM`` units all ran).  A lost
+    peer raises."""
+    try:
+        fresh.warmed()
+        fresh.params_digest()
+    except Exception as exc:
+        if is_device_loss(exc):
+            raise
+        ok = False
+    return agree(mesh, ok)
+
+
+class _Generation:
+    """The front as one predictor sees it: its calls carry the
+    generation ``gen`` of the predictor, whose checkpoint step is
+    ``step`` (what ``attach_front`` holds)."""
+
+    def __init__(self, front: "MeshFront", gen: int, step):
+        self.front, self.gen, self.step = front, gen, step
+
+    def rung(self, program: str, arrays: dict):
+        return self.front.rung(program, arrays, self.gen)
+
+    def fused(self, arrays: list, integrate: bool, sparse: bool):
+        return self.front.fused(arrays, integrate, sparse, self.gen)
+
+    def swapped(self) -> None:
+        """The service now serves this generation: announce ``SWAP``."""
+        self.front.swapped(self.gen)
+
+    def stats(self) -> dict:
+        """``/healthz``'s ``mesh`` key: the front's stats and this
+        generation and its checkpoint step (what the service that holds
+        this predictor serves)."""
+        return {**self.front.stats(), "step": self.step,
+                "generation": self.gen}
 
 
 class MeshFront:
     """Rank 0's side: announces each device call of ``predictor`` (a
     ``Predictor`` on a mesh of more than one rank, warmed and digested) to
-    the job, and attaches itself to it.  A heartbeat thread keeps the
+    the job, and attaches itself to it as generation 0.  ``load(step)``
+    (the one every follower holds) builds a predictor of a newer step on
+    the same mesh for :meth:`reload`.  A heartbeat thread keeps the
     followers' wait inside the group timeout: it beats when no call has
     gone out for a quarter of it."""
 
-    def __init__(self, predictor):
+    def __init__(self, predictor, load=None):
         mesh = predictor.mesh
         if mesh is None or mesh.size < 2:
             raise ValueError("a mesh front needs a predictor on a mesh of "
                              "more than one rank")
+        self.mesh = mesh
+        self._load = load
         self._wire = _Wire(mesh)
-        self._lock = predictor.graphs.lock
+        # held from each call's header to the end of its body, so the
+        # wire's order is the order of every predictor's calls
+        self._lock = threading.RLock()
         self.world = mesh.size
         self.lost = threading.Event()
         self._error: str | None = None
         self.calls = 0
         self.heartbeats = 0
+        self.reloads = {"ok": 0, "failed": 0}
+        self._served = 0             # the generation the service serves
+        self._live = {0}             # the generations every rank holds
+        self._next_gen = 1
         self._heartbeat_s = current_job().timeout.total_seconds() / 4
         self._last = time.monotonic()
         self._quit = threading.Event()
         self._thread = threading.Thread(target=self._beat, daemon=True,
                                         name="mesh-front-heartbeat")
-        predictor.attach_front(self)
+        predictor.attach_front(_Generation(self, 0, predictor.step))
         self._thread.start()
 
     @property
@@ -139,23 +230,25 @@ class MeshFront:
         return self._error
 
     def stats(self) -> dict:
-        """``/healthz``'s ``mesh`` key: the world, the calls and heartbeats
-        sent, and the error the front fails its calls with (None while it
-        serves)."""
+        """The world, the calls and heartbeats sent, the reloads loaded
+        and refused, and the error the front fails its calls with (None
+        while it serves)."""
         return {"world": self.world, "calls": self.calls,
-                "heartbeats": self.heartbeats, "error": self._error}
+                "heartbeats": self.heartbeats, "reloads": dict(self.reloads),
+                "error": self._error}
 
     # -- rank 0's calls (the caller holds the predictor's graphs lock) ---
 
-    def rung(self, program: str, arrays: dict):
+    def rung(self, program: str, arrays: dict, gen: int = 0):
         """The context of one ladder rung of ``program`` ("apply" or
         "sparse_apply") on ``arrays`` (:meth:`call`)."""
         op = _RUNG_OPS[program]
         a = list(arrays.values())
         return self.call(op, zip(a, _DTYPES[op == SPARSE_APPLY]),
-                         dims=a[0].shape)
+                         dims=a[0].shape, gen=gen)
 
-    def fused(self, arrays: list, integrate: bool, sparse: bool):
+    def fused(self, arrays: list, integrate: bool, sparse: bool,
+              gen: int = 0):
         """The context of one fused call on ``arrays`` (a tuple of ``[T_i,
         ...]`` arrays a series: ``(x,)``, or ``(cols, vals)`` when
         ``sparse``), sent as the lengths and each array concatenated."""
@@ -165,24 +258,102 @@ class MeshFront:
         flags = (INTEGRATE if integrate else 0) | (SPARSE if sparse else 0)
         return self.call(FUSED, [(lengths, np.int64),
                                  *zip(cat, _DTYPES[sparse])],
-                         flags=flags, dims=(len(arrays), *cat[0].shape))
+                         flags=flags, dims=(len(arrays), *cat[0].shape),
+                         gen=gen)
 
     @contextlib.contextmanager
-    def call(self, op: int, arrays, flags: int = 0, dims=()):
-        """Send the header and ``arrays`` (``(array, dtype)`` pairs), then
-        run the caller's body (the same call on this rank).  A failure of
+    def call(self, op: int, arrays, flags: int = 0, dims=(), gen: int = 0):
+        """Under the front's lock: send the header and ``arrays``
+        (``(array, dtype)`` pairs), then run the caller's body (the same
+        call on this rank) on generation ``gen``.  A failure of either
+        whose cause is a lost peer fails the front and raises
+        :class:`MeshFrontLost`; a generation the ranks dropped raises a
+        503 before anything is sent."""
+        with self._lock:
+            if self._error is not None:
+                raise MeshFrontLost(self._error)
+            if gen not in self._live:
+                raise ServingError(
+                    "the served checkpoint step changed during this "
+                    "request; retry it", status=503)
+            try:
+                self._send(_header(op, flags, gen, dims), arrays)
+                self.calls += 1
+                yield
+            except Exception as exc:
+                if not is_device_loss(exc):
+                    raise
+                raise self._fail(exc) from exc
+
+    # -- reloads (rank 0's reloader thread; every rank in step) ----------
+
+    def reload(self, step: int):
+        """Load checkpoint ``step`` on every rank: ``RELOAD``, a ``WARM``
+        per warm-up unit and ``READY``, each a mirrored op under the
+        front's lock, which is released between them.  Returns the warmed,
+        digested predictor, attached to this front as a new generation
+        (the service swaps it in; :meth:`swapped`); raises on every
+        rank's behalf when any rank failed, the served generation left in
+        place."""
+        if self._load is None:
+            raise RuntimeError("this mesh front was built without a load: "
+                               "it cannot reload")
+        with self._lock:
+            gen, self._next_gen = self._next_gen, self._next_gen + 1
+            self._live = {g for g in self._live if g >= self._served}
+            try:
+                fresh = self._op(_header(RELOAD, gen=gen, dims=(step,)),
+                                 load_agreed, self.mesh, self._load, step)
+            except MeshFrontLost:
+                raise
+            except Exception:
+                self.reloads["failed"] += 1
+                raise
+            self._live.add(gen)
+        error = None
+        for i, unit in enumerate(fresh.warm_units()):
+            try:
+                self._op(_header(WARM, gen=gen, dims=(i,)), unit)
+            except MeshFrontLost:
+                raise
+            except Exception as exc:
+                error = exc
+                break
+        with self._lock:
+            if not self._op(_header(READY, gen=gen), settle, self.mesh,
+                            fresh, error is None):
+                self._live.discard(gen)
+                self.reloads["failed"] += 1
+                raise error or RuntimeError(
+                    f"checkpoint step {step} failed to warm on another "
+                    "rank of the serving mesh")
+        self.reloads["ok"] += 1
+        fresh.attach_front(_Generation(self, gen, fresh.step))
+        return fresh
+
+    def swapped(self, gen: int) -> None:
+        """Announce ``SWAP`` to generation ``gen``: the service now serves
+        it (or a newer one, whose swap came first)."""
+        with self._lock:
+            if self._error is None:
+                self._op(_header(SWAP, gen=gen))
+                self._served = max(self._served, gen)
+
+    def _op(self, header: np.ndarray, body=None, *args):
+        """Under the front's lock: send ``header``, then run ``body(*args)``
+        (this rank's side of the op) and return its result.  A failure of
         either whose cause is a lost peer fails the front and raises
         :class:`MeshFrontLost`."""
-        if self._error is not None:
-            raise MeshFrontLost(self._error)
-        try:
-            self._send(_header(op, flags, dims), arrays)
-            self.calls += 1
-            yield
-        except Exception as exc:
-            if not is_device_loss(exc):
-                raise
-            raise self._fail(exc) from exc
+        with self._lock:
+            if self._error is not None:
+                raise MeshFrontLost(self._error)
+            try:
+                self._send(header)
+                return None if body is None else body(*args)
+            except Exception as exc:
+                if not is_device_loss(exc):
+                    raise
+                raise self._fail(exc) from exc
 
     def _send(self, header: np.ndarray, arrays=()) -> None:
         self._wire.send(header)
@@ -236,28 +407,66 @@ class MeshFront:
         return [r for r in range(self.world) if r not in survivors]
 
 
-def follow(predictor) -> None:
+def follow(predictor, load=None) -> None:
     """A follower's loop (ranks 1 and up): receive each call rank 0
-    announces and make it on ``predictor`` (this rank's ``Predictor`` on
-    the same mesh, warmed and digested as rank 0's) with the same inputs,
-    until ``STOP``.  A call that raised on rank 0 raises the same here and
-    is passed over; a lost peer raises out of the loop."""
-    wire = _Wire(predictor.mesh)
+    announces and make it on the predictor of its generation (at first
+    ``predictor``, this rank's ``Predictor`` on the same mesh, warmed and
+    digested as rank 0's) with the same inputs, until ``STOP``.  A
+    ``RELOAD`` loads its step with ``load`` (rank 0's) in step with every
+    rank, each ``WARM`` runs a unit of its warm-up and ``READY`` settles
+    it; a ``SWAP`` names the served generation.  A call that raised on
+    rank 0 raises the same here and is passed over, as does a reload
+    every rank refused; a lost peer raises out of the loop."""
+    mesh = predictor.mesh
+    wire = _Wire(mesh)
+    live, served = {0: predictor}, 0
+    cold = set()                 # reloads with a warm-up unit that raised
     calls = 0
     while True:
-        op, flags, *dims = wire.recv((HEADER,)).tolist()
+        op, flags, gen, *dims = wire.recv((HEADER,)).tolist()
         if op == STOP:
             return
         if op == HEARTBEAT:
             continue
+        if op == SWAP:
+            served = max(served, gen)
+            continue
+        if op == RELOAD:
+            live = {g: p for g, p in live.items() if g >= served}
+            if load is None:
+                raise ValueError("mesh front: RELOAD from rank 0, but this "
+                                 "follower was given no load")
+            try:
+                live[gen] = load_agreed(mesh, load, dims[0])
+            except Exception as exc:
+                if is_device_loss(exc):
+                    raise
+                _refused(f"of step {dims[0]}", f"{type(exc).__name__}: {exc}")
+            continue
+        if op == WARM:
+            try:
+                live[gen].warm_units()[dims[0]]()
+            except Exception as exc:
+                if is_device_loss(exc):
+                    raise
+                cold.add(gen)
+            continue
+        if op == READY:
+            if not settle(mesh, live[gen], gen not in cold):
+                del live[gen]
+                _refused(f"to generation {gen}",
+                         "its warm-up or digest failed on a rank")
+            cold.discard(gen)
+            continue
+        target = live[gen]
         if op in (APPLY, SPARSE_APPLY):
-            entry = (predictor._apply_numpy if op == APPLY
-                     else predictor._apply_sparse_numpy)
+            entry = (target._apply_numpy if op == APPLY
+                     else target._apply_sparse_numpy)
             run = functools.partial(entry, *(
                 wire.recv(tuple(dims), dt)
                 for dt in _DTYPES[op == SPARSE_APPLY]))
         elif op == FUSED:
-            run = _fused_call(predictor, wire, flags, dims)
+            run = _fused_call(target, wire, flags, dims)
         else:
             raise ValueError(f"mesh front: unknown op {op} from rank 0")
         try:
@@ -269,6 +478,11 @@ def follow(predictor) -> None:
                   f"{type(exc).__name__}: {exc} (as on rank 0, whose "
                   "caller got it)", file=sys.stderr, flush=True)
         calls += 1
+
+
+def _refused(what: str, why: str) -> None:
+    print(f"mesh follower: reload {what} refused on every rank ({why})",
+          file=sys.stderr, flush=True)
 
 
 def _fused_call(predictor, wire: _Wire, flags: int, dims):

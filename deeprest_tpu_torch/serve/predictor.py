@@ -35,7 +35,17 @@ predictor hands the mesh only to the params' placement), and so does the
 port's: every rank runs the same calls on the same inputs.  Rung graphs
 capture the mesh's collectives under NCCL; gloo's cannot be captured, so
 a gloo mesh on CUDA needs ``cuda_graphs=False`` and raises without it.
-Quantized serving and the fleet tier take no mesh above one rank.
+
+Quantized serving on a mesh: each rank quantizes its boxes with the scales
+of the whole array (``ops/quantize.py``), so its int8 data and scales are
+bit for bit its slice of the one-process quantization, and the digest,
+gathered, is the one-process quantized predictor's.  The parity envelope
+is measured on the gathered answer, every rank alike.  In a job of more
+than one rank :meth:`Predictor.from_checkpoint` agrees before any
+collective: rank 0 picks the step and reads the stored budget and
+broadcasts both, every rank reads its boxes, and a read that failed on
+any rank fails every rank; only rank 0 writes the envelope file.  The
+fleet tier takes no mesh above one rank (ROADMAP item 6f).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -58,6 +69,7 @@ from deeprest_tpu_torch.ops import quantize as quant_ops
 from deeprest_tpu_torch.ops.densify import densify_coo, normalize_minmax
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.parallel.collectives import gather_along
+from deeprest_tpu_torch.parallel.distributed import agree, broadcast_json
 from deeprest_tpu_torch.serve.batcher import BatchedBackendMixin
 from deeprest_tpu_torch.serve.fused import FusedInferenceMixin
 from deeprest_tpu_torch.serve.graphs import (
@@ -228,14 +240,34 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
         backend): on CUDA every graph is captured here, and a capture after
         this counts in ``captures_after_warmup``.  Returns the graphs'
         stats."""
-        w, f, k = self.window_size, self.feature_dim, self.sparse_nnz_cap
+        for unit in self.warm_units():
+            unit()
+        return self.warmed()
+
+    def warm_units(self) -> list:
+        """:meth:`warm`'s device calls in order, each a call of no
+        arguments: a reload on a serving mesh runs them one at a time on
+        every rank (serve/mesh_front.py), then :meth:`warmed`."""
+        units = []
         for rung in self.ladder.ladder:
-            self._apply_numpy(np.zeros((rung, w, f), np.float32))
+            units.append(functools.partial(self._warm_rung, rung, False))
             if self.sparse_feed:
-                self._apply_sparse_numpy(np.zeros((rung, w, k), np.int32),
-                                         np.zeros((rung, w, k), np.float32))
+                units.append(functools.partial(self._warm_rung, rung, True))
         if self._fused is not None:
-            self._fused.warm(f)
+            units += self._fused.warm_units(self.feature_dim)
+        return units
+
+    def _warm_rung(self, rung: int, sparse: bool) -> None:
+        w, f, k = self.window_size, self.feature_dim, self.sparse_nnz_cap
+        if sparse:
+            self._apply_sparse_numpy(np.zeros((rung, w, k), np.int32),
+                                     np.zeros((rung, w, k), np.float32))
+        else:
+            self._apply_numpy(np.zeros((rung, w, f), np.float32))
+
+    def warmed(self) -> dict:
+        """The end of a warm-up whose units ran: the cache handed back and
+        later captures counted.  Returns the graphs' stats."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
             # the eager first run of each capture left its working memory
@@ -323,12 +355,6 @@ class Predictor(RungServing):
                 f"quant mode {quant!r} not in {quant_ops.QUANT_MODES}")
         self.mesh = mesh
         self.device = resolve_device(device) if mesh is None else mesh.device
-        if mesh is not None and mesh.size > 1 and quant != "off":
-            raise ValueError(
-                f"quant={quant!r} on mesh {mesh.config.data}x"
-                f"{mesh.config.expert}x{mesh.config.model}: quantized "
-                "serving takes no mesh above one rank in the port; serve "
-                "the f32 checkpoint on the mesh or quantize on one device")
         if (mesh is not None and mesh.backend == "gloo" and cuda_graphs
                 and self.device.type == "cuda"):
             raise ValueError(
@@ -345,13 +371,15 @@ class Predictor(RungServing):
                                      mesh=mesh)
             self.model.load_params(params)
         else:
-            # The module on the meta device checks the names and shapes and
-            # holds no weights; the narrow tree is what is served.
-            self.model = QuantileGRU(model_config, device="meta")
+            # The module on the meta device checks the names and shapes,
+            # holds the rank's boxes and groups and no weights; the narrow
+            # tree is what is served.
+            self.model = QuantileGRU(model_config, device="meta", mesh=mesh)
             self.model.load_params(params)
-            ref_params = {name: torch.as_tensor(v).to(self.device)
+            ref_params = {name: self.model.own_box(name, v).to(self.device)
                           for name, v in params.items()}
-            self._qparams = quant_ops.quantize_params(ref_params, quant)
+            self._qparams = quant_ops.quantize_params(
+                ref_params, quant, self._contraction_group)
         self.x_stats = x_stats
         self.y_stats = y_stats
         self.metric_names = list(metric_names)
@@ -366,6 +394,7 @@ class Predictor(RungServing):
                            coalesce_pages, sparse_feed, sparse_nnz_cap,
                            cuda_graphs)
         self.parity_envelope = None
+        self.step = None             # the checkpoint step, once restored
         if quant != "off":
             self.parity_envelope = self._measure_parity(ref_params,
                                                         quant_budget)
@@ -384,18 +413,35 @@ class Predictor(RungServing):
             preds = self.model(x, recurrence=self.recurrence, params=params)
             return gather_along(preds, -2, self.model.expert_group)
 
+    def _contraction_group(self, name: str):
+        """The process group that shards weight ``name``'s contraction
+        axis on this predictor's mesh (its int8 scales' MAX runs over
+        it), or None."""
+        if not self.model.sharded:
+            return None
+        from deeprest_tpu_torch.models.qrnn import param_shapes
+        from deeprest_tpu_torch.parallel.sharding import contraction_axis
+
+        axis = contraction_axis(name, param_shapes(self.model_config)[name])
+        return None if axis is None else getattr(self.mesh, f"{axis}_group")
+
     def _measure_parity(self, ref_params, budget: dict | None) -> dict:
         """The quantized apply against the f32 reference on the seeded
         probe batch (``ops/quantize.probe_batch``), reduced to the
         per-(metric, quantile) envelope; run eagerly, outside the rung
-        graphs.  With a stored ``budget`` any violated cell raises."""
+        graphs.  With a stored ``budget`` any violated cell raises.  On a
+        mesh both answers are gathered whole (a collective: every rank
+        measures), and a violation on any rank raises on every rank."""
         probe = torch.from_numpy(quant_ops.probe_batch(
             self.window_size, self.feature_dim)).to(self.device)
+        experts = self.model.expert_group
         with torch.inference_mode():
-            want = self.model(probe, recurrence=self.recurrence,
-                              params=ref_params)
-            got = self.model(probe, recurrence=self.recurrence,
-                             params=resolve_params(self._qparams))
+            want = gather_along(self.model(
+                probe, recurrence=self.recurrence, params=ref_params),
+                -2, experts)
+            got = gather_along(self.model(
+                probe, recurrence=self.recurrence,
+                params=resolve_params(self._qparams)), -2, experts)
         measured = quant_ops.parity_envelope(
             want.cpu().numpy(), got.cpu().numpy(), self.metric_names,
             self.quantiles)
@@ -408,6 +454,11 @@ class Predictor(RungServing):
         if budget is not None:
             violations = quant_ops.check_envelope(measured,
                                                   envelope["budget"])
+            if (self.mesh is not None and self.mesh.size > 1
+                    and not agree(self.mesh, not violations)
+                    and not violations):
+                violations = ["another rank of the mesh measured a cell "
+                              "over its budget"]
             if violations:
                 raise quant_ops.QuantParityError(
                     f"quantized ({self.quant}) predictions exceed the "
@@ -525,7 +576,8 @@ class Predictor(RungServing):
                for p in (self, donor)):
             raise ValueError(
                 "cannot share executables on a mesh above one rank: the "
-                "fleet tier serves one-device predictors")
+                "fleet tier serves one-device predictors (a mesh's fleet "
+                "is ROADMAP item 6f)")
         if self.model_config != donor.model_config:
             raise ValueError(
                 "cannot share executables across architectures: "
@@ -587,21 +639,17 @@ class Predictor(RungServing):
         ``Predictor``'s on the same checkpoint and mode.  Computed once per
         predictor (one readback of every leaf) and cached.  On a sharded
         mesh the leaves are gathered whole first (a collective: every rank
-        calls it), so the digest is the one-device predictor's."""
+        calls it; a ``QuantTensor``'s scale along every sharded dimension
+        but its contraction one, which it does not have), so the digest is
+        the one-device predictor's."""
         if self._params_digest is None:
             h = hashlib.sha1()
             if self.quant != "off":
                 h.update(self.quant.encode())
             params = self.params
             if self.model.sharded:
-                from deeprest_tpu_torch.models.qrnn import param_shapes
-                from deeprest_tpu_torch.parallel.sharding import (
-                    gather_params,
-                )
-
                 with torch.inference_mode():
-                    params = gather_params(self.mesh, params,
-                                           param_shapes(self.model_config))
+                    params = self._gathered(params)
             for name in sorted(params):
                 leaf = params[name]
                 for t in (leaf if isinstance(leaf, quant_ops.QuantTensor)
@@ -610,6 +658,28 @@ class Predictor(RungServing):
                     h.update(raw.cpu().numpy())     # no host copy of it
             self._params_digest = h.hexdigest()[:16]
         return self._params_digest
+
+    def _gathered(self, params: dict) -> dict:
+        """The whole of each leaf of this rank's ``params`` (a
+        collective, in sorted leaf order on every rank)."""
+        from deeprest_tpu_torch.models.qrnn import param_shapes
+        from deeprest_tpu_torch.parallel.sharding import gather_leaf, spec_of
+
+        shapes = param_shapes(self.model_config)
+        out = {}
+        for name in sorted(params):
+            leaf, shape = params[name], shapes[name]
+            spec = spec_of(name, shape)
+            if isinstance(leaf, quant_ops.QuantTensor):
+                k = len(shape) - 2
+                whole_k = tuple(None if d == k else a
+                                for d, a in enumerate(spec))
+                out[name] = quant_ops.QuantTensor(
+                    gather_leaf(self.mesh, leaf.data, spec),
+                    gather_leaf(self.mesh, leaf.scale, whole_k))
+            else:
+                out[name] = gather_leaf(self.mesh, leaf, spec)
+        return out
 
     @property
     def model_config(self) -> ModelConfig:
@@ -640,7 +710,8 @@ class Predictor(RungServing):
                         device=None,
                         recurrence: Recurrence | None = None,
                         cuda_graphs: bool = True,
-                        mesh_config=None) -> "Predictor":
+                        mesh_config=None,
+                        mesh=None) -> "Predictor":
         """Restore params and host state from a ``deeprest-sharded-v1``
         checkpoint; the architecture comes from the sidecar's
         ``model_config`` with ``feature_dim`` and ``num_metrics`` taken from
@@ -650,25 +721,56 @@ class Predictor(RungServing):
         under the params (``parallel.make_mesh`` on ``device``; in a job
         every rank calls this): each rank reads only its boxes of them,
         placed by the rule table training places them with, from a
-        checkpoint saved on any mesh.
+        checkpoint saved on any mesh.  ``mesh`` (a live ``Mesh``, instead
+        of ``mesh_config``) places them on it: a served mesh's reload
+        reuses the mesh it serves on.  In a job of more than one rank,
+        rank 0 alone picks the step (``step`` None: the newest) and reads
+        the stored parity budget, and a read that fails on any rank raises
+        on every rank (``FileNotFoundError`` on the ranks whose own read
+        succeeded) before any collective.
 
         ``quant``: the first load at a mode measures the parity envelope
         and writes it next to the checkpoint (``quant_parity_<mode>.json``,
-        the JAX package's file); every later load re-measures and is gated
-        by the stored budget."""
+        the JAX package's file; on a mesh rank 0 alone writes it); every
+        later load re-measures and is gated by the stored budget."""
         from deeprest_tpu_torch.parallel.mesh import make_mesh
         from deeprest_tpu_torch.parallel.sharding import box_reader
         from deeprest_tpu_torch.train.checkpoint import (
             latest_step, load_params, load_sidecar,
         )
 
-        mesh = None if mesh_config is None else make_mesh(mesh_config,
-                                                          device)
-        if step is None:
-            step = latest_step(directory)
+        if mesh is not None and mesh_config is not None:
+            raise ValueError("pass a mesh or a mesh_config, not both")
+        if mesh_config is not None:
+            mesh = make_mesh(mesh_config, device)
+        job = mesh is not None and mesh.group is not None and mesh.size > 1
+        chief = not job or mesh.rank == 0
+        env_path = cls._quant_envelope_path(directory, quant)
+        head = None
+        if chief:
             if step is None:
-                raise FileNotFoundError(f"no checkpoints under {directory!r}")
-        extra = load_sidecar(directory, step)
+                step = latest_step(directory)
+            head = {"step": step, "budget": None}
+            if quant != "off" and os.path.exists(env_path):
+                with open(env_path, encoding="utf-8") as fh:
+                    head["budget"] = json.load(fh)
+        if job:
+            head = broadcast_json(mesh, head)
+        step, quant_budget = head["step"], head["budget"]
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory!r}")
+        failure = None
+        try:
+            extra = load_sidecar(directory, step)
+            params = load_params(directory, step, box_of=box_reader(mesh))
+        except Exception as exc:
+            failure = exc
+        if job and not agree(mesh, failure is None) and failure is None:
+            failure = FileNotFoundError(
+                f"checkpoint step {step} under {directory!r} failed to "
+                "load on another rank of the mesh")
+        if failure is not None:
+            raise failure
         if "model_config" not in extra:
             raise ValueError(f"checkpoint {directory!r} predates sidecar "
                              "model configs; the port cannot serve it")
@@ -678,13 +780,8 @@ class Predictor(RungServing):
         model_config = dataclasses.replace(
             ModelConfig(**mc), feature_dim=extra["feature_dim"],
             num_metrics=len(metric_names))
-        quant_budget = None
-        env_path = cls._quant_envelope_path(directory, quant)
-        if quant != "off" and os.path.exists(env_path):
-            with open(env_path, encoding="utf-8") as fh:
-                quant_budget = json.load(fh)
         predictor = cls(
-            params=load_params(directory, step, box_of=box_reader(mesh)),
+            params=params,
             model_config=model_config,
             x_stats=MinMaxStats.from_dict(extra["x_stats"]),
             y_stats=MinMaxStats.from_dict(extra["y_stats"]),
@@ -698,7 +795,8 @@ class Predictor(RungServing):
             quant=quant, quant_budget=quant_budget,
             device=device, recurrence=recurrence, cuda_graphs=cuda_graphs,
             mesh=mesh)
-        if quant != "off" and quant_budget is None:
+        predictor.step = step
+        if quant != "off" and quant_budget is None and chief:
             with open(env_path, "w", encoding="utf-8") as fh:
                 json.dump({"step": step, **predictor.parity_envelope},
                           fh, indent=2, sort_keys=True)

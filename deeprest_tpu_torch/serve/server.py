@@ -54,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -92,7 +93,17 @@ class CheckpointReloader:
     ``load=False`` is the trigger of a process-replica plane, whose
     workers load the newest step themselves when they restart: ``poll()``
     then hands over the new step number and the front loads nothing.
+
+    On a mesh of more than one rank (``serve --mesh``) only rank 0 holds a
+    reloader, and it loads through the plane's mesh front
+    (:meth:`attach_front`, serve/mesh_front.py), which has every rank load,
+    warm and digest the step in step and agree before the swap.  A step
+    the mesh refused is tried again after an interval that doubles with
+    each refusal, up to ``MESH_RETRY_CAP`` intervals; a newer step is
+    tried at once.
     """
+
+    MESH_RETRY_CAP = 64
 
     def __init__(self, ckpt_dir: str, min_interval_s: float = 2.0,
                  ladder: tuple[int, ...] | None = None,
@@ -117,15 +128,21 @@ class CheckpointReloader:
         self.quant = quant        # ... and the quant mode (parity-gated
         #                           per reload against the stored envelope)
         self.device = device
+        self._front = None         # rank 0's mesh front, once attached
+        self._refused = (None, 0)  # a step the mesh refused, and how often
+        self._retry_at = 0.0
         self._last_step = latest_step(ckpt_dir)
         self._next_check = 0.0
         self._pending = None       # loaded Predictor awaiting pickup
         self._loading = False
         self._lock = threading.Lock()
 
-    def poll(self):
-        import time
+    def attach_front(self, front) -> None:
+        """Load every new step through ``front`` (rank 0's ``MeshFront``
+        of a mesh above one rank): the step is loaded on every rank."""
+        self._front = front
 
+    def poll(self):
         from deeprest_tpu_torch.train.checkpoint import latest_step
 
         # The seconds-long load and warm-up run on a background thread:
@@ -148,6 +165,8 @@ class CheckpointReloader:
         with self._lock:
             if self._loading or step is None or step == self._last_step:
                 return None
+            if step == self._refused[0] and now < self._retry_at:
+                return None
             self._loading = True
         threading.Thread(target=self._load, args=(step,), daemon=True).start()
         return None
@@ -163,15 +182,18 @@ class CheckpointReloader:
                 self._loading = False
             return
         try:
-            fresh = Predictor.from_checkpoint(
-                self.ckpt_dir, step=step, ladder=self.ladder,
-                fused=self.fused, page_windows=self.page_windows,
-                coalesce_pages=self.coalesce_pages,
-                coalesce_groups=self.coalesce_groups,
-                sparse_feed=self.sparse_feed,
-                sparse_nnz_cap=self.sparse_nnz_cap, quant=self.quant,
-                device=self.device)
-            fresh.warm()
+            if self._front is not None:
+                fresh = self._front.reload(step)
+            else:
+                fresh = Predictor.from_checkpoint(
+                    self.ckpt_dir, step=step, ladder=self.ladder,
+                    fused=self.fused, page_windows=self.page_windows,
+                    coalesce_pages=self.coalesce_pages,
+                    coalesce_groups=self.coalesce_groups,
+                    sparse_feed=self.sparse_feed,
+                    sparse_nnz_cap=self.sparse_nnz_cap, quant=self.quant,
+                    device=self.device)
+                fresh.warm()
         except Exception as e:
             # Mid-write/pruned steps are expected (FileNotFoundError/
             # ValueError); anything else is printed but must never wedge
@@ -193,6 +215,12 @@ class CheckpointReloader:
                 if fresh is not None:
                     self._last_step = step
                     self._pending = fresh
+                elif self._front is not None:
+                    n = (self._refused[1] + 1 if step == self._refused[0]
+                         else 1)
+                    self._refused = (step, n)
+                    self._retry_at = time.monotonic() + self.min_interval_s \
+                        * min(2 ** n, self.MESH_RETRY_CAP)
                 self._loading = False
 
 
@@ -476,6 +504,11 @@ class PredictionService:
             self.predictor = fresh
             self.whatif = fresh_whatif
             self.reloads += 1
+        # rank 0 of a serving mesh: every rank now serves the fresh
+        # generation (serve/mesh_front.py)
+        front = getattr(fresh, "front", None)
+        if front is not None:
+            front.swapped()
         if old is not None:
             old.close()
 

@@ -29,6 +29,11 @@ repository's conftest imports JAX, which the GPU machine does not have):
   eager: rank 0 fronts HTTP and rank 1 replays each device call;
   ``/v1/predict`` within 2e-2 of scale of the one-process captured
   answer, K1 launched as often on both ranks, both exit 0 at the deadline.
+- ``serve --mesh 1,1,2 --quant int8 --watch``, gloo at world size 2 on the
+  one card, bf16, eager: the answers before and after one reload within
+  2e-2 of scale of the one-process int8 predictor of each step, the
+  reloaded step's digest, K1 launched as often on both ranks, both exit 0
+  at the deadline.
 """
 
 import multiprocessing
@@ -448,3 +453,129 @@ def test_gloo_serve_mesh_on_one_card(cuda, tmp_path):
     assert ranks[0]["gru_fwd"] == ranks[1]["gru_fwd"] > 0
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+def quant_serve_rank_main(rank: int, port: int, args: list,
+                          out: str) -> None:
+    """One rank of ``serve`` with ``args`` on the card, in a gloo job that
+    shares it: the CLI's stdout to ``out + ".log"``, then its exit code
+    and K1 launches to ``out``."""
+    import contextlib
+    import json
+
+    from deeprest_tpu_torch.cli import main
+    from deeprest_tpu_torch.ops import cuda_gru
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    with open(out + ".log", "w") as log, contextlib.redirect_stdout(log):
+        rc = main(["serve", *args])
+    with open(out, "w") as fh:
+        json.dump({"rc": rc, "gru_fwd": cuda_gru.GRU_FWD.launches}, fh)
+
+
+@pytest.mark.cuda
+def test_gloo_quant_serve_mesh_reload_on_one_card(cuda, tmp_path):
+    """``serve --mesh 1,1,2 --quant int8 --watch`` (bf16, F=24: 12 columns
+    a rank) as two gloo ranks sharing the card, eager: /v1/predict within
+    2e-2 of scale of the one-process int8 predictor; a newer step (params
+    x 1.1, the stored envelope removed with it: in bf16 the int8 deviation
+    sits at the rounding noise, which the new params draw anew) served
+    once /healthz names it, within 2e-2 of that step's one-process int8
+    predictor, with its digest; K1 launched as often on both ranks, both
+    exit 0 at the deadline."""
+    import json
+    import os
+    import shutil
+    import time
+    import urllib.request
+
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.train.checkpoint import (
+        latest_step, load_params, load_sidecar, save_checkpoint,
+    )
+
+    trainer, state, _ = train(Mesh(MeshConfig(), 0, cuda), "bfloat16", 0.0,
+                              1, epochs=1, metrics=4)
+    ckpt = str(tmp_path / "ckpt")
+    trainer.save(ckpt, state, prepare_dataset(corpus(4),
+                                              trainer.config.train))
+    step = latest_step(ckpt)
+    traffic = corpus(4).traffic
+
+    def post(url):
+        req = urllib.request.Request(
+            url + "/v1/predict",
+            data=json.dumps({"traffic": traffic.tolist()}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return np.asarray(json.loads(resp.read())["predictions"])
+
+    def health(url):
+        with urllib.request.urlopen(url + "/healthz", timeout=120) as resp:
+            return json.loads(resp.read())
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [str(tmp_path / f"serve{r}.json") for r in range(2)]
+    args = ["--ckpt-dir", ckpt, "--mesh", "1,1,2", "--quant", "int8",
+            "--watch", "0.5", "--no-batcher", "--port", "0", "--deadline",
+            str(SERVE_DEADLINE_S + 10)]
+    procs = [ctx.Process(target=quant_serve_rank_main,
+                         args=(r, port, args, outs[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        url, deadline = None, time.monotonic() + 300
+        while url is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+            assert all(p.is_alive() for p in procs)
+            if not os.path.exists(outs[0] + ".log"):
+                continue
+            with open(outs[0] + ".log") as fh:
+                for line in fh:
+                    if line.startswith('{"listening"'):
+                        url = json.loads(line)["listening"]
+        assert url is not None
+        got = {step: post(url)}
+        os.remove(os.path.join(ckpt, "quant_parity_int8.json"))
+        save_checkpoint(ckpt, {k: v * 1.1 for k, v in
+                               load_params(ckpt, step).items()}, step + 1,
+                        extra=load_sidecar(ckpt, step))
+        deadline = time.monotonic() + 120
+        while (health(url)["mesh"]["step"] != step + 1
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        served = health(url)
+        assert served["mesh"]["step"] == step + 1
+        got[step + 1] = post(url)
+        for p in procs:
+            p.join(SERVE_DEADLINE_S + 130)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = []
+    for path in outs:
+        with open(path) as fh:
+            ranks.append(json.load(fh))
+    assert [r["rc"] for r in ranks] == [0, 0]
+    assert ranks[0]["gru_fwd"] == ranks[1]["gru_fwd"] > 0
+    one = str(tmp_path / "one")
+    shutil.copytree(ckpt, one,
+                    ignore=shutil.ignore_patterns("quant_parity_*"))
+    for s in (step, step + 1):
+        stored = os.path.join(one, "quant_parity_int8.json")
+        if os.path.exists(stored):
+            os.remove(stored)           # each step measures its own
+        pred = Predictor.from_checkpoint(one, step=s, device="cuda",
+                                         quant="int8")
+        want = pred.predict_series(traffic)
+        assert got[s].shape == want.shape
+        assert np.abs(got[s] - want).max() <= 2e-2 * np.abs(want).max(), s
+    tenant = served["fleet"]["tenants"]["default"]
+    assert tenant["params_digest"] == pred.params_digest()

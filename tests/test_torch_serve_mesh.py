@@ -25,8 +25,11 @@ one intra-op thread each.
   ``--deadline``; SIGTERM to rank 0 stops a plane; a SIGKILLed follower
   gives the request in flight a 503 and rank 0 a nonzero exit naming it.
   Every rank of a plane that stops exits 0.
-- Each flag deferred to ROADMAP item 6e exits 2 naming it, and ``--mesh
-  1,1,1`` serves as one device does.
+- Each flag deferred to ROADMAP item 6f (the replica router, admission,
+  tenant weights, the autoscaler, the fleet) exits 2 naming it, and
+  ``--mesh 1,1,1`` serves as one device does.  Quantized serving,
+  ``--watch``, the capacity and verdict surfaces on a mesh:
+  tests/test_torch_serve_mesh_quant.py and test_torch_serve_mesh_reload.py.
 
 Every wait on a process and every HTTP call has a timeout, and every
 process started here is killed at the end of its test or module.
@@ -480,17 +483,15 @@ def test_lost_follower_gives_503_and_ends_rank_0_naming_it(setup, planes):
 # -- flags ----------------------------------------------------------------
 
 @pytest.mark.parametrize("flag", [
-    ["--watch", "1"], ["--replicas", "2"], ["--admission-depth", "4"],
-    ["--tenant-weights", "a=1"], ["--autoscale"], ["--fleet", "b=ckpt"],
-    ["--quant", "int8"], ["--surface"], ["--verdict-raw", "raw.jsonl"],
-    ["--verdict-wire-listen", "127.0.0.1:0"]])
+    ["--replicas", "2"], ["--admission-depth", "4"],
+    ["--tenant-weights", "a=1"], ["--autoscale"], ["--fleet", "b=ckpt"]])
 def test_deferred_flags_exit_2_naming_roadmap_6e(setup, capsys, flag):
     with pytest.raises(SystemExit) as exc:
         main(["serve", "--ckpt-dir", setup["ckpt"], "--raw", setup["raw"],
               "--mesh", "1,2,1", "--device", "cpu", "--port", "0", *flag])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP item 6e" in err
+    assert flag[0] in err and "ROADMAP item 6f" in err
 
 
 def test_mesh_of_one_serves_as_one_device(setup):
