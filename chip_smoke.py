@@ -312,13 +312,36 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     concurrency 1, the reload's and the surface build's seconds, each
     rank's peak device memory and the phase's seconds (the one-process
     references run in the foreground after phase 15);
-21. the seconds of each phase, one JSON line of per-kernel numbers, then
+21. the replica router, admission, tenant weights, the autoscaler and the
+    fleet tier on the mesh, beside phases 13, 11, 14 and 15: `serve --mesh
+    1,2,1 --replicas 2 --admission-depth 8 --tenant-weights
+    default=3,t1=1 --fleet t1=<phase 6's trained checkpoint>
+    --fleet-hbm-budget 1 --autoscale --autoscale-min 2 --autoscale-max 3
+    --autoscale-interval 1 --autoscale-rps-per-replica 4 --no-batcher` as
+    two spawned gloo ranks sharing the card (eager; both thread replicas
+    share the mesh stack on the one card; `t1` a one-device captured
+    predictor on rank 0's): phase 5's day as `default` bit for bit phase
+    16's 1,2,1 Predictor (as phase 19's plane) and as `t1` within 1e-5 of
+    scale of a one-process captured predictor of that checkpoint; closed
+    loops alternating `X-Tenant` at concurrency 1 and 8 (requests/s and
+    p50/p99 per tenant); a burst of 32 against depth 8 shed with 429 and
+    `Retry-After`; `default` spilled and restored (mirrored ops; their
+    milliseconds); the rung graphs flat after `t1`'s first call; the
+    router at the replicas the autoscaler set; rank 1's K1 launches those
+    of rank 0's mesh calls and rank 0's surplus `t1`'s (its plane's
+    warm-up and replays); both ranks exit 0 at the deadline.  Then `serve
+    --mesh 1,2,1 --replica-mode process --replicas 2 --no-batcher`: its
+    answers bit for bit a one-process captured predictor, no mirrored
+    call, K1 in the workers alone, both ranks exit 0 (the one-process
+    references run in the foreground after phase 20's);
+22. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
-7, 8, 12, 10, 13, 11, 14, 15, 16, 17, 18, 19, 20 and the sweep of 9; a
-server or CLI process starts at 0, and phase 12 sums its workers' ledgers
-and phases 15, 16, 17, 19 and 20 their ranks') and
+7, 8, 12, 10, 13, 11, 14, 15, 16, 17, 18, 19, 20, 21 and the sweep of 9;
+a server or CLI process starts at 0, and phase 12 sums its workers'
+ledgers and phases 15, 16, 17, 19, 20 and 21 their ranks' and workers')
+and
 read just after it; launches made to check or
 time a kernel do not count.  A wrapper counts its launch on the host when
 it is called, so a CUDA graph records the launches it holds at capture and
@@ -335,7 +358,7 @@ servers and phase 12's planes loading together, phase 10's export
 beside the 10k training, phase 14's train CLIs and phase 15's
 `train --mesh` together, phase 11's second stream run beside its
 in-process checks, phase 15's gloo ranks beside phase 14's demo, and
-phases 16, 17, 19 and 20 as above.  The host-clock numbers of an overlapped
+phases 16, 17, 19, 20 and 21 as above.  The host-clock numbers of an overlapped
 phase are taken under that load; kernel times are not.
 
 It exits nonzero, printing no result, without CUDA or without the package
@@ -1492,7 +1515,10 @@ def phase_supersteps(cuda_gru, feats: str, workdir: str) -> dict:
     return out
 
 
-def phase_training(cuda_gru) -> dict:
+def phase_training(cuda_gru, keep: str | None = None) -> dict:
+    """Phase 6; with ``keep``, its trained checkpoint is copied there."""
+    import shutil
+
     import numpy as np
 
     from deeprest_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -1516,6 +1542,8 @@ def phase_training(cuda_gru) -> dict:
         train_s = time.perf_counter() - t0
         served = run_cli(["predict", "--ckpt-dir", ckpt, "--features", feats,
                           "--out", os.path.join(wd, "preds")], timeout=600)
+        if keep is not None:
+            shutil.copytree(ckpt, keep)
         launches = dict(report["kernel_launches"])
         launches["gru_fwd"] += served["kernel_launches"]["gru_fwd"]
         steps = int(report["steps"])
@@ -6960,6 +6988,392 @@ def check_serve_mesh_quant(cuda_gru, serving: dict, social: tuple,
     return {"errors": errs, "surface_err": surface_err, "peak_mib": peak}
 
 
+# -- phase 21: the replica router, admission, tenant weights, the autoscaler
+# and the fleet tier on the mesh -------------------------------------------
+
+SERVE_MESH_PLANE = (1, 2, 1)        # the flagship's E=40: 20 experts a rank
+SERVE_MESH_PLANE_DEADLINE_S = 35    # the fleet plane's seconds after listening
+SERVE_MESH_PROCESS_DEADLINE_S = 12  # the process plane's
+SERVE_MESH_PLANE_LOAD_S = 2.0       # each closed-loop cell
+SERVE_MESH_PLANE_CONCURRENCY = (1, 8)
+SERVE_MESH_PLANE_BURST = 32         # clients at once against depth 8
+SERVE_MESH_PLANE_ARGS = (
+    "--replicas", "2", "--admission-depth", "8", "--tenant-weights",
+    "default=3,t1=1", "--fleet-hbm-budget", "1", "--autoscale",
+    "--autoscale-min", "2", "--autoscale-max", "3", "--autoscale-interval",
+    "1", "--autoscale-rps-per-replica", "4", "--no-batcher")
+
+
+def serve_mesh_plane_rank_main(rank: int, port: int, args: list,
+                               out: str) -> None:
+    """One rank of a phase-21 plane (spawned): ``serve`` with ``args`` on
+    the card in a gloo job sharing it, its output to ``out + ".log"``;
+    then its exit code, its K1 launches, those of its warm-ups (of the
+    mesh predictor and of one-device ones) and those of captured-graph
+    replays outside them (on these planes the mesh serves eagerly under
+    gloo, so every replay is a one-device stack's), and its peak device
+    memory to ``out``."""
+    import contextlib
+    import threading
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeprest_tpu_torch import graphs
+    from deeprest_tpu_torch.cli import main
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.parallel import initialize_distributed
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = {"warm_mesh": 0, "warm_one": 0, "replayed": 0}
+    lock, warming = threading.Lock(), []
+    warm, replay = Predictor.warm, graphs.CapturedGraph.replay
+
+    def counted_warm(self):
+        before = cuda_gru.GRU_FWD.launches
+        warming.append(self)
+        try:
+            return warm(self)
+        finally:
+            warming.pop()
+            key = "warm_one" if self.mesh is None else "warm_mesh"
+            counts[key] += cuda_gru.GRU_FWD.launches - before
+
+    def counted_replay(self):
+        replay(self)
+        if not warming:
+            with lock:
+                counts["replayed"] += self.launches.get(cuda_gru.GRU_FWD, 0)
+
+    Predictor.warm = counted_warm
+    graphs.CapturedGraph.replay = counted_replay
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    with open(out + ".log", "w", encoding="utf-8") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = main(["serve", *args])
+    with open(out, "w", encoding="utf-8") as fh:
+        json.dump({"rc": rc, "launches": cuda_gru.GRU_FWD.launches, **counts,
+                   "max_allocated": torch.cuda.max_memory_allocated(),
+                   "max_reserved": torch.cuda.max_memory_reserved()}, fh)
+
+
+def headed_post(url: str, body: bytes, tenant: str | None):
+    """POST ``body`` with ``X-Tenant``: (status, JSON body, headers)."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if tenant:
+        headers["X-Tenant"] = tenant
+    req = urllib.request.Request(url, data=body, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def tenant_loop(url: str, bodies: list, concurrency: int,
+                seconds: float) -> dict:
+    """A closed loop of ``concurrency`` client threads for ``seconds``,
+    each posting ``bodies`` in turn with ``X-Tenant`` alternating between
+    'default' and 't1'; per tenant the requests answered, requests/s and
+    p50/p99 ms (every answer must be 200)."""
+    import threading
+
+    import numpy as np
+
+    lats = {"default": [], "t1": []}
+    bad, lock = [], threading.Lock()
+    end = time.monotonic() + seconds
+
+    def client(i):
+        n = i
+        while time.monotonic() < end:
+            tenant = ("default", "t1")[n % 2]
+            t0 = time.perf_counter()
+            status, _, _ = headed_post(url + "/v1/predict",
+                                       bodies[n % len(bodies)], tenant)
+            with lock:
+                (lats[tenant] if status == 200 else bad).append(
+                    time.perf_counter() - t0 if status == 200 else status)
+            n += 1
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(seconds + 300)
+    if bad:
+        fail(f"phase 21's tenant loop got statuses {sorted(set(bad))}")
+    return {t: {"requests": len(v), "rps": len(v) / seconds,
+                "p50_ms": float(np.percentile(v, 50) * 1e3) if v else None,
+                "p99_ms": float(np.percentile(v, 99) * 1e3) if v else None}
+            for t, v in lats.items()}
+
+
+def mesh_plane_burst(url: str, body: bytes) -> dict:
+    """SERVE_MESH_PLANE_BURST clients at once: the statuses, and whether
+    every 429 carried ``Retry-After``."""
+    import threading
+
+    barrier = threading.Barrier(SERVE_MESH_PLANE_BURST)
+    got = []
+
+    def client():
+        barrier.wait(60)
+        got.append(headed_post(url + "/v1/predict", body, "default"))
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(SERVE_MESH_PLANE_BURST)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    shed = [g for g in got if g[0] == 429]
+    return {"statuses": sorted(g[0] for g in got), "shed": len(shed),
+            "retry_after": all("Retry-After" in g[2] for g in shed)}
+
+
+def spawn_mesh_plane(args: list, wd: str, name: str):
+    """The two spawned gloo ranks of ``serve *args``; returns (procs,
+    outs)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(wd, f"{name}{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=serve_mesh_plane_rank_main,
+                         args=(r, port, args, outs[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def join_mesh_plane(procs, outs: list, label: str, wait: float) -> list:
+    """Both ranks' exit, each with code 0 and rc 0; returns their
+    records."""
+    try:
+        for p in procs:
+            p.join(wait)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    if [p.exitcode for p in procs] != [0, 0]:
+        fail(f"{label}'s ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in outs:
+        with open(path, encoding="utf-8") as fh:
+            ranks.append(json.load(fh))
+    if [r["rc"] for r in ranks] != [0, 0]:
+        fail(f"{label}'s ranks returned {[r['rc'] for r in ranks]}")
+    return ranks
+
+
+def phase_serve_mesh_plane(serving: dict, trained: str, plane: dict,
+                           workdir: str) -> dict:
+    """Phase 21: ``serve --mesh 1,2,1`` with the replica router (two thread
+    replicas sharing the mesh stack on the one card), admission depth 8,
+    tenant weights, the autoscaler and the fleet (``t1``: phase 6's
+    trained checkpoint, a one-device predictor on rank 0's card) at a
+    budget of 1, as two spawned gloo ranks sharing the card (eager), on
+    phase 5's flagship; then a process plane on the same mesh.  Its
+    kernels launch in its ranks and workers only; the one-process
+    references are :func:`check_serve_mesh_plane`'s, in the
+    foreground."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    wd = os.path.join(workdir, "serve_mesh_plane")
+    os.makedirs(wd)
+    label = "x".join(map(str, SERVE_MESH_PLANE))
+    mesh = ",".join(map(str, SERVE_MESH_PLANE))
+    args = ["--ckpt-dir", serving["ckpt"], "--mesh", mesh,
+            *SERVE_MESH_PLANE_ARGS, f"--fleet=t1={trained}", "--port", "0",
+            "--deadline", str(SERVE_MESH_PLANE_DEADLINE_S)]
+    procs, outs = spawn_mesh_plane(args, wd, "fleet")
+    day = json.dumps({"traffic": serving["traffic"].tolist()}).encode()
+    try:
+        start = wait_ranks_listening(procs, outs,
+                                     f"phase 21's fleet plane on {label}")
+        listened = time.perf_counter()
+        url = start["listening"]
+        if (start["mesh"] != list(SERVE_MESH_PLANE) or start["world"] != 2
+                or start["fleet"]["tenants"] != ["default", "t1"]
+                or not start["autoscale"]):
+            fail(f"phase 21's startup line: mesh {start['mesh']}, world "
+                 f"{start['world']}, fleet {start['fleet']}, autoscale "
+                 f"{start['autoscale']}")
+        answers, graph_counts = {}, []
+        for tenant in ("default", "t1"):
+            status, body, _ = headed_post(url + "/v1/predict", day, tenant)
+            if status != 200:
+                fail(f"phase 21 /v1/predict as {tenant}: {status} {body}")
+            answers[tenant] = np.asarray(body["predictions"], np.float32)
+        status, health = http_json(url + "/healthz")
+        graph_counts.append(health["fleet"]["pool"]["jit_cache_size"])
+        bodies = [raw.encode() if isinstance(raw, str) else raw
+                  for raw in plane["bodies"]]
+        loads = {conc: tenant_loop(url, bodies, conc,
+                                   SERVE_MESH_PLANE_LOAD_S)
+                 for conc in SERVE_MESH_PLANE_CONCURRENCY}
+        burst = mesh_plane_burst(url, bodies[0])
+        router = {}
+        for _ in range(50):
+            status, health = http_json(url + "/healthz")
+            router = health["router"]
+            decision = router.get("autoscaler") or {}
+            if decision.get("desired") == router["num_replicas"]:
+                break
+            time.sleep(0.2)
+        graph_counts.append(health["fleet"]["pool"]["jit_cache_size"])
+        client_s = time.perf_counter() - listened
+    finally:
+        ranks = join_mesh_plane(procs, outs, "phase 21's fleet plane",
+                                SERVE_MESH_PLANE_DEADLINE_S + 120)
+    pool = health["fleet"]["pool"]
+    default = pool["per_tenant"]["default"]
+    checks = {
+        "default spilled and restored": (default["spills"] >= 1
+                                         and default["restores"] >= 1),
+        "graphs flat after t1's first call": (graph_counts[0]
+                                              == graph_counts[1]),
+        "router at the autoscaler's replicas": (
+            (router.get("autoscaler") or {}).get("desired")
+            == router["num_replicas"]),
+        "a burst over depth 8 shed with Retry-After": (
+            burst["shed"] >= 1 and burst["retry_after"]),
+    }
+    r0, r1 = ranks
+    one_device = r0["warm_one"] + r0["replayed"]
+    mesh_calls = [r0["launches"] - r0["warm_mesh"] - one_device,
+                  r1["launches"] - r1["warm_mesh"]]
+    checks["K1: rank 1 = rank 0's mesh calls, surplus = t1's"] = (
+        r0["warm_mesh"] == r1["warm_mesh"] and mesh_calls[0] == mesh_calls[1]
+        and r1["replayed"] == 0 and r0["launches"] - r1["launches"]
+        == one_device and one_device > 0 and mesh_calls[0] > 0)
+    print(f"check serve --mesh {label} plane (gloo world size 2 on one "
+          f"card, eager, bf16, --no-batcher, two thread replicas, depth 8, "
+          f"default=3,t1=1, fleet budget 1, autoscaler 2..3): {checks}; "
+          f"K1 per rank {[r0['launches'], r1['launches']]} (warm-ups of "
+          f"the mesh {[r0['warm_mesh'], r1['warm_mesh']]}, one-device "
+          f"warm-up {r0['warm_one']} and replays {r0['replayed']} on rank "
+          f"0; mirrored calls' {mesh_calls}); graphs {graph_counts}; "
+          f"burst statuses {burst['statuses']}; router "
+          f"{router['num_replicas']} replicas, autoscaler "
+          f"{router.get('autoscaler')}; spills {pool['spills']}, restores "
+          f"{pool['restores']}", flush=True)
+    if not all(checks.values()):
+        fail(f"phase 21's fleet plane failed {checks}")
+    copy_ms = pool["plane"]["copy_ms"]
+    for conc, load in loads.items():
+        for tenant, cell in load.items():
+            print(f"main serve --mesh {label} fleet plane closed loop, "
+                  f"concurrency {conc}, tenant {tenant}: "
+                  f"{cell['requests']} requests in "
+                  f"{SERVE_MESH_PLANE_LOAD_S} s = {cell['rps']:.1f} "
+                  f"requests/s, p50 {cell['p50_ms']:.2f} ms, p99 "
+                  f"{cell['p99_ms']:.2f} ms (eager mesh, captured t1, "
+                  f"gloo)", flush=True)
+    print(f"main serve --mesh {label} fleet: spill ms "
+          f"{[round(v, 3) for v in copy_ms['spill']]}, restore ms "
+          f"{[round(v, 3) for v in copy_ms['restore']]} (the latest, host "
+          f"clock, copies landed; default is the mesh tenant, so each is "
+          f"a mirrored op)", flush=True)
+    # the process plane: workers serve one-device predictors on rank 0's
+    # card; the follower only waits
+    t_proc = time.perf_counter()
+    procs, outs = spawn_mesh_plane(
+        ["--ckpt-dir", serving["ckpt"], "--mesh", mesh, "--replica-mode",
+         "process", "--replicas", "2", "--no-batcher", "--port", "0",
+         "--deadline", str(SERVE_MESH_PROCESS_DEADLINE_S)], wd, "process")
+    try:
+        start = wait_ranks_listening(procs, outs,
+                                     f"phase 21's process plane on {label}")
+        url = start["listening"]
+        process_answers = []
+        for _ in range(2):
+            status, body, _ = headed_post(url + "/v1/predict", day, None)
+            if status != 200:
+                fail(f"phase 21's process plane answered {status}: {body}")
+            process_answers.append(np.asarray(body["predictions"],
+                                              np.float32))
+        status, phealth = http_json(url + "/healthz")
+    finally:
+        pranks = join_mesh_plane(procs, outs, "phase 21's process plane",
+                                 SERVE_MESH_PROCESS_DEADLINE_S + 120)
+    workers = worker_launches(phealth)
+    if (phealth["mesh"]["calls"] != 0 or workers == 0
+            or [r["launches"] for r in pranks] != [0, 0]):
+        fail(f"phase 21's process plane: mirrored calls "
+             f"{phealth['mesh']['calls']}, the workers' K1 {workers}, the "
+             f"ranks' {[r['launches'] for r in pranks]}")
+    wall = time.perf_counter() - t0
+    peak = [round(r["max_reserved"] / 2**20) for r in ranks]
+    print(f"main serve mesh plane phase: {wall:.1f} s wall (the fleet plane "
+          f"listening after {listened - t0:.1f} s, clients {client_s:.1f} "
+          f"s, deadline {SERVE_MESH_PLANE_DEADLINE_S} s; the process plane "
+          f"{time.perf_counter() - t_proc:.1f} s); peak device memory per "
+          f"rank {peak} MiB reserved "
+          f"({[round(r['max_allocated'] / 2**20) for r in ranks]} "
+          f"allocated); gru_fwd launches {r0['launches'] + r1['launches']} "
+          f"in the fleet plane's ranks, {workers} in the process plane's "
+          f"workers", flush=True)
+    return {"launches": {"gru_fwd": r0["launches"] + r1["launches"]
+                         + workers},
+            "answers": answers, "process": process_answers,
+            "wall": wall, "peak_mib": peak, "loads": loads,
+            "copy_ms": copy_ms, "checks": checks}
+
+
+def check_serve_mesh_plane(axes: dict, serving: dict, trained: str,
+                           run: dict) -> None:
+    """Phase 21 against one process on the card (foreground; these
+    reference launches count nowhere): ``default``'s day bit for bit
+    phase 16's 1,2,1 Predictor (which phase 19's plane equals bit for
+    bit), ``t1``'s within 1e-5 of scale of a one-process captured
+    predictor of phase 6's checkpoint, and the process plane's bit for
+    bit a one-process captured predictor of phase 5's (each with the
+    serve CLI's knobs)."""
+    import numpy as np
+
+    from deeprest_tpu_torch.cli import build_parser
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    label = "x".join(map(str, SERVE_MESH_PLANE))
+    cli = build_parser().parse_args(["serve", "--ckpt-dir", trained])
+    knobs = dict(ladder=tuple(int(r) for r in cli.batch_ladder.split(",")),
+                 coalesce_groups=cli.batch_coalesce_groups, device="cuda")
+    mesh_answer = axes["answers"][label]
+    default = run["answers"]["default"]
+    t1_want = Predictor.from_checkpoint(trained, **knobs).predict_series(
+        serving["traffic"])
+    one = Predictor.from_checkpoint(serving["ckpt"], **knobs)
+    process_want = one.predict_series(serving["traffic"])
+    t1 = run["answers"]["t1"]
+    t1_err = float(np.abs(t1 - t1_want).max()
+                   / max(float(np.abs(t1_want).max()), 1e-12))
+    same_default = bool(np.array_equal(default, mesh_answer))
+    same_process = [bool(np.array_equal(a, process_want))
+                    for a in run["process"]]
+    print(f"check serve --mesh {label} plane vs one process: default bit "
+          f"for bit phase 16's {label} Predictor {same_default}; t1 vs a "
+          f"one-process captured predictor of phase 6's checkpoint "
+          f"{t1_err:.3e} of scale (tol {TOL['float32'][0]}); the process "
+          f"plane's answers bit for bit a one-process captured predictor "
+          f"{same_process}", flush=True)
+    if (not same_default or t1_err > TOL["float32"][0]
+            or not all(same_process) or not np.isfinite(t1).all()):
+        fail("phase 21 parts from one process")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -7012,7 +7426,8 @@ def main() -> int:
         # phase 7's simulate and featurize CLIs (host only) run beside
         # phase 6
         corpus = start_raw_corpus(wd)
-        training = timed("training", phase_training, cuda_gru)
+        trained = os.path.join(wd, "trained")      # phase 21's tenant t1
+        training = timed("training", phase_training, cuda_gru, trained)
         # phases 16 and 17 only spawn gloo ranks (no kernel of theirs
         # launches in this process): 16 runs beside phases 7 and 8, 17
         # beside phase 12
@@ -7045,6 +7460,11 @@ def main() -> int:
                      serving, wd)
         serve_mesh = timed("wait for phase 19", mesh_job.result)
         seconds["serve --mesh (beside 10)"] = round(mesh_job.seconds, 1)
+        # phase 21's ranks and workers (its kernels launch in them only)
+        # beside 13, 11, 14 and 15; its one-process references after
+        # phase 20's, before the reset
+        plane_job = Background("phase 21", phase_serve_mesh_plane, serving,
+                               trained, plane, wd)
         fleet = timed("fleet tier", phase_fleet, cuda_gru, serving, wd)
         # phase 20's ranks (its kernels launch in them only) beside 11, 14
         # and 15; its one-process references after them, before the reset
@@ -7065,6 +7485,11 @@ def main() -> int:
             quant_job.seconds, 1)
         timed("phase 20 against one process", check_serve_mesh_quant,
               cuda_gru, serving, social, mesh_quant)
+        mesh_plane = timed("wait for phase 21", plane_job.result)
+        seconds["serve --mesh replicas, admission, autoscaler and fleet "
+                "(beside 13, 11, 14, 15)"] = round(plane_job.seconds, 1)
+        timed("phase 21 against one process", check_serve_mesh_plane, axes,
+              serving, trained, mesh_plane)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         raw_side = timed("raw side native tools", phase_raw_side, cuda_gru,
@@ -7095,6 +7520,7 @@ def main() -> int:
         launches[name] += count
     launches["gru_fwd"] += serve_mesh["launches"]["gru_fwd"]
     launches["gru_fwd"] += mesh_quant["launches"]["gru_fwd"]
+    launches["gru_fwd"] += mesh_plane["launches"]["gru_fwd"]
     sources = {"gru_fwd": ("gru_fwd.cu", "deeprest_tpu/ops/pallas_gru.py:156"),
                "gru_fwd_train": ("gru_fwd.cu",
                                  "deeprest_tpu/ops/pallas_gru.py:164"),
@@ -7149,7 +7575,11 @@ def main() -> int:
           f"{serve_mesh['launches']}; serve --mesh --quant int8 --watch "
           f"(both gloo ranks: warm-ups, the envelope probes, the reload, "
           f"requests, the surface and the verdict sweep) "
-          f"{mesh_quant['launches']}; "
+          f"{mesh_quant['launches']}; serve --mesh with replicas, "
+          f"admission, the autoscaler and the fleet (both gloo ranks: "
+          f"warm-ups, the mesh's requests and their replays, t1's one-device "
+          f"plane on rank 0; the process plane's workers) "
+          f"{mesh_plane['launches']}; "
           f"tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     memory.stop()

@@ -70,8 +70,12 @@ SIGTERM or SIGINT on rank 0 stops every rank, and a lost rank stops rank 0
 with exit 1 (a 503 for the request in flight).  It serves ``--quant``,
 ``--watch`` (every rank loads the new step; serve/mesh_front.py), the
 capacity surfaces and the verdict surface, whose device calls are
-mirrored as any request's; its router, admission, tenant-weight,
-autoscaler and fleet flags exit 2 (ROADMAP item 6f).
+mirrored as any request's, and the replica plane, admission, tenant
+weights, the autoscaler and the fleet in JAX's layout: thread replicas on
+rank 0's device share the mesh predictor, a replica on another device is
+a one-device clone of its gathered params, process workers and the
+fleet's other tenants serve one-device predictors on rank 0's device,
+and no one-device call is mirrored.
 ``train --elastic`` and ``stream --elastic`` survive the loss of ranks
 in-process (elastic remeshing; ``--remesh-max-attempts``,
 ``--remesh-backoff-ms``): their JSON lines carry ``remeshes``, and a rank
@@ -220,40 +224,20 @@ def _is_chief(pred) -> bool:
     return pred.mesh is None or pred.mesh.rank == 0
 
 
-# The serve flags a mesh above one rank does not take yet (ROADMAP item 6f:
-# the multi-replica and multi-tenant plane), each with the test that says
-# it was given.
-_MESH_DEFERRED = (
-    ("--replicas", lambda a: a.replicas > 1),
-    ("--admission-depth", lambda a: a.admission_depth),
-    ("--tenant-weights", lambda a: a.tenant_weights),
-    ("--autoscale", lambda a: a.autoscale),
-    ("--fleet", lambda a: a.fleet),
-)
-
-
 def _serve_mesh(args):
     """``serve --mesh``'s config when it spans more than one rank (None for
-    no mesh or a mesh of size 1, which serve as without it).  A flag such
-    a mesh does not take yet exits 2."""
+    no mesh or a mesh of size 1, which serve as without it)."""
     cfg = _parse_mesh(args)
     if cfg is None or cfg.size == 1:
         return None
-    given = [flag for flag, test in _MESH_DEFERRED if test(args)]
-    if given:
-        print(f"{args.cmd}: --mesh {args.mesh} with {', '.join(given)} is "
-              "not ported yet: the replica router, admission, tenant "
-              "weights, the autoscaler and the fleet tier on a mesh above "
-              "one rank are ROADMAP item 6f; serve on the mesh without "
-              "them, or on one device", file=sys.stderr)
-        sys.exit(2)
     return cfg
 
 
-def _follow(pred, load=None) -> int:
+def _follow(pred, load=None, keep=()) -> int:
     """A follower of ``serve --mesh`` (every rank but 0): make each device
     call rank 0 announces, and each reload with ``load``, until its
-    ``STOP``, then exit 0.  SIGTERM and SIGINT are ignored: rank 0 stops
+    ``STOP``, then exit 0; the generations in ``keep`` are never
+    dropped.  SIGTERM and SIGINT are ignored: rank 0 stops
     the plane, and its ``STOP`` ends this loop.  A lost peer ends it with
     1, after the job's census."""
     import signal
@@ -270,7 +254,7 @@ def _follow(pred, load=None) -> int:
         signal.signal(sig, signal.SIG_IGN)
     rank, world = pred.mesh.rank, pred.mesh.size
     try:
-        follow(pred, load)
+        follow(pred, load, keep)
     except Exception as exc:
         if not is_device_loss(exc):
             raise
@@ -288,11 +272,11 @@ def _follow(pred, load=None) -> int:
     return 0
 
 
-def _serve_on_mesh(server, front, deadline: float) -> int:
+def _serve_on_mesh(server, front, deadline: float, autoscaler=None) -> int:
     """Rank 0's serving loop on a mesh above one rank: answer until
-    ``--deadline``, SIGTERM or SIGINT, then stop the server and send
-    ``STOP`` (every rank exits 0).  A lost rank stops the server too; the
-    ranks that are gone are named, and the exit is 1."""
+    ``--deadline``, SIGTERM or SIGINT, then stop the autoscaler and the
+    server and send ``STOP`` (every rank exits 0).  A lost rank stops the
+    server too; the ranks that are gone are named, and the exit is 1."""
     import signal
     import threading
 
@@ -308,6 +292,8 @@ def _serve_on_mesh(server, front, deadline: float) -> int:
                 break
             stop.wait(left)
     finally:
+        if autoscaler is not None:
+            autoscaler.stop()
         server.stop()
     if front.lost.is_set():
         lost = front.lost_ranks()
@@ -1303,7 +1289,10 @@ def _fleet_pool(args, fleet_cfg, base_pred, knobs: dict):
     """The fleet tier's pool: ``base_pred`` (``--ckpt-dir``) admitted as
     the 'default' tenant, the plane's template, whose AOT sidecar the pool
     checks; then every ``--fleet tenant=ckpt_dir``, loaded with the same
-    knobs, serving through the plane's graphs."""
+    knobs, serving through the plane's graphs.  On a serving mesh rank 0
+    alone runs it: ``base_pred`` is the mesh predictor, and every other
+    tenant a one-device predictor on its device (JAX's layout), all of
+    them sharing one one-device plane (serve/predictor.py)."""
     from deeprest_tpu_torch.config import QualityConfig
     from deeprest_tpu_torch.serve.fleet import PredictorPool
     from deeprest_tpu_torch.serve.predictor import Predictor
@@ -1462,23 +1451,7 @@ def _serve(args) -> int:
         backend = f"artifact:{args.artifact}"
     autoscaler = None
     fleet_pool = None
-    if process:
-        from deeprest_tpu_torch.serve.router import ReplicaRouter
-
-        # -- worker-process replicas: each rebuilds and warms its stack
-        spec = {"ckpt_dir": args.ckpt_dir, "artifact": args.artifact,
-                "device": args.device or "cuda",
-                "kwargs": {k: v for k, v in {**knobs, **sparse}.items()
-                           if k != "device"}}
-        t0 = time.perf_counter()
-        pred = ReplicaRouter.build_process(
-            spec, args.replicas, config=router_cfg, batching=batching)
-        seconds["boot"] = time.perf_counter() - t0
-        boots = [r.boot_info() for r in pred.replicas]
-        graphs = [b["graphs"] for b in boots]
-        seconds["workers"] = [b["seconds"] for b in boots]
-        device, quant, parity_max = spec["device"], infer.quant, None
-    else:
+    if not (process and mesh_cfg is None):
         t0 = time.perf_counter()
         if mesh_cfg is not None:
             pred = _predictor(args, ladder=ladder,
@@ -1491,44 +1464,89 @@ def _serve(args) -> int:
 
             pred = ExportedPredictor.load(args.artifact, **knobs)
         seconds["load"] = time.perf_counter() - t0
-        if fleet_cfg is not None:
+        if fleet_cfg is not None and mesh_cfg is None:
             # before warm(): the plane the pool makes from the default
             # tenant captures the graphs every tenant then serves through
             t0 = time.perf_counter()
             fleet_pool = _fleet_pool(args, fleet_cfg, pred,
                                      {**knobs, **sparse})
             seconds["fleet"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        graphs = pred.warm()
-        seconds["warm"] = time.perf_counter() - t0
-        if mesh_cfg is not None:
-            import functools
+        elif fleet_cfg is not None:
+            # every rank's default tenant serves through a plane of its
+            # mesh, made before the warm-up: a request that resolved it
+            # before a spill binds its host copies into that plane
+            pred.fleet_plane()
+        if not process:
+            t0 = time.perf_counter()
+            graphs = pred.warm()
+            seconds["warm"] = time.perf_counter() - t0
+    if mesh_cfg is not None:
+        import functools
 
-            from deeprest_tpu_torch.serve.mesh_front import MeshFront
+        from deeprest_tpu_torch.serve.mesh_front import MeshFront
 
+        if not process:
             # the digest's gather on every rank before the socket listens
             # (it is cached: no /healthz starts a collective on rank 0)
             t0 = time.perf_counter()
             pred.params_digest()
             seconds["digest"] = time.perf_counter() - t0
-            # a reload's load, the same on every rank: the plane's knobs
-            # on the mesh it serves on
-            load = (functools.partial(
-                Predictor.from_checkpoint, args.ckpt_dir, mesh=pred.mesh,
-                cuda_graphs=_job_graphs(), **knobs, **sparse)
-                if args.watch else None)
-            if not _is_chief(pred):
-                return _follow(pred, load)
-            front = MeshFront(pred, load=load)
-            if reloader is not None:
-                reloader.attach_front(front)
+        # a reload's load, the same on every rank: the plane's knobs on
+        # the mesh it serves on (a process plane's workers reload
+        # themselves)
+        load = (functools.partial(
+            Predictor.from_checkpoint, args.ckpt_dir, mesh=pred.mesh,
+            cuda_graphs=_job_graphs(), **knobs, **sparse)
+            if args.watch and not process else None)
+        # a fleet's default tenant stays the generation the pool admitted
+        keep = (0,) if fleet_cfg is not None else ()
+        if not _is_chief(pred):
+            return _follow(pred, load, keep)
+        front = MeshFront(pred, load=load, keep=keep)
+        if reloader is not None and not process:
+            reloader.attach_front(front)
+        if fleet_cfg is not None:
+            # rank 0 alone loads the other tenants: one-device predictors
+            # on its device, sharing one one-device plane beside the mesh
+            # template, warmed here
+            t0 = time.perf_counter()
+            fleet_pool = _fleet_pool(args, fleet_cfg, pred,
+                                     {**knobs, **sparse})
+            plane = fleet_pool.device_plane()
+            if plane is not None:
+                graphs["device_plane"] = plane.warm()
+            seconds["fleet"] = time.perf_counter() - t0
+    if process:
+        from deeprest_tpu_torch.serve.router import ReplicaRouter
+
+        # -- worker-process replicas: each rebuilds and warms its stack;
+        # on a mesh (JAX's layout: the spec has no mesh) each serves a
+        # one-device predictor on rank 0's device, and the front only
+        # keeps the other ranks waiting until its STOP
+        spec = {"ckpt_dir": args.ckpt_dir, "artifact": args.artifact,
+                "device": args.device or "cuda",
+                "kwargs": {k: v for k, v in {**knobs, **sparse}.items()
+                           if k != "device"}}
+        t0 = time.perf_counter()
+        pred = ReplicaRouter.build_process(
+            spec, args.replicas, config=router_cfg, batching=batching)
+        seconds["boot"] = time.perf_counter() - t0
+        if front is not None:
+            pred.attach_mesh_front(front)
+        boots = [r.boot_info() for r in pred.replicas]
+        graphs = [b["graphs"] for b in boots]
+        seconds["workers"] = [b["seconds"] for b in boots]
+        device, quant, parity_max = spec["device"], infer.quant, None
+    else:
         device, quant = str(pred.device), pred.quant
         parity_max = (max(pred.parity_envelope["measured"].values())
                       if pred.parity_envelope else None)
         if router_cfg is not None:
             from deeprest_tpu_torch.serve.router import ReplicaRouter
 
-            # -- engine replicas: one shared stack on each card
+            # -- engine replicas: one shared stack on each card (on a
+            # mesh: the mesh predictor on rank 0's, a one-device clone of
+            # its gathered params on any other)
             pred = ReplicaRouter.build(pred, args.replicas,
                                        config=router_cfg, batching=batching)
     if router_cfg is not None:
@@ -1660,7 +1678,7 @@ def _serve(args) -> int:
                       "device": device, "graphs": graphs,
                       "seconds": seconds}), flush=True)
     if front is not None:
-        return _serve_on_mesh(server, front, args.deadline)
+        return _serve_on_mesh(server, front, args.deadline, autoscaler)
     try:
         if args.deadline:
             server.start()

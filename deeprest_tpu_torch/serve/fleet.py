@@ -54,7 +54,6 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from deeprest_tpu_torch.obs import spans as obs_spans
 
@@ -106,14 +105,6 @@ class PoolEntry:
 
 def _state_bytes(state: dict) -> int:
     return sum(t.numel() * t.element_size() for t in state.values())
-
-
-def _landed(device: torch.device) -> None:
-    """Wait for the copies enqueued so far on the current stream."""
-    if device.type == "cuda":
-        event = torch.cuda.Event()
-        event.record()
-        event.synchronize()
 
 
 class PredictorPool:
@@ -193,7 +184,7 @@ class PredictorPool:
                                          component="deeprest-fleet") as sp:
                 sp.tag(tenant=tenant, quant=key[2])
                 if self._template is None:
-                    plane = predictor.plane or predictor._new_plane()
+                    plane = predictor.fleet_plane()
                     if self.aot and checkpoint_path:
                         from deeprest_tpu_torch.serve.aot import load_aot
 
@@ -301,46 +292,37 @@ class PredictorPool:
             resident = self._resident_locked()
 
     def _spill_locked(self, entry: PoolEntry) -> None:
-        """Device → pinned host: copy every weight and stats tensor, wait
-        for the copies (and every bind queued before them on the stream)
-        to land, then point the predictor at the host copies, which drops
-        its device tensors.  Same bytes, so a request that resolved the
-        entry before the spill still binds bit-exact values."""
+        """Device → pinned host (``Predictor.spill``): every weight and
+        stats tensor copied, the copies (and every bind queued before
+        them on the stream) landed, then the predictor pointed at the
+        host copies, which drops its device tensors.  Same bytes, so a
+        request that resolved the entry before the spill still binds
+        bit-exact values.  A mesh tenant spills on every rank."""
         pred = entry._tenant_predictor
         with obs_spans.RECORDER.span("fleet.spill",
                                      component="deeprest-fleet") as sp:
             sp.tag(tenant=entry.tenant)
             t0 = time.perf_counter()
-            state = pred.bound_state()
-            cuda = pred.device.type == "cuda"
-            host = {}
-            for name, t in state.items():
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
-                h.copy_(t, non_blocking=cuda)
-                host[name] = h
-            _landed(pred.device)
+            host = pred.spill()
             self._ms["spill"].append((time.perf_counter() - t0) * 1e3)
         entry._tenant_spill = host
-        pred.load_bound_state(host)
         entry.resident = False
         entry.spills += 1
         self.spill_count += 1
 
     def _restore_locked(self, entry: PoolEntry) -> None:
-        """Pinned host → device: one copy per tensor from the spill.  Never
-        a disk read, never a capture: the restored tensors have the shapes
-        and dtypes the plane's graphs were captured for, and only their
-        values are bound into the slot."""
+        """Pinned host → device (``Predictor.restore``): one copy per
+        tensor from the spill.  Never a disk read, never a capture: the
+        restored tensors have the shapes and dtypes the plane's graphs
+        were captured for, and only their values are bound into the slot.
+        A mesh tenant restores on every rank, and stays on its mesh."""
         pred = entry._tenant_predictor
         with obs_spans.RECORDER.span("fleet.restore",
                                      component="deeprest-fleet") as sp:
             sp.tag(tenant=entry.tenant)
             t0 = time.perf_counter()
-            dev = {name: t.to(pred.device, non_blocking=True)
-                   for name, t in entry._tenant_spill.items()}
-            _landed(pred.device)
+            pred.restore(entry._tenant_spill)
             self._ms["restore"].append((time.perf_counter() - t0) * 1e3)
-        pred.load_bound_state(dev)
         entry._tenant_spill = None
         entry.resident = True
         entry.restores += 1
@@ -350,13 +332,26 @@ class PredictorPool:
 
     def _jit_cache_size_locked(self) -> int | None:
         tmpl = self._template
-        return tmpl.jit_cache_size() if tmpl is not None else None
+        if tmpl is None:
+            return None
+        solo = tmpl.device_plane
+        return tmpl.jit_cache_size() + (
+            solo.jit_cache_size() if solo is not None else 0)
 
     def jit_cache_size(self) -> int | None:
         """The plane-wide rung-graph count (keys dispatched on the CPU):
-        every tenant serves through the plane's graphs."""
+        every tenant serves through the plane's graphs.  A mesh template
+        adds its one-device plane's, which every one-device tenant shares
+        (serve/predictor.py)."""
         with self._lock:
             return self._jit_cache_size_locked()
+
+    def device_plane(self):
+        """A mesh template's one-device plane, which every one-device
+        tenant shares (serve/predictor.py), or None."""
+        with self._lock:
+            tmpl = self._template
+        return None if tmpl is None else tmpl.device_plane
 
     def freeze(self) -> int | None:
         """Pin the current graph count as the post-warmup ceiling.  After
@@ -401,12 +396,19 @@ class PredictorPool:
 
     def plane_stats(self) -> dict | None:
         """The plane, apart from the tenants: its bound slot's bytes, the
-        binds made, and the tenant the slot holds (port-only)."""
+        binds made, and the tenant the slot holds (port-only); a mesh
+        template's one-device plane under ``device_plane``."""
         with self._lock:
             tmpl = self._template
         if tmpl is None:
             return None
-        slot = tmpl.graphs.slot
+        out = self._slot_stats(tmpl)
+        if tmpl.device_plane is not None:
+            out["device_plane"] = self._slot_stats(tmpl.device_plane)
+        return out
+
+    def _slot_stats(self, plane) -> dict:
+        slot = plane.graphs.slot
         owner = slot.owner
         holder = next((e.tenant for e in self._entries_snapshot()
                        if e.predictor() is owner), None)
@@ -468,6 +470,10 @@ class PredictorPool:
                 "per_tenant": per_tenant,
             }
         out["plane"] = self.plane_stats()
+        if out["plane"] is not None:
+            # port-only: host ms of the latest spills and restores
+            out["plane"]["copy_ms"] = {k: v[-16:]
+                                       for k, v in self.timings().items()}
         return out
 
     def quality_rollup(self) -> list[tuple[str, dict]]:

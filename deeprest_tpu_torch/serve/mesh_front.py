@@ -61,6 +61,22 @@ program on the same inputs in the same order.
   old one by every rank.  At each ``RELOAD`` every rank drops the
   generations older than the served one (a newer one loaded and not yet
   swapped in stays), and rank 0 refuses (503) a call from a dropped one.
+  A replica plane's rolling reload has drained every replica of the older
+  generations before its ``SWAP``, which therefore drops them at once
+  (the flag :data:`DROP`).  Generations in ``keep`` are never dropped: a
+  fleet's default tenant stays the generation the pool admitted, as JAX's
+  pool keeps the predictor it admitted.  Every ``SWAP`` ends with a MAX
+  all-reduce of how many generations each rank holds and the oldest it
+  holds, which rank 0 reports under ``/healthz``'s ``mesh.generations``.
+- The replica and fleet plane (``serve --mesh`` with ``--replicas``,
+  ``--fleet``, ``--autoscale``): the ops ``GATHER`` (the whole params of
+  the mesh predictor, for a one-device clone on another device:
+  ``Predictor.whole_params``), ``SPILL`` and ``RESTORE`` (the fleet's
+  default tenant moving its shards to the host and back:
+  ``Predictor.spill``, ``Predictor.restore``) are collectives or moves
+  every rank makes in step, each under the front's lock on the
+  generation it names.  One-device stacks (clones, fleet tenants,
+  process workers) have no front and announce nothing.
 """
 
 from __future__ import annotations
@@ -84,9 +100,11 @@ from deeprest_tpu_torch.serve.server import ServingError
 
 # The ops of the wire, and the flags of a fused call.
 (APPLY, SPARSE_APPLY, FUSED, HEARTBEAT, STOP, RELOAD, WARM, READY,
- SWAP) = range(9)
+ SWAP, GATHER, SPILL, RESTORE) = range(12)
 _RUNG_OPS = {"apply": APPLY, "sparse_apply": SPARSE_APPLY}
 INTEGRATE, SPARSE = 1, 2
+DROP = 1                   # SWAP's flag: drop the older generations now
+_MIRRORED_OPS = {"gather": GATHER, "spill": SPILL, "restore": RESTORE}
 # op, flags, generation, dims[3]
 HEADER = 6
 # the arrays a call sends, by whether its windows are padded COO
@@ -146,6 +164,16 @@ def load_agreed(mesh, load, step: int):
         "serving mesh")
 
 
+def live_spread(mesh, live) -> tuple[int, int]:
+    """Every rank's end of a ``SWAP``: (the most generations a rank
+    holds, the oldest generation a rank holds), a MAX all-reduce over
+    the job of each rank's ``live`` generations."""
+    t = torch.tensor([len(live), -min(live)], dtype=torch.int64,
+                     device=host_wire_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return int(t[0]), -int(t[1])
+
+
 def settle(mesh, fresh, ok: bool) -> bool:
     """Every rank's ``READY``: the end of ``fresh``'s warm-up
     (``Predictor.warmed``) and its digest (a collective), then whether
@@ -175,9 +203,16 @@ class _Generation:
     def fused(self, arrays: list, integrate: bool, sparse: bool):
         return self.front.fused(arrays, integrate, sparse, self.gen)
 
-    def swapped(self) -> None:
-        """The service now serves this generation: announce ``SWAP``."""
-        self.front.swapped(self.gen)
+    def swapped(self, drop: bool = False) -> None:
+        """The service now serves this generation: announce ``SWAP``
+        (with ``drop``, every replica was drained of the older ones)."""
+        self.front.swapped(self.gen, drop)
+
+    def mirrored(self, what: str, body):
+        """``body()``, this rank's side of the op ``what`` ("gather",
+        "spill" or "restore") on this generation, which every rank
+        makes."""
+        return self.front.mirrored(_MIRRORED_OPS[what], self.gen, body)
 
     def stats(self) -> dict:
         """``/healthz``'s ``mesh`` key: the front's stats and this
@@ -194,9 +229,10 @@ class MeshFront:
     (the one every follower holds) builds a predictor of a newer step on
     the same mesh for :meth:`reload`.  A heartbeat thread keeps the
     followers' wait inside the group timeout: it beats when no call has
-    gone out for a quarter of it."""
+    gone out for a quarter of it.  The generations in ``keep`` (the same
+    on every rank) are never dropped."""
 
-    def __init__(self, predictor, load=None):
+    def __init__(self, predictor, load=None, keep=()):
         mesh = predictor.mesh
         if mesh is None or mesh.size < 2:
             raise ValueError("a mesh front needs a predictor on a mesh of "
@@ -215,6 +251,8 @@ class MeshFront:
         self.reloads = {"ok": 0, "failed": 0}
         self._served = 0             # the generation the service serves
         self._live = {0}             # the generations every rank holds
+        self._keep = frozenset(keep)
+        self._spread = (1, 0)        # SWAP's all-reduce: most, oldest
         self._next_gen = 1
         self._heartbeat_s = current_job().timeout.total_seconds() / 4
         self._last = time.monotonic()
@@ -233,9 +271,13 @@ class MeshFront:
         """The world, the calls and heartbeats sent, the reloads loaded
         and refused, and the error the front fails its calls with (None
         while it serves)."""
+        with self._lock:
+            generations = {"live": sorted(self._live),
+                           "most_on_a_rank": self._spread[0],
+                           "oldest_on_a_rank": self._spread[1]}
         return {"world": self.world, "calls": self.calls,
                 "heartbeats": self.heartbeats, "reloads": dict(self.reloads),
-                "error": self._error}
+                "generations": generations, "error": self._error}
 
     # -- rank 0's calls (the caller holds the predictor's graphs lock) ---
 
@@ -300,7 +342,7 @@ class MeshFront:
                                "it cannot reload")
         with self._lock:
             gen, self._next_gen = self._next_gen, self._next_gen + 1
-            self._live = {g for g in self._live if g >= self._served}
+            self._live = _kept(self._live, self._served, self._keep)
             try:
                 fresh = self._op(_header(RELOAD, gen=gen, dims=(step,)),
                                  load_agreed, self.mesh, self._load, step)
@@ -331,13 +373,30 @@ class MeshFront:
         fresh.attach_front(_Generation(self, gen, fresh.step))
         return fresh
 
-    def swapped(self, gen: int) -> None:
+    def swapped(self, gen: int, drop: bool = False) -> None:
         """Announce ``SWAP`` to generation ``gen``: the service now serves
-        it (or a newer one, whose swap came first)."""
+        it (or a newer one, whose swap came first).  With ``drop`` (a
+        replica plane's rolling reload, which drained every replica of
+        the older generations first) every rank drops them now."""
         with self._lock:
             if self._error is None:
-                self._op(_header(SWAP, gen=gen))
                 self._served = max(self._served, gen)
+                if drop:
+                    self._live = _kept(self._live, self._served, self._keep)
+                self._spread = self._op(
+                    _header(SWAP, DROP if drop else 0, gen), live_spread,
+                    self.mesh, self._live)
+
+    def mirrored(self, op: int, gen: int, body):
+        """Under the front's lock: send ``op`` on generation ``gen``
+        (``GATHER``, ``SPILL`` or ``RESTORE``), then run ``body()``, this
+        rank's side of it, and return its result."""
+        with self._lock:
+            if gen not in self._live:
+                raise ServingError(
+                    f"generation {gen} of the serving mesh was dropped",
+                    status=503)
+            return self._op(_header(op, gen=gen), body)
 
     def _op(self, header: np.ndarray, body=None, *args):
         """Under the front's lock: send ``header``, then run ``body(*args)``
@@ -407,19 +466,32 @@ class MeshFront:
         return [r for r in range(self.world) if r not in survivors]
 
 
-def follow(predictor, load=None) -> None:
+def _kept(live, served: int, keep):
+    """``live`` (generations, or a dict keyed by them) without those older
+    than ``served`` that ``keep`` does not hold."""
+    kept = [g for g in live if g >= served or g in keep]
+    return ({g: live[g] for g in kept} if isinstance(live, dict)
+            else set(kept))
+
+
+def follow(predictor, load=None, keep=()) -> None:
     """A follower's loop (ranks 1 and up): receive each call rank 0
     announces and make it on the predictor of its generation (at first
     ``predictor``, this rank's ``Predictor`` on the same mesh, warmed and
     digested as rank 0's) with the same inputs, until ``STOP``.  A
     ``RELOAD`` loads its step with ``load`` (rank 0's) in step with every
     rank, each ``WARM`` runs a unit of its warm-up and ``READY`` settles
-    it; a ``SWAP`` names the served generation.  A call that raised on
-    rank 0 raises the same here and is passed over, as does a reload
-    every rank refused; a lost peer raises out of the loop."""
+    it; a ``SWAP`` names the served generation (and with :data:`DROP`
+    drops the older ones but ``keep``, rank 0's).  ``GATHER``, ``SPILL``
+    and ``RESTORE`` gather, spill and restore this rank's shards of their
+    generation.  A call that raised on rank 0 raises the same here and is
+    passed over, as does a reload every rank refused; a lost peer raises
+    out of the loop."""
     mesh = predictor.mesh
     wire = _Wire(mesh)
+    keep = frozenset(keep)
     live, served = {0: predictor}, 0
+    spilled = {}                 # a SPILL's host copies, by generation
     cold = set()                 # reloads with a warm-up unit that raised
     calls = 0
     while True:
@@ -430,9 +502,21 @@ def follow(predictor, load=None) -> None:
             continue
         if op == SWAP:
             served = max(served, gen)
+            if flags & DROP:
+                live = _kept(live, served, keep)
+            live_spread(mesh, live)
+            continue
+        if op == GATHER:
+            live[gen].whole_params()
+            continue
+        if op == SPILL:
+            spilled[gen] = live[gen].spill()
+            continue
+        if op == RESTORE:
+            live[gen].restore(spilled.pop(gen))
             continue
         if op == RELOAD:
-            live = {g: p for g, p in live.items() if g >= served}
+            live = _kept(live, served, keep)
             if load is None:
                 raise ValueError("mesh front: RELOAD from rank 0, but this "
                                  "follower was given no load")

@@ -44,8 +44,20 @@ is measured on the gathered answer, every rank alike.  In a job of more
 than one rank :meth:`Predictor.from_checkpoint` agrees before any
 collective: rank 0 picks the step and reads the stored budget and
 broadcasts both, every rank reads its boxes, and a read that failed on
-any rank fails every rank; only rank 0 writes the envelope file.  The
-fleet tier takes no mesh above one rank (ROADMAP item 6f).
+any rank fails every rank; only rank 0 writes the envelope file.
+
+The fleet tier on a mesh above one rank (``serve --mesh ... --fleet``):
+the mesh predictor is the default tenant and the pool's template, and it
+serves through a plane of its own mesh, made on every rank
+(:meth:`Predictor.fleet_plane`).  Every other tenant is a one-device
+predictor on rank 0's device; the one-device tenants share one
+one-device plane, kept beside the template and made by the first of them
+(:meth:`Predictor.share_executables_from`).  No one-device call is ever
+announced to the other ranks.  The mesh tenant's spill and restore
+(:meth:`Predictor.spill`, :meth:`Predictor.restore`) and the gather of
+its whole params for a one-device clone (:meth:`Predictor.whole_params`)
+are mirrored ops of rank 0's front: every rank moves or gathers its own
+shards in step.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from deeprest_tpu_torch.ops.densify import densify_coo, normalize_minmax
 from deeprest_tpu_torch.ops.gru import Recurrence
 from deeprest_tpu_torch.parallel.collectives import gather_along
 from deeprest_tpu_torch.parallel.distributed import agree, broadcast_json
+from deeprest_tpu_torch.parallel.mesh import GROUP_FIELDS, hold_groups
 from deeprest_tpu_torch.serve.batcher import BatchedBackendMixin
 from deeprest_tpu_torch.serve.fused import FusedInferenceMixin
 from deeprest_tpu_torch.serve.graphs import (
@@ -131,6 +144,12 @@ def rolled_prediction_reference(
     return out
 
 
+def _spans_ranks(predictor) -> bool:
+    """Whether ``predictor`` is on a mesh of more than one rank."""
+    mesh = getattr(predictor, "mesh", None)
+    return mesh is not None and mesh.size > 1
+
+
 class RungServing(BatchedBackendMixin, FusedInferenceMixin):
     """The serving machinery :class:`Predictor` and
     ``serve.export.ExportedPredictor`` share: the shape ladder (and its
@@ -150,6 +169,8 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
                               coalesce_pages, sparse_feed, sparse_nnz_cap,
                               cuda_graphs)
         self._plane = None           # the shared plane, once in a fleet
+        # a mesh template's one-device plane: its one-device tenants'
+        self._device_plane = None
         self._front = None           # rank 0's mesh front, once attached
         self.graphs = RungGraphs(self.device, enabled=cuda_graphs)
         self.sparse_feed = bool(sparse_feed)
@@ -519,13 +540,86 @@ class Predictor(RungServing):
         if self._fused is not None:
             self._fused.load_bound_state(state)
 
+    def spill(self) -> dict[str, torch.Tensor]:
+        """Move this predictor's :meth:`bound_state` to host copies (pinned
+        on CUDA) and point it at them, once the copies and every bind
+        enqueued before them have landed; returns the copies.  The same
+        bytes, so a run that binds from them is bit for bit one that binds
+        from the device.  On rank 0 of a serving mesh it is a mirrored op:
+        every rank spills its own shards."""
+        return self._mirrored("spill", self._spill_here)
+
+    def restore(self, host: dict) -> None:
+        """Copy ``host`` (what :meth:`spill` returned) back to the device,
+        one copy a tensor, and point this predictor at it.  On rank 0 of a
+        serving mesh it is a mirrored op: every rank restores its own
+        spill."""
+        self._mirrored("restore", functools.partial(self._restore_here,
+                                                    host))
+
+    def _mirrored(self, what: str, body):
+        """``body()`` here, announced first to the other ranks as the op
+        ``what`` when a mesh front is attached (serve/mesh_front.py)."""
+        if self._front is None:
+            return body()
+        return self._front.mirrored(what, body)
+
+    def _spill_here(self) -> dict[str, torch.Tensor]:
+        cuda = self.device.type == "cuda"
+        host = {}
+        for name, t in self.bound_state().items():
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+            h.copy_(t, non_blocking=cuda)
+            host[name] = h
+        self._landed()
+        self.load_bound_state(host)
+        return host
+
+    def _restore_here(self, host: dict) -> None:
+        dev = {name: t.to(self.device, non_blocking=True)
+               for name, t in host.items()}
+        self._landed()
+        self.load_bound_state(dev)
+
+    def _landed(self) -> None:
+        """Wait for the copies enqueued so far on the current stream."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            event.synchronize()
+
+    def whole_params(self) -> dict[str, torch.Tensor]:
+        """Every served leaf whole (what a one-device clone is built from):
+        this rank's leaves where nothing is sharded; on a sharded mesh a
+        gather, which every rank makes, and which rank 0 of a serving mesh
+        announces to the others as a mirrored op."""
+        if not self.model.sharded:
+            return {k: v.detach() for k, v in self.params.items()}
+
+        def gather():
+            with torch.inference_mode():
+                return self._gathered(self.params)
+
+        return self._mirrored("gather", gather)
+
+    def _copy_model(self) -> QuantileGRU:
+        """A deep copy of the module that shares its mesh's process groups
+        (the job's, never copied)."""
+        memo = {id(g): g for g in (getattr(self.model, f, None)
+                                   for f in GROUP_FIELDS) if g is not None}
+        model = copy.deepcopy(self.model, memo)
+        if memo:
+            hold_groups(model)
+        return model
+
     def _new_plane(self) -> "Predictor":
         """A serving plane for tenants of this predictor's architecture: a
         predictor over copies of its weights and stats, with rung graphs,
         staging and a fused engine of its own, whose tensors become the
-        graphs' bound slot.  No tenant's tensors are ever written."""
+        graphs' bound slot.  No tenant's tensors are ever written.  A mesh
+        predictor's plane is on its mesh, with its groups."""
         plane = copy.copy(self)
-        plane.model = copy.deepcopy(self.model)
+        plane.model = self._copy_model()
         if self._qparams is not None:
             plane._qparams = {
                 name: (quant_ops.QuantTensor(v.data.clone(), v.scale.clone())
@@ -552,6 +646,15 @@ class Predictor(RungServing):
         if self._fused is not None:
             self._fused.adopt_executables(plane._fused, owner=self)
 
+    def fleet_plane(self) -> "Predictor":
+        """The plane this predictor serves through, made from it and
+        adopted now when it has none: the fleet's first admission, and
+        on a serving mesh every rank's default tenant before its
+        warm-up."""
+        if self._plane is None:
+            self._adopt_plane(self._new_plane())
+        return self._plane
+
     def share_executables_from(self, donor: "Predictor") -> None:
         """Serve through the donor's rung graphs (fleet tier,
         serve/fleet.py), as the JAX predictor adopts its donor's jitted
@@ -565,19 +668,55 @@ class Predictor(RungServing):
         donor serves through none yet); each run binds the caller's
         weights and stats into the plane's slot first.  The compatibility
         this needs is checked loudly here and in
-        ``FusedRolledEngine.adopt_executables``."""
+        ``FusedRolledEngine.adopt_executables``.
+
+        On a mesh above one rank: a mesh predictor shares only a plane of
+        its own mesh.  A one-device predictor over a mesh donor (the
+        fleet's template) serves through the one-device plane kept beside
+        it, which the first such predictor makes from itself, so the
+        one-device tenants share one plane and none of them serves
+        through the mesh's programs."""
         if not isinstance(donor, Predictor):
             raise TypeError(
                 f"can only share executables between Predictors, got "
                 f"{type(donor).__name__}")
         if donor is self:
             return
-        if any(p.mesh is not None and p.mesh.size > 1
-               for p in (self, donor)):
+        if _spans_ranks(self) and donor.mesh is not self.mesh:
             raise ValueError(
-                "cannot share executables on a mesh above one rank: the "
-                "fleet tier serves one-device predictors (a mesh's fleet "
-                "is ROADMAP item 6f)")
+                "a predictor on a mesh above one rank shares executables "
+                "only with a plane of its own mesh (the fleet's default "
+                "tenant); every other tenant is a one-device predictor")
+        if _spans_ranks(donor) and not _spans_ranks(self):
+            template = donor._plane or donor
+            if template._device_plane is None:
+                self._check_architecture(donor)
+                template._device_plane = self._new_plane()
+            donor = template._device_plane
+        self._check_architecture(donor)
+        if self.device != donor.device or (
+                self.graphs.captured != donor.graphs.captured):
+            raise ValueError(
+                "cannot share executables across devices or graph modes "
+                f"({self.device}, captured={self.graphs.captured} vs "
+                f"{donor.device}, captured={donor.graphs.captured})")
+        mine, theirs = self.bound_state(), donor.bound_state()
+        if ({k: (tuple(v.shape), v.dtype) for k, v in mine.items()}
+                != {k: (tuple(v.shape), v.dtype) for k, v in theirs.items()}):
+            raise ValueError(
+                "cannot share fused executables: params tree structures "
+                "differ (a different tree re-traces a new executable)")
+        plane = donor._plane
+        if plane is None:
+            plane = donor._new_plane()
+            donor._adopt_plane(plane)
+        if self._plane is not plane:
+            self._adopt_plane(plane)
+
+    def _check_architecture(self, donor: "Predictor") -> None:
+        """Raise unless ``donor``'s programs compute this predictor's:
+        the architecture, quant mode, window, ladder, sparse feed and the
+        fused engine's geometry."""
         if self.model_config != donor.model_config:
             raise ValueError(
                 "cannot share executables across architectures: "
@@ -603,26 +742,14 @@ class Predictor(RungServing):
             raise ValueError(
                 "cannot share executables between a fused and an unfused "
                 "predictor")
-        if self.device != donor.device or (
-                self.graphs.captured != donor.graphs.captured):
-            raise ValueError(
-                "cannot share executables across devices or graph modes "
-                f"({self.device}, captured={self.graphs.captured} vs "
-                f"{donor.device}, captured={donor.graphs.captured})")
         if self._fused is not None:
             self._fused.check_adoptable(donor._fused)
-        mine, theirs = self.bound_state(), donor.bound_state()
-        if ({k: (tuple(v.shape), v.dtype) for k, v in mine.items()}
-                != {k: (tuple(v.shape), v.dtype) for k, v in theirs.items()}):
-            raise ValueError(
-                "cannot share fused executables: params tree structures "
-                "differ (a different tree re-traces a new executable)")
-        plane = donor._plane
-        if plane is None:
-            plane = donor._new_plane()
-            donor._adopt_plane(plane)
-        if self._plane is not plane:
-            self._adopt_plane(plane)
+
+    @property
+    def device_plane(self) -> "Predictor | None":
+        """A mesh template's one-device plane (its one-device tenants'),
+        or None."""
+        return self._device_plane
 
     @property
     def plane(self) -> "Predictor | None":

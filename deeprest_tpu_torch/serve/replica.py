@@ -84,6 +84,9 @@ def _num_windows(t: int, w: int) -> int:
 
 def _fused_kwargs(backend) -> dict:
     fused = getattr(backend, "fused", None)
+    # a clone captures its graphs unless the backend chose eager serving on
+    # CUDA; a mesh serves eagerly only when gloo's collectives forbid the
+    # capture, and a clone holds no collective
     return dict(
         ladder=backend.ladder.base_ladder,
         coalesce_groups=backend.ladder.coalesce_groups,
@@ -91,7 +94,8 @@ def _fused_kwargs(backend) -> dict:
         page_windows=fused.page if fused is not None else None,
         coalesce_pages=fused.coalesce_pages if fused is not None else None,
         cuda_graphs=backend.graphs.captured
-        or backend.device.type != "cuda")
+        or backend.device.type != "cuda"
+        or getattr(backend, "mesh", None) is not None)
 
 
 def clone_backend(backend, device=None, **overrides):
@@ -103,7 +107,13 @@ def clone_backend(backend, device=None, **overrides):
     backends: Predictor (has ``params``) and ExportedPredictor (has the
     exported program).  A quantized Predictor keeps no f32 params to
     quantize again, so it cannot be cloned: serve quantized replicas as
-    worker processes, each quantizing from the checkpoint."""
+    worker processes, each quantizing from the checkpoint.
+
+    A Predictor on a mesh (``serve --mesh``) clones to a one-device
+    predictor of its whole params (``Predictor.whole_params``: on a
+    sharded mesh a gather, announced by rank 0's front to the other
+    ranks, which join it); the clone has no front, so its calls are
+    never announced."""
     device = backend.device if device is None else device
     kwargs = _fused_kwargs(backend)
     kwargs.update(overrides)
@@ -118,7 +128,7 @@ def clone_backend(backend, device=None, **overrides):
         kwargs.setdefault("sparse_feed", backend.sparse_feed)
         kwargs.setdefault("sparse_nnz_cap", backend.sparse_nnz_cap)
         return Predictor(
-            params={k: v.detach() for k, v in backend.params.items()},
+            params=backend.whole_params(),
             model_config=backend.model_config,
             x_stats=backend.x_stats,
             y_stats=backend.y_stats,

@@ -28,6 +28,14 @@ Policies:
   tenant-aware dispatch resolves tenant → pool entry once and serves
   through the entry's predictor on a thread replica (the backend
   override); process replicas refuse it.
+- **A serving mesh** (rank 0 of ``serve --mesh`` above one rank, JAX's
+  layout): thread replicas on rank 0's device share the mesh predictor,
+  whose calls its front announces to the other ranks; a replica on
+  another device gets a one-device clone of the gathered params
+  (``clone_backend``), which announces nothing.  So do the autoscaler's
+  growth (``scale_to``) and a rolling reload's clones (``_fresh_stack``).
+  A process plane's workers serve one-device predictors; the front only
+  keeps the other ranks waiting (:meth:`ReplicaRouter.attach_mesh_front`).
 """
 
 from __future__ import annotations
@@ -408,6 +416,7 @@ class ReplicaRouter:
         # pool entry FIRST and serve through the entry's predictor via
         # the replica's backend override.
         self._fleet = None
+        self._mesh_front = None        # a process plane's, on a mesh
         # Render-time /metrics view over the replica plane (replace-by-
         # name: the newest router owns the exposition).
         obs_metrics.REGISTRY.register_collector("router",
@@ -571,6 +580,32 @@ class ReplicaRouter:
     def fleet(self):
         with self._lock:
             return self._fleet
+
+    # -- a serving mesh (rank 0 of serve --mesh) ------------------------
+
+    def attach_mesh_front(self, front) -> None:
+        """A process plane on a serving mesh: ``front`` (rank 0's
+        ``MeshFront``, which mirrors nothing here: the workers serve
+        one-device predictors) is the one ``/healthz`` reports."""
+        with self._lock:
+            self._mesh_front = front
+
+    @property
+    def front(self):
+        """The serving mesh's front ``/healthz`` reports: the one a
+        process plane was given, else the first in-process stack's (the
+        mesh predictor's generation), else None."""
+        with self._lock:
+            front, replicas = self._mesh_front, list(self._replicas)
+        if front is not None:
+            return front
+        for r in replicas:
+            backend = getattr(r, "backend", None)
+            if callable(backend):
+                front = getattr(backend(), "front", None)
+                if front is not None:
+                    return front
+        return None
 
     def _fleet_entry(self, tenant: str | None):
         """Resolve tenant → pool entry for ONE request (LRU touch +

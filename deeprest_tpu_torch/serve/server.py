@@ -485,6 +485,11 @@ class PredictionService:
             with self._lock:
                 self.whatif = fresh_whatif
                 self.reloads += 1
+            # rank 0 of a serving mesh: every replica was drained of the
+            # older generations, so every rank drops them now
+            front = getattr(fresh, "front", None)
+            if front is not None:
+                front.swapped(drop=True)
             return
         # Build the fresh predictor's batcher/estimator BEFORE publishing,
         # so other threads only ever see fully-wired predictors; the old
@@ -733,7 +738,8 @@ class PredictionService:
         out["device_memory"] = _device_memory()
         front = getattr(pred, "front", None)
         if front is not None:
-            # rank 0 of a serving mesh: the calls mirrored to the others
+            # rank 0 of a serving mesh (one engine, or a router over it):
+            # the calls mirrored to the others
             out["mesh"] = front.stats()
         return out
 

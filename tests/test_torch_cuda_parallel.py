@@ -34,6 +34,10 @@ repository's conftest imports JAX, which the GPU machine does not have):
   2e-2 of scale of the one-process int8 predictor of each step, the
   reloaded step's digest, K1 launched as often on both ranks, both exit 0
   at the deadline.
+- A one-device clone of the 1,2,1 mesh predictor, gloo at world size 2 on
+  the one card: rank 0 gathers the params through its front's mirrored
+  ``GATHER`` (rank 1 joins it), and the clone, captured on ``cuda:0``,
+  answers bit for bit as the one-process captured predictor.
 """
 
 import multiprocessing
@@ -579,3 +583,92 @@ def test_gloo_quant_serve_mesh_reload_on_one_card(cuda, tmp_path):
         assert np.abs(got[s] - want).max() <= 2e-2 * np.abs(want).max(), s
     tenant = served["fleet"]["tenants"]["default"]
     assert tenant["params_digest"] == pred.params_digest()
+
+
+def clone_rank_main(rank: int, port: int, ckpt: str, out: str) -> None:
+    """One rank of a gloo job sharing the card: the 1,2,1 mesh predictor
+    (eager), warmed and digested.  Rank 0 fronts it and clones it onto
+    ``cuda:0`` (``clone_backend``: the gather a mirrored op), warms the
+    clone (captured) and answers ``out``'s traffic through it; rank 1
+    follows.  Each rank writes its K1 launches (and rank 0 the clone's
+    answer, its graph mode and the mirrored calls) to ``out``."""
+    import json
+
+    from deeprest_tpu_torch.ops import cuda_gru
+    from deeprest_tpu_torch.serve.mesh_front import MeshFront, follow
+    from deeprest_tpu_torch.serve.predictor import Predictor
+    from deeprest_tpu_torch.serve.replica import clone_backend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=2, rank=rank, backend="gloo",
+                           device="cuda")
+    pred = Predictor.from_checkpoint(ckpt, mesh_config=MeshConfig(1, 2, 1),
+                                     cuda_graphs=False)
+    pred.warm()
+    pred.params_digest()
+    result = {}
+    if rank:
+        follow(pred)
+    else:
+        front = MeshFront(pred)
+        clone = clone_backend(pred, device=torch.device("cuda", 0))
+        clone.warm()
+        result["answer"] = clone.predict_series(
+            np.load(out + ".traffic.npy")).tolist()
+        result["captured"] = clone.graphs.captured
+        result["front"] = clone.front is not None
+        result["calls"] = front.calls
+        front.stop()
+    result["gru_fwd"] = cuda_gru.GRU_FWD.launches
+    with open(out, "w") as fh:
+        json.dump(result, fh)
+
+
+@pytest.mark.cuda
+def test_gloo_mesh_clone_on_one_card(cuda, tmp_path):
+    """The 1,2,1 mesh predictor (bf16, E=4) as two gloo ranks sharing the
+    card: rank 0's one-device clone of its gathered params on ``cuda:0``
+    is captured, has no front, mirrors no call, and answers bit for bit
+    as the one-process captured predictor of the checkpoint."""
+    import json
+
+    from deeprest_tpu_torch.serve.predictor import Predictor
+
+    trainer, state, _ = train(Mesh(MeshConfig(), 0, cuda), "bfloat16", 0.0,
+                              1, epochs=1, metrics=4)
+    ckpt = str(tmp_path / "ckpt")
+    trainer.save(ckpt, state, prepare_dataset(corpus(4),
+                                              trainer.config.train))
+    traffic = corpus(4).traffic
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [str(tmp_path / f"clone{r}.json") for r in range(2)]
+    np.save(outs[0] + ".traffic.npy", traffic)
+    procs = [ctx.Process(target=clone_rank_main,
+                         args=(r, port, ckpt, outs[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = []
+    for path in outs:
+        with open(path) as fh:
+            ranks.append(json.load(fh))
+    assert ranks[0]["captured"] and not ranks[0]["front"]
+    assert ranks[0]["calls"] == 0
+    # the warm-ups ran on both ranks; the clone's K1 on rank 0 alone
+    assert ranks[0]["gru_fwd"] > ranks[1]["gru_fwd"] > 0
+    one = Predictor.from_checkpoint(ckpt, device="cuda")
+    assert one.graphs.captured
+    want = one.predict_series(traffic)
+    got = np.asarray(ranks[0]["answer"], np.float32)
+    assert got.shape == want.shape and np.array_equal(got, want)

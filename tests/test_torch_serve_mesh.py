@@ -25,9 +25,10 @@ one intra-op thread each.
   ``--deadline``; SIGTERM to rank 0 stops a plane; a SIGKILLed follower
   gives the request in flight a 503 and rank 0 a nonzero exit naming it.
   Every rank of a plane that stops exits 0.
-- Each flag deferred to ROADMAP item 6f (the replica router, admission,
-  tenant weights, the autoscaler, the fleet) exits 2 naming it, and
-  ``--mesh 1,1,1`` serves as one device does.  Quantized serving,
+- JAX's own refusals of the flags ROADMAP item 6f brought to the mesh
+  (the replica router, admission, tenant weights, the autoscaler, the
+  fleet; tests/test_torch_serve_mesh_plane.py) exit on a mesh as on one
+  device, and ``--mesh 1,1,1`` serves as one device does.  Quantized serving,
   ``--watch``, the capacity and verdict surfaces on a mesh:
   tests/test_torch_serve_mesh_quant.py and test_torch_serve_mesh_reload.py.
 
@@ -483,15 +484,24 @@ def test_lost_follower_gives_503_and_ends_rank_0_naming_it(setup, planes):
 # -- flags ----------------------------------------------------------------
 
 @pytest.mark.parametrize("flag", [
-    ["--replicas", "2"], ["--admission-depth", "4"],
-    ["--tenant-weights", "a=1"], ["--autoscale"], ["--fleet", "b=ckpt"]])
+    ["--replicas", "2", "--replica-timeout-ms", "-1"],
+    ["--admission-depth", "4", "--admission-wait-ms", "-1"],
+    ["--tenant-weights", "a=0"], ["--autoscale"],
+    ["--fleet", "b=ckpt", "--replicas", "2", "--replica-mode", "process"]])
 def test_deferred_flags_exit_2_naming_roadmap_6e(setup, capsys, flag):
-    with pytest.raises(SystemExit) as exc:
-        main(["serve", "--ckpt-dir", setup["ckpt"], "--raw", setup["raw"],
-              "--mesh", "1,2,1", "--device", "cpu", "--port", "0", *flag])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP item 6f" in err
+    """The five flags ROADMAP item 6f deferred on a mesh above one rank
+    are taken there now (tests/test_torch_serve_mesh_plane.py); each of
+    JAX's own refusals of them exits on 1x2x1 as on one device, before
+    anything loads."""
+    exits = []
+    for mesh in (["--mesh", "1,2,1"], []):
+        with pytest.raises(SystemExit) as exc:
+            main(["serve", "--ckpt-dir", setup["ckpt"], "--raw",
+                  setup["raw"], *mesh, "--device", "cpu", "--port", "0",
+                  *flag])
+        exits.append(exc.value.code)
+    assert exits[0] == exits[1]
+    assert exits[0].startswith("error: ") and "ROADMAP" not in exits[0]
 
 
 def test_mesh_of_one_serves_as_one_device(setup):
