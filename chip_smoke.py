@@ -334,7 +334,15 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     answers bit for bit a one-process captured predictor, no mirrored
     call, K1 in the workers alone, both ranks exit 0 (the one-process
     references run in the foreground after phase 20's);
-22. the seconds of each phase, one JSON line of per-kernel numbers, then
+22. the static analyzer (deeprest_tpu_torch/analysis) on this machine,
+    which has no JAX, in processes of its own beside phase 18: `python3 -m
+    deeprest_tpu_torch lint --no-cache --format json` over the port exits
+    0 with 0 findings; `--list-rules` lists 35 ids (31 rules and the 4 GL
+    meta rules); `python3 -m deeprest_tpu_torch.analysis --rules HY001` on
+    a file with one unused import exits 1 with that one finding; the
+    analyzer's modules import neither jax nor deeprest_tpu; the lint's and
+    the phase's seconds with the card's name and power limit;
+23. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
 The kernel launch counts are set to 0 just before each main path (5, 6,
@@ -357,8 +365,8 @@ checkpoint CLIs beside its in-process plain path, phase 8's three
 servers and phase 12's planes loading together, phase 10's export
 beside the 10k training, phase 14's train CLIs and phase 15's
 `train --mesh` together, phase 11's second stream run beside its
-in-process checks, phase 15's gloo ranks beside phase 14's demo, and
-phases 16, 17, 19, 20 and 21 as above.  The host-clock numbers of an overlapped
+in-process checks, phase 15's gloo ranks beside phase 14's demo, phase 22's lint beside
+phase 18, and phases 16, 17, 19, 20 and 21 as above.  The host-clock numbers of an overlapped
 phase are taken under that load; kernel times are not.
 
 It exits nonzero, printing no result, without CUDA or without the package
@@ -7374,6 +7382,78 @@ def check_serve_mesh_plane(axes: dict, serving: dict, trained: str,
         fail("phase 21 parts from one process")
 
 
+# -- phase 22: the static analyzer, with no JAX on the machine ------------
+
+
+def lint_cli(args: list, expect: int, module: str = "deeprest_tpu_torch",
+             cwd: str = REPO) -> str:
+    """``python3 -m <module> <args>`` in a process of its own; fails the
+    run unless it exits ``expect``.  Returns its stdout."""
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
+                         env={**os.environ, "PYTHONPATH": REPO},
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != expect:
+        fail(f"phase 22: python3 -m {module} {' '.join(args)} exited "
+             f"{out.returncode}, not {expect}:\n{out.stdout[-2000:]}"
+             f"\n{out.stderr[-2000:]}")
+    return out.stdout
+
+
+def phase_lint(workdir: str) -> dict:
+    """Phase 22: the port's analyzer (deeprest_tpu_torch/analysis) on a
+    machine without JAX, in processes of its own: ``lint --no-cache
+    --format json`` over the installed port exits 0 with 0 findings;
+    ``--list-rules`` lists the 31 rules and the 4 GL meta rules; the
+    module alias ``python3 -m deeprest_tpu_torch.analysis --rules HY001``
+    on a file with one unused import exits 1 with that one finding; and
+    the analyzer's modules import neither ``jax`` nor ``deeprest_tpu``."""
+    import re
+
+    t0 = time.perf_counter()
+    report = json.loads(lint_cli(["lint", "--no-cache", "--format", "json"],
+                                 expect=0))
+    lint_s = time.perf_counter() - t0
+    if report["counts"]["findings"] != 0 or report["files"] < 95:
+        fail(f"phase 22: the port does not lint clean: {report['counts']} "
+             f"over {report['files']} files")
+    ids = set(re.findall(r"^([A-Z]{2}[0-9]{3})  ",
+                         lint_cli(["lint", "--list-rules"], expect=0),
+                         re.MULTILINE))
+    meta = {i for i in ids if i.startswith("GL")}
+    if len(ids) != 35 or len(meta) != 4:
+        fail(f"phase 22: --list-rules listed {len(ids)} ids ({len(meta)} "
+             f"GL): {sorted(ids)}")
+    bad = os.path.join(workdir, "lint_unused_import.py")
+    with open(bad, "w", encoding="utf-8") as f:
+        f.write("import os\nprint(1)\n")
+    alias = json.loads(lint_cli(
+        [bad, "--rules", "HY001", "--no-cache", "--format", "json"],
+        expect=1, module="deeprest_tpu_torch.analysis", cwd=workdir))
+    if [(x["rule"], x["line"]) for x in alias["findings"]] != [("HY001", 1)]:
+        fail(f"phase 22: the module alias found {alias['findings']}")
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "import importlib, pkgutil, sys\n"
+         "import deeprest_tpu_torch.analysis as a\n"
+         "for m in pkgutil.iter_modules(a.__path__, a.__name__ + '.'):\n"
+         "    importlib.import_module(m.name)\n"
+         "print(sorted(n for n in sys.modules if n == 'jax' "
+         "or n.startswith(('jax.', 'deeprest_tpu.'))"
+         " or n == 'deeprest_tpu'))"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+        capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0 or probe.stdout.strip() != "[]":
+        fail(f"phase 22: the analyzer imported {probe.stdout.strip()} "
+             f"{probe.stderr[-1000:]}")
+    seconds = time.perf_counter() - t0
+    print(f"lint (phase 22): 0 findings over {report['files']} files, "
+          f"{report['counts']['suppressed']} suppressed; {len(ids)} rule "
+          f"ids; the module alias exit 1 with one HY001; no jax or "
+          f"deeprest_tpu module imported; lint {lint_s:.1f} s, phase "
+          f"{seconds:.1f} s ({card_line()})", flush=True)
+    return {"files": report["files"], "lint_s": lint_s, "seconds": seconds}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deeprest_tpu_torch")):
         print("FAIL: chip_smoke.py needs the deeprest_tpu_torch package "
@@ -7490,10 +7570,15 @@ def main() -> int:
                 "(beside 13, 11, 14, 15)"] = round(plane_job.seconds, 1)
         timed("phase 21 against one process", check_serve_mesh_plane, axes,
               serving, trained, mesh_plane)
+        # phase 22's lint runs in processes of its own (no kernel) beside
+        # phase 18
+        lint_job = Background("phase 22", phase_lint, wd)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         raw_side = timed("raw side native tools", phase_raw_side, cuda_gru,
                          raw_path, social[0], wd)
+        timed("wait for phase 22", lint_job.result)
+        seconds["lint (beside 18)"] = round(lint_job.seconds, 1)
     blocked = timed("blocked", phase_blocked, cuda_gru, kernel_tuning)
     timed("bidirectional", phase_bidir, cuda_gru, kernel_tuning)
     timed("stash steps", phase_stash_steps, cuda_gru)

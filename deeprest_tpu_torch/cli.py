@@ -1,7 +1,7 @@
 """Command-line drivers of the port (``deeprest_tpu/cli.py``: the simulate,
 featurize, ingest, train, stream, synthesize, whatif, predict, anomaly,
-export and serve subcommands, with the JAX package's flags and last JSON
-lines):
+export, serve, profile and lint subcommands, with the JAX package's flags
+and last JSON lines):
 
     python -m deeprest_tpu_torch simulate   --scenario=normal --ticks=480 --out=raw.jsonl
     python -m deeprest_tpu_torch featurize  --raw=raw.jsonl --out=input.npz
@@ -18,9 +18,11 @@ lines):
     python -m deeprest_tpu_torch export     --ckpt-dir=ckpt --out=artifact --aot
     python -m deeprest_tpu_torch serve      --ckpt-dir=ckpt --fleet blue=ckpt_b --fleet green=ckpt_c --fleet-hbm-budget=16
     python -m deeprest_tpu_torch profile    --url=http://127.0.0.1:2021 --seconds=1 --out-dir=trace
+    python -m deeprest_tpu_torch lint       --format=json
 
 ``simulate``, ``featurize``, ``ingest`` and ``synthesize`` are host-only
-and touch no device.  ``train``, ``predict``, ``whatif``, ``anomaly`` and
+and touch no device; ``lint`` (the JAX CLI's, deeprest_tpu_torch/analysis)
+parses source text and runs no tensor code.  ``train``, ``predict``, ``whatif``, ``anomaly`` and
 ``serve`` run on CUDA unless ``--device cpu`` asks for the CPU; their JSON
 lines add the device, the kernel launches the call made and the seconds
 of its stages (``seconds``: loading and featurizing the input, the model
@@ -1723,6 +1725,178 @@ def cmd_profile(args) -> int:
     return 0
 
 
+def _git_changed_python_files(anchor_dir: str) -> list[str] | None:
+    """Repo-relative .py paths changed vs HEAD (staged + unstaged) plus
+    untracked ones, or None when ``anchor_dir`` is not in a git work
+    tree — the ``lint --changed`` file selector."""
+    import subprocess
+
+    def git(*argv):
+        return subprocess.run(["git", "-C", anchor_dir, *argv],
+                              capture_output=True, text=True)
+
+    if git("rev-parse", "--show-toplevel").returncode != 0:
+        return None
+    changed: set[str] = set()
+    for argv in (("diff", "--name-only", "HEAD"),
+                 ("ls-files", "--others", "--exclude-standard")):
+        out = git(*argv)
+        if out.returncode != 0:
+            continue
+        changed.update(line.strip() for line in out.stdout.splitlines()
+                       if line.strip().endswith(".py"))
+    return sorted(changed)
+
+
+def _component_suffix_match(a: str, b: str) -> bool:
+    """Lint-root-relative and repo-relative spellings of the same file
+    agree on their trailing path components."""
+    pa = a.replace("\\", "/").split("/")
+    pb = b.replace("\\", "/").split("/")
+    k = min(len(pa), len(pb))
+    return k > 0 and pa[-k:] == pb[-k:]
+
+
+def cmd_lint(args) -> int:
+    """graftlint: the repo's static analyzer, concurrency- and
+    device-aware (deeprest_tpu_torch/analysis; rule catalog in its
+    ANALYSIS.md).  It parses source text and runs no tensor code, so it
+    takes no ``--device``.  Exit status: 0 clean, 1 non-baselined
+    findings, 2 usage error."""
+    from deeprest_tpu_torch.analysis import (
+        LintResult, all_rules, default_baseline_path, lint_paths,
+        load_baseline, load_project, render_json, render_rules,
+        render_sarif, render_suppressions_json,
+        render_suppressions_markdown, render_suppressions_text,
+        render_text, render_timings, save_baseline,
+        suppression_inventory,
+    )
+
+    if args.list_rules:
+        print(render_rules())
+        return 0
+    rules = None
+    if args.rules:
+        registry = all_rules()
+        wanted = [r.strip() for r in args.rules.split(",") if r.strip()]
+        unknown = sorted(set(wanted) - set(registry))
+        if unknown:
+            print(f"lint: unknown rules {unknown} "
+                  f"(known: {sorted(registry)})")
+            return 2
+        rules = [registry[r] for r in wanted]
+    import os
+
+    jobs = args.jobs if args.jobs is not None else (os.cpu_count() or 1)
+    if jobs < 1:
+        print(f"lint: --jobs {jobs} must be >= 1")
+        return 2
+    paths = args.paths
+    if not paths:
+        import deeprest_tpu_torch
+
+        paths = [os.path.dirname(os.path.abspath(
+            deeprest_tpu_torch.__file__))]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        print(f"lint: no such path {missing}")
+        return 2
+
+    if args.fix:
+        from deeprest_tpu_torch.analysis.autofix import fix_paths
+
+        report = fix_paths(paths)
+        print(report.summary())
+        return 0
+    if args.list_suppressions:
+        entries = suppression_inventory(load_project(paths, jobs=jobs))
+        if args.format == "json":
+            print(render_suppressions_json(entries))
+        elif args.format == "markdown":
+            print(render_suppressions_markdown(entries))
+        elif args.format == "text":
+            print(render_suppressions_text(entries))
+        else:
+            print(f"lint: --list-suppressions has no {args.format!r} "
+                  "rendering (text/json/markdown)")
+            return 2
+        return 0
+    if args.format == "markdown":
+        print("lint: --format markdown is the --list-suppressions "
+              "rendering; findings come as text/json/sarif")
+        return 2
+
+    baseline_path = args.baseline or default_baseline_path()
+    try:
+        baseline_keys = load_baseline(baseline_path)
+    except ValueError as exc:
+        print(f"lint: {exc}")
+        return 2
+    timings: dict | None = None
+    if getattr(args, "timings", False):
+        # a cache hit stores no per-pack times, so --timings always
+        # runs the analysis fresh (that is the number being asked for)
+        import time as _time
+
+        from deeprest_tpu_torch.analysis import (
+            analyze_project, apply_baseline,
+        )
+
+        timings = {}
+        t0 = _time.perf_counter()
+        project = load_project(paths, jobs=jobs)
+        timings["parse"] = _time.perf_counter() - t0
+        kept, suppressed = analyze_project(project, rules=rules,
+                                           timings=timings)
+        result = apply_baseline(kept, suppressed, len(project.files),
+                                baseline_keys)
+    elif args.no_cache:
+        result = lint_paths(paths, rules=rules,
+                            baseline_keys=baseline_keys, jobs=jobs)
+    else:
+        from deeprest_tpu_torch.analysis.cache import lint_paths_cached
+
+        result, _cache = lint_paths_cached(
+            paths, rules=rules, baseline_keys=baseline_keys, jobs=jobs,
+            cache_dir=args.cache_dir)
+    if args.write_baseline:
+        save_baseline(baseline_path, result.findings + result.baselined)
+        print(f"lint: baselined {len(result.findings + result.baselined)} "
+              f"findings to {baseline_path}")
+        return 0
+    scope_note = ""
+    if args.changed:
+        anchor = paths[0] if os.path.isdir(paths[0]) else os.path.dirname(
+            os.path.abspath(paths[0]))
+        changed = _git_changed_python_files(anchor)
+        if changed is None:
+            print(f"lint: --changed needs a git work tree around "
+                  f"{anchor!r}")
+            return 2
+        # the WHOLE project is still parsed (cross-module rules need the
+        # full symbol table / call graph); only the REPORT is scoped
+        result = LintResult(
+            findings=[f for f in result.findings
+                      if any(_component_suffix_match(f.path, c)
+                             for c in changed)],
+            baselined=[f for f in result.baselined
+                       if any(_component_suffix_match(f.path, c)
+                              for c in changed)],
+            suppressed_count=result.suppressed_count,
+            files=result.files)
+        scope_note = (f" [--changed: findings scoped to {len(changed)} "
+                      "changed file(s); whole project parsed]")
+    if args.format == "sarif":
+        print(render_sarif(result))
+    elif args.format == "json":
+        print(render_json(result, timings=timings))
+    else:
+        print(render_text(result) + scope_note)
+        if timings is not None:
+            print(render_timings(timings))
+    return 1 if result.findings else 0
+
+
 # -- parser -----------------------------------------------------------------
 
 
@@ -2272,6 +2446,70 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trace directory on the SERVER host (default: a "
                         "server-side temp dir, echoed back)")
     p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("lint",
+                       help="graftlint: concurrency- and device-aware "
+                            "static analysis over the package (rule "
+                            "catalog: analysis/ANALYSIS.md); nonzero exit "
+                            "on non-baselined findings")
+    p.add_argument("paths", nargs="*",
+                   help="files/directories to lint (default: the installed "
+                        "deeprest_tpu_torch package)")
+    p.add_argument("--format", choices=("text", "json", "sarif",
+                                        "markdown"), default="text",
+                   help="findings as text/json/sarif (SARIF 2.1.0 for "
+                        "CI inline annotation); markdown renders the "
+                        "--list-suppressions table")
+    p.add_argument("--rules", default=None, metavar="JX001,TH001,...",
+                   help="run only these rule ids (default: all)")
+    p.add_argument("--changed", action="store_true",
+                   help="report only findings in files changed vs git "
+                        "HEAD (plus untracked); the whole project is "
+                        "still parsed so cross-module rules keep their "
+                        "call graph")
+    p.add_argument("--jobs", type=int, default=None, metavar="N",
+                   help="parse the project across N worker processes "
+                        "(default: os.cpu_count(); small trees parse "
+                        "serially regardless)")
+    p.add_argument("--list-suppressions", action="store_true",
+                   help="emit the live suppression inventory (rule, "
+                        "file:line, reason) instead of linting; "
+                        "--format markdown renders the generated "
+                        "analysis/ANALYSIS.md table")
+    p.add_argument("--baseline", default=None,
+                   help="baseline JSON path (default: the checked-in "
+                        "deeprest_tpu_torch/analysis/baseline.json, which "
+                        "is EMPTY and pinned so by "
+                        "tests/test_torch_lint_clean.py)")
+    p.add_argument("--write-baseline", action="store_true",
+                   help="record every current finding into the baseline "
+                        "instead of reporting (for adopting graftlint on "
+                        "a dirty tree; this repo keeps the baseline empty)")
+    p.add_argument("--list-rules", action="store_true",
+                   help="print the rule catalog with the historical "
+                        "incident each rule guards against")
+    p.add_argument("--fix", action="store_true",
+                   help="apply the safe mechanical fixes (HY001 unused "
+                        "imports, HY002 unreachable code) instead of "
+                        "reporting; loops until stable, refuses "
+                        "suppressed findings, second run is a "
+                        "byte-identical no-op")
+    p.add_argument("--no-cache", action="store_true",
+                   help="bypass the incremental lint cache (parse "
+                        "pickles + whole-tree findings payloads under "
+                        ".graftlint_cache/)")
+    p.add_argument("--timings", action="store_true",
+                   help="print the per-pack wall-time breakdown (text "
+                        "trailer or JSON 'timings' key); implies a "
+                        "fresh uncached run — a cache hit has no "
+                        "per-pack cost to report")
+    p.add_argument("--cache-dir", default=".graftlint_cache",
+                   metavar="DIR",
+                   help="incremental cache root (default: "
+                        ".graftlint_cache under the working directory; "
+                        "entries key on content hashes and the rule-"
+                        "pack version, so stale hits are impossible)")
+    p.set_defaults(fn=cmd_lint)
     return ap
 
 

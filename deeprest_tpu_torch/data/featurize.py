@@ -312,6 +312,7 @@ class CallPathSpace:
             out[:] = 0.0
             x = out
         else:
+            # graftlint: disable=DN001 -- the pinned per-span accumulation REFERENCE is dense by definition; extract_sparse is the sparse-first path
             x = np.zeros((self.capacity,), dtype=np.float32)
         for trace in traces:
             for path, _ in trace.walk():
@@ -323,6 +324,7 @@ class CallPathSpace:
     def extract_buckets(self, buckets: Sequence[Bucket]) -> np.ndarray:
         """[num_buckets, capacity] traffic matrix."""
         self.freeze()
+        # graftlint: disable=DN001 -- the offline [T, F] corpus matrix is this function's documented product (FeaturizedData.traffic); the streaming hot path uses extract_sparse + SparseSeriesRing instead
         out = np.zeros((len(buckets), self.capacity), dtype=np.float32)
         for t, bucket in enumerate(buckets):
             self.extract(bucket.traces, out=out[t])

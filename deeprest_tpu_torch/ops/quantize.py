@@ -165,6 +165,7 @@ def parity_envelope(ref_out, quant_out, metric_names,
     ref = np.asarray(ref_out, np.float32)
     got = np.asarray(quant_out, np.float32)
     per = np.abs(got - ref).max(axis=(0, 1))              # [E, Q]
+    # graftlint: disable=JX003 -- per is already a HOST np array (the one device→host readback happened at the np.asarray above); this loop indexes host memory once per (metric, quantile) cell at quantize time, not per serving request
     return {f"{m}|q{q:g}": float(per[i, j])
             for i, m in enumerate(metric_names)
             for j, q in enumerate(quantiles)}

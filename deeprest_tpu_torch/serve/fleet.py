@@ -51,10 +51,10 @@ from __future__ import annotations
 
 import collections
 import threading
-import time
 
 import numpy as np
 
+from deeprest_tpu_torch.obs import metrics as obs_metrics
 from deeprest_tpu_torch.obs import spans as obs_spans
 
 
@@ -302,9 +302,9 @@ class PredictorPool:
         with obs_spans.RECORDER.span("fleet.spill",
                                      component="deeprest-fleet") as sp:
             sp.tag(tenant=entry.tenant)
-            t0 = time.perf_counter()
+            sw = obs_metrics.Stopwatch()
             host = pred.spill()
-            self._ms["spill"].append((time.perf_counter() - t0) * 1e3)
+            self._ms["spill"].append(sw.elapsed() * 1e3)
         entry._tenant_spill = host
         entry.resident = False
         entry.spills += 1
@@ -320,9 +320,9 @@ class PredictorPool:
         with obs_spans.RECORDER.span("fleet.restore",
                                      component="deeprest-fleet") as sp:
             sp.tag(tenant=entry.tenant)
-            t0 = time.perf_counter()
+            sw = obs_metrics.Stopwatch()
             pred.restore(entry._tenant_spill)
-            self._ms["restore"].append((time.perf_counter() - t0) * 1e3)
+            self._ms["restore"].append(sw.elapsed() * 1e3)
         entry._tenant_spill = None
         entry.resident = True
         entry.restores += 1

@@ -254,7 +254,10 @@ class FusedRolledEngine:
         readback (fleet tier), binding ``owner`` (the tenant predictor)
         into the donor plane's slot before each page.  The dispatched-rung
         ledger and its lock are shared too, so ``stats()`` reads plane-wide
-        truth from any adopted engine."""
+        truth from any adopted engine.  It runs before this engine's first
+        page (the fleet adopts a tenant's plane at admission, before the
+        tenant serves), so the page path reads what it set without this
+        lock."""
         if donor is self:
             return
         self.check_adoptable(donor)
@@ -326,10 +329,12 @@ class FusedRolledEngine:
                 "n": ((1,), torch.int64)}
 
     def _staging_for(self, feature_dim: int) -> PinnedStaging:
+        # graftlint: disable=TH004 -- adopt_executables runs before this engine's first page (fleet admission); pages hold the plane's graph lock
         if self._exec is not self:
             return self._exec._staging_for(feature_dim)
         if self._staging is None or self._staging[0] != feature_dim:
             r, w = self.rungs[-1], self.window_size
+            # graftlint: disable=TH004 -- adopt_executables runs before this engine's first page (fleet admission); pages hold the plane's graph lock
             self._staging = (feature_dim, PinnedStaging(self.device, {
                 "x": ((r, w, feature_dim), torch.float32),
                 **self._plan_buffers()}))
@@ -342,6 +347,7 @@ class FusedRolledEngine:
             return self._exec._sparse_staging_for()
         if self._sparse_staging is None:
             r, w, k = self.rungs[-1], self.window_size, self._sparse_nnz_cap
+            # graftlint: disable=TH004 -- adopt_executables runs before this engine's first page (fleet admission); pages hold the plane's graph lock
             self._sparse_staging = PinnedStaging(self.device, {
                 "cols": ((r, w, k), torch.int32),
                 "vals": ((r, w, k), torch.float32),
@@ -379,11 +385,13 @@ class FusedRolledEngine:
         plan = (carry, slot["g"][:rung], slot["seg"][:rung], slot["n"])
         prog = self._exec
         if sparse:
+            # graftlint: disable=TH004 -- adopt_executables runs before this engine's first page (fleet admission); pages hold the plane's graph lock
             return self._graphs.run(
                 ("sparse_" + program, rung),
                 lambda c, v, *rest: prog._program_sparse(c, v, *rest,
                                                          integrate),
                 (slot["cols"][:rung], slot["vals"][:rung], *plan),
+                # graftlint: disable=TH004 -- adopt_executables runs before this engine's first page (fleet admission); pages hold the plane's graph lock
                 staged=slot, owner=self._owner)
         return self._graphs.run(
             (program, rung),
@@ -415,7 +423,9 @@ class FusedRolledEngine:
                        else self._staging_for(feature_dim))
             slot = staging.take()
             self._fill(slot, [], [], rung, names)
+            # graftlint: disable=TH004 -- adopt_executables runs before this engine's first page (fleet admission); pages hold the plane's graph lock
             self._page(slot, rung, integrate, self._carry0, sparse)
+            # graftlint: disable=TH004 -- adopt_executables runs before this engine's first page (fleet admission); pages hold the plane's graph lock
             self._readback.landed()
 
     # -- host paging ----------------------------------------------------
@@ -701,6 +711,7 @@ class FusedInferenceMixin:
         engine (per-series carry resets); one by one when it is off."""
         if self._fused is not None:
             series_list = list(series_list)
+            # graftlint: disable=JX003 -- host data: wire-format series are numpy arrays/lists, asarray never touches a device buffer
             sparse = self._maybe_sparsify([np.asarray(s)
                                            for s in series_list])
             if sparse is not None:

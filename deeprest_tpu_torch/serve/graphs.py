@@ -56,13 +56,13 @@ results back through one growable pinned buffer (both the ladder's
 from __future__ import annotations
 
 import threading
-import time
 from typing import Callable
 
 import numpy as np
 import torch
 
 from deeprest_tpu_torch.graphs import CapturedGraph, capture
+from deeprest_tpu_torch.obs import metrics as obs_metrics
 
 Key = tuple[str, int]
 
@@ -155,7 +155,7 @@ class RungGraphs:
                 return _as_tuple(fn(*dev))
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._capture(key, fn, args)
+                entry = self._capture_locked(key, fn, args)
             for dst, src in zip(entry.inputs, args):
                 dst.copy_(src, non_blocking=True)
             if staged is not None:
@@ -164,7 +164,10 @@ class RungGraphs:
             self._replays += 1
             return entry.outputs
 
-    def _capture(self, key: Key, fn: Callable, args: tuple) -> _Graph:
+    def _capture_locked(self, key: Key, fn: Callable,
+                        args: tuple) -> _Graph:
+        """Capture ``key``'s graph; the caller (:meth:`run`) holds
+        :attr:`lock`."""
         inputs = tuple(torch.empty_like(a, device=self.device) for a in args)
         for dst, src in zip(inputs, args):
             dst.copy_(src, non_blocking=True)
@@ -172,18 +175,19 @@ class RungGraphs:
             self._stream = torch.cuda.Stream(device=self.device)
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
-        t0 = time.perf_counter()
+        sw = obs_metrics.Stopwatch()
         with torch.cuda.stream(self._stream):
             fn(*inputs)          # eager: loads the kernels, warms the GEMMs
         self._stream.synchronize()
-        t1 = time.perf_counter()
+        eager_s = sw.elapsed()
+        sw.restart()
         current.wait_stream(self._stream)
         graph, outputs = capture(
             lambda: fn(*inputs), self.device,
             f"serving program {key[0]} at rung {key[1]}", pool=self._pool,
             stream=self._stream)
-        self._eager_s += t1 - t0
-        self._capture_s += time.perf_counter() - t1
+        self._eager_s += eager_s
+        self._capture_s += sw.elapsed()
         if self._pool is None:
             self._pool = graph.graph.pool()
         entry = _Graph(graph, inputs, _as_tuple(outputs))

@@ -265,6 +265,7 @@ class MeshFront:
     @property
     def error(self) -> str | None:
         """Why the front fails its calls (a lost rank, or stopped)."""
+        # graftlint: disable=TH004 -- read after lost is set, which _fail_locked sets after this write; a lock here could wait on a call stuck on the dead rank
         return self._error
 
     def stats(self) -> dict:
@@ -272,12 +273,13 @@ class MeshFront:
         and refused, and the error the front fails its calls with (None
         while it serves)."""
         with self._lock:
-            generations = {"live": sorted(self._live),
-                           "most_on_a_rank": self._spread[0],
-                           "oldest_on_a_rank": self._spread[1]}
-        return {"world": self.world, "calls": self.calls,
-                "heartbeats": self.heartbeats, "reloads": dict(self.reloads),
-                "generations": generations, "error": self._error}
+            return {"world": self.world, "calls": self.calls,
+                    "heartbeats": self.heartbeats,
+                    "reloads": dict(self.reloads),
+                    "generations": {"live": sorted(self._live),
+                                    "most_on_a_rank": self._spread[0],
+                                    "oldest_on_a_rank": self._spread[1]},
+                    "error": self._error}
 
     # -- rank 0's calls (the caller holds the predictor's graphs lock) ---
 
@@ -319,13 +321,13 @@ class MeshFront:
                     "the served checkpoint step changed during this "
                     "request; retry it", status=503)
             try:
-                self._send(_header(op, flags, gen, dims), arrays)
+                self._send_locked(_header(op, flags, gen, dims), arrays)
                 self.calls += 1
                 yield
             except Exception as exc:
                 if not is_device_loss(exc):
                     raise
-                raise self._fail(exc) from exc
+                raise self._fail_locked(exc) from exc
 
     # -- reloads (rank 0's reloader thread; every rank in step) ----------
 
@@ -369,7 +371,7 @@ class MeshFront:
                 raise error or RuntimeError(
                     f"checkpoint step {step} failed to warm on another "
                     "rank of the serving mesh")
-        self.reloads["ok"] += 1
+            self.reloads["ok"] += 1
         fresh.attach_front(_Generation(self, gen, fresh.step))
         return fresh
 
@@ -407,21 +409,25 @@ class MeshFront:
             if self._error is not None:
                 raise MeshFrontLost(self._error)
             try:
-                self._send(header)
+                self._send_locked(header)
                 return None if body is None else body(*args)
             except Exception as exc:
                 if not is_device_loss(exc):
                     raise
-                raise self._fail(exc) from exc
+                raise self._fail_locked(exc) from exc
 
-    def _send(self, header: np.ndarray, arrays=()) -> None:
+    def _send_locked(self, header: np.ndarray, arrays=()) -> None:
+        """Send ``header`` and ``arrays``; the caller holds the lock."""
         self._wire.send(header)
         for a, dtype in arrays:
             self._wire.send(a, dtype)
+        # graftlint: disable=TH001 -- every caller (call, _op, _beat, stop) holds self._lock around this call
         self._last = time.monotonic()
 
-    def _fail(self, exc: BaseException) -> MeshFrontLost:
+    def _fail_locked(self, exc: BaseException) -> MeshFrontLost:
+        """Fail the front for ``exc``; the caller holds the lock."""
         cause = f"{type(exc).__name__}: {str(exc)[:200]}"
+        # graftlint: disable=TH001 -- every caller holds self._lock; the lock-free reader (error) runs after lost.set() below
         self._error = f"a rank of the serving mesh is gone ({cause})"
         self.lost.set()
         return MeshFrontLost(self._error)
@@ -434,12 +440,12 @@ class MeshFront:
                         < self._heartbeat_s):
                     continue
                 try:
-                    self._send(_header(HEARTBEAT))
+                    self._send_locked(_header(HEARTBEAT))
                     self.heartbeats += 1
                 except Exception as exc:
                     # a heartbeat that cannot reach every rank leaves the
                     # plane unable to answer, whatever the cause
-                    self._fail(exc)
+                    self._fail_locked(exc)
                     return
 
     # -- ending ---------------------------------------------------------
@@ -452,7 +458,7 @@ class MeshFront:
         with self._lock:
             if self._error is None:
                 self._error = "the serving mesh was stopped"
-                self._send(_header(STOP))
+                self._send_locked(_header(STOP))
 
     def lost_ranks(self) -> list[int]:
         """After :attr:`lost`: tear this rank's groups down, so a follower

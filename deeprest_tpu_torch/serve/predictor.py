@@ -284,6 +284,7 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
             self._apply_sparse_numpy(np.zeros((rung, w, k), np.int32),
                                      np.zeros((rung, w, k), np.float32))
         else:
+            # graftlint: disable=DN002 -- warm-up shape donor: one zero [rung, W, F] batch per rung at capture time, before the plane serves; requests never allocate it
             self._apply_numpy(np.zeros((rung, w, f), np.float32))
 
     def warmed(self) -> dict:

@@ -476,7 +476,7 @@ def _worker_main(spec: dict, conn) -> None:
 
         obs.configure(enabled=True)
     try:
-        t0 = time.perf_counter()
+        sw = obs_metrics.Stopwatch()
         backend = build_backend_from_spec(spec)
         if spec.get("batching"):
             from deeprest_tpu_torch.serve.batcher import (
@@ -485,10 +485,11 @@ def _worker_main(spec: dict, conn) -> None:
 
             cfg = BatcherConfig(**spec["batching"])
             backend.attach_batcher(MicroBatcher(backend.ladder, cfg))
-        t1 = time.perf_counter()
+        build_s = sw.elapsed()
+        sw.restart()
         warm = getattr(backend, "warm", None)
         graphs = warm() if callable(warm) else None
-        seconds = {"build": t1 - t0, "warm": time.perf_counter() - t1}
+        seconds = {"build": build_s, "warm": sw.elapsed()}
     except Exception as exc:   # surface the constructor error to the parent
         conn.send(("__boot__", False, f"{type(exc).__name__}: {exc}"))
         conn.close()
@@ -624,9 +625,9 @@ class ProcessReplica:
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")  # no fork after CUDA is set up
+        sw = obs_metrics.Stopwatch()
         conn, child = ctx.Pipe(duplex=True)
         proc = None
-        t0 = time.perf_counter()
         try:
             proc = ctx.Process(target=_worker_main,
                                args=(self.spec, child), daemon=True)
@@ -642,6 +643,8 @@ class ProcessReplica:
             if tag != "__boot__" or not ok:
                 raise RuntimeError(f"replica {self.name}: worker failed "
                                    f"to boot: {meta}")
+            if isinstance(meta.get("seconds"), dict):
+                meta["seconds"]["boot"] = sw.elapsed()
         except Exception:
             conn.close()
             child.close()
@@ -651,8 +654,6 @@ class ProcessReplica:
                 proc.join(timeout=5)
                 _release_proc(proc)
             raise
-        if isinstance(meta.get("seconds"), dict):
-            meta["seconds"]["boot"] = time.perf_counter() - t0
         with self._lock:
             self._conn = conn
             self._proc = proc

@@ -946,6 +946,7 @@ class ReplicaRouter:
                 keep, drop = self._replicas[:n], self._replicas[n:]
                 self._replicas = keep
             for r in drop:
+                # graftlint: disable=RS002 -- designed sink: a dropped replica sharing its stack with a survivor stays drained (the survivor owns the stack); non-shared drops are closed below on every path
                 r.drain()
             errors = []
             for r in drop:
@@ -1034,8 +1035,7 @@ class ReplicaRouter:
         for r in replicas:
             key = _stack_key(r)
             if key in seen:
-                # shared-stack duplicates drain; the stack (and its
-                # batcher) is closed once, via the group's first replica
+                # graftlint: disable=RS002 -- designed shutdown sink: shared-stack duplicates drain forever; the stack (and its batcher) is closed once, via the first replica of the group
                 r.drain()
                 continue
             seen.add(key)

@@ -140,6 +140,7 @@ class CheckpointReloader:
     def attach_front(self, front) -> None:
         """Load every new step through ``front`` (rank 0's ``MeshFront``
         of a mesh above one rank): the step is loaded on every rank."""
+        # graftlint: disable=TH001,TH004 -- lifecycle handle: attach_front runs once on the serving main thread before the reloader's first poll, never in a request handler
         self._front = front
 
     def poll(self):
@@ -842,6 +843,7 @@ class PredictionService:
             # level before treating values as absolute utilization.
             "relative_metrics": [
                 m for e, m in enumerate(pred.metric_names)
+                # graftlint: disable=JX003 -- host data: dm is the numpy delta mask, not a device array
                 if dm is not None and bool(dm[e])
             ],
         }
@@ -1255,6 +1257,7 @@ class PredictionServer:
         return self._httpd.server_address[:2]
 
     def start(self) -> "PredictionServer":
+        # graftlint: disable=TH001 -- lifecycle handle: start/stop run on the owning driver thread only, never in a request handler
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True)
         self._thread.start()

@@ -96,6 +96,7 @@ class MixSpace:
         self.base = _canonical_program(base_traffic)
         if not self.base:
             raise ValueError("mix space needs a non-empty base program")
+        # graftlint: disable=JX003 -- host data: grid scales are python floats from config, never device values
         self.grid = tuple(float(g) for g in grid)
         if len(self.grid) < 2 or list(self.grid) != sorted(set(self.grid)):
             raise ValueError(
@@ -132,6 +133,7 @@ class MixSpace:
     def program_at(self, scales) -> list[dict[str, int]]:
         """The traffic program at one point of the scale space —
         sweep()'s exact rounding convention."""
+        # graftlint: disable=JX003 -- host data: scales are python floats from the request payload
         scales = tuple(float(s) for s in scales)
         if len(scales) != len(self.axes):
             raise ValueError(
@@ -157,11 +159,13 @@ class MixSpace:
         rng = np.random.default_rng(
             (self.seed & 0xFFFFFFFF) ^ int(self.key[:8], 16))
         lo, hi = self.grid[0], self.grid[-1]
+        # graftlint: disable=JX003 -- host data: host-RNG jitter points, never device values
         return [tuple(float(x) for x in rng.uniform(lo, hi, len(self.axes)))
                 for _ in range(int(count))]
 
     def contains(self, scales) -> bool:
         lo, hi = self.grid[0], self.grid[-1]
+        # graftlint: disable=JX003 -- host data: scales are python floats from the request payload
         return all(lo <= float(s) <= hi for s in scales)
 
     def match(self, program) -> tuple[float, ...] | None:
@@ -272,6 +276,7 @@ class CapacitySurface:
         bit-identical to the direct estimate they were built from."""
         vals = self.values
         for s in scales:
+            # graftlint: disable=JX003 -- host data: the query point is python floats; values is host numpy by design
             i, w = _bracket(self.space.grid, float(s))
             if w == 0.0:
                 vals = vals[i]
@@ -293,6 +298,7 @@ class CapacitySurface:
                 "parity": dict(self.parity)}
         out = dict(base)
         if scales is not None:
+            # graftlint: disable=JX003 -- host data: response metadata built from python floats
             out["scales"] = [float(s) for s in scales]
         return out
 
@@ -304,14 +310,17 @@ def peaks_from_series(series: np.ndarray, metric_names, quantiles,
     demo's post-re-anchor semantics), absolute metrics the plain peak."""
     peaks: dict[str, dict[str, float]] = {}
     for e, metric in enumerate(metric_names):
+        # graftlint: disable=JX003 -- host data: delta_mask is a small host numpy vector
         relative = delta_mask is not None and bool(delta_mask[e])
         per_q = {}
         for qi, q in enumerate(quantiles):
             col = series[:, e, qi]
             key = f"q{int(q * 100):02d}"
             if relative:
+                # graftlint: disable=JX003 -- host data: estimate_many_raw series are host numpy by design
                 per_q[key] = max(float(np.max(col) - col[0]), 0.0)
             else:
+                # graftlint: disable=JX003 -- host data: same host-resident series
                 per_q[key] = float(np.max(col))
         peaks[metric] = per_q
     return peaks
@@ -414,6 +423,7 @@ class CapacitySurfaceManager:
         if callable(digest):
             try:
                 return str(digest()) + suffix
+            # graftlint: disable=EX003 -- designed fallback: an undigestable backend degrades to epoch keying, which is strictly safe (reload bumps the epoch)
             except Exception:
                 pass
         with self._lock:
@@ -505,6 +515,7 @@ class CapacitySurfaceManager:
             self._note_read("frontier")
             meta = {"hit": False, "frontier": True, "in_hull": in_hull,
                     "params_hash": phash, "space": space.to_meta(),
+                    # graftlint: disable=JX003 -- host data: response metadata built from python floats
                     "scales": [float(s) for s in point]}
         peaks = peaks_from_series(series, predictor.metric_names,
                                   predictor.quantiles,
@@ -527,6 +538,7 @@ class CapacitySurfaceManager:
         point = [1.0] * len(space.axes)
         for ep, s in scales.items():
             try:
+                # graftlint: disable=JX003 -- host data: payload scale values are python scalars
                 v = float(s)
             except (TypeError, ValueError):
                 raise ValueError(f"bad scale for {ep!r}: {s!r}") from None

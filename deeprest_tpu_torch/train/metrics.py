@@ -69,7 +69,7 @@ class Throughput:
             raise RuntimeError("Throughput.stop() without start()")
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        # graftlint: disable=OB001 -- this meter is the trainer's step-time source; the port has no obs layer to route it through yet
+        # graftlint: disable=OB001 -- this meter is the trainer's step-time source, read by its JSON report; it publishes no obs counters yet
         self.elapsed += time.perf_counter() - self._t0
         self.steps += steps
         self._t0 = None

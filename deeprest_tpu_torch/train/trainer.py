@@ -382,10 +382,11 @@ class Trainer:
         count = int(leaves["opt_state/0/count"])
         if count:
             capturable = self.device.type == "cuda"
+            adam_step = float(count)
             for name, p in state.model.named_parameters():
                 state.optimizer.state[p] = {
                     "step": torch.tensor(
-                        float(count), dtype=torch.float32,
+                        adam_step, dtype=torch.float32,
                         device=p.device if capturable else "cpu"),
                     "exp_avg": leaves[f"opt_state/0/mu/{name}"].to(
                         p.device, p.dtype).clone(),
@@ -761,13 +762,13 @@ class Trainer:
         current = torch.cuda.current_stream(self.device)
         current.wait_stream(side)
         current.synchronize()          # the eager update stays out of the time
-        t0 = time.perf_counter()
+        sw = obs_metrics.Stopwatch()
         pool = (state.retired.graph.pool() if state.retired is not None
                 else None)
         state.graph = capture_update(body, self.device, [self._generator],
                                      pool=pool, stream=side)
         state.retired = None
-        self.capture_seconds += time.perf_counter() - t0
+        self.capture_seconds += sw.elapsed()
         self.captures += 1
 
     def train_epoch(self, state: TrainState, bundle: DatasetBundle,
