@@ -294,7 +294,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     ranks; both ranks exit 0 at the deadline; the phase's seconds and
     each rank's peak device memory;
 20. quantized serving, `--watch` and the capacity and verdict surfaces on
-    the mesh, beside phases 11, 14 and 15: `serve --mesh 1,1,2 --quant
+    the mesh, beside phases 14 and 15 (after phase 11: beside it the card
+    held 80.8-81.1 GB): `serve --mesh 1,1,2 --quant
     int8 --watch 1 --surface --raw <phase 7's first 120 minutes>
     --verdict-raw <its last 90> --no-batcher` as two spawned gloo ranks
     sharing the card (eager), on phase 5's flagship params with phase 7's
@@ -313,7 +314,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
     rank's peak device memory and the phase's seconds (the one-process
     references run in the foreground after phase 15);
 21. the replica router, admission, tenant weights, the autoscaler and the
-    fleet tier on the mesh, beside phases 13, 11, 14 and 15: `serve --mesh
+    fleet tier on the mesh, beside phases 13 and 11: `serve --mesh
     1,2,1 --replicas 2 --admission-depth 8 --tenant-weights
     default=3,t1=1 --fleet t1=<phase 6's trained checkpoint>
     --fleet-hbm-budget 1 --autoscale --autoscale-min 2 --autoscale-max 3
@@ -337,11 +338,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 22. the static analyzer (deeprest_tpu_torch/analysis) on this machine,
     which has no JAX, in processes of its own beside phase 18: `python3 -m
     deeprest_tpu_torch lint --no-cache --format json` over the port exits
-    0 with 0 findings; `--list-rules` lists 35 ids (31 rules and the 4 GL
+    0 with 0 findings; `--list-rules` lists 40 ids (36 rules and the 4 GL
     meta rules); `python3 -m deeprest_tpu_torch.analysis --rules HY001` on
     a file with one unused import exits 1 with that one finding; the
-    analyzer's modules import neither jax nor deeprest_tpu; the lint's and
-    the phase's seconds with the card's name and power limit;
+    analyzer's modules import neither jax nor deeprest_tpu; each firing
+    fixture of TX001, TX002, TX004, TX005, TX006 and JX007's capture arm
+    (analysis/torch_fixtures.py, written to a directory) exits 1 with its
+    rule and its silent twin 0; three hazards run on the card, each twin
+    in a process of its own: TX001's replay after a rebinding answers
+    with the old weight bit for bit (the copy_ twin: the new eager
+    answer), TX004's output held across a second run equals the second
+    call's answer (the clone twin: the first's), and JX007's `.item()`
+    makes the capture raise GraphCaptureError naming the line the rule
+    names (the twin's replay: eager bit for bit); the lint's and the
+    phase's seconds and its processes' peak with the card's name and
+    power limit;
 23. the seconds of each phase, one JSON line of per-kernel numbers, then
     the device line last.
 
@@ -365,8 +376,10 @@ checkpoint CLIs beside its in-process plain path, phase 8's three
 servers and phase 12's planes loading together, phase 10's export
 beside the 10k training, phase 14's train CLIs and phase 15's
 `train --mesh` together, phase 11's second stream run beside its
-in-process checks, phase 15's gloo ranks beside phase 14's demo, phase 22's lint beside
-phase 18, and phases 16, 17, 19, 20 and 21 as above.  The host-clock numbers of an overlapped
+in-process checks, phase 15's gloo ranks beside phase 14's demo, phase
+22's lint beside phase 18, and phases 16, 17, 19, 20 and 21 as above.  The
+card's highest memory sample is printed with what each process held and
+which phases ran (at once when it passes 70,000 MiB).  The host-clock numbers of an overlapped
 phase are taken under that load; kernel times are not.
 
 It exits nonzero, printing no result, without CUDA or without the package
@@ -1192,13 +1205,22 @@ def run_cli(args: list, timeout: int) -> dict:
 class DeviceMemory:
     """The card's memory in use by every process on it (nvidia-smi, MiB),
     sampled by a thread every ``every`` seconds; ``take_peak()`` returns
-    the most seen since its last call.  Overlapped phases share the card,
-    so their peak is what bounds the overlap."""
+    the most seen since its last call, and ``phase_peaks`` the most seen
+    while each phase in ``phases`` ran.  Overlapped phases share the card,
+    so their peak is what bounds the overlap.  At each new high of the run
+    (by a GiB or more) it asks what each process on the card holds;
+    :meth:`top_line` describes the run's highest sample so, and a sample
+    past ``ALERT_MIB`` is printed as it comes."""
+
+    ALERT_MIB = 70_000
 
     def __init__(self, every: float = 2.0):
         import threading
 
         self._peak = 0
+        self._top, self._top_apps, self._top_phases = 0, [], []
+        self.phases: list = []          # the phases running now
+        self.phase_peaks: dict = {}     # phase -> its peak MiB so far
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._run, args=(every,),
                                        daemon=True)
@@ -1211,7 +1233,46 @@ class DeviceMemory:
                  "--format=csv,noheader,nounits"],
                 capture_output=True, text=True, timeout=60)
             if out.returncode == 0 and out.stdout.split():
-                self._peak = max(self._peak, int(out.stdout.split()[0]))
+                used = int(out.stdout.split()[0])
+                self._peak = max(self._peak, used)
+                for name in list(self.phases):
+                    self.phase_peaks[name] = max(
+                        used, self.phase_peaks.get(name, 0))
+                if used >= self._top + 1024:
+                    self._top, self._top_apps = used, self._processes()
+                    self._top_phases = sorted(self.phases)
+                    if used > self.ALERT_MIB:
+                        print(self.top_line(), flush=True)
+
+    @staticmethod
+    def _processes() -> list:
+        """``[(MiB, pid, command line), ...]`` of the card's processes,
+        largest first (or one row saying why nvidia-smi listed none)."""
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60)
+        apps = []
+        for row in out.stdout.strip().splitlines():
+            parts = [p.strip() for p in row.split(",")]
+            if len(parts) != 2 or not parts[1].isdigit():
+                continue
+            try:
+                with open(f"/proc/{parts[0]}/cmdline", "rb") as fh:
+                    cmd = fh.read().replace(b"\0", b" ").decode()[:160]
+            except OSError:
+                cmd = "?"
+            apps.append((int(parts[1]), parts[0], cmd.strip()))
+        return sorted(apps, reverse=True) or [
+            (0, "-", f"nvidia-smi listed none: {out.stdout.strip()[:160]} "
+                     f"{out.stderr.strip()[:160]}")]
+
+    def top_line(self) -> str:
+        return (f"card memory {self._top} MiB in use at the run's highest "
+                f"sample so far (alert past {self.ALERT_MIB}), during "
+                f"{self._top_phases}, by process: "
+                + "; ".join(f"pid {pid} {mib} MiB ({cmd})"
+                            for mib, pid, cmd in self._top_apps))
 
     def take_peak(self) -> int:
         peak, self._peak = self._peak, 0
@@ -1227,12 +1288,14 @@ class Background:
     processes of its own), so the foreground phases' launch counts stay
     their own.  ``result()`` joins it; a failure there fails the run."""
 
-    def __init__(self, name: str, fn, *args):
+    def __init__(self, name: str, fn, *args, memory=None):
         import threading
 
         self.name, self.out, self.error = name, None, None
         self.seconds = None
         t0 = time.perf_counter()
+        if memory is not None:
+            memory.phases.append(name)
 
         def run():
             try:
@@ -1240,6 +1303,8 @@ class Background:
             except BaseException as exc:         # fail() raises SystemExit
                 self.error = exc
             self.seconds = time.perf_counter() - t0
+            if memory is not None:
+                memory.phases.remove(name)
 
         self.thread = threading.Thread(target=run, name=name, daemon=True)
         self.thread.start()
@@ -3915,13 +3980,12 @@ def phase_bidir(cuda_gru, kernel_tuning) -> None:
     import numpy as np
     import torch
 
-    from deeprest_tpu_torch.ops.gru import GRUParams
+    from deeprest_tpu_torch.ops.gru import GRUParams, init_gru_params
 
     gru_mod = kernel_tuning.gru_mod
     e, t, b, h = (TRAIN[k] for k in ("E", "T", "B", "H"))
     rng = np.random.default_rng(SEED + 4)
-    fwd, bwd = (GRUParams(*[w.to(torch.bfloat16) for w in
-                            kernel_tuning.gru_params(e, F, h, "cuda", seed)])
+    fwd, bwd = (init_gru_params(seed, e, F, h, torch.bfloat16, device="cuda")
                 for seed in (SEED + 5, SEED + 6))
     x = torch.from_numpy(rng.standard_normal((b, t, F), np.float32)).to(
         "cuda", torch.bfloat16)
@@ -7399,14 +7463,129 @@ def lint_cli(args: list, expect: int, module: str = "deeprest_tpu_torch",
     return out.stdout
 
 
-def phase_lint(workdir: str) -> dict:
+def lint_fixtures(workdir: str) -> dict:
+    """Each fire/silent pair of TX001, TX002, TX004, TX005, TX006 and
+    JX007's capture arm written to a directory and linted there with its
+    rule: the firing fixture exits 1 with findings of that rule alone, the
+    twin 0.  Returns ``{case: [(path, line), ...]}`` of the firings."""
+    from deeprest_tpu_torch.analysis.torch_fixtures import PAIRS
+
+    cases = ("TX001", "TX002", "TX004", "TX005", "TX006", "JX007 capture")
+    fired = {}
+    for case in cases:
+        rule, bad, good = PAIRS[case]
+        for twin, sources in (("bad", bad), ("good", good)):
+            root = os.path.join(workdir, "lint_fixtures",
+                                case.replace(" ", "_"), twin)
+            for rel, src in sources.items():
+                path = os.path.join(root, rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "w", encoding="utf-8") as fh:
+                    fh.write(src)
+            out = json.loads(lint_cli(
+                ["lint", root, "--rules", rule, "--no-cache", "--format",
+                 "json"], expect=1 if twin == "bad" else 0))
+            found = [(x["rule"], x["path"], x["line"])
+                     for x in out["findings"]]
+            if twin == "bad" and (not found or any(
+                    r != rule for r, _, _ in found)):
+                fail(f"phase 22: {case}'s firing fixture found {found}")
+            if twin == "bad":
+                fired[case] = [(p, ln) for _, p, ln in found]
+    print(f"lint fixtures (phase 22): {fired} fire, each silent twin "
+          f"clean", flush=True)
+    return fired
+
+
+def lint_hazards_on_card(workdir: str, fired: dict) -> float:
+    """The runtime fixtures' demos on the card, each twin in a process of
+    its own (a refused capture cannot poison this one), all at once;
+    fails unless each hazard shows as its rule says and each twin answers
+    as eager code does, bit for bit.  Returns the children's peak
+    reservation in MiB."""
+    import torch
+
+    from deeprest_tpu_torch.analysis.torch_fixtures import (
+        DEMO_CHILD, PAIRS, RUNTIME,
+    )
+
+    procs = {}
+    for case, rel in RUNTIME.items():
+        for twin in ("bad", "good"):
+            path = os.path.join(workdir, "lint_fixtures",
+                                case.replace(" ", "_"), twin, rel)
+            if not os.path.exists(path):
+                _, bad, good = PAIRS[case]
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "w", encoding="utf-8") as fh:
+                    fh.write((bad if twin == "bad" else good)[rel])
+            procs[(case, twin)] = subprocess.Popen(
+                [sys.executable, "-c", DEMO_CHILD, path], cwd=REPO,
+                env={**os.environ, "PYTHONPATH": REPO},
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    res = {}
+    for key, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0 or not out.strip():
+            fail(f"phase 22: {key}'s demo exited {proc.returncode}: "
+                 f"{err[-2000:]}")
+        res[key] = json.loads(out.strip().splitlines()[-1])
+
+    def values(key):
+        got = res[key]
+        if "error" in got:
+            fail(f"phase 22: {key} raised {got['error']}: {got['message']}")
+        return [torch.tensor(v) for v in got["values"]]
+
+    def same(a, b) -> bool:
+        return bool(torch.equal(a, b))
+
+    replay, old, new = values(("TX001", "bad"))
+    if not same(replay, old) or same(replay, new):
+        fail(f"phase 22: TX001's replay after the rebinding {replay} is "
+             f"not the old weight's answer {old}")
+    replay, _, new = values(("TX001", "good"))
+    if not same(replay, new):
+        fail(f"phase 22: TX001's copy_ twin {replay} != eager {new}")
+    ya, yb, a2, b2 = values(("TX004", "bad"))
+    if not (same(ya, b2) and same(yb, b2)) or same(ya, a2):
+        fail(f"phase 22: TX004's held output {ya} is not the second "
+             f"call's answer {b2}")
+    ya, yb, a2, b2 = values(("TX004", "good"))
+    if not (same(ya, a2) and same(yb, b2)):
+        fail(f"phase 22: TX004's clone twin {ya}, {yb} != eager {a2}, {b2}")
+    bad = res[("JX007 capture", "bad")]
+    (path, line), = fired["JX007 capture"]
+    where = f"{os.path.basename(path)}:{line} "
+    if bad.get("error") != "GraphCaptureError" or where not in bad.get(
+            "message", ""):
+        fail(f"phase 22: JX007's fixture names {where.strip()}, its "
+             f"capture gave {bad}")
+    replay, eager = values(("JX007 capture", "good"))
+    if not same(replay, eager):
+        fail(f"phase 22: JX007's twin replay {replay} != eager {eager}")
+    print(f"lint hazards on the card (phase 22): TX001 replay after a "
+          f"rebinding = the old weight's eager answer bit for bit, its "
+          f"copy_ twin = the new one's; TX004 output held across a second "
+          f"run = the second call's answer, its clone twin = the first's; "
+          f"JX007 capture refused at {where.strip()} as the rule names "
+          f"({bad['message'][:160]}), its twin's replay = eager bit for "
+          f"bit", flush=True)
+    return max(r["reserved_mib"] for r in res.values())
+
+
+def phase_lint(workdir: str, memory: DeviceMemory) -> dict:
     """Phase 22: the port's analyzer (deeprest_tpu_torch/analysis) on a
     machine without JAX, in processes of its own: ``lint --no-cache
     --format json`` over the installed port exits 0 with 0 findings;
-    ``--list-rules`` lists the 31 rules and the 4 GL meta rules; the
+    ``--list-rules`` lists the 36 rules and the 4 GL meta rules; the
     module alias ``python3 -m deeprest_tpu_torch.analysis --rules HY001``
-    on a file with one unused import exits 1 with that one finding; and
-    the analyzer's modules import neither ``jax`` nor ``deeprest_tpu``."""
+    on a file with one unused import exits 1 with that one finding; the
+    analyzer's modules import neither ``jax`` nor ``deeprest_tpu``; the
+    torch fixtures fire and their twins do not (:func:`lint_fixtures`);
+    and three of them run their hazard on the card
+    (:func:`lint_hazards_on_card`).  Its peak is the run-wide sampler's
+    over the phase (``memory`` runs it as "phase 22")."""
     import re
 
     t0 = time.perf_counter()
@@ -7420,9 +7599,10 @@ def phase_lint(workdir: str) -> dict:
                          lint_cli(["lint", "--list-rules"], expect=0),
                          re.MULTILINE))
     meta = {i for i in ids if i.startswith("GL")}
-    if len(ids) != 35 or len(meta) != 4:
+    tx = {i for i in ids if i.startswith("TX")}
+    if len(ids) != 40 or len(meta) != 4 or len(tx) != 5:
         fail(f"phase 22: --list-rules listed {len(ids)} ids ({len(meta)} "
-             f"GL): {sorted(ids)}")
+             f"GL, {len(tx)} TX): {sorted(ids)}")
     bad = os.path.join(workdir, "lint_unused_import.py")
     with open(bad, "w", encoding="utf-8") as f:
         f.write("import os\nprint(1)\n")
@@ -7445,13 +7625,19 @@ def phase_lint(workdir: str) -> dict:
     if probe.returncode != 0 or probe.stdout.strip() != "[]":
         fail(f"phase 22: the analyzer imported {probe.stdout.strip()} "
              f"{probe.stderr[-1000:]}")
+    fired = lint_fixtures(workdir)
+    reserved = lint_hazards_on_card(workdir, fired)
     seconds = time.perf_counter() - t0
+    peak = memory.phase_peaks.get("phase 22", 0)
     print(f"lint (phase 22): 0 findings over {report['files']} files, "
           f"{report['counts']['suppressed']} suppressed; {len(ids)} rule "
           f"ids; the module alias exit 1 with one HY001; no jax or "
           f"deeprest_tpu module imported; lint {lint_s:.1f} s, phase "
-          f"{seconds:.1f} s ({card_line()})", flush=True)
-    return {"files": report["files"], "lint_s": lint_s, "seconds": seconds}
+          f"{seconds:.1f} s; the card's peak in use over the phase "
+          f"{peak} MiB (every process on it), the hazard processes' "
+          f"reservation {reserved:.0f} MiB ({card_line()})", flush=True)
+    return {"files": report["files"], "lint_s": lint_s, "seconds": seconds,
+            "peak_mib": peak}
 
 
 def main() -> int:
@@ -7491,9 +7677,11 @@ def main() -> int:
 
     def timed(name, fn, *args):
         memory.take_peak()
+        memory.phases.append(name)
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        memory.phases.remove(name)
         peaks[name] = memory.take_peak()
         return out
 
@@ -7512,7 +7700,7 @@ def main() -> int:
         # launches in this process): 16 runs beside phases 7 and 8, 17
         # beside phase 12
         axes_job = Background("phase 16", phase_expert_model_axes,
-                              cuda_gru, serving, wd)
+                              cuda_gru, serving, wd, memory=memory)
         raw = timed("raw to answers", phase_raw_to_answers, cuda_gru, corpus)
         raw_launches = raw["launches"]
         raw_path = raw["raw"]
@@ -7525,7 +7713,8 @@ def main() -> int:
         axes = timed("wait for phase 16", axes_job.result)
         seconds["expert and model axes (beside 7, 8)"] = round(
             axes_job.seconds, 1)
-        elastic_job = Background("phase 17", phase_elastic, cuda_gru, wd)
+        elastic_job = Background("phase 17", phase_elastic, cuda_gru, wd,
+                                 memory=memory)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         replicas = timed("replica plane", phase_replica_plane, cuda_gru,
@@ -7535,25 +7724,28 @@ def main() -> int:
             elastic_job.seconds, 1)
         # phase 19's ranks (its kernels launch in them only) beside 10
         mesh_job = Background("phase 19", phase_serve_mesh, cuda_gru,
-                              serving, axes, plane, wd)
+                              serving, axes, plane, wd, memory=memory)
         tenk = timed("tenk sparse quant export", phase_tenk, cuda_gru,
                      serving, wd)
         serve_mesh = timed("wait for phase 19", mesh_job.result)
         seconds["serve --mesh (beside 10)"] = round(mesh_job.seconds, 1)
         # phase 21's ranks and workers (its kernels launch in them only)
-        # beside 13, 11, 14 and 15; its one-process references after
-        # phase 20's, before the reset
+        # beside 13 and 11; its one-process references after phase 20's,
+        # before the reset
         plane_job = Background("phase 21", phase_serve_mesh_plane, serving,
-                               trained, plane, wd)
+                               trained, plane, wd, memory=memory)
         fleet = timed("fleet tier", phase_fleet, cuda_gru, serving, wd)
-        # phase 20's ranks (its kernels launch in them only) beside 11, 14
-        # and 15; its one-process references after them, before the reset
-        quant_job = Background("phase 20", phase_serve_mesh_quant, serving,
-                               plane, raw_path, social, wd)
+
+        # phase 20's ranks (its kernels launch in them only) beside 14 and
+        # 15, after phase 11 (beside it the card held 80.8-81.1 GB), its
+        # one-process references after them, before the reset
         for k in cuda_gru.KERNELS:
             k.launches = 0
+        free_device()     # this process's cached blocks, back first
         stream = timed("streaming retrain", phase_stream, cuda_gru,
                        raw_path, wd)
+        quant_job = Background("phase 20", phase_serve_mesh_quant, serving,
+                               plane, raw_path, social, wd, memory=memory)
         # phase 15's gloo ranks run beside phase 14's demo
         host = timed("host feed, train flags and demo", phase_host_feed,
                      cuda_gru, *social, wd, lambda: start_gloo_ranks(wd))
@@ -7561,18 +7753,19 @@ def main() -> int:
         axes["k2_k3_ms_e20"] = timed("K2/K3 at an expert rank's share",
                                      axes_k2_k3_times, cuda_gru, times)
         mesh_quant = timed("wait for phase 20", quant_job.result)
-        seconds["serve --mesh --quant --watch (beside 11, 14, 15)"] = round(
+        seconds["serve --mesh --quant --watch (beside 14, 15)"] = round(
             quant_job.seconds, 1)
         timed("phase 20 against one process", check_serve_mesh_quant,
               cuda_gru, serving, social, mesh_quant)
         mesh_plane = timed("wait for phase 21", plane_job.result)
         seconds["serve --mesh replicas, admission, autoscaler and fleet "
-                "(beside 13, 11, 14, 15)"] = round(plane_job.seconds, 1)
+                "(beside 13, 11)"] = round(plane_job.seconds, 1)
         timed("phase 21 against one process", check_serve_mesh_plane, axes,
               serving, trained, mesh_plane)
         # phase 22's lint runs in processes of its own (no kernel) beside
         # phase 18
-        lint_job = Background("phase 22", phase_lint, wd)
+        lint_job = Background("phase 22", phase_lint, wd, memory,
+                              memory=memory)
         for k in cuda_gru.KERNELS:
             k.launches = 0
         raw_side = timed("raw side native tools", phase_raw_side, cuda_gru,
@@ -7668,6 +7861,7 @@ def main() -> int:
           f"tuning sweep "
           f"{sweep['kernel_launches']}", flush=True)
     memory.stop()
+    print(memory.top_line(), flush=True)
     print(f"seconds per phase {seconds}", flush=True)
     print(f"peak device memory per phase (MiB in use on the card by every "
           f"process, nvidia-smi every 2 s) {peaks}", flush=True)

@@ -12,7 +12,9 @@ rules_jax), TH (threading — rules_threading), HY (hygiene —
 rules_hygiene), OB (observability — rules_obs), DN (sparse-first data
 plane — rules_data), RS (resource lifecycle — rules_lifecycle), EX
 (exception safety — rules_exceptions), RC (interprocedural lockset
-races — rules_races), GL (framework meta-rules — core).  The
+races — rules_races), TX (CUDA-graph capture and torch.compile
+invariants, the port's own — rules_torch), GL (framework meta-rules —
+core).  The
 whole-program symbol table / call graph and the path-sensitive
 paired-operation walker live in core (CallGraph, ObligationWalker);
 the interprocedural value-flow engine (dtype x denseness x
@@ -26,7 +28,9 @@ autofixer is autofix (fix_paths).  ANALYSIS.md (beside this file) is
 the human catalog.
 
 The port of ``deeprest_tpu/analysis``: the same rules, ids and findings
-on any tree.  It parses source text and imports no JAX.
+on JAX code, and the TX pack and torch vocabulary (device values, host
+syncs, ``torch.int8``) on the port's.  It parses source text and imports
+no JAX.
 """
 
 from deeprest_tpu_torch.analysis.core import (

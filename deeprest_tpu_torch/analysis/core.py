@@ -291,7 +291,7 @@ def all_rules() -> dict[str, Rule]:
     for pack in ("rules_jax", "rules_threading", "rules_hygiene",
                  "rules_obs", "rules_data", "rules_lifecycle",
                  "rules_exceptions", "rules_fleet", "rules_wire",
-                 "rules_races"):
+                 "rules_races", "rules_torch"):
         importlib.import_module(f"deeprest_tpu_torch.analysis.{pack}")
     return dict(_REGISTRY)
 

@@ -32,6 +32,13 @@ Abstract domain — one product lattice per value (:class:`AbsVal`):
   allocates host; ``jnp.*``/``jax.device_put`` produce device;
   ``np.asarray``/``float()``/``.item()`` on a *device* value is a
   domain-crossing edge, recorded as a :class:`Crossing` fact.
+- **torch** (the port's vocabulary): a flag on values that torch calls and
+  tensor methods make.  ``torch.*`` given a non-CPU ``device=``,
+  ``.cuda()``, ``.to(<device>)``, a module moved to the card and
+  ``torch.ops.*`` produce device; ``.cpu()``/``.tolist()``/``.numpy()``,
+  ``int()``/``bool()`` of a tensor and ``torch.cuda.synchronize()`` are
+  crossings too; ``torch.int8`` is the i8 member.  Every torch fact is
+  gated on the flag, so JAX code analyzes as it did without it.
 
 Interprocedural machinery: every function the call graph knows gets a
 summary — the join of all argument values observed at resolved call
@@ -71,6 +78,7 @@ import ast
 import dataclasses
 from typing import Iterable
 
+from deeprest_tpu_torch.analysis.captured import captured_scope
 from deeprest_tpu_torch.analysis.core import (
     CallGraph, FuncKey, Project, SourceFile, call_name,
 )
@@ -151,6 +159,7 @@ class AbsVal:
     domain: str = TOP
     origins: tuple = ()
     elts: tuple | None = None
+    torch: bool = False          # a torch tensor (torch vocabulary)
 
     def join(self, other: "AbsVal") -> "AbsVal":
         origins = self.origins
@@ -169,6 +178,7 @@ class AbsVal:
             domain=_join_flat(self.domain, other.domain),
             origins=origins,
             elts=elts,
+            torch=self.torch or other.torch,
         )
 
 
@@ -233,20 +243,57 @@ _HOST_CONVERTERS = {"np.asarray", "numpy.asarray", "np.array",
 _DEVICE_CONVERTERS = {"jnp.asarray", "jnp.array", "jax.numpy.asarray",
                       "jax.numpy.array", "jax.device_put", "device_put"}
 _F64_NAMES = {"np.float64", "numpy.float64", "jnp.float64",
-              "jax.numpy.float64"}
+              "jax.numpy.float64", "torch.float64", "torch.double"}
 _F32_NAMES = {"np.float32", "numpy.float32", "jnp.float32",
-              "jax.numpy.float32"}
-_BF16_NAMES = {"jnp.bfloat16", "jax.numpy.bfloat16"}
+              "jax.numpy.float32", "torch.float32", "torch.float"}
+_BF16_NAMES = {"jnp.bfloat16", "jax.numpy.bfloat16", "torch.bfloat16"}
 # int8 is split out of the generic int bucket (round 22): it is the
 # quantized-weight storage dtype and QT001 tracks where it may leave
-_I8_NAMES = {"np.int8", "numpy.int8", "jnp.int8", "jax.numpy.int8"}
+_I8_NAMES = {"np.int8", "numpy.int8", "jnp.int8", "jax.numpy.int8",
+             "torch.int8"}
 _INT_NAMES = {"np.int16", "np.int32", "np.int64", "np.intp",
               "np.uint8", "np.uint16", "np.uint32", "np.uint64",
               "jnp.int16", "jnp.int32", "jnp.int64",
-              "numpy.int32", "numpy.int64", "int"}
+              "numpy.int32", "numpy.int64", "int",
+              "torch.int16", "torch.int32", "torch.int64", "torch.long",
+              "torch.int", "torch.short", "torch.uint8"}
 # methods that preserve array identity closely enough to carry taint
 _TAINT_PRESERVING_METHODS = {"astype", "copy", "reshape", "view",
                              "block_until_ready"}
+
+# -- torch vocabulary (the port's tensors) ----------------------------------
+#
+# Every torch fact is gated on ``AbsVal.torch``, which only torch calls
+# and tensor methods set, so JAX code analyzes exactly as before.
+# constructors: the device= keyword decides the domain (none: the CPU)
+_TORCH_CTORS = {"zeros", "ones", "empty", "full", "rand", "randn",
+                "randint", "arange", "linspace", "eye", "tensor",
+                "as_tensor", "zeros_like", "ones_like", "empty_like",
+                "full_like", "rand_like", "randn_like"}
+# tensor methods that read the value back to the host (JX007 crossings)
+_TORCH_READBACKS = {"cpu", "tolist", "numpy"}
+# tensor methods that convert the dtype, by the dtype they convert to
+# (the lattice's one 16-bit float member stands for half too)
+_TORCH_CASTS = {"float": "f32", "half": "bf16", "bfloat16": "bf16",
+                "double": "f64", "long": "int", "int": "int"}
+# torch's matmul family: an int8 operand here skipped the dequant (QT001)
+_TORCH_MATMULS = {"matmul", "mm", "bmm", "einsum", "linear", "mv", "dot",
+                  "addmm", "baddbmm", "tensordot"}
+
+
+def _device_domain(node: ast.AST) -> str:
+    """The domain a ``device=`` / ``.to(...)`` argument names: a literal
+    "cpu" (or ``torch.device("cpu")``) is the host, any other device
+    expression the card (the port's entry points default to CUDA)."""
+    if isinstance(node, ast.Call) and call_name(node.func) == \
+            "torch.device" and node.args:
+        node = node.args[0]
+    if isinstance(node, ast.Constant):
+        if node.value is None:
+            return "host"
+        if isinstance(node.value, str):
+            return "host" if node.value.startswith("cpu") else "device"
+    return "device"
 
 # hot zones a dense F-trailing value must never reach (DN002): the
 # sparse-first streaming trainer, the whole serving plane, the whole
@@ -340,6 +387,7 @@ class Crossing:
     node: ast.AST
     kind: str                    # "np.asarray", "float()", ".item()", ...
     arg_domain: str
+    torch: bool = False          # the argument is a torch tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -428,6 +476,13 @@ class ValueFlow:
         self._cls: str | None = None
         self._self_name = ""
         self._key: FuncKey | None = None
+        self._nested = 0             # inside a nested captured body
+
+        # the nested defs and lambdas handed to a CUDA-graph capture or
+        # torch.compile run as code of their own: their bodies are
+        # analyzed in the enclosing function's environment (no other
+        # nested body is, so JAX code analyzes as before)
+        self._captured_bodies = captured_scope(project).bodies
 
         self._syntactic_pass()
         self._fixpoint()
@@ -454,6 +509,13 @@ class ValueFlow:
                 if not isinstance(node, ast.Call):
                     continue
                 dotted = call_name(node.func)
+                if isinstance(node.func, ast.Attribute) and (
+                        (node.func.attr == "double" and not node.args)
+                        or (node.func.attr == "to" and any(
+                            _dtype_of_annotation(a) == "f64"
+                            for a in node.args))):
+                    self.f64_casts.append(F64Cast(
+                        sf.rel, node, f"{node.func.attr}(float64)"))
                 if dotted is None:
                     if (isinstance(node.func, ast.Attribute)
                             and node.func.attr == "astype" and node.args
@@ -565,6 +627,10 @@ class ValueFlow:
             self._exec_stmt(stmt, env)
 
     def _exec_stmt(self, stmt: ast.stmt, env: dict[str, AbsVal]) -> None:
+        if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef)) and \
+                id(stmt) in self._captured_bodies:
+            self._exec_nested(stmt.body, stmt.args, env)
+            return
         if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef,
                              ast.ClassDef)):
             return
@@ -582,7 +648,7 @@ class ValueFlow:
         elif isinstance(stmt, ast.Return):
             if stmt.value is not None:
                 val = self._eval(stmt.value, env)
-                if self._key is not None:
+                if self._key is not None and not self._nested:
                     prev = self._rets.get(self._key, BOTTOM)
                     new = prev.join(val)
                     if new != prev:
@@ -629,6 +695,24 @@ class ValueFlow:
                 self._merge_envs(env, env, he)
             self._exec_block(stmt.orelse, env)
             self._exec_block(stmt.finalbody, env)
+
+    def _exec_nested(self, body, args: ast.arguments,
+                     env: dict[str, AbsVal]) -> AbsVal | None:
+        """A captured nested body (a def's statements, or a lambda's
+        expression) in a copy of the enclosing environment, its own
+        parameters unknown; returns a lambda's value."""
+        inner = dict(env)
+        for a in (list(args.posonlyargs) + list(args.args)
+                  + list(args.kwonlyargs)):
+            inner[a.arg] = NEUTRAL
+        self._nested += 1
+        try:
+            if isinstance(body, list):
+                self._exec_block(body, inner)
+                return None
+            return self._eval(body, inner)
+        finally:
+            self._nested -= 1
 
     @staticmethod
     def _merge_envs(dst: dict[str, AbsVal], a: dict[str, AbsVal],
@@ -778,6 +862,9 @@ class ValueFlow:
                 self._eval(node.orelse, env))
         if isinstance(node, ast.Starred):
             return self._eval(node.value, env)
+        if isinstance(node, ast.Lambda) and id(node) in self._captured_bodies:
+            self._exec_nested(node.body, node.args, env)
+            return NEUTRAL
         if isinstance(node, (ast.ListComp, ast.SetComp, ast.DictComp,
                              ast.GeneratorExp, ast.Lambda, ast.JoinedStr,
                              ast.Dict, ast.Set, ast.Await, ast.Yield,
@@ -864,6 +951,13 @@ class ValueFlow:
                     self._note_i8_hazard(node, f"astype:{dtype}")
             return dataclasses.replace(recv, dtype=dtype, elts=None)
 
+        if self._is_torch_call(dotted):
+            return self._eval_torch_call(node, dotted, arg_vals)
+        if isinstance(node.func, ast.Attribute):
+            val = self._eval_tensor_method(node, env)
+            if val is not None:
+                return val
+
         if dotted is not None:
             if dotted in NP_ALLOCS or dotted in JNP_ALLOCS:
                 return self._eval_alloc(node, dotted, env)
@@ -892,6 +986,9 @@ class ValueFlow:
                 if dotted == "float" and not isinstance(
                         node.args[0], ast.Constant):
                     self._note_crossing(node, "float()", src)
+                elif src.torch:
+                    # int()/bool() of a torch tensor read it back too
+                    self._note_crossing(node, f"{dotted}()", src)
                 return AbsVal(dtype={"float": "wfloat", "int": "wint",
                                      "bool": "bool"}[dotted],
                               domain="host")
@@ -927,7 +1024,133 @@ class ValueFlow:
                 width = any(v.width for v in arg_vals)
                 return AbsVal(dtype=dtype, domain="device", width=width)
 
+        # an nn.Module (or any callable) moved to the card answers there
+        callee = self._peek(node.func, env)
+        if callee.torch and callee.domain == "device":
+            return AbsVal(domain="device", torch=True)
         return NEUTRAL
+
+    # -- torch vocabulary -------------------------------------------------
+
+    def _is_torch_call(self, dotted: str | None) -> bool:
+        """``torch.*``, or a name the file imports from torch
+        (``import torch.nn.functional as F``)."""
+        if dotted is None or "." not in dotted:
+            return False
+        head = dotted.split(".", 1)[0]
+        if head == "torch":
+            return True
+        entry = self.graph._imports.get(self._rel, {}).get(head)
+        return entry is not None and entry[1][:1] == ("torch",)
+
+    def _eval_torch_call(self, node: ast.Call, dotted: str,
+                         arg_vals: list[AbsVal]) -> AbsVal:
+        tail = dotted.rsplit(".", 1)[-1]
+        if dotted == "torch.cuda.synchronize":
+            self._note_crossing(node, "torch.cuda.synchronize()",
+                                AbsVal(domain="device", torch=True))
+            return NEUTRAL
+        if dotted.startswith(("torch.cuda.", "torch.distributed.",
+                              "torch.backends.")):
+            return NEUTRAL
+        if tail in _TORCH_MATMULS and any(v.dtype == "i8"
+                                          for v in arg_vals):
+            self._note_i8_hazard(node, tail)
+        dtype = TOP
+        for kw in node.keywords:
+            if kw.arg == "dtype":
+                dtype = _dtype_of_annotation(kw.value)
+        if tail.endswith("_like") and arg_vals and dtype == TOP:
+            dtype = arg_vals[0].dtype
+        if dotted.startswith("torch.ops."):
+            return AbsVal(dtype=dtype, domain="device", torch=True)
+        device = next((kw.value for kw in node.keywords
+                       if kw.arg == "device"), None)
+        if device is not None:
+            domain = _device_domain(device)
+        elif tail == "from_numpy":
+            domain = "host"
+            dtype = arg_vals[0].dtype if arg_vals else TOP
+        elif tail in _TORCH_CTORS and not tail.endswith("_like"):
+            domain = "host"
+        else:
+            domain = BOT
+            for v in arg_vals:
+                domain = ("device" if "device" in (domain, v.domain)
+                          else _join_flat(domain, v.domain))
+            if domain == BOT:
+                domain = TOP
+        return AbsVal(dtype=dtype, domain=domain, torch=True,
+                      width=any(v.width for v in arg_vals))
+
+    def _peek(self, node: ast.AST, env: dict[str, AbsVal]) -> AbsVal:
+        """A name's or ``self.`` attribute's value, recording no fact."""
+        if isinstance(node, ast.Name):
+            val = env.get(node.id)
+            return val if val is not None else (
+                self._lookup_global(node.id) or NEUTRAL)
+        if (isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name) and self._self_name
+                and node.value.id == self._self_name):
+            return self._attrs.get((self._rel, self._cls, node.attr),
+                                   NEUTRAL)
+        return NEUTRAL
+
+    def _is_tensor(self, node: ast.AST, env: dict[str, AbsVal]) -> bool:
+        """Whether ``node`` is a torch tensor, decided without evaluating
+        it (so a non-torch receiver is analyzed as before)."""
+        while isinstance(node, ast.Subscript):
+            node = node.value
+        if isinstance(node, ast.Call):
+            if self._is_torch_call(call_name(node.func)):
+                return True
+            return (isinstance(node.func, ast.Attribute)
+                    and (node.func.attr in ("cuda", "to")
+                         or self._is_tensor(node.func.value, env)))
+        return self._peek(node, env).torch
+
+    def _eval_tensor_method(self, node: ast.Call,
+                            env: dict[str, AbsVal]) -> AbsVal | None:
+        """A method of a torch tensor (``.cuda()`` and ``.to(...)`` in a
+        module that imports torch make one); None for any other
+        receiver."""
+        attr = node.func.attr
+        imports_torch = "torch" in self.graph._imports.get(self._rel, {})
+        if not (self._is_tensor(node.func.value, env)
+                or (attr in ("cuda", "to") and imports_torch)):
+            return None
+        recv = self._eval(node.func.value, env)
+        if attr == "cuda":
+            return dataclasses.replace(recv, domain="device", torch=True,
+                                       elts=None)
+        if attr == "to":
+            dtype, domain = recv.dtype, recv.domain
+            for a in list(node.args) + [kw.value for kw in node.keywords
+                                        if kw.arg in ("device", "dtype")]:
+                named = _dtype_of_annotation(a)
+                if named != TOP:
+                    dtype = named
+                elif not isinstance(a, ast.Constant) or isinstance(
+                        a.value, str):
+                    domain = _device_domain(a)
+            self._note_i8_cast(node, recv, dtype, f"to:{dtype}")
+            return dataclasses.replace(recv, dtype=dtype, domain=domain,
+                                       torch=True, elts=None)
+        if attr in _TORCH_CASTS and not node.args:
+            dtype = _TORCH_CASTS[attr]
+            self._note_i8_cast(node, recv, dtype, f"{attr}()")
+            return dataclasses.replace(recv, dtype=dtype, elts=None)
+        if attr in _TORCH_READBACKS and not node.args:
+            self._note_crossing(node, f".{attr}()", recv)
+            return dataclasses.replace(recv, domain="host",
+                                       torch=attr == "cpu", elts=None)
+        return dataclasses.replace(recv, dtype=TOP, elts=None)
+
+    def _note_i8_cast(self, node: ast.AST, recv: AbsVal, dtype: str,
+                      why: str) -> None:
+        if recv.dtype == "i8" and dtype in _FLOATS:
+            # a raw cast of an int8 weight drops its per-channel scale
+            self._note_i8_hazard(node, why)
 
     def _eval_alloc(self, node: ast.Call, dotted: str,
                     env: dict[str, AbsVal]) -> AbsVal:
@@ -1002,7 +1225,7 @@ class ValueFlow:
     def _note_crossing(self, node: ast.AST, kind: str,
                        src: AbsVal) -> None:
         self.crossings.append(Crossing(
-            self._key, self._rel, node, kind, src.domain))
+            self._key, self._rel, node, kind, src.domain, src.torch))
 
     # -- queries ----------------------------------------------------------
 

@@ -32,13 +32,14 @@ detection.  They match source text and import no JAX.  JX003, JX007 and
 QT001 read torch code as written: ``.item()``, ``float()``, ``bool()`` and
 ``np.asarray`` in a loop of a hot module are the same host syncs on a CUDA
 tensor, and an int8 value meeting float math is the same hazard.  JX007
-and QT001 ride graftflow, whose lattice knows ``jnp.*``/``jax.*`` device
-values and numpy/jnp int8 (``dataflow.py``), so in torch code they see
-only what that vocabulary names; torch's device and ``torch.int8``
-vocabulary is ROADMAP item 12b.  JX001, JX002, JX004, JX005 and JX006
-match only ``jax.jit``/``pjit`` sites and ``NamedSharding``, so they find
-nothing in torch code; their counterparts on CUDA-graph captures and
-``torch.compile`` are item 12b too.
+and QT001 ride graftflow, whose lattice knows torch's device values, host
+syncs and ``torch.int8`` beside ``jnp.*``/``jax.*`` and numpy's
+(``dataflow.py``); JX007 also takes the port's captured code
+(``captured.captured_scope``) as entry points, where any host sync
+fails the capture.  JX001, JX002, JX004, JX005 and JX006 match only
+``jax.jit``/``pjit`` sites and ``NamedSharding``, so they find nothing in
+torch code; the TX pack (``rules_torch.py``) is their counterpart on
+CUDA-graph captures and ``torch.compile``.
 """
 
 from __future__ import annotations
@@ -50,16 +51,9 @@ from deeprest_tpu_torch.analysis.core import (
     Finding, Project, Rule, SourceFile, call_name, enclosing_function_scopes,
     in_loop, is_jit_call, register, scope_bound_names, walk_no_nested_scopes,
 )
-
-# Identifiers that, in this codebase, always name device-resident model
-# state (trained parameters, optimizer state, weights).
-_PARAMISH = ("param", "params", "state", "weight", "weights", "theta")
-
-
-def _name_is_paramish(name: str) -> bool:
-    parts = name.lower().strip("_").split("_")
-    return any(p in _PARAMISH for p in parts)
-
+from deeprest_tpu_torch.analysis.captured import (
+    captured_scope, in_scope, name_is_paramish,
+)
 
 def _jitted_functions(sf: SourceFile) -> list[tuple[ast.AST, ast.AST]]:
     """Every function handed to jax.jit/pjit in this file, with the call
@@ -185,7 +179,7 @@ class JX001ClosureCapturedParams(Rule):
             hit: ast.AST | None = None
             why = ""
             if (isinstance(node, ast.Name) and isinstance(node.ctx, ast.Load)
-                    and _name_is_paramish(node.id)
+                    and name_is_paramish(node.id)
                     and is_closure(node.id)):
                 hit, why = node, f"closure variable {node.id!r}"
             elif isinstance(node, ast.Attribute):
@@ -195,7 +189,7 @@ class JX001ClosureCapturedParams(Rule):
                     base = base.value
                 if (isinstance(base, ast.Name) and base.id != "self"
                         and is_closure(base.id)
-                        and any(_name_is_paramish(a) for a in chain)):
+                        and any(name_is_paramish(a) for a in chain)):
                     dotted = ".".join([base.id] + list(reversed(chain)))
                     hit, why = node, f"closure attribute chain {dotted!r}"
                     # don't also report the chain's inner Attribute nodes
@@ -573,13 +567,6 @@ def _jit_scope_nodes(project: Project) -> dict[str, set[int]]:
     return scopes
 
 
-def _in_scope(sf: SourceFile, node: ast.AST,
-              scope_ids: set[int]) -> bool:
-    if id(node) in scope_ids:
-        return True
-    return any(id(a) in scope_ids for a in sf.ancestors(node))
-
-
 @register
 class JX006DtypePromotionInJit(Rule):
     id = "JX006"
@@ -621,7 +608,7 @@ class JX006DtypePromotionInJit(Rule):
             if not ids or c.has_dtype:
                 continue
             sf = project.by_rel[c.rel]
-            if not _in_scope(sf, c.node, ids):
+            if not in_scope(sf, c.node, ids):
                 continue
             f = emit(c.rel, c.node,
                      f"{c.dotted}(...) without an explicit dtype inside "
@@ -636,7 +623,7 @@ class JX006DtypePromotionInJit(Rule):
             if not ids:
                 continue
             sf = project.by_rel[cast.rel]
-            if not _in_scope(sf, cast.node, ids):
+            if not in_scope(sf, cast.node, ids):
                 continue
             f = emit(cast.rel, cast.node,
                      f"explicit float64 widening ({cast.why}) inside "
@@ -650,7 +637,7 @@ class JX006DtypePromotionInJit(Rule):
             if not ids:
                 continue
             sf = project.by_rel[p.rel]
-            if not _in_scope(sf, p.node, ids):
+            if not in_scope(sf, p.node, ids):
                 continue
             if "f64" in (p.left, p.right):
                 msg = (f"{p.left} x {p.right} promotion inside "
@@ -699,17 +686,23 @@ class JX007TransitiveHostDeviceCrossing(Rule):
         return any(parts[-len(s):] == s for s in cls.ENTRY_SUFFIXES
                    if len(parts) >= len(s))
 
+    # crossings that read a tensor back whatever its domain proves: in
+    # captured code each one fails the capture unless the value is host
+    CAPTURE_READBACKS = (".item()", ".cpu()", ".tolist()", ".numpy()",
+                         "torch.cuda.synchronize()")
+
     def run(self, project: Project) -> Iterator[Finding]:
         from deeprest_tpu_torch.analysis.dataflow import ValueFlow
 
         flow = ValueFlow.of(project)
+        seen: set[tuple[str, int, int]] = set()
+        yield from self._captured(project, flow, seen)
         graph = project.call_graph()
         seeds = [k for k in graph.functions if self._is_entry_rel(k.rel)]
         if not seeds:
             return
         reach = graph.reachable(seeds)
         jx003 = JX003ReadbackInHotLoop()
-        seen: set[tuple[str, int, int]] = set()
         for c in flow.crossings:
             if c.key is None or c.key not in reach:
                 continue
@@ -733,6 +726,38 @@ class JX007TransitiveHostDeviceCrossing(Rule):
                 "sync stalling the pipeline; accumulate on device and "
                 "read back once after the loop (or suppress with a "
                 "reason if this is the designed sink)")
+
+    def _captured(self, project: Project, flow, seen) -> Iterator[Finding]:
+        """The capture arm: the port's captured code (rules_torch) is a
+        second set of entry points, where any crossing fires, loop or
+        not — a host sync cannot be recorded into a CUDA graph, so the
+        capture fails at run time."""
+
+        scope = captured_scope(project)
+        if not scope.ids:
+            return
+        for c in flow.crossings:
+            sf = project.by_rel.get(c.rel)
+            if sf is None or not scope.contains(sf, c.node):
+                continue
+            if c.kind in self.CAPTURE_READBACKS:
+                if c.arg_domain == "host":
+                    continue
+            elif c.arg_domain != "device":
+                continue
+            dk = (c.rel, getattr(c.node, "lineno", 0),
+                  getattr(c.node, "col_offset", 0))
+            if dk in seen:
+                continue
+            seen.add(dk)
+            yield sf.finding(
+                c.node, self.id,
+                f"{c.kind} inside captured code (a body handed to a "
+                "CUDA-graph capture or torch.compile, or a function it "
+                "reaches): a device→host sync cannot be recorded into a "
+                "graph, so the capture fails at run time "
+                "(GraphCaptureError names this line); read the value back "
+                "after the replay")
 
 
 @register

@@ -58,7 +58,9 @@ import torch
 
 from deeprest_tpu_torch.device import resolve_device
 from deeprest_tpu_torch.ops import cuda_gru
-from deeprest_tpu_torch.ops.gru import GRUParams, gru, gru_coalesced
+from deeprest_tpu_torch.ops.gru import (
+    GRUParams, gru, gru_coalesced, init_gru_params,
+)
 
 # the module, not the function that deeprest_tpu_torch.ops re-exports
 gru_mod = importlib.import_module("deeprest_tpu_torch.ops.gru")
@@ -123,14 +125,6 @@ def recurrence_args(e: int, t: int, rows: int, h: int, device,
 def to_bf16(args):
     proj, w, b, h0 = args
     return proj.to(torch.bfloat16), w.to(torch.bfloat16), b, h0
-
-
-def gru_params(e: int, f: int, h: int, device, seed: int) -> GRUParams:
-    rng = np.random.default_rng(seed)
-    k = 1.0 / np.sqrt(h)
-    return GRUParams(*[
-        torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32)).to(device)
-        for s in ((e, f, 3 * h), (e, h, 3 * h), (e, 3 * h), (e, 3 * h))])
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -217,9 +211,8 @@ def bidir_check(device, e: int, b: int, t: int, f: int, h: int, dtype,
     on, the default dispatch: the kernels on a card, the plain path on the
     CPU), each against the unfused plain path, with the K1 launches each
     made."""
-    fwd = gru_params(e, f, h, device, seed=1)
-    bwd = gru_params(e, f, h, device, seed=2)
-    fwd, bwd = (GRUParams(*[w.to(dtype) for w in p]) for p in (fwd, bwd))
+    fwd = init_gru_params(1, e, f, h, dtype, device=device)
+    bwd = init_gru_params(2, e, f, h, dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(3)
     x = torch.randn((b, t, f), generator=gen, device=device).to(dtype)
     out = {"shape": {"E": e, "B": b, "T": t, "F": f, "H": h},
@@ -244,8 +237,8 @@ def coalesce_plain_sweep(device, e: int, b: int, t: int, f: int, h: int,
     """G independent b-row window batches as ONE G·b-row fwd+bwd against G
     sequential calls, on the default dispatch (the plain recurrence on the
     CPU), host clock."""
-    params = GRUParams(*[w.requires_grad_(True)
-                         for w in gru_params(e, f, h, device, seed=0)])
+    params = GRUParams(*[w.requires_grad_(True) for w in
+                         init_gru_params(0, e, f, h, device=device)])
     gen = torch.Generator(device=device).manual_seed(0)
     out = {"shape": {"B": b, "T": t, "F": f, "E": e, "H": h},
            "iters": iters, "recurrence": "plain"}

@@ -81,3 +81,11 @@ def minmax_fit(x: np.ndarray, split: int,
         mx = np.max(train, axis=axis, keepdims=True).astype(np.float32)
         mn, mx = mn[0], mx[0]
     return MinMaxStats(min=mn, max=mx)
+
+
+def minmax_apply(x: np.ndarray, stats: MinMaxStats) -> np.ndarray:
+    return stats.apply(x)
+
+
+def minmax_invert(x: np.ndarray, stats: MinMaxStats) -> np.ndarray:
+    return stats.invert(x)

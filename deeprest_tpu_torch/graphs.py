@@ -54,10 +54,13 @@ class CapturedGraph:
 
 def _failing_op(exc: BaseException) -> str:
     """``file:line (function: source)`` of the innermost frame of the
-    port's code in ``exc``'s traceback (of any frame if none is the
-    port's)."""
+    port's code in ``exc``'s traceback, this module's own frames (the
+    capture around the body) left out; of any frame if none is the
+    port's."""
     frames = traceback.extract_tb(exc.__traceback__)
-    ours = [f for f in frames if "deeprest_tpu_torch" in f.filename]
+    here = os.path.abspath(__file__)
+    ours = [f for f in frames if "deeprest_tpu_torch" in f.filename
+            and os.path.abspath(f.filename) != here]
     frame = (ours or frames)[-1] if frames else None
     if frame is None:
         return "an unknown op"

@@ -67,7 +67,7 @@ from deeprest_tpu_torch.parallel.collectives import (
 )
 from deeprest_tpu_torch.parallel.mesh import hold_groups
 from deeprest_tpu_torch.parallel.sharding import (
-    box_slices, rank_box, spec_of,
+    box_slices, expert_feature_box, rank_box, spec_of,
 )
 
 MASK_PARAM_NAMES = ("mask_w1", "mask_b1", "mask_w2", "mask_b2")
@@ -220,8 +220,7 @@ class QuantileGRU(nn.Module):
             (mesh.config.expert == 1 or self.expert_group is not None)
             and (mesh.config.model == 1 or self.model_group is not None))
         # this rank's experts and columns of F (the whole without a mesh)
-        e_box, f_box = rank_box(mesh, ("expert", "model"),
-                                (config.num_metrics, config.feature_dim)) \
+        e_box, f_box = expert_feature_box(mesh, shapes["mask_w2"]) \
             if mesh is not None else ((0, config.num_metrics),
                                       (0, config.feature_dim))
         self.experts = slice(*e_box)

@@ -8,6 +8,7 @@ from deeprest_tpu_torch.ops.gru import (
     bidirectional_gru_coalesced,
     gru,
     gru_coalesced,
+    init_gru_params,
 )
 from deeprest_tpu_torch.ops.quantile import pinball_loss
 
@@ -18,5 +19,6 @@ __all__ = [
     "gru_coalesced",
     "bidirectional_gru",
     "bidirectional_gru_coalesced",
+    "init_gru_params",
     "pinball_loss",
 ]

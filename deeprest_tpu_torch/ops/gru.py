@@ -87,6 +87,31 @@ def resolve_weights(params: GRUParams) -> GRUParams:
     return params
 
 
+def init_gru_params(key, num_experts: int, input_size: int,
+                    hidden_size: int, dtype: torch.dtype = torch.float32,
+                    device=None) -> GRUParams:
+    """Uniform(-1/sqrt(H), 1/sqrt(H)) init, the torch GRU default, on
+    ``device`` (None: CUDA).  ``key`` is a numpy seed or
+    ``np.random.Generator``; the JAX package's function draws the same
+    distribution from its own PRNG, so the two agree in shapes, dtypes and
+    bounds, not in values."""
+    import numpy as np
+
+    from deeprest_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(key)
+    k = 1.0 / np.sqrt(hidden_size)
+    shapes = [(num_experts, input_size, 3 * hidden_size),
+              (num_experts, hidden_size, 3 * hidden_size),
+              (num_experts, 3 * hidden_size),
+              (num_experts, 3 * hidden_size)]
+    return GRUParams(*[
+        torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32)).to(
+            device=dev, dtype=dtype)
+        for s in shapes])
+
+
 def _project(params: GRUParams, x: torch.Tensor,
              tp_group=None) -> torch.Tensor:
     """``x @ W_ih + b_ih`` → contiguous ``[E, T, B, 3H]`` in the

@@ -40,6 +40,7 @@ def pinball_loss(preds: torch.Tensor, targets: torch.Tensor,
     pred``.
     """
     q = (quantiles.to(preds.dtype) if isinstance(quantiles, torch.Tensor)
+         # graftlint: disable=TX006 -- host callers only: the captured update passes the quantiles as a device tensor (Trainer._quantiles), which the branch above takes
          else torch.as_tensor(quantiles, dtype=preds.dtype,
                               device=preds.device))
     err = targets[..., None] - preds                        # [B, T, E, Q]

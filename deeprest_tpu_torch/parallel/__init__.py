@@ -81,3 +81,26 @@ __all__ = [
     "stage_plan",
     "stage_sparse_base",
 ]
+
+# The JAX package's names with no counterpart of that name on
+# torch.distributed, by the port's object (under deeprest_tpu_torch) that
+# does their job: the four build a ``NamedSharding`` (a placement GSPMD
+# reads), where a rank here holds its box of every leaf or batch, and the
+# host-to-device prefetch is the trainer's pinned ring.  Reading one raises
+# AttributeError naming its counterpart.
+JAX_COUNTERPARTS = {
+    "state_sharding": "parallel.state_specs",
+    "param_sharding": "parallel.param_specs",
+    "batch_sharding": "parallel.process_batch_slice",
+    "shard_batch": "parallel.feed_global_batch",
+    "prefetch_to_device": "train.graphs.HostFeed",
+}
+
+
+def __getattr__(name: str):
+    if name in JAX_COUNTERPARTS:
+        raise AttributeError(
+            f"{__name__}.{name} is the JAX package's; on torch.distributed "
+            f"its counterpart is deeprest_tpu_torch."
+            f"{JAX_COUNTERPARTS[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

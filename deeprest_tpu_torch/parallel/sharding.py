@@ -145,6 +145,16 @@ def rank_box(mesh, spec: Spec, shape: Sequence[int],
     return tuple(box)
 
 
+def expert_feature_box(mesh, mask_w2_shape: Sequence[int]
+                       ) -> tuple[tuple[int, int], tuple[int, int]]:
+    """This rank's experts and columns of F, as the table places them:
+    the expert axis every leaf leads with, and the F axis of the mask's
+    output, ``mask_w2`` of global shape ``(E, H, F)``."""
+    spec = spec_of("mask_w2", mask_w2_shape)
+    e, _, f = (int(d) for d in mask_w2_shape)
+    return rank_box(mesh, (spec[0], spec[2]), (e, f), "experts x features")
+
+
 def box_slices(box) -> tuple[slice, ...]:
     return tuple(slice(lo, hi) for lo, hi in box)
 

@@ -144,6 +144,10 @@ def rolled_prediction_reference(
     return out
 
 
+# The JAX package's historical name for the host loop.
+rolled_prediction = rolled_prediction_reference
+
+
 def _spans_ranks(predictor) -> bool:
     """Whether ``predictor`` is on a mesh of more than one rank."""
     mesh = getattr(predictor, "mesh", None)

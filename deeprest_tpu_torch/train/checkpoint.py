@@ -15,10 +15,12 @@ other, in either package.  Dtypes that ``.npy`` cannot hold, such as bfloat16, a
 a same-width unsigned integer view with the real dtype named in the
 manifest; the reader turns them back into torch tensors without ml_dtypes.
 
-:func:`load_params` returns the ``params/*`` leaves of a checkpoint and
+:func:`load_params` returns the ``params/*`` leaves of a checkpoint,
 :func:`load_leaves` any leaves by name prefix (the trainer's resume reads
 ``step`` and the optimizer state ``opt_state/0/{mu,nu}/*``,
-``opt_state/0/count``, from a checkpoint either package wrote).
+``opt_state/0/count``, from a checkpoint either package wrote), and
+:func:`restore_checkpoint` the leaves a target state names, shaped like
+it.
 :func:`save_checkpoint` writes params plus the sidecar in the same layout,
 one shard per leaf, with any other leaves a caller names beside them (the
 trainer writes the step, the optimizer state and rng under the JAX
@@ -42,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from deeprest_tpu_torch.parallel.sharding import (
-    all_boxes, rank_box, replica_writer, spec_of,
+    all_boxes, leaf_path_name, rank_box, replica_writer, spec_of,
 )
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -158,15 +160,10 @@ def _assemble(arrays_dir: str, entry: dict, box=None) -> torch.Tensor:
     return _to_torch(out, entry["dtype"])
 
 
-def load_leaves(directory: str, step: int | None = None,
-                prefix: str = "", box_of=None) -> dict[str, torch.Tensor]:
-    """Every leaf of one checkpoint step whose "/"-joined name starts with
-    ``prefix``, by its name with the prefix cut, as CPU tensors in their
-    stored dtypes.  ``box_of(name, shape)`` (the leaf's full name and
-    global shape → a ``[(lo, hi), ...]`` box, or None for the whole) cuts
-    each leaf's box from the boxes on disk, a rank's restore on a mesh.
-    A shard that is missing, torn or short raises ValueError naming its
-    leaf."""
+def _manifest(directory: str, step: int | None
+              ) -> tuple[int, str, dict]:
+    """``(step, its arrays directory, its manifest)``; the newest step
+    when ``step`` is None."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -177,7 +174,19 @@ def load_leaves(directory: str, step: int | None = None,
     if manifest.get("format") != _FORMAT:
         raise ValueError(f"unknown checkpoint format "
                          f"{manifest.get('format')!r} at {path}")
-    arrays_dir = os.path.join(path, "arrays")
+    return step, os.path.join(path, "arrays"), manifest
+
+
+def load_leaves(directory: str, step: int | None = None,
+                prefix: str = "", box_of=None) -> dict[str, torch.Tensor]:
+    """Every leaf of one checkpoint step whose "/"-joined name starts with
+    ``prefix``, by its name with the prefix cut, as CPU tensors in their
+    stored dtypes.  ``box_of(name, shape)`` (the leaf's full name and
+    global shape → a ``[(lo, hi), ...]`` box, or None for the whole) cuts
+    each leaf's box from the boxes on disk, a rank's restore on a mesh.
+    A shard that is missing, torn or short raises ValueError naming its
+    leaf."""
+    _, arrays_dir, manifest = _manifest(directory, step)
     return {e["name"][len(prefix):]: _assemble(
                 arrays_dir, e,
                 None if box_of is None else box_of(e["name"],
@@ -195,6 +204,47 @@ def load_params(directory: str, step: int | None = None, box_of=None
         raise ValueError(f"checkpoint under {directory!r} holds no params/* "
                          "leaves")
     return params
+
+
+def restore_checkpoint(directory: str, target: Any,
+                       step: int | None = None) -> tuple[Any, dict | None]:
+    """The state of one checkpoint step shaped like ``target``, and its
+    sidecar (``deeprest_tpu/train/checkpoint.py::restore_checkpoint``).
+
+    ``target`` is a nested mapping (lists and tuples too) of tensors or
+    arrays whose "/"-joined key paths name the leaves (``{"params":
+    {"mask_w1": ...}, "step": ...}`` reads ``params/mask_w1`` and
+    ``step``); each leaf comes back as a tensor of its stored dtype on the
+    target leaf's device (the CPU for an array).  A missing leaf raises
+    KeyError, a shape that differs from the target's ValueError.  (A rank
+    of a sharded mesh reads its boxes with :func:`load_leaves`.)"""
+    step, arrays_dir, manifest = _manifest(directory, step)
+    by_name = {e["name"]: e for e in manifest["leaves"]}
+
+    def restore(node, path: tuple):
+        if isinstance(node, Mapping):
+            return {k: restore(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(restore(v, path + (i,))
+                              for i, v in enumerate(node))
+        name = leaf_path_name(path)
+        entry = by_name.get(name)
+        if entry is None:
+            raise KeyError(f"checkpoint step {step} under {directory!r} "
+                           f"has no leaf {name!r} (saved leaves: "
+                           f"{sorted(by_name)[:8]}...)")
+        shape = tuple(entry["shape"])
+        if shape != tuple(np.shape(node)):
+            raise ValueError(f"checkpoint leaf {name!r} shape {shape} != "
+                             f"target {tuple(np.shape(node))} "
+                             "(architecture drift?)")
+        leaf = _assemble(arrays_dir, entry)
+        if isinstance(node, torch.Tensor):
+            leaf = leaf.to(node.device)
+        return leaf
+
+    return (restore(target, ()),
+            load_sidecar(directory, step, missing_ok=True))
 
 
 def _has_full_cursor(extra: dict | None) -> bool:

@@ -308,14 +308,15 @@ class Trainer:
         if mesh.config.expert > 1 or mesh.config.model > 1:
             from deeprest_tpu_torch.models.qrnn import param_shapes
             from deeprest_tpu_torch.parallel.sharding import (
-                rank_box, spec_of,
+                expert_feature_box, rank_box, spec_of,
             )
 
             # every leaf's placement first: an axis that does not divide
             # what it shards raises here, naming the leaf
-            for name, shape in param_shapes(self.model_config).items():
+            shapes = param_shapes(self.model_config)
+            for name, shape in shapes.items():
                 rank_box(mesh, spec_of(name, shape), shape, name)
-            ((lo, hi),) = rank_box(mesh, ("expert",), (e,), "metrics")
+            (lo, hi), _ = expert_feature_box(mesh, shapes["mask_w2"])
             if mesh.config.expert > 1:
                 self._experts = slice(lo, hi)
                 self._loss_kw = {"num_metrics": e}

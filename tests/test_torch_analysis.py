@@ -2696,6 +2696,31 @@ def test_gl004_cited_rules_are_silent():
     assert not [f for f in result.findings if f.rule == "GL004"]
 
 
+# ---------------------------------------------------------------------------
+# TX: the port's CUDA-graph pack (rules_torch.py), on the fixture pairs it
+# shares with chip_smoke.py's phase 22 (analysis/torch_fixtures.py; the
+# cross-module pairs and the torch vocabulary of JX007/QT001 are in
+# tests/test_torch_analysis_torch.py)
+
+from deeprest_tpu_torch.analysis import torch_fixtures as _torch_fixtures
+
+TX001_BAD, TX001_GOOD = _torch_fixtures.PAIRS["TX001"][1:]
+TX002_BAD, TX002_GOOD = _torch_fixtures.PAIRS["TX002"][1:]
+TX004_BAD, TX004_GOOD = _torch_fixtures.PAIRS["TX004"][1:]
+TX005_BAD, TX005_GOOD = _torch_fixtures.PAIRS["TX005"][1:]
+TX006_BAD, TX006_GOOD = _torch_fixtures.PAIRS["TX006"][1:]
+
+
+@pytest.mark.parametrize("rule,bad,good", [
+    ("TX001", TX001_BAD, TX001_GOOD), ("TX002", TX002_BAD, TX002_GOOD),
+    ("TX004", TX004_BAD, TX004_GOOD), ("TX005", TX005_BAD, TX005_GOOD),
+    ("TX006", TX006_BAD, TX006_GOOD)])
+def test_tx_pack_fires_on_bad_and_is_silent_on_good(rule, bad, good):
+    fired = lint_sources(bad, rules=[all_rules()[rule]]).findings
+    assert fired and all(f.rule == rule for f in fired)
+    assert not lint_sources(good, rules=[all_rules()[rule]]).findings
+
+
 def test_registry_audit_every_rule_cited_and_fixtured():
     """The GL004 contract, enforced at the registry: every registered
     rule declares its guarded incident AND has a fire+silent fixture

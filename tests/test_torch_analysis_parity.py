@@ -120,19 +120,50 @@ def test_fixtures_fire_the_rules_they_exercise():
     assert len(fired) >= 28, sorted(fired)
 
 
+# the port's own pack (rules_torch.py): the CUDA-graph counterparts of the
+# JX rules with the same numbers, which the JAX package does not have
+TX_IDS = {"TX001", "TX002", "TX004", "TX005", "TX006"}
+
+
 def test_registries_agree():
+    """Every JAX rule is the port's, rule for rule; the port's only other
+    rules are the TX pack's."""
+    from deeprest_tpu_torch.analysis import rules_torch
+
     jax_rules, port_rules = jax_lint.all_rules(), port_lint.all_rules()
-    assert sorted(port_rules) == sorted(jax_rules)
-    assert len(port_rules) == 31
+    assert len(jax_rules) == 31 and len(port_rules) == 36
+    assert sorted(set(port_rules) & set(jax_rules)) == sorted(jax_rules)
+    assert set(port_rules) - set(jax_rules) == TX_IDS
     for rid, rule in jax_rules.items():
         mine = port_rules[rid]
         assert type(mine).__name__ == type(rule).__name__
         assert mine.title == port_wording(rule.title), rid
         assert mine.guards == port_wording(rule.guards), rid
+    for rid in TX_IDS:
+        assert type(port_rules[rid]).__module__ == rules_torch.__name__
+        assert port_rules[rid].title and port_rules[rid].guards, rid
+
+
+def _rule_blocks(rendered: str) -> dict:
+    """``--list-rules`` text → ``{id: its lines}``."""
+    blocks: dict = {}
+    rid = None
+    for line in rendered.splitlines():
+        head = line.split(" ", 1)[0]
+        if re.fullmatch(r"[A-Z]{2}\d{3}", head):
+            rid = head
+        blocks.setdefault(rid, []).append(line)
+    return blocks
 
 
 def test_render_rules_agrees():
-    assert port_lint.render_rules() == port_wording(jax_lint.render_rules())
+    """The catalog is JAX's, line for line, once the TX pack's entries are
+    taken out."""
+    port = _rule_blocks(port_lint.render_rules())
+    jax = _rule_blocks(port_wording(jax_lint.render_rules()))
+    assert set(port) - set(jax) == TX_IDS
+    assert list(jax) == [rid for rid in port if rid not in TX_IDS]
+    assert all(port[rid] == jax[rid] for rid in jax)
 
 
 def _busy_project() -> dict:
