@@ -7256,7 +7256,9 @@ def phase_serve_mesh_plane(serving: dict, trained: str, plane: dict,
     tenant weights, the autoscaler and the fleet (``t1``: phase 6's
     trained checkpoint, a one-device predictor on rank 0's card) at a
     budget of 1, as two spawned gloo ranks sharing the card (eager), on
-    phase 5's flagship; then a process plane on the same mesh.  Its
+    phase 5's flagship; then a process plane on the same mesh.  The mesh
+    ``default`` verifies phase 10's one-device AOT sidecar at its
+    admission (``/healthz`` ``fleet.pool.aot.last_reason``).  Its
     kernels launch in its ranks and workers only; the one-process
     references are :func:`check_serve_mesh_plane`'s, in the
     foreground."""
@@ -7291,6 +7293,14 @@ def phase_serve_mesh_plane(serving: dict, trained: str, plane: dict,
             answers[tenant] = np.asarray(body["predictions"], np.float32)
         status, health = http_json(url + "/healthz")
         graph_counts.append(health["fleet"]["pool"]["jit_cache_size"])
+        # the mesh default's check of phase 10's one-device sidecar
+        aot_reason = health["fleet"]["pool"]["aot"]["last_reason"]
+        print(f"check serve --mesh {label} fleet AOT sidecar (phase 10's "
+              f"export --aot, one device) at the mesh default's admission: "
+              f"{aot_reason}", flush=True)
+        if not str(aot_reason).startswith("manifest verified"):
+            fail(f"phase 21's mesh default did not verify phase 10's "
+                 f"sidecar: {aot_reason}")
         bodies = [raw.encode() if isinstance(raw, str) else raw
                   for raw in plane["bodies"]]
         loads = {conc: tenant_loop(url, bodies, conc,

@@ -199,6 +199,8 @@ class QuantileGRU(nn.Module):
     ``mesh`` (``parallel.make_mesh``) it holds this rank's box of each
     leaf and runs the mesh's collectives (see the module docstring)."""
 
+    config: ModelConfig
+
     def __init__(self, config: ModelConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
@@ -281,6 +283,10 @@ class QuantileGRU(nn.Module):
 
     def params(self) -> dict[str, torch.Tensor]:
         return {name: p for name, p in self.named_parameters()}
+
+    @property
+    def quantiles(self) -> tuple[float, ...]:
+        return self.config.quantiles
 
     def median_index(self) -> int:
         """Index of the quantile nearest .50 in the output's last axis."""

@@ -86,6 +86,13 @@ def quantize_leaf_int8(w: torch.Tensor, group=None) -> QuantTensor:
     return QuantTensor(data=q.to(torch.int8), scale=scale.float())
 
 
+def scale_shape(shape) -> tuple[int, ...]:
+    """The shape of the int8 scale of a weight of ``shape`` ``[..., K, C]``
+    (:func:`quantize_leaf_int8`): the contraction axis K kept as 1."""
+    shape = tuple(int(d) for d in shape)
+    return shape[:-2] + (1,) + shape[-1:]
+
+
 def dequantize(leaf, dtype=None):
     """The one dequant site: a :class:`QuantTensor` re-enters float math
     as ``data * scale`` in f32 (cast to ``dtype`` when given).  Identity

@@ -96,6 +96,28 @@ JAX_COUNTERPARTS = {
     "prefetch_to_device": "train.graphs.HostFeed",
 }
 
+# The public members of the JAX package's classes that are JAX's or flax's
+# own and have no member of that name on the port's class, by
+# "subpackage.Class.member", each with the object (under
+# deeprest_tpu_torch, or torch's own) that does its job.
+JAX_MEMBER_COUNTERPARTS = {
+    # init_state takes params or a seed: a flax init's sample input is
+    # not needed to make the params' shapes
+    "train.Trainer.sample_input": "train.Trainer.init_state",
+    # the port's TrainState is mutable: its step is assigned and its
+    # params are written in place through its module
+    "train.TrainState.replace": "models.QuantileGRU.load_params",
+    # the optax state: Adam over the module's parameters
+    "train.TrainState.opt_state": "train.TrainState.optimizer",
+    # JAX's fold_in(rng, step): each step's dropout stream from the seed
+    "train.TrainState.rng": "train.trainer.dropout_generator",
+    # flax Module internals: a torch module's name is its key among its
+    # parent's children, and its variables are its registered parameters
+    "models.QuantileGRU.name": "torch.nn.Module.named_children",
+    "models.QuantileGRU.parent": "torch.nn.Module.named_children",
+    "models.QuantileGRU.scope": "torch.nn.Module.named_parameters",
+}
+
 
 def __getattr__(name: str):
     if name in JAX_COUNTERPARTS:

@@ -25,10 +25,11 @@ the sidecar holds the manifest alone:
   nothing to load.
 
 Params-agnostic, as in JAX: the fingerprint covers the params tree's leaf
-names, shapes and dtypes, never values, so one manifest serves every
-tenant of the architecture and quant mode.  It replaces JAX's ``jax`` and
-``platform`` with the torch and CUDA versions, the device's name and
-compute capability and the kernel libraries' digests.
+names, global shapes and dtypes, never values, so one manifest serves
+every tenant of the architecture and quant mode, and a sidecar written on
+one device verifies on a mesh plane of the same checkpoint.  It replaces
+JAX's ``jax`` and ``platform`` with the torch and CUDA versions, the
+device's name and compute capability and the kernel libraries' digests.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ import json
 import os
 
 import torch
+
+from deeprest_tpu_torch.models.qrnn import param_shapes
+from deeprest_tpu_torch.ops import quantize as quant_ops
 
 AOT_SUBDIR = "aot"
 MANIFEST_NAME = "manifest.json"
@@ -51,13 +55,28 @@ def aot_dir(checkpoint_dir: str) -> str:
 
 
 def _tree_signature(predictor) -> str:
-    """Stable hash of the weight leaves' names, shapes and dtypes: the
-    graphs are params-agnostic but shape-exact."""
+    """Stable hash of the weight leaves' names, global shapes and dtypes:
+    the graphs are params-agnostic but shape-exact.  The shapes are the
+    whole leaves' (``models.qrnn.param_shapes``; a ``QuantTensor``'s scale
+    by ``ops.quantize.scale_shape``) on any mesh, where a rank holds boxes
+    of them, so a sidecar written on one device verifies on a mesh plane,
+    as JAX's hash of the params' global avals does."""
+    shapes = param_shapes(predictor.model_config)
     h = hashlib.sha1()
     for name, t in sorted(predictor.bound_state().items()):
         if name.startswith("w."):
-            h.update(str((name, tuple(t.shape), str(t.dtype))).encode())
+            h.update(str((name, _global_shape(name[2:], shapes),
+                          str(t.dtype))).encode())
     return h.hexdigest()[:16]
+
+
+def _global_shape(leaf: str, shapes: dict) -> tuple[int, ...]:
+    """The whole shape of a bound weight leaf (``mask_w2``,
+    ``head_w.data``, ``head_w.scale``) from the params' shapes."""
+    name, _, part = leaf.partition(".")
+    if part == "scale":
+        return quant_ops.scale_shape(shapes[name])
+    return tuple(shapes[name])
 
 
 def _kernel_digests() -> dict[str, str]:

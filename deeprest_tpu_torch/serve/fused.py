@@ -562,6 +562,16 @@ class FusedRolledEngine:
             self._dispatched.update(rungs)
         return outs
 
+    def cache_size(self) -> int:
+        """Captured graphs of the dense and sparse fused programs (on the
+        CPU, or with graphs off, the keys dispatched), one a (program,
+        rung): the port's count behind JAX's compiled-executable count,
+        which counts signatures of its one program and so may differ, and
+        like it flat once a mix of calls has run.  It reads the graphs an
+        adopted engine shares with its plane, so any tenant reads the
+        plane's truth."""
+        return self._graphs.size("fused") + self._graphs.size("sparse_fused")
+
     def stats(self) -> dict:
         with self._lock:
             out = {"rungs": list(self.rungs), "page_windows": self.page,

@@ -317,8 +317,7 @@ class RungServing(BatchedBackendMixin, FusedInferenceMixin):
             "apply": self.graphs.size("apply"),
             "apply_sparse": (self.graphs.size("sparse_apply")
                              if self.sparse_feed else None),
-            "fused": (self.graphs.size("fused")
-                      + self.graphs.size("sparse_fused")
+            "fused": (self._fused.cache_size()
                       if self._fused is not None else None),
             "ladder_rungs": len(self.ladder.ladder),
             "fused_rungs": (len(self._fused.rungs)

@@ -3,13 +3,20 @@
 Every name in the ``__all__`` of JAX's ``data``, ``ops``, ``serve``,
 ``train``, ``parallel`` and ``models`` resolves in the matching port
 subpackage, or is one of the names ``parallel.JAX_COUNTERPARTS`` maps to a
-counterpart the port has.  The functions the port added for it
+counterpart the port has.  Every public member of each class among those
+names (what the class and its bases in the JAX package define, and its
+dataclass or NamedTuple fields) resolves on the port's class of that
+name, or ``parallel.JAX_MEMBER_COUNTERPARTS`` maps it to a counterpart
+that resolves.  ``QuantileGRU.quantiles`` and
+``FusedRolledEngine.cache_size()`` read JAX's values on one checkpoint
+and the same calls.  The functions the port added for it
 (``minmax_apply``, ``minmax_invert``, ``init_gru_params``,
 ``restore_checkpoint``) are held against JAX's on the CPU.  The re-exports
 are lazy: importing a subpackage loads none of its modules.  About 11 s
 alone, 8.6 s under pytest-xdist's ``-n 6 --dist loadfile`` (junit).
 """
 
+import dataclasses
 import importlib
 import os
 import subprocess
@@ -21,12 +28,17 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_aot_mesh_support as aot_support
 from deeprest_tpu.data import windows as jax_windows
 from deeprest_tpu.ops.gru import init_gru_params as jax_init_gru_params
+from deeprest_tpu.serve.predictor import Predictor as JaxPredictor
 from deeprest_tpu.train import checkpoint as jax_ckpt
 from deeprest_tpu_torch.data import windows
 from deeprest_tpu_torch.ops import init_gru_params
-from deeprest_tpu_torch.parallel import JAX_COUNTERPARTS
+from deeprest_tpu_torch.parallel import (
+    JAX_COUNTERPARTS, JAX_MEMBER_COUNTERPARTS,
+)
+from deeprest_tpu_torch.serve.predictor import Predictor
 from deeprest_tpu_torch.train import checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,6 +67,119 @@ def test_every_jax_public_name_resolves_in_the_port(sub):
     assert not missing, missing
     assert set(jax_pkg.__all__) - set(JAX_COUNTERPARTS) <= set(
         port_pkg.__all__)
+
+
+def _fields(cls) -> set:
+    """A class's dataclass or NamedTuple fields."""
+    names = set(getattr(cls, "_fields", ()))
+    if dataclasses.is_dataclass(cls):
+        names |= {f.name for f in dataclasses.fields(cls)}
+    return names
+
+
+def _has_member(cls, name: str) -> bool:
+    """Whether ``cls`` has ``name``: an attribute, a field, or an
+    instance attribute one of its classes annotates."""
+    return hasattr(cls, name) or isinstance(cls, type) and (
+        name in _fields(cls) or any(name in vars(k).get("__annotations__",
+                                                        {})
+                                    for k in cls.__mro__))
+
+
+def _public_members(cls) -> set:
+    """What a JAX package class and its bases in that package define, and
+    its fields: its public members."""
+    names = _fields(cls)
+    for klass in cls.__mro__:
+        if klass.__module__.partition(".")[0] == "deeprest_tpu":
+            names |= set(vars(klass))
+    return {n for n in names if not n.startswith("_")}
+
+
+def _resolves(path: str) -> bool:
+    """Whether a counterpart (``train.Trainer.init_state`` under
+    deeprest_tpu_torch, or ``torch.nn.Module.named_children``) names a
+    member or object that exists."""
+    parts = (path if path.startswith("torch.")
+             else f"deeprest_tpu_torch.{path}").split(".")
+    for cut in range(len(parts) - 1, 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:cut]))
+        except ModuleNotFoundError:
+            continue
+        break
+    for attr in parts[cut:-1]:
+        obj = getattr(obj, attr)
+    return _has_member(obj, parts[-1])
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_every_jax_public_member_resolves_on_the_port_class(sub):
+    jax_pkg = importlib.import_module(f"deeprest_tpu.{sub}")
+    port_pkg = importlib.import_module(f"deeprest_tpu_torch.{sub}")
+    missing, mapped = [], set()
+    for cls_name in jax_pkg.__all__:
+        jax_cls = getattr(jax_pkg, cls_name)
+        if cls_name in JAX_COUNTERPARTS or not isinstance(jax_cls, type):
+            continue
+        port_cls = getattr(port_pkg, cls_name)
+        for member in sorted(_public_members(jax_cls)):
+            key = f"{sub}.{cls_name}.{member}"
+            if key in JAX_MEMBER_COUNTERPARTS:
+                mapped.add(key)
+                # a member the port has now leaves the table
+                assert not _has_member(port_cls, member), key
+                assert _resolves(JAX_MEMBER_COUNTERPARTS[key]), key
+            elif not _has_member(port_cls, member):
+                missing.append(key)
+    assert not missing, missing
+    # every entry of the table names a public member of a JAX class
+    assert mapped == {k for k in JAX_MEMBER_COUNTERPARTS
+                      if k.startswith(f"{sub}.")}
+
+
+@pytest.fixture(scope="module")
+def checkpoint_dir(tmp_path_factory):
+    return aot_support.write_checkpoint(
+        tmp_path_factory.mktemp("members") / "ckpt")
+
+
+def test_quantiles_and_fused_cache_size_read_jax_values(checkpoint_dir):
+    """One checkpoint, the same calls.  The module's quantiles are JAX's.
+    The fused engine's count reads JAX's after a first short call (one
+    program at one rung) and after the whole mix, and neither count moves
+    when the mix runs again.  The two count different things: the
+    port one graph (on the CPU one key) a (program, rung), with
+    ``integrate=False`` a program of its own; JAX one executable a
+    signature of its program, where ``integrate`` is an argument and a
+    page whose carry is the previous page's output compiles a second
+    executable at the same rung."""
+    jax_pred = JaxPredictor.from_checkpoint(checkpoint_dir)
+    pred = Predictor.from_checkpoint(checkpoint_dir, device="cpu")
+    assert pred.model.quantiles == tuple(jax_pred.model.quantiles)
+    assert pred.model.quantiles == pred.quantiles
+    w, f = aot_support.W, aot_support.F
+    traffic = np.random.default_rng(0).random((12 * w + 3, f)).astype(
+        np.float32)
+    calls = [(traffic[:3 * w], True), (traffic, True), (traffic, False),
+             (traffic[:5 * w + 1], True)]
+
+    def run(calls):
+        for series, integrate in calls:
+            for p in (pred, jax_pred):
+                p.predict_series(series, integrate=integrate)
+            assert pred.fused.cache_size() == pred.jit_cache_stats()[
+                "fused"] == len(pred.fused.stats()["graphs"]["rungs"])
+        return pred.fused.cache_size(), jax_pred.fused.cache_size()
+
+    assert run(calls[:1]) == (1, 1)
+    # the port: fused and fused_increments at 8; JAX: its program at 8
+    # with a zero carry and with the previous page's
+    assert run(calls) == (2, 2)
+    assert run(calls) == (2, 2)
+    tenant = Predictor.from_checkpoint(checkpoint_dir, device="cpu")
+    tenant.share_executables_from(pred)
+    assert tenant.fused.cache_size() == pred.plane.fused.cache_size()
 
 
 def test_jax_counterparts_exist_in_the_port():
